@@ -1,0 +1,297 @@
+"""Port parity, end to end: W8A8 BERT through calibration, the fake-quant
+simulation, the generic int8 path and the full-handoff engine.
+
+The JAX package calibrates a random BERT (``__graft_entry__._calibrated_bert``);
+``convert.py`` carries its params, qstate and int_params across, and the
+port's counterparts run on the CPU. Sizes: the tiny config of
+tests/test_engine.py, and a wider one (H=256, 4 heads, 3 layers, I=1024,
+seq 32), since tiny random models have hidden real bugs before.
+
+Tolerances:
+- logits (simulation, generic int, engine vs the JAX engine's XLA
+  backend, each JAX side jitted): rtol 1e-3 / atol 2e-3, the
+  engine-vs-generic bound of tests/test_engine.py; at 12 layers, no
+  further from the JAX engine than the JAX generic int path is;
+- int8 packing and the engine plan: exact;
+- calibrated deltas / zero points: within 1e-6 relative (zero points
+  relative to max(1, |z|)) wherever the site's input is computed by the
+  same float ops. At the wide size a one-level rounding flip in a deep
+  site's input moves later ranges (JAX's own jit and eager calibrations
+  differ by 8.8e-3 there), so deeper sites are held to 1e-2.
+"""
+
+import os
+import subprocess
+import sys
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import __graft_entry__ as G
+from transformer_quantization_tpu.models import bert as JB
+from transformer_quantization_tpu.quant.qconfig import QuantMode as JMode
+from transformer_quantization_tpu_torch import convert as C
+from transformer_quantization_tpu_torch.models import bert as TB
+from transformer_quantization_tpu_torch.ops import engine as TENG
+from transformer_quantization_tpu_torch.ops.kernels import engine_kernels as EK
+from transformer_quantization_tpu_torch.quant.qconfig import QuantMode
+from transformer_quantization_tpu_torch.training import calibration as TC
+
+torch.set_num_threads(2)
+
+CONFIGS = {
+    "tiny": (dict(vocab_size=128, hidden_size=64, num_hidden_layers=2,
+                  num_attention_heads=4, intermediate_size=128,
+                  max_position_embeddings=64, num_labels=2), 16),
+    "wide": (dict(vocab_size=512, hidden_size=256, num_hidden_layers=3,
+                  num_attention_heads=4, intermediate_size=1024,
+                  max_position_embeddings=64, num_labels=2), 32),
+}
+RTOL, ATOL = 1e-3, 2e-3
+
+
+def _np(tree):
+    return jax.tree.map(np.asarray, tree)
+
+
+@pytest.fixture(scope="module", params=sorted(CONFIGS))
+def setup(request):
+    kw, seq = CONFIGS[request.param]
+    jcfg, tcfg = JB.BertConfig(**kw), TB.BertConfig(**kw)
+    jp, jq, js = G._calibrated_bert(jcfg, batch_size=2, seq=seq)
+    jint = jax.jit(lambda p, s: JB.build_bert_int_params(p, jq, s))(jp, js)
+    jstatic, jplan, _ = JB.build_bert_engine(jp, jcfg, jq, js, int_params=jint)
+    tp = C.params_from_jax(_np(jp), device="cpu")
+    _, tq, ts_own = TC.calibrated_bert(tcfg, batch_size=2, seq=seq, seed=0,
+                                       device="cpu", params=tp)
+    ts = C.qstate_from_jax(_np(js), device="cpu")
+    rng = np.random.RandomState(1)
+    batch = {
+        "input_ids": rng.randint(0, kw["vocab_size"], (4, seq)).astype(
+            np.int32),
+        "attention_mask": (np.arange(seq)[None, :]
+                           < rng.randint(seq // 2, seq + 1, (4, 1))
+                           ).astype(np.float32),
+        "token_type_ids": np.zeros((4, seq), np.int32),
+    }
+    jbatch = {k: jnp.asarray(v) for k, v in batch.items()}
+    return dict(name=request.param, jcfg=jcfg, tcfg=tcfg, jp=jp, jq=jq, js=js,
+                jint=jint, jstatic=jstatic, jplan=jplan, tp=tp, tq=tq, ts=ts,
+                ts_own=ts_own, batch=batch, jbatch=jbatch)
+
+
+def _logits_close(want, got):
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=RTOL,
+                               atol=ATOL)
+
+
+def test_calibration_matches_jax(setup):
+    js = _np(setup["js"])
+    assert set(js) == set(setup["ts_own"])
+    for name, st in js.items():
+        qp = setup["ts_own"][name]["qp"]
+        strict = (setup["name"] == "tiny"
+                  or name.startswith(("emb.", "L0.")))
+        tol = 1e-6 if strict else 1e-2
+        d_j, d_t = np.asarray(st["qp"].delta), qp.delta.numpy()
+        assert np.all(np.abs(d_j - d_t) <= tol * np.abs(d_j)), name
+        z_j, z_t = np.asarray(st["qp"].zero_float), qp.zero_float.numpy()
+        assert np.all(np.abs(z_j - z_t)
+                      <= tol * np.maximum(1.0, np.abs(z_j))), name
+        np.testing.assert_array_equal(np.asarray(st["qp"].signed),
+                                      qp.signed.numpy())
+
+
+def test_int_params_pack_exactly(setup):
+    tint = TB.build_bert_int_params(setup["tp"], setup["tq"], setup["ts"])
+    jint = _np(setup["jint"])
+    assert set(tint) == set(jint)
+    for name, p in jint.items():
+        for k, v in p.items():
+            if k == "n_bits":
+                assert tint[name][k] == v
+            else:
+                np.testing.assert_array_equal(tint[name][k].numpy(), v)
+
+
+def test_engine_plan_matches_jax(setup):
+    tst, tplan, _ = TB.build_bert_engine(setup["tp"], setup["tcfg"],
+                                         setup["tq"], setup["ts"],
+                                         device="cpu")
+    jst = setup["jstatic"]
+    for f in ("n_layers", "n_heads", "ln_eps", "hidden_act", "fold",
+              "res_quant", "attn_skip_max", "attn_bits", "w4"):
+        assert getattr(tst, f) == getattr(jst, f), f
+    assert not jst.any_flex  # the port has only the all-int8 route
+    flat_j = jax.tree_util.tree_leaves_with_path(_np(setup["jplan"]))
+    flat_t = dict(jax.tree_util.tree_leaves_with_path(tplan))
+    assert len(flat_j) == len(flat_t)
+    for path, v in flat_j:
+        np.testing.assert_array_equal(flat_t[path].numpy(), v,
+                                      err_msg=str(path))
+
+
+def _jax_logits(setup, **kw):
+    """JAX bert_apply logits, jitted (one compile instead of op-by-op)."""
+    cfg, q = setup["jcfg"], setup["jq"]
+    fn = jax.jit(lambda p, b, s, ip: JB.bert_apply(
+        p, b, cfg, q, s, JMode(), int_params=ip)[0]["logits"])
+    return fn(setup["jp"], setup["jbatch"], setup["js"], kw.get("int_params"))
+
+
+def test_simulation_matches_jax(setup):
+    want = _jax_logits(setup)
+    got, _ = TB.bert_apply(setup["tp"], setup["batch"], setup["tcfg"],
+                           setup["tq"], setup["ts"], QuantMode(), device="cpu")
+    _logits_close(want, got["logits"])
+
+
+def test_generic_int_path_matches_jax(setup):
+    want = _jax_logits(setup, int_params=setup["jint"])
+    tint = C.int_params_from_jax(_np(setup["jint"]), device="cpu")
+    got, _ = TB.bert_apply(setup["tp"], setup["batch"], setup["tcfg"],
+                           setup["tq"], setup["ts"], QuantMode(),
+                           int_params=tint, device="cpu")
+    _logits_close(want, got["logits"])
+
+
+def test_engine_matches_jax_engine(setup):
+    cfg, q, st = setup["jcfg"], setup["jq"], setup["jstatic"]
+    want = jax.jit(lambda p, b, s, plan, ip: JB.bert_engine_apply(
+        p, b, cfg, q, s, st, plan, ip, backend="xla")["logits"])(
+        setup["jp"], setup["jbatch"], setup["js"], setup["jplan"],
+        setup["jint"])
+    tst, tplan, tint = TB.build_bert_engine(setup["tp"], setup["tcfg"],
+                                            setup["tq"], setup["ts"],
+                                            device="cpu")
+    EK.reset_launches()
+    got = TB.bert_engine_apply(setup["tp"], setup["batch"], setup["tcfg"],
+                               setup["tq"], setup["ts"], tst, tplan, tint,
+                               device="cpu")
+    _logits_close(want, got["logits"])
+    assert set(EK.LAUNCHES.values()) == {0}  # CPU tensors: plain versions
+    plain = TB.bert_engine_apply(setup["tp"], setup["batch"], setup["tcfg"],
+                                 setup["tq"], setup["ts"], tst, tplan, tint,
+                                 backend="plain", device="cpu")
+    np.testing.assert_array_equal(plain["logits"].numpy(),
+                                  got["logits"].numpy())
+
+
+def test_engine_at_full_depth_stays_within_jax_route_gap():
+    """At BERT-base depth (12 layers; H=256 as the wide config) a rare
+    one-level payload flip, from a different rounding order, spreads
+    through its sequence's later layers, so no two int8 routes agree to
+    rtol 1e-3 / atol 2e-3 there: the JAX package's own engine and generic
+    int path do not. The gate: on 16 sequences the port's engine is no
+    further from the JAX engine than the JAX generic int path is.
+    ``pytest -s`` prints both gaps."""
+    kw = dict(CONFIGS["wide"][0], num_hidden_layers=12)
+    seq, n = 32, 16
+    jcfg, tcfg = JB.BertConfig(**kw), TB.BertConfig(**kw)
+    jp, jq, js = G._calibrated_bert(jcfg, batch_size=2, seq=seq)
+    jint = jax.jit(lambda p, s: JB.build_bert_int_params(p, jq, s))(jp, js)
+    jst, jplan, _ = JB.build_bert_engine(jp, jcfg, jq, js, int_params=jint)
+    rng = np.random.RandomState(1)
+    batch = {
+        "input_ids": rng.randint(0, kw["vocab_size"], (n, seq)).astype(
+            np.int32),
+        "attention_mask": (np.arange(seq)[None, :]
+                           < rng.randint(seq // 2, seq + 1, (n, 1))
+                           ).astype(np.float32),
+        "token_type_ids": np.zeros((n, seq), np.int32),
+    }
+    jb = {k: jnp.asarray(v) for k, v in batch.items()}
+    j_eng = np.asarray(jax.jit(lambda p, b, s, plan, ip: JB.bert_engine_apply(
+        p, b, jcfg, jq, s, jst, plan, ip, backend="xla")["logits"])(
+        jp, jb, js, jplan, jint))
+    j_gen = np.asarray(jax.jit(lambda p, b, s, ip: JB.bert_apply(
+        p, b, jcfg, jq, s, JMode(), int_params=ip)[0]["logits"])(
+        jp, jb, js, jint))
+    tp = C.params_from_jax(_np(jp), device="cpu")
+    ts = C.qstate_from_jax(_np(js), device="cpu")
+    _, tq, _ = TC.calibrated_bert(tcfg, batch_size=2, seq=seq, seed=0,
+                                  device="cpu", params=tp)
+    tst, tplan, tint = TB.build_bert_engine(tp, tcfg, tq, ts, device="cpu")
+    got = TB.bert_engine_apply(tp, batch, tcfg, tq, ts, tst, tplan, tint,
+                               device="cpu")["logits"].numpy()
+    port_gap = float(np.abs(got - j_eng).max())
+    jax_gap = float(np.abs(j_gen - j_eng).max())
+    print(f"12 layers, H=256, seq {seq}, {n} sequences: max |port engine - "
+          f"JAX engine| = {port_gap:.4e}, max |JAX generic int - JAX "
+          f"engine| = {jax_gap:.4e}, logit scale "
+          f"{float(np.abs(j_eng).max()):.4e}")
+    assert np.isfinite(got).all() and got.shape == j_eng.shape
+    assert port_gap <= jax_gap
+
+
+def test_port_calibration_drives_its_own_engine():
+    """From the port's own init: calibrate, pack, plan, serve; the engine
+    stays close to the fake-quant simulation (test_engine.py's bound)."""
+    kw, seq = CONFIGS["tiny"]
+    cfg = TB.BertConfig(**kw)
+    params, qcfg, qstate = TC.calibrated_bert(cfg, batch_size=2, seq=seq,
+                                              seed=3, device="cpu")
+    static, plan, ip = TB.build_bert_engine(params, cfg, qcfg, qstate,
+                                            device="cpu")
+    batch = TC.calibration_batch(cfg.vocab_size, 4, seq, seed=4)
+    eng = TB.bert_engine_apply(params, batch, cfg, qcfg, qstate, static,
+                               plan, ip, device="cpu")["logits"]
+    sim, _ = TB.bert_apply(params, batch, cfg, qcfg, qstate, device="cpu")
+    assert eng.shape == (4, cfg.num_labels) and torch.isfinite(eng).all()
+    np.testing.assert_allclose(eng.numpy(), sim["logits"].numpy(),
+                               rtol=5e-2, atol=5e-2)
+
+
+def test_entry_points_need_a_card_unless_cpu_is_asked():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the no-card refusal is not testable")
+    kw, _ = CONFIGS["tiny"]
+    cfg = TB.BertConfig(**kw)
+    with pytest.raises(RuntimeError, match="cuda"):
+        TB.init_bert_params(cfg)
+    with pytest.raises(RuntimeError, match="cuda"):
+        TC.calibrated_bert(cfg, seq=8)
+    params, qcfg, qstate = TC.calibrated_bert(cfg, seq=8, device="cpu")
+    batch = TC.calibration_batch(cfg.vocab_size, 2, 8, seed=0)
+    with pytest.raises(RuntimeError, match="cuda"):
+        TB.bert_apply(params, batch, cfg, qcfg, qstate)
+    with pytest.raises(RuntimeError, match="cuda"):
+        TB.build_bert_engine(params, cfg, qcfg, qstate)
+    static, plan, ip = TB.build_bert_engine(params, cfg, qcfg, qstate,
+                                            device="cpu")
+    with pytest.raises(RuntimeError, match="cuda"):
+        TB.bert_engine_apply(params, batch, cfg, qcfg, qstate, static, plan,
+                             ip)
+    with pytest.raises(RuntimeError, match="cuda"):
+        C.params_from_jax({"w": np.zeros(2)})
+
+
+def test_engine_rejects_unported_configs():
+    kw, seq = CONFIGS["tiny"]
+    cfg = TB.BertConfig(**kw)
+    params, qcfg, qstate = TC.calibrated_bert(cfg, batch_size=2, seq=seq,
+                                              device="cpu")
+    bad = qcfg.replace_site("L0.attn.q.out", enabled=False)
+    with pytest.raises(TENG.EngineIncompatible):
+        TB.build_bert_engine(params, cfg, bad, qstate, device="cpu")
+    no_fold = qcfg.replace_site("L1.ffn.dense.out", enabled=False)
+    with pytest.raises(TENG.EngineIncompatible, match="not yet ported"):
+        TB.build_bert_engine(params, cfg, no_fold, qstate, device="cpu")
+    with pytest.raises(NotImplementedError):
+        TB.build_bert_int_params(params, qcfg, qstate, use_int4=True)
+
+
+def test_chip_smoke_refuses_without_a_card():
+    """``chip_smoke.py`` needs a card: without one it exits non-zero and
+    prints no result line."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the refusal is not testable")
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    proc = subprocess.run([sys.executable, "chip_smoke.py"], cwd=root,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode != 0
+    assert '"ok"' not in proc.stdout
+    assert "is_available() is False" in proc.stderr

@@ -1,0 +1,85 @@
+"""Carry the JAX package's weights and quantization state across.
+
+Takes ``params``, ``qstate`` and ``int_params`` of
+``transformer_quantization_tpu`` as nested dicts/lists of numpy arrays
+(the caller does the ``np.asarray`` on the JAX side, e.g. with
+``jax.tree.map(np.asarray, tree)``, which keeps each ``QuantParams``
+with numpy ``delta`` / ``zero_float`` / ``signed``) and builds the port's
+counterparts on ``device``. Both packages keep kernels in the ``(out,
+in)`` layout and the same nesting, so this is a re-nesting into tensors.
+Imports no JAX.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Mapping
+
+import numpy as np
+import torch
+
+from transformer_quantization_tpu_torch import resolve_device
+from transformer_quantization_tpu_torch.quant.quantizers import QuantParams
+
+
+def _tensor(x, dev):
+    # np.array copies into a contiguous array of the same rank (0-d stays
+    # 0-d, which np.ascontiguousarray would make 1-d)
+    return torch.from_numpy(np.array(x)).to(dev)
+
+
+def params_from_jax(params, device="cuda"):
+    """Nested dict/list of arrays -> the same nesting of tensors."""
+    dev = resolve_device(device)
+
+    def conv(x):
+        if isinstance(x, Mapping):
+            return {k: conv(v) for k, v in x.items()}
+        if isinstance(x, (list, tuple)):
+            return [conv(v) for v in x]
+        return _tensor(x, dev)
+
+    return conv(params)
+
+
+def qparams_from_jax(qp, device="cuda") -> QuantParams:
+    dev = resolve_device(device)
+    return QuantParams(
+        delta=_tensor(qp.delta, dev).to(torch.float32),
+        zero_float=_tensor(qp.zero_float, dev).to(torch.float32),
+        signed=_tensor(qp.signed, dev).to(torch.float32))
+
+
+def qstate_from_jax(qstate: Mapping, device="cuda") -> Dict:
+    """Per-site state: ``qp`` becomes a :class:`QuantParams`, the
+    ``range_state`` dict its tensors; AdaRound ``alpha`` must be None."""
+    dev = resolve_device(device)
+    out = {}
+    for name, st in qstate.items():
+        if st.get("alpha") is not None:
+            raise NotImplementedError(f"{name}: AdaRound state is not yet "
+                                      "ported")
+        new = {"qp": qparams_from_jax(st["qp"], dev)}
+        if "alpha" in st:
+            new["alpha"] = None
+        if st.get("range_state") is not None:
+            new["range_state"] = {k: _tensor(v, dev)
+                                  for k, v in st["range_state"].items()}
+        if st.get("perm") is not None or st.get("ranges") is not None:
+            raise NotImplementedError(f"{name}: PEG permutation state is not "
+                                      "yet ported")
+        out[name] = new
+    return out
+
+
+def int_params_from_jax(int_params: Mapping, device="cuda") -> Dict:
+    """Packed int8 weights / tables -> tensors (int8 stays int8, scales
+    and column sums float32, ``n_bits`` an int)."""
+    dev = resolve_device(device)
+    out = {}
+    for name, p in int_params.items():
+        if "w_packed" in p:
+            raise NotImplementedError(f"{name}: int4 weights are not yet "
+                                      "ported")
+        out[name] = {k: (int(v) if k == "n_bits" else _tensor(v, dev))
+                     for k, v in p.items()}
+    return out

@@ -1,0 +1,512 @@
+"""Quantized BERT for sequence classification.
+
+Counterpart of ``transformer_quantization_tpu/models/bert.py``: a plain
+function over a parameter dict plus threaded quantization state, with
+the site inventory of the reference's QuantizedBert (two-stage embedding
+sums, scores quantized before 1/sqrt(d), probs after softmax, residual
+sums before each LayerNorm, fused GELU / Tanh). Parameters keep the JAX
+nesting and its ``(out, in)`` kernel layout, so ``convert.py`` carries
+JAX weights across unchanged.
+
+Ported: the fake-quant forward :func:`bert_apply` (also the FP baseline
+with ``qcfg=None``), the generic int8 path (``int_params``), packing, and
+the full-handoff engine (:func:`build_bert_engine` /
+:func:`bert_engine_apply`). ``quant_dict`` / PEG wiring, AdaRound specs,
+int8 attention, compute dtypes, scan, remat and the pipeline wait.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Mapping, Optional, Tuple
+
+import torch
+
+from transformer_quantization_tpu_torch import resolve_device
+from transformer_quantization_tpu_torch.ops import engine as ENG
+from transformer_quantization_tpu_torch.ops import int_linear as IL
+from transformer_quantization_tpu_torch.ops.layers import (
+    dropout,
+    quant_embedding,
+    quant_layernorm,
+    quant_linear,
+)
+from transformer_quantization_tpu_torch.quant.manager import QuantCtx
+from transformer_quantization_tpu_torch.quant.qconfig import (
+    QuantConfigBuilder,
+    QuantDefaults,
+    QuantModelConfig,
+    QuantMode,
+)
+from transformer_quantization_tpu_torch.quant.ranges import (
+    OptMethod,
+    RangeMethod,
+)
+
+Tensor = torch.Tensor
+
+
+@dataclasses.dataclass(frozen=True)
+class BertConfig:
+    """Model hyperparameters (HF ``BertConfig`` subset)."""
+
+    vocab_size: int = 30522
+    hidden_size: int = 768
+    num_hidden_layers: int = 12
+    num_attention_heads: int = 12
+    intermediate_size: int = 3072
+    max_position_embeddings: int = 512
+    type_vocab_size: int = 2
+    hidden_dropout_prob: float = 0.1
+    attention_probs_dropout_prob: float = 0.1
+    layer_norm_eps: float = 1e-12
+    num_labels: int = 2
+    initializer_range: float = 0.02
+    hidden_act: str = "gelu"
+
+    @property
+    def head_dim(self) -> int:
+        return self.hidden_size // self.num_attention_heads
+
+
+# ---------------------------------------------------------------------------
+# Parameters
+# ---------------------------------------------------------------------------
+
+
+def init_bert_params(cfg: BertConfig, seed: int = 0,
+                     device="cuda") -> Dict:
+    """Random initialization, normal(0, initializer_range) kernels and
+    tables, zero biases, unit LayerNorm gammas; kernels stored ``(out,
+    in)``. Drawn from a ``torch.Generator`` seeded with ``seed`` (on the
+    CPU, so a seed gives the same weights on every device)."""
+    dev = resolve_device(device)
+    gen = torch.Generator().manual_seed(seed)
+    std = cfg.initializer_range
+
+    def normal(*shape):
+        return (std * torch.randn(shape, generator=gen)).to(dev)
+
+    def linear(n_out, n_in):
+        return {"kernel": normal(n_out, n_in),
+                "bias": torch.zeros((n_out,), device=dev)}
+
+    def ln(dim):
+        return {"scale": torch.ones((dim,), device=dev),
+                "bias": torch.zeros((dim,), device=dev)}
+
+    h, m = cfg.hidden_size, cfg.intermediate_size
+    params = {
+        "embeddings": {
+            "word": normal(cfg.vocab_size, h),
+            "position": normal(cfg.max_position_embeddings, h),
+            "token_type": normal(cfg.type_vocab_size, h),
+            "ln": ln(h),
+        },
+        "layers": [],
+        "pooler": linear(h, h),
+        "classifier": linear(cfg.num_labels, h),
+    }
+    for _ in range(cfg.num_hidden_layers):
+        params["layers"].append({
+            "attn": {"q": linear(h, h), "k": linear(h, h), "v": linear(h, h)},
+            "attn_out": {"dense": linear(h, h), "ln": ln(h)},
+            "ffn": {"inter": linear(m, h), "dense": linear(h, m), "ln": ln(h)},
+        })
+    return params
+
+
+def params_to(params, dtype=None, device=None):
+    """A copy of a (nested) parameter dict with every tensor moved/cast."""
+    if isinstance(params, dict):
+        return {k: params_to(v, dtype, device) for k, v in params.items()}
+    if isinstance(params, list):
+        return [params_to(v, dtype, device) for v in params]
+    return params.to(device=device, dtype=dtype)
+
+
+# ---------------------------------------------------------------------------
+# Quant site inventory
+# ---------------------------------------------------------------------------
+
+
+def declare_bert_sites(defaults: QuantDefaults, cfg: BertConfig,
+                       quant_setup: str = "all",
+                       quant_dict: Optional[Mapping] = None) -> QuantModelConfig:
+    """Declare every weight/activation quantizer of QuantizedBert.
+    ``quant_setup``: 'all' | 'FP_logits' | 'MSE_logits'."""
+    quant_dict = quant_dict or {}
+    b = QuantConfigBuilder(defaults)
+    declare_embedding_sites(b, quant_dict)
+    declare_encoder_sites(b, cfg.num_hidden_layers)
+    b.weight("pooler.dense.w")
+    b.act("pooler.dense.out")
+    declare_classifier_site(b, "classifier", quant_setup)
+    return b.build()
+
+
+def declare_embedding_sites(b: QuantConfigBuilder, quant_dict: Mapping) -> None:
+    """BERT embedding sites (``Et`` switches the word table to MSE)."""
+    et_over = ({"range_method": RangeMethod.MSE,
+                "opt_method": OptMethod.golden_section}
+               if "Et" in quant_dict else {})
+    b.weight("emb.word.w", **et_over)
+    b.weight("emb.position.w")
+    b.weight("emb.token_type.w")
+    b.act("emb.sum_tt")
+    b.act("emb.sum_pos")
+    b.weight("emb.ln.w")
+    b.act("emb.ln.out")
+
+
+def declare_encoder_sites(b: QuantConfigBuilder, n_layers: int) -> None:
+    """Per-layer encoder sites."""
+    for i in range(n_layers):
+        p = f"L{i}."
+        for lin in ("attn.q", "attn.k", "attn.v"):
+            b.weight(p + lin + ".w")
+            b.act(p + lin + ".out")
+        b.act(p + "attn.scores")
+        b.act(p + "attn.probs")
+        b.act(p + "attn.context")
+        b.weight(p + "attn_out.dense.w")
+        b.act(p + "attn_out.dense.out")
+        b.act(p + "attn_out.res")
+        b.weight(p + "attn_out.ln.w")
+        b.act(p + "attn_out.ln.out")
+        b.weight(p + "ffn.inter.w")
+        b.act(p + "ffn.inter.out")
+        b.weight(p + "ffn.dense.w")
+        b.act(p + "ffn.dense.out")
+        b.act(p + "ffn.res")
+        b.weight(p + "ffn.ln.w")
+        b.act(p + "ffn.ln.out")
+
+
+def declare_classifier_site(b: QuantConfigBuilder, name: str,
+                            quant_setup: str) -> None:
+    """Logits-layer ``quant_setup`` handling."""
+    b.weight(f"{name}.w")
+    if quant_setup == "MSE_logits":
+        b.act(f"{name}.out", range_method=RangeMethod.MSE,
+              opt_method=OptMethod.golden_section)
+    elif quant_setup == "FP_logits":
+        b.act(f"{name}.out", enabled=False)
+    elif quant_setup == "all":
+        b.act(f"{name}.out")
+    else:
+        raise ValueError(f"Quantization setup '{quant_setup}' not supported.")
+
+
+# ---------------------------------------------------------------------------
+# Int packing
+# ---------------------------------------------------------------------------
+
+# gather-consumed tables, packed row-wise unlike matmul weights
+EMBEDDING_TABLE_SITES = frozenset(
+    {"emb.word", "emb.position", "emb.token_type"})
+
+
+def bert_weight_site_tensors(params: Dict) -> Dict[str, Tensor]:
+    """Map weight-site names to their tensors."""
+    e = params["embeddings"]
+    out = {"emb.word.w": e["word"], "emb.position.w": e["position"],
+           "emb.token_type.w": e["token_type"],
+           "emb.ln.w": e["ln"]["scale"]}
+    for i, layer in enumerate(params["layers"]):
+        p = f"L{i}."
+        out[p + "attn.q.w"] = layer["attn"]["q"]["kernel"]
+        out[p + "attn.k.w"] = layer["attn"]["k"]["kernel"]
+        out[p + "attn.v.w"] = layer["attn"]["v"]["kernel"]
+        out[p + "attn_out.dense.w"] = layer["attn_out"]["dense"]["kernel"]
+        out[p + "attn_out.ln.w"] = layer["attn_out"]["ln"]["scale"]
+        out[p + "ffn.inter.w"] = layer["ffn"]["inter"]["kernel"]
+        out[p + "ffn.dense.w"] = layer["ffn"]["dense"]["kernel"]
+        out[p + "ffn.ln.w"] = layer["ffn"]["ln"]["scale"]
+    out["pooler.dense.w"] = params["pooler"]["kernel"]
+    out["classifier.w"] = params["classifier"]["kernel"]
+    return out
+
+
+def pack_int_params(tensors: Dict[str, Tensor], qcfg: QuantModelConfig,
+                    qstate: Mapping, use_int4: bool = False) -> Dict:
+    """Int8 payloads for every packable weight site (LayerNorm gammas stay
+    on the fake-quant path)."""
+    if use_int4:
+        raise NotImplementedError("int4 packing (W4A8) is not yet ported")
+    out: Dict = {}
+    for wname, w in tensors.items():
+        if wname.endswith("ln.w") or wname not in qcfg:
+            continue
+        site_cfg = qcfg[wname]
+        if not site_cfg.enabled or not IL.can_pack_weight(site_cfg.spec):
+            continue
+        if wname not in qstate:
+            continue
+        if qstate[wname].get("alpha") is not None:
+            raise NotImplementedError("AdaRound weights are not yet ported")
+        qp = qstate[wname]["qp"]
+        name = wname[:-len(".w")]
+        if name in EMBEDDING_TABLE_SITES:
+            out[name] = IL.pack_embedding_int8(site_cfg.spec, qp, w)
+        elif w.ndim == 2:
+            out[name] = IL.pack_weight_int8(site_cfg.spec, qp, w)
+    return out
+
+
+def build_bert_int_params(params: Dict, qcfg: QuantModelConfig,
+                          qstate: Mapping, use_int4: bool = False) -> Dict:
+    """Pack BERT's linear kernels and embedding tables into int8."""
+    with torch.no_grad():
+        return pack_int_params(bert_weight_site_tensors(params), qcfg,
+                               qstate, use_int4=use_int4)
+
+
+# ---------------------------------------------------------------------------
+# Forward pass
+# ---------------------------------------------------------------------------
+
+
+def _params_device(params: Dict) -> torch.device:
+    return params["embeddings"]["word"].device
+
+
+def _check_device(params: Dict, device) -> torch.device:
+    dev = resolve_device(device)
+    pdev = _params_device(params)
+    if pdev.type != dev.type:
+        raise ValueError(f"params live on {pdev}, but device={dev}")
+    return pdev
+
+
+def _attention_mask(batch: Mapping, device) -> Tensor:
+    return torch.as_tensor(batch["attention_mask"], device=device).to(
+        torch.float32)
+
+
+def prepare_inputs(batch: Mapping, device):
+    """(input_ids, token_type_ids, position_ids, mask_bias) on ``device``:
+    default token types / positions and the HF additive -10000 mask."""
+    input_ids = torch.as_tensor(batch["input_ids"], device=device).long()
+    B, T = input_ids.shape
+    token_type_ids = batch.get("token_type_ids")
+    token_type_ids = (torch.zeros_like(input_ids) if token_type_ids is None
+                      else torch.as_tensor(token_type_ids,
+                                           device=device).long())
+    position_ids = batch.get("position_ids")
+    position_ids = (torch.arange(T, device=device).expand(B, T)
+                    if position_ids is None
+                    else torch.as_tensor(position_ids, device=device).long())
+    mask_bias = None
+    if batch.get("attention_mask") is not None:
+        mask_bias = (1.0 - _attention_mask(batch, device)[:, None, None, :]
+                     ) * -10000.0
+    return input_ids, token_type_ids, position_ids, mask_bias
+
+
+def make_ctx(qcfg, qstate, mode, *, int_params=None) -> QuantCtx:
+    ctx = QuantCtx(qcfg if qcfg is not None else QuantModelConfig(()),
+                   qstate or {}, mode or QuantMode())
+    ctx.int_params = int_params or None
+    return ctx
+
+
+def _embeddings(ctx, params, cfg: BertConfig, input_ids, token_type_ids,
+                position_ids, train, gen):
+    """Two-stage quantized embedding sum."""
+    e = params["embeddings"]
+    words = quant_embedding(ctx, "emb.word", input_ids, e["word"])
+    tok_types = quant_embedding(ctx, "emb.token_type", token_type_ids,
+                                e["token_type"])
+    h = ctx.act("emb.sum_tt", words + tok_types)
+    pos = quant_embedding(ctx, "emb.position", position_ids, e["position"])
+    h = ctx.act("emb.sum_pos", h + pos)
+    h = quant_layernorm(ctx, "emb.ln", h, e["ln"]["scale"], e["ln"]["bias"],
+                        cfg.layer_norm_eps)
+    return dropout(h, cfg.hidden_dropout_prob, gen, not train)
+
+
+def _self_attention(ctx, layer, cfg: BertConfig, h, mask_bias, prefix,
+                    train, gen, h_site=None):
+    """Quantized self-attention (float einsums between fake-quant sites)."""
+    B, T, H = h.shape
+    nh, hd = cfg.num_attention_heads, cfg.head_dim
+    a = layer["attn"]
+    q = quant_linear(ctx, prefix + "attn.q", h, a["q"]["kernel"],
+                     a["q"]["bias"], input_site=h_site)
+    k = quant_linear(ctx, prefix + "attn.k", h, a["k"]["kernel"],
+                     a["k"]["bias"], input_site=h_site)
+    v = quant_linear(ctx, prefix + "attn.v", h, a["v"]["kernel"],
+                     a["v"]["bias"], input_site=h_site)
+    q = q.reshape(B, T, nh, hd).permute(0, 2, 1, 3)
+    k = k.reshape(B, T, nh, hd).permute(0, 2, 1, 3)
+    v = v.reshape(B, T, nh, hd).permute(0, 2, 1, 3)
+    scores = torch.matmul(q, k.transpose(-1, -2)).to(h.dtype)
+    # raw scores are quantized; 1/sqrt(d) comes after
+    scores = ctx.act(prefix + "attn.scores", scores)
+    scores = scores / torch.sqrt(torch.full((), float(hd), dtype=scores.dtype,
+                                            device=scores.device))
+    if mask_bias is not None:
+        scores = scores + mask_bias.to(scores.dtype)
+    probs = torch.softmax(scores.to(torch.float32), dim=-1).to(scores.dtype)
+    probs = ctx.act(prefix + "attn.probs", probs)
+    probs = dropout(probs, cfg.attention_probs_dropout_prob, gen, not train)
+    context = torch.matmul(probs, v).to(h.dtype)
+    context = context.permute(0, 2, 1, 3).reshape(B, T, H)
+    return ctx.act(prefix + "attn.context", context)
+
+
+def _layer(ctx, layer, cfg: BertConfig, h, mask_bias, prefix, train, gen,
+           h_site=None):
+    """One encoder layer."""
+    context = _self_attention(ctx, layer, cfg, h, mask_bias, prefix, train,
+                              gen, h_site=h_site)
+    so = layer["attn_out"]
+    y = quant_linear(ctx, prefix + "attn_out.dense", context,
+                     so["dense"]["kernel"], so["dense"]["bias"],
+                     input_site=prefix + "attn.context")
+    y = dropout(y, cfg.hidden_dropout_prob, gen, not train)
+    y = ctx.act(prefix + "attn_out.res", y + h)
+    attn_out = quant_layernorm(ctx, prefix + "attn_out.ln", y,
+                               so["ln"]["scale"], so["ln"]["bias"],
+                               cfg.layer_norm_eps)
+    f = layer["ffn"]
+    inter = quant_linear(ctx, prefix + "ffn.inter", attn_out,
+                         f["inter"]["kernel"], f["inter"]["bias"],
+                         activation=cfg.hidden_act,
+                         input_site=prefix + "attn_out.ln.out")
+    y = quant_linear(ctx, prefix + "ffn.dense", inter, f["dense"]["kernel"],
+                     f["dense"]["bias"], input_site=prefix + "ffn.inter.out")
+    y = dropout(y, cfg.hidden_dropout_prob, gen, not train)
+    y = ctx.act(prefix + "ffn.res", y + attn_out)
+    return quant_layernorm(ctx, prefix + "ffn.ln", y, f["ln"]["scale"],
+                           f["ln"]["bias"], cfg.layer_norm_eps)
+
+
+def run_encoder(ctx, params, cfg, h, mask_bias, train, gen, *,
+                first_site: str):
+    """The encoder-layer stack as a plain loop; returns (h, last site)."""
+    h_site = first_site
+    for i in range(cfg.num_hidden_layers):
+        h = _layer(ctx, params["layers"][i], cfg, h, mask_bias, f"L{i}.",
+                   train, gen, h_site=h_site)
+        h_site = f"L{i}.ffn.ln.out"
+    return h, h_site
+
+
+def bert_apply(params: Dict, batch: Mapping, cfg: BertConfig,
+               qcfg: Optional[QuantModelConfig] = None,
+               qstate: Optional[Dict] = None,
+               mode: Optional[QuantMode] = None, *, train: bool = False,
+               dropout_generator: Optional[torch.Generator] = None,
+               int_params: Optional[Dict] = None,
+               device="cuda") -> Tuple[Dict, Dict]:
+    """Forward pass; returns ``(outputs, new_qstate)``.
+
+    ``qcfg=None`` is the float baseline (its dtype is the params' dtype:
+    bf16 params give the bf16 dense model). ``int_params`` runs every
+    packable matmul on the exact int8 path. ``params`` must live on
+    ``device``.
+    """
+    dev = _check_device(params, device)
+    with torch.no_grad():
+        ctx = make_ctx(qcfg, qstate, mode, int_params=int_params)
+        if int_params:
+            # sites whose every consumer is an int8 matmul over the same
+            # site params: producer-side fake-quant is a numeric no-op
+            req = set()
+            if "classifier" in int_params:
+                req.add("pooler.dense.out")
+            for i in range(cfg.num_hidden_layers):
+                if f"L{i}.attn_out.dense" in int_params:
+                    req.add(f"L{i}.attn.context")
+            ctx.requant_only_sites = frozenset(req)
+        input_ids, token_type_ids, position_ids, mask_bias = prepare_inputs(
+            batch, dev)
+        gen = dropout_generator if train else None
+        h = _embeddings(ctx, params, cfg, input_ids, token_type_ids,
+                        position_ids, train, gen)
+        h, h_site = run_encoder(ctx, params, cfg, h, mask_bias, train, gen,
+                                first_site="emb.ln.out")
+        outputs = _classification_head(ctx, params, cfg, h, h_site, batch,
+                                       train, gen)
+    return outputs, ctx.export()
+
+
+def _classification_head(ctx, params, cfg: BertConfig, h, h_site, batch,
+                         train, gen):
+    """Pooler + classifier + loss."""
+    pooled = quant_linear(ctx, "pooler.dense", h[:, 0],
+                          params["pooler"]["kernel"], params["pooler"]["bias"],
+                          activation="tanh", input_site=h_site)
+    pooled = dropout(pooled, cfg.hidden_dropout_prob, gen, not train)
+    logits = quant_linear(ctx, "classifier", pooled,
+                          params["classifier"]["kernel"],
+                          params["classifier"]["bias"],
+                          input_site="pooler.dense.out")
+    if cfg.num_labels == 1:
+        logits = torch.clamp(logits, 0.0, 5.0)  # STS-B regression
+    outputs = {"logits": logits, "pooled": pooled, "sequence_output": h}
+    labels = batch.get("labels")
+    if labels is not None:
+        labels = torch.as_tensor(labels).to(logits.device)
+        outputs["loss"] = classification_loss(logits, labels, cfg.num_labels)
+    return outputs
+
+
+def classification_loss(logits, labels, num_labels: int):
+    """MSE for regression tasks, cross-entropy otherwise."""
+    if num_labels == 1:
+        return torch.mean((logits.reshape(-1)
+                           - labels.reshape(-1).to(torch.float32)) ** 2)
+    logp = torch.log_softmax(logits.to(torch.float32), dim=-1)
+    return -torch.gather(logp, 1, labels.long()[:, None]).mean()
+
+
+# ---------------------------------------------------------------------------
+# Full-handoff int8 inference engine
+# ---------------------------------------------------------------------------
+
+
+def build_bert_engine(params: Dict, cfg: BertConfig, qcfg: QuantModelConfig,
+                      qstate: Mapping, int_params: Optional[Dict] = None,
+                      use_int4: bool = False, device="cuda"):
+    """Assemble the engine plan for a calibrated BERT; returns
+    ``(static, plan, int_params)``. Raises
+    :class:`~..ops.engine.EngineIncompatible` when the config does not fit
+    the ported all-int8 route."""
+    _check_device(params, device)
+    with torch.no_grad():
+        if int_params is None:
+            int_params = build_bert_int_params(params, qcfg, qstate,
+                                               use_int4=use_int4)
+        static, plan = ENG.build_encoder_plan(
+            qcfg, qstate, int_params, params["layers"],
+            n_heads=cfg.num_attention_heads, ln_eps=cfg.layer_norm_eps,
+            hidden_act=cfg.hidden_act, entry_site="emb.ln.out")
+    return static, plan, int_params
+
+
+def bert_engine_apply(params: Dict, batch: Mapping, cfg: BertConfig,
+                      qcfg: QuantModelConfig, qstate: Mapping, static, plan,
+                      int_params: Dict, *, backend: str = "kernels",
+                      device="cuda") -> Dict:
+    """Inference through the full-handoff int8 engine: embeddings and the
+    pooler/classifier head run through the generic site machinery, the
+    encoder on int8 payloads (``ops/engine.py``). ``backend='plain'`` runs
+    the encoder layers' plain versions instead of the kernels."""
+    dev = _check_device(params, device)
+    with torch.no_grad():
+        ctx = make_ctx(qcfg, qstate, QuantMode(), int_params=int_params)
+        input_ids, token_type_ids, position_ids, _ = prepare_inputs(batch,
+                                                                    dev)
+        h = _embeddings(ctx, params, cfg, input_ids, token_type_ids,
+                        position_ids, False, None)
+        if batch.get("attention_mask") is None:
+            bias_vec = torch.zeros(input_ids.shape, device=dev)
+        else:
+            bias_vec = (1.0 - _attention_mask(batch, dev)) * -10000.0
+        h = ENG.encoder_engine(h, bias_vec, static, plan, backend=backend)
+        h_site = f"L{cfg.num_hidden_layers - 1}.ffn.ln.out"
+        return _classification_head(ctx, params, cfg, h, h_site, batch,
+                                    False, None)

@@ -1,0 +1,140 @@
+"""Real-integer (INT8) linear algebra on torch tensors.
+
+Counterpart of ``transformer_quantization_tpu/ops/int_linear.py``: weights
+stored as int8, activations re-quantized to int8 payloads on entry, the
+matmul accumulated exactly in integers and the dequantization folded in:
+
+    y = s_x * s_w * (x_q @ w_q^T + (128 - z_x) * colsum(w_q))
+
+PyTorch has no general int8 x int8 -> int32 matmul on CUDA, so
+:func:`exact_int_matmul` computes the integer product as a floating-point
+product of the integer values, in float32 where every partial sum stays
+below 2^24 (exact) and in float64 otherwise. Packed int4 weights belong
+to the W4A8 slice and are not ported yet.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+import torch
+
+from transformer_quantization_tpu_torch.quant import quantizers as Q
+
+Tensor = torch.Tensor
+
+
+def exact_int_matmul(a: Tensor, b_t: Tensor) -> Tensor:
+    """``a @ b_t^T`` for integer-valued int8 tensors (contraction on the
+    last dim of both), as an exact int32 tensor.
+
+    float32 holds every partial sum exactly while K * 128 * 128 <= 2^24
+    (K <= 1024) and TF32 is off; wider contractions run in float64, exact
+    for any K here. Both products round nothing, so the result equals an
+    integer matmul whatever the summation order.
+    """
+    k = a.shape[-1]
+    if k * 128 * 128 <= 2 ** 24:
+        if a.is_cuda and torch.backends.cuda.matmul.allow_tf32:
+            raise RuntimeError("exact_int_matmul needs TF32 off "
+                               "(torch.backends.cuda.matmul.allow_tf32)")
+        dt = torch.float32
+    else:
+        dt = torch.float64
+    acc = torch.matmul(a.to(dt), b_t.to(dt).transpose(-1, -2))
+    return acc.to(torch.int32)
+
+
+def can_pack_weight(spec: Q.QuantizerSpec) -> bool:
+    return spec.symmetric and spec.n_bits <= 8
+
+
+def pack_weight_int8(spec: Q.QuantizerSpec, qp: Q.QuantParams,
+                     w: Tensor) -> Dict:
+    """Quantize a ``(O, I)`` weight to a real int8 payload: ``w_int``,
+    ``scale`` ``(1,)`` or ``(O,)``, ``colsum`` ``(O,)`` (sum over the
+    contraction dim, for the activation zero-point correction)."""
+    if not can_pack_weight(spec):
+        raise ValueError("int8 packing needs symmetric <=8-bit weights")
+    qpe = Q.expand_qparams(qp, w.ndim, 0)
+    scale = Q.scale_of(spec, qpe)
+    int_min, int_max = Q.int_min_max(spec, qp.signed)
+    w_int = torch.clamp(torch.round(w / scale), int_min, int_max).to(
+        torch.int8)
+    return {
+        "w_int": w_int,
+        "scale": Q.scale_of(spec, qp).reshape(-1).to(torch.float32),
+        "colsum": w_int.to(torch.float32).sum(dim=-1),
+        "n_bits": spec.n_bits,
+    }
+
+
+def dequantize_packed_weight(packed: Dict) -> Tensor:
+    """Packed int8 weight -> the dequantized float32 ``(O, I)`` tensor."""
+    if "w_int" not in packed:
+        raise NotImplementedError("packed int4 weights are not yet ported")
+    return packed["w_int"].to(torch.float32) * packed["scale"][:, None]
+
+
+def quantize_activation_int8(spec: Q.QuantizerSpec, qp: Q.QuantParams,
+                             x: Tensor):
+    """Float activation -> ``(x_int8, scale, shift)`` with the true integer
+    value ``x_int8 + shift``: asymmetric grids shift by -128."""
+    scale = Q.scale_of(spec, qp)
+    zp = Q.zero_point_of(spec, qp)
+    int_min, int_max = Q.int_min_max(spec, qp.signed)
+    if x.dtype in (torch.bfloat16, torch.float16):
+        x = x.to(torch.float32)
+    x_int = torch.clamp(torch.round(x / scale) + zp, int_min, int_max)
+    if not spec.symmetric:
+        x_int = x_int - 128.0
+        shift = 128.0 - zp
+    else:
+        shift = torch.zeros_like(zp)
+    return x_int.to(torch.int8), scale.to(torch.float32), shift
+
+
+def int8_linear(x_int8: Tensor, x_scale: Tensor, x_shift: Tensor,
+                packed: Dict, bias: Optional[Tensor],
+                activation=None) -> Tensor:
+    """Int8 matmul (exact int32 accumulation) + dequant fold + bias +
+    optional activation."""
+    if "w_int" not in packed:
+        raise NotImplementedError("packed int4 weights are not yet ported")
+    acc = exact_int_matmul(x_int8, packed["w_int"]).to(torch.float32)
+    acc = acc + x_shift * packed["colsum"]
+    y = (x_scale * packed["scale"]) * acc
+    if bias is not None:
+        y = y + bias
+    if activation is not None:
+        y = activation(y)
+    return y
+
+
+def pack_embedding_int8(spec: Q.QuantizerSpec, qp: Q.QuantParams,
+                        table: Tensor) -> Dict:
+    """Int8 embedding table, dequantized per gathered row."""
+    qpe = Q.expand_qparams(qp, table.ndim, 0)
+    scale = Q.scale_of(spec, qpe)
+    zp = Q.zero_point_of(spec, qpe)
+    int_min, int_max = Q.int_min_max(spec, qp.signed)
+    t_int = torch.clamp(torch.round(table / scale) + zp, int_min, int_max)
+    if spec.symmetric:
+        t_int8 = t_int.to(torch.int8)
+        zp8 = torch.zeros_like(zp)
+    else:
+        t_int8 = (t_int - 128.0).to(torch.int8)
+        zp8 = zp - 128.0
+    if scale.ndim:
+        scale = torch.broadcast_to(scale, (table.shape[0], 1))
+        zp8 = torch.broadcast_to(zp8, (table.shape[0], 1))
+    return {"t_int": t_int8, "scale": scale.to(torch.float32).contiguous(),
+            "zp": zp8.to(torch.float32).contiguous()}
+
+
+def int8_embedding_lookup(ids: Tensor, packed: Dict) -> Tensor:
+    rows = packed["t_int"][ids].to(torch.float32)
+    scale, zp = packed["scale"], packed["zp"]
+    if scale.ndim:
+        scale, zp = scale[ids], zp[ids]
+    return scale * (rows - zp)

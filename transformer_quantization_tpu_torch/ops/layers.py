@@ -1,0 +1,156 @@
+"""Quantized layer primitives.
+
+Counterpart of ``transformer_quantization_tpu/ops/layers.py``. Each
+primitive takes a :class:`~..quant.manager.QuantCtx` and a site name; the
+weight quantizer lives at ``<name>.w``, the output activation quantizer
+at ``<name>.out``. Biases are never quantized.
+
+Ported: the float path and the generic int8 branch of
+:func:`quant_linear`, :func:`quant_layernorm`, :func:`quant_embedding`
+and :func:`dropout`. The fused Pallas linear (``use_pallas``), the
+int8-QAT matmul, capture hooks and grouped/NoNorm layers wait for their
+slices.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Optional
+
+import numpy as np
+import torch
+
+from transformer_quantization_tpu_torch.ops import int_linear as IL
+from transformer_quantization_tpu_torch.quant import quantizers as Q
+from transformer_quantization_tpu_torch.quant.qconfig import Phase
+
+Tensor = torch.Tensor
+
+_SQRT_HALF = float(np.float32(np.sqrt(0.5)))
+
+
+def _gelu_erfc(x):
+    # jax.nn.gelu(approximate=False): 0.5 * x * erfc(-x * sqrt(1/2))
+    return 0.5 * x * torch.special.erfc(-x * _SQRT_HALF)
+
+
+def _gelu_tanh(x):
+    # jax.nn.gelu(approximate=True): x * 0.5 * (1 + tanh(c (x + a x^3)))
+    c = float(np.float32(np.sqrt(2 / np.pi)))
+    return x * (0.5 * (1.0 + torch.tanh(c * (x + 0.044715 * x ** 3))))
+
+
+# Fusable activation functions; "gelu" is exact (erf), as in the JAX
+# package's generic path
+ACTIVATIONS = {
+    None: None,
+    "relu": torch.relu,
+    "relu6": lambda x: torch.clamp(x, 0.0, 6.0),
+    "sigmoid": torch.sigmoid,
+    "tanh": torch.tanh,
+    "gelu": _gelu_erfc,
+    "gelu_new": _gelu_tanh,
+}
+
+
+def _resolve_act(activation) -> Optional[Callable]:
+    if activation is None or callable(activation):
+        return activation
+    return ACTIVATIONS[activation]
+
+
+def _int8_fast_path(ctx, name: str, input_site: Optional[str]):
+    """(input site cfg, its params, packed weight) when the matmul can run
+    on the int8 path, else None. Sites wider than 8 bits never ride int8
+    payloads: re-quantizing them would wrap the levels."""
+    int_params = ctx.int_params
+    if not int_params or name not in int_params:
+        return None
+    if input_site is None or input_site not in ctx.cfg:
+        return None
+    in_cfg = ctx.cfg[input_site]
+    if not (in_cfg.enabled and ctx.mode.act_quant and ctx.mode.weight_quant):
+        return None
+    if in_cfg.per_channel or in_cfg.n_groups:
+        return None  # scales vary along the contracted features
+    if in_cfg.spec.n_bits > 8:
+        return None
+    wname = f"{name}.w"
+    if wname in ctx.cfg and not ctx.cfg[wname].enabled:
+        return None
+    st = ctx.qstate.get(input_site)
+    if st is None:
+        return None
+    return in_cfg, st["qp"], int_params[name]
+
+
+def _weight_from_int_or_fake(ctx, name: str, w: Tensor) -> Tensor:
+    """Quantized weight for the float path: the dequantized packed int8
+    payload when fixed ranges have one (bit-identical values), else the
+    fake-quant chain."""
+    wname = f"{name}.w"
+    if (ctx.int_params and name in ctx.int_params and ctx.mode.weight_quant
+            and ctx.mode.weight_phase == Phase.fix
+            and not (wname in ctx.cfg and not ctx.cfg[wname].enabled)):
+        return IL.dequantize_packed_weight(ctx.int_params[name])
+    return ctx.weight(wname, w)
+
+
+def quant_linear(ctx, name: str, x: Tensor, w: Tensor, b: Optional[Tensor],
+                 activation=None, input_site: Optional[str] = None) -> Tensor:
+    """Quantized affine layer: quantize weight -> x @ W^T + b -> activation
+    -> quantize output. ``w`` is stored ``(out, in)``. With packed int
+    weights and a per-tensor (or per-token) input site the matmul runs on
+    the exact int8 path."""
+    act = _resolve_act(activation)
+    fast = _int8_fast_path(ctx, name, input_site)
+    if fast is not None and fast[0].axis == x.ndim - 1:
+        fast = None  # per-embd: scales vary along the contraction
+    if fast is not None:
+        in_cfg, in_qp, packed = fast
+        if in_cfg.axis is not None:
+            in_qp = Q.expand_qparams(in_qp, x.ndim, in_cfg.axis)
+        x_int8, s_x, shift = IL.quantize_activation_int8(in_cfg.spec, in_qp,
+                                                         x)
+        y = IL.int8_linear(x_int8, s_x, shift, packed, b, act)
+        y = y.to(x.dtype)
+        return ctx.act(f"{name}.out", y)
+
+    w_q = _weight_from_int_or_fake(ctx, name, w).to(x.dtype)
+    y = torch.matmul(x, w_q.transpose(0, 1))
+    if b is not None:
+        y = (y + b).to(y.dtype)
+    if act is not None:
+        y = act(y)
+    return ctx.act(f"{name}.out", y)
+
+
+def quant_layernorm(ctx, name: str, x: Tensor, scale: Tensor, bias: Tensor,
+                    eps: float = 1e-12) -> Tensor:
+    """LayerNorm with quantized gamma and quantized output; statistics in
+    float32 whatever the activation dtype."""
+    scale_q = ctx.weight(f"{name}.w", scale)
+    x32 = x.to(torch.float32)
+    mean = torch.mean(x32, dim=-1, keepdim=True)
+    var = torch.mean(torch.square(x32 - mean), dim=-1, keepdim=True)
+    y = (x32 - mean) * torch.rsqrt(var + eps)
+    y = (y * scale_q.to(torch.float32) + bias.to(torch.float32)).to(x.dtype)
+    return ctx.act(f"{name}.out", y)
+
+
+def quant_embedding(ctx, name: str, ids: Tensor, table: Tensor) -> Tensor:
+    """Embedding lookup from a quantized table (rows are grid points, so
+    the output is not activation-quantized). Packed int8 tables dequantize
+    after the gather."""
+    if ctx.int_params and name in ctx.int_params and ctx.mode.weight_quant:
+        return IL.int8_embedding_lookup(ids, ctx.int_params[name])
+    return ctx.weight(f"{name}.w", table)[ids]
+
+
+def dropout(x: Tensor, rate: float, generator: Optional[torch.Generator],
+            deterministic: bool) -> Tensor:
+    """Inverted dropout; identity in eval mode."""
+    if deterministic or rate == 0.0 or generator is None:
+        return x
+    keep = 1.0 - rate
+    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    return torch.where(mask, x / keep, torch.zeros_like(x))

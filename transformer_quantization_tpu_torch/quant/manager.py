@@ -1,0 +1,144 @@
+"""Quantization state threading.
+
+Counterpart of ``transformer_quantization_tpu/quant/manager.py``. A
+:class:`QuantCtx` is created per forward; models call ``ctx.act(name, x)``
+/ ``ctx.weight(name, w)`` at every site, and :meth:`QuantCtx.export`
+returns the updated per-site state:
+
+- act sites: ``{"qp": QuantParams, "range_state": {xmin, xmax,
+  initialized}}``
+- weight sites: ``{"qp": QuantParams, "alpha": None}``
+
+Phases ``estimate`` and ``fix`` are ported; ``learn`` (QAT), AdaRound
+``alpha``, capture and the PEG ``record_ranges`` pass wait for their
+slices and raise.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Mapping
+
+import torch
+
+from transformer_quantization_tpu_torch.quant import quantizers as Q
+from transformer_quantization_tpu_torch.quant import ranges as R
+from transformer_quantization_tpu_torch.quant.qconfig import (
+    Phase,
+    QuantMode,
+    QuantModelConfig,
+    QuantSiteConfig,
+)
+
+Tensor = torch.Tensor
+SiteState = Dict[str, object]
+
+
+def init_act_site_state(cfg: QuantSiteConfig, x: Tensor) -> SiteState:
+    shape = cfg.ranges_shape(tuple(x.shape))
+    dev = x.device
+    qp = Q.QuantParams(delta=torch.ones(shape, device=dev),
+                       zero_float=torch.zeros(shape, device=dev),
+                       signed=torch.zeros((), device=dev))
+    return {"qp": qp, "range_state": R.init_range_state(shape, dev)}
+
+
+def estimate_weight_qp(cfg: QuantSiteConfig, w: Tensor) -> Q.QuantParams:
+    """Range of a weight re-derived from the weight itself (min-max)."""
+    rc = cfg.range_cfg
+    if rc.method in (R.RangeMethod.MSE, R.RangeMethod.cross_entropy):
+        raise NotImplementedError("MSE weight ranges are not yet ported")
+    xmin, xmax = R.reduce_min_max(
+        w, R.ReduceSpec(per_channel=cfg.per_channel),
+        rc.percentile if rc.method == R.RangeMethod.current_minmax else None)
+    return Q.set_quant_range(cfg.spec, xmin, xmax)
+
+
+def init_weight_site_state(cfg: QuantSiteConfig, w: Tensor) -> SiteState:
+    """Estimate a weight site's range once from its (static) weight; every
+    min-max method reduces to current minmax on one unchanging tensor."""
+    rc = cfg.range_cfg
+    if rc.method in (R.RangeMethod.MSE, R.RangeMethod.cross_entropy):
+        raise NotImplementedError("MSE weight ranges are not yet ported")
+    pct = rc.percentile if rc.method == R.RangeMethod.current_minmax else None
+    xmin, xmax = R.reduce_min_max(
+        w, R.ReduceSpec(per_channel=cfg.per_channel), pct)
+    shape = (-1,) if cfg.per_channel else ()
+    return {"qp": Q.set_quant_range(cfg.spec, xmin.reshape(shape),
+                                    xmax.reshape(shape)),
+            "alpha": None}
+
+
+def init_weight_qstate(cfg: QuantModelConfig,
+                       weights: Mapping[str, Tensor]) -> Dict[str, SiteState]:
+    """Initialize all weight sites from a {site_name: weight} mapping."""
+    return {name: init_weight_site_state(site_cfg, weights[name])
+            for name, site_cfg in cfg.items()
+            if site_cfg.kind == "weight" and name in weights}
+
+
+class QuantCtx:
+    """Per-forward quantization context (create one per ``apply`` call).
+
+    ``requant_only_sites``: act sites whose every consumer re-quantizes
+    with the site's own params (an int8 matmul); in the fix phase their
+    producer-side fake-quant is a numeric no-op and is skipped.
+    """
+
+    def __init__(self, cfg: QuantModelConfig, qstate: Mapping[str, SiteState],
+                 mode: QuantMode):
+        self.cfg = cfg
+        self.mode = mode
+        self.qstate: Dict[str, SiteState] = dict(qstate)
+        self.int_params = None
+        self.requant_only_sites = frozenset()
+
+    def weight(self, name: str, w: Tensor) -> Tensor:
+        if name not in self.cfg:
+            return w
+        cfg = self.cfg[name]
+        assert cfg.kind == "weight", name
+        if not (self.mode.weight_quant and cfg.enabled):
+            return w
+        phase = self.mode.weight_phase
+        if phase == Phase.estimate:
+            qp = estimate_weight_qp(cfg, w)
+            self.qstate[name] = dict(self.qstate.get(name, {"alpha": None}),
+                                     qp=qp)
+        elif phase == Phase.fix:
+            qp = self.qstate[name]["qp"]
+        else:
+            raise NotImplementedError(f"weight phase {phase.name} is not "
+                                      "yet ported")
+        if self.qstate.get(name, {}).get("alpha") is not None:
+            raise NotImplementedError("AdaRound weights are not yet ported")
+        return Q.fake_quant(cfg.spec, qp, w,
+                            axis=0 if cfg.per_channel else None)
+
+    def act(self, name: str, x: Tensor) -> Tensor:
+        if name not in self.cfg:
+            return x
+        cfg = self.cfg[name]
+        assert cfg.kind == "act", name
+        if not (self.mode.act_quant and cfg.enabled):
+            return x
+        phase = self.mode.act_phase
+        if phase not in (Phase.estimate, Phase.fix):
+            raise NotImplementedError(f"act phase {phase.name} is not yet "
+                                      "ported")
+        if (phase == Phase.fix and cfg.axis is None
+                and name in self.requant_only_sites):
+            return x
+        if name not in self.qstate:
+            self.qstate[name] = init_act_site_state(cfg, x)
+        st = dict(self.qstate[name])
+        if phase == Phase.estimate:
+            st["range_state"] = R.update_range_state(
+                st["range_state"], x.detach(), cfg.range_cfg,
+                cfg.reduce_spec)
+            xmin, xmax = R.finalize_ranges(st["range_state"])
+            st["qp"] = Q.set_quant_range(cfg.spec, xmin, xmax)
+            self.qstate[name] = st
+        return Q.fake_quant(cfg.spec, st["qp"], x, axis=cfg.axis)
+
+    def export(self) -> Dict[str, SiteState]:
+        return self.qstate

@@ -1,0 +1,155 @@
+"""Uniform quantizer math on torch tensors (forward only).
+
+Counterpart of ``transformer_quantization_tpu/quant/quantizers.py``:
+configuration in a hashable :class:`QuantizerSpec`, state (scale /
+zero-point / signedness) in a :class:`QuantParams` dataclass of tensors.
+Every function repeats the JAX version's operations in the same order so
+the two agree bit for bit on the same float32 inputs.
+
+The straight-through / LSQ backward (``_fq_bwd`` in the JAX package)
+belongs to the training slice and is not here: these functions are for
+calibration and inference, and run under ``torch.no_grad`` in the port.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import enum
+from typing import Optional, Tuple
+
+import torch
+
+Tensor = torch.Tensor
+
+
+class QMethod(enum.Enum):
+    """Quantization method registry."""
+
+    symmetric_uniform = "symmetric_uniform"
+    asymmetric_uniform = "asymmetric_uniform"
+
+
+@dataclasses.dataclass(frozen=True)
+class QuantizerSpec:
+    """Static quantizer configuration: bits, method, scale domain."""
+
+    n_bits: int = 8
+    method: QMethod = QMethod.asymmetric_uniform
+    scale_domain: str = "linear"
+    eps: float = 1e-8
+
+    def __post_init__(self):
+        if self.scale_domain not in ("linear", "log"):
+            raise ValueError(f"scale_domain must be 'linear' or 'log', got "
+                             f"{self.scale_domain!r}")
+
+    @property
+    def symmetric(self) -> bool:
+        return self.method == QMethod.symmetric_uniform
+
+
+@dataclasses.dataclass
+class QuantParams:
+    """Quantizer state: ``delta`` (in the spec's scale domain), the
+    un-rounded ``zero_float`` and a scalar 0/1 ``signed`` flag. Shapes are
+    reduced: scalar per-tensor, ``(C,)`` per-channel / per-axis."""
+
+    delta: Tensor
+    zero_float: Tensor
+    signed: Tensor
+
+
+def int_min_max(spec: QuantizerSpec, signed=1.0) -> Tuple[Tensor, Tensor]:
+    """Integer grid limits: asymmetric ``[0, 2^b-1]``; symmetric
+    ``[-2^(b-1), 2^(b-1)-1]`` if signed else ``[0, 2^b-1]``. Float32 0-d
+    tensors on ``signed``'s device, filled there (a tensor made from a
+    Python number on the card would be a blocking host-to-device copy)."""
+    b = spec.n_bits
+    dev = signed.device if isinstance(signed, Tensor) else None
+    if not spec.symmetric:
+        return (torch.full((), 0.0, device=dev),
+                torch.full((), 2.0 ** b - 1, device=dev))
+    signed = torch.as_tensor(signed, dtype=torch.float32)
+    int_min = torch.where(signed > 0, -(2.0 ** (b - 1)), 0.0)
+    int_max = torch.where(signed > 0, 2.0 ** (b - 1) - 1, 2.0 ** b - 1)
+    return int_min.to(torch.float32), int_max.to(torch.float32)
+
+
+def scale_of(spec: QuantizerSpec, qp: QuantParams) -> Tensor:
+    """Effective positive scale."""
+    if spec.scale_domain == "linear":
+        return torch.clamp(qp.delta, min=spec.eps)
+    return torch.exp(qp.delta)
+
+
+def zero_point_of(spec: QuantizerSpec, qp: QuantParams) -> Tensor:
+    """Rounded, grid-clamped zero point (0 for symmetric quantizers)."""
+    if spec.symmetric:
+        return torch.zeros_like(qp.delta)
+    int_min, int_max = int_min_max(spec, qp.delta.new_zeros(()))
+    return torch.clamp(torch.round(qp.zero_float), int_min, int_max)
+
+
+def set_quant_range(spec: QuantizerSpec, x_min, x_max) -> QuantParams:
+    """Quantization parameters from a (min, max) range, with the
+    ``x_min <= 0`` / ``x_max >= eps`` clamps of the JAX version."""
+    x_min = torch.as_tensor(x_min, dtype=torch.float32)
+    x_max = torch.as_tensor(x_max, dtype=torch.float32, device=x_min.device)
+    x_min = torch.clamp(x_min, max=0.0)
+    x_max = torch.clamp(x_max, min=spec.eps)
+    if spec.symmetric:
+        signed = (torch.min(x_min) < 0).to(torch.float32)
+        _, int_max = int_min_max(spec, signed)
+        x_absmax = torch.maximum(torch.abs(x_min), x_max)
+        delta = x_absmax / int_max
+        zero_float = torch.zeros_like(delta)
+    else:
+        signed = torch.zeros((), dtype=torch.float32, device=x_min.device)
+        _, int_max = int_min_max(spec, signed)
+        delta = (x_max - x_min) / int_max
+        zero_float = -x_min / delta
+    if spec.scale_domain == "log":
+        delta = torch.log(delta)
+    return QuantParams(delta=delta, zero_float=zero_float, signed=signed)
+
+
+def broadcast_shape(rank: int, axis: int) -> Tuple[int, ...]:
+    """Shape placing the channel dim at ``axis`` of a rank-``rank`` tensor."""
+    return tuple(-1 if d == axis else 1 for d in range(rank))
+
+
+def expand_qparams(qp: QuantParams, rank: int,
+                   axis: Optional[int]) -> QuantParams:
+    """Reshape reduced ``(C,)`` params to broadcast against a rank-N tensor
+    (``axis=None`` means channel dim 0, the per-channel weight case)."""
+    if qp.delta.ndim == 0:
+        return qp
+    shape = broadcast_shape(rank, 0 if axis is None else axis)
+    return QuantParams(delta=qp.delta.reshape(shape),
+                       zero_float=qp.zero_float.reshape(shape),
+                       signed=qp.signed)
+
+
+def to_int(spec: QuantizerSpec, qp: QuantParams, x: Tensor) -> Tensor:
+    """``clamp(round(x / scale) + zp, int_min, int_max)`` (float-typed)."""
+    scale = scale_of(spec, qp)
+    zp = zero_point_of(spec, qp)
+    int_min, int_max = int_min_max(spec, qp.signed)
+    return torch.clamp(torch.round(x / scale) + zp, int_min, int_max)
+
+
+def from_int(spec: QuantizerSpec, qp: QuantParams, x_int: Tensor) -> Tensor:
+    """Integer representation -> dequantized float."""
+    return scale_of(spec, qp) * (x_int - zero_point_of(spec, qp))
+
+
+def fake_quant(spec: QuantizerSpec, qp: QuantParams, x: Tensor,
+               axis: Optional[int] = None) -> Tensor:
+    """Quantize-dequantize. bf16/f16 inputs are upcast to float32 for the
+    grid arithmetic and returned in their own dtype."""
+    qpe = expand_qparams(qp, x.ndim, axis)
+    orig = x.dtype
+    if orig in (torch.bfloat16, torch.float16):
+        x = x.to(torch.float32)
+    y = from_int(spec, qpe, to_int(spec, qpe, x))
+    return y.to(orig) if y.dtype != orig else y
