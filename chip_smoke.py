@@ -19,11 +19,25 @@ Phases (any failure exits non-zero; nothing is caught):
    ``bert_engine_apply``; launch counts per forward, logits against the
    same engine on the plain versions (rtol 1e-3 / atol 2e-3), and engine
    / fake-quant simulation / bf16 dense seq/s as the median and range of
-   five host-clock windows of at least one second each.
+   five host-clock windows of at least one second each;
+5. the flex kernels, per recipe (``w8a8-mixed``: 16-bit x/h/y sites,
+   ``w8a8-peg``: 6 permuted groups with shared-h ranges), on layer 0's
+   inputs: the float-edge inter matmul, the dense matmul's fold on the h
+   grid, the two flex add+LNs, then the flex ``int8_attn_ln`` and
+   ``int8_ffn_ln`` chains, each against its plain version (bit-identical);
+6. each recipe's engine, from the same ``--seed`` params: calibration with
+   the PEG pre-pass, three request batches through ``bert_engine_apply``
+   with the launch counts read just after, logits against the plain
+   engine, the forward / encoder split, engine and fake-quant simulation
+   seq/s (five windows).
 
 The last lines are the kernels JSON (times per encoder layer: the sum
-over that layer's launches of each kernel), the nvidia-smi line, and
-``{"ok": true, "device": {...}}``. Imports torch and the port only.
+over that layer's launches of each kernel; the new kernels' top-level
+numbers are the mixed recipe's, and ``variants`` holds each recipe's,
+for ``int8_matmul`` its dense fold on the h grid; ``launches`` sums the
+three main-path runs, ``launches_by_path`` splits them), the nvidia-smi
+line, and ``{"ok": true, "device": {...}}``. Imports torch and the port
+only.
 """
 
 from __future__ import annotations
@@ -88,6 +102,22 @@ def compare(got: torch.Tensor, want: torch.Tensor, name: str) -> dict:
     print(f"  {name}: max_level_diff={max_diff} mismatches={n_bad} "
           f"(of {diff.numel()})")
     if max_diff:
+        fail(f"{name}: expected bit-identical, max level diff {max_diff} "
+             f"on {n_bad} elements")
+    return {"max_abs_err": max_diff, "mismatches": n_bad}
+
+
+def compare_values(got: torch.Tensor, want: torch.Tensor, step,
+                   name: str) -> dict:
+    """Float value edges on a grid of ``step`` (per column or per tensor):
+    the difference in levels; fails unless bit-identical."""
+    torch.cuda.synchronize()
+    diff = (got - want).abs() / step
+    max_diff = float(diff.max())
+    n_bad = int((got != want).sum())
+    print(f"  {name}: max_level_diff={max_diff:.3g} mismatches={n_bad} "
+          f"(of {diff.numel()})")
+    if n_bad:
         fail(f"{name}: expected bit-identical, max level diff {max_diff} "
              f"on {n_bad} elements")
     return {"max_abs_err": max_diff, "mismatches": n_bad}
@@ -326,6 +356,212 @@ def check_other_shapes(plan, dev) -> None:
                 f"fused_add_ln_payload 999x{h} res_quant={res_quant}")
 
 
+def check_flex_kernels(params, cfg, qcfg, qstate, int_params, static, plan,
+                       batch, dev) -> dict:
+    """Phase 5, one recipe: the flex kernels and chains against their plain
+    versions on the layer-0 inputs of ``batch``."""
+    x8, mask, lp, qkv8 = layer0_inputs(params, cfg, qcfg, qstate,
+                                       int_params, plan, batch, dev)
+    m, h = x8.shape
+    nh = cfg.num_attention_heads
+    eps = static.ln_eps
+    x_mode, x_bits, h_bits, y_bits, _, _ = static.layer_flex(0)
+    g_bits, u_bits = static.layer_io(0)[5:7]
+    res1, res2 = static.res_quant[0]
+    if x_mode != "f":
+        fail(f"the recipe's x site rides a payload (flex {static.flex[0]})")
+    akw = dict(n_heads=nh, seq=SEQ, skip_max=static.attn_skip_max)
+    ao, inter, dense = lp["attn_out"], lp["inter"], lp["dense"]
+    ln1, ln2, grid = lp["ln1"], lp["ln2"], lp["inter"]["grid"]
+    c8 = EK.int8_attention_ref(qkv8, mask, lp["attn_scal"], **akw)
+    y1 = EK.int8_matmul_ref(c8, ao["w"], ao["vecs"], ao["scal"],
+                            out_mode="fold", out_bits=g_bits)
+    k5a = dict(eps=eps, res_quant=res1, res_mode="i8", res_bits=u_bits,
+               ln_bits=x_bits, ln_out="f")
+    hx = EK.flex_add_ln_ref(y1, x8, ln1["gb"], ln1["scal"], ln1.get("lnv"),
+                            **k5a)
+    i8 = EK.float_edge_matmul_ref(hx, inter["vecs"], grid,
+                                  activation="gelu_new")
+    y2 = EK.int8_matmul_ref(i8, dense["w"], dense["vecs"], dense["scal"],
+                            out_mode="fold", out_bits=h_bits)
+    k5b = dict(eps=eps, res_quant=res2, res_mode="f", res_bits=y_bits)
+    z8 = EK.flex_add_ln_ref(y2, hx, ln2["gb"], ln2["scal"], ln2.get("lnv"),
+                            **k5b)
+    x_step = ln1["lnv"][2] if "lnv" in ln1 else ln1["scal"][0, 6]
+    n1 = inter["w"].shape[0]
+    planes = 1 if grid["bits"] <= 8 else 2
+    report = {}
+
+    # K4: the float-edge inter matmul (gelu_new, emit)
+    res = compare(EK.float_edge_matmul(hx, inter["vecs"], grid,
+                                       activation="gelu_new"), i8,
+                  f"float_edge_matmul[inter] {m}x{h}->{n1} "
+                  f"{grid['bits']}-bit, {grid['s'].numel()} groups")
+    t_k = timed_ms(lambda: EK.float_edge_matmul(hx, inter["vecs"], grid,
+                                                activation="gelu_new"))
+    t_p = timed_ms(lambda: EK.float_edge_matmul_ref(
+        hx, inter["vecs"], grid, activation="gelu_new"), iters=5)
+    w_f = inter["w"].float()
+    t_l = timed_ms(lambda: torch.matmul(hx, w_f.t()))
+    # every u8 plane is one int8 product; bytes: f32 x, int8 w and out
+    ops = 2.0 * m * n1 * h * planes
+    nbytes = 4 * m * h + n1 * h + m * n1 + 5 * n1 * 4 + 4 * n1 * planes
+    bnd, by = bound_ms(ops, nbytes)
+    print(f"  float_edge_matmul: kernel {t_k:.4f} ms, plain {t_p:.4f} ms, "
+          f"torch.matmul f32 (TF32 off; the product only) {t_l:.4f} ms, "
+          f"bound {bnd:.4f} ms ({by}), {ops / t_k / 1e9:.1f} TOP/s")
+    report["float_edge_matmul"] = {"ms": t_k, "plain_ms": t_p,
+                                   "bound_ms": bnd, "bound_by": by,
+                                   "library_ms": t_l, **res}
+
+    # K1: the dense matmul's fold on the h grid (float32 out)
+    res = compare_values(
+        EK.int8_matmul(i8, dense["w"], dense["vecs"], dense["scal"],
+                       out_mode="fold", out_bits=h_bits), y2, dense["vecs"][3],
+        f"int8_matmul[dense] fold {h_bits}-bit {m}x{n1}->{h}")
+    t_k = timed_ms(lambda: EK.int8_matmul(i8, dense["w"], dense["vecs"],
+                                          dense["scal"], out_mode="fold",
+                                          out_bits=h_bits))
+    t_p = timed_ms(lambda: EK.int8_matmul_ref(
+        i8, dense["w"], dense["vecs"], dense["scal"], out_mode="fold",
+        out_bits=h_bits), iters=5)
+    w_t = dense["w"].t()
+    t_l = timed_ms(lambda: torch._int_mm(i8, w_t))
+    ops, nbytes = 2.0 * m * h * n1, m * n1 + h * n1 + 4 * m * h + 5 * h * 4
+    bnd, by = bound_ms(ops, nbytes)
+    print(f"  int8_matmul[dense fold]: kernel {t_k:.4f} ms, plain {t_p:.4f} "
+          f"ms, torch._int_mm {t_l:.4f} ms, bound {bnd:.4f} ms ({by})")
+    report["int8_matmul_fold"] = {"ms": t_k, "plain_ms": t_p,
+                                  "bound_ms": bnd, "bound_by": by,
+                                  "library_ms": t_l, **res}
+
+    # K5: the attention block's add+LN (f32 y, payload r, f32 x out) and
+    # the FFN block's (f32 y, f32 r, payload out)
+    k5 = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "max_abs_err": 0.0,
+          "library_ms": None}
+    for tag, yv, rv, lnp, kw, want, in_b, out_b in (
+            ("ln1", y1, x8, ln1, k5a, hx, 1, 4),
+            ("ln2", y2, hx, ln2, k5b, z8, 4, 1)):
+        args = (yv, rv, lnp["gb"], lnp["scal"], lnp.get("lnv"))
+        got = EK.flex_add_ln(*args, **kw)
+        res = (compare_values(got, want, x_step, f"flex_add_ln[{tag}] {m}x{h}")
+               if want.dtype == torch.float32 else
+               compare(got, want, f"flex_add_ln[{tag}] {m}x{h}"))
+        t_k = timed_ms(lambda: EK.flex_add_ln(*args, **kw))
+        t_p = timed_ms(lambda: EK.flex_add_ln_ref(*args, **kw), iters=5)
+        ops, nbytes = 20.0 * m * h, m * h * (4 + in_b + out_b) + 6 * h * 4
+        bnd, by = bound_ms(ops, nbytes, PEAK_F32_OPS)
+        print(f"  flex_add_ln[{tag}]: kernel {t_k:.4f} ms, plain {t_p:.4f} "
+              f"ms, bound {bnd:.4f} ms ({by})")
+        for key, val in (("ms", t_k), ("plain_ms", t_p), ("bound_ms", bnd)):
+            k5[key] += val
+        k5["max_abs_err"] = max(k5["max_abs_err"], res["max_abs_err"])
+        k5["bound_by"] = by
+    report["flex_add_ln"] = k5
+
+    # the flex chains against their plain versions
+    aargs = (x8, lp["qkv"]["w"], lp["qkv"]["vecs"], lp["qkv"]["scal"], mask,
+             lp["attn_scal"], ao["w"], ao["vecs"], ao["scal"], ln1["gb"],
+             ln1["scal"], ln1.get("lnv"))
+    akw2 = dict(akw, eps=eps, res_quant=res1, ln_out="f", ln_bits=x_bits,
+                g_bits=g_bits, u_bits=u_bits)
+    fargs = (hx, inter["w"], inter["vecs"], inter["scal"], dense["w"],
+             dense["vecs"], dense["scal"], hx, ln2["gb"], ln2["scal"],
+             ln2.get("lnv"))
+    fkw = dict(activation="gelu_new", eps=eps, res_quant=res2, in_mode="f",
+               res_mode="f", h_bits=h_bits, y_bits=y_bits, x_grid=grid)
+    w_bytes = lambda *mps: sum(mp["w"].numel() + 20 * mp["w"].shape[0]
+                               for mp in mps)
+    d = h // nh
+    chains = {
+        "int8_attn_ln": (
+            lambda: EK.int8_attn_ln(*aargs, **akw2),
+            lambda: EK.int8_attn_ln_ref(*aargs, **akw2),
+            2.0 * m * h * 4 * h + 4.0 * BATCH * nh * SEQ * SEQ * d,
+            m * h * (1 + 4) + w_bytes(lp["qkv"], ao) + mask.numel() * 4),
+        "int8_ffn_ln (flex)": (
+            lambda: EK.int8_ffn_ln(*fargs, **fkw),
+            lambda: EK.int8_ffn_ln_ref(*fargs, **fkw),
+            2.0 * m * h * n1 * (1 + planes), m * h * (4 + 1)
+            + w_bytes(inter, dense)),
+    }
+    for name, (chain, ref, ops, nbytes) in chains.items():
+        got, want = chain(), ref()
+        if want.dtype == torch.float32:
+            compare_values(got, want, x_step, f"{name} (chain vs plain)")
+        else:
+            compare(got, want, f"{name} (chain vs plain)")
+        t_k = timed_ms(chain)
+        t_p = timed_ms(ref, iters=5)
+        bnd, by = bound_ms(ops, nbytes)
+        print(f"  {name}: chain {t_k:.4f} ms, plain {t_p:.4f} ms, bound "
+              f"{bnd:.4f} ms ({by})")
+    return report
+
+
+def check_flex_shapes(dev) -> None:
+    """The flex kernels off the main path's shapes: ragged rows and
+    columns, both u8-plane counts, every output mode, H=256 with and
+    without per-column sites."""
+    gen = torch.Generator(device=dev).manual_seed(11)
+    m, n, k, groups = 1000, 136, 256, 2
+    w = torch.randint(-127, 128, (n, k), generator=gen, device=dev,
+                      dtype=torch.int8)
+    vecs = torch.stack([torch.full((n,), 3e-3, device=dev),
+                        w.float().sum(1), torch.full((n,), 0.1, device=dev),
+                        torch.full((n,), 0.02, device=dev),
+                        torch.full((n,), 2.0, device=dev)])
+    cols = torch.randperm(k, generator=gen, device=dev)
+    for bits in (8, 16):
+        s = torch.tensor([0.7 / 2 ** (bits - 1), 1.3 / 2 ** (bits - 1)],
+                         device=dev)
+        zp = torch.tensor([2.0 ** (bits - 1) - 3.0, 17.0], device=dev)
+        grp = torch.empty(k, dtype=torch.long, device=dev)
+        grp[cols] = torch.arange(k, device=dev) // (k // groups)
+        q = torch.randint(0, 2 ** bits, (m, k), generator=gen, device=dev)
+        x = (s[grp] * (q.float() - zp[grp])).contiguous()
+        grid = EK.edge_grid(w, s[grp], zp[grp], bits, groups, cols)
+        for act in (None, "gelu_new"):
+            for mode in ("emit", "fold", "float"):
+                got = EK.float_edge_matmul(x, vecs, grid, activation=act,
+                                           out_mode=mode)
+                want = EK.float_edge_matmul_ref(x, vecs, grid,
+                                                activation=act,
+                                                out_mode=mode)
+                tag = (f"float_edge_matmul {m}x{k}->{n} {bits}-bit act={act}"
+                       f" {mode}")
+                if mode == "emit":
+                    compare(got, want, tag)
+                else:
+                    compare_values(got, want, 1.0, tag)
+    h = 256
+    gb = torch.stack([torch.linspace(0.5, 1.5, h, device=dev),
+                      torch.linspace(-0.1, 0.1, h, device=dev)])
+    scal = torch.tensor([[1.0, 0.0, 0.03, 4.0, 0.02, 5.0, 0.01, 2.0]],
+                        device=dev)
+    lnv = torch.stack([torch.linspace(0.01, 0.03, h, device=dev),
+                       torch.full((h,), 3.0, device=dev),
+                       torch.linspace(2e-5, 5e-5, h, device=dev),
+                       torch.full((h,), -7.0, device=dev)])
+    y = torch.randn(999, h, generator=gen, device=dev)
+    r8 = torch.randint(-128, 128, (999, h), generator=gen, device=dev,
+                       dtype=torch.int8)
+    for rv, res_mode in ((r8, "i8"), (y.flip(0).contiguous(), "f")):
+        for lv, bits in ((None, 8), (lnv, 16)):
+            for ln_out in ("emit", "f"):
+                ln_bits = 8 if ln_out == "emit" else bits
+                kw = dict(eps=1e-12, res_mode=res_mode, res_bits=bits,
+                          ln_bits=ln_bits, ln_out=ln_out)
+                got = EK.flex_add_ln(y, rv, gb, scal, lv, **kw)
+                want = EK.flex_add_ln_ref(y, rv, gb, scal, lv, **kw)
+                tag = (f"flex_add_ln 999x{h} r={res_mode} sites="
+                       f"{'lnv' if lv is not None else 'scalar'} {ln_out}")
+                if ln_out == "emit":
+                    compare(got, want, tag)
+                else:
+                    compare_values(got, want, 1.0, tag)
+
+
 def window_ms(fn, window_s: float = 1.0, windows: int = 5):
     """Median, least and most milliseconds per call over ``windows``
     host-clock windows of at least ``window_s`` seconds each: calls are
@@ -352,6 +588,41 @@ def seq_per_s(ms) -> str:
     return f"{med:.1f} ({hi:.1f}-{lo:.1f})"
 
 
+def drive_path(name, params, cfg, qcfg, qstate, static, plan, int_params,
+               batches, want, dev):
+    """One main path: the launch counts set to 0 just before and read just
+    after three request batches through ``bert_engine_apply``; the logits
+    against the same engine on the plain versions. Returns the counts."""
+    EK.reset_launches()
+    logits = [B.bert_engine_apply(params, b, cfg, qcfg, qstate, static, plan,
+                                  int_params, device=dev)["logits"]
+              for b in batches]
+    torch.cuda.synchronize()
+    launches = dict(EK.LAUNCHES)
+    per_fwd = {k: v / len(batches) for k, v in launches.items()}
+    print(f"  [{name}] launches over {len(batches)} forwards: {launches}; "
+          f"per forward: {per_fwd}")
+    if per_fwd != want:
+        fail(f"{name}: launches per forward {per_fwd}, expected {want}")
+    for i, (b, lg) in enumerate(zip(batches, logits)):
+        ref = B.bert_engine_apply(params, b, cfg, qcfg, qstate, static, plan,
+                                  int_params, backend="plain",
+                                  device=dev)["logits"]
+        if tuple(lg.shape) != (BATCH, cfg.num_labels):
+            fail(f"{name}: logits shape {tuple(lg.shape)}")
+        if not torch.isfinite(lg).all():
+            fail(f"{name}: non-finite logits")
+        err = (lg - ref).abs().max().item()
+        ok = torch.allclose(lg, ref, rtol=LOGIT_RTOL, atol=LOGIT_ATOL)
+        print(f"  [{name}] batch {i}: logits max |kernels - plain| = "
+              f"{err:.3e} (rtol {LOGIT_RTOL}, atol {LOGIT_ATOL}); logit "
+              f"scale {ref.abs().max().item():.3e}")
+        if not ok:
+            fail(f"{name} batch {i}: engine logits disagree with the plain "
+                 "engine")
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -373,15 +644,24 @@ def main(argv=None) -> int:
         print(f"  {name}: " + " | ".join(regs))
 
     cfg = B.BertConfig()
+    L = cfg.num_hidden_layers
     t0 = time.perf_counter()
     params, qcfg, qstate = CAL.calibrated_bert(cfg, batch_size=8, seq=SEQ,
                                                seed=args.seed, device=dev)
     static, plan, int_params = B.build_bert_engine(params, cfg, qcfg, qstate,
                                                    device=dev)
+    recipes = {}
+    for rname, (qd, shared_h) in CAL.RECIPES.items():
+        _, rq, rs = CAL.calibrated_bert(cfg, batch_size=8, seq=SEQ,
+                                        seed=args.seed, device=dev,
+                                        params=params, quant_dict=qd,
+                                        shared_h=shared_h)
+        recipes[rname] = (rq, rs, *B.build_bert_engine(params, cfg, rq, rs,
+                                                       device=dev))
     torch.cuda.synchronize()
-    print(f"  set-up (init, calibration, packing, plan): "
-          f"{time.perf_counter() - t0:.1f} s; skip_max={static.attn_skip_max}",
-          flush=True)
+    print(f"  set-up (init, W8A8 and recipe calibrations with the PEG "
+          f"pre-pass, packing, plans): {time.perf_counter() - t0:.1f} s; "
+          f"skip_max={static.attn_skip_max}", flush=True)
     batches = request_batches(cfg, 3, args.seed)
 
     print("[3] kernels against their plain versions, layer-0 inputs "
@@ -392,35 +672,11 @@ def main(argv=None) -> int:
 
     print("[4] main path: BERT-base W8A8 through bert_engine_apply",
           flush=True)
-    EK.reset_launches()
-    logits = [B.bert_engine_apply(params, b, cfg, qcfg, qstate, static, plan,
-                                  int_params, device=dev)["logits"]
-              for b in batches]
-    torch.cuda.synchronize()
-    launches = dict(EK.LAUNCHES)
-    per_fwd = {k: v / len(batches) for k, v in launches.items()}
-    print(f"  launches over {len(batches)} forwards: {launches}; per "
-          f"forward: {per_fwd}")
-    want = {"int8_matmul": 4 * cfg.num_hidden_layers,
-            "int8_attention": cfg.num_hidden_layers,
-            "fused_add_ln_payload": 2 * cfg.num_hidden_layers}
-    if per_fwd != want:
-        fail(f"launches per forward {per_fwd}, expected {want}")
-    for i, (b, lg) in enumerate(zip(batches, logits)):
-        ref = B.bert_engine_apply(params, b, cfg, qcfg, qstate, static, plan,
-                                  int_params, backend="plain",
-                                  device=dev)["logits"]
-        if tuple(lg.shape) != (BATCH, cfg.num_labels):
-            fail(f"logits shape {tuple(lg.shape)}")
-        if not torch.isfinite(lg).all():
-            fail("non-finite logits")
-        err = (lg - ref).abs().max().item()
-        ok = torch.allclose(lg, ref, rtol=LOGIT_RTOL, atol=LOGIT_ATOL)
-        print(f"  batch {i}: logits max |kernels - plain| = {err:.3e} "
-              f"(rtol {LOGIT_RTOL}, atol {LOGIT_ATOL}); logit scale "
-              f"{ref.abs().max().item():.3e}")
-        if not ok:
-            fail(f"batch {i}: engine logits disagree with the plain engine")
+    by_path = {"w8a8": drive_path(
+        "w8a8", params, cfg, qcfg, qstate, static, plan, int_params, batches,
+        {"int8_matmul": 4 * L, "int8_attention": L,
+         "fused_add_ln_payload": 2 * L, "float_edge_matmul": 0,
+         "flex_add_ln": 0}, dev)}
 
     b0 = batches[0]
     # the encoder alone (12 x int8_layer_ln + payload entry/exit) on this
@@ -443,32 +699,71 @@ def main(argv=None) -> int:
     params16 = B.params_to(params, dtype=torch.bfloat16)
     dense16 = window_ms(lambda: B.bert_apply(params16, b0, cfg, None,
                                              device=dev))
+    del params16
     print(f"  seq/s at B={BATCH}, S={SEQ}, median (range) of 5 windows "
           f"({kind}, {smi}): engine {seq_per_s(t_fwd)}, engine on plain "
           f"versions {seq_per_s(eng_plain)}, fake-quant simulation (f32, "
           f"TF32 off) {seq_per_s(sim)}, bf16 dense {seq_per_s(dense16)}")
 
-    sources = {"int8_matmul": ("int8_matmul.cu", "cuda",
-                               "transformer_quantization_tpu/ops/pallas/"
-                               "engine_kernels.py:254"),
-               "int8_attention": ("int8_attention.cu", "cuda",
-                                  "transformer_quantization_tpu/ops/pallas/"
-                                  "engine_kernels.py:804"),
-               "fused_add_ln_payload": ("add_ln_payload.cu", "cuda",
-                                        "transformer_quantization_tpu/ops/"
-                                        "pallas/engine_kernels.py:1073")}
+    print("[5] flex kernels against their plain versions, layer-0 inputs "
+          f"(B={BATCH}, S={SEQ})", flush=True)
+    flex_reports = {}
+    for rname, (rq, rs, rstatic, rplan, rint) in recipes.items():
+        print(f"  -- {rname}: flex {rstatic.flex[0]}, io {rstatic.io[0]}")
+        flex_reports[rname] = check_flex_kernels(params, cfg, rq, rs, rint,
+                                                 rstatic, rplan, b0, dev)
+    check_flex_shapes(dev)
+
+    print("[6] the recipes' engines: BERT-base through bert_engine_apply",
+          flush=True)
+    for rname, (rq, rs, rstatic, rplan, rint) in recipes.items():
+        by_path[rname] = drive_path(
+            rname, params, cfg, rq, rs, rstatic, rplan, rint, batches,
+            {"int8_matmul": 3 * L, "int8_attention": L,
+             "fused_add_ln_payload": 0, "float_edge_matmul": L,
+             "flex_add_ln": 2 * L}, dev)
+        rh, rm = entry_value(params, cfg, rq, rs, rint, b0, dev)
+        t_enc = window_ms(lambda: ENG.encoder_engine(rh, rm, rstatic, rplan))
+        t_eng = window_ms(lambda: B.bert_engine_apply(
+            params, b0, cfg, rq, rs, rstatic, rplan, rint, device=dev))
+        t_sim = window_ms(lambda: B.bert_apply(params, b0, cfg, rq, rs,
+                                               QuantMode(), device=dev))
+        print(f"  [{rname}] ms per call, median (least-most) of 5 windows: "
+              f"engine forward {t_eng[0]:.3f} ({t_eng[1]:.3f}-"
+              f"{t_eng[2]:.3f}), encoder {t_enc[0]:.3f} ({t_enc[1]:.3f}-"
+              f"{t_enc[2]:.3f}), embeddings + head {t_eng[0] - t_enc[0]:.3f}")
+        print(f"  [{rname}] seq/s at B={BATCH}, S={SEQ}, median (range) of "
+              f"5 windows ({kind}, {smi}): engine {seq_per_s(t_eng)}, "
+              f"fake-quant simulation (f32, TF32 off) {seq_per_s(t_sim)}")
+
+    report["float_edge_matmul"] = flex_reports["w8a8-mixed"][
+        "float_edge_matmul"]
+    report["flex_add_ln"] = flex_reports["w8a8-mixed"]["flex_add_ln"]
+    pallas = "transformer_quantization_tpu/ops/pallas/engine_kernels.py"
+    sources = {"int8_matmul": ("int8_matmul.cu", f"{pallas}:254"),
+               "int8_attention": ("int8_attention.cu", f"{pallas}:804"),
+               "fused_add_ln_payload": ("add_ln_payload.cu", f"{pallas}:1073"),
+               "float_edge_matmul": ("float_edge_matmul.cu",
+                                     f"{pallas}:1425"),
+               "flex_add_ln": ("flex_add_ln.cu", f"{pallas}:1648")}
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")
     kernels = []
-    for name, (src, route, replaces) in sources.items():
+    for name, (src, replaces) in sources.items():
         r = report[name]
-        kernels.append({
-            "name": name, "route": route,
+        entry = {
+            "name": name, "route": "cuda",
             "source": "transformer_quantization_tpu_torch/ops/kernels/csrc/"
                       + src,
-            "replaces": replaces, "launches": launches[name],
-            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
-            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-            "bound_by": r["bound_by"],
-            "library_ms": r["library_ms"]})
+            "replaces": replaces,
+            "launches": sum(p[name] for p in by_path.values()),
+            **{k: r[k] for k in keys},
+            "launches_by_path": {p: c[name] for p, c in by_path.items()}}
+        variant = "int8_matmul_fold" if name == "int8_matmul" else name
+        if variant in flex_reports["w8a8-mixed"]:
+            entry["variants"] = {rn: {k: fr[variant][k] for k in keys}
+                                 for rn, fr in flex_reports.items()}
+        kernels.append(entry)
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

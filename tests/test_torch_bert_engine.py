@@ -123,9 +123,10 @@ def test_engine_plan_matches_jax(setup):
                                          device="cpu")
     jst = setup["jstatic"]
     for f in ("n_layers", "n_heads", "ln_eps", "hidden_act", "fold",
-              "res_quant", "attn_skip_max", "attn_bits", "w4"):
+              "res_quant", "attn_skip_max", "attn_bits", "w4", "flex", "io",
+              "any_flex"):
         assert getattr(tst, f) == getattr(jst, f), f
-    assert not jst.any_flex  # the port has only the all-int8 route
+    assert not jst.any_flex  # W8A8: every layer on the all-int8 route
     flat_j = jax.tree_util.tree_leaves_with_path(_np(setup["jplan"]))
     flat_t = dict(jax.tree_util.tree_leaves_with_path(tplan))
     assert len(flat_j) == len(flat_t)
@@ -280,6 +281,13 @@ def test_engine_rejects_unported_configs():
     no_fold = qcfg.replace_site("L1.ffn.dense.out", enabled=False)
     with pytest.raises(TENG.EngineIncompatible, match="not yet ported"):
         TB.build_bert_engine(params, cfg, no_fold, qstate, device="cpu")
+    # quant_dict 'L': every act site of every layer 16-bit, so value-space
+    # q/k/v attention and a float layer-input edge
+    _, wide, wide_state = TC.calibrated_bert(cfg, batch_size=2, seq=seq,
+                                             device="cpu", params=params,
+                                             quant_dict={"L": 16})
+    with pytest.raises(TENG.EngineIncompatible, match="not yet ported"):
+        TB.build_bert_engine(params, cfg, wide, wide_state, device="cpu")
     with pytest.raises(NotImplementedError):
         TB.build_bert_int_params(params, qcfg, qstate, use_int4=True)
 

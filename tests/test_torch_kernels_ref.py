@@ -276,9 +276,12 @@ def test_unported_modes_raise(layer0):
     x8 = layer0["t"]["x8"]
     with pytest.raises(NotImplementedError):
         EK.int8_matmul_ref(x8, tlp["w"], tlp["vecs"], tlp["scal"], w4=True)
-    with pytest.raises(NotImplementedError):
-        EK.int8_matmul_ref(x8.float(), tlp["w"], tlp["vecs"], tlp["scal"],
-                           in_mode="f")
+    args = _layer_args(layer0["tplan"]["layers"][0], x8, layer0["t"]["bias"])
+    kw = dict(n_heads=4, seq=16, eps=layer0["static"].ln_eps)
+    with pytest.raises(NotImplementedError, match="not yet ported"):
+        EK.int8_attn_ln_ref(*args[:11], qkv_mode="f", **kw)
+    with pytest.raises(NotImplementedError, match="not yet ported"):
+        EK.int8_attn_ln(*args[:11], in_mode="f", **kw)
     with pytest.raises(NotImplementedError):
         EK.int8_attention_ref(layer0["t"]["qkv8"], layer0["t"]["bias"],
                               layer0["tlp"]["attn_scal"], n_heads=4, seq=16,

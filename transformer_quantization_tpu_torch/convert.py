@@ -51,7 +51,8 @@ def qparams_from_jax(qp, device="cuda") -> QuantParams:
 
 def qstate_from_jax(qstate: Mapping, device="cuda") -> Dict:
     """Per-site state: ``qp`` becomes a :class:`QuantParams`, the
-    ``range_state`` dict its tensors; AdaRound ``alpha`` must be None."""
+    ``range_state`` dict its tensors, a PEG site's ``perm`` an int64 and
+    its ``ranges`` a float32 tensor; AdaRound ``alpha`` must be None."""
     dev = resolve_device(device)
     out = {}
     for name, st in qstate.items():
@@ -64,9 +65,10 @@ def qstate_from_jax(qstate: Mapping, device="cuda") -> Dict:
         if st.get("range_state") is not None:
             new["range_state"] = {k: _tensor(v, dev)
                                   for k, v in st["range_state"].items()}
-        if st.get("perm") is not None or st.get("ranges") is not None:
-            raise NotImplementedError(f"{name}: PEG permutation state is not "
-                                      "yet ported")
+        if st.get("perm") is not None:
+            new["perm"] = _tensor(st["perm"], dev).to(torch.int64)
+        if st.get("ranges") is not None:
+            new["ranges"] = _tensor(st["ranges"], dev).to(torch.float32)
         out[name] = new
     return out
 

@@ -9,16 +9,18 @@ nesting and its ``(out, in)`` kernel layout, so ``convert.py`` carries
 JAX weights across unchanged.
 
 Ported: the fake-quant forward :func:`bert_apply` (also the FP baseline
-with ``qcfg=None``), the generic int8 path (``int_params``), packing, and
-the full-handoff engine (:func:`build_bert_engine` /
-:func:`bert_engine_apply`). ``quant_dict`` / PEG wiring, AdaRound specs,
-int8 attention, compute dtypes, scan, remat and the pipeline wait.
+with ``qcfg=None``), the generic int8 path (``int_params``), packing, the
+``quant_dict`` key language (:func:`apply_bert_quant_dict`) with the PEG
+shared-permutation groups, and the full-handoff engine
+(:func:`build_bert_engine` / :func:`bert_engine_apply`). The
+``--per-embd`` / ``--per-groups`` wiring (``apply_peg_wiring``), AdaRound
+specs, int8 attention, compute dtypes, scan, remat and the pipeline wait.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Mapping, Optional, Tuple
+from typing import Dict, List, Mapping, Optional, Tuple
 
 import torch
 
@@ -37,6 +39,7 @@ from transformer_quantization_tpu_torch.quant.qconfig import (
     QuantDefaults,
     QuantModelConfig,
     QuantMode,
+    apply_quant_dict,
 )
 from transformer_quantization_tpu_torch.quant.ranges import (
     OptMethod,
@@ -196,6 +199,84 @@ def declare_classifier_site(b: QuantConfigBuilder, name: str,
         b.act(f"{name}.out")
     else:
         raise ValueError(f"Quantization setup '{quant_setup}' not supported.")
+
+
+def _layer_act_sites(i: int) -> Tuple[str, ...]:
+    """All activation sites inside encoder layer ``i`` (for 'L' keys)."""
+    p = f"L{i}."
+    return tuple(p + s for s in (
+        "attn.q.out", "attn.k.out", "attn.v.out", "attn.scores", "attn.probs",
+        "attn.context", "attn_out.dense.out", "attn_out.res",
+        "attn_out.ln.out", "ffn.inter.out", "ffn.dense.out", "ffn.res",
+        "ffn.ln.out"))
+
+
+LETTER_SITE = {
+    "s": "attn.scores", "p": "attn.probs", "c": "attn.context",
+    "g": "attn_out.dense.out", "u": "attn_out.res", "x": "attn_out.ln.out",
+    "h": "ffn.dense.out", "y": "ffn.res", "z": "ffn.ln.out",
+}
+
+
+def encoder_quant_dict_entries(n_layers: int
+                               ) -> List[Tuple[str, Tuple[str, ...]]]:
+    """Embedding + per-layer quant_dict key entries in the reference's
+    hijack order: per layer, each letter's per-layer key before its global
+    one, then ``L{i}`` before ``L``."""
+    ordered: List[Tuple[str, Tuple[str, ...]]] = [
+        ("e", ("emb.sum_tt", "emb.sum_pos")),
+        ("Et", ("emb.word.w",)),
+    ]
+    for i in range(n_layers):
+        for letter, site in LETTER_SITE.items():
+            ordered.append((f"{letter}{i}", (f"L{i}.{site}",)))
+            ordered.append((letter, (f"L{i}.{site}",)))
+        ordered.append((f"L{i}", _layer_act_sites(i)))
+        ordered.append(("L", _layer_act_sites(i)))
+    return ordered
+
+
+def _apply_ordered_quant_dict(qcfg: QuantModelConfig, quant_dict: Mapping,
+                              ordered) -> QuantModelConfig:
+    unknown = set(quant_dict) - {k for k, _ in ordered}
+    if unknown:
+        raise KeyError(f"unknown quant_dict keys: {sorted(unknown)}")
+    for key, sites in ordered:
+        if key in quant_dict:
+            qcfg = apply_quant_dict(qcfg, {key: quant_dict[key]},
+                                    {key: sites})
+    return qcfg
+
+
+def apply_bert_quant_dict(qcfg: QuantModelConfig, quant_dict: Mapping,
+                          n_layers: int) -> QuantModelConfig:
+    """Apply the BERT ``quant_dict`` key language: embeddings, then per
+    layer the letters of :data:`LETTER_SITE` and ``L``, then the head keys
+    ``P``, ``C``, ``wP``, ``wC``; a global key applied after a per-layer
+    one overrides it, as in the reference."""
+    ordered = encoder_quant_dict_entries(n_layers) + [
+        ("P", ("pooler.dense.out",)),
+        ("C", ("classifier.out",)),
+        ("wP", ("pooler.dense.w",)),
+        ("wC", ("classifier.w",)),
+    ]
+    return _apply_ordered_quant_dict(qcfg, quant_dict, ordered)
+
+
+def shared_permutation_groups(n_layers: int
+                              ) -> List[Tuple[str, Tuple[str, ...]]]:
+    """(source, targets) per layer for ``--per-groups-permute-shared-h``:
+    every permuted site of a layer takes the FFN-output dense site's
+    recorded ranges."""
+    out = []
+    for i in range(n_layers):
+        p = f"L{i}."
+        targets = tuple(p + s for s in (
+            "attn.q.out", "attn.k.out", "attn.v.out", "attn.context",
+            "attn_out.dense.out", "attn_out.res", "attn_out.ln.out",
+            "ffn.dense.out", "ffn.res", "ffn.ln.out"))
+        out.append((p + "ffn.dense.out", targets))
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -474,7 +555,8 @@ def build_bert_engine(params: Dict, cfg: BertConfig, qcfg: QuantModelConfig,
     """Assemble the engine plan for a calibrated BERT; returns
     ``(static, plan, int_params)``. Raises
     :class:`~..ops.engine.EngineIncompatible` when the config does not fit
-    the ported all-int8 route."""
+    the ported routes (all-int8 layers, and flex layers with 16-bit / PEG
+    ``g``, ``u``, ``x``, ``h`` and ``y`` sites)."""
     _check_device(params, device)
     with torch.no_grad():
         if int_params is None:

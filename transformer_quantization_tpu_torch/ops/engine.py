@@ -6,13 +6,22 @@ activation edge between matmuls is an int8 payload:
     entry value -> quantize_payload -> per layer int8_layer_ln
                 -> dequantize_payload (the last ffn.ln site)
 
+A flex layer -- 16-bit or per-column (PEG) ``g``, ``u``, ``x``, ``h`` or
+``y`` sites, the paper's mixed-precision and PEG recipes -- runs the JAX
+engine's "mega" route instead: one :func:`~.kernels.engine_kernels.
+int8_attn_ln` and one flex :func:`~.kernels.engine_kernels.int8_ffn_ln`,
+with the ``x`` site (the FFN input and residual) a float32 value edge
+when it leaves the int8 payload protocol.
+
 :func:`build_encoder_plan` validates a model's quantization config and
 assembles the same plan dict as the JAX package (per layer ``qkv``,
-``attn_scal``, ``attn_out``, ``ln1``, ``inter``, ``dense``, ``ln2``). This
-slice runs the all-int8 route only; configurations the JAX engine serves
-through other routes (int4 weights, flex/PEG/16-bit edges, disabled fold
-sites, 16-bit attention sites) raise :class:`EngineIncompatible` with
-"not yet ported".
+``attn_scal``, ``attn_out``, ``ln1``, ``inter``, ``dense``, ``ln2``; a
+float ``x`` edge adds ``inter["grid"]``, the edge's grid for the
+float-edge matmul). Configurations the JAX engine serves through routes
+not ported yet (int4 weights, a float layer-input / ``z`` edge, 16-bit or
+PEG q/k/v, a 16-bit ``inter.out``, 16-bit or disabled attention sites,
+disabled fold sites) raise :class:`EngineIncompatible` with "not yet
+ported".
 """
 
 from __future__ import annotations
@@ -50,10 +59,39 @@ class EngineStatic:
     # softmax may skip the max-subtraction (proven at plan time from the
     # concrete scores-site scales)
     attn_skip_max: bool = False
+    # per layer: (x_mode 'i8'|'f', x_bits, h_bits, y_bits, lnv1?, lnv2?):
+    # x = attn_out.ln.out (the FFN input), h = the ffn.dense.out fold
+    # site, y = ffn.res; lnv1 / lnv2 mark per-column (PEG) site rows of
+    # the two add+LNs
+    flex: Tuple[Tuple[str, int, int, int, bool, bool], ...] = ()
     attn_bits: Tuple[Tuple[int, ...], ...] = ()
+    # per layer: (in_mode, qkv_mode, qkv_bits, z_mode, z_bits, g_bits,
+    # u_bits, inter_mode, i_bits): the layer-input edge, the q/k/v sites,
+    # ffn.ln.out (the next layer's input), the attention block's fold
+    # ('g') and res ('u') grids, and the ffn.inter.out edge
+    io: Tuple[Tuple[str, str, int, str, int, int, int, str, int], ...] = ()
+    # per layer: whether it runs as one all-int8 int8_layer_ln, every edge
+    # an 8-bit per-tensor payload. A per-column 8-bit fold site ('g' / 'h'
+    # 'ngN') leaves flex and io at their defaults, but the all-int8 chain's
+    # add+LN reads a scalar fold site, so such a layer takes the flex route
+    int8_layer: Tuple[bool, ...] = ()
+
+    IO_DEFAULT = ("i8", "i8", 8, "i8", 8, 8, 8, "i8", 8)
+    FLEX_DEFAULT = ("i8", 8, 8, 8, False, False)
+
+    @property
+    def any_flex(self) -> bool:
+        return (any(f != self.FLEX_DEFAULT for f in self.flex)
+                or any(o != self.IO_DEFAULT for o in self.io))
 
     def layer_attn_bits(self, i: int) -> Tuple[int, ...]:
         return self.attn_bits[i] if self.attn_bits else (8, 8, 8)
+
+    def layer_flex(self, i: int):
+        return self.flex[i] if self.flex else self.FLEX_DEFAULT
+
+    def layer_io(self, i: int):
+        return self.io[i] if self.io else self.IO_DEFAULT
 
 
 def _require(cond: bool, msg: str) -> None:
@@ -173,47 +211,90 @@ def _mm_plan(int_params: Mapping, names: List[str], biases: List[Tensor],
 
 
 def _ln_plan(qcfg, qstate, params_ln: Mapping, res_site: str, ln_site: str,
-             ln_wsite: str, y_site: Tuple[Tensor, Tensor],
-             r_site: Tuple[Tensor, Tensor]) -> Tuple[Dict, bool]:
-    """gamma/beta (+quantized gamma) and the (1, 8) site scalars [y_s,
-    y_sh, r_s, r_sh, res_s, res_sh, ln_s, ln_sh] of one add+LN."""
+             ln_wsite: str, y_site: Optional[Tuple[Tensor, Tensor]],
+             r_site: Tuple[Tensor, Tensor]) -> Tuple[Dict, bool, int, Tuple]:
+    """gamma/beta (+quantized gamma) and the site params of one add+LN;
+    returns ``(plan, res_quant, res_bits, ln_edge)``.
+
+    ``plan["scal"]`` (1, 8): [y_s, y_sh, r_s, r_sh, res_s, res_sh, ln_s,
+    ln_sh]. ``y_site`` is the producing matmul's fold site when it is an
+    8-bit per-tensor payload site, else None (identity: the flex chains
+    hand the fold value over as float32). The res and ln sites may be
+    flex edges (16-bit / per-column); when either is per-column the plan
+    carries them as the (4, H) rows ``lnv`` [res_s; res_sh; ln_s; ln_sh]
+    and zeros in ``scal[4:8]``.
+    """
     gamma = params_ln["scale"].to(torch.float32)
     beta = params_ln["bias"].to(torch.float32)
+    n = gamma.shape[0]
     if ln_wsite in qcfg and qcfg[ln_wsite].enabled:
         c = qcfg[ln_wsite]
         _require(ln_wsite in qstate, f"{ln_wsite!r} not calibrated")
         gamma = Q.fake_quant(c.spec, qstate[ln_wsite]["qp"], gamma,
                              axis=0 if c.per_channel else None)
+    dev = gamma.device
+    one, zero = torch.ones((), device=dev), torch.zeros((), device=dev)
     res_quant = _act_enabled(qcfg, res_site)
+    res_bits = 8
     if res_quant:
-        res_s, res_sh = act_site_scalars(qcfg, qstate, res_site)
+        _, res_bits, res_s, res_sh = act_edge_params(qcfg, qstate, res_site)
     else:
-        res_s, res_sh = (torch.ones((), device=gamma.device),
-                         torch.zeros((), device=gamma.device))
-    l_s, l_sh = act_site_scalars(qcfg, qstate, ln_site)
-    vals = (*y_site, *r_site, res_s, res_sh, l_s, l_sh)
+        res_s, res_sh = one, zero
+    ln_edge = act_edge_params(qcfg, qstate, ln_site)
+    _, _, l_s, l_sh = ln_edge
+    y_s, y_sh = y_site if y_site is not None else (one, zero)
+    pervec = res_s.ndim > 0 or l_s.ndim > 0
+    head = [_f32(v).reshape(()) for v in (y_s, y_sh, *r_site)]
+    tail = ([zero] * 4 if pervec else
+            [_f32(v).reshape(()) for v in (res_s, res_sh, l_s, l_sh)])
     plan = {"gb": torch.stack([gamma, beta]).contiguous(),
-            "scal": torch.stack([_f32(v).reshape(()) for v in vals])
-            .reshape(1, 8)}
-    return plan, res_quant
+            "scal": torch.stack(head + tail).reshape(1, 8)}
+    if pervec:
+        plan["lnv"] = torch.stack([_bcast(res_s, n), _bcast(res_sh, n),
+                                   _bcast(l_s, n), _bcast(l_sh, n)]
+                                  ).contiguous()
+    return plan, res_quant, res_bits, ln_edge
 
 
-def _flex_reason(qcfg, qstate, p: str) -> Optional[str]:
-    """Why layer prefix ``p`` would need a flex route, else None."""
-    for site in ("attn.q.out", "attn.k.out", "attn.v.out",
-                 "attn_out.ln.out", "ffn.inter.out", "ffn.ln.out"):
+def _x_edge_grid(qcfg, qstate, site: str, edge, w8: Tensor) -> Dict:
+    """The grid of a float ``x`` value edge (``site``), for the float-edge
+    matmul that consumes it: its groups follow the site's quantizer (one
+    for a per-tensor site; a PEG site's groups in its permutation order; a
+    group per column for a per-embedding site)."""
+    c = qcfg[site]
+    _, bits, s, shift = edge
+    k = w8.shape[1]
+    zp = 2.0 ** (bits - 1) - shift
+    cols = torch.arange(k, device=w8.device)
+    if c.n_groups:
+        n_groups = c.n_groups
+        if c.permute:
+            cols = qstate[site]["perm"].to(device=w8.device)
+    else:
+        n_groups = k if s.ndim else 1
+    return EK.edge_grid(w8, s, zp, bits, n_groups, cols)
+
+
+def _flex_reason(qcfg, qstate, p: str, in_site: str) -> Optional[str]:
+    """Why layer prefix ``p`` would need an engine route that is not
+    ported yet, else None."""
+    if act_edge_params(qcfg, qstate, in_site)[0] != "i8":
+        return (f"{in_site} is a float layer-input edge (quant_dict 'L' / "
+                "'z' keys)")
+    for site in ("attn.q.out", "attn.k.out", "attn.v.out"):
         if act_edge_params(qcfg, qstate, p + site)[0] != "i8":
-            return f"{p}{site} is a 16-bit / per-embedding edge"
+            return f"{p}{site} is a 16-bit / per-embedding q/k/v edge"
+    if act_edge_params(qcfg, qstate, p + "ffn.inter.out")[0] != "i8":
+        return f"{p}ffn.inter.out is a 16-bit / per-embedding edge"
+    if act_edge_params(qcfg, qstate, p + "ffn.ln.out")[0] != "i8":
+        return f"{p}ffn.ln.out is a 16-bit / per-embedding 'z' edge"
     for site in ("attn_out.dense.out", "ffn.dense.out"):
         if not _act_enabled(qcfg, p + site):
-            return (f"{p}{site} is disabled (the non-payload residual route "
-                    "and fused_add_ln)")
-        if act_edge_params(qcfg, qstate, p + site)[0] != "i8":
-            return f"{p}{site} is a 16-bit / per-embedding fold site"
-    for site in ("attn_out.res", "ffn.res"):
-        if (_act_enabled(qcfg, p + site)
-                and act_edge_params(qcfg, qstate, p + site)[0] != "i8"):
-            return f"{p}{site} is a 16-bit / per-embedding residual site"
+            # flex recipes need both fold sites enabled; an all-int8 layer
+            # without one takes the non-payload residual route
+            return (f"{p}{site} is disabled (flex recipes need both fold "
+                    "sites enabled; the non-payload residual route and "
+                    "fused_add_ln)")
     return None
 
 
@@ -223,16 +304,15 @@ def build_encoder_plan(qcfg, qstate: Mapping, int_params: Mapping,
                        ) -> Tuple[EngineStatic, Dict]:
     """Validate and assemble the engine plan for a BERT-family encoder with
     the shared ``L{i}.*`` site naming. Raises :class:`EngineIncompatible`
-    when an edge can't ride the all-int8 payload route."""
-    layers, w4_flags, fold_flags, res_flags, attn_bits_flags = [], [], [], [], []
+    when an edge fits no ported route."""
+    layers, fold_flags, res_flags, attn_bits_flags = [], [], [], []
+    flex_flags, io_flags, int8_flags = [], [], []
     for i, lp in enumerate(layer_params):
         p = f"L{i}."
         in_site = entry_site if i == 0 else f"L{i - 1}.ffn.ln.out"
+        why = _flex_reason(qcfg, qstate, p, in_site)
+        _require(why is None, f"{why}: not yet ported")
         in_edge = act_edge_params(qcfg, qstate, in_site)
-        _require(in_edge[0] == "i8", f"{in_site} is a float value edge: "
-                 "flex layers are not yet ported")
-        why = _flex_reason(qcfg, qstate, p)
-        _require(why is None, f"{why}: flex layers are not yet ported")
         in_scal = (in_edge[2], in_edge[3])
         qkv_out = [act_site_scalars(qcfg, qstate, p + f"attn.{x}.out")
                    for x in "qkv"]
@@ -252,30 +332,52 @@ def build_encoder_plan(qcfg, qstate: Mapping, int_params: Mapping,
             [v.reshape(()) for pair in qkv_out for v in pair]
             + [sc_s, sc_sh, p_s, p_sh, c_s, c_sh]).reshape(1, 12)
 
-        g_site = act_site_scalars(qcfg, qstate, p + "attn_out.dense.out")
+        # the attn_out fold site is quant_dict 'g': flexible
+        _, g_bits, g_s, g_sh = act_edge_params(qcfg, qstate,
+                                               p + "attn_out.dense.out")
         attn_out = _mm_plan(int_params, [p + "attn_out.dense"],
                             [lp["attn_out"]["dense"]["bias"]], (c_s, c_sh),
-                            [g_site])
-        ln1, res1 = _ln_plan(qcfg, qstate, lp["attn_out"]["ln"],
-                             p + "attn_out.res", p + "attn_out.ln.out",
-                             p + "attn_out.ln.w", g_site, in_scal)
-        x_site = act_site_scalars(qcfg, qstate, p + "attn_out.ln.out")
+                            [(g_s, g_sh)])
+        # ln1's LN site is the FFN input, quant_dict 'x': flexible
+        ln1, res1, u_bits, x_edge = _ln_plan(
+            qcfg, qstate, lp["attn_out"]["ln"], p + "attn_out.res",
+            p + "attn_out.ln.out", p + "attn_out.ln.w",
+            (g_s, g_sh) if g_bits == 8 and g_s.ndim == 0 else None, in_scal)
+        x_mode, x_bits, x_s, x_sh = x_edge
+        # a float x edge carries its own values: no input params fold in
+        dev = x_s.device
+        x_scal = ((x_s, x_sh) if x_mode == "i8" else
+                  (torch.ones((), device=dev), torch.zeros((), device=dev)))
         i_site = act_site_scalars(qcfg, qstate, p + "ffn.inter.out")
         inter = _mm_plan(int_params, [p + "ffn.inter"],
-                         [lp["ffn"]["inter"]["bias"]], x_site, [i_site])
-        h_site = act_site_scalars(qcfg, qstate, p + "ffn.dense.out")
+                         [lp["ffn"]["inter"]["bias"]], x_scal, [i_site])
+        if x_mode == "f":
+            inter["grid"] = _x_edge_grid(qcfg, qstate, p + "attn_out.ln.out",
+                                         x_edge, inter["w"])
+        # the dense fold site is quant_dict 'h': flexible
+        _, h_bits, h_s, h_sh = act_edge_params(qcfg, qstate,
+                                               p + "ffn.dense.out")
         dense = _mm_plan(int_params, [p + "ffn.dense"],
-                         [lp["ffn"]["dense"]["bias"]], i_site, [h_site])
-        ln2, res2 = _ln_plan(qcfg, qstate, lp["ffn"]["ln"], p + "ffn.res",
-                             p + "ffn.ln.out", p + "ffn.ln.w", h_site,
-                             x_site)
+                         [lp["ffn"]["dense"]["bias"]], i_site, [(h_s, h_sh)])
+        # ln2's res site is quant_dict 'y': flexible; its LN site (the
+        # next layer's input) stays an int8 payload
+        ln2, res2, y_bits, _ = _ln_plan(
+            qcfg, qstate, lp["ffn"]["ln"], p + "ffn.res", p + "ffn.ln.out",
+            p + "ffn.ln.w",
+            (h_s, h_sh) if h_bits == 8 and h_s.ndim == 0 else None, x_scal)
+
         layers.append({"qkv": qkv, "attn_scal": attn_scal,
                        "attn_out": attn_out, "ln1": ln1, "inter": inter,
                        "dense": dense, "ln2": ln2})
-        w4_flags.append((False, False, False, False))
         fold_flags.append((True, True))
         res_flags.append((res1, res2))
         attn_bits_flags.append((sc_bits, p_bits, c_bits))
+        flex_flags.append((x_mode, x_bits, h_bits, y_bits, "lnv" in ln1,
+                           "lnv" in ln2))
+        io_flags.append(("i8", "i8", 8, "i8", 8, g_bits, u_bits, "i8", 8))
+        int8_flags.append(flex_flags[-1] == EngineStatic.FLEX_DEFAULT
+                          and io_flags[-1] == EngineStatic.IO_DEFAULT
+                          and g_s.ndim == 0 and h_s.ndim == 0)
 
     entry_edge = act_edge_params(qcfg, qstate, entry_site)
     entry_scal = torch.stack((entry_edge[2], entry_edge[3])).reshape(1, 2)
@@ -287,11 +389,13 @@ def build_encoder_plan(qcfg, qstate: Mapping, int_params: Mapping,
     worst = max((2.0 ** attn_bits_flags[li][0]) * float(lp_["attn_scal"][0, 6])
                 for li, lp_ in enumerate(layers))
     bound = worst / float(np.sqrt(head_dim)) * float(np.log2(np.e))
+    n = len(layer_params)
     static = EngineStatic(
-        n_layers=len(layer_params), n_heads=n_heads, ln_eps=ln_eps,
-        hidden_act=hidden_act, w4=tuple(w4_flags), fold=tuple(fold_flags),
+        n_layers=n, n_heads=n_heads, ln_eps=ln_eps, hidden_act=hidden_act,
+        w4=((False, False, False, False),) * n, fold=tuple(fold_flags),
         res_quant=tuple(res_flags), attn_skip_max=bound < 100.0,
-        attn_bits=tuple(attn_bits_flags))
+        flex=tuple(flex_flags), attn_bits=tuple(attn_bits_flags),
+        io=tuple(io_flags), int8_layer=tuple(int8_flags))
     return static, {"layers": layers, "entry_scal": entry_scal}
 
 
@@ -303,8 +407,10 @@ def encoder_engine(h: Tensor, mask_bias: Tensor, static: EngineStatic,
     ``mask_bias``: (B, T) float32 additive attention bias. Returns the last
     layer's ln-site value, (B, T, H) float32. ``backend='kernels'`` runs
     each layer through the kernel wrappers (the CUDA kernels on the card,
-    their plain versions on the CPU); ``'plain'`` runs the plain layer
-    version on any device, the yardstick the kernels are held against.
+    their plain versions on the CPU); ``'plain'`` runs the plain versions
+    on any device, the yardstick the kernels are held against. An all-int8
+    layer is one ``int8_layer_ln``; a flex layer one ``int8_attn_ln`` and
+    one flex ``int8_ffn_ln``.
     ``hidden_act='gelu'`` runs as the tanh form ``gelu_new``, the JAX
     engine's default ``gelu_impl='tanh'``.
     """
@@ -313,12 +419,39 @@ def encoder_engine(h: Tensor, mask_bias: Tensor, static: EngineStatic,
     b, t, hdim = h.shape
     hidden_act = ("gelu_new" if static.hidden_act == "gelu"
                   else static.hidden_act)
-    layer_fn = EK.int8_layer_ln if backend == "kernels" else EK.int8_layer_ln_ref
+    kern = backend == "kernels"
+    layer_fn = EK.int8_layer_ln if kern else EK.int8_layer_ln_ref
+    attn_fn = EK.int8_attn_ln if kern else EK.int8_attn_ln_ref
+    ffn_fn = EK.int8_ffn_ln if kern else EK.int8_ffn_ln_ref
     es = plan["entry_scal"]
     h8 = EK.quantize_payload(h.reshape(b * t, hdim), es[0, 0], es[0, 1])
     mask_bias = mask_bias.to(torch.float32).contiguous()
     for i, lp in enumerate(plan["layers"]):
         res1, res2 = static.res_quant[i]
+        if not static.int8_layer[i]:
+            # the flex route: the x edge (the FFN input and its residual)
+            # is an int8 payload or a float32 value edge
+            x_mode, x_bits, h_bits, y_bits, _, _ = static.layer_flex(i)
+            g_bits, u_bits = static.layer_io(i)[5:7]
+            hx = attn_fn(
+                h8, lp["qkv"]["w"], lp["qkv"]["vecs"], lp["qkv"]["scal"],
+                mask_bias, lp["attn_scal"], lp["attn_out"]["w"],
+                lp["attn_out"]["vecs"], lp["attn_out"]["scal"],
+                lp["ln1"]["gb"], lp["ln1"]["scal"], lp["ln1"].get("lnv"),
+                n_heads=static.n_heads, seq=t, eps=static.ln_eps,
+                res_quant=res1, skip_max=static.attn_skip_max,
+                ln_out="emit" if x_mode == "i8" else "f", ln_bits=x_bits,
+                attn_bits=static.layer_attn_bits(i), g_bits=g_bits,
+                u_bits=u_bits)
+            h8 = ffn_fn(
+                hx, lp["inter"]["w"], lp["inter"]["vecs"],
+                lp["inter"]["scal"], lp["dense"]["w"], lp["dense"]["vecs"],
+                lp["dense"]["scal"], hx, lp["ln2"]["gb"], lp["ln2"]["scal"],
+                lp["ln2"].get("lnv"), activation=hidden_act,
+                eps=static.ln_eps, res_quant=res2, in_mode=x_mode,
+                res_mode=x_mode, h_bits=h_bits, y_bits=y_bits,
+                x_grid=lp["inter"].get("grid"))
+            continue
         h8 = layer_fn(
             h8, lp["qkv"]["w"], lp["qkv"]["vecs"], lp["qkv"]["scal"],
             mask_bias, lp["attn_scal"], lp["attn_out"]["w"],
@@ -332,5 +465,11 @@ def encoder_engine(h: Tensor, mask_bias: Tensor, static: EngineStatic,
             skip_max=static.attn_skip_max,
             attn_bits=static.layer_attn_bits(i))
     ln2 = plan["layers"][-1]["ln2"]
-    hf = EK.dequantize_payload(h8, ln2["scal"][0, 6], ln2["scal"][0, 7])
+    if "lnv" in ln2:
+        # a per-column plan carries the (per-tensor) ffn.ln.out params
+        # broadcast in lnv rows 2/3
+        s_l, sh_l = ln2["lnv"][2, 0], ln2["lnv"][3, 0]
+    else:
+        s_l, sh_l = ln2["scal"][0, 6], ln2["scal"][0, 7]
+    hf = EK.dequantize_payload(h8, s_l, sh_l)
     return hf.reshape(b, t, hdim)

@@ -2,7 +2,8 @@
 
 Each ``csrc/*.cu`` file has a plain C interface and compiles on its own
 with ``nvcc`` into a shared library, which :func:`load` opens with
-``ctypes``. All sources compile in parallel, once per content hash, into
+``ctypes``. All sources compile in parallel, once per content hash (of
+the source, the shared ``csrc/*.cuh`` headers and the flags), into
 ``_build/`` beside this file (listed in ``.gitignore``). Nothing happens
 at import time: the first kernel launch builds.
 
@@ -26,7 +27,8 @@ from typing import Dict
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-SOURCES = ("int8_matmul", "int8_attention", "add_ln_payload")
+SOURCES = ("int8_matmul", "int8_attention", "add_ln_payload",
+           "float_edge_matmul", "flex_add_ln")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
@@ -37,11 +39,18 @@ _F = ctypes.c_float
 # argument types of each library's entry point (all return cudaError_t)
 _SIGNATURES = {
     "int8_matmul": ("tq_int8_matmul",
-                    (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P)),
+                    (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _F,
+                     _P)),
     "int8_attention": ("tq_int8_attention",
                        (_P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _I, _P)),
     "add_ln_payload": ("tq_add_ln_payload",
                        (_P, _P, _P, _P, _P, _I, _I, _F, _I, _P)),
+    "float_edge_matmul": ("tq_float_edge_matmul",
+                          (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                           _I, _I, _F, _I, _I, _F, _F, _F, _P)),
+    "flex_add_ln": ("tq_flex_add_ln",
+                    (_P, _P, _I, _P, _P, _P, _P, _P, _I, _I, _F, _I, _F, _F,
+                     _F, _F, _P)),
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
@@ -60,7 +69,8 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
+    src = (CSRC / f"{name}.cu").read_bytes() + b"".join(
+        h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"{name}-{digest[:16]}.so"
 

@@ -3,12 +3,13 @@
 //
 // Replaces: transformer_quantization_tpu/ops/pallas/engine_kernels.py
 //   int8_matmul (_mm_kernel / _mm_body / _int_dot), and the matmul halves
-//   of int8_matmul_add_ln, int8_ffn_ln and int8_layer_ln.
+//   of int8_matmul_add_ln, int8_ffn_ln, int8_attn_ln and int8_layer_ln.
 //
 //   y   = (in_s * wscale[n]) * (acc + in_shift * colsum[n]) + bias[n]
 //   y   = act(y)                              (none | gelu_new)
 //   out = emit:  clip(rint(y / out_s[n]) - out_sh[n], -128, 127)  int8
-//         fold:  out_s[n] * (that level + out_sh[n])              float
+//         fold:  out_s[n] * (clip(...) + out_sh[n])               float
+//                (on the fold site's out_bits grid: [lo, hi] up to 16 bits)
 //         float: y                                                float
 //
 // What bounds it on the card: the int8 tensor-core rate. At BERT-base
@@ -29,83 +30,20 @@
 // the file is built with -fmad=false so no multiply-add is contracted.
 // rintf rounds half to even like torch.round / jnp.round.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "mm_common.cuh"
 
 namespace {
 
-constexpr int BM = 128;
+using namespace tqmm;
+
 constexpr int BN = 128;
-constexpr int BK = 64;
-constexpr int LDS = BK + 16;   // padded smem row, bytes
-constexpr int THREADS = 256;
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
-                                           bool pred) {
-  unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  int n = pred ? 16 : 0;  // 0 bytes read -> the 16 smem bytes are zeroed
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-               "l"(gmem), "r"(n));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-__device__ __forceinline__ void cp_async_wait1() {
-  asm volatile("cp.async.wait_group 1;\n" ::);
-}
-
-__device__ __forceinline__ void mma_s8(int* c, const unsigned* a,
-                                       const unsigned* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-__device__ __forceinline__ float gelu_new(float x, float c) {
-  // 0.5 * x * (1.0 + tanh(c * (x + 0.044715 * x * x * x)))
-  float half_x = 0.5f * x;
-  float cube = 0.044715f * x;
-  cube = cube * x;
-  cube = cube * x;
-  float u = c * (x + cube);
-  return half_x * (1.0f + tanhf(u));
-}
-
-template <int ACT, int OUT>
-__device__ __forceinline__ void epilogue_store(
-    float accf, int row, int col, int N, float in_s, float in_sh,
-    const float* __restrict__ vecs, float gelu_c, void* out) {
-  const float ws = vecs[col];
-  const float cs = vecs[N + col];
-  const float bias = vecs[2 * N + col];
-  float y = (in_s * ws) * (accf + in_sh * cs) + bias;
-  if (ACT == 1) y = gelu_new(y, gelu_c);
-  if (OUT == 2) {
-    static_cast<float*>(out)[(size_t)row * N + col] = y;
-    return;
-  }
-  const float os = vecs[3 * N + col];
-  const float osh = vecs[4 * N + col];
-  float r = rintf(y / os) - osh;
-  r = fminf(fmaxf(r, -128.0f), 127.0f);
-  if (OUT == 0) {
-    static_cast<int8_t*>(out)[(size_t)row * N + col] =
-        static_cast<int8_t>(__float2int_rn(r));
-  } else {
-    static_cast<float*>(out)[(size_t)row * N + col] = os * (r + osh);
-  }
-}
 
 template <int ACT, int OUT>
 __global__ void __launch_bounds__(THREADS)
     int8_mm_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
                    const float* __restrict__ vecs,
                    const float* __restrict__ scal, void* __restrict__ out,
-                   int M, int N, int K, float gelu_c) {
+                   int M, int N, int K, float lo, float hi, float gelu_c) {
   __shared__ __align__(16) int8_t sA[2][BM * LDS];
   __shared__ __align__(16) int8_t sB[2][BN * LDS];
 
@@ -160,23 +98,15 @@ __global__ void __launch_bounds__(THREADS)
       unsigned af[4][4];
       unsigned bf[4][2];
 #pragma unroll
-      for (int mi = 0; mi < 4; ++mi) {
-        const int8_t* p = as + (wm + mi * 16 + g) * LDS + kk + t * 4;
-        af[mi][0] = *reinterpret_cast<const unsigned*>(p);
-        af[mi][1] = *reinterpret_cast<const unsigned*>(p + 8 * LDS);
-        af[mi][2] = *reinterpret_cast<const unsigned*>(p + 16);
-        af[mi][3] = *reinterpret_cast<const unsigned*>(p + 8 * LDS + 16);
-      }
+      for (int mi = 0; mi < 4; ++mi)
+        load_a_frag(af[mi], as, LDS, wm + mi * 16, kk, g, t);
 #pragma unroll
-      for (int ni = 0; ni < 4; ++ni) {
-        const int8_t* p = bs + (wn + ni * 8 + g) * LDS + kk + t * 4;
-        bf[ni][0] = *reinterpret_cast<const unsigned*>(p);
-        bf[ni][1] = *reinterpret_cast<const unsigned*>(p + 16);
-      }
+      for (int ni = 0; ni < 4; ++ni)
+        load_b_frag(bf[ni], bs, wn + ni * 8, kk, g, t);
 #pragma unroll
       for (int mi = 0; mi < 4; ++mi)
 #pragma unroll
-        for (int ni = 0; ni < 4; ++ni) mma_s8(acc[mi][ni], af[mi], bf[ni]);
+        for (int ni = 0; ni < 4; ++ni) mma_k32<false>(acc[mi][ni], af[mi], bf[ni]);
     }
     __syncthreads();
   }
@@ -192,9 +122,16 @@ __global__ void __launch_bounds__(THREADS)
       for (int r = 0; r < 4; ++r) {
         const int row = m0 + wm + mi * 16 + g + (r >= 2 ? 8 : 0);
         const int cc = col + (r & 1);
-        if (row < M && cc < N)
-          epilogue_store<ACT, OUT>(__int2float_rn(acc[mi][ni][r]), row, cc,
-                                   N, in_s, in_sh, vecs, gelu_c, out);
+        if (row < M && cc < N) {
+          const float ws = vecs[cc];
+          const float cs = vecs[N + cc];
+          const float bias = vecs[2 * N + cc];
+          const float y =
+              (in_s * ws) * (__int2float_rn(acc[mi][ni][r]) + in_sh * cs) +
+              bias;
+          store_out<ACT, OUT>(y, (size_t)row * N + cc, cc, N, vecs, lo, hi,
+                              gelu_c, out);
+        }
       }
     }
   }
@@ -203,21 +140,22 @@ __global__ void __launch_bounds__(THREADS)
 template <int ACT, int OUT>
 cudaError_t launch(const int8_t* x, const int8_t* w, const float* vecs,
                    const float* scal, void* out, int M, int N, int K,
-                   float gelu_c, cudaStream_t stream) {
+                   float lo, float hi, float gelu_c, cudaStream_t stream) {
   dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
   int8_mm_kernel<ACT, OUT><<<grid, THREADS, 0, stream>>>(
-      x, w, vecs, scal, out, M, N, K, gelu_c);
+      x, w, vecs, scal, out, M, N, K, lo, hi, gelu_c);
   return cudaGetLastError();
 }
 
 }  // namespace
 
 // act: 0 none, 1 gelu_new. out_mode: 0 emit (int8), 1 fold (f32),
-// 2 float (f32). Returns the launch's cudaError_t.
+// 2 float (f32). [lo, hi]: the output site's level bounds (emit: 8-bit).
+// Returns the launch's cudaError_t.
 extern "C" int tq_int8_matmul(const void* x, const void* w, const void* vecs,
                               const void* scal, void* out, int M, int N,
-                              int K, int act, int out_mode, float gelu_c,
-                              void* stream) {
+                              int K, int act, int out_mode, float lo,
+                              float hi, float gelu_c, void* stream) {
   const int8_t* xp = static_cast<const int8_t*>(x);
   const int8_t* wp = static_cast<const int8_t*>(w);
   const float* vp = static_cast<const float*>(vecs);
@@ -227,12 +165,12 @@ extern "C" int tq_int8_matmul(const void* x, const void* w, const void* vecs,
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t e;
   switch (act * 3 + out_mode) {
-    case 0: e = launch<0, 0>(xp, wp, vp, sp, out, M, N, K, gelu_c, st); break;
-    case 1: e = launch<0, 1>(xp, wp, vp, sp, out, M, N, K, gelu_c, st); break;
-    case 2: e = launch<0, 2>(xp, wp, vp, sp, out, M, N, K, gelu_c, st); break;
-    case 3: e = launch<1, 0>(xp, wp, vp, sp, out, M, N, K, gelu_c, st); break;
-    case 4: e = launch<1, 1>(xp, wp, vp, sp, out, M, N, K, gelu_c, st); break;
-    default: e = launch<1, 2>(xp, wp, vp, sp, out, M, N, K, gelu_c, st); break;
+    case 0: e = launch<0, 0>(xp, wp, vp, sp, out, M, N, K, lo, hi, gelu_c, st); break;
+    case 1: e = launch<0, 1>(xp, wp, vp, sp, out, M, N, K, lo, hi, gelu_c, st); break;
+    case 2: e = launch<0, 2>(xp, wp, vp, sp, out, M, N, K, lo, hi, gelu_c, st); break;
+    case 3: e = launch<1, 0>(xp, wp, vp, sp, out, M, N, K, lo, hi, gelu_c, st); break;
+    case 4: e = launch<1, 1>(xp, wp, vp, sp, out, M, N, K, lo, hi, gelu_c, st); break;
+    default: e = launch<1, 2>(xp, wp, vp, sp, out, M, N, K, lo, hi, gelu_c, st); break;
   }
   return static_cast<int>(e);
 }

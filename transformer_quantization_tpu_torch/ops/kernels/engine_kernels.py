@@ -4,32 +4,45 @@ Counterpart of ``transformer_quantization_tpu/ops/pallas/engine_kernels.py``.
 Activations travel between matmuls as int8 payloads: value
 ``s * (p + shift)``, ``shift = 128 - zero_point`` for asymmetric sites.
 
-Three kernels are written by hand for Hopper (``csrc/``):
+Five kernels are written by hand for Hopper (``csrc/``):
 
 - :func:`int8_matmul` -- payload matmul with the dequant fold, bias,
   optional ``gelu_new``, and a per-column output site (``emit`` int8
-  payload, ``fold`` fake-quantized float, or raw ``float``);
+  payload, ``fold`` fake-quantized float on an ``out_bits`` grid, or raw
+  ``float``);
 - :func:`int8_attention` -- scores, scores site, exp2 softmax, probs
   payload, probs @ v and the context payload, per (batch row, head);
 - :func:`fused_add_ln_payload` -- payload + payload residual add, res
-  site, one-pass LayerNorm, ln payload.
+  site, one-pass LayerNorm, ln payload;
+- :func:`float_edge_matmul` -- the matmul of a float value edge (a 16-bit
+  or per-column site of the mixed / PEG recipes) against an int8 weight,
+  contracted exactly on int8 tensor cores from the edge's grid levels;
+- :func:`flex_add_ln` -- float32 y + payload or float residual, res and
+  ln sites per tensor or per column (``lnv``) on 8- or 16-bit grids,
+  LayerNorm, and an int8 payload or a float value edge out.
 
 An H100 SM cannot hold whole weight matrices the way the TPU kernels held
 them in VMEM, so the TPU's fused forms are thin compositions here with the
 JAX signatures; the JAX package states each fused form bit-identical to
 the chain: :func:`int8_matmul_add_ln` = matmul(emit on the fold site) ->
-add+LN; :func:`int8_ffn_ln` = matmul(act, emit) -> matmul_add_ln;
-:func:`int8_layer_ln` = qkv matmul -> attention -> matmul_add_ln ->
-ffn_ln, seven launches per encoder layer.
+add+LN; :func:`int8_layer_ln` = qkv matmul -> attention -> matmul_add_ln
+-> inter matmul(act, emit) -> matmul_add_ln, seven launches per all-int8
+encoder layer. The flex forms of the mixed and PEG recipes:
+:func:`int8_attn_ln` = qkv matmul -> attention -> attn_out matmul (fold)
+-> flex add+LN, and :func:`int8_ffn_ln` = inter matmul (float-edge or
+payload) -> dense matmul (fold) -> flex add+LN.
 
 Each ``*_ref`` repeats the JAX ``*_ref`` operation for operation (same
 association order, division where it divides), with one deliberate
 difference: the row sums of the softmax and of LayerNorm accumulate in
 float64 and round once to float32, and LayerNorm takes ``1 / sqrt`` (both
-IEEE-rounded) for ``rsqrt``. The result then does not depend on the
-summation order or the device, so the kernels, which do the same, agree
-with these versions bit for bit; against the JAX oracles (float32 sums)
-a payload may sit one level off on rare elements. A wrapper runs the
+IEEE-rounded) for ``rsqrt``; and the float-edge contraction, which JAX
+computes as a float32 dot product, is the exact integer contraction of
+the edge's grid levels (:func:`float_edge_matmul_ref`). The result then
+does not depend on the summation order or the device, so the kernels,
+which do the same, agree with these versions bit for bit; against the
+JAX oracles (float32 sums) a payload may sit one level off on rare
+elements. A wrapper runs the
 plain version for a tensor on the CPU; for a CUDA tensor it launches its
 kernel or raises. :data:`LAUNCHES` counts kernel launches per wrapper.
 """
@@ -52,7 +65,8 @@ Tensor = torch.Tensor
 
 # kernel launches per wrapper; a wrapper adds one only where it launches
 LAUNCHES: Dict[str, int] = {"int8_matmul": 0, "int8_attention": 0,
-                            "fused_add_ln_payload": 0}
+                            "fused_add_ln_payload": 0,
+                            "float_edge_matmul": 0, "flex_add_ln": 0}
 
 LOG2E = float(np.float32(np.log2(np.e)))
 
@@ -110,13 +124,27 @@ def _attn3(attn_bits) -> Tuple[int, int, int]:
     return (ab[0], ab[1], ab[2] if len(ab) > 2 else 8)
 
 
-def _require_i8(w4: bool, in_mode: str, what: str) -> None:
+def _require_w8(w4: bool, what: str) -> None:
     if w4:
         raise NotImplementedError(f"{what}: int4 weights (w4) are not yet "
                                   "ported")
-    if in_mode != "i8":
-        raise NotImplementedError(f"{what}: float input edges "
-                                  "(in_mode='f') are not yet ported")
+
+
+def _out_site(y, vecs, activation, out_mode, out_bits):
+    """Activation and the per-column output site of a matmul (rows 3/4
+    of ``vecs``), on an ``out_bits`` grid."""
+    if out_mode == "emit" and out_bits != 8:
+        raise ValueError("an emitted payload is 8-bit (out_bits=8)")
+    act = ACTS[activation]
+    if act is not None:
+        y = act(y)
+    if out_mode == "float":
+        return y
+    lo, hi = _clip_bounds(out_bits)
+    r = torch.clamp(torch.round(y / vecs[3]) - vecs[4], lo, hi)
+    if out_mode == "emit":
+        return r.to(torch.int8)
+    return vecs[3] * (r + vecs[4])
 
 
 # ---------------------------------------------------------------------------
@@ -125,23 +153,103 @@ def _require_i8(w4: bool, in_mode: str, what: str) -> None:
 
 
 def int8_matmul_ref(x8, w8, vecs, scalars, *, activation=None,
-                    out_mode="emit", w4=False, in_mode="i8"):
+                    out_mode="emit", w4=False, in_mode="i8", out_bits=8,
+                    in_grid=None):
     """``act(s_x s_w (x8 @ w8^T + shift colsum) + b)`` then the per-column
     output site. ``vecs`` rows: [wscale, colsum, bias, out_s, out_shift];
-    ``scalars``: (1, 2) [in_s, in_shift]."""
-    _require_i8(w4, in_mode, "int8_matmul")
+    ``scalars``: (1, 2) [in_s, in_shift]. ``in_mode='f'``: ``x8`` is a
+    float value edge on the grid ``in_grid`` (:func:`edge_grid`), and the
+    product is :func:`float_edge_matmul_ref`'s."""
+    _require_w8(w4, "int8_matmul")
+    if in_mode == "f":
+        _check_grid_weight(in_grid, w8)
+        return float_edge_matmul_ref(x8, vecs, in_grid,
+                                     activation=activation,
+                                     out_mode=out_mode, out_bits=out_bits)
+    if in_mode != "i8":
+        raise ValueError(f"unknown in_mode {in_mode!r}")
     acc = exact_int_matmul(x8, w8).to(torch.float32)
     in_s, in_shift = scalars[0, 0], scalars[0, 1]
     y = (in_s * vecs[0]) * (acc + in_shift * vecs[1]) + vecs[2]
-    act = ACTS[activation]
-    if act is not None:
-        y = act(y)
-    if out_mode == "float":
-        return y
-    r = torch.clamp(torch.round(y / vecs[3]) - vecs[4], -128.0, 127.0)
-    if out_mode == "emit":
-        return r.to(torch.int8)
-    return vecs[3] * (r + vecs[4])
+    return _out_site(y, vecs, activation, out_mode, out_bits)
+
+
+def edge_grid(w8: Tensor, s: Tensor, zp: Tensor, bits: int,
+              n_groups: int, cols: Tensor) -> Dict:
+    """The grid of a float value edge ``x[:, k] = s_k * (q_k - zp_k)``
+    (``q_k`` an integer level in [0, 2^bits - 1]) consumed by the weight
+    ``w8`` (N, K): the K columns taken in the order ``cols`` fall into
+    ``n_groups`` equal groups, each with one scale and zero point (one
+    group for a per-tensor site; a PEG site's groups in its permutation
+    order). Carries the weight's columns in that order and their per-group
+    int32 column sums, for :func:`float_edge_matmul_ref` and its kernel."""
+    k = w8.shape[1]
+    if k % n_groups:
+        raise ValueError(f"{k} columns do not split into {n_groups} groups")
+    size = k // n_groups
+    cols = cols.to(torch.int64)
+    s_c = torch.broadcast_to(s.reshape(-1), (k,))[cols].reshape(n_groups,
+                                                                size)
+    z_c = torch.broadcast_to(zp.reshape(-1), (k,))[cols].reshape(n_groups,
+                                                                 size)
+    if not (torch.equal(s_c, s_c[:, :1].expand_as(s_c))
+            and torch.equal(z_c, z_c[:, :1].expand_as(z_c))):
+        raise ValueError("edge grid: the site's params vary inside a group")
+    wp = w8[:, cols].contiguous()
+    s_g = s_c[:, 0].to(torch.float32).contiguous()
+    return {"cols": cols.contiguous(), "bits": int(bits), "s": s_g,
+            "inv_s": (1.0 / s_g).contiguous(),
+            "zp": z_c[:, 0].to(torch.float32).contiguous(), "w": wp,
+            "gcs": wp.to(torch.int32).reshape(wp.shape[0], n_groups, size)
+            .sum(dim=-1).to(torch.int32).t().contiguous()}
+
+
+def _check_grid_weight(grid, w8) -> None:
+    if grid is None:
+        raise ValueError("in_mode='f' needs the input edge's grid "
+                         "(in_grid / x_grid, see edge_grid)")
+    if tuple(grid["w"].shape) != tuple(w8.shape):
+        raise ValueError(f"edge grid weight {tuple(grid['w'].shape)} does "
+                         f"not match the weight {tuple(w8.shape)}")
+
+
+def edge_levels(x: Tensor, grid: Dict) -> Tensor:
+    """The float edge's integer grid levels, columns in group order:
+    ``clip(rint(x / s_g) + zp_g, 0, 2^bits - 1)`` with ``x * (1 / s_g)``
+    for the division. Exact for on-grid values of up to 16 bits: the
+    product's relative error is at most ~2^-23, under half a level for
+    |q - zp| < 2^16."""
+    g = grid["s"].numel()
+    size = x.shape[1] // g
+    xp = x.to(torch.float32).index_select(1, grid["cols"])
+    inv = torch.repeat_interleave(grid["inv_s"], size)
+    zp = torch.repeat_interleave(grid["zp"], size)
+    return torch.clamp(torch.round(xp * inv) + zp, 0.0,
+                       float(2 ** grid["bits"] - 1))
+
+
+def float_edge_matmul_ref(x, vecs, grid, *, activation=None,
+                          out_mode="emit", out_bits=8):
+    """The float-edge matmul ``act(wscale * (x @ w^T) + b)`` then the
+    output site, with the product taken exactly: per group g,
+    ``acc_g = q_g @ w_g^T - zp_g * colsum_g`` in integers (float64 holds
+    every partial sum: |acc| < 2^53), then ``x @ w^T = sum_g s_g *
+    f32(acc_g)``, summed in group order. The JAX oracle's float32 dot
+    product differs from it by float32 rounding only."""
+    q = edge_levels(x, grid).to(torch.float64)
+    wp = grid["w"].to(torch.float64)
+    g = grid["s"].numel()
+    size = q.shape[1] // g
+    y = None
+    for i in range(g):
+        cols = slice(i * size, (i + 1) * size)
+        acc = (torch.matmul(q[:, cols], wp[:, cols].t())
+               - grid["zp"][i].to(torch.float64)
+               * grid["gcs"][i].to(torch.float64))
+        t = grid["s"][i] * acc.to(torch.float32)
+        y = t if y is None else y + t
+    y = vecs[0] * y + vecs[2]
+    return _out_site(y, vecs, activation, out_mode, out_bits)
 
 
 def _emit_ctx(ctx, pv_over_c, c_s, c_sh, c_bits: int):
@@ -205,7 +313,9 @@ def int8_attention_ref(qkv8, mask_bias, scalars, *, n_heads, seq,
 
 
 def _ln_body_ref(x, gb, sv, *, eps, res_quant, res_bits=8, ln_bits=8):
-    """res-site fake-quant -> one-pass LayerNorm -> ln-site levels."""
+    """res-site fake-quant -> one-pass LayerNorm -> ln-site levels. ``sv``
+    = (res_s, res_sh, ln_s, ln_sh): scalars, or (1, H) per-column rows of
+    PEG sites; ``res_bits`` / ``ln_bits`` are the two sites' grids."""
     res_s, res_sh, ln_s, ln_sh = sv
     if res_quant:
         lo, hi = _clip_bounds(res_bits)
@@ -233,6 +343,35 @@ def fused_add_ln_payload_ref(y8, r8, gb, scalars, *, eps, res_quant=True):
         torch.int8)
 
 
+def flex_add_ln_ref(y, r, gb, scalars, lnv=None, *, eps, res_quant=True,
+                    res_mode="i8", res_bits=8, ln_bits=8, ln_out="emit"):
+    """Float y + residual -> res site -> LayerNorm -> ln site: the add+LN
+    tail of the JAX flex forms (``_ffn_kernel`` / ``_attn_mega_kernel``).
+    ``r``: int8 payload with ``scalars[0, 2:4]`` (``res_mode='i8'``) or
+    the float site value itself (``'f'``). Sites: ``scalars[0, 4:8]``, or
+    the (4, H) per-column rows ``lnv`` [res_s; res_sh; ln_s; ln_sh].
+    ``ln_out``: ``'emit'`` int8 payload or ``'f'`` the float value edge
+    ``ln_s * (level + ln_sh)``."""
+    s = scalars[0]
+    if res_mode == "i8":
+        x = y + s[2] * (r.to(torch.float32) + s[3])
+    elif res_mode == "f":
+        x = y + r.to(torch.float32)
+    else:
+        raise ValueError(f"unknown res_mode {res_mode!r}")
+    sv = ((lnv[0:1], lnv[1:2], lnv[2:3], lnv[3:4]) if lnv is not None
+          else (s[4], s[5], s[6], s[7]))
+    q = _ln_body_ref(x, gb, sv, eps=eps, res_quant=res_quant,
+                     res_bits=res_bits, ln_bits=ln_bits)
+    if ln_out == "emit":
+        if ln_bits != 8:
+            raise ValueError("an emitted payload is 8-bit (ln_bits=8)")
+        return q.to(torch.int8)
+    if ln_out != "f":
+        raise ValueError(f"unknown ln_out {ln_out!r}")
+    return sv[2] * (q + sv[3])
+
+
 def int8_matmul_add_ln_ref(x8, w8, vecs, scalars, r8, gb, ln_scalars, *,
                            eps, res_quant=True, w4=False, in_mode="i8"):
     """Matmul with the fold site -> + residual payload -> res site -> LN ->
@@ -245,36 +384,63 @@ def int8_matmul_add_ln_ref(x8, w8, vecs, scalars, r8, gb, ln_scalars, *,
         torch.int8)
 
 
-def int8_ffn_ln_ref(x8, wi, vi, si, wd, vd, sd, r8, gb, ln_scalars, *,
-                    activation, eps, res_quant=True, w4i=False, w4d=False):
-    """Inter matmul + act -> inter payload -> dense matmul (fold) ->
-    + residual -> LN -> ln payload."""
+def _require_payload_inter(inter_mode: str) -> None:
+    if inter_mode != "i8":
+        raise NotImplementedError("a 16-bit ffn.inter.out edge "
+                                  "(inter_mode='f') is not yet ported")
+
+
+def int8_ffn_ln_ref(x8, wi, vi, si, wd, vd, sd, r8, gb, ln_scalars,
+                    lnv=None, *, activation, eps, res_quant=True, w4i=False,
+                    w4d=False, in_mode="i8", res_mode="i8", h_bits=8,
+                    y_bits=8, ln_out="emit", ln_bits=8, inter_mode="i8",
+                    x_grid=None):
+    """Inter matmul + act -> inter payload -> dense matmul (fold on the
+    ``h_bits`` grid) -> + residual -> res site (``y_bits``) -> LN -> ln
+    site. The flex keywords are the JAX ones: ``in_mode='f'`` takes the
+    FFN input as a float value edge on the grid ``x_grid``,
+    ``res_mode='f'`` the residual likewise, ``lnv`` per-column site rows,
+    ``ln_out='f'`` a float value out."""
+    _require_payload_inter(inter_mode)
     i8 = int8_matmul_ref(x8, wi, vi, si, activation=activation, w4=w4i,
-                         out_mode="emit")
+                         out_mode="emit", in_mode=in_mode, in_grid=x_grid)
     y = int8_matmul_ref(i8, wd, vd, sd, activation=None, out_mode="fold",
-                        w4=w4d)
-    s = ln_scalars[0]
-    y = y + s[2] * (r8.to(torch.float32) + s[3])
-    return _ln_ref_body(y, gb, s, eps=eps, res_quant=res_quant).to(
-        torch.int8)
+                        w4=w4d, out_bits=h_bits)
+    return flex_add_ln_ref(y, r8, gb, ln_scalars, lnv, eps=eps,
+                           res_quant=res_quant, res_mode=res_mode,
+                           res_bits=y_bits, ln_bits=ln_bits, ln_out=ln_out)
+
+
+def _require_payload_layer_input(in_mode: str, qkv_mode: str) -> None:
+    if in_mode != "i8":
+        raise NotImplementedError("a float layer-input edge (in_mode='f', "
+                                  "quant_dict 'L' / 'z' keys) is not yet "
+                                  "ported")
+    if qkv_mode != "i8":
+        raise NotImplementedError("value-space q/k/v attention "
+                                  "(qkv_mode='f') is not yet ported")
 
 
 def int8_attn_ln_ref(x8, wq, vq, sq, mask_bias, attn_scal, wo, vo, so, gb,
-                     ln_scalars, *, n_heads, seq, eps, res_quant=True,
-                     skip_max=False, w4q=False, w4o=False,
-                     attn_bits=(8, 8)):
-    """q|k|v matmul -> attention -> attn_out (fold) -> + layer input ->
-    LN -> ln payload (the all-int8 form)."""
+                     ln_scalars, lnv=None, *, n_heads, seq, eps,
+                     res_quant=True, skip_max=False, w4q=False, w4o=False,
+                     ln_out="emit", ln_bits=8, attn_bits=(8, 8),
+                     in_mode="i8", qkv_mode="i8", g_bits=8, u_bits=8):
+    """q|k|v matmul -> attention -> attn_out (fold on the ``g_bits``
+    grid) -> + layer input -> res site (``u_bits``) -> LN -> ln site: the
+    payload ``'emit'`` or, for a 16-bit / PEG ``x`` site, the float value
+    edge (``ln_out='f'``, ``lnv`` per-column rows). Value edges are
+    float32 (JAX's ``out_dtype=float32``)."""
+    _require_payload_layer_input(in_mode, qkv_mode)
     qkv8 = int8_matmul_ref(x8, wq, vq, sq, activation=None,
                            out_mode="emit", w4=w4q)
     c8 = int8_attention_ref(qkv8, mask_bias, attn_scal, n_heads=n_heads,
                             seq=seq, skip_max=skip_max, attn_bits=attn_bits)
     y = int8_matmul_ref(c8, wo, vo, so, activation=None, out_mode="fold",
-                        w4=w4o)
-    s = ln_scalars[0]
-    y = y + s[2] * (x8.to(torch.float32) + s[3])
-    return _ln_ref_body(y, gb, s, eps=eps, res_quant=res_quant).to(
-        torch.int8)
+                        w4=w4o, out_bits=g_bits)
+    return flex_add_ln_ref(y, x8, gb, ln_scalars, lnv, eps=eps,
+                           res_quant=res_quant, res_mode="i8",
+                           res_bits=u_bits, ln_bits=ln_bits, ln_out=ln_out)
 
 
 def int8_layer_ln_ref(x8, wq, vq, sq, mask_bias, attn_scal, wo, vo, so,
@@ -326,18 +492,41 @@ _MM_ACTS = {None: 0, "gelu_new": 1}
 _MM_OUT = {"emit": 0, "fold": 1, "float": 2}
 
 
+def _mm_modes(activation, out_mode: str, out_bits: int, what: str):
+    """The kernels' (act, out_mode, lo, hi) codes for an epilogue."""
+    if activation not in _MM_ACTS:
+        raise NotImplementedError(f"{what} kernel: activation "
+                                  f"{activation!r} is not yet ported")
+    if out_mode not in _MM_OUT:
+        raise ValueError(f"unknown out_mode {out_mode!r}")
+    if out_mode == "emit" and out_bits != 8:
+        raise ValueError("an emitted payload is 8-bit (out_bits=8)")
+    if not 2 <= out_bits <= 16:
+        raise NotImplementedError(f"{what} kernel: {out_bits}-bit output "
+                                  "sites are not yet ported")
+    lo, hi = _clip_bounds(out_bits)
+    return _MM_ACTS[activation], _MM_OUT[out_mode], lo, hi
+
+
 def int8_matmul(x8, w8, vecs, scalars, *, activation=None, out_mode="emit",
-                w4=False, in_mode="i8"):
+                w4=False, in_mode="i8", out_bits=8, in_grid=None):
     """Payload matmul; see :func:`int8_matmul_ref`. On the card: int8
     tensor-core product (``mma.sync`` m16n8k32) with the fold, activation
-    and output site in the epilogue (``csrc/int8_matmul.cu``)."""
+    and output site in the epilogue (``csrc/int8_matmul.cu``); a float
+    input edge (``in_mode='f'``) launches :func:`float_edge_matmul`."""
     if not x8.is_cuda:
         return int8_matmul_ref(x8, w8, vecs, scalars, activation=activation,
-                               out_mode=out_mode, w4=w4, in_mode=in_mode)
-    _require_i8(w4, in_mode, "int8_matmul")
-    if activation not in _MM_ACTS:
-        raise NotImplementedError(f"int8_matmul kernel: activation "
-                                  f"{activation!r} is not yet ported")
+                               out_mode=out_mode, w4=w4, in_mode=in_mode,
+                               out_bits=out_bits, in_grid=in_grid)
+    _require_w8(w4, "int8_matmul")
+    if in_mode == "f":
+        _check_grid_weight(in_grid, w8)
+        return float_edge_matmul(x8, vecs, in_grid, activation=activation,
+                                 out_mode=out_mode, out_bits=out_bits)
+    if in_mode != "i8":
+        raise ValueError(f"unknown in_mode {in_mode!r}")
+    act, mode, lo, hi = _mm_modes(activation, out_mode, out_bits,
+                                  "int8_matmul")
     m, k = x8.shape
     n = w8.shape[0]
     _check(x8, "x8", torch.int8)
@@ -353,10 +542,72 @@ def int8_matmul(x8, w8, vecs, scalars, *, activation=None, out_mode="emit",
                       else torch.float32)
     fn = KB.load("int8_matmul")
     err = fn(x8.data_ptr(), w8.data_ptr(), vecs.data_ptr(),
-             scalars.data_ptr(), out.data_ptr(), m, n, k,
-             _MM_ACTS[activation], _MM_OUT[out_mode], GELU_NEW_C, _stream())
+             scalars.data_ptr(), out.data_ptr(), m, n, k, act, mode, lo, hi,
+             GELU_NEW_C, _stream())
     KB.check(err, "int8_matmul")
     LAUNCHES["int8_matmul"] += 1
+    return out
+
+
+FE_BK = 64  # the float-edge kernel's K step: a group spans whole steps
+SMEM_MAX = 232448  # bytes of shared memory a block may take (H100)
+
+
+def _float_edge_smem(k: int, planes: int) -> int:
+    """Shared memory of one float-edge kernel block: the level planes of
+    128 rows of K + 16 bytes and the weight ring (float_edge_matmul.cu)."""
+    return planes * 128 * (k + 16) + 2 * (128 if planes == 1 else 64) * 80
+
+
+def float_edge_matmul(x, vecs, grid, *, activation=None, out_mode="emit",
+                      out_bits=8):
+    """Float-edge matmul; see :func:`float_edge_matmul_ref`. On the card:
+    a block recovers the edge's levels for its 128 rows once, into shared
+    memory (two u8 planes for a 16-bit grid), and contracts them against
+    every weight tile on int8 tensor cores (``mma.sync`` m16n8k32 u8 x
+    s8), one int32 partial per group folded in group order
+    (``csrc/float_edge_matmul.cu``)."""
+    if not x.is_cuda:
+        return float_edge_matmul_ref(x, vecs, grid, activation=activation,
+                                     out_mode=out_mode, out_bits=out_bits)
+    act, mode, lo, hi = _mm_modes(activation, out_mode, out_bits,
+                                  "float_edge_matmul")
+    m, k = x.shape
+    w = grid["w"]
+    n = w.shape[0]
+    g = grid["s"].numel()
+    _check(x, "x", torch.float32)
+    _check(w, "grid w", torch.int8, (n, k))
+    _check(vecs, "vecs", torch.float32, (5, n))
+    _check(grid["cols"], "grid cols", torch.int64, (k,))
+    for key in ("s", "inv_s", "zp"):
+        _check(grid[key], f"grid {key}", torch.float32, (g,))
+    _check(grid["gcs"], "grid gcs", torch.int32, (g, n))
+    _same_device(x, w, vecs, *(grid[key] for key in ("cols", "s", "inv_s",
+                                                     "zp", "gcs")))
+    size = k // g
+    if size % FE_BK or n % 8:
+        raise NotImplementedError(
+            f"float_edge_matmul kernel needs groups of a multiple of {FE_BK}"
+            f" columns and N % 8 == 0 (got {g} groups of {size}, N={n}); "
+            "other grids are not yet ported")
+    bits = grid["bits"]
+    planes = 1 if bits <= 8 else 2
+    if not 1 <= bits <= 16 or _float_edge_smem(k, planes) > SMEM_MAX:
+        raise NotImplementedError(f"float_edge_matmul kernel: a {bits}-bit "
+                                  f"edge of K={k} is not yet ported (its "
+                                  "levels exceed shared memory)")
+    out = torch.empty((m, n), device=x.device,
+                      dtype=torch.int8 if out_mode == "emit"
+                      else torch.float32)
+    fn = KB.load("float_edge_matmul")
+    err = fn(x.data_ptr(), grid["cols"].data_ptr(), w.data_ptr(),
+             vecs.data_ptr(), grid["s"].data_ptr(), grid["inv_s"].data_ptr(),
+             grid["zp"].data_ptr(), grid["gcs"].data_ptr(), out.data_ptr(),
+             m, n, k, size, planes, float(2 ** bits - 1), act,
+             mode, lo, hi, GELU_NEW_C, _stream())
+    KB.check(err, "float_edge_matmul")
+    LAUNCHES["float_edge_matmul"] += 1
     return out
 
 
@@ -424,36 +675,116 @@ def fused_add_ln_payload(y8, r8, gb, scalars, *, eps, res_quant=True):
     return out
 
 
+def flex_add_ln(y, r, gb, scalars, lnv=None, *, eps, res_quant=True,
+                res_mode="i8", res_bits=8, ln_bits=8, ln_out="emit"):
+    """Float-in add + LayerNorm with flexible sites; see
+    :func:`flex_add_ln_ref`. On the card: one warp per row
+    (``csrc/flex_add_ln.cu``)."""
+    if not y.is_cuda:
+        return flex_add_ln_ref(y, r, gb, scalars, lnv, eps=eps,
+                               res_quant=res_quant, res_mode=res_mode,
+                               res_bits=res_bits, ln_bits=ln_bits,
+                               ln_out=ln_out)
+    if res_mode not in ("i8", "f"):
+        raise ValueError(f"unknown res_mode {res_mode!r}")
+    if ln_out not in ("emit", "f"):
+        raise ValueError(f"unknown ln_out {ln_out!r}")
+    if ln_out == "emit" and ln_bits != 8:
+        raise ValueError("an emitted payload is 8-bit (ln_bits=8)")
+    if not (2 <= res_bits <= 16 and 2 <= ln_bits <= 16):
+        raise NotImplementedError("flex_add_ln kernel: sites outside 2..16 "
+                                  "bits are not yet ported")
+    m, h = y.shape
+    _check(y, "y", torch.float32)
+    _check(r, "r", torch.int8 if res_mode == "i8" else torch.float32,
+           (m, h))
+    _check(gb, "gb", torch.float32, (2, h))
+    _check(scalars, "scalars", torch.float32, (1, 8))
+    if lnv is not None:
+        _check(lnv, "lnv", torch.float32, (4, h))
+    _same_device(y, r, gb, scalars, *([lnv] if lnv is not None else []))
+    if h % 128 or h > 1024:
+        raise NotImplementedError(f"flex_add_ln kernel needs H % 128 == 0 "
+                                  f"and H <= 1024 (got {h})")
+    out = torch.empty((m, h), device=y.device,
+                      dtype=torch.int8 if ln_out == "emit"
+                      else torch.float32)
+    res_lo, res_hi = _clip_bounds(res_bits)
+    ln_lo, ln_hi = _clip_bounds(ln_bits)
+    fn = KB.load("flex_add_ln")
+    err = fn(y.data_ptr(), r.data_ptr(), int(res_mode == "f"), gb.data_ptr(),
+             scalars.data_ptr(), lnv.data_ptr() if lnv is not None else None,
+             out.data_ptr() if ln_out == "emit" else None,
+             out.data_ptr() if ln_out == "f" else None, m, h, float(eps),
+             int(res_quant), res_lo, res_hi, ln_lo, ln_hi, _stream())
+    KB.check(err, "flex_add_ln")
+    LAUNCHES["flex_add_ln"] += 1
+    return out
+
+
 # ---------------------------------------------------------------------------
-# The TPU's fused forms as chains of the three kernels
+# The TPU's fused forms as chains of the kernels
 # ---------------------------------------------------------------------------
 
 
 def fold_ln_scalars(vecs: Tensor, ln_scalars: Tensor) -> Tensor:
     """The add+LN scalars with [y_s, y_sh] read from the producing matmul's
-    fold site (``vecs`` rows 3/4). The fold site is per-tensor in every
-    ported plan (per-column fold sites are PEG recipes, not yet ported),
-    so column 0 carries it."""
+    fold site (``vecs`` rows 3/4). Only for the all-int8 chains, whose
+    fold site is an 8-bit per-tensor site, so column 0 carries it (the
+    flex chains hand the fold value to :func:`flex_add_ln` as float32)."""
     return torch.cat([vecs[3:5, 0], ln_scalars[0, 2:]]).reshape(1, 8)
 
 
 def int8_matmul_add_ln(x8, w8, vecs, scalars, r8, gb, ln_scalars, *, eps,
                        res_quant=True, w4=False, in_mode="i8"):
     """Matmul (emit on the fold site) -> :func:`fused_add_ln_payload`;
-    bit-identical to :func:`int8_matmul_add_ln_ref`."""
+    bit-identical to :func:`int8_matmul_add_ln_ref` when the fold site is
+    8-bit per-tensor, as in every all-int8 layer plan (a per-column fold
+    site takes the flex chains)."""
     y8 = int8_matmul(x8, w8, vecs, scalars, activation=None,
                      out_mode="emit", w4=w4, in_mode=in_mode)
     return fused_add_ln_payload(y8, r8, gb, fold_ln_scalars(vecs, ln_scalars),
                                 eps=eps, res_quant=res_quant)
 
 
-def int8_ffn_ln(x8, wi, vi, si, wd, vd, sd, r8, gb, ln_scalars, *,
-                activation, eps, res_quant=True, w4i=False, w4d=False):
-    """Inter matmul (act, emit) -> :func:`int8_matmul_add_ln`."""
+def int8_ffn_ln(x8, wi, vi, si, wd, vd, sd, r8, gb, ln_scalars, lnv=None, *,
+                activation, eps, res_quant=True, w4i=False, w4d=False,
+                in_mode="i8", res_mode="i8", h_bits=8, y_bits=8,
+                ln_out="emit", ln_bits=8, inter_mode="i8", x_grid=None):
+    """The FFN block; see :func:`int8_ffn_ln_ref`: inter matmul (act,
+    emit; the float-edge kernel when ``in_mode='f'``) -> dense matmul
+    (fold on the ``h_bits`` grid, float32 out) -> :func:`flex_add_ln`.
+    The dense fold value reaches the add+LN as float32, so the fold site
+    may be per-tensor or per-column (three launches)."""
+    _require_payload_inter(inter_mode)
     i8 = int8_matmul(x8, wi, vi, si, activation=activation, out_mode="emit",
-                     w4=w4i)
-    return int8_matmul_add_ln(i8, wd, vd, sd, r8, gb, ln_scalars, eps=eps,
-                              res_quant=res_quant, w4=w4d)
+                     w4=w4i, in_mode=in_mode, in_grid=x_grid)
+    y = int8_matmul(i8, wd, vd, sd, activation=None, out_mode="fold",
+                    w4=w4d, out_bits=h_bits)
+    return flex_add_ln(y, r8, gb, ln_scalars, lnv, eps=eps,
+                       res_quant=res_quant, res_mode=res_mode,
+                       res_bits=y_bits, ln_bits=ln_bits, ln_out=ln_out)
+
+
+def int8_attn_ln(x8, wq, vq, sq, mask_bias, attn_scal, wo, vo, so, gb,
+                 ln_scalars, lnv=None, *, n_heads, seq, eps, res_quant=True,
+                 skip_max=False, w4q=False, w4o=False, ln_out="emit",
+                 ln_bits=8, attn_bits=(8, 8), in_mode="i8", qkv_mode="i8",
+                 g_bits=8, u_bits=8):
+    """The attention block; see :func:`int8_attn_ln_ref`: qkv matmul ->
+    attention -> attn_out matmul (fold on the ``g_bits`` grid, float32
+    out) -> :func:`flex_add_ln` with the layer-input payload as the
+    residual (four launches)."""
+    _require_payload_layer_input(in_mode, qkv_mode)
+    qkv8 = int8_matmul(x8, wq, vq, sq, activation=None, out_mode="emit",
+                       w4=w4q)
+    c8 = int8_attention(qkv8, mask_bias, attn_scal, n_heads=n_heads,
+                        seq=seq, skip_max=skip_max, attn_bits=attn_bits)
+    y = int8_matmul(c8, wo, vo, so, activation=None, out_mode="fold",
+                    w4=w4o, out_bits=g_bits)
+    return flex_add_ln(y, x8, gb, ln_scalars, lnv, eps=eps,
+                       res_quant=res_quant, res_mode="i8", res_bits=u_bits,
+                       ln_bits=ln_bits, ln_out=ln_out)
 
 
 def int8_layer_ln(x8, wq, vq, sq, mask_bias, attn_scal, wo, vo, so, gb1,
@@ -463,13 +794,15 @@ def int8_layer_ln(x8, wq, vq, sq, mask_bias, attn_scal, wo, vo, so, gb1,
                   attn_bits=(8, 8)):
     """A whole all-int8 encoder layer as the chain qkv matmul -> attention
     -> attn_out matmul -> add+LN -> inter matmul -> dense matmul -> add+LN
-    (four matmul, one attention and two add+LN launches)."""
+    (four matmul, one attention and two add+LN launches); both fold sites
+    8-bit per-tensor, as the engine plans it."""
     qkv8 = int8_matmul(x8, wq, vq, sq, activation=None, out_mode="emit",
                        w4=w4q)
     c8 = int8_attention(qkv8, mask_bias, attn_scal, n_heads=n_heads,
                         seq=seq, skip_max=skip_max, attn_bits=attn_bits)
     hx8 = int8_matmul_add_ln(c8, wo, vo, so, x8, gb1, ln1_scal, eps=eps,
                              res_quant=res1, w4=w4o)
-    return int8_ffn_ln(hx8, wi, vi, si, wd, vd, sd, hx8, gb2, ln2_scal,
-                       activation=activation, eps=eps, res_quant=res2,
-                       w4i=w4i, w4d=w4d)
+    i8 = int8_matmul(hx8, wi, vi, si, activation=activation, out_mode="emit",
+                     w4=w4i)
+    return int8_matmul_add_ln(i8, wd, vd, sd, hx8, gb2, ln2_scal, eps=eps,
+                              res_quant=res2, w4=w4d)

@@ -6,11 +6,12 @@ Counterpart of ``transformer_quantization_tpu/quant/manager.py``. A
 returns the updated per-site state:
 
 - act sites: ``{"qp": QuantParams, "range_state": {xmin, xmax,
-  initialized}}``
+  initialized}}``, plus ``perm`` (int64 ``(C,)``) and ``ranges`` (float32
+  ``(C,)``) at permuted PEG sites
 - weight sites: ``{"qp": QuantParams, "alpha": None}``
 
-Phases ``estimate`` and ``fix`` are ported; ``learn`` (QAT), AdaRound
-``alpha``, capture and the PEG ``record_ranges`` pass wait for their
+Phases ``estimate``, ``fix`` and the PEG ``record_ranges`` pre-pass are
+ported; ``learn`` (QAT), AdaRound ``alpha`` and capture wait for their
 slices and raise.
 """
 
@@ -39,7 +40,12 @@ def init_act_site_state(cfg: QuantSiteConfig, x: Tensor) -> SiteState:
     qp = Q.QuantParams(delta=torch.ones(shape, device=dev),
                        zero_float=torch.zeros(shape, device=dev),
                        signed=torch.zeros((), device=dev))
-    return {"qp": qp, "range_state": R.init_range_state(shape, dev)}
+    state: SiteState = {"qp": qp,
+                        "range_state": R.init_range_state(shape, dev)}
+    if cfg.permute:
+        state["perm"] = torch.arange(shape[0], device=dev)
+        state["ranges"] = torch.zeros((shape[0],), device=dev)
+    return state
 
 
 def estimate_weight_qp(cfg: QuantSiteConfig, w: Tensor) -> Q.QuantParams:
@@ -122,11 +128,18 @@ class QuantCtx:
         if not (self.mode.act_quant and cfg.enabled):
             return x
         phase = self.mode.act_phase
-        if phase not in (Phase.estimate, Phase.fix):
-            raise NotImplementedError(f"act phase {phase.name} is not yet "
-                                      "ported")
+        if phase == Phase.learn:
+            raise NotImplementedError("act phase learn is not yet ported")
         if (phase == Phase.fix and cfg.axis is None
                 and name in self.requant_only_sites):
+            return x
+        if phase == Phase.record_ranges:
+            # PEG permutation pre-pass: record per-channel dynamic ranges
+            # at permuted sites; every site passes x through unquantized
+            if cfg.permute:
+                st = self.qstate.get(name) or init_act_site_state(cfg, x)
+                self.qstate[name] = dict(st, ranges=R.channel_dynamic_ranges(
+                    x, cfg.axis or 2))
             return x
         if name not in self.qstate:
             self.qstate[name] = init_act_site_state(cfg, x)
@@ -134,7 +147,7 @@ class QuantCtx:
         if phase == Phase.estimate:
             st["range_state"] = R.update_range_state(
                 st["range_state"], x.detach(), cfg.range_cfg,
-                cfg.reduce_spec)
+                cfg.reduce_spec, perm=st.get("perm"))
             xmin, xmax = R.finalize_ranges(st["range_state"])
             st["qp"] = Q.set_quant_range(cfg.spec, xmin, xmax)
             self.qstate[name] = st
@@ -142,3 +155,32 @@ class QuantCtx:
 
     def export(self) -> Dict[str, SiteState]:
         return self.qstate
+
+
+def finalize_permutations(cfg: QuantModelConfig,
+                          qstate: Mapping[str, SiteState]
+                          ) -> Dict[str, SiteState]:
+    """Recorded per-channel ranges -> sort permutations (a stable argsort,
+    as ``jnp.argsort``, so tied ranges keep their channel order)."""
+    out = dict(qstate)
+    for name, site_cfg in cfg.items():
+        if site_cfg.kind == "act" and site_cfg.permute and name in out:
+            st = dict(out[name])
+            if st.get("ranges") is not None:
+                st["perm"] = torch.argsort(st["ranges"], stable=True)
+            out[name] = st
+    return out
+
+
+def share_ranges(qstate: Mapping[str, SiteState], source: str,
+                 targets) -> Dict[str, SiteState]:
+    """Copy recorded permutation ranges from one site to the permuted
+    sites among ``targets`` (``--per-groups-permute-shared-h``)."""
+    out = dict(qstate)
+    src = out[source].get("ranges")
+    if src is None:
+        raise ValueError(f"source site {source} has no recorded ranges")
+    for t in targets:
+        if t in out and "ranges" in out[t]:
+            out[t] = dict(out[t], ranges=src)
+    return out

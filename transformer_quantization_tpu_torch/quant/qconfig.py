@@ -3,15 +3,15 @@
 Counterpart of ``transformer_quantization_tpu/quant/qconfig.py``: a model
 declares its quantization sites by name, and a hashable
 :class:`QuantModelConfig` maps each name to a :class:`QuantSiteConfig`
-(bits, method, estimator, axis). The ``quant_dict`` language
-(``apply_quant_dict``) is not yet ported.
+(bits, method, estimator, axis), and :func:`apply_quant_dict` applies
+the reference's ``quant_dict`` value language to it.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import enum
-from typing import Optional, Tuple
+from typing import Dict, Mapping, Optional, Tuple
 
 from transformer_quantization_tpu_torch.quant.quantizers import (
     QMethod,
@@ -27,8 +27,9 @@ from transformer_quantization_tpu_torch.quant.ranges import (
 
 class Phase(enum.Enum):
     """Quantizer phase: ``estimate`` updates ranges from data then
-    quantizes, ``fix`` quantizes with stored params. ``learn`` and
-    ``record_ranges`` belong to the training and PEG slices."""
+    quantizes, ``fix`` quantizes with stored params, ``record_ranges``
+    records per-channel dynamic ranges for the PEG permutation and passes
+    activations through. ``learn`` belongs to the training slice."""
 
     estimate = "estimate"
     fix = "fix"
@@ -88,6 +89,9 @@ class QuantModelConfig:
     def __contains__(self, name: str) -> bool:
         return name in self._by_name
 
+    def names(self):
+        return [n for n, _ in self.sites]
+
     def items(self):
         return self.sites
 
@@ -96,6 +100,14 @@ class QuantModelConfig:
             raise KeyError(name)
         return QuantModelConfig(tuple(
             (n, dataclasses.replace(c, **changes) if n == name else c)
+            for n, c in self.sites))
+
+    def replace_sites(self, changes: Mapping[str, Dict]) -> "QuantModelConfig":
+        unknown = set(changes) - set(self._by_name)
+        if unknown:
+            raise KeyError(f"unknown quant sites: {sorted(unknown)}")
+        return QuantModelConfig(tuple(
+            (n, dataclasses.replace(c, **changes[n]) if n in changes else c)
             for n, c in self.sites))
 
 
@@ -166,3 +178,51 @@ class QuantConfigBuilder:
         if len(names) != len(set(names)):
             raise ValueError("duplicate quant site names")
         return QuantModelConfig(tuple(self._sites))
+
+
+# ---------------------------------------------------------------------------
+# quant_dict value language
+# ---------------------------------------------------------------------------
+
+
+def parse_quant_dict_value(value) -> Optional[Dict]:
+    """One ``quant_dict`` value as :class:`QuantSiteConfig` field changes:
+    int bits, ``'fp32'`` (disabled), ``'per_embd'``, ``'ngN'`` (N groups
+    along the embedding axis) or ``'ngpN'`` (the same, permuted)."""
+    if value is None:
+        return None
+    if isinstance(value, int):
+        return {"__n_bits__": value}
+    if value == "fp32":
+        return {"enabled": False}
+    if value == "per_embd":
+        return {"axis": 2, "n_groups": None}
+    if isinstance(value, str) and value.startswith("ngp"):
+        return {"axis": 2, "n_groups": int(value[3:]), "permute": True}
+    if isinstance(value, str) and value.startswith("ng"):
+        return {"axis": 2, "n_groups": int(value[2:]), "permute": False}
+    raise NotImplementedError(f'Unknown value "{value}" in quant_dict')
+
+
+def _apply_value(cfg: QuantModelConfig, site: str, value) -> QuantModelConfig:
+    changes = parse_quant_dict_value(value)
+    if changes is None or site not in cfg:
+        return cfg
+    if "__n_bits__" in changes:
+        changes["spec"] = dataclasses.replace(
+            cfg[site].spec, n_bits=changes.pop("__n_bits__"))
+    return cfg.replace_site(site, **changes)
+
+
+def apply_quant_dict(cfg: QuantModelConfig, quant_dict: Mapping,
+                     site_map: Mapping[str, Tuple[str, ...]]
+                     ) -> QuantModelConfig:
+    """Apply a ``quant_dict``; ``site_map`` maps each key (``'y'``,
+    ``'s3'``, ``'L'``, ...) to the site names it addresses (BERT's map is
+    in ``models/bert.py``)."""
+    for key, value in quant_dict.items():
+        if key not in site_map:
+            raise KeyError(f"unknown quant_dict key {key!r}")
+        for site in site_map[key]:
+            cfg = _apply_value(cfg, site, value)
+    return cfg
