@@ -389,7 +389,6 @@ def check_flex_kernels(params, cfg, qcfg, qstate, int_params, static, plan,
                             **k5b)
     x_step = ln1["lnv"][2] if "lnv" in ln1 else ln1["scal"][0, 6]
     n1 = inter["w"].shape[0]
-    planes = 1 if grid["bits"] <= 8 else 2
     report = {}
 
     # K4: the float-edge inter matmul (gelu_new, emit)
@@ -403,9 +402,10 @@ def check_flex_kernels(params, cfg, qcfg, qstate, int_params, static, plan,
         hx, inter["vecs"], grid, activation="gelu_new"), iters=5)
     w_f = inter["w"].float()
     t_l = timed_ms(lambda: torch.matmul(hx, w_f.t()))
-    # every u8 plane is one int8 product; bytes: f32 x, int8 w and out
-    ops = 2.0 * m * n1 * h * planes
-    nbytes = 4 * m * h + n1 * h + m * n1 + 5 * n1 * 4 + 4 * n1 * planes
+    # one m x h x n1 product, whatever the edge's width (the kernel's u8
+    # planes are its own choice); bytes: f32 x, int8 w and out, vecs, grid
+    ops = 2.0 * m * n1 * h
+    nbytes = 4 * m * h + n1 * h + m * n1 + 5 * n1 * 4 + 2 * h * 4
     bnd, by = bound_ms(ops, nbytes)
     print(f"  float_edge_matmul: kernel {t_k:.4f} ms, plain {t_p:.4f} ms, "
           f"torch.matmul f32 (TF32 off; the product only) {t_l:.4f} ms, "
@@ -482,7 +482,7 @@ def check_flex_kernels(params, cfg, qcfg, qstate, int_params, static, plan,
         "int8_ffn_ln (flex)": (
             lambda: EK.int8_ffn_ln(*fargs, **fkw),
             lambda: EK.int8_ffn_ln_ref(*fargs, **fkw),
-            2.0 * m * h * n1 * (1 + planes), m * h * (4 + 1)
+            2.0 * 2 * m * h * n1, m * h * (4 + 1)
             + w_bytes(inter, dense)),
     }
     for name, (chain, ref, ops, nbytes) in chains.items():
@@ -501,8 +501,8 @@ def check_flex_kernels(params, cfg, qcfg, qstate, int_params, static, plan,
 
 def check_flex_shapes(dev) -> None:
     """The flex kernels off the main path's shapes: ragged rows and
-    columns, both u8-plane counts, every output mode, H=256 with and
-    without per-column sites."""
+    columns, both u8-plane counts, with and without gelu_new, H=256 with
+    and without per-column sites."""
     gen = torch.Generator(device=dev).manual_seed(11)
     m, n, k, groups = 1000, 136, 256, 2
     w = torch.randint(-127, 128, (n, k), generator=gen, device=dev,
@@ -522,18 +522,9 @@ def check_flex_shapes(dev) -> None:
         x = (s[grp] * (q.float() - zp[grp])).contiguous()
         grid = EK.edge_grid(w, s[grp], zp[grp], bits, groups, cols)
         for act in (None, "gelu_new"):
-            for mode in ("emit", "fold", "float"):
-                got = EK.float_edge_matmul(x, vecs, grid, activation=act,
-                                           out_mode=mode)
-                want = EK.float_edge_matmul_ref(x, vecs, grid,
-                                                activation=act,
-                                                out_mode=mode)
-                tag = (f"float_edge_matmul {m}x{k}->{n} {bits}-bit act={act}"
-                       f" {mode}")
-                if mode == "emit":
-                    compare(got, want, tag)
-                else:
-                    compare_values(got, want, 1.0, tag)
+            compare(EK.float_edge_matmul(x, vecs, grid, activation=act),
+                    EK.float_edge_matmul_ref(x, vecs, grid, activation=act),
+                    f"float_edge_matmul {m}x{k}->{n} {bits}-bit act={act}")
     h = 256
     gb = torch.stack([torch.linspace(0.5, 1.5, h, device=dev),
                       torch.linspace(-0.1, 0.1, h, device=dev)])

@@ -472,26 +472,34 @@ def test_recipe_simulation_and_generic_int_match_jax(setup):
                                rtol=RTOL, atol=ATOL)
 
 
-@pytest.mark.parametrize("qd", [{"h": "ngp4"}, {"g": "ng4"}],
+@pytest.mark.parametrize("qd", [{"h": "ngp6"}, {"g": "ng6"}],
                          ids=["h-peg", "g-groups"])
 def test_per_column_fold_site_takes_the_flex_route(qd):
     """An 8-bit per-column fold site alone leaves JAX's flex / io
     descriptors at their defaults, but the all-int8 chain's add+LN reads a
-    per-tensor fold site: the layer must take the flex chains, which equal
-    the plain versions bit for bit."""
-    kw, seq, _ = SIZES["tiny"]
-    cfg = TB.BertConfig(**kw)
-    params = TB.init_bert_params(cfg, device="cpu")
-    _, qcfg, qstate = TC.calibrated_bert(cfg, seq=seq, device="cpu",
-                                         params=params, quant_dict=qd)
-    st, plan, ip = TB.build_bert_engine(params, cfg, qcfg, qstate,
-                                        device="cpu")
+    per-tensor fold site: the port's layers must take the flex chains, and
+    its engine must still match the JAX engine. At the wide size, where
+    the all-int8 chain's error on these sites exceeds the flex bound."""
+    kw, seq, _ = SIZES["wide"]
+    jcfg, tcfg = JB.BertConfig(**kw), TB.BertConfig(**kw)
+    jp = _jax_params(jcfg)
+    jq, js, jint = _jax_calibrated(jcfg, jp, qd, False, seq)
+    jstatic, jplan, _ = JB.build_bert_engine(jp, jcfg, jq, js, int_params=jint)
+    tp = C.params_from_jax(_np(jp), device="cpu")
+    tq = TB.apply_bert_quant_dict(
+        TB.declare_bert_sites(TC.w8a8_defaults(), tcfg), qd,
+        tcfg.num_hidden_layers)
+    ts = C.qstate_from_jax(_np(js), device="cpu")
+    st, plan, ip = TB.build_bert_engine(tp, tcfg, tq, ts, device="cpu")
     assert not st.any_flex and not any(st.int8_layer)
-    batch = TC.calibration_batch(cfg.vocab_size, 4, seq, seed=4)
-    args = (params, batch, cfg, qcfg, qstate, st, plan, ip)
-    got = TB.bert_engine_apply(*args, device="cpu")["logits"]
-    want = TB.bert_engine_apply(*args, backend="plain", device="cpu")
-    np.testing.assert_array_equal(got.numpy(), want["logits"].numpy())
+    batch = TC.calibration_batch(tcfg.vocab_size, 4, seq, seed=4)
+    want = jax.jit(lambda p, b, s, plan, ip: JB.bert_engine_apply(
+        p, b, jcfg, jq, s, jstatic, plan, ip, backend="xla")["logits"])(
+        jp, {k: jnp.asarray(v) for k, v in batch.items()}, js, jplan, jint)
+    got = TB.bert_engine_apply(tp, batch, tcfg, tq, ts, st, plan, ip,
+                               device="cpu")["logits"]
+    np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                               rtol=ENGINE_RTOL, atol=ENGINE_ATOL)
 
 
 def test_engine_rejects_still_unported_recipes():

@@ -39,7 +39,7 @@ from transformer_quantization_tpu_torch.quant.qconfig import (
     QuantDefaults,
     QuantModelConfig,
     QuantMode,
-    apply_quant_dict,
+    apply_quant_value,
 )
 from transformer_quantization_tpu_torch.quant.ranges import (
     OptMethod,
@@ -243,8 +243,8 @@ def _apply_ordered_quant_dict(qcfg: QuantModelConfig, quant_dict: Mapping,
         raise KeyError(f"unknown quant_dict keys: {sorted(unknown)}")
     for key, sites in ordered:
         if key in quant_dict:
-            qcfg = apply_quant_dict(qcfg, {key: quant_dict[key]},
-                                    {key: sites})
+            for site in sites:
+                qcfg = apply_quant_value(qcfg, site, quant_dict[key])
     return qcfg
 
 

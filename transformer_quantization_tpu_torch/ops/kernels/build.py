@@ -47,7 +47,7 @@ _SIGNATURES = {
                        (_P, _P, _P, _P, _P, _I, _I, _F, _I, _P)),
     "float_edge_matmul": ("tq_float_edge_matmul",
                           (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                           _I, _I, _F, _I, _I, _F, _F, _F, _P)),
+                           _I, _I, _F, _I, _F, _P)),
     "flex_add_ln": ("tq_flex_add_ln",
                     (_P, _P, _I, _P, _P, _P, _P, _P, _I, _I, _F, _I, _F, _F,
                      _F, _F, _P)),

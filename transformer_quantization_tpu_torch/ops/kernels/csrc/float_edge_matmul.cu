@@ -16,16 +16,18 @@
 //                  for |q - zp| < 2^16)
 //   acc_g[m, n]  = sum_{k in g} q[m, k] w[n, k] - zp_g * colsum_g[n]  (int)
 //   y            = wscale[n] * (sum_g s_g * float(acc_g)) + bias[n]
-// with the group sum taken in group order, then act and the output site
-// as in int8_matmul. The JAX reference takes x @ w^T as a float32 dot
+// with the group sum taken in group order, then act and the 8-bit output
+// site emitted as an int8 payload, as in int8_matmul (the flex FFN's inter
+// matmul; fold and float outputs are not yet ported here). The JAX reference takes x @ w^T as a float32 dot
 // product, whose result depends on its summation order; here every
 // rounding happens after an exact integer sum, so the kernel and its plain
 // version (float_edge_matmul_ref) agree bit for bit.
 //
 // What bounds it on the card: the int8 tensor-core rate. BERT-base inter
-// (M = 16384, K = 768, N = 3072) is 77.3 G multiply-adds per u8 plane:
-// 39 us at 1,979 TOP/s for an 8-bit edge, twice that for a 16-bit edge
-// (two planes), against 113 MB of traffic (34 us).
+// (M = 16384, K = 768, N = 3072) is one 77.3 GOP product: 39 us at
+// 1,979 TOP/s, against 103 MB of traffic (31 us), whatever the edge's
+// width. A 16-bit edge costs this design two u8 products, so it runs at
+// best at half the bound.
 //
 // Design: one block per 128 rows, resident over all of N. The block first
 // turns its 128 x K float tile (read through `cols`: a PEG site's columns
@@ -60,15 +62,15 @@ size_t smem_bytes(int K) {
   return (size_t)PLANES * BM * (K + 16) + (size_t)2 * tile_n<PLANES>() * LDS;
 }
 
-template <int PLANES, int ACT, int OUT>
+template <int PLANES, int ACT>
 __global__ void __launch_bounds__(THREADS)
     fe_mm_kernel(const float* __restrict__ x,
                  const long long* __restrict__ cols,
                  const int8_t* __restrict__ w, const float* __restrict__ vecs,
                  const float* __restrict__ gs, const float* __restrict__ ginv,
                  const float* __restrict__ gzp, const int* __restrict__ gcs,
-                 void* __restrict__ out, int M, int N, int K, int gsize,
-                 float maxq, float lo, float hi, float gelu_c) {
+                 int8_t* __restrict__ out, int M, int N, int K, int gsize,
+                 float maxq, float gelu_c) {
   constexpr int NI = PLANES == 1 ? 4 : 2;  // 8-column mma tiles per warp
   constexpr int BN = tile_n<PLANES>();
   extern __shared__ __align__(16) int8_t smem[];
@@ -207,8 +209,8 @@ __global__ void __launch_bounds__(THREADS)
           const int col = n0 + wn + ni * 8 + t * 2 + (r & 1);
           if (row < M && col < N) {
             const float y = vecs[col] * yacc[mi][ni][r] + vecs[2 * N + col];
-            store_out<ACT, OUT>(y, (size_t)row * N + col, col, N, vecs, lo,
-                                hi, gelu_c, out);
+            store_out<ACT, 0>(y, (size_t)row * N + col, col, N, vecs,
+                              -128.0f, 127.0f, gelu_c, out);
           }
         }
       }
@@ -225,36 +227,22 @@ struct Args {
   const float* ginv;
   const float* gzp;
   const int* gcs;
-  void* out;
+  int8_t* out;
   int M, N, K, gsize;
-  float maxq, lo, hi, gelu_c;
+  float maxq, gelu_c;
 };
 
-template <int PLANES, int ACT, int OUT>
+template <int PLANES, int ACT>
 cudaError_t launch(const Args& a, cudaStream_t stream) {
   const size_t smem = smem_bytes<PLANES>(a.K);
   const cudaError_t e = cudaFuncSetAttribute(
-      fe_mm_kernel<PLANES, ACT, OUT>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+      fe_mm_kernel<PLANES, ACT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
   if (e != cudaSuccess) return e;
-  fe_mm_kernel<PLANES, ACT, OUT><<<(a.M + BM - 1) / BM, THREADS, smem,
-                                   stream>>>(
+  fe_mm_kernel<PLANES, ACT><<<(a.M + BM - 1) / BM, THREADS, smem, stream>>>(
       a.x, a.cols, a.w, a.vecs, a.gs, a.ginv, a.gzp, a.gcs, a.out, a.M, a.N,
-      a.K, a.gsize, a.maxq, a.lo, a.hi, a.gelu_c);
+      a.K, a.gsize, a.maxq, a.gelu_c);
   return cudaGetLastError();
-}
-
-template <int PLANES>
-cudaError_t dispatch(const Args& a, int act, int out_mode,
-                     cudaStream_t st) {
-  switch (act * 3 + out_mode) {
-    case 0: return launch<PLANES, 0, 0>(a, st);
-    case 1: return launch<PLANES, 0, 1>(a, st);
-    case 2: return launch<PLANES, 0, 2>(a, st);
-    case 3: return launch<PLANES, 1, 0>(a, st);
-    case 4: return launch<PLANES, 1, 1>(a, st);
-    default: return launch<PLANES, 1, 2>(a, st);
-  }
 }
 
 }  // namespace
@@ -263,16 +251,16 @@ cudaError_t dispatch(const Args& a, int act, int out_mode,
 // that order; vecs: (5, N) f32; gs / ginv / gzp: (G,) f32 group scale, its
 // reciprocal, zero point; gcs: (G, N) int32 per-group column sums of w;
 // gsize = K / G, a multiple of 64; planes: 1 (levels < 256) or 2; maxq:
-// 2^bits - 1. act: 0 none, 1 gelu_new; out_mode: 0 emit (int8), 1 fold,
-// 2 float; [lo, hi] the output site's level bounds. A block takes
+// 2^bits - 1. act: 0 none, 1 gelu_new; out: (M, N) int8, the 8-bit
+// output site's levels (vecs rows 3 / 4). A block takes
 // planes * 128 * (K + 16) + 2 * (planes == 1 ? 128 : 64) * 80 bytes of
 // shared memory. Returns the launch's cudaError_t.
 extern "C" int tq_float_edge_matmul(
     const void* x, const void* cols, const void* w, const void* vecs,
     const void* gs, const void* ginv, const void* gzp, const void* gcs,
     void* out, int M, int N, int K, int gsize, int planes, float maxq,
-    int act, int out_mode, float lo, float hi, float gelu_c, void* stream) {
-  if (act < 0 || act > 1 || out_mode < 0 || out_mode > 2 || gsize <= 0 ||
+    int act, float gelu_c, void* stream) {
+  if (act < 0 || act > 1 || gsize <= 0 ||
       gsize % BK || K % gsize || (planes != 1 && planes != 2))
     return static_cast<int>(cudaErrorInvalidValue);
   const Args a{static_cast<const float*>(x),
@@ -283,10 +271,13 @@ extern "C" int tq_float_edge_matmul(
                static_cast<const float*>(ginv),
                static_cast<const float*>(gzp),
                static_cast<const int*>(gcs),
-               out, M, N, K, gsize, maxq, lo, hi, gelu_c};
+               static_cast<int8_t*>(out), M, N, K, gsize, maxq, gelu_c};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const cudaError_t e = planes == 1 ? dispatch<1>(a, act, out_mode, st)
-                                    : dispatch<2>(a, act, out_mode, st);
+  cudaError_t e;
+  if (planes == 1)
+    e = act ? launch<1, 1>(a, st) : launch<1, 0>(a, st);
+  else
+    e = act ? launch<2, 1>(a, st) : launch<2, 0>(a, st);
   return static_cast<int>(e);
 }
 

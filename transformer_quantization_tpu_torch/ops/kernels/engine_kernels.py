@@ -16,7 +16,8 @@ Five kernels are written by hand for Hopper (``csrc/``):
   site, one-pass LayerNorm, ln payload;
 - :func:`float_edge_matmul` -- the matmul of a float value edge (a 16-bit
   or per-column site of the mixed / PEG recipes) against an int8 weight,
-  contracted exactly on int8 tensor cores from the edge's grid levels;
+  contracted exactly on int8 tensor cores from the edge's grid levels,
+  with optional ``gelu_new`` and an emitted int8 payload;
 - :func:`flex_add_ln` -- float32 y + payload or float residual, res and
   ln sites per tensor or per column (``lnv``) on 8- or 16-bit grids,
   LayerNorm, and an int8 payload or a float value edge out.
@@ -566,12 +567,15 @@ def float_edge_matmul(x, vecs, grid, *, activation=None, out_mode="emit",
     memory (two u8 planes for a 16-bit grid), and contracts them against
     every weight tile on int8 tensor cores (``mma.sync`` m16n8k32 u8 x
     s8), one int32 partial per group folded in group order
-    (``csrc/float_edge_matmul.cu``)."""
+    (``csrc/float_edge_matmul.cu``). The kernel emits the 8-bit payload
+    the flex FFN's inter matmul needs; other outputs raise."""
     if not x.is_cuda:
         return float_edge_matmul_ref(x, vecs, grid, activation=activation,
                                      out_mode=out_mode, out_bits=out_bits)
-    act, mode, lo, hi = _mm_modes(activation, out_mode, out_bits,
-                                  "float_edge_matmul")
+    if out_mode != "emit":
+        raise NotImplementedError(f"float_edge_matmul kernel: out_mode "
+                                  f"{out_mode!r} is not yet ported")
+    act = _mm_modes(activation, out_mode, out_bits, "float_edge_matmul")[0]
     m, k = x.shape
     w = grid["w"]
     n = w.shape[0]
@@ -597,15 +601,13 @@ def float_edge_matmul(x, vecs, grid, *, activation=None, out_mode="emit",
         raise NotImplementedError(f"float_edge_matmul kernel: a {bits}-bit "
                                   f"edge of K={k} is not yet ported (its "
                                   "levels exceed shared memory)")
-    out = torch.empty((m, n), device=x.device,
-                      dtype=torch.int8 if out_mode == "emit"
-                      else torch.float32)
+    out = torch.empty((m, n), device=x.device, dtype=torch.int8)
     fn = KB.load("float_edge_matmul")
     err = fn(x.data_ptr(), grid["cols"].data_ptr(), w.data_ptr(),
              vecs.data_ptr(), grid["s"].data_ptr(), grid["inv_s"].data_ptr(),
              grid["zp"].data_ptr(), grid["gcs"].data_ptr(), out.data_ptr(),
-             m, n, k, size, planes, float(2 ** bits - 1), act,
-             mode, lo, hi, GELU_NEW_C, _stream())
+             m, n, k, size, planes, float(2 ** bits - 1), act, GELU_NEW_C,
+             _stream())
     KB.check(err, "float_edge_matmul")
     LAUNCHES["float_edge_matmul"] += 1
     return out

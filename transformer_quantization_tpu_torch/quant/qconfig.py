@@ -3,8 +3,9 @@
 Counterpart of ``transformer_quantization_tpu/quant/qconfig.py``: a model
 declares its quantization sites by name, and a hashable
 :class:`QuantModelConfig` maps each name to a :class:`QuantSiteConfig`
-(bits, method, estimator, axis), and :func:`apply_quant_dict` applies
-the reference's ``quant_dict`` value language to it.
+(bits, method, estimator, axis), and :func:`apply_quant_value` applies
+one value of the reference's ``quant_dict`` language to a site (the keys
+are the model's: ``models/bert.py``).
 """
 
 from __future__ import annotations
@@ -204,7 +205,10 @@ def parse_quant_dict_value(value) -> Optional[Dict]:
     raise NotImplementedError(f'Unknown value "{value}" in quant_dict')
 
 
-def _apply_value(cfg: QuantModelConfig, site: str, value) -> QuantModelConfig:
+def apply_quant_value(cfg: QuantModelConfig, site: str,
+                      value) -> QuantModelConfig:
+    """Apply one ``quant_dict`` value to ``site`` (a site the config does
+    not hold, or a ``None`` value, leaves it unchanged)."""
     changes = parse_quant_dict_value(value)
     if changes is None or site not in cfg:
         return cfg
@@ -212,17 +216,3 @@ def _apply_value(cfg: QuantModelConfig, site: str, value) -> QuantModelConfig:
         changes["spec"] = dataclasses.replace(
             cfg[site].spec, n_bits=changes.pop("__n_bits__"))
     return cfg.replace_site(site, **changes)
-
-
-def apply_quant_dict(cfg: QuantModelConfig, quant_dict: Mapping,
-                     site_map: Mapping[str, Tuple[str, ...]]
-                     ) -> QuantModelConfig:
-    """Apply a ``quant_dict``; ``site_map`` maps each key (``'y'``,
-    ``'s3'``, ``'L'``, ...) to the site names it addresses (BERT's map is
-    in ``models/bert.py``)."""
-    for key, value in quant_dict.items():
-        if key not in site_map:
-            raise KeyError(f"unknown quant_dict key {key!r}")
-        for site in site_map[key]:
-            cfg = _apply_value(cfg, site, value)
-    return cfg
