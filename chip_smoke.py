@@ -29,15 +29,34 @@ Phases (any failure exits non-zero; nothing is caught):
    the PEG pre-pass, three request batches through ``bert_engine_apply``
    with the launch counts read just after, logits against the plain
    engine, the forward / encoder split, engine and fake-quant simulation
-   seq/s (five windows).
+   seq/s (five windows);
+7. MobileBERT-uncased (24 layers, H=512, bottleneck 128, 4 heads of 32,
+   3 stacked FFNs, relu, NoNorm): random init from ``--seed``, one-batch
+   W8A8 calibration, packing, the engine plan; on layer 0's inputs (B=128,
+   S=128) the int8 matmul with relu and the [q|k] / v matmuls,
+   ``int8_matmul_norm`` with and without a residual (128- and 512-wide
+   outputs), ``int8_attention_qkv`` at head_dim 32 and the whole-layer
+   ``int8_mb_layer_ln`` against their plain versions, and the layer
+   kernel against the chain of the other three; then their other shapes
+   (ragged tiles, seq 64 / 32, the 'bottleneck' attention case). Every
+   comparison must be bit-identical;
+8. MobileBERT's main path: three request batches through
+   ``mobilebert_engine_apply`` on the default route (24 launches of the
+   layer kernel per forward) and on the chain route (``fuse_layer=False``:
+   144 matmul, 192 NoNorm-matmul and 24 attention launches), each with
+   the counts read just after and logits against the plain engine; the
+   forward / encoder split of both routes, engine seq/s on each route and
+   fake-quant simulation seq/s (five windows).
 
 The last lines are the kernels JSON (times per encoder layer: the sum
-over that layer's launches of each kernel; the new kernels' top-level
+over that layer's launches of each kernel; the flex kernels' top-level
 numbers are the mixed recipe's, and ``variants`` holds each recipe's,
-for ``int8_matmul`` its dense fold on the h grid; ``launches`` sums the
-three main-path runs, ``launches_by_path`` splits them), the nvidia-smi
-line, and ``{"ok": true, "device": {...}}``. Imports torch and the port
-only.
+for ``int8_matmul`` its dense fold on the h grid and MobileBERT's layer;
+the MobileBERT kernels' numbers are MobileBERT-uncased layer 0's, with
+the chain's ms per layer beside ``int8_mb_layer_ln``; ``launches`` sums
+the three runs of every path, ``launches_by_path`` splits them), the
+nvidia-smi line, and ``{"ok": true, "device": {...}}``. Imports torch and
+the port only.
 """
 
 from __future__ import annotations
@@ -52,6 +71,7 @@ import numpy as np
 import torch
 
 from transformer_quantization_tpu_torch.models import bert as B
+from transformer_quantization_tpu_torch.models import mobilebert as MB
 from transformer_quantization_tpu_torch.ops import engine as ENG
 from transformer_quantization_tpu_torch.ops.kernels import build as KB
 from transformer_quantization_tpu_torch.ops.kernels import engine_kernels as EK
@@ -83,6 +103,38 @@ def timed_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, iters: int = 20, replays: int = 5) -> float:
+    """Device milliseconds per call: ``iters`` calls captured in one CUDA
+    graph, the graph replayed between CUDA events (median of
+    ``replays``), so the host's enqueue time is not counted (at 20-60 us
+    a kernel launched through a Python wrapper is host-bound). ``fn`` runs
+    once before, outside the capture (builds, first-use set-up)."""
+    fn()
+    torch.cuda.synchronize()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    times = []
+    for _ in range(replays):
+        start.record()
+        graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / iters)
+    del graph
+    return float(np.median(times))
 
 
 def bound_ms(ops: float, nbytes: float, peak: float = PEAK_INT8_OPS):
@@ -191,68 +243,31 @@ def check_kernels(params, cfg, qcfg, qstate, int_params, static, plan,
     report = {}
 
     # K1: the four matmuls of a layer
-    mm = [("qkv", x8, lp["qkv"], None), ("attn_out", c8, lp["attn_out"], None),
-          ("inter", hx8, lp["inter"], "gelu_new"),
-          ("dense", i8, lp["dense"], None)]
-    k1 = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0,
-          "max_abs_err": 0, "ops": 0.0, "bytes": 0.0}
-    for tag, xin, mp, act in mm:
-        w, vecs, scal = mp["w"], mp["vecs"], mp["scal"]
-        n, k = w.shape
-        got = EK.int8_matmul(xin, w, vecs, scal, activation=act)
-        want = EK.int8_matmul_ref(xin, w, vecs, scal, activation=act)
-        res = compare(got, want, f"int8_matmul[{tag}] {m}x{k}->{n}")
-        t_k = timed_ms(lambda: EK.int8_matmul(xin, w, vecs, scal,
-                                              activation=act))
-        t_p = timed_ms(lambda: EK.int8_matmul_ref(xin, w, vecs, scal,
-                                                  activation=act), iters=5)
-        w_t = w.t()
-        t_l = timed_ms(lambda: torch._int_mm(xin, w_t))
-        ops, nbytes = 2.0 * m * n * k, m * k + n * k + 5 * n * 4 + m * n
-        bnd, by = bound_ms(ops, nbytes)
-        print(f"  int8_matmul[{tag}]: kernel {t_k:.4f} ms, plain {t_p:.4f} "
-              f"ms, torch._int_mm (int32 product only) {t_l:.4f} ms, bound "
-              f"{bnd:.4f} ms ({by}), {ops / t_k / 1e9:.1f} TOP/s")
-        for key, val in (("ms", t_k), ("plain_ms", t_p), ("bound_ms", bnd),
-                         ("library_ms", t_l), ("ops", ops),
-                         ("bytes", nbytes)):
-            k1[key] += val
-        k1["max_abs_err"] = max(k1["max_abs_err"], res["max_abs_err"])
-    k1["bound_by"] = bound_ms(k1.pop("ops"), k1.pop("bytes"))[1]
-    report["int8_matmul"] = k1
+    report["int8_matmul"] = per_layer([
+        (matmul_case("qkv", x8, lp["qkv"], None), 1),
+        (matmul_case("attn_out", c8, lp["attn_out"], None), 1),
+        (matmul_case("inter", hx8, lp["inter"], "gelu_new"), 1),
+        (matmul_case("dense", i8, lp["dense"], None), 1)])
 
     # K2: attention
-    got = EK.int8_attention(qkv8, mask, lp["attn_scal"], **akw)
-    res = compare(got, c8, f"int8_attention B={BATCH} T={SEQ} heads={nh}")
-    t_k = timed_ms(lambda: EK.int8_attention(qkv8, mask, lp["attn_scal"],
-                                             **akw))
-    t_p = timed_ms(lambda: EK.int8_attention_ref(qkv8, mask,
-                                                 lp["attn_scal"], **akw),
-                   iters=5)
     d = h // nh
-    ops, nbytes = 4.0 * BATCH * nh * SEQ * SEQ * d, 4 * m * h + mask.numel() * 4
-    bnd, by = bound_ms(ops, nbytes)
-    print(f"  int8_attention: kernel {t_k:.4f} ms, plain {t_p:.4f} ms, bound "
-          f"{bnd:.4f} ms ({by})")
-    report["int8_attention"] = {"ms": t_k, "plain_ms": t_p, "bound_ms": bnd,
-                                "bound_by": by, "library_ms": None, **res}
+    k2 = kernel_case(
+        f"int8_attention B={BATCH} T={SEQ} heads={nh}",
+        lambda: EK.int8_attention(qkv8, mask, lp["attn_scal"], **akw),
+        lambda: c8, 4.0 * BATCH * nh * SEQ * SEQ * d,
+        4 * m * h + mask.numel() * 4,
+        plain_fn=lambda: EK.int8_attention_ref(qkv8, mask, lp["attn_scal"],
+                                               **akw))
+    report["int8_attention"] = per_layer([(k2, 1)])
 
     # K3: add + LayerNorm (twice per layer, same shape)
-    gb = lp["ln1"]["gb"]
-    got = EK.fused_add_ln_payload(y8, x8, gb, ln1, eps=static.ln_eps)
-    res = compare(got, hx8, f"fused_add_ln_payload {m}x{h}")
-    t_k = timed_ms(lambda: EK.fused_add_ln_payload(y8, x8, gb, ln1,
-                                                   eps=static.ln_eps))
-    t_p = timed_ms(lambda: EK.fused_add_ln_payload_ref(y8, x8, gb, ln1,
-                                                       eps=static.ln_eps),
-                   iters=5)
-    ops, nbytes = 12.0 * m * h, 3.0 * m * h + 2 * h * 4 + 32
-    bnd, by = bound_ms(ops, nbytes, PEAK_F32_OPS)
-    print(f"  fused_add_ln_payload: kernel {t_k:.4f} ms, plain {t_p:.4f} ms,"
-          f" bound {bnd:.4f} ms ({by})")
-    report["fused_add_ln_payload"] = {
-        "ms": 2 * t_k, "plain_ms": 2 * t_p, "bound_ms": 2 * bnd,
-        "bound_by": by, "library_ms": None, **res}
+    gb, eps = lp["ln1"]["gb"], static.ln_eps
+    k3 = kernel_case(
+        f"fused_add_ln_payload {m}x{h}",
+        lambda: EK.fused_add_ln_payload(y8, x8, gb, ln1, eps=eps),
+        lambda: EK.fused_add_ln_payload_ref(y8, x8, gb, ln1, eps=eps),
+        12.0 * m * h, 3.0 * m * h + 2 * h * 4 + 32, peak=PEAK_F32_OPS)
+    report["fused_add_ln_payload"] = per_layer([(k3, 2)])
 
     # the TPU's fused forms as chains of the kernels, each against its
     # plain version and its own bound (bytes: each input read once, the
@@ -293,7 +308,7 @@ def check_kernels(params, cfg, qcfg, qstate, int_params, static, plan,
     }
     for name, (chain, ref, ops, nbytes) in chains.items():
         compare(chain(), ref(), f"{name} (chain vs plain)")
-        t_k = timed_ms(chain)
+        t_k = device_ms(chain)
         t_p = timed_ms(ref, iters=5)
         bnd, by = bound_ms(ops, nbytes)
         print(f"  {name}: chain {t_k:.4f} ms, plain {t_p:.4f} ms, bound "
@@ -320,7 +335,7 @@ def check_other_shapes(plan, dev) -> None:
                         torch.full((n,), 3.0, device=dev)])
     scal = torch.tensor([[0.03, 5.0]], device=dev)
     x = ints(m, k)
-    for act in (None, "gelu_new"):
+    for act in (None, "gelu_new", "relu"):
         for mode in ("emit", "fold", "float"):
             got = EK.int8_matmul(x, w, vecs, scal, activation=act,
                                  out_mode=mode)
@@ -396,12 +411,12 @@ def check_flex_kernels(params, cfg, qcfg, qstate, int_params, static, plan,
                                        activation="gelu_new"), i8,
                   f"float_edge_matmul[inter] {m}x{h}->{n1} "
                   f"{grid['bits']}-bit, {grid['s'].numel()} groups")
-    t_k = timed_ms(lambda: EK.float_edge_matmul(hx, inter["vecs"], grid,
+    t_k = device_ms(lambda: EK.float_edge_matmul(hx, inter["vecs"], grid,
                                                 activation="gelu_new"))
     t_p = timed_ms(lambda: EK.float_edge_matmul_ref(
         hx, inter["vecs"], grid, activation="gelu_new"), iters=5)
     w_f = inter["w"].float()
-    t_l = timed_ms(lambda: torch.matmul(hx, w_f.t()))
+    t_l = device_ms(lambda: torch.matmul(hx, w_f.t()))
     # one m x h x n1 product, whatever the edge's width (the kernel's u8
     # planes are its own choice); bytes: f32 x, int8 w and out, vecs, grid
     ops = 2.0 * m * n1 * h
@@ -419,14 +434,14 @@ def check_flex_kernels(params, cfg, qcfg, qstate, int_params, static, plan,
         EK.int8_matmul(i8, dense["w"], dense["vecs"], dense["scal"],
                        out_mode="fold", out_bits=h_bits), y2, dense["vecs"][3],
         f"int8_matmul[dense] fold {h_bits}-bit {m}x{n1}->{h}")
-    t_k = timed_ms(lambda: EK.int8_matmul(i8, dense["w"], dense["vecs"],
+    t_k = device_ms(lambda: EK.int8_matmul(i8, dense["w"], dense["vecs"],
                                           dense["scal"], out_mode="fold",
                                           out_bits=h_bits))
     t_p = timed_ms(lambda: EK.int8_matmul_ref(
         i8, dense["w"], dense["vecs"], dense["scal"], out_mode="fold",
         out_bits=h_bits), iters=5)
     w_t = dense["w"].t()
-    t_l = timed_ms(lambda: torch._int_mm(i8, w_t))
+    t_l = device_ms(lambda: torch._int_mm(i8, w_t))
     ops, nbytes = 2.0 * m * h * n1, m * n1 + h * n1 + 4 * m * h + 5 * h * 4
     bnd, by = bound_ms(ops, nbytes)
     print(f"  int8_matmul[dense fold]: kernel {t_k:.4f} ms, plain {t_p:.4f} "
@@ -447,7 +462,7 @@ def check_flex_kernels(params, cfg, qcfg, qstate, int_params, static, plan,
         res = (compare_values(got, want, x_step, f"flex_add_ln[{tag}] {m}x{h}")
                if want.dtype == torch.float32 else
                compare(got, want, f"flex_add_ln[{tag}] {m}x{h}"))
-        t_k = timed_ms(lambda: EK.flex_add_ln(*args, **kw))
+        t_k = device_ms(lambda: EK.flex_add_ln(*args, **kw))
         t_p = timed_ms(lambda: EK.flex_add_ln_ref(*args, **kw), iters=5)
         ops, nbytes = 20.0 * m * h, m * h * (4 + in_b + out_b) + 6 * h * 4
         bnd, by = bound_ms(ops, nbytes, PEAK_F32_OPS)
@@ -491,7 +506,7 @@ def check_flex_kernels(params, cfg, qcfg, qstate, int_params, static, plan,
             compare_values(got, want, x_step, f"{name} (chain vs plain)")
         else:
             compare(got, want, f"{name} (chain vs plain)")
-        t_k = timed_ms(chain)
+        t_k = device_ms(chain)
         t_p = timed_ms(ref, iters=5)
         bnd, by = bound_ms(ops, nbytes)
         print(f"  {name}: chain {t_k:.4f} ms, plain {t_p:.4f} ms, bound "
@@ -553,6 +568,268 @@ def check_flex_shapes(dev) -> None:
                     compare_values(got, want, 1.0, tag)
 
 
+def kernel_case(tag, got_fn, want_fn, ops, nbytes, lib_fn=None,
+                peak=PEAK_INT8_OPS, plain_fn=None) -> dict:
+    """One kernel call against its plain version ``want_fn``: bit-identical
+    or fail; kernel (device), plain and library ms, and the bound from
+    ``ops`` / ``nbytes``. ``plain_fn``: what to time as the plain version
+    when ``want_fn`` only returns a result computed before."""
+    res = compare(got_fn(), want_fn(), tag)
+    t_k = device_ms(got_fn)
+    t_p = timed_ms(plain_fn or want_fn, iters=5)
+    t_l = device_ms(lib_fn) if lib_fn is not None else None
+    bnd, by = bound_ms(ops, nbytes, peak)
+    lib = f", library {t_l:.4f} ms" if t_l is not None else ""
+    print(f"  {tag}: kernel {t_k:.4f} ms, plain {t_p:.4f} ms{lib}, bound "
+          f"{bnd:.4f} ms ({by}), {ops / t_k / 1e9:.1f} TOP/s")
+    return {"ms": t_k, "plain_ms": t_p, "library_ms": t_l, "ops": ops,
+            "bytes": nbytes, "peak": peak, **res}
+
+
+def per_layer(cases) -> dict:
+    """A kernel's numbers per encoder layer: the sum over ``(case,
+    launches per layer)`` pairs; the bound from the summed work."""
+    out = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "max_abs_err": 0}
+    ops = nbytes = 0.0
+    for c, n in cases:
+        for k in ("ms", "plain_ms"):
+            out[k] += n * c[k]
+        out["library_ms"] = (None if c["library_ms"] is None
+                             or out["library_ms"] is None
+                             else out["library_ms"] + n * c["library_ms"])
+        out["max_abs_err"] = max(out["max_abs_err"], c["max_abs_err"])
+        ops += n * c["ops"]
+        nbytes += n * c["bytes"]
+    out["bound_ms"], out["bound_by"] = bound_ms(ops, nbytes,
+                                                cases[0][0]["peak"])
+    return out
+
+
+def matmul_case(tag, x, mp, act) -> dict:
+    """K1 on ``x`` with the matmul plan ``mp``; the library yardstick is
+    ``torch._int_mm``, the int32 product only."""
+    m, (n, k) = x.shape[0], mp["w"].shape
+    w_t = mp["w"].t()
+    return kernel_case(
+        f"int8_matmul[{tag}] {m}x{k}->{n}",
+        lambda: EK.int8_matmul(x, *_mm(mp), activation=act),
+        lambda: EK.int8_matmul_ref(x, *_mm(mp), activation=act),
+        2.0 * m * n * k, m * k + n * k + 5 * n * 4 + m * n,
+        lib_fn=lambda: torch._int_mm(x, w_t))
+
+
+def _mm(p):
+    return (p["w"], p["vecs"], p["scal"])
+
+
+def _nrm(p):
+    return (p["gb"], p["scal"])
+
+
+def mb_layer_kwargs(cfg, static, i: int = 0) -> dict:
+    return dict(n_heads=static.n_heads, seq=SEQ, hidden=static.hidden,
+                attn_case=static.attn_case, activation=cfg.hidden_act,
+                res=static.res_quant[i], w4=static.w4[i], n_ffn=static.n_ffn,
+                skip_max=static.attn_skip_max)
+
+
+def check_mobilebert_kernels(params, cfg, qcfg, qstate, int_params, static,
+                             plan, batch, dev) -> dict:
+    """Phase 8: K1 + relu, K6, K7 and K8 against their plain versions on
+    layer 0 of MobileBERT-uncased (B=128, S=128), and K8 against the
+    chain of the other kernels; per-layer times."""
+    h, mask = MB.entry_value(params, batch, cfg, qcfg, qstate, int_params,
+                             device=dev)
+    es = plan["entry_scal"]
+    h8 = EK.quantize_payload(h.reshape(BATCH * SEQ, -1), es[0, 0], es[0, 1])
+    mask = mask.contiguous()
+    lp = plan["layers"][0]
+    m, hdim = h8.shape
+    th, nh = static.hidden, static.n_heads
+    d = th // nh
+    res_ao, res_ffn, res_out, res_obn = static.res_quant[0]
+    nk = dict(eps=0.0, norm="nonorm")
+    akw = dict(n_heads=nh, seq=SEQ, hidden=th, cols=(0, 1, 0),
+               skip_max=static.attn_skip_max)
+    # layer 0's payloads, on the plain versions
+    li8 = EK.int8_matmul_norm_ref(h8, *_mm(lp["bn_in"]),
+                                  *_nrm(lp["bn_in_norm"]), **nk)
+    sh8 = EK.int8_matmul_norm_ref(h8, *_mm(lp["bn_attn"]),
+                                  *_nrm(lp["bn_attn_norm"]), **nk)
+    qk8 = EK.int8_matmul_ref(sh8, *_mm(lp["qk"]))
+    v8 = EK.int8_matmul_ref(h8, *_mm(lp["v"]))
+    c8 = EK.int8_attention_qkv_ref(qk8, qk8, v8, mask, lp["attn_scal"],
+                                   **akw)
+    x8 = EK.int8_matmul_add_ln_ref(c8, *_mm(lp["attn_out"]), li8,
+                                   *_nrm(lp["attn_out_norm"]),
+                                   res_quant=res_ao, **nk)
+    f0 = lp["ffns"][0]
+    i8 = EK.int8_matmul_ref(x8, *_mm(f0["inter"]), activation="relu")
+    xj = x8
+    for j, f in enumerate(lp["ffns"]):
+        xj = EK.int8_ffn_ln_ref(xj, *_mm(f["inter"]), *_mm(f["dense"]), xj,
+                                *_nrm(f["norm"]), activation="relu",
+                                res_quant=res_ffn[j], **nk)
+    y8 = EK.int8_ffn_ln_ref(xj, *_mm(lp["inter"]), *_mm(lp["out"]), xj,
+                            *_nrm(lp["out_norm"]), activation="relu",
+                            res_quant=res_out, **nk)
+    report = {}
+
+    # K1: [q|k], v and the four relu inter matmuls of a layer
+    k1 = [(matmul_case("qk", sh8, lp["qk"], None), 1),
+          (matmul_case("v", h8, lp["v"], None), 1),
+          (matmul_case("inter relu", x8, f0["inter"], "relu"), 4)]
+    report["int8_matmul"] = per_layer(k1)
+
+    def norm_case(tag, x, mp, r, np_, res_quant):
+        n, k = mp["w"].shape
+        w_t = mp["w"].t()
+        if r is None:
+            got = lambda: EK.int8_matmul_norm(x, *_mm(mp), *_nrm(np_), **nk)
+            want = lambda: EK.int8_matmul_norm_ref(x, *_mm(mp), *_nrm(np_),
+                                                   **nk)
+        else:
+            got = lambda: EK.int8_matmul_add_ln(
+                x, *_mm(mp), r, *_nrm(np_), res_quant=res_quant, **nk)
+            want = lambda: EK.int8_matmul_add_ln_ref(
+                x, *_mm(mp), r, *_nrm(np_), res_quant=res_quant, **nk)
+        nbytes = (m * k + n * k + 7 * n * 4 + 10 * 4
+                  + m * n * (1 if r is None else 2))
+        return kernel_case(
+            f"int8_matmul_norm[{tag}] {m}x{k}->{n} "
+            f"{'no residual' if r is None else 'residual'}", got, want,
+            2.0 * m * n * k, nbytes, lib_fn=lambda: torch._int_mm(x, w_t))
+
+    # K6: bn_in, bn_attn, attn_out, the four FFN dense and out_bn
+    k6 = [(norm_case("bn_in", h8, lp["bn_in"], None, lp["bn_in_norm"],
+                     False), 1),
+          (norm_case("bn_attn", h8, lp["bn_attn"], None,
+                     lp["bn_attn_norm"], False), 1),
+          (norm_case("attn_out", c8, lp["attn_out"], li8,
+                     lp["attn_out_norm"], res_ao), 1),
+          (norm_case("ffn dense", i8, f0["dense"], x8, f0["norm"],
+                     res_ffn[0]), 4),
+          (norm_case("out_bn", y8, lp["out_bn"], h8, lp["out_bn_norm"],
+                     res_obn), 1)]
+    report["int8_matmul_norm"] = per_layer(k6)
+
+    # K7: the attention over [q|k] cols 0, 1 and v, head_dim 32
+    k7 = kernel_case(
+        f"int8_attention_qkv B={BATCH} T={SEQ} heads={nh} d={d}",
+        lambda: EK.int8_attention_qkv(qk8, qk8, v8, mask, lp["attn_scal"],
+                                      **akw),
+        lambda: EK.int8_attention_qkv_ref(qk8, qk8, v8, mask,
+                                          lp["attn_scal"], **akw),
+        4.0 * BATCH * nh * SEQ * SEQ * d, 4 * m * th + mask.numel() * 4)
+    report["int8_attention_qkv"] = per_layer([(k7, 1)])
+
+    # K8: the whole layer, against its plain version and the chain
+    flat = EK.mb_layer_flat(lp, static.attn_case)
+    lkw = mb_layer_kwargs(cfg, static)
+    args = (h8, mask, lp["attn_scal"], flat)
+
+    def layer():
+        return EK.int8_mb_layer_ln(*args, **lkw)
+
+    def chain():
+        return EK.mb_layer_chain(*args, **lkw)
+
+    def plain():
+        return EK.int8_mb_layer_ln_ref(*args, **lkw)
+
+    compare(chain(), plain(), "mb_layer_chain (K1 + K6 + K7) vs plain")
+    compare(layer(), chain(), "int8_mb_layer_ln vs the chain")
+    ops = (sum(2.0 * m * a.shape[0] * a.shape[1] for a in flat
+               if a.dtype == torch.int8)
+           + 4.0 * BATCH * nh * SEQ * SEQ * d)
+    nbytes = (2 * m * hdim + mask.numel() * 4 + lp["attn_scal"].numel() * 4
+              + sum(a.numel() * a.element_size() for a in flat))
+    k8 = kernel_case(f"int8_mb_layer_ln B={BATCH} T={SEQ} (one layer)",
+                     layer, plain, ops, nbytes)
+    t_chain = device_ms(chain)
+    print(f"  mb_layer_chain (15 launches): {t_chain:.4f} ms per layer; "
+          f"int8_mb_layer_ln {k8['ms']:.4f} ms "
+          f"({t_chain / k8['ms']:.2f}x the chain's speed)")
+    report["int8_mb_layer_ln"] = per_layer([(k8, 1)])
+    report["int8_mb_layer_ln"]["chain_ms"] = t_chain
+    return report
+
+
+def check_mobilebert_shapes(plan, static, dev) -> None:
+    """The new kernels off the main path's shapes: K6 on ragged tiles with
+    and without a residual, K7 at seq 64 / 32 (head_dim 32) and K8 with
+    the 'bottleneck' attention case, against their plain versions."""
+    gen = torch.Generator(device=dev).manual_seed(13)
+
+    def ints(*shape, lo=-40, hi=40):
+        return torch.randint(lo, hi, shape, generator=gen, device=dev,
+                             dtype=torch.int8)
+
+    lp = plan["layers"][0]
+    m, n, k = 1000, 136, 80
+    w = ints(n, k)
+    vecs = torch.stack([torch.full((n,), 2e-4, device=dev),
+                        w.float().sum(1), torch.zeros(n, device=dev),
+                        torch.full((n,), 0.05, device=dev),
+                        torch.full((n,), 3.0, device=dev)])
+    scal = torch.tensor([[0.03, 5.0]], device=dev)
+    gb = torch.stack([torch.linspace(0.5, 1.5, n, device=dev),
+                      torch.linspace(-0.1, 0.1, n, device=dev)])
+    ls = torch.tensor([[1.0, 0.0, 0.04, 2.0, 0.06, -3.0, 0.05, 1.0]],
+                      device=dev)
+    x, r = ints(m, k), ints(m, n)
+    for res_quant in (True, False):
+        compare(EK.int8_matmul_add_ln(x, w, vecs, scal, r, gb, ls, eps=0.0,
+                                      res_quant=res_quant, norm="nonorm"),
+                EK.int8_matmul_add_ln_ref(x, w, vecs, scal, r, gb, ls,
+                                          eps=0.0, res_quant=res_quant,
+                                          norm="nonorm"),
+                f"int8_matmul_norm {m}x{k}->{n} residual "
+                f"res_quant={res_quant}")
+    compare(EK.int8_matmul_norm(x, w, vecs, scal, gb, ls, eps=0.0),
+            EK.int8_matmul_norm_ref(x, w, vecs, scal, gb, ls, eps=0.0),
+            f"int8_matmul_norm {m}x{k}->{n} no residual")
+    for seq in (64, 32):
+        b = 6
+        qk = ints(b * seq, 256, lo=-60, hi=60)
+        v = ints(b * seq, 128, lo=-60, hi=60)
+        mask = torch.zeros(b, seq, device=dev)
+        mask[:, seq // 2:] = -10000.0
+        for skip in (True, False):
+            akw = dict(n_heads=4, seq=seq, hidden=128, cols=(0, 1, 0),
+                       skip_max=skip)
+            compare(EK.int8_attention_qkv(qk, qk, v, mask, lp["attn_scal"],
+                                          **akw),
+                    EK.int8_attention_qkv_ref(qk, qk, v, mask,
+                                              lp["attn_scal"], **akw),
+                    f"int8_attention_qkv seq={seq} d=32 skip_max={skip}")
+    # the 'bottleneck' case: q, k and v from the bottleneck-in payload (v's
+    # weight is attn_out's, a 128 x 128 stand-in); 8 sequences
+    bl = dict(lp, bn_attn=None, bn_attn_norm=None,
+              v=dict(lp["v"], w=lp["attn_out"]["w"]))
+    flat = EK.mb_layer_flat(bl, "bottleneck")
+    kw = dict(n_heads=static.n_heads, seq=SEQ, hidden=static.hidden,
+              attn_case="bottleneck", activation="relu",
+              res=static.res_quant[0], w4=static.w4[0][1:],
+              n_ffn=static.n_ffn, skip_max=False)
+    h8 = ints(8 * SEQ, lp["bn_in"]["w"].shape[1])
+    mask = torch.zeros(8, SEQ, device=dev)
+    mask[:, 3 * SEQ // 4:] = -10000.0
+    compare(EK.int8_mb_layer_ln(h8, mask, lp["attn_scal"], flat, **kw),
+            EK.int8_mb_layer_ln_ref(h8, mask, lp["attn_scal"], flat, **kw),
+            "int8_mb_layer_ln attn_case=bottleneck")
+
+
+def mobilebert_runner(params, cfg, qcfg, qstate, static, plan, int_params,
+                      dev, fuse_layer=None):
+    def run(batch, backend):
+        return MB.mobilebert_engine_apply(
+            params, batch, cfg, qcfg, qstate, static, plan, int_params,
+            backend=backend, fuse_layer=fuse_layer if backend == "kernels"
+            else None, device=dev)
+    return run
+
+
 def window_ms(fn, window_s: float = 1.0, windows: int = 5):
     """Median, least and most milliseconds per call over ``windows``
     host-clock windows of at least ``window_s`` seconds each: calls are
@@ -579,15 +856,26 @@ def seq_per_s(ms) -> str:
     return f"{med:.1f} ({hi:.1f}-{lo:.1f})"
 
 
-def drive_path(name, params, cfg, qcfg, qstate, static, plan, int_params,
-               batches, want, dev):
+def bert_runner(params, cfg, qcfg, qstate, static, plan, int_params, dev):
+    def run(batch, backend):
+        return B.bert_engine_apply(params, batch, cfg, qcfg, qstate, static,
+                                   plan, int_params, backend=backend,
+                                   device=dev)
+    return run
+
+
+def per_forward(**counts) -> dict:
+    """Expected launches per forward: the given kernels, 0 for the rest."""
+    return {k: counts.get(k, 0) for k in EK.LAUNCHES}
+
+
+def drive_path(name, run, cfg, batches, want):
     """One main path: the launch counts set to 0 just before and read just
-    after three request batches through ``bert_engine_apply``; the logits
-    against the same engine on the plain versions. Returns the counts."""
+    after three request batches through ``run(batch, backend)`` (an
+    engine entry point); the logits against the same engine on the plain
+    versions (``backend='plain'``). Returns the counts."""
     EK.reset_launches()
-    logits = [B.bert_engine_apply(params, b, cfg, qcfg, qstate, static, plan,
-                                  int_params, device=dev)["logits"]
-              for b in batches]
+    logits = [run(b, "kernels")["logits"] for b in batches]
     torch.cuda.synchronize()
     launches = dict(EK.LAUNCHES)
     per_fwd = {k: v / len(batches) for k, v in launches.items()}
@@ -596,9 +884,7 @@ def drive_path(name, params, cfg, qcfg, qstate, static, plan, int_params,
     if per_fwd != want:
         fail(f"{name}: launches per forward {per_fwd}, expected {want}")
     for i, (b, lg) in enumerate(zip(batches, logits)):
-        ref = B.bert_engine_apply(params, b, cfg, qcfg, qstate, static, plan,
-                                  int_params, backend="plain",
-                                  device=dev)["logits"]
+        ref = run(b, "plain")["logits"]
         if tuple(lg.shape) != (BATCH, cfg.num_labels):
             fail(f"{name}: logits shape {tuple(lg.shape)}")
         if not torch.isfinite(lg).all():
@@ -664,10 +950,10 @@ def main(argv=None) -> int:
     print("[4] main path: BERT-base W8A8 through bert_engine_apply",
           flush=True)
     by_path = {"w8a8": drive_path(
-        "w8a8", params, cfg, qcfg, qstate, static, plan, int_params, batches,
-        {"int8_matmul": 4 * L, "int8_attention": L,
-         "fused_add_ln_payload": 2 * L, "float_edge_matmul": 0,
-         "flex_add_ln": 0}, dev)}
+        "w8a8", bert_runner(params, cfg, qcfg, qstate, static, plan,
+                            int_params, dev), cfg, batches,
+        per_forward(int8_matmul=4 * L, int8_attention=L,
+                    fused_add_ln_payload=2 * L))}
 
     b0 = batches[0]
     # the encoder alone (12 x int8_layer_ln + payload entry/exit) on this
@@ -709,10 +995,10 @@ def main(argv=None) -> int:
           flush=True)
     for rname, (rq, rs, rstatic, rplan, rint) in recipes.items():
         by_path[rname] = drive_path(
-            rname, params, cfg, rq, rs, rstatic, rplan, rint, batches,
-            {"int8_matmul": 3 * L, "int8_attention": L,
-             "fused_add_ln_payload": 0, "float_edge_matmul": L,
-             "flex_add_ln": 2 * L}, dev)
+            rname, bert_runner(params, cfg, rq, rs, rstatic, rplan, rint,
+                               dev), cfg, batches,
+            per_forward(int8_matmul=3 * L, int8_attention=L,
+                        float_edge_matmul=L, flex_add_ln=2 * L))
         rh, rm = entry_value(params, cfg, rq, rs, rint, b0, dev)
         t_enc = window_ms(lambda: ENG.encoder_engine(rh, rm, rstatic, rplan))
         t_eng = window_ms(lambda: B.bert_engine_apply(
@@ -727,6 +1013,68 @@ def main(argv=None) -> int:
               f"5 windows ({kind}, {smi}): engine {seq_per_s(t_eng)}, "
               f"fake-quant simulation (f32, TF32 off) {seq_per_s(t_sim)}")
 
+    mcfg = MB.MobileBertConfig()
+    t0 = time.perf_counter()
+    mparams, mq, ms = CAL.calibrated_mobilebert(mcfg, batch_size=8, seq=SEQ,
+                                                seed=args.seed, device=dev)
+    mstatic, mplan, mint = MB.build_mobilebert_engine(mparams, mcfg, mq, ms,
+                                                      device=dev)
+    torch.cuda.synchronize()
+    print(f"[7] MobileBERT-uncased ({mcfg.num_hidden_layers} layers, H="
+          f"{mcfg.hidden_size}, bottleneck {mcfg.true_hidden_size}, "
+          f"{mcfg.num_attention_heads} heads, {mcfg.num_stacked_ffn} stacked "
+          f"FFNs): init, W8A8 calibration, packing, plan "
+          f"{time.perf_counter() - t0:.1f} s; attn_case={mstatic.attn_case},"
+          f" skip_max={mstatic.attn_skip_max}; its kernels against their "
+          f"plain versions, layer-0 inputs (B={BATCH}, S={SEQ})", flush=True)
+    mbatches = request_batches(mcfg, 3, args.seed)
+    mb_report = check_mobilebert_kernels(mparams, mcfg, mq, ms, mint, mstatic,
+                                         mplan, mbatches[0], dev)
+    check_mobilebert_shapes(mplan, mstatic, dev)
+
+    print("[8] main path: MobileBERT-uncased W8A8 through "
+          "mobilebert_engine_apply", flush=True)
+    ML = mcfg.num_hidden_layers
+    n_ffn = mstatic.n_ffn + 1
+    by_path["mobilebert"] = drive_path(
+        "mobilebert", mobilebert_runner(mparams, mcfg, mq, ms, mstatic, mplan,
+                                        mint, dev), mcfg, mbatches,
+        per_forward(int8_mb_layer_ln=ML))
+    by_path["mobilebert-chain"] = drive_path(
+        "mobilebert-chain", mobilebert_runner(mparams, mcfg, mq, ms, mstatic,
+                                              mplan, mint, dev,
+                                              fuse_layer=False),
+        mcfg, mbatches,
+        per_forward(int8_matmul=(2 + n_ffn) * ML,
+                    int8_matmul_norm=(4 + n_ffn) * ML,
+                    int8_attention_qkv=ML))
+    mb0 = mbatches[0]
+    mh, mm_ = MB.entry_value(mparams, mb0, mcfg, mq, ms, mint, device=dev)
+    t_enc = window_ms(lambda: MB.mobilebert_encoder_engine(mh, mm_, mstatic,
+                                                           mplan))
+    t_enc_chain = window_ms(lambda: MB.mobilebert_encoder_engine(
+        mh, mm_, mstatic, mplan, fuse_layer=False))
+    t_fwd = window_ms(lambda: MB.mobilebert_engine_apply(
+        mparams, mb0, mcfg, mq, ms, mstatic, mplan, mint, device=dev))
+    t_chain = window_ms(lambda: MB.mobilebert_engine_apply(
+        mparams, mb0, mcfg, mq, ms, mstatic, mplan, mint, fuse_layer=False,
+        device=dev))
+    t_sim = window_ms(lambda: MB.mobilebert_apply(mparams, mb0, mcfg, mq, ms,
+                                                  QuantMode(), device=dev))
+    print("  [mobilebert] ms per call, median (least-most) of 5 windows of "
+          f">= 1 s: engine forward {t_fwd[0]:.3f} ({t_fwd[1]:.3f}-"
+          f"{t_fwd[2]:.3f}), encoder {t_enc[0]:.3f} ({t_enc[1]:.3f}-"
+          f"{t_enc[2]:.3f}) ({ML} x int8_mb_layer_ln), embeddings + head "
+          f"{t_fwd[0] - t_enc[0]:.3f}; chain route: forward {t_chain[0]:.3f} "
+          f"({t_chain[1]:.3f}-{t_chain[2]:.3f}), encoder {t_enc_chain[0]:.3f}"
+          f" ({t_enc_chain[1]:.3f}-{t_enc_chain[2]:.3f})")
+    print(f"  [mobilebert] seq/s at B={BATCH}, S={SEQ}, median (range) of 5 "
+          f"windows ({kind}, {smi}): engine (int8_mb_layer_ln) "
+          f"{seq_per_s(t_fwd)}, engine (chain) {seq_per_s(t_chain)}, "
+          f"fake-quant simulation (f32, TF32 off) {seq_per_s(t_sim)}")
+
+    report.update({k: mb_report[k] for k in (
+        "int8_matmul_norm", "int8_attention_qkv", "int8_mb_layer_ln")})
     report["float_edge_matmul"] = flex_reports["w8a8-mixed"][
         "float_edge_matmul"]
     report["flex_add_ln"] = flex_reports["w8a8-mixed"]["flex_add_ln"]
@@ -736,7 +1084,10 @@ def main(argv=None) -> int:
                "fused_add_ln_payload": ("add_ln_payload.cu", f"{pallas}:1073"),
                "float_edge_matmul": ("float_edge_matmul.cu",
                                      f"{pallas}:1425"),
-               "flex_add_ln": ("flex_add_ln.cu", f"{pallas}:1648")}
+               "flex_add_ln": ("flex_add_ln.cu", f"{pallas}:1648"),
+               "int8_matmul_norm": ("int8_matmul_norm.cu", f"{pallas}:1264"),
+               "int8_attention_qkv": ("int8_attention.cu", f"{pallas}:833"),
+               "int8_mb_layer_ln": ("int8_mb_layer.cu", f"{pallas}:2038")}
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
     kernels = []
@@ -754,6 +1105,11 @@ def main(argv=None) -> int:
         if variant in flex_reports["w8a8-mixed"]:
             entry["variants"] = {rn: {k: fr[variant][k] for k in keys}
                                  for rn, fr in flex_reports.items()}
+        if name == "int8_matmul":
+            entry["variants"]["mobilebert"] = {
+                k: mb_report[name][k] for k in keys}
+        if name == "int8_mb_layer_ln":
+            entry["chain_ms"] = r["chain_ms"]
         kernels.append(entry)
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -28,7 +28,8 @@ from typing import Dict
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 SOURCES = ("int8_matmul", "int8_attention", "add_ln_payload",
-           "float_edge_matmul", "flex_add_ln")
+           "float_edge_matmul", "flex_add_ln", "int8_matmul_norm",
+           "int8_mb_layer")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
@@ -42,7 +43,14 @@ _SIGNATURES = {
                     (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _F,
                      _P)),
     "int8_attention": ("tq_int8_attention",
-                       (_P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _I, _P)),
+                       (_P, _P, _P, _I, _I, _I, _P, _P, _P, _I, _I, _I, _I,
+                        _F, _F, _I, _P)),
+    "int8_matmul_norm": ("tq_int8_matmul_norm",
+                         (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                          _P)),
+    "int8_mb_layer": ("tq_int8_mb_layer",
+                      (_P, _P, _P, _P, _I, _P) + (_I,) * 13
+                      + (_F, _F, _F, _P)),
     "add_ln_payload": ("tq_add_ln_payload",
                        (_P, _P, _P, _P, _P, _I, _I, _F, _I, _P)),
     "float_edge_matmul": ("tq_float_edge_matmul",

@@ -160,7 +160,7 @@ __global__ void __launch_bounds__(THREADS)
         unsigned bf[NI][2];
 #pragma unroll
         for (int ni = 0; ni < NI; ++ni)
-          load_b_frag(bf[ni], bs, wn + ni * 8, kk, g, t);
+          load_b_frag(bf[ni], bs, LDS, wn + ni * 8, kk, g, t);
 #pragma unroll
         for (int p = 0; p < PLANES; ++p) {
           unsigned af[4][4];
@@ -235,10 +235,14 @@ struct Args {
 template <int PLANES, int ACT>
 cudaError_t launch(const Args& a, cudaStream_t stream) {
   const size_t smem = smem_bytes<PLANES>(a.K);
-  const cudaError_t e = cudaFuncSetAttribute(
-      fe_mm_kernel<PLANES, ACT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (e != cudaSuccess) return e;
+  static size_t smem_allowed = 0;  // raised once per size, not every launch
+  if (smem > smem_allowed) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        fe_mm_kernel<PLANES, ACT>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (e != cudaSuccess) return e;
+    smem_allowed = smem;
+  }
   fe_mm_kernel<PLANES, ACT><<<(a.M + BM - 1) / BM, THREADS, smem, stream>>>(
       a.x, a.cols, a.w, a.vecs, a.gs, a.ginv, a.gzp, a.gcs, a.out, a.M, a.N,
       a.K, a.gsize, a.maxq, a.gelu_c);

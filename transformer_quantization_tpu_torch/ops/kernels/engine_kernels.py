@@ -4,14 +4,23 @@ Counterpart of ``transformer_quantization_tpu/ops/pallas/engine_kernels.py``.
 Activations travel between matmuls as int8 payloads: value
 ``s * (p + shift)``, ``shift = 128 - zero_point`` for asymmetric sites.
 
-Five kernels are written by hand for Hopper (``csrc/``):
+Eight kernels are written by hand for Hopper (``csrc/``):
 
 - :func:`int8_matmul` -- payload matmul with the dequant fold, bias,
-  optional ``gelu_new``, and a per-column output site (``emit`` int8
-  payload, ``fold`` fake-quantized float on an ``out_bits`` grid, or raw
-  ``float``);
-- :func:`int8_attention` -- scores, scores site, exp2 softmax, probs
-  payload, probs @ v and the context payload, per (batch row, head);
+  optional ``gelu_new`` or ``relu``, and a per-column output site
+  (``emit`` int8 payload, ``fold`` fake-quantized float on an
+  ``out_bits`` grid, or raw ``float``);
+- :func:`int8_matmul_norm` -- the same matmul with MobileBERT's whole
+  elementwise tail in its epilogue: fold site, optional + residual
+  payload, res site, NoNorm, norm-site payload (also the ``nonorm`` forms
+  of :func:`int8_matmul_add_ln` and :func:`int8_ffn_ln`);
+- :func:`int8_attention_qkv` -- scores, scores site, exp2 softmax, probs
+  payload, probs @ v and the context payload, per (batch row, head), over
+  q, k and v picked from up to three arrays by ``cols``;
+  :func:`int8_attention` is its instance over one fused q|k|v array;
+- :func:`int8_mb_layer_ln` -- a whole MobileBERT layer in one launch, one
+  block per sequence, every intermediate payload in shared memory, built
+  from the same device functions as the three kernels above;
 - :func:`fused_add_ln_payload` -- payload + payload residual add, res
   site, one-pass LayerNorm, ln payload;
 - :func:`float_edge_matmul` -- the matmul of a float value edge (a 16-bit
@@ -31,7 +40,13 @@ add+LN; :func:`int8_layer_ln` = qkv matmul -> attention -> matmul_add_ln
 encoder layer. The flex forms of the mixed and PEG recipes:
 :func:`int8_attn_ln` = qkv matmul -> attention -> attn_out matmul (fold)
 -> flex add+LN, and :func:`int8_ffn_ln` = inter matmul (float-edge or
-payload) -> dense matmul (fold) -> flex add+LN.
+payload) -> dense matmul (fold) -> flex add+LN. With ``norm='nonorm'``
+(MobileBERT) the tail needs no row reduction and rides the matmul
+epilogue: :func:`int8_matmul_add_ln` is one :func:`int8_matmul_norm`
+launch and :func:`int8_ffn_ln` two. MobileBERT's layer fits one block's
+shared memory at its widths, so :func:`int8_mb_layer_ln` is one kernel;
+:func:`mb_layer_chain` is the same layer as a chain of the kernels above,
+and its plain form is :func:`int8_mb_layer_ln_ref`.
 
 Each ``*_ref`` repeats the JAX ``*_ref`` operation for operation (same
 association order, division where it divides), with one deliberate
@@ -50,6 +65,7 @@ kernel or raises. :data:`LAUNCHES` counts kernel launches per wrapper.
 
 from __future__ import annotations
 
+import ctypes
 from typing import Dict, Tuple
 
 import numpy as np
@@ -67,7 +83,9 @@ Tensor = torch.Tensor
 # kernel launches per wrapper; a wrapper adds one only where it launches
 LAUNCHES: Dict[str, int] = {"int8_matmul": 0, "int8_attention": 0,
                             "fused_add_ln_payload": 0,
-                            "float_edge_matmul": 0, "flex_add_ln": 0}
+                            "float_edge_matmul": 0, "flex_add_ln": 0,
+                            "int8_matmul_norm": 0, "int8_attention_qkv": 0,
+                            "int8_mb_layer_ln": 0}
 
 LOG2E = float(np.float32(np.log2(np.e)))
 
@@ -313,25 +331,45 @@ def int8_attention_ref(qkv8, mask_bias, scalars, *, n_heads, seq,
     return _emit_ctx(ctx, pv_over_c, s[10], s[11], c_bits).reshape(mt, h)
 
 
-def _ln_body_ref(x, gb, sv, *, eps, res_quant, res_bits=8, ln_bits=8):
-    """res-site fake-quant -> one-pass LayerNorm -> ln-site levels. ``sv``
-    = (res_s, res_sh, ln_s, ln_sh): scalars, or (1, H) per-column rows of
-    PEG sites; ``res_bits`` / ``ln_bits`` are the two sites' grids."""
+def int8_attention_qkv_ref(q_arr, k_arr, v_arr, mask_bias, scalars, *,
+                           n_heads, seq, hidden, cols=(0, 0, 0),
+                           skip_max=False, attn_bits=(8, 8)):
+    """:func:`int8_attention_ref` over separate q, k, v payload arrays:
+    ``cols[i]`` picks the ``hidden``-wide column block of each (MobileBERT:
+    q and k are the halves of one fused [q | k] matmul, v its own)."""
+    qkv = torch.cat([a[:, c * hidden:(c + 1) * hidden]
+                     for a, c in zip((q_arr, k_arr, v_arr), cols)], dim=1)
+    return int8_attention_ref(qkv, mask_bias, scalars, n_heads=n_heads,
+                              seq=seq, skip_max=skip_max,
+                              attn_bits=attn_bits)
+
+
+def _ln_body_ref(x, gb, sv, *, eps, res_quant, res_bits=8, ln_bits=8,
+                 norm="layernorm"):
+    """res-site fake-quant -> one-pass LayerNorm (or MobileBERT's NoNorm
+    ``x * gamma_q + beta_q``) -> ln-site levels. ``sv`` = (res_s, res_sh,
+    ln_s, ln_sh): scalars, or (1, H) per-column rows of PEG sites;
+    ``res_bits`` / ``ln_bits`` are the two sites' grids."""
     res_s, res_sh, ln_s, ln_sh = sv
     if res_quant:
         lo, hi = _clip_bounds(res_bits)
         x = fakequant_f32(x, res_s, res_sh, lo, hi)
-    mean = _row_mean(x)
-    ms = _row_mean(x * x)
-    var = torch.clamp(ms - mean * mean, min=0.0)
-    z = (x - mean) * (1.0 / torch.sqrt(var + eps)) * gb[0] + gb[1]
+    if norm == "nonorm":
+        z = x * gb[0] + gb[1]
+    elif norm == "layernorm":
+        mean = _row_mean(x)
+        ms = _row_mean(x * x)
+        var = torch.clamp(ms - mean * mean, min=0.0)
+        z = (x - mean) * (1.0 / torch.sqrt(var + eps)) * gb[0] + gb[1]
+    else:
+        raise ValueError(f"unknown norm {norm!r}")
     lo, hi = _clip_bounds(ln_bits)
     return torch.clamp(torch.round(z / ln_s) - ln_sh, lo, hi)
 
 
-def _ln_ref_body(x, gb, s, *, eps, res_quant):
+def _ln_ref_body(x, gb, s, *, eps, res_quant, norm="layernorm"):
     return _ln_body_ref(x, gb, (s[4], s[5], s[6], s[7]), eps=eps,
-                        res_quant=res_quant)
+                        res_quant=res_quant, norm=norm)
 
 
 def fused_add_ln_payload_ref(y8, r8, gb, scalars, *, eps, res_quant=True):
@@ -345,14 +383,15 @@ def fused_add_ln_payload_ref(y8, r8, gb, scalars, *, eps, res_quant=True):
 
 
 def flex_add_ln_ref(y, r, gb, scalars, lnv=None, *, eps, res_quant=True,
-                    res_mode="i8", res_bits=8, ln_bits=8, ln_out="emit"):
-    """Float y + residual -> res site -> LayerNorm -> ln site: the add+LN
-    tail of the JAX flex forms (``_ffn_kernel`` / ``_attn_mega_kernel``).
-    ``r``: int8 payload with ``scalars[0, 2:4]`` (``res_mode='i8'``) or
-    the float site value itself (``'f'``). Sites: ``scalars[0, 4:8]``, or
-    the (4, H) per-column rows ``lnv`` [res_s; res_sh; ln_s; ln_sh].
-    ``ln_out``: ``'emit'`` int8 payload or ``'f'`` the float value edge
-    ``ln_s * (level + ln_sh)``."""
+                    res_mode="i8", res_bits=8, ln_bits=8, ln_out="emit",
+                    norm="layernorm"):
+    """Float y + residual -> res site -> LayerNorm (or NoNorm) -> ln
+    site: the add+LN tail of the JAX flex forms (``_ffn_kernel`` /
+    ``_attn_mega_kernel``). ``r``: int8 payload with ``scalars[0, 2:4]``
+    (``res_mode='i8'``) or the float site value itself (``'f'``). Sites:
+    ``scalars[0, 4:8]``, or the (4, H) per-column rows ``lnv`` [res_s;
+    res_sh; ln_s; ln_sh]. ``ln_out``: ``'emit'`` int8 payload or ``'f'``
+    the float value edge ``ln_s * (level + ln_sh)``."""
     s = scalars[0]
     if res_mode == "i8":
         x = y + s[2] * (r.to(torch.float32) + s[3])
@@ -363,7 +402,7 @@ def flex_add_ln_ref(y, r, gb, scalars, lnv=None, *, eps, res_quant=True,
     sv = ((lnv[0:1], lnv[1:2], lnv[2:3], lnv[3:4]) if lnv is not None
           else (s[4], s[5], s[6], s[7]))
     q = _ln_body_ref(x, gb, sv, eps=eps, res_quant=res_quant,
-                     res_bits=res_bits, ln_bits=ln_bits)
+                     res_bits=res_bits, ln_bits=ln_bits, norm=norm)
     if ln_out == "emit":
         if ln_bits != 8:
             raise ValueError("an emitted payload is 8-bit (ln_bits=8)")
@@ -374,15 +413,27 @@ def flex_add_ln_ref(y, r, gb, scalars, lnv=None, *, eps, res_quant=True,
 
 
 def int8_matmul_add_ln_ref(x8, w8, vecs, scalars, r8, gb, ln_scalars, *,
-                           eps, res_quant=True, w4=False, in_mode="i8"):
-    """Matmul with the fold site -> + residual payload -> res site -> LN ->
-    ln payload."""
+                           eps, res_quant=True, w4=False, norm="layernorm",
+                           in_mode="i8"):
+    """Matmul with the fold site -> + residual payload -> res site -> LN
+    or NoNorm -> ln payload. ``r8`` None: no residual (the
+    :func:`int8_matmul_norm_ref` form)."""
     y = int8_matmul_ref(x8, w8, vecs, scalars, activation=None,
                         out_mode="fold", w4=w4, in_mode=in_mode)
     s = ln_scalars[0]
-    y = y + s[2] * (r8.to(torch.float32) + s[3])
-    return _ln_ref_body(y, gb, s, eps=eps, res_quant=res_quant).to(
-        torch.int8)
+    if r8 is not None:
+        y = y + s[2] * (r8.to(torch.float32) + s[3])
+    return _ln_ref_body(y, gb, s, eps=eps, res_quant=res_quant,
+                        norm=norm).to(torch.int8)
+
+
+def int8_matmul_norm_ref(x8, w8, vecs, scalars, gb, ln_scalars, *, eps,
+                         res_quant=False, w4=False, norm="nonorm"):
+    """:func:`int8_matmul_add_ln_ref` without a residual: MobileBERT's
+    bottleneck-in and shared key/query bottleneck branches."""
+    return int8_matmul_add_ln_ref(x8, w8, vecs, scalars, None, gb,
+                                  ln_scalars, eps=eps, res_quant=res_quant,
+                                  w4=w4, norm=norm)
 
 
 def _require_payload_inter(inter_mode: str) -> None:
@@ -393,13 +444,13 @@ def _require_payload_inter(inter_mode: str) -> None:
 
 def int8_ffn_ln_ref(x8, wi, vi, si, wd, vd, sd, r8, gb, ln_scalars,
                     lnv=None, *, activation, eps, res_quant=True, w4i=False,
-                    w4d=False, in_mode="i8", res_mode="i8", h_bits=8,
-                    y_bits=8, ln_out="emit", ln_bits=8, inter_mode="i8",
-                    x_grid=None):
+                    w4d=False, norm="layernorm", in_mode="i8", res_mode="i8",
+                    h_bits=8, y_bits=8, ln_out="emit", ln_bits=8,
+                    inter_mode="i8", x_grid=None):
     """Inter matmul + act -> inter payload -> dense matmul (fold on the
-    ``h_bits`` grid) -> + residual -> res site (``y_bits``) -> LN -> ln
-    site. The flex keywords are the JAX ones: ``in_mode='f'`` takes the
-    FFN input as a float value edge on the grid ``x_grid``,
+    ``h_bits`` grid) -> + residual -> res site (``y_bits``) -> LN or
+    NoNorm -> ln site. The flex keywords are the JAX ones: ``in_mode='f'``
+    takes the FFN input as a float value edge on the grid ``x_grid``,
     ``res_mode='f'`` the residual likewise, ``lnv`` per-column site rows,
     ``ln_out='f'`` a float value out."""
     _require_payload_inter(inter_mode)
@@ -409,7 +460,8 @@ def int8_ffn_ln_ref(x8, wi, vi, si, wd, vd, sd, r8, gb, ln_scalars,
                         w4=w4d, out_bits=h_bits)
     return flex_add_ln_ref(y, r8, gb, ln_scalars, lnv, eps=eps,
                            res_quant=res_quant, res_mode=res_mode,
-                           res_bits=y_bits, ln_bits=ln_bits, ln_out=ln_out)
+                           res_bits=y_bits, ln_bits=ln_bits, ln_out=ln_out,
+                           norm=norm)
 
 
 def _require_payload_layer_input(in_mode: str, qkv_mode: str) -> None:
@@ -489,7 +541,7 @@ def _stream() -> int:
     return torch.cuda.current_stream().cuda_stream
 
 
-_MM_ACTS = {None: 0, "gelu_new": 1}
+_MM_ACTS = {None: 0, "gelu_new": 1, "relu": 2}
 _MM_OUT = {"emit": 0, "fold": 1, "float": 2}
 
 
@@ -507,6 +559,21 @@ def _mm_modes(activation, out_mode: str, out_bits: int, what: str):
                                   "sites are not yet ported")
     lo, hi = _clip_bounds(out_bits)
     return _MM_ACTS[activation], _MM_OUT[out_mode], lo, hi
+
+
+def _check_matmul(x8, w8, vecs, scalars, what: str):
+    """(M, N, K) of a payload matmul's operands on the card."""
+    m, k = x8.shape
+    n = w8.shape[0]
+    _check(x8, "x8", torch.int8)
+    _check(w8, "w8", torch.int8, (n, k))
+    _check(vecs, "vecs", torch.float32, (5, n))
+    _check(scalars, "scalars", torch.float32, (1, 2))
+    _same_device(x8, w8, vecs, scalars)
+    if k % 16 or n % 8:
+        raise ValueError(f"{what} kernel needs K % 16 == 0 and N % 8 == 0 "
+                         f"(got K={k}, N={n})")
+    return m, n, k
 
 
 def int8_matmul(x8, w8, vecs, scalars, *, activation=None, out_mode="emit",
@@ -528,16 +595,7 @@ def int8_matmul(x8, w8, vecs, scalars, *, activation=None, out_mode="emit",
         raise ValueError(f"unknown in_mode {in_mode!r}")
     act, mode, lo, hi = _mm_modes(activation, out_mode, out_bits,
                                   "int8_matmul")
-    m, k = x8.shape
-    n = w8.shape[0]
-    _check(x8, "x8", torch.int8)
-    _check(w8, "w8", torch.int8, (n, k))
-    _check(vecs, "vecs", torch.float32, (5, n))
-    _check(scalars, "scalars", torch.float32, (1, 2))
-    _same_device(x8, w8, vecs, scalars)
-    if k % 16 or n % 8:
-        raise ValueError(f"int8_matmul kernel needs K % 16 == 0 and "
-                         f"N % 8 == 0 (got K={k}, N={n})")
+    m, n, k = _check_matmul(x8, w8, vecs, scalars, "int8_matmul")
     out = torch.empty((m, n), device=x8.device,
                       dtype=torch.int8 if out_mode == "emit"
                       else torch.float32)
@@ -575,6 +633,9 @@ def float_edge_matmul(x, vecs, grid, *, activation=None, out_mode="emit",
     if out_mode != "emit":
         raise NotImplementedError(f"float_edge_matmul kernel: out_mode "
                                   f"{out_mode!r} is not yet ported")
+    if activation not in (None, "gelu_new"):
+        raise NotImplementedError(f"float_edge_matmul kernel: activation "
+                                  f"{activation!r} is not yet ported")
     act = _mm_modes(activation, out_mode, out_bits, "float_edge_matmul")[0]
     m, k = x.shape
     w = grid["w"]
@@ -613,43 +674,238 @@ def float_edge_matmul(x, vecs, grid, *, activation=None, out_mode="emit",
     return out
 
 
-ATTN_SHAPES = ((32, 64), (64, 64), (128, 64))  # (seq, head_dim) built
+ATTN_SHAPES = tuple((t, d) for t in (32, 64, 128)
+                    for d in (32, 64))  # (seq, head_dim) built
+
+
+def _rsqrt_d(d: int) -> float:
+    return float(np.float32(1.0 / np.sqrt(d)))
+
+
+def _attention_launch(q_arr, k_arr, v_arr, cols, mask_bias, scalars, *,
+                      n_heads, seq, hidden, skip_max, attn_bits,
+                      what: str) -> Tensor:
+    """Launch ``csrc/int8_attention.cu`` over the column blocks ``cols``
+    of q, k and v; counts the launch under ``what``."""
+    if _attn3(attn_bits) != (8, 8, 8):
+        raise NotImplementedError(f"{what} kernel: only 8-bit scores/probs/"
+                                  "context sites are ported")
+    mt = q_arr.shape[0]
+    d = hidden // n_heads
+    b = mt // seq
+    if (seq, d) not in ATTN_SHAPES or b * seq != mt or d * n_heads != hidden:
+        raise NotImplementedError(f"{what} kernel: (seq, head_dim) = ({seq},"
+                                  f" {d}) is not built (built: "
+                                  f"{ATTN_SHAPES})")
+    for name, a, c in (("q", q_arr, cols[0]), ("k", k_arr, cols[1]),
+                       ("v", v_arr, cols[2])):
+        _check(a, name, torch.int8)
+        if a.ndim != 2 or a.shape[0] != mt or (c + 1) * hidden > a.shape[1]:
+            raise ValueError(f"{what}: {name} {tuple(a.shape)} has no column "
+                             f"block {c} of width {hidden} over {mt} rows")
+        if a.shape[1] % 16:
+            raise ValueError(f"{what}: {name} rows must be a multiple of 16 "
+                             "bytes")
+    _check(mask_bias, "mask_bias", torch.float32, (b, seq))
+    _check(scalars, "scalars", torch.float32, (1, 12))
+    _same_device(q_arr, k_arr, v_arr, mask_bias, scalars)
+    out = torch.empty((mt, hidden), device=q_arr.device, dtype=torch.int8)
+    fn = KB.load("int8_attention")
+    err = fn(q_arr.data_ptr() + cols[0] * hidden,
+             k_arr.data_ptr() + cols[1] * hidden,
+             v_arr.data_ptr() + cols[2] * hidden, q_arr.shape[1],
+             k_arr.shape[1], v_arr.shape[1], mask_bias.data_ptr(),
+             scalars.data_ptr(), out.data_ptr(), b, seq, hidden, n_heads,
+             _rsqrt_d(d), LOG2E, int(skip_max), _stream())
+    KB.check(err, what)
+    LAUNCHES[what] += 1
+    return out
 
 
 def int8_attention(qkv8, mask_bias, scalars, *, n_heads, seq,
                    skip_max=False, attn_bits=(8, 8)):
     """Fused attention over the q|k|v payload; see
-    :func:`int8_attention_ref`. On the card: one block per (batch row,
-    head), both products on int8 tensor cores (``csrc/int8_attention.cu``).
-    """
+    :func:`int8_attention_ref`. On the card: the kernel of
+    :func:`int8_attention_qkv` with q, k, v the column blocks 0, 1, 2 of
+    ``qkv8`` (``csrc/int8_attention.cu``)."""
     if not qkv8.is_cuda:
         return int8_attention_ref(qkv8, mask_bias, scalars, n_heads=n_heads,
                                   seq=seq, skip_max=skip_max,
                                   attn_bits=attn_bits)
-    if _attn3(attn_bits) != (8, 8, 8):
-        raise NotImplementedError("int8_attention kernel: only 8-bit "
-                                  "scores/probs/context sites are ported")
-    mt, h3 = qkv8.shape
-    h = h3 // 3
-    d = h // n_heads
-    b = mt // seq
-    if (seq, d) not in ATTN_SHAPES or b * seq != mt or d * n_heads != h:
-        raise NotImplementedError(f"int8_attention kernel: (seq, head_dim)"
-                                  f" = ({seq}, {d}) is not built "
-                                  f"(built: {ATTN_SHAPES})")
-    _check(qkv8, "qkv8", torch.int8)
-    _check(mask_bias, "mask_bias", torch.float32, (b, seq))
-    _check(scalars, "scalars", torch.float32, (1, 12))
-    _same_device(qkv8, mask_bias, scalars)
-    out = torch.empty((mt, h), device=qkv8.device, dtype=torch.int8)
-    fn = KB.load("int8_attention")
-    err = fn(qkv8.data_ptr(), mask_bias.data_ptr(), scalars.data_ptr(),
-             out.data_ptr(), b, seq, h, n_heads,
-             float(np.float32(1.0 / np.sqrt(d))), LOG2E, int(skip_max),
-             _stream())
-    KB.check(err, "int8_attention")
-    LAUNCHES["int8_attention"] += 1
+    return _attention_launch(qkv8, qkv8, qkv8, (0, 1, 2), mask_bias,
+                             scalars, n_heads=n_heads, seq=seq,
+                             hidden=qkv8.shape[1] // 3, skip_max=skip_max,
+                             attn_bits=attn_bits, what="int8_attention")
+
+
+def int8_attention_qkv(q_arr, k_arr, v_arr, mask_bias, scalars, *, n_heads,
+                       seq, hidden, cols=(0, 0, 0), skip_max=False,
+                       attn_bits=(8, 8)):
+    """Attention over separate q, k, v payload arrays; see
+    :func:`int8_attention_qkv_ref`. On the card: one block per (batch row,
+    head), each of q, k, v read at its own column block and row stride,
+    both products on int8 tensor cores (``csrc/int8_attention.cu``)."""
+    if not q_arr.is_cuda:
+        return int8_attention_qkv_ref(q_arr, k_arr, v_arr, mask_bias,
+                                      scalars, n_heads=n_heads, seq=seq,
+                                      hidden=hidden, cols=cols,
+                                      skip_max=skip_max, attn_bits=attn_bits)
+    return _attention_launch(q_arr, k_arr, v_arr, tuple(cols), mask_bias,
+                             scalars, n_heads=n_heads, seq=seq, hidden=hidden,
+                             skip_max=skip_max, attn_bits=attn_bits,
+                             what="int8_attention_qkv")
+
+
+def _matmul_nonorm(x8, w8, vecs, scalars, r8, gb, ln_scalars, *,
+                   res_quant) -> Tensor:
+    """Launch ``csrc/int8_matmul_norm.cu``: the matmul with the fold site,
+    the optional residual ``r8``, the res site and NoNorm in its
+    epilogue."""
+    m, n, _ = _check_matmul(x8, w8, vecs, scalars, "int8_matmul_norm")
+    if r8 is not None:
+        _check(r8, "r8", torch.int8, (m, n))
+    _check(gb, "gb", torch.float32, (2, n))
+    _check(ln_scalars, "ln_scalars", torch.float32, (1, 8))
+    _same_device(x8, gb, ln_scalars, *([r8] if r8 is not None else []))
+    out = torch.empty((m, n), device=x8.device, dtype=torch.int8)
+    fn = KB.load("int8_matmul_norm")
+    err = fn(x8.data_ptr(), w8.data_ptr(), vecs.data_ptr(),
+             scalars.data_ptr(), r8.data_ptr() if r8 is not None else None,
+             gb.data_ptr(), ln_scalars.data_ptr(), out.data_ptr(), m, n,
+             x8.shape[1], int(res_quant), _stream())
+    KB.check(err, "int8_matmul_norm")
+    LAUNCHES["int8_matmul_norm"] += 1
     return out
+
+
+def int8_matmul_norm(x8, w8, vecs, scalars, gb, ln_scalars, *, eps,
+                     res_quant=False, w4=False, norm="nonorm"):
+    """Matmul -> fold site -> NoNorm -> norm payload, no residual; see
+    :func:`int8_matmul_norm_ref`. On the card: one launch with the whole
+    tail in the matmul epilogue (``csrc/int8_matmul_norm.cu``)."""
+    if not x8.is_cuda:
+        return int8_matmul_norm_ref(x8, w8, vecs, scalars, gb, ln_scalars,
+                                    eps=eps, res_quant=res_quant, w4=w4,
+                                    norm=norm)
+    _require_w8(w4, "int8_matmul_norm")
+    if norm != "nonorm":
+        raise NotImplementedError(f"int8_matmul_norm kernel: norm={norm!r} "
+                                  "is not yet ported")
+    return _matmul_nonorm(x8, w8, vecs, scalars, None, gb, ln_scalars,
+                          res_quant=res_quant)
+
+
+def _mb_layer_smem(seq: int, head_dim: int, hidden: int, h: int,
+                   inter: int) -> int:
+    """Shared memory of one ``int8_mb_layer.cu`` block (its ``Layout``):
+    h8, li8 / x8, the union of the attention buffers and the FFN inter
+    payload, the weight ring and the float rows."""
+    attn = (seq * (hidden + 16) + seq * (2 * hidden + 16)
+            + hidden * (seq + 16) + seq * (seq + 16))
+    union = max(attn, seq * (inter + 16))
+    return (seq * (h + 16) + seq * (hidden + 16) + union + 2 * 128 * 80
+            + (3 * seq + head_dim) * 4)
+
+
+MB_LAYER_SHAPE = (128, 32, 4)  # (seq, head_dim, heads) the layer kernel takes
+MB_MAX_FFN = 8
+
+
+def int8_mb_layer_ln(h8, mask_bias, attn_scal, flat, *, n_heads, seq,
+                     hidden, attn_case, activation, res, w4, n_ffn,
+                     skip_max=False, attn_bits=(8, 8)):
+    """A whole MobileBERT layer; see :func:`int8_mb_layer_ln_ref` and
+    :func:`mb_layer_flat` for ``flat``. On the card: one launch, one block
+    per sequence, every intermediate payload in shared memory
+    (``csrc/int8_mb_layer.cu``); bit-identical to :func:`mb_layer_chain`.
+    Shapes and plans the kernel does not take raise NotImplementedError
+    (there is no quiet fall-back to the chain)."""
+    kw = dict(n_heads=n_heads, seq=seq, hidden=hidden, attn_case=attn_case,
+              activation=activation, res=res, w4=w4, n_ffn=n_ffn,
+              skip_max=skip_max, attn_bits=attn_bits)
+    if not h8.is_cuda:
+        return int8_mb_layer_ln_ref(h8, mask_bias, attn_scal, flat, **kw)
+    if any(w4):
+        raise NotImplementedError("int8_mb_layer_ln: int4 weights (w4) are "
+                                  "not yet ported")
+    if _attn3(attn_bits) != (8, 8, 8):
+        raise NotImplementedError("int8_mb_layer_ln kernel: only 8-bit "
+                                  "scores/probs/context sites are ported")
+    if attn_case not in ("shared_kq", "bottleneck"):
+        raise NotImplementedError(f"int8_mb_layer_ln kernel: attn_case "
+                                  f"{attn_case!r} is not yet ported (the "
+                                  "kernel takes 'shared_kq' and "
+                                  "'bottleneck')")
+    d = hidden // n_heads
+    if (seq, d, n_heads) != MB_LAYER_SHAPE:
+        raise NotImplementedError(f"int8_mb_layer_ln kernel: (seq, head_dim,"
+                                  f" heads) = ({seq}, {d}, {n_heads}) is not "
+                                  f"built (built: {MB_LAYER_SHAPE})")
+    if activation not in _MM_ACTS or n_ffn > MB_MAX_FFN:
+        raise NotImplementedError(f"int8_mb_layer_ln kernel: activation "
+                                  f"{activation!r} / {n_ffn} stacked FFNs "
+                                  "are not yet ported")
+    mt, h = h8.shape
+    shared_kq = attn_case == "shared_kq"
+    # out.dense's (hidden, I) weight, tenth from the end (mb_layer_flat)
+    inter = flat[-10].shape[1] if len(flat) >= 10 else 0
+    shapes = _mb_flat_shapes(shared_kq, n_ffn, h, hidden, inter)
+    if len(flat) != len(shapes):
+        raise ValueError(f"int8_mb_layer_ln: flat has {len(flat)} arrays, "
+                         f"the plan needs {len(shapes)}")
+    for i, (a, (shape, dtype)) in enumerate(zip(flat, shapes)):
+        _check(a, f"flat[{i}]", dtype, shape)
+    if mt % seq or h % 64 or inter % 64:
+        raise NotImplementedError(f"int8_mb_layer_ln kernel: rows {mt}, "
+                                  f"width {h}, intermediate {inter} (needs "
+                                  "whole sequences and widths of a multiple "
+                                  "of 64)")
+    smem = _mb_layer_smem(seq, d, hidden, h, inter)
+    if smem > SMEM_MAX:
+        raise NotImplementedError(f"int8_mb_layer_ln kernel: a sequence's "
+                                  f"live set ({smem} bytes) exceeds shared "
+                                  f"memory ({SMEM_MAX})")
+    _check(h8, "h8", torch.int8)
+    _check(mask_bias, "mask_bias", torch.float32, (mt // seq, seq))
+    _check(attn_scal, "attn_scal", torch.float32, (1, 12))
+    _same_device(h8, mask_bias, attn_scal, *flat)
+    res_ao, res_ffn, res_out, res_obn = res
+    ffn_mask = sum(int(bool(r)) << j
+                   for j, r in enumerate(tuple(res_ffn) + (res_out,)))
+    ptrs = (ctypes.c_void_p * len(flat))(*(a.data_ptr() for a in flat))
+    out = torch.empty_like(h8)
+    fn = KB.load("int8_mb_layer")
+    err = fn(h8.data_ptr(), mask_bias.data_ptr(), attn_scal.data_ptr(),
+             ctypes.addressof(ptrs), len(flat), out.data_ptr(), mt // seq,
+             seq, h, hidden, inter, d, n_ffn, int(shared_kq),
+             _MM_ACTS[activation], int(skip_max), int(bool(res_ao)),
+             ffn_mask, int(bool(res_obn)), _rsqrt_d(d), LOG2E, GELU_NEW_C,
+             _stream())
+    KB.check(err, "int8_mb_layer_ln")
+    LAUNCHES["int8_mb_layer_ln"] += 1
+    return out
+
+
+def _mb_flat_shapes(shared_kq: bool, n_ffn: int, h: int, hidden: int,
+                    inter: int):
+    """(shape, dtype) of each array of a layer plan in
+    :func:`mb_layer_flat`'s order, at widths (h, hidden, inter)."""
+    f32 = torch.float32
+
+    def mm(n, k):
+        return [((n, k), torch.int8), ((5, n), f32), ((1, 2), f32)]
+
+    def nrm(n):
+        return [((2, n), f32), ((1, 8), f32)]
+
+    out = mm(hidden, h) + nrm(hidden)
+    if shared_kq:
+        out += mm(hidden, h) + nrm(hidden)
+    out += mm(2 * hidden, hidden) + mm(hidden, h if shared_kq else hidden)
+    out += mm(hidden, hidden) + nrm(hidden)
+    for _ in range(n_ffn + 1):  # the stacked FFNs, then the output FFN
+        out += mm(inter, hidden) + mm(hidden, inter) + nrm(hidden)
+    return out + mm(h, hidden) + nrm(h)
 
 
 def fused_add_ln_payload(y8, r8, gb, scalars, *, eps, res_quant=True):
@@ -738,11 +994,29 @@ def fold_ln_scalars(vecs: Tensor, ln_scalars: Tensor) -> Tensor:
 
 
 def int8_matmul_add_ln(x8, w8, vecs, scalars, r8, gb, ln_scalars, *, eps,
-                       res_quant=True, w4=False, in_mode="i8"):
-    """Matmul (emit on the fold site) -> :func:`fused_add_ln_payload`;
-    bit-identical to :func:`int8_matmul_add_ln_ref` when the fold site is
-    8-bit per-tensor, as in every all-int8 layer plan (a per-column fold
-    site takes the flex chains)."""
+                       res_quant=True, w4=False, norm="layernorm",
+                       in_mode="i8"):
+    """LayerNorm: matmul (emit on the fold site) ->
+    :func:`fused_add_ln_payload`; bit-identical to
+    :func:`int8_matmul_add_ln_ref` when the fold site is 8-bit per-tensor,
+    as in every all-int8 layer plan (a per-column fold site takes the flex
+    chains). NoNorm: one :func:`int8_matmul_norm` kernel launch with the
+    residual."""
+    if norm == "nonorm":
+        if not x8.is_cuda:
+            return int8_matmul_add_ln_ref(x8, w8, vecs, scalars, r8, gb,
+                                          ln_scalars, eps=eps,
+                                          res_quant=res_quant, w4=w4,
+                                          norm=norm, in_mode=in_mode)
+        _require_w8(w4, "int8_matmul_add_ln")
+        if in_mode != "i8":
+            raise NotImplementedError("int8_matmul_add_ln kernel: a float "
+                                      "context edge (in_mode='f') with "
+                                      "NoNorm is not yet ported")
+        return _matmul_nonorm(x8, w8, vecs, scalars, r8, gb, ln_scalars,
+                              res_quant=res_quant)
+    if norm != "layernorm":
+        raise ValueError(f"unknown norm {norm!r}")
     y8 = int8_matmul(x8, w8, vecs, scalars, activation=None,
                      out_mode="emit", w4=w4, in_mode=in_mode)
     return fused_add_ln_payload(y8, r8, gb, fold_ln_scalars(vecs, ln_scalars),
@@ -751,14 +1025,28 @@ def int8_matmul_add_ln(x8, w8, vecs, scalars, r8, gb, ln_scalars, *, eps,
 
 def int8_ffn_ln(x8, wi, vi, si, wd, vd, sd, r8, gb, ln_scalars, lnv=None, *,
                 activation, eps, res_quant=True, w4i=False, w4d=False,
-                in_mode="i8", res_mode="i8", h_bits=8, y_bits=8,
-                ln_out="emit", ln_bits=8, inter_mode="i8", x_grid=None):
+                norm="layernorm", in_mode="i8", res_mode="i8", h_bits=8,
+                y_bits=8, ln_out="emit", ln_bits=8, inter_mode="i8",
+                x_grid=None):
     """The FFN block; see :func:`int8_ffn_ln_ref`: inter matmul (act,
     emit; the float-edge kernel when ``in_mode='f'``) -> dense matmul
     (fold on the ``h_bits`` grid, float32 out) -> :func:`flex_add_ln`.
     The dense fold value reaches the add+LN as float32, so the fold site
-    may be per-tensor or per-column (three launches)."""
+    may be per-tensor or per-column (three launches). NoNorm (all-int8
+    sites only): inter matmul -> dense :func:`int8_matmul_add_ln`, two
+    launches."""
     _require_payload_inter(inter_mode)
+    if norm == "nonorm":
+        flex = (in_mode, res_mode, h_bits, y_bits, ln_out, ln_bits,
+                lnv is None)
+        if flex != ("i8", "i8", 8, 8, "emit", 8, True):
+            raise NotImplementedError("int8_ffn_ln: flex sites with NoNorm "
+                                      "are not yet ported")
+        i8 = int8_matmul(x8, wi, vi, si, activation=activation,
+                         out_mode="emit", w4=w4i)
+        return int8_matmul_add_ln(i8, wd, vd, sd, r8, gb, ln_scalars,
+                                  eps=eps, res_quant=res_quant, w4=w4d,
+                                  norm="nonorm")
     i8 = int8_matmul(x8, wi, vi, si, activation=activation, out_mode="emit",
                      w4=w4i, in_mode=in_mode, in_grid=x_grid)
     y = int8_matmul(i8, wd, vd, sd, activation=None, out_mode="fold",
@@ -808,3 +1096,104 @@ def int8_layer_ln(x8, wq, vq, sq, mask_bias, attn_scal, wo, vo, so, gb1,
                      w4=w4i)
     return int8_matmul_add_ln(i8, wd, vd, sd, hx8, gb2, ln2_scal, eps=eps,
                               res_quant=res2, w4=w4d)
+
+
+# ---------------------------------------------------------------------------
+# MobileBERT's inverted-bottleneck layer
+# ---------------------------------------------------------------------------
+
+
+def mb_layer_flat(lp: Dict, attn_case: str) -> Tuple[Tensor, ...]:
+    """Flatten one MobileBERT layer plan (``build_mobilebert_engine``) into
+    the order :func:`int8_mb_layer_ln` takes: (w, vecs, scal) per matmul
+    and (gb, scal) per NoNorm, as the JAX ``mb_layer_flat``."""
+    def mm(p):
+        return (p["w"], p["vecs"], p["scal"])
+
+    def nrm(p):
+        return (p["gb"], p["scal"])
+
+    out = [*mm(lp["bn_in"]), *nrm(lp["bn_in_norm"])]
+    if attn_case == "shared_kq":
+        out += [*mm(lp["bn_attn"]), *nrm(lp["bn_attn_norm"])]
+    out += [*mm(lp["qk"]), *mm(lp["v"])]
+    out += [*mm(lp["attn_out"]), *nrm(lp["attn_out_norm"])]
+    for f in lp["ffns"]:
+        out += [*mm(f["inter"]), *mm(f["dense"]), *nrm(f["norm"])]
+    out += [*mm(lp["inter"]), *mm(lp["out"]), *nrm(lp["out_norm"])]
+    out += [*mm(lp["out_bn"]), *nrm(lp["out_bn_norm"])]
+    return tuple(out)
+
+
+def mb_layer_chain(h8, mask_bias, attn_scal, flat, *, n_heads, seq, hidden,
+                   attn_case, activation, res, w4, n_ffn, skip_max=False,
+                   attn_bits=(8, 8), plain=False):
+    """A whole MobileBERT layer as the JAX engine's per-op route
+    (``fuse_layer=False``): bottleneck-in (and shared key/query) NoNorm
+    matmuls -> [q | k] and v matmuls -> attention over ``cols=(0, 1, 0)``
+    -> attn_out + NoNorm -> each FFN (inter + act, dense + NoNorm) ->
+    bottleneck-out + NoNorm. ``flat``, ``res`` and ``w4`` as
+    :func:`int8_mb_layer_ln`. The kernel wrappers, or with ``plain`` each
+    step's plain version; on the card per layer (shared_kq, 3 stacked
+    FFNs): 6 :func:`int8_matmul`, 8 :func:`int8_matmul_norm` and one
+    :func:`int8_attention_qkv` launch."""
+    mm = int8_matmul_ref if plain else int8_matmul
+    mm_norm = int8_matmul_norm_ref if plain else int8_matmul_norm
+    mm_add_norm = int8_matmul_add_ln_ref if plain else int8_matmul_add_ln
+    ffn = int8_ffn_ln_ref if plain else int8_ffn_ln
+    attn = int8_attention_qkv_ref if plain else int8_attention_qkv
+    it = iter(flat)
+    w4s = iter(w4)
+    res_ao, res_ffn, res_out, res_obn = res
+    nkw = dict(eps=0.0, norm="nonorm")
+
+    def take(n):
+        return [next(it) for _ in range(n)]
+
+    def norm_branch(x8):
+        w, v, s, gb, ns = take(5)
+        return mm_norm(x8, w, v, s, gb, ns, res_quant=False, w4=next(w4s),
+                       **nkw)
+
+    def ffn_block(x8, res_q):
+        wi, vi, si, wd, vd, sd, gb, ns = take(8)
+        return ffn(x8, wi, vi, si, wd, vd, sd, x8, gb, ns,
+                   activation=activation, res_quant=res_q, w4i=next(w4s),
+                   w4d=next(w4s), **nkw)
+
+    li8 = norm_branch(h8)
+    if attn_case == "bottleneck":
+        qk_in, v_in = li8, li8
+    elif attn_case == "shared_kq":
+        qk_in, v_in = norm_branch(h8), h8
+    elif attn_case == "plain":
+        qk_in, v_in = h8, h8
+    else:
+        raise ValueError(f"unknown attn_case {attn_case!r}")
+    wq, vq, sq, wv, vv, sv = take(6)
+    qk8 = mm(qk_in, wq, vq, sq, activation=None, out_mode="emit",
+             w4=next(w4s))
+    v8 = mm(v_in, wv, vv, sv, activation=None, out_mode="emit", w4=next(w4s))
+    c8 = attn(qk8, qk8, v8, mask_bias, attn_scal, n_heads=n_heads, seq=seq,
+              hidden=hidden, cols=(0, 1, 0), skip_max=skip_max,
+              attn_bits=attn_bits)
+    wo, vo, so, gb, ns = take(5)
+    x8 = mm_add_norm(c8, wo, vo, so, li8, gb, ns, res_quant=res_ao,
+                     w4=next(w4s), **nkw)
+    for j in range(n_ffn):
+        x8 = ffn_block(x8, res_ffn[j])
+    y8 = ffn_block(x8, res_out)
+    wb, vb, sb, gb, ns = take(5)
+    return mm_add_norm(y8, wb, vb, sb, h8, gb, ns, res_quant=res_obn,
+                       w4=next(w4s), **nkw)
+
+
+def int8_mb_layer_ln_ref(h8, mask_bias, attn_scal, flat, *, n_heads, seq,
+                         hidden, attn_case, activation, res, w4, n_ffn,
+                         skip_max=False, attn_bits=(8, 8)):
+    """Plain version of :func:`int8_mb_layer_ln`: the layer's chain on the
+    plain versions (the JAX megakernel is bit-identical to its chain)."""
+    return mb_layer_chain(h8, mask_bias, attn_scal, flat, n_heads=n_heads,
+                          seq=seq, hidden=hidden, attn_case=attn_case,
+                          activation=activation, res=res, w4=w4, n_ffn=n_ffn,
+                          skip_max=skip_max, attn_bits=attn_bits, plain=True)

@@ -6,10 +6,10 @@ weight quantizer lives at ``<name>.w``, the output activation quantizer
 at ``<name>.out``. Biases are never quantized.
 
 Ported: the float path and the generic int8 branch of
-:func:`quant_linear`, :func:`quant_layernorm`, :func:`quant_embedding`
-and :func:`dropout`. The fused Pallas linear (``use_pallas``), the
-int8-QAT matmul, capture hooks and grouped/NoNorm layers wait for their
-slices.
+:func:`quant_linear`, :func:`quant_layernorm`, :func:`quant_nonorm`,
+:func:`quant_embedding` and :func:`dropout`. The fused Pallas linear
+(``use_pallas``), the int8-QAT matmul, capture hooks and grouped layers
+wait for their slices.
 """
 
 from __future__ import annotations
@@ -135,6 +135,16 @@ def quant_layernorm(ctx, name: str, x: Tensor, scale: Tensor, bias: Tensor,
     y = (x32 - mean) * torch.rsqrt(var + eps)
     y = (y * scale_q.to(torch.float32) + bias.to(torch.float32)).to(x.dtype)
     return ctx.act(f"{name}.out", y)
+
+
+def quant_nonorm(ctx, name: str, x: Tensor, weight: Tensor,
+                 bias: Tensor) -> Tensor:
+    """MobileBERT's NoNorm ``x * w + b``: weight and bias quantize through
+    the one weight site ``<name>.w`` as ``concat(w, b)`` (one grid, one
+    range over both), then the output act site."""
+    wb_q = ctx.weight(f"{name}.w", torch.cat([weight, bias]))
+    w_q, b_q = torch.split(wb_q, weight.shape[0])
+    return ctx.act(f"{name}.out", x * w_q + b_q)
 
 
 def quant_embedding(ctx, name: str, ids: Tensor, table: Tensor) -> Tensor:

@@ -18,6 +18,7 @@ import torch
 
 from transformer_quantization_tpu_torch import resolve_device
 from transformer_quantization_tpu_torch.models import bert as B
+from transformer_quantization_tpu_torch.models import mobilebert as MB
 from transformer_quantization_tpu_torch.quant.manager import (
     finalize_permutations,
     init_weight_qstate,
@@ -137,4 +138,28 @@ def calibrated_bert(cfg, batch_size: int = 2, seq: int = 128, seed: int = 0,
     qstate = calibrate_model(apply_fn, params, qcfg, [batch],
                              weight_tensors=B.bert_weight_site_tensors(params),
                              device=dev, qstate=qstate)
+    return params, qcfg, qstate
+
+
+def calibrated_mobilebert(cfg, batch_size: int = 2, seq: int = 128,
+                          seed: int = 0, device="cuda",
+                          params: Optional[Dict] = None,
+                          defaults: Optional[QuantDefaults] = None,
+                          quant_dict: Optional[Mapping] = None):
+    """Random-init MobileBERT (or the given ``params``) + one-batch
+    calibration -> ``(params, qcfg, qstate)``; ``quant_dict`` is the
+    MobileBERT one (static enables, attention-probs overrides)."""
+    dev = resolve_device(device)
+    if params is None:
+        params = MB.init_mobilebert_params(cfg, seed=seed, device=dev)
+    qcfg = MB.declare_mobilebert_sites(defaults or w8a8_defaults(), cfg,
+                                       quant_dict=quant_dict)
+    batch = calibration_batch(cfg.vocab_size, batch_size, seq, seed)
+
+    def apply_fn(p, b, **kw):
+        return MB.mobilebert_apply(p, b, cfg, **kw)
+
+    qstate = calibrate_model(
+        apply_fn, params, qcfg, [batch],
+        weight_tensors=MB.mobilebert_weight_site_tensors(params), device=dev)
     return params, qcfg, qstate
