@@ -46,15 +46,35 @@ Phases (any failure exits non-zero; nothing is caught):
    144 matmul, 192 NoNorm-matmul and 24 attention launches), each with
    the counts read just after and logits against the plain engine; the
    forward / encoder split of both routes, engine seq/s on each route and
-   fake-quant simulation seq/s (five windows).
+   fake-quant simulation seq/s (five windows);
+9. the leave-one-out FP32 kernels, on BERT-base's layer-0 inputs: the
+   generic int path's fused linear on the calls one W8A8 forward makes
+   (q with a float32 x, attn_out, inter with gelu emitting the payload,
+   dense on the payload, the pooler at M = B) and on ``{'x': 'fp32'}``'s
+   dense (a float32 x of K=3072), a ragged M and symmetric input / output
+   sites; ``fused_add_ln`` (both add+LNs) and the matmul's fold / float
+   outputs on layer 0 of the ``{'h': 'fp32'}`` engine. Every comparison
+   must be bit-identical;
+10. the leave-one-out routes: three request batches through
+   ``bert_apply(fused_linear=True)`` under W8A8 (73 fused linears per
+   forward) and ``{'x': 'fp32'}`` (61), and through ``bert_engine_apply``
+   under ``{'h': 'fp32'}`` (the non-payload route: 48 matmul, 12
+   attention, 24 ``fused_add_ln`` launches), each with the counts read
+   just after and logits against the same path on the plain versions;
+   seq/s of the generic path on the fused linear and on the int path,
+   of the ``{'h': 'fp32'}`` engine (with its forward / encoder split) and
+   its fake-quant simulation (five windows).
 
 The last lines are the kernels JSON (times per encoder layer: the sum
 over that layer's launches of each kernel; the flex kernels' top-level
 numbers are the mixed recipe's, and ``variants`` holds each recipe's,
 for ``int8_matmul`` its dense fold on the h grid and MobileBERT's layer;
 the MobileBERT kernels' numbers are MobileBERT-uncased layer 0's, with
-the chain's ms per layer beside ``int8_mb_layer_ln``; ``launches`` sums
-the three runs of every path, ``launches_by_path`` splits them), the
+the chain's ms per layer beside ``int8_mb_layer_ln``; the fused
+linear's and ``fused_add_ln``'s numbers are per encoder layer of the
+generic W8A8 path and of the ``{'h': 'fp32'}`` engine, with the fused
+linear's other calls under ``variants``; ``launches`` sums the three runs
+of every path, ``launches_by_path`` splits them), the
 nvidia-smi line, and ``{"ok": true, "device": {...}}``. Imports torch and
 the port only.
 """
@@ -73,8 +93,12 @@ import torch
 from transformer_quantization_tpu_torch.models import bert as B
 from transformer_quantization_tpu_torch.models import mobilebert as MB
 from transformer_quantization_tpu_torch.ops import engine as ENG
+from transformer_quantization_tpu_torch.ops import int_linear as IL
+from transformer_quantization_tpu_torch.ops import layers as LY
 from transformer_quantization_tpu_torch.ops.kernels import build as KB
 from transformer_quantization_tpu_torch.ops.kernels import engine_kernels as EK
+from transformer_quantization_tpu_torch.ops.kernels import int_matmul as IM
+from transformer_quantization_tpu_torch.quant import quantizers as Q
 from transformer_quantization_tpu_torch.quant.qconfig import QuantMode
 from transformer_quantization_tpu_torch.training import calibration as CAL
 
@@ -569,12 +593,14 @@ def check_flex_shapes(dev) -> None:
 
 
 def kernel_case(tag, got_fn, want_fn, ops, nbytes, lib_fn=None,
-                peak=PEAK_INT8_OPS, plain_fn=None) -> dict:
+                peak=PEAK_INT8_OPS, plain_fn=None, step=None) -> dict:
     """One kernel call against its plain version ``want_fn``: bit-identical
     or fail; kernel (device), plain and library ms, and the bound from
     ``ops`` / ``nbytes``. ``plain_fn``: what to time as the plain version
-    when ``want_fn`` only returns a result computed before."""
-    res = compare(got_fn(), want_fn(), tag)
+    when ``want_fn`` only returns a result computed before. ``step``: the
+    output is a float value on that grid (else an int8 payload)."""
+    res = (compare(got_fn(), want_fn(), tag) if step is None else
+           compare_values(got_fn(), want_fn(), step, tag))
     t_k = device_ms(got_fn)
     t_p = timed_ms(plain_fn or want_fn, iters=5)
     t_l = device_ms(lib_fn) if lib_fn is not None else None
@@ -900,6 +926,150 @@ def drive_path(name, run, cfg, batches, want):
     return launches
 
 
+def record_calls(run, *targets) -> list:
+    """Run ``run()`` with each ``(module, name)`` function of ``targets``
+    wrapped to record its calls; returns, per target, the ``(args,
+    kwargs)`` of every call in order (the functions are restored after)."""
+    calls = [[] for _ in targets]
+    reals = [getattr(mod, name) for mod, name in targets]
+    for (mod, name), real, log in zip(targets, reals, calls):
+        def rec(*a, _real=real, _log=log, **k):
+            _log.append((a, k))
+            return _real(*a, **k)
+        setattr(mod, name, rec)
+    try:
+        run()
+    finally:
+        for (mod, name), real in zip(targets, reals):
+            setattr(mod, name, real)
+    return calls
+
+
+def linear_case(tag, args, kw) -> dict:
+    """The fused linear kernel on one call of the generic path against its
+    plain version on the same inputs; the library yardstick is
+    ``torch._int_mm`` of the int8 product (a float32 x quantized
+    beforehand)."""
+    kw = dict(kw, plain=False)
+    x, packed, in_spec, in_qp = args[:4]
+    k = x.shape[-1]
+    m, n = x.numel() // k, packed["w_int"].shape[0]
+    x8 = (x.reshape(m, k) if x.dtype == torch.int8 else
+          IL.quantize_activation_int8(in_spec, in_qp, x.reshape(m, k))[0])
+    x8, w_t = x8.contiguous(), packed["w_int"].t()
+    emit = kw.get("emit_int8", False)
+    step = None if emit else Q.scale_of(kw["out_spec"], kw["out_qp"])
+    plain = lambda: IM.fused_int8_linear(*args, **dict(kw, plain=True))
+    want = plain()
+    nbytes = (x.numel() * x.element_size() + n * k + 3 * n * 4 + 32
+              + m * n * (1 if emit else 4))
+    return kernel_case(
+        f"fused_int8_linear[{tag}] {m}x{k}->{n} "
+        f"{'int8' if x.dtype == torch.int8 else 'f32'} in, "
+        f"{kw.get('activation')}, {'emit' if emit else 'fold'}",
+        lambda: IM.fused_int8_linear(*args, **kw), lambda: want,
+        2.0 * m * n * k, nbytes, lib_fn=lambda: torch._int_mm(x8, w_t),
+        plain_fn=plain, step=step)
+
+
+def generic_runner(params, cfg, qcfg, qstate, int_params, dev):
+    """The generic int path with the fused linear: ``backend`` 'kernels'
+    runs the kernel, 'plain' its plain version (bert_apply's
+    ``fused_linear='plain'``)."""
+    def run(batch, backend):
+        return B.bert_apply(params, batch, cfg, qcfg, qstate, QuantMode(),
+                            int_params=int_params,
+                            fused_linear=(True if backend == "kernels"
+                                          else "plain"),
+                            device=dev)[0]
+    return run
+
+
+def check_linear_kernels(params, cfg, w8a8, x_fp32, batch, dev) -> dict:
+    """Phase 9, the fused linear: its calls in one generic forward on the
+    plain version (W8A8: layer 0's q, attn_out, inter with gelu emitting
+    the payload, dense on the payload, and the pooler at M = B; and
+    ``{'x': 'fp32'}``'s dense on a float32 x of K=3072), then a ragged M
+    and symmetric input / output sites, each against its plain version."""
+    def calls_of(qc, qs, ip):
+        run = generic_runner(params, cfg, qc, qs, ip, dev)
+        return record_calls(lambda: run(batch, "plain"),
+                            (LY, "fused_int8_linear"))[0]
+    L = cfg.num_hidden_layers
+    calls = calls_of(*w8a8)
+    xcalls = calls_of(*x_fp32)
+    # the last call is the classifier's (N=2), which the kernel refuses
+    if len(calls) != 6 * L + 2 or len(xcalls) != 5 * L + 2:
+        fail(f"fused linear calls per forward: {len(calls)} (W8A8), "
+             f"{len(xcalls)} (x fp32)")
+    cases = {"q": calls[0], "attn_out": calls[3], "inter": calls[4],
+             "dense": calls[5], "pooler": calls[-2],
+             "dense x-fp32": xcalls[4]}
+    del calls, xcalls
+    args, kw = cases["q"]
+    cases["ragged M=1000"] = ((args[0].reshape(-1, args[0].shape[-1])[:1000],
+                               ) + args[1:], kw)
+    args, kw = cases["attn_out"]
+    sym = Q.QuantizerSpec(n_bits=8, method=Q.QMethod.symmetric_uniform)
+    x = args[0]
+    in_qp = Q.set_quant_range(sym, x.min(), x.max())
+    y = IM.fused_int8_linear(x, args[1], sym, in_qp, bias=kw["bias"],
+                             plain=True)
+    cases["symmetric sites"] = (
+        (x, args[1], sym, in_qp),
+        dict(kw, out_spec=sym, out_qp=Q.set_quant_range(sym, y.min(),
+                                                         y.max())))
+    if cases["dense"][0][0].dtype != torch.int8 or cases[
+            "dense x-fp32"][0][0].dtype != torch.float32:
+        fail("the dense matmul's inputs: a payload (W8A8) and float32 "
+             "(x fp32) expected")
+    res = {tag: linear_case(tag, a, k) for tag, (a, k) in cases.items()}
+    out = per_layer([(res["q"], 3), (res["attn_out"], 1), (res["inter"], 1),
+                     (res["dense"], 1)])
+    out["variants"] = {tag: per_layer([(res[tag], 1)]) for tag in (
+        "pooler", "dense x-fp32", "ragged M=1000", "symmetric sites")}
+    return out
+
+
+def check_engine_fp32_kernels(params, cfg, h_fp32, batch, dev) -> dict:
+    """Phase 9, the non-payload route: layer 0 of the ``{'h': 'fp32'}``
+    engine on the plain versions; ``fused_add_ln`` (both add+LNs) and the
+    matmul's ``fold`` (attn_out) and ``float`` (dense) outputs against
+    their plain versions."""
+    qc, qs, static, plan, ip = h_fp32
+    run = bert_runner(params, cfg, qc, qs, static, plan, ip, dev)
+    lns, mms = record_calls(lambda: run(batch, "plain"),
+                            (EK, "fused_add_ln_ref"), (EK, "int8_matmul_ref"))
+    L = cfg.num_hidden_layers
+    if len(lns) != 2 * L or len(mms) != 4 * L:
+        fail(f"non-payload route calls: {len(lns)} add+LN, {len(mms)} "
+             "matmul")
+    for tag, (args, kw) in (("attn_out fold", mms[1]),
+                            ("dense float", mms[3])):
+        got, want = EK.int8_matmul(*args, **kw), EK.int8_matmul_ref(*args,
+                                                                    **kw)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            fail(f"int8_matmul[{tag}]: max err "
+                 f"{(got - want).abs().max().item()}")
+        print(f"  int8_matmul[{tag}] {tuple(args[0].shape)}: bit-identical")
+    cases = []
+    for tag, (args, kw) in (("ln1", lns[0]), ("ln2", lns[1])):
+        m, h = args[0].shape
+        w8, wf = EK.fused_add_ln_ref(*args, **kw)
+        g8, gf = EK.fused_add_ln(*args, **kw)
+        compare_values(gf, wf, args[3][0, 6],
+                       f"fused_add_ln[{tag}] float out {m}x{h}")
+        cases.append((kernel_case(
+            f"fused_add_ln[{tag}] {m}x{h} payload out",
+            lambda: EK.fused_add_ln(*args, **kw)[0], lambda: w8,
+            12.0 * m * h, m * h * (4 + 4 + 1 + 4) + 2 * h * 4 + 32,
+            peak=PEAK_F32_OPS,
+            plain_fn=lambda: EK.fused_add_ln_ref(*args, **kw)), 1))
+        del g8
+    return per_layer(cases)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1073,6 +1243,68 @@ def main(argv=None) -> int:
           f"{seq_per_s(t_fwd)}, engine (chain) {seq_per_s(t_chain)}, "
           f"fake-quant simulation (f32, TF32 off) {seq_per_s(t_sim)}")
 
+    print("[9] the leave-one-out kernels against their plain versions, "
+          f"layer-0 inputs (B={BATCH}, S={SEQ})", flush=True)
+    t0 = time.perf_counter()
+    x_fp32, h_fp32 = (CAL.calibrated_bert(
+        cfg, batch_size=8, seq=SEQ, seed=args.seed, device=dev,
+        params=params, quant_dict=qd)[1:] for qd in ({"x": "fp32"},
+                                                     {"h": "fp32"}))
+    x_fp32 = (*x_fp32, B.build_bert_int_params(params, *x_fp32))
+    h_fp32 = (*h_fp32, *B.build_bert_engine(params, cfg, *h_fp32,
+                                            device=dev))
+    torch.cuda.synchronize()
+    print(f"  set-up ({{'x': 'fp32'}} and {{'h': 'fp32'}} calibrations, "
+          f"packing, plan): {time.perf_counter() - t0:.1f} s; "
+          f"{{'h': 'fp32'}} fold flags {h_fp32[2].fold[0]}")
+    report["fused_int8_linear"] = check_linear_kernels(
+        params, cfg, (qcfg, qstate, int_params), x_fp32, b0, dev)
+    report["fused_add_ln"] = check_engine_fp32_kernels(params, cfg, h_fp32,
+                                                       b0, dev)
+
+    print("[10] the leave-one-out routes at BERT-base: the generic int path "
+          "with the fused linear, and the engine's non-payload route",
+          flush=True)
+    by_path["generic-w8a8"] = drive_path(
+        "generic-w8a8", generic_runner(params, cfg, qcfg, qstate, int_params,
+                                       dev), cfg, batches,
+        per_forward(fused_int8_linear=6 * L + 1))
+    by_path["generic-x-fp32"] = drive_path(
+        "generic-x-fp32", generic_runner(params, cfg, *x_fp32, dev), cfg,
+        batches, per_forward(fused_int8_linear=5 * L + 1))
+    hq, hs, hst, hplan, hint = h_fp32
+    by_path["engine-h-fp32"] = drive_path(
+        "engine-h-fp32", bert_runner(params, cfg, hq, hs, hst, hplan, hint,
+                                     dev), cfg, batches,
+        per_forward(int8_matmul=4 * L, int8_attention=L, fused_add_ln=2 * L))
+    gen = generic_runner(params, cfg, qcfg, qstate, int_params, dev)
+    t_gen = window_ms(lambda: gen(b0, "kernels"))
+    t_int = window_ms(lambda: B.bert_apply(params, b0, cfg, qcfg, qstate,
+                                           QuantMode(), int_params=int_params,
+                                           device=dev))
+    genx = generic_runner(params, cfg, *x_fp32, dev)
+    t_genx = window_ms(lambda: genx(b0, "kernels"))
+    hh, hm = entry_value(params, cfg, hq, hs, hint, b0, dev)
+    t_enc = window_ms(lambda: ENG.encoder_engine(hh, hm, hst, hplan))
+    t_eng = window_ms(lambda: B.bert_engine_apply(
+        params, b0, cfg, hq, hs, hst, hplan, hint, device=dev))
+    t_sim = window_ms(lambda: B.bert_apply(params, b0, cfg, hq, hs,
+                                           QuantMode(), device=dev))
+    print("  ms per call, median (least-most) of 5 windows of >= 1 s: "
+          f"generic W8A8 fused {t_gen[0]:.3f} ({t_gen[1]:.3f}-{t_gen[2]:.3f})"
+          f", generic W8A8 int path {t_int[0]:.3f} ({t_int[1]:.3f}-"
+          f"{t_int[2]:.3f}), generic x-fp32 fused {t_genx[0]:.3f} "
+          f"({t_genx[1]:.3f}-{t_genx[2]:.3f}); h-fp32 engine forward "
+          f"{t_eng[0]:.3f} ({t_eng[1]:.3f}-{t_eng[2]:.3f}), encoder "
+          f"{t_enc[0]:.3f} ({t_enc[1]:.3f}-{t_enc[2]:.3f}), embeddings + "
+          f"head {t_eng[0] - t_enc[0]:.3f}")
+    print(f"  seq/s at B={BATCH}, S={SEQ}, median (range) of 5 windows "
+          f"({kind}, {smi}): generic W8A8 on the fused linear "
+          f"{seq_per_s(t_gen)}, on the int path {seq_per_s(t_int)}; "
+          f"generic {{'x': 'fp32'}} on the fused linear {seq_per_s(t_genx)};"
+          f" {{'h': 'fp32'}} engine {seq_per_s(t_eng)}, its fake-quant "
+          f"simulation (f32, TF32 off) {seq_per_s(t_sim)}")
+
     report.update({k: mb_report[k] for k in (
         "int8_matmul_norm", "int8_attention_qkv", "int8_mb_layer_ln")})
     report["float_edge_matmul"] = flex_reports["w8a8-mixed"][
@@ -1087,7 +1319,11 @@ def main(argv=None) -> int:
                "flex_add_ln": ("flex_add_ln.cu", f"{pallas}:1648"),
                "int8_matmul_norm": ("int8_matmul_norm.cu", f"{pallas}:1264"),
                "int8_attention_qkv": ("int8_attention.cu", f"{pallas}:833"),
-               "int8_mb_layer_ln": ("int8_mb_layer.cu", f"{pallas}:2038")}
+               "int8_mb_layer_ln": ("int8_mb_layer.cu", f"{pallas}:2038"),
+               "fused_add_ln": ("flex_add_ln.cu", f"{pallas}:1021"),
+               "fused_int8_linear": (
+                   "fused_int8_linear.cu",
+                   "transformer_quantization_tpu/ops/pallas/int_matmul.py:257")}
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
     kernels = []
@@ -1110,6 +1346,9 @@ def main(argv=None) -> int:
                 k: mb_report[name][k] for k in keys}
         if name == "int8_mb_layer_ln":
             entry["chain_ms"] = r["chain_ms"]
+        if name == "fused_int8_linear":
+            entry["variants"] = {v: {k: c[k] for k in keys}
+                                 for v, c in r["variants"].items()}
         kernels.append(entry)
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -9,7 +9,8 @@ nesting and its ``(out, in)`` kernel layout, so ``convert.py`` carries
 JAX weights across unchanged.
 
 Ported: the fake-quant forward :func:`bert_apply` (also the FP baseline
-with ``qcfg=None``), the generic int8 path (``int_params``), packing, the
+with ``qcfg=None``), the generic int8 path (``int_params``) with its fused
+linear (``fused_linear``, the JAX ``use_pallas``), packing, the
 ``quant_dict`` key language (:func:`apply_bert_quant_dict`) with the PEG
 shared-permutation groups, and the full-handoff engine
 (:func:`build_bert_engine` / :func:`bert_engine_apply`). The
@@ -481,17 +482,26 @@ def bert_apply(params: Dict, batch: Mapping, cfg: BertConfig,
                mode: Optional[QuantMode] = None, *, train: bool = False,
                dropout_generator: Optional[torch.Generator] = None,
                int_params: Optional[Dict] = None,
+               fused_linear=False,
                device="cuda") -> Tuple[Dict, Dict]:
     """Forward pass; returns ``(outputs, new_qstate)``.
 
     ``qcfg=None`` is the float baseline (its dtype is the params' dtype:
     bf16 params give the bf16 dense model). ``int_params`` runs every
-    packable matmul on the exact int8 path. ``params`` must live on
-    ``device``.
+    packable matmul on the exact int8 path. ``fused_linear`` (the JAX
+    ``use_pallas``) runs those with a per-tensor input site through the
+    fused linear kernel, ``ffn.inter`` handing its output payload to
+    ``ffn.dense`` as int8; ``'plain'`` runs the kernel's plain version on
+    any device. ``params`` must live on ``device``.
     """
     dev = _check_device(params, device)
     with torch.no_grad():
         ctx = make_ctx(qcfg, qstate, mode, int_params=int_params)
+        if int_params and fused_linear:
+            ctx.fused_linear = fused_linear
+            # consumed only by the next int8 matmul: emitted as payloads
+            ctx.int8_only_sites = frozenset(
+                f"L{i}.ffn.inter.out" for i in range(cfg.num_hidden_layers))
         if int_params:
             # sites whose every consumer is an int8 matmul over the same
             # site params: producer-side fake-quant is a numeric no-op
@@ -555,8 +565,9 @@ def build_bert_engine(params: Dict, cfg: BertConfig, qcfg: QuantModelConfig,
     """Assemble the engine plan for a calibrated BERT; returns
     ``(static, plan, int_params)``. Raises
     :class:`~..ops.engine.EngineIncompatible` when the config does not fit
-    the ported routes (all-int8 layers, and flex layers with 16-bit / PEG
-    ``g``, ``u``, ``x``, ``h`` and ``y`` sites)."""
+    the ported routes (all-int8 layers, flex layers with 16-bit / PEG
+    ``g``, ``u``, ``x``, ``h`` and ``y`` sites, and the non-payload
+    residual route of a disabled ``g`` / ``h`` fold site)."""
     _check_device(params, device)
     with torch.no_grad():
         if int_params is None:

@@ -13,15 +13,22 @@ int8_attn_ln` and one flex :func:`~.kernels.engine_kernels.int8_ffn_ln`,
 with the ``x`` site (the FFN input and residual) a float32 value edge
 when it leaves the int8 payload protocol.
 
+A disabled fold site (``attn_out.dense.out`` or ``ffn.dense.out``, the
+leave-one-out ``{'g': 'fp32'}`` / ``{'h': 'fp32'}``) in any layer moves
+the whole stack to the non-payload residual route: the residual stream
+is float32, each layer the chain q|k|v matmul -> attention -> attn_out
+matmul (``fold`` or ``float``) -> :func:`~.kernels.engine_kernels.
+fused_add_ln` -> inter matmul -> dense matmul -> ``fused_add_ln``, and
+the stack returns the last float value.
+
 :func:`build_encoder_plan` validates a model's quantization config and
 assembles the same plan dict as the JAX package (per layer ``qkv``,
 ``attn_scal``, ``attn_out``, ``ln1``, ``inter``, ``dense``, ``ln2``; a
 float ``x`` edge adds ``inter["grid"]``, the edge's grid for the
 float-edge matmul). Configurations the JAX engine serves through routes
 not ported yet (int4 weights, a float layer-input / ``z`` edge, 16-bit or
-PEG q/k/v, a 16-bit ``inter.out``, 16-bit or disabled attention sites,
-disabled fold sites) raise :class:`EngineIncompatible` with "not yet
-ported".
+PEG q/k/v, a 16-bit ``inter.out``, 16-bit or disabled attention sites)
+raise :class:`EngineIncompatible` with "not yet ported".
 """
 
 from __future__ import annotations
@@ -73,7 +80,9 @@ class EngineStatic:
     # per layer: whether it runs as one all-int8 int8_layer_ln, every edge
     # an 8-bit per-tensor payload. A per-column 8-bit fold site ('g' / 'h'
     # 'ngN') leaves flex and io at their defaults, but the all-int8 chain's
-    # add+LN reads a scalar fold site, so such a layer takes the flex route
+    # add+LN reads a scalar fold site, so such a layer takes the flex route;
+    # a disabled fold site anywhere puts every layer on the non-payload
+    # residual route
     int8_layer: Tuple[bool, ...] = ()
 
     IO_DEFAULT = ("i8", "i8", 8, "i8", 8, 8, 8, "i8", 8)
@@ -192,10 +201,11 @@ def _packed_weight(int_params: Mapping, name: str):
 
 def _mm_plan(int_params: Mapping, names: List[str], biases: List[Tensor],
              in_scal: Tuple[Tensor, Tensor],
-             out_sites: List[Tuple[Tensor, Tensor]]) -> Dict:
+             out_sites: Optional[List[Tuple[Tensor, Tensor]]]) -> Dict:
     """One matmul's plan: (N, K) int8 weight (row-concat over ``names`` for
     the fused q|k|v matmul), (5, N) epilogue rows [wscale, colsum, bias,
-    out_s, out_shift] and the (1, 2) input-site scalars."""
+    out_s, out_shift] and the (1, 2) input-site scalars. ``out_sites``
+    None (a disabled fold site): out_s 1, out_shift 0."""
     ws, packs = zip(*(_packed_weight(int_params, n) for n in names))
     w = ws[0] if len(ws) == 1 else torch.cat(ws, dim=0)
     ns = [p["colsum"].shape[0] for p in packs]
@@ -203,8 +213,14 @@ def _mm_plan(int_params: Mapping, names: List[str], biases: List[Tensor],
     wscale = torch.cat([_bcast(p["scale"], nn) for p, nn in zip(packs, ns)])
     colsum = torch.cat([p["colsum"].to(torch.float32) for p in packs])
     bias = torch.cat([b.to(torch.float32) for b in biases])
-    out_s = torch.cat([_bcast(s, nn) for (s, _), nn in zip(out_sites, ns)])
-    out_shift = torch.cat([_bcast(sh, nn) for (_, sh), nn in zip(out_sites, ns)])
+    if out_sites is None:
+        out_s = torch.ones((n,), device=bias.device)
+        out_shift = torch.zeros((n,), device=bias.device)
+    else:
+        out_s = torch.cat([_bcast(s, nn)
+                           for (s, _), nn in zip(out_sites, ns)])
+        out_shift = torch.cat([_bcast(sh, nn)
+                               for (_, sh), nn in zip(out_sites, ns)])
     vecs = torch.stack([wscale, colsum, bias, out_s, out_shift]).contiguous()
     scal = torch.stack([_f32(v).reshape(()) for v in in_scal]).reshape(1, 2)
     return {"w": w.contiguous(), "vecs": vecs, "scal": scal}
@@ -288,13 +304,6 @@ def _flex_reason(qcfg, qstate, p: str, in_site: str) -> Optional[str]:
         return f"{p}ffn.inter.out is a 16-bit / per-embedding edge"
     if act_edge_params(qcfg, qstate, p + "ffn.ln.out")[0] != "i8":
         return f"{p}ffn.ln.out is a 16-bit / per-embedding 'z' edge"
-    for site in ("attn_out.dense.out", "ffn.dense.out"):
-        if not _act_enabled(qcfg, p + site):
-            # flex recipes need both fold sites enabled; an all-int8 layer
-            # without one takes the non-payload residual route
-            return (f"{p}{site} is disabled (flex recipes need both fold "
-                    "sites enabled; the non-payload residual route and "
-                    "fused_add_ln)")
     return None
 
 
@@ -332,17 +341,23 @@ def build_encoder_plan(qcfg, qstate: Mapping, int_params: Mapping,
             [v.reshape(()) for pair in qkv_out for v in pair]
             + [sc_s, sc_sh, p_s, p_sh, c_s, c_sh]).reshape(1, 12)
 
-        # the attn_out fold site is quant_dict 'g': flexible
-        _, g_bits, g_s, g_sh = act_edge_params(qcfg, qstate,
-                                               p + "attn_out.dense.out")
+        # the attn_out fold site is quant_dict 'g': flexible, or disabled
+        # (the non-payload residual route)
+        ao_fold = _act_enabled(qcfg, p + "attn_out.dense.out")
+        g_bits, g_out = 8, None
+        if ao_fold:
+            _, g_bits, g_s, g_sh = act_edge_params(qcfg, qstate,
+                                                   p + "attn_out.dense.out")
+            g_out = (g_s, g_sh)
         attn_out = _mm_plan(int_params, [p + "attn_out.dense"],
                             [lp["attn_out"]["dense"]["bias"]], (c_s, c_sh),
-                            [(g_s, g_sh)])
+                            [g_out] if ao_fold else None)
         # ln1's LN site is the FFN input, quant_dict 'x': flexible
         ln1, res1, u_bits, x_edge = _ln_plan(
             qcfg, qstate, lp["attn_out"]["ln"], p + "attn_out.res",
             p + "attn_out.ln.out", p + "attn_out.ln.w",
-            (g_s, g_sh) if g_bits == 8 and g_s.ndim == 0 else None, in_scal)
+            g_out if ao_fold and g_bits == 8 and g_s.ndim == 0 else None,
+            in_scal)
         x_mode, x_bits, x_s, x_sh = x_edge
         # a float x edge carries its own values: no input params fold in
         dev = x_s.device
@@ -354,30 +369,40 @@ def build_encoder_plan(qcfg, qstate: Mapping, int_params: Mapping,
         if x_mode == "f":
             inter["grid"] = _x_edge_grid(qcfg, qstate, p + "attn_out.ln.out",
                                          x_edge, inter["w"])
-        # the dense fold site is quant_dict 'h': flexible
-        _, h_bits, h_s, h_sh = act_edge_params(qcfg, qstate,
-                                               p + "ffn.dense.out")
+        # the dense fold site is quant_dict 'h': flexible, or disabled
+        d_fold = _act_enabled(qcfg, p + "ffn.dense.out")
+        h_bits, h_out = 8, None
+        if d_fold:
+            _, h_bits, h_s, h_sh = act_edge_params(qcfg, qstate,
+                                                   p + "ffn.dense.out")
+            h_out = (h_s, h_sh)
         dense = _mm_plan(int_params, [p + "ffn.dense"],
-                         [lp["ffn"]["dense"]["bias"]], i_site, [(h_s, h_sh)])
+                         [lp["ffn"]["dense"]["bias"]], i_site,
+                         [h_out] if d_fold else None)
         # ln2's res site is quant_dict 'y': flexible; its LN site (the
         # next layer's input) stays an int8 payload
         ln2, res2, y_bits, _ = _ln_plan(
             qcfg, qstate, lp["ffn"]["ln"], p + "ffn.res", p + "ffn.ln.out",
             p + "ffn.ln.w",
-            (h_s, h_sh) if h_bits == 8 and h_s.ndim == 0 else None, x_scal)
+            h_out if d_fold and h_bits == 8 and h_s.ndim == 0 else None,
+            x_scal)
+        flex = (x_mode, x_bits, h_bits, y_bits, "lnv" in ln1, "lnv" in ln2)
+        io = ("i8", "i8", 8, "i8", 8, g_bits, u_bits, "i8", 8)
+        default = (flex == EngineStatic.FLEX_DEFAULT
+                   and io == EngineStatic.IO_DEFAULT)
+        _require(default or (ao_fold and d_fold),
+                 f"{p[:-1]}: flex recipes need both fold sites enabled")
 
         layers.append({"qkv": qkv, "attn_scal": attn_scal,
                        "attn_out": attn_out, "ln1": ln1, "inter": inter,
                        "dense": dense, "ln2": ln2})
-        fold_flags.append((True, True))
+        fold_flags.append((ao_fold, d_fold))
         res_flags.append((res1, res2))
         attn_bits_flags.append((sc_bits, p_bits, c_bits))
-        flex_flags.append((x_mode, x_bits, h_bits, y_bits, "lnv" in ln1,
-                           "lnv" in ln2))
-        io_flags.append(("i8", "i8", 8, "i8", 8, g_bits, u_bits, "i8", 8))
-        int8_flags.append(flex_flags[-1] == EngineStatic.FLEX_DEFAULT
-                          and io_flags[-1] == EngineStatic.IO_DEFAULT
-                          and g_s.ndim == 0 and h_s.ndim == 0)
+        flex_flags.append(flex)
+        io_flags.append(io)
+        int8_flags.append(default and ao_fold and d_fold and g_s.ndim == 0
+                          and h_s.ndim == 0)
 
     entry_edge = act_edge_params(qcfg, qstate, entry_site)
     entry_scal = torch.stack((entry_edge[2], entry_edge[3])).reshape(1, 2)
@@ -390,12 +415,14 @@ def build_encoder_plan(qcfg, qstate: Mapping, int_params: Mapping,
                 for li, lp_ in enumerate(layers))
     bound = worst / float(np.sqrt(head_dim)) * float(np.log2(np.e))
     n = len(layer_params)
+    payload_res = all(ao and d for ao, d in fold_flags)
     static = EngineStatic(
         n_layers=n, n_heads=n_heads, ln_eps=ln_eps, hidden_act=hidden_act,
         w4=((False, False, False, False),) * n, fold=tuple(fold_flags),
         res_quant=tuple(res_flags), attn_skip_max=bound < 100.0,
         flex=tuple(flex_flags), attn_bits=tuple(attn_bits_flags),
-        io=tuple(io_flags), int8_layer=tuple(int8_flags))
+        io=tuple(io_flags),
+        int8_layer=tuple(f and payload_res for f in int8_flags))
     return static, {"layers": layers, "entry_scal": entry_scal}
 
 
@@ -410,7 +437,8 @@ def encoder_engine(h: Tensor, mask_bias: Tensor, static: EngineStatic,
     their plain versions on the CPU); ``'plain'`` runs the plain versions
     on any device, the yardstick the kernels are held against. An all-int8
     layer is one ``int8_layer_ln``; a flex layer one ``int8_attn_ln`` and
-    one flex ``int8_ffn_ln``.
+    one flex ``int8_ffn_ln``. With a disabled fold site anywhere the stack
+    takes the non-payload residual route (:func:`_non_payload_stack`).
     ``hidden_act='gelu'`` runs as the tanh form ``gelu_new``, the JAX
     engine's default ``gelu_impl='tanh'``.
     """
@@ -424,8 +452,18 @@ def encoder_engine(h: Tensor, mask_bias: Tensor, static: EngineStatic,
     attn_fn = EK.int8_attn_ln if kern else EK.int8_attn_ln_ref
     ffn_fn = EK.int8_ffn_ln if kern else EK.int8_ffn_ln_ref
     es = plan["entry_scal"]
-    h8 = EK.quantize_payload(h.reshape(b * t, hdim), es[0, 0], es[0, 1])
+    hf = h.reshape(b * t, hdim).to(torch.float32)
+    h8 = EK.quantize_payload(hf, es[0, 0], es[0, 1])
     mask_bias = mask_bias.to(torch.float32).contiguous()
+    if not all(ao and d for ao, d in static.fold):
+        # the residual stream rides payloads only when every fold site is
+        # enabled (JAX payload_res, all or nothing over the stack)
+        if static.any_flex:
+            raise ValueError("mixed / PEG recipe layers need the payload "
+                             "residual route: every fold site enabled")
+        hf = _non_payload_stack(h8, hf, mask_bias, static, plan, t,
+                                hidden_act, kern)
+        return hf.reshape(b, t, hdim)
     for i, lp in enumerate(plan["layers"]):
         res1, res2 = static.res_quant[i]
         if not static.int8_layer[i]:
@@ -473,3 +511,39 @@ def encoder_engine(h: Tensor, mask_bias: Tensor, static: EngineStatic,
         s_l, sh_l = ln2["scal"][0, 6], ln2["scal"][0, 7]
     hf = EK.dequantize_payload(h8, s_l, sh_l)
     return hf.reshape(b, t, hdim)
+
+
+def _non_payload_stack(h8: Tensor, hf: Tensor, mask_bias: Tensor,
+                       static: EngineStatic, plan: Dict, t: int,
+                       hidden_act: str, kern: bool) -> Tensor:
+    """The JAX engine's non-payload residual route: the residual stream
+    ``hf`` is float32 (the entry value, then each add+LN's float output),
+    and each layer runs q|k|v matmul (emit) -> attention -> attn_out
+    matmul (``'fold'`` on its site, or ``'float'`` when the site is
+    disabled) -> :func:`~.kernels.engine_kernels.fused_add_ln` -> inter
+    matmul (act, emit) -> dense matmul (fold or float) -> fused_add_ln.
+    Returns the last layer's float output, (M, H)."""
+    mm = EK.int8_matmul if kern else EK.int8_matmul_ref
+    attn = EK.int8_attention if kern else EK.int8_attention_ref
+    add_ln = EK.fused_add_ln if kern else EK.fused_add_ln_ref
+
+    def mp(p):
+        return p["w"], p["vecs"], p["scal"]
+
+    for i, lp in enumerate(plan["layers"]):
+        ao_fold, d_fold = static.fold[i]
+        res1, res2 = static.res_quant[i]
+        qkv8 = mm(h8, *mp(lp["qkv"]), activation=None, out_mode="emit")
+        c8 = attn(qkv8, mask_bias, lp["attn_scal"], n_heads=static.n_heads,
+                  seq=t, skip_max=static.attn_skip_max,
+                  attn_bits=static.layer_attn_bits(i))
+        y = mm(c8, *mp(lp["attn_out"]), activation=None,
+               out_mode="fold" if ao_fold else "float")
+        h8, hf = add_ln(y, hf, lp["ln1"]["gb"], lp["ln1"]["scal"],
+                        eps=static.ln_eps, res_quant=res1)
+        i8 = mm(h8, *mp(lp["inter"]), activation=hidden_act, out_mode="emit")
+        y = mm(i8, *mp(lp["dense"]), activation=None,
+               out_mode="fold" if d_fold else "float")
+        h8, hf = add_ln(y, hf, lp["ln2"]["gb"], lp["ln2"]["scal"],
+                        eps=static.ln_eps, res_quant=res2)
+    return hf

@@ -94,6 +94,17 @@ def quantize_activation_int8(spec: Q.QuantizerSpec, qp: Q.QuantParams,
     return x_int.to(torch.int8), scale.to(torch.float32), shift
 
 
+def dequantize_activation_int8(spec: Q.QuantizerSpec, qp: Q.QuantParams,
+                               x_int8: Tensor) -> Tensor:
+    """Inverse of :func:`quantize_activation_int8`: payload -> floats."""
+    scale = Q.scale_of(spec, qp)
+    zp = Q.zero_point_of(spec, qp)
+    x = x_int8.to(torch.float32)
+    if not spec.symmetric:
+        x = x + 128.0
+    return scale * (x - zp)
+
+
 def int8_linear(x_int8: Tensor, x_scale: Tensor, x_shift: Tensor,
                 packed: Dict, bias: Optional[Tensor],
                 activation=None) -> Tensor:

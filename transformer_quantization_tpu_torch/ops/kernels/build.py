@@ -29,7 +29,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 SOURCES = ("int8_matmul", "int8_attention", "add_ln_payload",
            "float_edge_matmul", "flex_add_ln", "int8_matmul_norm",
-           "int8_mb_layer")
+           "int8_mb_layer", "fused_int8_linear")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
@@ -59,6 +59,9 @@ _SIGNATURES = {
     "flex_add_ln": ("tq_flex_add_ln",
                     (_P, _P, _I, _P, _P, _P, _P, _P, _I, _I, _F, _I, _F, _F,
                      _F, _F, _P)),
+    "fused_int8_linear": ("tq_fused_int8_linear",
+                          (_P, _I, _P, _P, _P, _P, _P, _P) + (_I,) * 8
+                          + (_F, _P)),
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}

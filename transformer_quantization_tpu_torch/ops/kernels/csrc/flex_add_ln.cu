@@ -3,7 +3,9 @@
 // Replaces: transformer_quantization_tpu/ops/pallas/engine_kernels.py
 //   the add+LN tails of the flex forms of int8_attn_ln (_attn_mega_kernel)
 //   and int8_ffn_ln (_ffn_kernel): _ln_body with _site_vals, the sites of
-//   the mixed-precision and PEG recipes.
+//   the mixed-precision and PEG recipes; and fused_add_ln (_add_ln_kernel),
+//   the add+LN of the non-payload residual route: a float32 residual,
+//   scalar 8-bit sites and both outputs.
 //
 //   x    = y + r_s * (r8 + r_sh)     (residual an int8 payload)
 //        | y + r                     (residual a float32 value edge)
@@ -17,11 +19,13 @@
 // The res and ln sites are scalars (scal[4:8]) or, for per-column (PEG)
 // sites, the (4, H) rows lnv = [res_s; res_sh; ln_s; ln_sh], on grids of
 // up to 16 bits ([lo, hi] per site). The two outputs are separate
-// pointers, either may be null; the engine asks for one.
+// pointers, either may be null; the flex chains ask for one,
+// fused_add_ln for both.
 //
 // What bounds it on the card: bytes. At H = 768, M = 16384 the attention
 // block's add+LN reads 4 + 1 bytes and writes 4 per element (113 MB, 34 us
-// at 3.35 TB/s), the FFN block's reads 4 + 4 and writes 1.
+// at 3.35 TB/s), the FFN block's reads 4 + 4 and writes 1, fused_add_ln
+// reads 4 + 4 and writes 1 + 4 (164 MB, 49 us).
 //
 // Design: add_ln_payload.cu's: one warp per row, eight rows per 256-thread
 // block, each lane 4 contiguous columns per 128-column chunk (float4 and

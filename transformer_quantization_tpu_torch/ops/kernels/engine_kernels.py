@@ -4,7 +4,7 @@ Counterpart of ``transformer_quantization_tpu/ops/pallas/engine_kernels.py``.
 Activations travel between matmuls as int8 payloads: value
 ``s * (p + shift)``, ``shift = 128 - zero_point`` for asymmetric sites.
 
-Eight kernels are written by hand for Hopper (``csrc/``):
+The wrappers here launch kernels written by hand for Hopper (``csrc/``):
 
 - :func:`int8_matmul` -- payload matmul with the dequant fold, bias,
   optional ``gelu_new`` or ``relu``, and a per-column output site
@@ -23,6 +23,10 @@ Eight kernels are written by hand for Hopper (``csrc/``):
   from the same device functions as the three kernels above;
 - :func:`fused_add_ln_payload` -- payload + payload residual add, res
   site, one-pass LayerNorm, ln payload;
+- :func:`fused_add_ln` -- float32 y + float32 residual, res site,
+  LayerNorm, and both the ln payload and its float value: the add+LN of
+  the engine's non-payload residual route (a disabled fold site), an
+  instance of the :func:`flex_add_ln` kernel;
 - :func:`float_edge_matmul` -- the matmul of a float value edge (a 16-bit
   or per-column site of the mixed / PEG recipes) against an int8 weight,
   contracted exactly on int8 tensor cores from the edge's grid levels,
@@ -85,7 +89,8 @@ LAUNCHES: Dict[str, int] = {"int8_matmul": 0, "int8_attention": 0,
                             "fused_add_ln_payload": 0,
                             "float_edge_matmul": 0, "flex_add_ln": 0,
                             "int8_matmul_norm": 0, "int8_attention_qkv": 0,
-                            "int8_mb_layer_ln": 0}
+                            "int8_mb_layer_ln": 0, "fused_add_ln": 0,
+                            "fused_int8_linear": 0}
 
 LOG2E = float(np.float32(np.log2(np.e)))
 
@@ -370,6 +375,17 @@ def _ln_body_ref(x, gb, sv, *, eps, res_quant, res_bits=8, ln_bits=8,
 def _ln_ref_body(x, gb, s, *, eps, res_quant, norm="layernorm"):
     return _ln_body_ref(x, gb, (s[4], s[5], s[6], s[7]), eps=eps,
                         res_quant=res_quant, norm=norm)
+
+
+def fused_add_ln_ref(y, r, gb, scalars, *, eps, res_quant=True):
+    """Float add -> res site -> LayerNorm -> ln site: ``(int8 payload,
+    ln_s * (level + ln_sh))``. ``y``, ``r``: (M, H) float32; ``scalars``
+    (1, 8) as :func:`fused_add_ln_payload_ref`'s, of which [0:4] are
+    unused."""
+    s = scalars[0]
+    x = y.to(torch.float32) + r.to(torch.float32)
+    q = _ln_ref_body(x, gb, s, eps=eps, res_quant=res_quant)
+    return q.to(torch.int8), s[6] * (q + s[7])
 
 
 def fused_add_ln_payload_ref(y8, r8, gb, scalars, *, eps, res_quant=True):
@@ -921,9 +937,7 @@ def fused_add_ln_payload(y8, r8, gb, scalars, *, eps, res_quant=True):
     _check(gb, "gb", torch.float32, (2, h))
     _check(scalars, "scalars", torch.float32, (1, 8))
     _same_device(y8, r8, gb, scalars)
-    if h % 128 or h > 1024:
-        raise NotImplementedError(f"fused_add_ln_payload kernel needs "
-                                  f"H % 128 == 0 and H <= 1024 (got {h})")
+    _h_fits(h, "fused_add_ln_payload")
     out = torch.empty((m, h), device=y8.device, dtype=torch.int8)
     fn = KB.load("add_ln_payload")
     err = fn(y8.data_ptr(), r8.data_ptr(), gb.data_ptr(), scalars.data_ptr(),
@@ -931,6 +945,37 @@ def fused_add_ln_payload(y8, r8, gb, scalars, *, eps, res_quant=True):
     KB.check(err, "fused_add_ln_payload")
     LAUNCHES["fused_add_ln_payload"] += 1
     return out
+
+
+def _h_fits(h: int, what: str) -> None:
+    if h % 128 or h > 1024:
+        raise NotImplementedError(f"{what} kernel needs H % 128 == 0 and "
+                                  f"H <= 1024 (got {h})")
+
+
+def fused_add_ln(y, r, gb, scalars, *, eps, res_quant=True):
+    """Float-in add + LayerNorm emitting the payload and the float value;
+    see :func:`fused_add_ln_ref`. On the card: the ``csrc/flex_add_ln.cu``
+    kernel with a float32 residual, scalar 8-bit sites and both outputs."""
+    if not y.is_cuda:
+        return fused_add_ln_ref(y, r, gb, scalars, eps=eps,
+                                res_quant=res_quant)
+    m, h = y.shape
+    _check(y, "y", torch.float32)
+    _check(r, "r", torch.float32, (m, h))
+    _check(gb, "gb", torch.float32, (2, h))
+    _check(scalars, "scalars", torch.float32, (1, 8))
+    _same_device(y, r, gb, scalars)
+    _h_fits(h, "fused_add_ln")
+    out8 = torch.empty((m, h), device=y.device, dtype=torch.int8)
+    outf = torch.empty((m, h), device=y.device, dtype=torch.float32)
+    fn = KB.load("flex_add_ln")
+    err = fn(y.data_ptr(), r.data_ptr(), 1, gb.data_ptr(), scalars.data_ptr(),
+             None, out8.data_ptr(), outf.data_ptr(), m, h, float(eps),
+             int(res_quant), -128.0, 127.0, -128.0, 127.0, _stream())
+    KB.check(err, "fused_add_ln")
+    LAUNCHES["fused_add_ln"] += 1
+    return out8, outf
 
 
 def flex_add_ln(y, r, gb, scalars, lnv=None, *, eps, res_quant=True,
@@ -961,9 +1006,7 @@ def flex_add_ln(y, r, gb, scalars, lnv=None, *, eps, res_quant=True,
     if lnv is not None:
         _check(lnv, "lnv", torch.float32, (4, h))
     _same_device(y, r, gb, scalars, *([lnv] if lnv is not None else []))
-    if h % 128 or h > 1024:
-        raise NotImplementedError(f"flex_add_ln kernel needs H % 128 == 0 "
-                                  f"and H <= 1024 (got {h})")
+    _h_fits(h, "flex_add_ln")
     out = torch.empty((m, h), device=y.device,
                       dtype=torch.int8 if ln_out == "emit"
                       else torch.float32)

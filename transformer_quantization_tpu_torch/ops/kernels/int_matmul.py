@@ -1,0 +1,200 @@
+"""Fused quantize -> int8 matmul -> dequant epilogue: the generic int
+path's linear layer.
+
+Counterpart of ``transformer_quantization_tpu/ops/pallas/int_matmul.py``
+(``fused_int8_linear`` / ``_fused_call`` / ``_kernel``). One pass:
+
+    x_int8 = clip(round(x * (1/s_x)) + zp_x)         quantize-on-load
+    acc    = x_int8 @ w_int8^T                       exact int32
+    y      = (s_x*s_w) * (acc + (128-zp_x)*colsum) + b   dequant + bias
+    y      = act(y)
+    out    = s_o * (y_int - zp_o), or the output site's int8 payload,
+             y_int = clip(round(y * (1/s_o)) + zp_o, imin, imax)
+
+``x`` may already be an int8 payload of its input site (the hand-off of
+``ffn.inter.out`` to ``ffn.dense``): quantize-on-load is skipped.
+
+:func:`fused_int8_linear_ref` is the plain version, the TPU kernel's
+arithmetic in its order (reciprocal products, not quotients, as the TPU
+kernel rounds them). :func:`fused_int8_linear` takes the JAX function's
+arguments and returns None where the JAX function does whatever the
+device: an x dtype other than float32 or int8, a K mismatch, an emitted
+payload without an 8-bit output site, a row count that is not a multiple
+of 8. In place of the TPU's 128-tile rule it applies the kernel's own,
+K % 16 and N % 8, on every device, so the CPU takes the card's route.
+On CPU tensors it runs the plain version, on CUDA tensors the kernel
+``csrc/fused_int8_linear.cu``. Split-half int4 weights and bfloat16 x
+raise "not yet ported".
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+
+from transformer_quantization_tpu_torch.ops.int_linear import exact_int_matmul
+from transformer_quantization_tpu_torch.ops.kernels import build as KB
+from transformer_quantization_tpu_torch.ops.kernels import engine_kernels as EK
+from transformer_quantization_tpu_torch.ops.kernels.activations import (
+    ACTS,
+    GELU_NEW_C,
+)
+from transformer_quantization_tpu_torch.quant import quantizers as Q
+
+Tensor = torch.Tensor
+
+# the kernel's activation codes ('gelu' is the Abramowitz-Stegun form)
+_ACT_CODES = {None: 0, "gelu": 1, "gelu_new": 2, "tanh": 3, "relu": 4}
+# out_mode codes: no output site (float), fold (float), emit (int8)
+_OUT_FLOAT, _OUT_FOLD, _OUT_EMIT = 0, 1, 2
+
+
+def _out_bounds(out_bits: int, out_sym: bool, signed: Tensor):
+    """(imin, imax) of the output site's grid; a symmetric site is signed
+    or unsigned by its ``signed`` scalar."""
+    top = 2.0 ** out_bits - 1
+    if not out_sym:
+        return 0.0, top
+    half = 2.0 ** (out_bits - 1)
+    return (torch.where(signed > 0, -half, 0.0),
+            torch.where(signed > 0, half - 1, top))
+
+
+def fused_int8_linear_ref(x2d: Tensor, w: Tensor, w_scale: Tensor,
+                          colsum: Tensor, bias: Optional[Tensor],
+                          scalars: Tensor, *, activation, asym_in: bool,
+                          out_bits: int, out_sym: bool,
+                          out_int8: bool) -> Tensor:
+    """The TPU ``_kernel``'s arithmetic on (M, K) ``x2d`` (float32, or an
+    int8 payload) against the (N, K) int8 ``w``. ``scalars`` (1, 8):
+    [s_x, zp_x, s_o, zp_o, signed_o, 0, 0, 0]; ``out_bits`` 0: no output
+    site."""
+    s = scalars[0]
+    s_x, zp_x = s[0], s[1]
+    if x2d.dtype == torch.int8:
+        x8 = x2d
+    else:
+        xq = torch.round(x2d * (1.0 / s_x)) + (zp_x if asym_in else 0.0)
+        if asym_in:
+            xq = torch.clamp(xq, 0.0, 255.0) - 128.0
+        else:
+            xq = torch.clamp(xq, -128.0, 127.0)
+        x8 = xq.to(torch.int8)
+    acc = exact_int_matmul(x8, w).to(torch.float32)
+    if asym_in:
+        acc = acc + (128.0 - zp_x) * colsum
+    y = (s_x * w_scale) * acc
+    if bias is not None:
+        y = y + bias
+    act = ACTS[activation]
+    if act is not None:
+        y = act(y)
+    if not out_bits:
+        return y
+    s_o, zp_o = s[2], s[3]
+    imin, imax = _out_bounds(out_bits, out_sym, s[4])
+    y_int = torch.clamp(torch.round(y * (1.0 / s_o)) + zp_o, imin, imax)
+    if out_int8:
+        return (y_int - (0.0 if out_sym else 128.0)).to(torch.int8)
+    return s_o * (y_int - zp_o)
+
+
+def _launch(x2d, w, w_scale, colsum, bias, scalars, *, activation, asym_in,
+            out_bits, out_sym, out_int8) -> Tensor:
+    """``csrc/fused_int8_linear.cu`` on CUDA tensors."""
+    m, k = x2d.shape
+    n = w.shape[0]
+    if x2d.dtype == torch.int8:
+        EK._check(x2d, "x", torch.int8)
+    else:
+        EK._check(x2d, "x", torch.float32)
+        if x2d.data_ptr() % 16:
+            raise ValueError("x must start on a 16-byte boundary")
+    EK._check(w, "w", torch.int8, (n, k))
+    for name, v in (("w_scale", w_scale), ("colsum", colsum)) + (
+            (("bias", bias),) if bias is not None else ()):
+        EK._check(v, name, torch.float32, (n,))
+    EK._check(scalars, "scalars", torch.float32, (1, 8))
+    EK._same_device(x2d, w, w_scale, colsum, scalars,
+                    *([bias] if bias is not None else []))
+    if activation not in _ACT_CODES:
+        raise NotImplementedError(f"fused_int8_linear kernel: activation "
+                                  f"{activation!r} is not yet ported")
+    if out_bits and not 2 <= out_bits <= 16:
+        raise NotImplementedError(f"fused_int8_linear kernel: a {out_bits}-"
+                                  "bit output site is not yet ported")
+    mode = _OUT_EMIT if out_int8 else (_OUT_FOLD if out_bits else _OUT_FLOAT)
+    out = torch.empty((m, n), device=x2d.device,
+                      dtype=torch.int8 if out_int8 else torch.float32)
+    fn = KB.load("fused_int8_linear")
+    err = fn(x2d.data_ptr(), int(x2d.dtype != torch.int8), w.data_ptr(),
+             w_scale.data_ptr(), colsum.data_ptr(),
+             bias.data_ptr() if bias is not None else None,
+             scalars.data_ptr(), out.data_ptr(), m, n, k,
+             _ACT_CODES[activation], int(asym_in), mode, int(out_bits),
+             int(out_sym), GELU_NEW_C, EK._stream())
+    KB.check(err, "fused_int8_linear")
+    EK.LAUNCHES["fused_int8_linear"] += 1
+    return out
+
+
+def fused_int8_linear(x: Tensor, packed, in_spec: Q.QuantizerSpec,
+                      in_qp: Q.QuantParams, bias: Optional[Tensor] = None,
+                      activation=None, out_spec=None, out_qp=None,
+                      emit_int8: bool = False,
+                      plain: bool = False) -> Optional[Tensor]:
+    """Fused quantize + int8 matmul + dequant (+ act) (+ output site) over
+    the last dim of ``x``; None when the layer does not fit (the caller
+    runs the int path). ``in_qp`` per-tensor. The output site folds in
+    when ``out_qp`` is per-tensor; ``emit_int8`` writes its int8 payload
+    instead of floats (8-bit sites only). ``plain``: the plain version on
+    any device (the yardstick the kernel is held against)."""
+    if "w_int" not in packed:
+        if "w_packed" in packed:
+            raise NotImplementedError("fused_int8_linear: split-half int4 "
+                                      "weights (W4A8) are not yet ported")
+        return None
+    w = packed["w_int"]
+    k = x.shape[-1]
+    n = w.shape[0]
+    if x.dtype == torch.bfloat16:
+        raise NotImplementedError("fused_int8_linear: bfloat16 x (the "
+                                  "compute_dtype path) is not yet ported")
+    if x.dtype not in (torch.float32, torch.int8) or w.shape[1] != k:
+        return None
+    fold = (out_spec is not None and out_qp is not None
+            and out_qp.delta.ndim == 0)
+    if emit_int8 and not (fold and out_spec.n_bits == 8):
+        return None
+    lead = x.shape[:-1]
+    m = math.prod(lead)
+    if m % 8 or m < 8 or k % 16 or n % 8:
+        return None
+
+    dev = x.device
+    zero = torch.zeros((), device=dev)
+    s_x = Q.scale_of(in_spec, in_qp).reshape(())
+    zp_x = Q.zero_point_of(in_spec, in_qp).reshape(())
+    s_o = zp_o = signed_o = zero
+    out_bits, out_sym = 0, False
+    if fold:
+        out_bits, out_sym = out_spec.n_bits, out_spec.symmetric
+        s_o = Q.scale_of(out_spec, out_qp).reshape(())
+        zp_o = Q.zero_point_of(out_spec, out_qp).reshape(())
+        signed_o = out_qp.signed.reshape(())
+    scalars = torch.stack([s_x, zp_x, s_o, zp_o, signed_o, zero, zero, zero]
+                          ).reshape(1, 8).to(torch.float32)
+    w_scale = torch.broadcast_to(packed["scale"].reshape(-1).to(torch.float32),
+                                 (n,)).contiguous()
+    args = (x.reshape(m, k).contiguous(), w, w_scale,
+            packed["colsum"].to(torch.float32),
+            None if bias is None else bias.to(torch.float32), scalars)
+    kw = dict(activation=activation, asym_in=not in_spec.symmetric,
+              out_bits=out_bits, out_sym=out_sym, out_int8=emit_int8)
+    if plain or not x.is_cuda:
+        y = fused_int8_linear_ref(*args, **kw)
+    else:
+        y = _launch(*args, **kw)
+    return y.reshape(*lead, n)

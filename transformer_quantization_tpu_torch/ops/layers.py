@@ -5,11 +5,11 @@ primitive takes a :class:`~..quant.manager.QuantCtx` and a site name; the
 weight quantizer lives at ``<name>.w``, the output activation quantizer
 at ``<name>.out``. Biases are never quantized.
 
-Ported: the float path and the generic int8 branch of
-:func:`quant_linear`, :func:`quant_layernorm`, :func:`quant_nonorm`,
-:func:`quant_embedding` and :func:`dropout`. The fused Pallas linear
-(``use_pallas``), the int8-QAT matmul, capture hooks and grouped layers
-wait for their slices.
+Ported: the float path, the generic int8 branch and its fused linear
+(the JAX ``use_pallas``, ``ctx.fused_linear``) of :func:`quant_linear`,
+:func:`quant_layernorm`, :func:`quant_nonorm`, :func:`quant_embedding`
+and :func:`dropout`. The int8-QAT matmul, capture hooks and grouped
+layers wait for their slices.
 """
 
 from __future__ import annotations
@@ -20,6 +20,9 @@ import numpy as np
 import torch
 
 from transformer_quantization_tpu_torch.ops import int_linear as IL
+from transformer_quantization_tpu_torch.ops.kernels.int_matmul import (
+    fused_int8_linear,
+)
 from transformer_quantization_tpu_torch.quant import quantizers as Q
 from transformer_quantization_tpu_torch.quant.qconfig import Phase
 
@@ -95,12 +98,47 @@ def _weight_from_int_or_fake(ctx, name: str, w: Tensor) -> Tensor:
     return ctx.weight(wname, w)
 
 
+def _fused_linear(ctx, name: str, x: Tensor, b: Optional[Tensor],
+                  activation, in_cfg, in_qp, packed) -> Optional[Tensor]:
+    """The fused linear on ``x`` (float32, or the input site's int8
+    payload): the output act site folds into its epilogue when it is
+    enabled, fixed and per-tensor, and its int8 payload is emitted for a
+    site of ``ctx.int8_only_sites``. None when the kernel does not take
+    the layer."""
+    out_site = f"{name}.out"
+    out_spec = out_qp = None
+    oc = ctx.cfg[out_site] if out_site in ctx.cfg else None
+    if (oc is not None and oc.enabled and ctx.mode.act_quant
+            and ctx.mode.act_phase == Phase.fix and out_site in ctx.qstate
+            and oc.axis is None):
+        oq = ctx.qstate[out_site]["qp"]
+        if oq.delta.ndim == 0:
+            out_spec, out_qp = oc.spec, oq
+    emit = (out_spec is not None and out_spec.n_bits == 8
+            and out_site in ctx.int8_only_sites)
+    y = fused_int8_linear(x, packed, in_cfg.spec, in_qp, bias=b,
+                          activation=activation, out_spec=out_spec,
+                          out_qp=out_qp, emit_int8=emit,
+                          plain=ctx.fused_linear == "plain")
+    if y is None:
+        return None
+    if emit:
+        # the sole consumer takes the payload as its x
+        ctx.int8_handoffs[out_site] = y
+        return y
+    if out_spec is not None:
+        return y  # the output site ran in the epilogue
+    return ctx.act(out_site, y)
+
+
 def quant_linear(ctx, name: str, x: Tensor, w: Tensor, b: Optional[Tensor],
                  activation=None, input_site: Optional[str] = None) -> Tensor:
     """Quantized affine layer: quantize weight -> x @ W^T + b -> activation
     -> quantize output. ``w`` is stored ``(out, in)``. With packed int
     weights and a per-tensor (or per-token) input site the matmul runs on
-    the exact int8 path."""
+    the exact int8 path; with ``ctx.fused_linear`` and a per-tensor input
+    site, through :func:`~.kernels.int_matmul.fused_int8_linear`, which
+    takes the input site's int8 payload where its producer emitted one."""
     act = _resolve_act(activation)
     fast = _int8_fast_path(ctx, name, input_site)
     if fast is not None and fast[0].axis == x.ndim - 1:
@@ -109,6 +147,15 @@ def quant_linear(ctx, name: str, x: Tensor, w: Tensor, b: Optional[Tensor],
         in_cfg, in_qp, packed = fast
         if in_cfg.axis is not None:
             in_qp = Q.expand_qparams(in_qp, x.ndim, in_cfg.axis)
+        elif ctx.fused_linear and not callable(activation):
+            x = ctx.int8_handoffs.pop(input_site, x)
+            y = _fused_linear(ctx, name, x, b, activation, in_cfg, in_qp,
+                              packed)
+            if y is not None:
+                return y
+            if x.dtype == torch.int8:
+                # the kernel rejected a payload: materialize its floats
+                x = IL.dequantize_activation_int8(in_cfg.spec, in_qp, x)
         x_int8, s_x, shift = IL.quantize_activation_int8(in_cfg.spec, in_qp,
                                                          x)
         y = IL.int8_linear(x_int8, s_x, shift, packed, b, act)

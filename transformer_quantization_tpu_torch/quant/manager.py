@@ -88,6 +88,13 @@ class QuantCtx:
     ``requant_only_sites``: act sites whose every consumer re-quantizes
     with the site's own params (an int8 matmul); in the fix phase their
     producer-side fake-quant is a numeric no-op and is skipped.
+
+    The generic int path's fused linear (the JAX ``use_pallas``):
+    ``fused_linear`` False, True (the kernel on CUDA tensors) or
+    ``'plain'`` (its plain version on any device); ``int8_only_sites``,
+    act sites consumed only by the next int8 matmul, whose producer emits
+    the int8 payload; ``int8_handoffs``, those payloads by site, each
+    taken once by its consumer.
     """
 
     def __init__(self, cfg: QuantModelConfig, qstate: Mapping[str, SiteState],
@@ -97,6 +104,9 @@ class QuantCtx:
         self.qstate: Dict[str, SiteState] = dict(qstate)
         self.int_params = None
         self.requant_only_sites = frozenset()
+        self.fused_linear = False
+        self.int8_only_sites = frozenset()
+        self.int8_handoffs: Dict[str, Tensor] = {}
 
     def weight(self, name: str, w: Tensor) -> Tensor:
         if name not in self.cfg:
