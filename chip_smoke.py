@@ -9,9 +9,12 @@ Phases (any failure exits non-zero; nothing is caught):
 3. kernels: each kernel against its plain PyTorch version on the card, on
    the inputs the main path gives it (layer 0 of BERT-base at B=128,
    S=128): max level difference, mismatches, kernel / plain / bound ms,
-   and for the matmul ``torch._int_mm`` ms (the int32 product only); then
+   and for the matmul ``torch._int_mm`` ms (the int32 product only),
+   TOP/s and the share of the int8 peak, and its ms per layer against
+   ``torch._int_mm`` on the same four products; then
    the composed chains against their plain versions; then the kernels'
-   other built shapes (ragged matmul tiles, seq 64 / 32, H=256). Every
+   other built shapes (the matmul on ragged tiles, M = 8, N = 200 and
+   K = 784 over every activation and output; seq 64 / 32, H=256). Every
    comparison must be bit-identical;
 4. main path at full BERT-base width: random init from ``--seed``,
    one-batch W8A8 calibration, int8 packing, the engine plan, and three
@@ -267,11 +270,16 @@ def check_kernels(params, cfg, qcfg, qstate, int_params, static, plan,
     report = {}
 
     # K1: the four matmuls of a layer
-    report["int8_matmul"] = per_layer([
+    k1 = per_layer([
         (matmul_case("qkv", x8, lp["qkv"], None), 1),
         (matmul_case("attn_out", c8, lp["attn_out"], None), 1),
         (matmul_case("inter", hx8, lp["inter"], "gelu_new"), 1),
         (matmul_case("dense", i8, lp["dense"], None), 1)])
+    print(f"  int8_matmul per layer: {k1['ms']:.4f} ms, torch._int_mm on the "
+          f"same four products {k1['library_ms']:.4f} ms "
+          f"({k1['ms'] / k1['library_ms']:.2f}x), bound {k1['bound_ms']:.4f} "
+          f"ms ({k1['bound_by']})")
+    report["int8_matmul"] = k1
 
     # K2: attention
     d = h // nh
@@ -350,26 +358,32 @@ def check_other_shapes(plan, dev) -> None:
         return torch.randint(lo, hi, shape, generator=gen, device=dev,
                              dtype=torch.int8)
 
-    # a ragged matmul: M, N off the 128-tiles, K off the 64-byte step
-    m, n, k = 1000, 136, 80
-    w = ints(n, k)
-    vecs = torch.stack([torch.full((n,), 2e-4, device=dev),
-                        w.float().sum(1), torch.zeros(n, device=dev),
-                        torch.full((n,), 0.05, device=dev),
-                        torch.full((n,), 3.0, device=dev)])
+    # ragged matmuls against K1's 128 x 128 tiles and 128-byte K stages:
+    # M, N off the tiles (N = 136: a 16-byte row only every other row),
+    # K off the stage (80, 784); M = 8, below one tile; N = 200, a
+    # multiple of 8 but not of 16 or 128; each over every activation and
+    # output, and the fold on a 16-bit grid
     scal = torch.tensor([[0.03, 5.0]], device=dev)
-    x = ints(m, k)
-    for act in (None, "gelu_new", "relu"):
-        for mode in ("emit", "fold", "float"):
-            got = EK.int8_matmul(x, w, vecs, scal, activation=act,
-                                 out_mode=mode)
-            want = EK.int8_matmul_ref(x, w, vecs, scal, activation=act,
-                                      out_mode=mode)
-            tag = f"int8_matmul {m}x{k}->{n} act={act} {mode}"
+    for m, n, k in ((1000, 136, 80), (8, 136, 784), (300, 200, 784)):
+        w = ints(n, k)
+        vecs = torch.stack([torch.full((n,), 2e-4, device=dev),
+                            w.float().sum(1), torch.zeros(n, device=dev),
+                            torch.full((n,), 0.05, device=dev),
+                            torch.full((n,), 3.0, device=dev)])
+        x = ints(m, k)
+        cases = [(a, mode, 8) for a in (None, "gelu_new", "relu")
+                 for mode in ("emit", "fold", "float")] + [(None, "fold", 16)]
+        for act, mode, bits in cases:
+            kw = dict(activation=act, out_mode=mode, out_bits=bits)
+            got = EK.int8_matmul(x, w, vecs, scal, **kw)
+            want = EK.int8_matmul_ref(x, w, vecs, scal, **kw)
+            tag = f"int8_matmul {m}x{k}->{n} act={act} {mode} {bits}-bit"
             if mode == "emit":
                 compare(got, want, tag)
             elif not torch.equal(got, want):
                 fail(f"{tag}: max err {(got - want).abs().max().item()}")
+        print(f"  int8_matmul {m}x{k}->{n}: {len(cases)} act x output cases "
+              "bit-identical")
     # attention at the other built sequence lengths
     for seq in (64, 32):
         b = 6
@@ -469,7 +483,9 @@ def check_flex_kernels(params, cfg, qcfg, qstate, int_params, static, plan,
     ops, nbytes = 2.0 * m * h * n1, m * n1 + h * n1 + 4 * m * h + 5 * h * 4
     bnd, by = bound_ms(ops, nbytes)
     print(f"  int8_matmul[dense fold]: kernel {t_k:.4f} ms, plain {t_p:.4f} "
-          f"ms, torch._int_mm {t_l:.4f} ms, bound {bnd:.4f} ms ({by})")
+          f"ms, torch._int_mm {t_l:.4f} ms, bound {bnd:.4f} ms ({by}), "
+          f"{ops / t_k / 1e9:.1f} TOP/s "
+          f"({100 * ops / t_k / PEAK_INT8_OPS * 1e3:.1f}% of peak)")
     report["int8_matmul_fold"] = {"ms": t_k, "plain_ms": t_p,
                                   "bound_ms": bnd, "bound_by": by,
                                   "library_ms": t_l, **res}
@@ -607,7 +623,8 @@ def kernel_case(tag, got_fn, want_fn, ops, nbytes, lib_fn=None,
     bnd, by = bound_ms(ops, nbytes, peak)
     lib = f", library {t_l:.4f} ms" if t_l is not None else ""
     print(f"  {tag}: kernel {t_k:.4f} ms, plain {t_p:.4f} ms{lib}, bound "
-          f"{bnd:.4f} ms ({by}), {ops / t_k / 1e9:.1f} TOP/s")
+          f"{bnd:.4f} ms ({by}), {ops / t_k / 1e9:.1f} TOP/s "
+          f"({100 * ops / t_k / peak * 1e3:.1f}% of peak)")
     return {"ms": t_k, "plain_ms": t_p, "library_ms": t_l, "ops": ops,
             "bytes": nbytes, "peak": peak, **res}
 
@@ -1087,8 +1104,12 @@ def main(argv=None) -> int:
     print(f"[2] build: {t_build:.1f} s for {', '.join(KB.SOURCES)}",
           flush=True)
     for name, log in KB.BUILD_LOG.items():
-        regs = [ln.strip() for ln in log.splitlines() if "registers" in ln]
-        print(f"  {name}: " + " | ".join(regs))
+        # ptxas -v per instance: registers and static shared memory, and
+        # the stack / spill line (dynamic shared memory is the source's)
+        lines = [ln.strip().replace("ptxas info    : ", "")
+                 for ln in log.splitlines()
+                 if "registers" in ln or "spill" in ln]
+        print(f"  {name}: " + " | ".join(sorted(set(lines))))
 
     cfg = B.BertConfig()
     L = cfg.num_hidden_layers

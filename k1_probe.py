@@ -1,0 +1,155 @@
+"""A/B the int8 matmul kernel (K1, ``csrc/int8_matmul.cu``) against edited
+copies of itself on one NVIDIA card, at BERT-base's layer shapes.
+
+    python3 k1_probe.py [--out DIR]
+
+Each variant is the kernel's source with one edit, built with the
+package's ``nvcc`` flags into ``DIR`` (default ``k1_probe_build/``, listed
+in ``.gitignore``), all builds started together, loaded with ``ctypes``:
+
+- ``kernel``: the source as it is;
+- ``main_loop``: no epilogue (the products, the ring and the turns
+  alone; its output is not written);
+- ``one_warpgroup``: one consumer warpgroup takes every tile, so each
+  tile's epilogue runs after its products and not under the next tile's;
+- ``exact_branch``: the site level through ``rint_div`` (a branch and an
+  out-of-line call for elements near a half level) in place of
+  ``rint_div_fma``;
+- ``step8``: 8 elements per epilogue step instead of 16.
+
+On random int8 operands (M = 16384) it checks every variant that
+computes the function against ``int8_matmul_ref`` (bit-identical or it
+fails), and prints each variant's device ms per call (20 calls in a CUDA
+graph, median of 5 replays) and TOP/s beside ``torch._int_mm``. Imports
+torch and the port only.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import subprocess
+from pathlib import Path
+
+import torch
+
+import chip_smoke as CS
+from transformer_quantization_tpu_torch.ops.kernels import build as KB
+from transformer_quantization_tpu_torch.ops.kernels import engine_kernels as EK
+from transformer_quantization_tpu_torch.ops.kernels.activations import (
+    GELU_NEW_C,
+)
+
+EDITS = {
+    "kernel": [],
+    "main_loop": [("for (int p = 0; p < PASSES; ++p) {",
+                   "for (int p = 0; p < 0; ++p) {")],
+    "one_warpgroup": [
+        ("if (local > 1) mbar_wait(&turn[wg], ((local >> 1) - 1 + wg) & 1);\n"
+         "    else if (local == 1) mbar_wait(&turn[1], 0);", ""),
+        ("for (int t = blockIdx.x + wg * gridDim.x, local = wg; t < tiles;\n"
+         "       t += 2 * gridDim.x, local += 2) {",
+         "if (wg == 1) return;\n"
+         "  for (int t = blockIdx.x, local = 0; t < tiles;\n"
+         "       t += gridDim.x, local += 1) {")],
+    "exact_branch": [("tqmm::rint_div_fma(y[i], kc.os, kc.inv)",
+                      "tqmm::rint_div(y[i], kc.os, kc.inv)")],
+    "step8": [("constexpr int EPI_NB = 2;", "constexpr int EPI_NB = 1;")],
+}
+COMPUTES = {"kernel", "one_warpgroup", "exact_branch", "step8"}
+# (N, K, activation, output) of a BERT-base layer's four calls, and the
+# recipes' dense fold on a 16-bit grid
+SHAPES = [(2304, 768, None, "emit", 8), (768, 768, None, "emit", 8),
+          (3072, 768, "gelu_new", "emit", 8), (768, 3072, None, "emit", 8),
+          (768, 3072, None, "fold", 16)]
+ACT = {None: 0, "gelu_new": 1, "relu": 2}
+MODE = {"emit": 0, "fold": 1, "float": 2}
+
+
+def build(out: Path) -> dict:
+    """Write and build every variant; returns name -> entry point."""
+    src = (KB.CSRC / "int8_matmul.cu").read_text()
+    out.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name, edits in EDITS.items():
+        s = src
+        for old, new in edits:
+            if old not in s:
+                raise SystemExit(f"k1_probe: {name}: the source no longer "
+                                 f"holds {old!r}")
+            s = s.replace(old, new)
+        (out / f"{name}.cu").write_text(s)
+        procs[name] = subprocess.Popen(
+            [KB._nvcc(), *KB.NVCC_FLAGS, "-I", str(KB.CSRC), "-o",
+             str(out / f"{name}.so"), str(out / f"{name}.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    fns = {}
+    for name, p in procs.items():
+        log, _ = p.communicate()
+        if p.returncode:
+            raise SystemExit(f"k1_probe: {name} failed to build:\n{log}")
+        spills = sorted({ln.strip() for ln in log.splitlines()
+                         if "spill" in ln})
+        print(f"  {name}: built; {' | '.join(spills)}")
+        fn = ctypes.CDLL(str(out / f"{name}.so")).tq_int8_matmul
+        fn.argtypes = list(KB._SIGNATURES["int8_matmul"][1])
+        fn.restype = ctypes.c_int
+        fns[name] = fn
+    return fns
+
+
+def inputs(m, n, k, gen, dev):
+    x = torch.randint(-128, 128, (m, k), generator=gen, device=dev,
+                      dtype=torch.int8)
+    w = torch.randint(-128, 128, (n, k), generator=gen, device=dev,
+                      dtype=torch.int8)
+    vecs = torch.stack([
+        torch.rand(n, generator=gen, device=dev) * 1e-3 + 1e-4,
+        w.float().sum(1), torch.randn(n, generator=gen, device=dev) * 0.1,
+        0.05 * (1 + torch.rand(n, generator=gen, device=dev)),
+        torch.full((n,), 3.0, device=dev)]).contiguous()
+    return x, w, vecs, torch.tensor([[0.02, 5.0]], device=dev)
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--out", default="k1_probe_build")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("k1_probe: needs a card")
+    print(CS.nvidia_smi_line(), flush=True)
+    fns = build(Path(args.out))
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(3)
+    m = 16384
+    for n, k, act, mode, bits in SHAPES:
+        x, w, vecs, scal = inputs(m, n, k, gen, dev)
+        lo, hi = EK._clip_bounds(bits)
+        out = torch.empty((m, n), device=dev, dtype=torch.int8
+                          if mode == "emit" else torch.float32)
+        want = EK.int8_matmul_ref(x, w, vecs, scal, activation=act,
+                                  out_mode=mode, out_bits=bits)
+        ops = 2.0 * m * n * k
+        line = f"  {m}x{k}->{n} act={act} {mode} {bits}-bit:"
+        for name, fn in fns.items():
+            def call(fn=fn):
+                err = fn(x.data_ptr(), w.data_ptr(), vecs.data_ptr(),
+                         scal.data_ptr(), out.data_ptr(), m, n, k, ACT[act],
+                         MODE[mode], lo, hi, GELU_NEW_C,
+                         torch.cuda.current_stream().cuda_stream)
+                KB.check(err, name)
+            call()
+            torch.cuda.synchronize()
+            if name in COMPUTES and not torch.equal(out, want):
+                raise SystemExit(f"k1_probe: {name} differs from "
+                                 f"int8_matmul_ref at {line}")
+            t = CS.device_ms(call)
+            line += f" {name} {t:.4f} ms ({ops / t / 1e9:.0f} TOP/s);"
+        w_t = w.t()
+        t = CS.device_ms(lambda: torch._int_mm(x, w_t))
+        print(f"{line} torch._int_mm {t:.4f} ms", flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -301,3 +301,51 @@ def test_unported_modes_raise(layer0):
         EK.int8_attention_ref(layer0["t"]["qkv8"], layer0["t"]["bias"],
                               layer0["tlp"]["attn_scal"], n_heads=4, seq=16,
                               attn_bits=(16, 8, 8))
+
+
+def _rn32(x):
+    """The float32 nearest to the rational ``x`` (ties to even), exactly."""
+    from fractions import Fraction
+    if x == 0:
+        return 0.0
+    sign, x = (-1.0 if x < 0 else 1.0), abs(x)
+    e = x.numerator.bit_length() - x.denominator.bit_length()
+    e += (Fraction(2) ** (e + 1) <= x) - (Fraction(2) ** e > x)
+    m = x * Fraction(2) ** (23 - e)
+    n, rem = divmod(m.numerator, m.denominator)
+    if 2 * rem > m.denominator or (2 * rem == m.denominator and n % 2):
+        n += 1
+    return sign * float(Fraction(n) * Fraction(2) ** (e - 23))
+
+
+def test_rint_div_fma_matches_the_ieee_quotient():
+    """K1's epilogue rounds ``y / s`` as ``rint_div_fma`` (mm_common.cuh):
+    ``q0 = y * inv`` (``inv`` the IEEE ``1 / s``) and two corrections
+    ``q + (y - s q) * inv``, each an fma, for the IEEE quotient without a
+    division. Its arithmetic, emulated exactly with rationals, against the
+    IEEE quotient on values within a few ulps of half-integer quotients
+    (where ``rint(y * inv)`` alone is wrong) and on plain values: equal,
+    so ``rint`` of both is equal."""
+    from fractions import Fraction as F
+    rng = np.random.RandomState(5)
+    f32 = lambda v: float(np.float32(v))
+    fma = lambda a, b, c: _rn32(F(a) * F(b) + F(c))
+    naive_wrong = 0
+    for i in range(4000):
+        s = f32(10 ** rng.uniform(-4, 0.5))
+        inv = _rn32(1 / F(s))
+        if i % 2:
+            y = np.float32((rng.randint(-300, 300) + 0.5) * s)
+            for _ in range(rng.randint(0, 4)):
+                y = np.nextafter(y, np.float32(np.inf if rng.rand() < .5
+                                               else -np.inf))
+            y = float(y)
+        else:
+            y = f32(rng.uniform(-50, 50) * s)
+        want = _rn32(F(y) / F(s))
+        q0 = _rn32(F(y) * F(inv))
+        q = fma(fma(-s, q0, y), inv, q0)
+        q = fma(fma(-s, q, y), inv, q)
+        assert q == want, (y, s)
+        naive_wrong += round(q0) != round(want)
+    assert naive_wrong > 0   # the cases exercise the correction

@@ -30,9 +30,11 @@ from transformer_quantization_tpu_torch.ops import engine as ENG
 from transformer_quantization_tpu_torch.ops import int_linear as IL
 from transformer_quantization_tpu_torch.ops.layers import (
     dropout,
+    float_matmul,
     quant_embedding,
     quant_layernorm,
     quant_linear,
+    wide_matmul_precision,
 )
 from transformer_quantization_tpu_torch.quant.manager import QuantCtx
 from transformer_quantization_tpu_torch.quant.qconfig import (
@@ -423,7 +425,8 @@ def _self_attention(ctx, layer, cfg: BertConfig, h, mask_bias, prefix,
     q = q.reshape(B, T, nh, hd).permute(0, 2, 1, 3)
     k = k.reshape(B, T, nh, hd).permute(0, 2, 1, 3)
     v = v.reshape(B, T, nh, hd).permute(0, 2, 1, 3)
-    scores = torch.matmul(q, k.transpose(-1, -2)).to(h.dtype)
+    scores = float_matmul(q, k.transpose(-1, -2), wide_matmul_precision(
+        ctx, prefix + "attn.q.out", prefix + "attn.k.out")).to(h.dtype)
     # raw scores are quantized; 1/sqrt(d) comes after
     scores = ctx.act(prefix + "attn.scores", scores)
     scores = scores / torch.sqrt(torch.full((), float(hd), dtype=scores.dtype,
@@ -433,7 +436,8 @@ def _self_attention(ctx, layer, cfg: BertConfig, h, mask_bias, prefix,
     probs = torch.softmax(scores.to(torch.float32), dim=-1).to(scores.dtype)
     probs = ctx.act(prefix + "attn.probs", probs)
     probs = dropout(probs, cfg.attention_probs_dropout_prob, gen, not train)
-    context = torch.matmul(probs, v).to(h.dtype)
+    context = float_matmul(probs, v, wide_matmul_precision(
+        ctx, prefix + "attn.probs", prefix + "attn.v.out")).to(h.dtype)
     context = context.permute(0, 2, 1, 3).reshape(B, T, H)
     return ctx.act(prefix + "attn.context", context)
 

@@ -34,9 +34,11 @@ from transformer_quantization_tpu_torch.models import bert as B
 from transformer_quantization_tpu_torch.ops import engine as ENG
 from transformer_quantization_tpu_torch.ops.kernels import engine_kernels as EK
 from transformer_quantization_tpu_torch.ops.layers import (
+    float_matmul,
     quant_embedding,
     quant_linear,
     quant_nonorm,
+    wide_matmul_precision,
 )
 from transformer_quantization_tpu_torch.quant import quantizers as Q
 from transformer_quantization_tpu_torch.quant.qconfig import (
@@ -382,7 +384,8 @@ def _attention(ctx, layer, cfg: MobileBertConfig, q_in, k_in, v_in,
     q = q.reshape(b, t, nh, hd).permute(0, 2, 1, 3)
     k = k.reshape(b, t, nh, hd).permute(0, 2, 1, 3)
     v = v.reshape(b, t, nh, hd).permute(0, 2, 1, 3)
-    scores = torch.matmul(q, k.transpose(-1, -2))
+    scores = float_matmul(q, k.transpose(-1, -2), wide_matmul_precision(
+        ctx, prefix + "attn.q.out", prefix + "attn.k.out"))
     scores = ctx.act(prefix + "attn.scores", scores)
     scores = scores / torch.sqrt(torch.full((), float(hd),
                                             device=scores.device))
@@ -390,7 +393,9 @@ def _attention(ctx, layer, cfg: MobileBertConfig, q_in, k_in, v_in,
         scores = scores + mask_bias
     probs = torch.softmax(scores.to(torch.float32), dim=-1)
     probs = ctx.act(prefix + "attn.probs", probs)
-    context = torch.matmul(probs, v).permute(0, 2, 1, 3).reshape(b, t, th)
+    context = float_matmul(probs, v, wide_matmul_precision(
+        ctx, prefix + "attn.probs", prefix + "attn.v.out"))
+    context = context.permute(0, 2, 1, 3).reshape(b, t, th)
     context = ctx.act(prefix + "attn.context", context)
 
     so = layer["attn_out"]

@@ -594,9 +594,14 @@ def _check_matmul(x8, w8, vecs, scalars, what: str):
 
 def int8_matmul(x8, w8, vecs, scalars, *, activation=None, out_mode="emit",
                 w4=False, in_mode="i8", out_bits=8, in_grid=None):
-    """Payload matmul; see :func:`int8_matmul_ref`. On the card: int8
-    tensor-core product (``mma.sync`` m16n8k32) with the fold, activation
-    and output site in the epilogue (``csrc/int8_matmul.cu``); a float
+    """Payload matmul; see :func:`int8_matmul_ref`. On the card: a
+    persistent warp-specialized Hopper kernel (``csrc/int8_matmul.cu``):
+    TMA loads of 128 x 128-byte tiles into an mbarrier ring,
+    ``wgmma.mma_async`` m64n128k32 s8 x s8 -> s32 in two ping-pong
+    consumer warpgroups, and the fold, activation and output site in an
+    epilogue that runs under the other warpgroup's products and stores
+    through shared memory in 16-byte vectors. Needs K % 16 == 0, N % 8 ==
+    0 and 16-byte aligned, contiguous operands (raises otherwise). A float
     input edge (``in_mode='f'``) launches :func:`float_edge_matmul`."""
     if not x8.is_cuda:
         return int8_matmul_ref(x8, w8, vecs, scalars, activation=activation,
@@ -612,6 +617,9 @@ def int8_matmul(x8, w8, vecs, scalars, *, activation=None, out_mode="emit",
     act, mode, lo, hi = _mm_modes(activation, out_mode, out_bits,
                                   "int8_matmul")
     m, n, k = _check_matmul(x8, w8, vecs, scalars, "int8_matmul")
+    if not (m and n and k):
+        raise ValueError(f"int8_matmul kernel needs M, N, K > 0 (got M={m},"
+                         f" N={n}, K={k})")
     out = torch.empty((m, n), device=x8.device,
                       dtype=torch.int8 if out_mode == "emit"
                       else torch.float32)

@@ -163,12 +163,47 @@ def quant_linear(ctx, name: str, x: Tensor, w: Tensor, b: Optional[Tensor],
         return ctx.act(f"{name}.out", y)
 
     w_q = _weight_from_int_or_fake(ctx, name, w).to(x.dtype)
-    y = torch.matmul(x, w_q.transpose(0, 1))
+    y = float_matmul(x, w_q.transpose(0, 1),
+                     wide_matmul_precision(ctx, input_site, f"{name}.w"))
     if b is not None:
         y = (y + b).to(y.dtype)
     if act is not None:
         y = act(y)
     return ctx.act(f"{name}.out", y)
+
+
+def wide_matmul_precision(ctx, *sites) -> bool:
+    """Whether any named act / weight site puts >8-bit-grid values into a
+    float matmul: the JAX package asks for ``lax.Precision.HIGHEST`` there
+    (its ``ops/layers.py`` ``wide_matmul_precision``), since a reduced-
+    precision product destroys the low bits of a 16-bit grid (about 30% of
+    logit scale at ``{'c': 16}`` in its measurements). The port's own copy
+    of the predicate; :func:`float_matmul` acts on it."""
+    cfg = getattr(ctx, "cfg", None)
+    if cfg is None:
+        return False
+    for name in sites:
+        if name is None or name not in cfg:
+            continue
+        c = cfg[name]
+        if c.enabled and c.spec.n_bits > 8:
+            return True
+    return False
+
+
+def float_matmul(a: Tensor, b: Tensor, full: bool) -> Tensor:
+    """``torch.matmul(a, b)``; with ``full`` in full float32 whatever the
+    caller set with ``torch.backends.cuda.matmul.allow_tf32`` or
+    ``torch.set_float32_matmul_precision`` (TF32 keeps a 10-bit mantissa).
+    The caller's setting is restored afterwards."""
+    if not full:
+        return torch.matmul(a, b)
+    prev = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision("highest")
+    try:
+        return torch.matmul(a, b)
+    finally:
+        torch.set_float32_matmul_precision(prev)
 
 
 def quant_layernorm(ctx, name: str, x: Tensor, scale: Tensor, bias: Tensor,
