@@ -55,12 +55,17 @@ Phases (any failure exits non-zero; nothing is caught):
    (q with a float32 x, attn_out, inter with gelu emitting the payload,
    dense on the payload, the pooler at M = B) and on ``{'x': 'fp32'}``'s
    dense (a float32 x of K=3072), a ragged M and symmetric input / output
-   sites; ``fused_add_ln`` (both add+LNs) and the matmul's fold / float
-   outputs on layer 0 of the ``{'h': 'fp32'}`` engine. Every comparison
-   must be bit-identical;
+   sites; its quantize pass alone on the float32 x of q and of that
+   dense; its A-S erf's branch-free reciprocal against the IEEE quotient
+   on every float32 in [1, 2^126]; the edges the GEMM's TMA loads
+   zero-fill (M = 8, N = 200, K = 784, each on a float32 x and on a
+   payload, over every activation and output); ``fused_add_ln`` (both
+   add+LNs) and the matmul's fold / float outputs on layer 0 of the
+   ``{'h': 'fp32'}`` engine. Every comparison must be bit-identical;
 10. the leave-one-out routes: three request batches through
    ``bert_apply(fused_linear=True)`` under W8A8 (73 fused linears per
-   forward) and ``{'x': 'fp32'}`` (61), and through ``bert_engine_apply``
+   forward, 61 of them on a float32 x, so 61 quantize passes) and
+   ``{'x': 'fp32'}`` (61 and 61), and through ``bert_engine_apply``
    under ``{'h': 'fp32'}`` (the non-payload route: 48 matmul, 12
    attention, 24 ``fused_add_ln`` launches), each with the counts read
    just after and logits against the same path on the plain versions;
@@ -76,7 +81,9 @@ the MobileBERT kernels' numbers are MobileBERT-uncased layer 0's, with
 the chain's ms per layer beside ``int8_mb_layer_ln``; the fused
 linear's and ``fused_add_ln``'s numbers are per encoder layer of the
 generic W8A8 path and of the ``{'h': 'fp32'}`` engine, with the fused
-linear's other calls under ``variants``; ``launches`` sums the three runs
+linear's other calls under ``variants`` and its quantize pass (5 a layer
+at K = 768, and on the ``{'x': 'fp32'}`` dense) under
+``quantize_pass``; ``launches`` sums the three runs
 of every path, ``launches_by_path`` splits them), the
 nvidia-smi line, and ``{"ok": true, "device": {...}}``. Imports torch and
 the port only.
@@ -1045,7 +1052,98 @@ def check_linear_kernels(params, cfg, w8a8, x_fp32, batch, dev) -> dict:
                      (res["dense"], 1)])
     out["variants"] = {tag: per_layer([(res[tag], 1)]) for tag in (
         "pooler", "dense x-fp32", "ragged M=1000", "symmetric sites")}
+    # the quantize pass alone, on the float32 x of q (the shape of all 5
+    # of a W8A8 layer's passes) and of the {'x': 'fp32'} dense
+    qp = {tag: quantize_case(tag, *cases[tag]) for tag in ("q",
+                                                            "dense x-fp32")}
+    out["quantize_pass"] = per_layer([(qp["q"], 5)])
+    out["quantize_pass"]["variants"] = {
+        "dense x-fp32": per_layer([(qp["dense x-fp32"], 1)])}
+    print(f"  fused linear per layer {out['ms']:.4f} ms, of which the "
+          f"quantize pass {out['quantize_pass']['ms']:.4f} ms "
+          f"({100 * out['quantize_pass']['ms'] / out['ms']:.1f}%); "
+          f"{{'x': 'fp32'}} dense {res['dense x-fp32']['ms']:.4f} ms, its "
+          f"pass {qp['dense x-fp32']['ms']:.4f} ms")
     return out
+
+
+def quantize_case(tag, args, kw) -> dict:
+    """The fused linear's quantize pass alone on the float32 x of one of
+    its calls, against its plain version (bytes: x read once, the payload
+    written once; 5 float operations an element)."""
+    x, _, in_spec, in_qp = args[:4]
+    x2d = x.reshape(-1, x.shape[-1]).contiguous()
+    m, k = x2d.shape
+    scal = torch.zeros(1, 8, device=x.device)
+    scal[0, 0] = Q.scale_of(in_spec, in_qp).reshape(())
+    scal[0, 1] = Q.zero_point_of(in_spec, in_qp).reshape(())
+    asym = not in_spec.symmetric
+    return kernel_case(
+        f"fused_linear_quantize[{tag}] {m}x{k}",
+        lambda: IM.quantize_input(x2d, scal, asym),
+        lambda: IM.quantize_input_ref(x2d, scal, asym),
+        5.0 * m * k, 5 * m * k + 32, peak=PEAK_F32_OPS)
+
+
+def check_erf_reciprocal(dev) -> None:
+    """The fused linear's A-S erf takes 1 / (1 + p |x|) branch-free
+    (``rcp_ge1`` in ``fused_int8_linear.cu``); it must give the IEEE
+    quotient's bits on every float32 in [1, 2^126], its whole domain."""
+    bad = torch.zeros(1, dtype=torch.int64, device=dev)
+    KB.check(KB.load("fused_rcp_check")(bad.data_ptr(), EK._stream()),
+             "fused_rcp_check")
+    n_bad = int(bad.item())
+    print(f"  the A-S erf's reciprocal against 1.0f / d on every float32 d "
+          f"in [1, 2^126]: {n_bad} differ")
+    if n_bad:
+        fail(f"the A-S erf's reciprocal differs from the IEEE quotient on "
+             f"{n_bad} float32 values")
+
+
+def check_linear_shapes(dev) -> None:
+    """The fused linear at the edges its GEMM's TMA loads zero-fill: M = 8
+    (below one 128-row tile), N = 200 (a multiple of 8, not of 16 or
+    128), K = 784 (off the 128-byte K stage); each on a float32 x and on
+    a payload, over every activation and output, against the plain
+    version."""
+    gen = torch.Generator(device=dev).manual_seed(11)
+    asym = Q.QuantizerSpec(n_bits=8, method=Q.QMethod.asymmetric_uniform)
+    for m, n, k in ((8, 768, 768), (1000, 200, 768), (304, 136, 784)):
+        w = torch.randint(-127, 128, (n, k), generator=gen, device=dev,
+                          dtype=torch.int8)
+        packed = {"w_int": w,
+                  "scale": 1e-3 * (1 + torch.rand(n, generator=gen,
+                                                  device=dev)),
+                  "colsum": w.float().sum(1)}
+        bias = 0.1 * torch.randn(n, generator=gen, device=dev)
+        x = 1.5 * torch.randn(m, k, generator=gen, device=dev)
+        in_qp = Q.set_quant_range(asym, x.min(), x.max())
+        scal = torch.zeros(1, 8, device=dev)
+        scal[0, 0] = Q.scale_of(asym, in_qp)
+        scal[0, 1] = Q.zero_point_of(asym, in_qp)
+        n_cases = 0
+        for xin in (x, IM.quantize_input_ref(x, scal, True)):
+            for act in (None, "gelu", "gelu_new", "tanh", "relu"):
+                y = IM.fused_int8_linear(xin, packed, asym, in_qp, bias=bias,
+                                         activation=act, plain=True)
+                oqp = Q.set_quant_range(asym, y.min(), y.max())
+                for out in ("none", "fold", "emit"):
+                    kw = dict(bias=bias, activation=act)
+                    if out != "none":
+                        kw.update(out_spec=asym, out_qp=oqp,
+                                  emit_int8=out == "emit")
+                    got = IM.fused_int8_linear(xin, packed, asym, in_qp, **kw)
+                    want = IM.fused_int8_linear(xin, packed, asym, in_qp,
+                                                plain=True, **kw)
+                    torch.cuda.synchronize()
+                    if not torch.equal(got, want):
+                        fail(f"fused_int8_linear {m}x{k}->{n} "
+                             f"{'int8' if xin.dtype == torch.int8 else 'f32'}"
+                             f" in, act={act} {out}: max err "
+                             f"{(got.float() - want.float()).abs().max()}")
+                    n_cases += 1
+        print(f"  fused_int8_linear {m}x{k}->{n}: {n_cases} input x act x "
+              "output cases bit-identical")
 
 
 def check_engine_fp32_kernels(params, cfg, h_fp32, batch, dev) -> dict:
@@ -1280,6 +1378,8 @@ def main(argv=None) -> int:
           f"{{'h': 'fp32'}} fold flags {h_fp32[2].fold[0]}")
     report["fused_int8_linear"] = check_linear_kernels(
         params, cfg, (qcfg, qstate, int_params), x_fp32, b0, dev)
+    check_erf_reciprocal(dev)
+    check_linear_shapes(dev)
     report["fused_add_ln"] = check_engine_fp32_kernels(params, cfg, h_fp32,
                                                        b0, dev)
 
@@ -1289,10 +1389,12 @@ def main(argv=None) -> int:
     by_path["generic-w8a8"] = drive_path(
         "generic-w8a8", generic_runner(params, cfg, qcfg, qstate, int_params,
                                        dev), cfg, batches,
-        per_forward(fused_int8_linear=6 * L + 1))
+        per_forward(fused_int8_linear=6 * L + 1,
+                    fused_linear_quantize=5 * L + 1))
     by_path["generic-x-fp32"] = drive_path(
         "generic-x-fp32", generic_runner(params, cfg, *x_fp32, dev), cfg,
-        batches, per_forward(fused_int8_linear=5 * L + 1))
+        batches, per_forward(fused_int8_linear=5 * L + 1,
+                             fused_linear_quantize=5 * L + 1))
     hq, hs, hst, hplan, hint = h_fp32
     by_path["engine-h-fp32"] = drive_path(
         "engine-h-fp32", bert_runner(params, cfg, hq, hs, hst, hplan, hint,
@@ -1370,6 +1472,19 @@ def main(argv=None) -> int:
         if name == "fused_int8_linear":
             entry["variants"] = {v: {k: c[k] for k in keys}
                                  for v, c in r["variants"].items()}
+            qp = r["quantize_pass"]
+            entry["quantize_pass"] = {
+                "name": "fused_linear_quantize", "route": "cuda",
+                "source": entry["source"],
+                "replaces": "transformer_quantization_tpu/ops/pallas/"
+                            "int_matmul.py:126",
+                "launches": sum(p["fused_linear_quantize"]
+                                for p in by_path.values()),
+                **{k: qp[k] for k in keys},
+                "launches_by_path": {p: c["fused_linear_quantize"]
+                                     for p, c in by_path.items()},
+                "variants": {v: {k: c[k] for k in keys}
+                             for v, c in qp["variants"].items()}}
         kernels.append(entry)
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -1,11 +1,12 @@
 """A/B the int8 matmul kernel (K1, ``csrc/int8_matmul.cu``) against edited
 copies of itself on one NVIDIA card, at BERT-base's layer shapes.
 
-    python3 k1_probe.py [--out DIR]
+    python3 k1_probe.py [--out DIR] [--parent DIR]
 
-Each variant is the kernel's source with one edit, built with the
-package's ``nvcc`` flags into ``DIR`` (default ``k1_probe_build/``, listed
-in ``.gitignore``), all builds started together, loaded with ``ctypes``:
+Each variant is the kernel's source and the shared GEMM header
+(``csrc/wgmma_gemm.cuh``) with one edit, built with the package's
+``nvcc`` flags into ``DIR`` (default ``k1_probe_build/``, listed in
+``.gitignore``), all builds started together, loaded with ``ctypes``:
 
 - ``kernel``: the source as it is;
 - ``main_loop``: no epilogue (the products, the ring and the turns
@@ -15,7 +16,9 @@ in ``.gitignore``), all builds started together, loaded with ``ctypes``:
 - ``exact_branch``: the site level through ``rint_div`` (a branch and an
   out-of-line call for elements near a half level) in place of
   ``rint_div_fma``;
-- ``step8``: 8 elements per epilogue step instead of 16.
+- ``step8``: 8 elements per epilogue step instead of 16;
+- ``parent`` (with ``--parent DIR``, an unpacked checkout of another
+  commit): that checkout's ``int8_matmul.cu`` and headers as they are.
 
 On random int8 operands (M = 16384) it checks every variant that
 computes the function against ``int8_matmul_ref`` (bit-identical or it
@@ -52,11 +55,12 @@ EDITS = {
          "if (wg == 1) return;\n"
          "  for (int t = blockIdx.x, local = 0; t < tiles;\n"
          "       t += gridDim.x, local += 1) {")],
-    "exact_branch": [("tqmm::rint_div_fma(y[i], kc.os, kc.inv)",
-                      "tqmm::rint_div(y[i], kc.os, kc.inv)")],
+    "exact_branch": [("tqmm::rint_div_fma(y, kc.os, kc.inv)",
+                      "tqmm::rint_div(y, kc.os, kc.inv)")],
     "step8": [("constexpr int EPI_NB = 2;", "constexpr int EPI_NB = 1;")],
 }
-COMPUTES = {"kernel", "one_warpgroup", "exact_branch", "step8"}
+COMPUTES = {"kernel", "one_warpgroup", "exact_branch", "step8", "parent"}
+GEMM = "wgmma_gemm.cuh"
 # (N, K, activation, output) of a BERT-base layer's four calls, and the
 # recipes' dense fold on a 16-bit grid
 SHAPES = [(2304, 768, None, "emit", 8), (768, 768, None, "emit", 8),
@@ -66,36 +70,58 @@ ACT = {None: 0, "gelu_new": 1, "relu": 2}
 MODE = {"emit": 0, "fold": 1, "float": 2}
 
 
-def build(out: Path) -> dict:
-    """Write and build every variant; returns name -> entry point."""
-    src = (KB.CSRC / "int8_matmul.cu").read_text()
-    out.mkdir(parents=True, exist_ok=True)
+def build_variants(source: str, variants: dict, out: Path,
+                   parent=None) -> dict:
+    """Write and build every variant of ``csrc/<source>`` (its edits
+    applied to the source or to the shared GEMM header, each copied into
+    the variant's own directory, where the source's includes find it
+    first), and with ``parent`` (a checkout's root) that checkout's
+    source against its own headers, all ``nvcc`` runs started together;
+    returns name -> the library (see :func:`entry`)."""
     procs = {}
-    for name, edits in EDITS.items():
-        s = src
+    for name, edits in variants.items():
+        files = {f: (KB.CSRC / f).read_text() for f in (source, GEMM)}
         for old, new in edits:
-            if old not in s:
-                raise SystemExit(f"k1_probe: {name}: the source no longer "
-                                 f"holds {old!r}")
-            s = s.replace(old, new)
-        (out / f"{name}.cu").write_text(s)
-        procs[name] = subprocess.Popen(
-            [KB._nvcc(), *KB.NVCC_FLAGS, "-I", str(KB.CSRC), "-o",
-             str(out / f"{name}.so"), str(out / f"{name}.cu")],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    fns = {}
-    for name, p in procs.items():
+            holder = [f for f, text in files.items() if old in text]
+            if not holder:
+                raise SystemExit(f"{source}: {name}: the sources no longer "
+                                 f"hold {old!r}")
+            files[holder[0]] = files[holder[0]].replace(old, new)
+        d = out / name
+        d.mkdir(parents=True, exist_ok=True)
+        for f, text in files.items():
+            (d / f).write_text(text)
+        procs[name] = (d, KB.CSRC)
+    if parent is not None:
+        procs["parent"] = (Path(parent) / KB.CSRC.relative_to(
+            KB.CSRC.parents[3]), None)
+    running = {}
+    for name, (d, inc) in procs.items():
+        lib = out / f"{name}.so"
+        running[name] = (lib, subprocess.Popen(
+            [KB._nvcc(), *KB.NVCC_FLAGS, *(["-I", str(inc)] if inc else []),
+             "-o", str(lib), str(d / source)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    libs = {}
+    for name, (lib, p) in running.items():
         log, _ = p.communicate()
         if p.returncode:
-            raise SystemExit(f"k1_probe: {name} failed to build:\n{log}")
+            raise SystemExit(f"{source}: {name} failed to build:\n{log}")
         spills = sorted({ln.strip() for ln in log.splitlines()
                          if "spill" in ln})
         print(f"  {name}: built; {' | '.join(spills)}")
-        fn = ctypes.CDLL(str(out / f"{name}.so")).tq_int8_matmul
-        fn.argtypes = list(KB._SIGNATURES["int8_matmul"][1])
-        fn.restype = ctypes.c_int
-        fns[name] = fn
-    return fns
+        libs[name] = ctypes.CDLL(str(lib))
+    return libs
+
+
+def entry(lib: ctypes.CDLL, name: str, argtypes=None):
+    """Entry point ``name`` of ``build.py``'s signatures in ``lib``
+    (``argtypes`` in place of the signature's, for another checkout's)."""
+    sym, sig = KB._SIGNATURES[name]
+    fn = getattr(lib, sym)
+    fn.argtypes = list(argtypes or sig)
+    fn.restype = ctypes.c_int
+    return fn
 
 
 def inputs(m, n, k, gen, dev):
@@ -114,11 +140,14 @@ def inputs(m, n, k, gen, dev):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default="k1_probe_build")
+    ap.add_argument("--parent", default=None,
+                    help="an unpacked checkout whose K1 to time beside")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("k1_probe: needs a card")
     print(CS.nvidia_smi_line(), flush=True)
-    fns = build(Path(args.out))
+    fns = {name: entry(lib, "int8_matmul") for name, lib in build_variants(
+        "int8_matmul.cu", EDITS, Path(args.out), args.parent).items()}
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(3)
     m = 16384

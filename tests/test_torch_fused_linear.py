@@ -5,7 +5,10 @@ the leave-one-out FP32 configurations of the paper's section 3.
 
 Kernels: the plain versions against the JAX functions in interpret mode,
 on inputs made with numpy from a seed (m=16, k=32, n=24 as
-tests/test_pallas.py). Paths: the tiny BERT of tests/test_engine.py (2
+tests/test_pallas.py); the fused linear's quantize step, which the card
+runs as a pass of its own before the payload route, bit for bit against
+the JAX kernel's quantize-on-load and as a decomposition of the float32
+route. Paths: the tiny BERT of tests/test_engine.py (2
 layers, H=64). The JAX package calibrates W8A8 once; each leave-one-out
 configuration applies its quant_dict to both packages' site configs over
 that one qstate (the comparison needs the same ranges on both sides, not
@@ -223,6 +226,129 @@ def test_fused_linear_acceptance_rules():
                               *args[1:])
     with pytest.raises(NotImplementedError, match="not yet ported"):
         TIM.fused_int8_linear(x.bfloat16(), *args)
+
+
+# ---------------------------------------------------------------------------
+# The quantize step the card runs as a pass of its own
+# ---------------------------------------------------------------------------
+
+KERNEL_ACTS = [None, "gelu", "gelu_new", "tanh", "relu"]
+DECOMP = [(inp, act, out) for inp in ("f32-asym", "f32-sym")
+          for act in KERNEL_ACTS for out in ("none", "asym-fold", "emit")]
+
+
+@pytest.mark.parametrize("inp,act,out", DECOMP,
+                         ids=[f"{i}-{a}-{o}" for i, a, o in DECOMP])
+def test_quantize_pass_then_payload_equals_float_x(inp, act, out,
+                                                   monkeypatch):
+    """The card's decomposition of a float32 x: the quantize step into a
+    payload, then the payload route, gives the plain version's bits on the
+    float32 x, for both input sites, the kernel's five activations and its
+    three outputs (no site, fold, emit)."""
+    c = _case_inputs(inp, True, True, out)
+    calls = []
+    real = TIM.fused_int8_linear_ref
+    monkeypatch.setattr(TIM, "fused_int8_linear_ref",
+                        lambda *a, **k: calls.append((a, k)) or real(*a, **k))
+    TIM.fused_int8_linear(c["tx"], c["tpacked"], c["in_t"], c["tiqp"],
+                          bias=c["tb"], activation=act, out_spec=c["out_t"],
+                          out_qp=c["toqp"], emit_int8=out == "emit")
+    (args, kw), = calls
+    want = real(*args, **kw)
+    x8 = TIM.quantize_input_ref(args[0], args[5], kw["asym_in"])
+    assert x8.dtype == torch.int8
+    got = real(x8, *args[1:], **kw)
+    assert got.dtype == want.dtype
+    assert torch.equal(got, want)
+
+
+def _half_levels(s: np.float32, m: int, k: int, seed: int) -> np.ndarray:
+    """(m, k) float32 values around the grid's half levels (n + 0.5) * s,
+    exactly there and one ulp either side, among random values, and some
+    past the grid's ends."""
+    rng = np.random.RandomState(seed)
+    n = np.arange(-140, 140, dtype=np.float32)
+    half = ((n + np.float32(0.5)) * s).astype(np.float32)
+    vals = np.concatenate([half, np.nextafter(half, np.float32(np.inf)),
+                           np.nextafter(half, np.float32(-np.inf))])
+    rest = (rng.randn(m * k - vals.size) * 60 * s).astype(np.float32)
+    x = np.concatenate([vals, rest])
+    rng.shuffle(x)
+    return x.reshape(m, k)
+
+
+def _jax_quantize_on_load(x: np.ndarray, scal: np.ndarray, asym: bool):
+    """The JAX ``_kernel``'s quantize-on-load levels, in interpret mode:
+    the kernel on an identity weight of scale 1 and zero colsum gives
+    y = s_x * level; the level is recovered exactly (|level| <= 128)."""
+    from transformer_quantization_tpu.ops.pallas.int_matmul import _fused_call
+    m, k = x.shape
+    y = np.asarray(_fused_call(
+        jnp.asarray(x), jnp.eye(k, dtype=jnp.int8), jnp.ones((k,)),
+        jnp.zeros((k,)), None, jnp.asarray(scal), activation=None,
+        asym_in=asym, out_bits=0, out_sym=False, block_m=m, interpret=True))
+    lvl = np.round(y / scal[0, 0])
+    np.testing.assert_array_equal((scal[0, 0] * lvl).astype(np.float32), y)
+    return lvl.astype(np.int8)
+
+
+QUANT = [(asym, s) for asym in (True, False) for s in (0.0371, 0.05173)]
+
+
+@pytest.mark.parametrize("asym,s", QUANT,
+                         ids=[f"{'asym' if a else 'sym'}-{s}"
+                              for a, s in QUANT])
+def test_quantize_step_matches_jax_kernel(asym, s):
+    """The factored quantize step against the JAX kernel's quantize-on-load
+    (interpret mode), on values at, and one ulp either side of, every half
+    level, where x / s and x * (1/s) can round apart, and past the grid's
+    ends."""
+    s = np.float32(s)
+    x = _half_levels(s, 16, 64, seed=12)
+    scal = np.zeros((1, 8), np.float32)
+    scal[0, :2] = (s, 117.0 if asym else 0.0)
+    want = _jax_quantize_on_load(x, scal, asym)
+    got = TIM.quantize_input_ref(_t(x), _t(scal), asym).numpy()
+    np.testing.assert_array_equal(got, want)
+    # the inputs reach both ends of the grid
+    assert got.min() == -128 and got.max() == 127
+
+
+@pytest.mark.parametrize("case", ["reciprocal", "unsigned-symmetric"])
+def test_quantize_activation_int8_is_not_the_kernels_step(case):
+    """``ops.int_linear.quantize_activation_int8`` divides and takes a
+    symmetric site's bounds from its sign; the TPU kernel multiplies by
+    1/s_x and clips a symmetric input to [-128, 127]. On these inputs the
+    two differ, and the JAX kernel sides with the factored step, which is
+    why the pass does not call the former."""
+    s = np.float32(0.0371)
+    if case == "reciprocal":
+        inv = np.float32(1.0) / s
+        x = _half_levels(s, 16, 64, seed=13)
+        apart = np.round(x / s) != np.round(x * inv)
+        assert apart.any()   # x / s and x * (1/s) round apart here
+        spec = TQ.QuantizerSpec(n_bits=8,
+                                method=TQ.QMethod.asymmetric_uniform)
+        qp = TQ.QuantParams(delta=_t(s), zero_float=_t(np.float32(117.0)),
+                            signed=_t(np.float32(1.0)))
+        asym = True
+    else:   # an unsigned symmetric site: levels 0..255 against -128..127
+        apart = None
+        x = np.abs(_half_levels(s, 16, 64, seed=14))
+        spec = TQ.QuantizerSpec(n_bits=8, method=TQ.QMethod.symmetric_uniform)
+        qp = TQ.QuantParams(delta=_t(s), zero_float=_t(np.float32(0.0)),
+                            signed=_t(np.float32(0.0)))
+        asym = False
+    scal = np.zeros((1, 8), np.float32)
+    scal[0, 0] = float(TQ.scale_of(spec, qp))
+    scal[0, 1] = float(TQ.zero_point_of(spec, qp))
+    ours = TIM.quantize_input_ref(_t(x), _t(scal), asym).numpy()
+    theirs = TIL.quantize_activation_int8(spec, qp, _t(x))[0].numpy()
+    differ = ours != theirs
+    assert differ.any()
+    if apart is not None:   # only where the two roundings part
+        assert not (differ & ~apart).any()
+    np.testing.assert_array_equal(ours, _jax_quantize_on_load(x, scal, asym))
 
 
 # ---------------------------------------------------------------------------

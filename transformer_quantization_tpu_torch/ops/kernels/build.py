@@ -60,9 +60,14 @@ _SIGNATURES = {
                     (_P, _P, _I, _P, _P, _P, _P, _P, _I, _I, _F, _I, _F, _F,
                      _F, _F, _P)),
     "fused_int8_linear": ("tq_fused_int8_linear",
-                          (_P, _I, _P, _P, _P, _P, _P, _P) + (_I,) * 8
-                          + (_F, _P)),
+                          (_P, _I) + (_P,) * 7 + (_I,) * 8 + (_F, _P)),
+    "fused_quantize": ("tq_fused_quantize",
+                       (_P, _P, _P, _I, _I, _I, _P)),
+    "fused_rcp_check": ("tq_fused_rcp_check", (_P, _P)),
 }
+# entry points that live in another source's library
+_LIBRARY = {"fused_quantize": "fused_int8_linear",
+            "fused_rcp_check": "fused_int8_linear"}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 BUILD_LOG: Dict[str, str] = {}
@@ -116,12 +121,14 @@ def build(names=SOURCES) -> float:
 
 
 def load(name: str) -> ctypes._CFuncPtr:
-    """The entry point of kernel library ``name``, building it if needed."""
-    lib = _LIBS.get(name)
+    """Entry point ``name`` (a source's own, or one of ``_LIBRARY``'s),
+    building its library if needed."""
+    src = _LIBRARY.get(name, name)
+    lib = _LIBS.get(src)
     if lib is None:
-        build((name,))
-        lib = ctypes.CDLL(str(_target(name)))
-        _LIBS[name] = lib
+        build((src,))
+        lib = ctypes.CDLL(str(_target(src)))
+        _LIBS[src] = lib
     sym, argtypes = _SIGNATURES[name]
     fn = getattr(lib, sym)
     fn.argtypes = list(argtypes)

@@ -1,5 +1,5 @@
-// Hopper building blocks of the warp-specialized int8 matmul
-// (int8_matmul.cu): mbarriers, TMA tile loads and the host-side tensor
+// Hopper building blocks of the warp-specialized int8 GEMM
+// (wgmma_gemm.cuh): mbarriers, TMA tile loads and the host-side tensor
 // map, wgmma on s8 operands read from 128-byte swizzled shared memory,
 // register hand-over between warpgroups and named barriers. sm_90a only
 // (wgmma and setmaxnreg do not exist on plain sm_90).

@@ -90,7 +90,8 @@ LAUNCHES: Dict[str, int] = {"int8_matmul": 0, "int8_attention": 0,
                             "float_edge_matmul": 0, "flex_add_ln": 0,
                             "int8_matmul_norm": 0, "int8_attention_qkv": 0,
                             "int8_mb_layer_ln": 0, "fused_add_ln": 0,
-                            "fused_int8_linear": 0}
+                            "fused_int8_linear": 0,
+                            "fused_linear_quantize": 0}
 
 LOG2E = float(np.float32(np.log2(np.e)))
 
@@ -595,8 +596,8 @@ def _check_matmul(x8, w8, vecs, scalars, what: str):
 def int8_matmul(x8, w8, vecs, scalars, *, activation=None, out_mode="emit",
                 w4=False, in_mode="i8", out_bits=8, in_grid=None):
     """Payload matmul; see :func:`int8_matmul_ref`. On the card: a
-    persistent warp-specialized Hopper kernel (``csrc/int8_matmul.cu``):
-    TMA loads of 128 x 128-byte tiles into an mbarrier ring,
+    persistent warp-specialized Hopper kernel (``csrc/int8_matmul.cu``, an
+    instance of the GEMM in ``csrc/wgmma_gemm.cuh``): TMA loads of 128 x 128-byte tiles into an mbarrier ring,
     ``wgmma.mma_async`` m64n128k32 s8 x s8 -> s32 in two ping-pong
     consumer warpgroups, and the fold, activation and output site in an
     epilogue that runs under the other warpgroup's products and stores

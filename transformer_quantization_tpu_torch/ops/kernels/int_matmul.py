@@ -16,15 +16,17 @@ Counterpart of ``transformer_quantization_tpu/ops/pallas/int_matmul.py``
 
 :func:`fused_int8_linear_ref` is the plain version, the TPU kernel's
 arithmetic in its order (reciprocal products, not quotients, as the TPU
-kernel rounds them). :func:`fused_int8_linear` takes the JAX function's
-arguments and returns None where the JAX function does whatever the
-device: an x dtype other than float32 or int8, a K mismatch, an emitted
-payload without an 8-bit output site, a row count that is not a multiple
-of 8. In place of the TPU's 128-tile rule it applies the kernel's own,
-K % 16 and N % 8, on every device, so the CPU takes the card's route.
-On CPU tensors it runs the plain version, on CUDA tensors the kernel
-``csrc/fused_int8_linear.cu``. Split-half int4 weights and bfloat16 x
-raise "not yet ported".
+kernel rounds them); its quantize step is :func:`quantize_input_ref`.
+:func:`fused_int8_linear` takes the JAX function's arguments and returns
+None where the JAX function does whatever the device: an x dtype other
+than float32 or int8, a K mismatch, an emitted payload without an 8-bit
+output site, a row count that is not a multiple of 8. In place of the
+TPU's 128-tile rule it applies the kernel's own, K % 16 and N % 8, on
+every device, so the CPU takes the card's route. On CPU tensors it runs
+the plain version, on CUDA tensors ``csrc/fused_int8_linear.cu``: a
+float32 x is quantized once into an int8 scratch payload
+(:func:`quantize_input`'s pass), which the Hopper GEMM then reads.
+Split-half int4 weights and bfloat16 x raise "not yet ported".
 """
 
 from __future__ import annotations
@@ -62,6 +64,24 @@ def _out_bounds(out_bits: int, out_sym: bool, signed: Tensor):
             torch.where(signed > 0, half - 1, top))
 
 
+def quantize_input_ref(x2d: Tensor, scalars: Tensor, asym_in: bool) -> Tensor:
+    """The TPU ``_kernel``'s quantize-on-load of the (M, K) float32
+    ``x2d``: its input site's int8 payload, ``clip(round(x * (1/s_x)) +
+    zp_x, 0, 255) - 128`` (asymmetric) or ``clip(round(x * (1/s_x)),
+    -128, 127)`` (symmetric), ``scalars`` (1, 8) as
+    :func:`fused_int8_linear_ref`'s. A reciprocal product and fixed
+    bounds: not ``ops.int_linear.quantize_activation_int8``, which
+    divides and takes a symmetric site's bounds from its sign, and so can
+    land a level away."""
+    s_x, zp_x = scalars[0, 0], scalars[0, 1]
+    xq = torch.round(x2d * (1.0 / s_x)) + (zp_x if asym_in else 0.0)
+    if asym_in:
+        xq = torch.clamp(xq, 0.0, 255.0) - 128.0
+    else:
+        xq = torch.clamp(xq, -128.0, 127.0)
+    return xq.to(torch.int8)
+
+
 def fused_int8_linear_ref(x2d: Tensor, w: Tensor, w_scale: Tensor,
                           colsum: Tensor, bias: Optional[Tensor],
                           scalars: Tensor, *, activation, asym_in: bool,
@@ -73,15 +93,8 @@ def fused_int8_linear_ref(x2d: Tensor, w: Tensor, w_scale: Tensor,
     site."""
     s = scalars[0]
     s_x, zp_x = s[0], s[1]
-    if x2d.dtype == torch.int8:
-        x8 = x2d
-    else:
-        xq = torch.round(x2d * (1.0 / s_x)) + (zp_x if asym_in else 0.0)
-        if asym_in:
-            xq = torch.clamp(xq, 0.0, 255.0) - 128.0
-        else:
-            xq = torch.clamp(xq, -128.0, 127.0)
-        x8 = xq.to(torch.int8)
+    x8 = (x2d if x2d.dtype == torch.int8
+          else quantize_input_ref(x2d, scalars, asym_in))
     acc = exact_int_matmul(x8, w).to(torch.float32)
     if asym_in:
         acc = acc + (128.0 - zp_x) * colsum
@@ -103,15 +116,17 @@ def fused_int8_linear_ref(x2d: Tensor, w: Tensor, w_scale: Tensor,
 
 def _launch(x2d, w, w_scale, colsum, bias, scalars, *, activation, asym_in,
             out_bits, out_sym, out_int8) -> Tensor:
-    """``csrc/fused_int8_linear.cu`` on CUDA tensors."""
+    """``csrc/fused_int8_linear.cu`` on CUDA tensors: for a float32 x the
+    quantize pass into a scratch payload, then the GEMM, in one call."""
     m, k = x2d.shape
     n = w.shape[0]
-    if x2d.dtype == torch.int8:
-        EK._check(x2d, "x", torch.int8)
-    else:
+    x_f32 = x2d.dtype != torch.int8
+    if x_f32:
         EK._check(x2d, "x", torch.float32)
         if x2d.data_ptr() % 16:
             raise ValueError("x must start on a 16-byte boundary")
+    else:
+        EK._check(x2d, "x", torch.int8)
     EK._check(w, "w", torch.int8, (n, k))
     for name, v in (("w_scale", w_scale), ("colsum", colsum)) + (
             (("bias", bias),) if bias is not None else ()):
@@ -125,19 +140,51 @@ def _launch(x2d, w, w_scale, colsum, bias, scalars, *, activation, asym_in,
     if out_bits and not 2 <= out_bits <= 16:
         raise NotImplementedError(f"fused_int8_linear kernel: a {out_bits}-"
                                   "bit output site is not yet ported")
+    if not (m and n and k) or k % 16 or n % 8:
+        raise ValueError(f"fused_int8_linear kernel needs M, N, K > 0, "
+                         f"K % 16 == 0 and N % 8 == 0 (got M={m}, N={n}, "
+                         f"K={k})")
     mode = _OUT_EMIT if out_int8 else (_OUT_FOLD if out_bits else _OUT_FLOAT)
+    # the scratch payload of a float32 x, which the GEMM reads by TMA
+    xq = torch.empty((m, k), device=x2d.device, dtype=torch.int8) if x_f32 \
+        else None
     out = torch.empty((m, n), device=x2d.device,
                       dtype=torch.int8 if out_int8 else torch.float32)
     fn = KB.load("fused_int8_linear")
-    err = fn(x2d.data_ptr(), int(x2d.dtype != torch.int8), w.data_ptr(),
+    err = fn(x2d.data_ptr(), int(x_f32),
+             xq.data_ptr() if x_f32 else None, w.data_ptr(),
              w_scale.data_ptr(), colsum.data_ptr(),
              bias.data_ptr() if bias is not None else None,
              scalars.data_ptr(), out.data_ptr(), m, n, k,
              _ACT_CODES[activation], int(asym_in), mode, int(out_bits),
              int(out_sym), GELU_NEW_C, EK._stream())
     KB.check(err, "fused_int8_linear")
+    if x_f32:
+        EK.LAUNCHES["fused_linear_quantize"] += 1
     EK.LAUNCHES["fused_int8_linear"] += 1
     return out
+
+
+def quantize_input(x2d: Tensor, scalars: Tensor, asym_in: bool) -> Tensor:
+    """:func:`quantize_input_ref` on CPU tensors; on CUDA tensors the
+    fused linear's quantize pass alone (the first of its two launches for
+    a float32 x), reading float4 and writing char4."""
+    if not x2d.is_cuda:
+        return quantize_input_ref(x2d, scalars, asym_in)
+    m, k = x2d.shape
+    EK._check(x2d, "x", torch.float32)
+    EK._check(scalars, "scalars", torch.float32, (1, 8))
+    EK._same_device(x2d, scalars)
+    if x2d.data_ptr() % 16 or k % 4 or not m:
+        raise ValueError("the quantize pass needs M > 0, K % 4 == 0 and x "
+                         "on a 16-byte boundary")
+    xq = torch.empty((m, k), device=x2d.device, dtype=torch.int8)
+    err = KB.load("fused_quantize")(x2d.data_ptr(), scalars.data_ptr(),
+                                    xq.data_ptr(), m, k, int(asym_in),
+                                    EK._stream())
+    KB.check(err, "fused_linear_quantize")
+    EK.LAUNCHES["fused_linear_quantize"] += 1
+    return xq
 
 
 def fused_int8_linear(x: Tensor, packed, in_spec: Q.QuantizerSpec,
