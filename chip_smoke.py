@@ -41,8 +41,10 @@ Phases (any failure exits non-zero; nothing is caught):
    outputs), ``int8_attention_qkv`` at head_dim 32 and the whole-layer
    ``int8_mb_layer_ln`` against their plain versions, and the layer
    kernel against the chain of the other three; then their other shapes
-   (ragged tiles, seq 64 / 32, the 'bottleneck' attention case). Every
-   comparison must be bit-identical;
+   (K6 with and without a residual at ``NORM_SHAPES``: ragged M, N % 16
+   != 0, three column tiles ragged in every dimension, a partial last
+   column tile at M = 16384; K7 at seq 64 / 32; K8 with the 'bottleneck'
+   attention case). Every comparison must be bit-identical;
 8. MobileBERT's main path: three request batches through
    ``mobilebert_engine_apply`` on the default route (24 launches of the
    layer kernel per forward) and on the chain route (``fuse_layer=False``:
@@ -78,7 +80,8 @@ over that layer's launches of each kernel; the flex kernels' top-level
 numbers are the mixed recipe's, and ``variants`` holds each recipe's,
 for ``int8_matmul`` its dense fold on the h grid and MobileBERT's layer;
 the MobileBERT kernels' numbers are MobileBERT-uncased layer 0's, with
-the chain's ms per layer beside ``int8_mb_layer_ln``; the fused
+K6's five calls under ``variants`` and the chain's ms per layer beside
+``int8_mb_layer_ln``; the fused
 linear's and ``fused_add_ln``'s numbers are per encoder layer of the
 generic W8A8 path and of the ``{'h': 'fp32'}`` engine, with the fused
 linear's other calls under ``variants`` and its quantize pass (5 a layer
@@ -93,6 +96,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import re
 import subprocess
 import sys
 import time
@@ -207,6 +211,28 @@ def compare_values(got: torch.Tensor, want: torch.Tensor, step,
         fail(f"{name}: expected bit-identical, max level diff {max_diff} "
              f"on {n_bad} elements")
     return {"max_abs_err": max_diff, "mismatches": n_bad}
+
+
+def ptxas_lines(log: str) -> list:
+    """An nvcc -Xptxas -v log, shortened: each GEMM policy instance's
+    registers and spills by name (``NormEpi<1,0>: Used 168 registers, ...;
+    0 bytes stack frame, ...``), then the other kernels' distinct register /
+    static shared memory and stack / spill lines (dynamic shared memory is
+    the source's)."""
+    by_inst, other, inst = {}, set(), None
+    for ln in log.splitlines():
+        ln = ln.strip().replace("ptxas info    : ", "")
+        if ln.startswith("Compiling entry function"):
+            m = re.search(r"\d([A-Z]\w*?Epi)I((?:L[ib]\d+E)+)E", ln)
+            inst = None if m is None else "{}<{}>".format(
+                m.group(1), ",".join(re.findall(r"L[ib](\d+)E", m.group(2))))
+        elif "registers" in ln or "spill" in ln:
+            if inst is None:
+                other.add(ln)
+            else:
+                by_inst.setdefault(inst, []).append(ln)
+    return ([f"{k}: {'; '.join(v)}" for k, v in by_inst.items()]
+            + sorted(other))
 
 
 def nvidia_smi_line() -> str:
@@ -762,6 +788,9 @@ def check_mobilebert_kernels(params, cfg, qcfg, qstate, int_params, static,
           (norm_case("out_bn", y8, lp["out_bn"], h8, lp["out_bn_norm"],
                      res_obn), 1)]
     report["int8_matmul_norm"] = per_layer(k6)
+    report["int8_matmul_norm"]["variants"] = {
+        tag: per_layer([(c, 1)]) for tag, (c, _) in zip(
+            ("bn_in", "bn_attn", "attn_out", "ffn dense", "out_bn"), k6)}
 
     # K7: the attention over [q|k] cols 0, 1 and v, head_dim 32
     k7 = kernel_case(
@@ -805,10 +834,56 @@ def check_mobilebert_kernels(params, cfg, qcfg, qstate, int_params, static,
     return report
 
 
+# K6's shapes off the main path, (M, K, N): ragged M and N % 16 != 0 (the
+# residual's and the output's 8-byte halves); three column tiles, ragged in
+# every dimension; a partial last column tile at full M
+NORM_SHAPES = ((1000, 80, 136), (1000, 80, 264), (16384, 128, 520))
+
+
+def norm_inputs(m: int, k: int, n: int, seed: int):
+    """Seeded numpy inputs of one K6 call, ``(x8, w8, vecs, scal, r8, gb,
+    ls)``: int8 payloads in [-40, 40), a weight scale that spreads the
+    fold site over tens of levels at any K, per-column out scales, and a
+    residual, res site and norm site that clip only the tails.
+    ``tests/test_torch_mobilebert.py`` holds the plain versions against
+    JAX's on these inputs."""
+    rng = np.random.RandomState(seed)
+    x = rng.randint(-40, 40, (m, k)).astype(np.int8)
+    w = rng.randint(-40, 40, (n, k)).astype(np.int8)
+    r = rng.randint(-40, 40, (m, n)).astype(np.int8)
+    vecs = np.stack([np.full(n, 0.09 / np.sqrt(k)),
+                     w.astype(np.float32).sum(1), 0.1 * rng.randn(n),
+                     0.04 + 0.02 * rng.rand(n),
+                     np.full(n, 3.0)]).astype(np.float32)
+    scal = np.array([[0.03, 5.0]], np.float32)
+    gb = np.stack([np.linspace(0.5, 1.5, n),
+                   np.linspace(-0.1, 0.1, n)]).astype(np.float32)
+    ls = np.array([[1.0, 0.0, 0.04, 2.0, 0.06, -3.0, 0.05, 1.0]], np.float32)
+    return x, w, vecs, scal, r, gb, ls
+
+
+def check_norm_shapes(dev) -> None:
+    """K6 at ``NORM_SHAPES``, with a residual (res_quant True and False)
+    and without, against its plain versions: bit-identical or fail."""
+    for i, (m, k, n) in enumerate(NORM_SHAPES):
+        x, w, vecs, scal, r, gb, ls = (torch.from_numpy(a).to(dev)
+                                       for a in norm_inputs(m, k, n, 20 + i))
+        for res_quant in (True, False):
+            kw = dict(eps=0.0, res_quant=res_quant, norm="nonorm")
+            compare(EK.int8_matmul_add_ln(x, w, vecs, scal, r, gb, ls, **kw),
+                    EK.int8_matmul_add_ln_ref(x, w, vecs, scal, r, gb, ls,
+                                              **kw),
+                    f"int8_matmul_norm {m}x{k}->{n} residual "
+                    f"res_quant={res_quant}")
+        compare(EK.int8_matmul_norm(x, w, vecs, scal, gb, ls, eps=0.0),
+                EK.int8_matmul_norm_ref(x, w, vecs, scal, gb, ls, eps=0.0),
+                f"int8_matmul_norm {m}x{k}->{n} no residual")
+
+
 def check_mobilebert_shapes(plan, static, dev) -> None:
-    """The new kernels off the main path's shapes: K6 on ragged tiles with
-    and without a residual, K7 at seq 64 / 32 (head_dim 32) and K8 with
-    the 'bottleneck' attention case, against their plain versions."""
+    """The new kernels off the main path's shapes: K6 at ``NORM_SHAPES``
+    with and without a residual, K7 at seq 64 / 32 (head_dim 32) and K8
+    with the 'bottleneck' attention case, against their plain versions."""
     gen = torch.Generator(device=dev).manual_seed(13)
 
     def ints(*shape, lo=-40, hi=40):
@@ -816,29 +891,7 @@ def check_mobilebert_shapes(plan, static, dev) -> None:
                              dtype=torch.int8)
 
     lp = plan["layers"][0]
-    m, n, k = 1000, 136, 80
-    w = ints(n, k)
-    vecs = torch.stack([torch.full((n,), 2e-4, device=dev),
-                        w.float().sum(1), torch.zeros(n, device=dev),
-                        torch.full((n,), 0.05, device=dev),
-                        torch.full((n,), 3.0, device=dev)])
-    scal = torch.tensor([[0.03, 5.0]], device=dev)
-    gb = torch.stack([torch.linspace(0.5, 1.5, n, device=dev),
-                      torch.linspace(-0.1, 0.1, n, device=dev)])
-    ls = torch.tensor([[1.0, 0.0, 0.04, 2.0, 0.06, -3.0, 0.05, 1.0]],
-                      device=dev)
-    x, r = ints(m, k), ints(m, n)
-    for res_quant in (True, False):
-        compare(EK.int8_matmul_add_ln(x, w, vecs, scal, r, gb, ls, eps=0.0,
-                                      res_quant=res_quant, norm="nonorm"),
-                EK.int8_matmul_add_ln_ref(x, w, vecs, scal, r, gb, ls,
-                                          eps=0.0, res_quant=res_quant,
-                                          norm="nonorm"),
-                f"int8_matmul_norm {m}x{k}->{n} residual "
-                f"res_quant={res_quant}")
-    compare(EK.int8_matmul_norm(x, w, vecs, scal, gb, ls, eps=0.0),
-            EK.int8_matmul_norm_ref(x, w, vecs, scal, gb, ls, eps=0.0),
-            f"int8_matmul_norm {m}x{k}->{n} no residual")
+    check_norm_shapes(dev)
     for seq in (64, 32):
         b = 6
         qk = ints(b * seq, 256, lo=-60, hi=60)
@@ -1202,12 +1255,7 @@ def main(argv=None) -> int:
     print(f"[2] build: {t_build:.1f} s for {', '.join(KB.SOURCES)}",
           flush=True)
     for name, log in KB.BUILD_LOG.items():
-        # ptxas -v per instance: registers and static shared memory, and
-        # the stack / spill line (dynamic shared memory is the source's)
-        lines = [ln.strip().replace("ptxas info    : ", "")
-                 for ln in log.splitlines()
-                 if "registers" in ln or "spill" in ln]
-        print(f"  {name}: " + " | ".join(sorted(set(lines))))
+        print(f"  {name}: " + " | ".join(ptxas_lines(log)))
 
     cfg = B.BertConfig()
     L = cfg.num_hidden_layers
@@ -1469,6 +1517,9 @@ def main(argv=None) -> int:
                 k: mb_report[name][k] for k in keys}
         if name == "int8_mb_layer_ln":
             entry["chain_ms"] = r["chain_ms"]
+        if name == "int8_matmul_norm":
+            entry["variants"] = {v: {k: c[k] for k in keys}
+                                 for v, c in r["variants"].items()}
         if name == "fused_int8_linear":
             entry["variants"] = {v: {k: c[k] for k in keys}
                                  for v, c in r["variants"].items()}

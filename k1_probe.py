@@ -1,7 +1,9 @@
 """A/B the int8 matmul kernel (K1, ``csrc/int8_matmul.cu``) against edited
-copies of itself on one NVIDIA card, at BERT-base's layer shapes.
+copies of itself on one NVIDIA card, at BERT-base's layer shapes, and
+MobileBERT's NoNorm matmul (K6, ``csrc/int8_matmul_norm.cu``) against
+another checkout's at a MobileBERT layer's five shapes.
 
-    python3 k1_probe.py [--out DIR] [--parent DIR]
+    python3 k1_probe.py [--out DIR] [--parent DIR] [--kernels k1,norm]
 
 Each variant is the kernel's source and the shared GEMM header
 (``csrc/wgmma_gemm.cuh``) with one edit, built with the package's
@@ -23,14 +25,30 @@ Each variant is the kernel's source and the shared GEMM header
 On random int8 operands (M = 16384) it checks every variant that
 computes the function against ``int8_matmul_ref`` (bit-identical or it
 fails), and prints each variant's device ms per call (20 calls in a CUDA
-graph, median of 5 replays) and TOP/s beside ``torch._int_mm``. Imports
-torch and the port only.
+graph, median of 5 replays) and TOP/s beside ``torch._int_mm``. With
+``--parent`` it also compares K1's machine code with the parent's
+(``cuobjdump -sass``, kernel by kernel).
+
+K6 (``norm`` in ``--kernels``): ``kernel`` (the source as it is),
+``tm128`` (tiles of 128 rows, where the kernel takes 64), ``nb2`` (two
+8-column blocks an epilogue step, where the kernel takes one),
+``main_loop`` (no epilogue: the products and the residual's loads) and
+``no_math`` (each element ``acc ^ r``: the epilogue's data movement
+without its arithmetic) and, with ``--parent``, ``parent`` (that
+checkout's ``int8_matmul_norm.cu``),
+on ``chip_smoke.norm_inputs`` at M = 16384 for bn_in and bn_attn (512 ->
+128, no residual), attn_out (128 -> 128), the FFN dense (512 -> 128) and
+out_bn (128 -> 512), the last three with a residual and the res site;
+each that computes the function checked against
+``int8_matmul_add_ln_ref`` (bit-identical or it fails) and timed beside ``torch._int_mm``, and their sum per layer (the
+FFN dense four times). Imports torch and the port only.
 """
 
 from __future__ import annotations
 
 import argparse
 import ctypes
+import re
 import subprocess
 from pathlib import Path
 
@@ -68,6 +86,30 @@ SHAPES = [(2304, 768, None, "emit", 8), (768, 768, None, "emit", 8),
           (768, 3072, None, "fold", 16)]
 ACT = {None: 0, "gelu_new": 1, "relu": 2}
 MODE = {"emit": 0, "fold": 1, "float": 2}
+# K6's variants: the source as it is; 128-row tiles (the kernel takes 64:
+# at N = 128 a 128-row tiling leaves a consumer warpgroup of each block
+# idle); two 8-column blocks an epilogue step (the kernel takes one); no
+# epilogue (the products and the residual's loads alone); an element step
+# without its arithmetic (acc ^ r: the epilogue's data movement alone)
+NORM_EDITS = {
+    "kernel": [],
+    "tm128": [("static constexpr int kTM = 64;",
+               "static constexpr int kTM = 128;"),
+              ("make_i8_map(&mx, x, M, K, 64)",
+               "make_i8_map(&mx, x, M, K, 128)")],
+    "nb2": [("static constexpr int kEpiNB = 1;",
+             "static constexpr int kEpiNB = 2;")],
+    "main_loop": EDITS["main_loop"],
+    "no_math": [("    const float y = tqmm::fold(acc, k.s);\n",
+                 "    return static_cast<int8_t>(acc ^ r);\n"
+                 "    const float y = tqmm::fold(acc, k.s);\n")],
+}
+NORM_COMPUTES = {"kernel", "tm128", "nb2", "parent"}
+# K6's calls on a MobileBERT-uncased layer: (tag, N, K, residual, launches)
+NORM_CALLS = [("bn_in", 128, 512, False, 1), ("bn_attn", 128, 512, False, 1),
+              ("attn_out", 128, 128, True, 1),
+              ("ffn dense", 128, 512, True, 4),
+              ("out_bn", 512, 128, True, 1)]
 
 
 def build_variants(source: str, variants: dict, out: Path,
@@ -114,6 +156,35 @@ def build_variants(source: str, variants: dict, out: Path,
     return libs
 
 
+def sass(lib: Path) -> dict:
+    """The machine code of every kernel in ``lib`` (``cuobjdump -sass``):
+    a kernel's name, with its source's anonymous-namespace tag taken out,
+    -> its instructions."""
+    dump = subprocess.run(
+        [str(Path(KB._nvcc()).with_name("cuobjdump")), "-sass", str(lib)],
+        capture_output=True, text=True, check=True).stdout
+    funcs, name = {}, None
+    for ln in dump.splitlines():
+        m = re.match(r"\s*Function : (\S+)", ln)
+        if m:
+            name = re.sub(r"_GLOBAL__N__\w+?_cu_[0-9a-f]+", "", m.group(1))
+            funcs[name] = []
+        elif name is not None and re.match(r"\s*/\*[0-9a-f]{4}\*/", ln):
+            funcs[name].append(ln.split("*/", 1)[1].split(";")[0].strip())
+    return funcs
+
+
+def same_sass(out: Path, a: str = "kernel", b: str = "parent") -> None:
+    """Print whether variants ``a`` and ``b`` built into ``out`` compile to
+    the same machine code, kernel by kernel."""
+    fa, fb = sass(out / f"{a}.so"), sass(out / f"{b}.so")
+    same = [n for n in fa if fb.get(n) == fa[n]]
+    print(f"  SASS {a} vs {b}: {len(same)} of {len(fa)} kernels identical"
+          + ("" if len(same) == len(fa) == len(fb) else
+             f" (differ: {sorted(set(fa) ^ set(same))[:4]}; "
+             f"{len(fb)} in {b})"), flush=True)
+
+
 def entry(lib: ctypes.CDLL, name: str, argtypes=None):
     """Entry point ``name`` of ``build.py``'s signatures in ``lib``
     (``argtypes`` in place of the signature's, for another checkout's)."""
@@ -137,17 +208,68 @@ def inputs(m, n, k, gen, dev):
     return x, w, vecs, torch.tensor([[0.02, 5.0]], device=dev)
 
 
+def probe_norm(out: Path, parent) -> None:
+    """K6 and the parent's K6 at a MobileBERT layer's five calls."""
+    fns = {name: entry(lib, "int8_matmul_norm") for name, lib in
+           build_variants("int8_matmul_norm.cu", NORM_EDITS, out / "norm",
+                          parent).items()}
+    dev = torch.device("cuda")
+    m = 16384
+    per_layer = dict.fromkeys([*fns, "torch._int_mm"], 0.0)
+    for i, (tag, n, k, res, launches) in enumerate(NORM_CALLS):
+        x, w, vecs, scal, r, gb, ls = (torch.from_numpy(a).to(dev) for a in
+                                       CS.norm_inputs(m, k, n, 40 + i))
+        r8 = r if res else None
+        want = EK.int8_matmul_add_ln_ref(x, w, vecs, scal, r8, gb, ls,
+                                         eps=0.0, res_quant=res,
+                                         norm="nonorm")
+        out8 = torch.empty((m, n), device=dev, dtype=torch.int8)
+        line = (f"  K6 [{tag}] {m}x{k}->{n} "
+                f"{'residual' if res else 'no residual'}:")
+        for name, fn in fns.items():
+            def call(fn=fn):
+                err = fn(x.data_ptr(), w.data_ptr(), vecs.data_ptr(),
+                         scal.data_ptr(), r8.data_ptr() if res else None,
+                         gb.data_ptr(), ls.data_ptr(), out8.data_ptr(), m, n,
+                         k, int(res), torch.cuda.current_stream().cuda_stream)
+                KB.check(err, name)
+            call()
+            torch.cuda.synchronize()
+            if name in NORM_COMPUTES and not torch.equal(out8, want):
+                raise SystemExit(f"k1_probe: K6 {name} differs from "
+                                 f"int8_matmul_add_ln_ref at {line}")
+            t = CS.device_ms(call)
+            per_layer[name] += launches * t
+            line += f" {name} {t:.4f} ms;"
+        w_t = w.t()
+        t = CS.device_ms(lambda: torch._int_mm(x, w_t))
+        per_layer["torch._int_mm"] += launches * t
+        print(f"{line} torch._int_mm {t:.4f} ms", flush=True)
+    print("  K6 per layer (8 launches): " + "; ".join(
+        f"{name} {t:.4f} ms" for name, t in per_layer.items()), flush=True)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default="k1_probe_build")
     ap.add_argument("--parent", default=None,
-                    help="an unpacked checkout whose K1 to time beside")
+                    help="an unpacked checkout whose K1 and K6 to time "
+                         "beside")
+    ap.add_argument("--kernels", default="k1,norm",
+                    help="which of k1, norm to probe")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("k1_probe: needs a card")
     print(CS.nvidia_smi_line(), flush=True)
+    kernels = set(args.kernels.split(","))
+    if "norm" in kernels:
+        probe_norm(Path(args.out), args.parent)
+    if "k1" not in kernels:
+        return 0
     fns = {name: entry(lib, "int8_matmul") for name, lib in build_variants(
         "int8_matmul.cu", EDITS, Path(args.out), args.parent).items()}
+    if args.parent:
+        same_sass(Path(args.out))
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(3)
     m = 16384

@@ -13,8 +13,9 @@ started together, into ``DIR``, default ``k1_probe_build/linear``):
 - ``division``: that reciprocal as the IEEE division ``1.0f / d`` (a
   range check and a slow-path call per element);
 - ``parent`` (with ``--parent DIR``, an unpacked checkout of another
-  commit): that checkout's ``fused_int8_linear.cu`` and headers, through
-  its own entry point (no scratch argument).
+  commit with the same entry point, the quantize pass's scratch
+  argument included): that checkout's ``fused_int8_linear.cu`` and
+  headers.
 
 Each variant's reciprocal is first held against the IEEE division on
 every float32 in [1, 2^126] (``tq_fused_rcp_check``; the count of
@@ -27,19 +28,20 @@ graph, median of 5 replays)
 for q (float32 x, 768 -> 768, fold), inter (float32 x, 768 -> 3072, the
 A-S gelu, emit), dense (payload, 3072 -> 768, fold) and the
 ``{'x': 'fp32'}`` dense (float32 x, 3072 -> 768, fold), and the quantize
-pass alone on each float32 x. Imports torch and the port only.
+pass alone on each float32 x. With ``--parent`` it also compares the
+machine code with the parent's (``cuobjdump -sass``, kernel by
+kernel). Imports torch and the port only.
 """
 
 from __future__ import annotations
 
 import argparse
-import ctypes
 from pathlib import Path
 
 import torch
 
 import chip_smoke as CS
-from k1_probe import build_variants, entry
+from k1_probe import build_variants, entry, same_sass
 from transformer_quantization_tpu_torch.ops.kernels import int_matmul as IM
 from transformer_quantization_tpu_torch.ops.kernels.activations import (
     GELU_NEW_C,
@@ -59,9 +61,6 @@ SHAPES = [("q", torch.float32, 768, 768, None, "fold"),
           ("inter", torch.float32, 768, 3072, "gelu", "emit"),
           ("dense", torch.int8, 3072, 768, None, "fold"),
           ("dense x-fp32", torch.float32, 3072, 768, None, "fold")]
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-# the entry point before the quantize pass: no scratch argument
-PARENT_ARGS = [_P, _I] + [_P] * 6 + [_I] * 8 + [_F, _P]
 
 
 def inputs(m, k, n, x_dtype, gen, dev):
@@ -101,13 +100,12 @@ def main(argv=None) -> int:
     print(CS.nvidia_smi_line(), flush=True)
     libs = build_variants("fused_int8_linear.cu", EDITS, Path(args.out),
                           args.parent)
+    if args.parent:
+        same_sass(Path(args.out))
     dev = torch.device("cuda")
     fns = {}
     for name, lib in libs.items():
-        fns[name] = entry(lib, "fused_int8_linear",
-                          PARENT_ARGS if name == "parent" else None)
-        if name == "parent":
-            continue
+        fns[name] = entry(lib, "fused_int8_linear")
         bad = torch.zeros(1, dtype=torch.int64, device=dev)
         err = entry(lib, "fused_rcp_check")(
             bad.data_ptr(), torch.cuda.current_stream().cuda_stream)
@@ -136,10 +134,9 @@ def main(argv=None) -> int:
         line = f"  [{tag}] {m}x{k}->{n} act={act} {mode}:"
         for name, fn in fns.items():
             def call(fn=fn, name=name):
-                ptrs = (x.data_ptr(), x_f32) + (
-                    () if name == "parent" else (xq.data_ptr(),)) + (
-                    w.data_ptr(), w_scale.data_ptr(), colsum.data_ptr(),
-                    bias.data_ptr(), scal.data_ptr(), out.data_ptr())
+                ptrs = (x.data_ptr(), x_f32, xq.data_ptr(), w.data_ptr(),
+                        w_scale.data_ptr(), colsum.data_ptr(),
+                        bias.data_ptr(), scal.data_ptr(), out.data_ptr())
                 err = fn(*ptrs, *codes,
                          torch.cuda.current_stream().cuda_stream)
                 if err:

@@ -34,6 +34,7 @@ import pytest
 import torch
 
 import __graft_entry__ as G
+import chip_smoke as CS
 from transformer_quantization_tpu.models import mobilebert as JM
 from transformer_quantization_tpu.ops.engine import EngineIncompatible as JInc
 from transformer_quantization_tpu.ops.pallas import engine_kernels as JEK
@@ -307,6 +308,30 @@ def test_int8_matmul_add_ln_ref_nonorm(layer0, res_quant):
     want = JEK.int8_matmul_add_ln_ref(*args(lp, layer0["j"]), **kw)
     got = EK.int8_matmul_add_ln_ref(*args(tlp, layer0["t"]), **kw)
     _payload_close(want, got, exact=True)
+
+
+@pytest.mark.parametrize("form", ["residual res_quant", "residual",
+                                  "no residual"])
+@pytest.mark.parametrize("m,k,n,seed", [(1000, 80, 136, 20),
+                                        (1000, 80, 264, 21),
+                                        (257, 128, 520, 22)])
+def test_nonorm_refs_at_ragged_shapes(m, k, n, seed, form):
+    """K6's plain versions against JAX's at the ragged shapes the card
+    holds the kernel to them at (chip_smoke.NORM_SHAPES and its seeds, the
+    last at 257 rows), on chip_smoke.norm_inputs: bit-identical payloads
+    that spread over most of the int8 grid."""
+    arrays = CS.norm_inputs(m, k, n, seed)
+    jx, tx = [jnp.asarray(a) for a in arrays], [_t(a) for a in arrays]
+    if form == "no residual":
+        want = JEK.int8_matmul_norm_ref(*jx[:4], *jx[5:], eps=0.0)
+        got = EK.int8_matmul_norm_ref(*tx[:4], *tx[5:], eps=0.0)
+    else:
+        kw = dict(eps=0.0, res_quant=form == "residual res_quant",
+                  norm="nonorm")
+        want = JEK.int8_matmul_add_ln_ref(*jx, **kw)
+        got = EK.int8_matmul_add_ln_ref(*tx, **kw)
+    _payload_close(want, got, exact=True)
+    assert len(np.unique(got.numpy())) > 128
 
 
 def _ffn_args(p, x8):

@@ -1,10 +1,12 @@
-// Payload matmul with MobileBERT's whole NoNorm tail in the epilogue.
+// Payload matmul with MobileBERT's whole NoNorm tail in the epilogue (K6),
+// for Hopper.
 //
 // Replaces: transformer_quantization_tpu/ops/pallas/engine_kernels.py
 //   int8_matmul_norm (_mm_norm_kernel / _mm_norm_core / _mm_norm_val), and
 //   int8_matmul_add_ln and the dense half of int8_ffn_ln with
 //   norm='nonorm'.
 //
+//   acc = x8 (M, K) @ w8 (N, K)^T                 exact int32
 //   y   = (in_s * wscale[n]) * (acc + in_shift * colsum[n]) + bias[n]
 //   y   = out_s[n] * (clip(rint(y / out_s[n]) - out_sh[n], -128, 127)
 //                    + out_sh[n])                        (the fold site)
@@ -17,50 +19,111 @@
 // K x N = 512 x 128 for the bottleneck-in and FFN dense matmuls, 128 x
 // 128 for attn_out, 128 x 512 for bottleneck-out): 0.5-2.1 GOP over
 // 6.3-19 MB, 85-200 int8 operations per byte, under the H100's ~590
-// op/byte ridge.
+// op/byte ridge; 1.9-5.7 us a call at 3.35 TB/s. Beside the bytes, the
+// epilogue runs some 45 instructions an element (bottleneck-out: ~12 us
+// of issue over the card's 528 schedulers).
 //
 // Design: NoNorm is elementwise (no row reduction, unlike LayerNorm), so
 // the whole tail runs on the accumulator tile in registers and only the
-// norm-site payload leaves the block: no add+LN kernel and no round trip
-// of the fold payload. The main loop is K1's (mm_tile), the tail
-// nonorm_out, both in mm_common.cuh and shared with int8_mb_layer.cu.
+// norm-site payload leaves the block. The kernel is an instance of the
+// persistent warp-specialized GEMM of wgmma_gemm.cuh (a producer
+// warpgroup's TMA ring of five stages; two consumer warpgroups in
+// ping-pong on wgmma m64n128k32 s8, one tile's epilogue under the other's
+// products; 16-byte staged stores), with the epilogue policy NormEpi:
+// - tiles of 64 x 128: at N = 128 (7 of a layer's 8 calls) 128-row tiles
+//   number 128 for 132 SMs, so each block's second consumer warpgroup
+//   idled and nothing hid the epilogue (1.3-1.6x the time), and the
+//   128-row instances spilled;
+// - the column constants are ColNorm (the fold and its site, gamma,
+//   beta: 32 bytes a column); 164,960 bytes of shared memory a block;
+// - an element takes the plain version's steps in its order (the fold,
+//   the fold site's level, the residual, the res site, NoNorm, the norm
+//   site's level, to_i8), both site levels through rint_div_fma (the IEEE
+//   quotient's integers without rint_div's branch and call), one 8-column
+//   block (4 elements a thread) a step: two ran 2-3% slower;
+// - the residual is the skeleton's per-element input: each warp's rows
+//   of r8 arrive by cp.async in its staging buffer under the main loop
+//   and are read where the output pair is then written (16-byte loads in
+//   place of one byte per element);
+// - residual and res_quant are template parameters: four instances, each
+//   168 registers at launch and no spills (nvcc 12.9 -Xptxas -v).
+// Limits: K % 16 == 0, N % 8 == 0, 16-byte aligned x, w, r8 and out.
+// Times: k1_probe.py and chip_smoke.py (PERF.md): on an NVIDIA H100
+// 80GB HBM3 at 700 W, 0.093 ms for a MobileBERT-uncased layer's eight
+// calls at B = 128, S = 128, against 0.216 for the mma.sync kernel it
+// replaced and 0.066 for torch._int_mm's int32 products alone.
 //
 // Numerics: the plain version's association order, -fmad=false, rintf,
-// true divisions by the out and ln scales and a multiply by 1/res_s, as
-// int8_matmul_add_ln_ref (norm='nonorm') computes them.
+// the IEEE quotients by the fold and norm scales and a multiply by the
+// IEEE 1/res_s, as int8_matmul_add_ln_ref (norm='nonorm') computes them;
+// every output is bit-identical to it.
 
 #include "mm_common.cuh"
+#include "wgmma_gemm.cuh"
 
 namespace {
 
-using namespace tqmm;
+using tqmm::ColNorm;
 
-template <bool RES>
-__global__ void __launch_bounds__(THREADS)
-    mm_nonorm_kernel(const int8_t* __restrict__ x,
-                     const int8_t* __restrict__ w,
-                     const float* __restrict__ vecs,
-                     const float* __restrict__ scal,
-                     const int8_t* __restrict__ r8,
-                     const float* __restrict__ gb,
-                     const float* __restrict__ ls, int8_t* __restrict__ out,
-                     int M, int N, int K, int res_quant) {
-  __shared__ __align__(16) int8_t sA[2 * BM * LDS];
-  __shared__ __align__(16) int8_t sB[2 * BN * LDS];
-  const int m0 = blockIdx.y * BM;
-  const int n0 = blockIdx.x * BN;
-  int acc[4][4][4];
-  mm_tile<false>(x, K, w, M, N, K, m0, n0, sA, sB, acc);
-  const float in_s = scal[0];
-  const float in_sh = scal[1];
-  const NoNorm p = nonorm_params(ls, res_quant);
-  mm_epilogue(
-      acc, m0, n0, M, N,
-      [&](int col) { return col_norm(vecs, gb, N, col, in_s, in_sh); },
-      [&](int row, int col, int a, const ColNorm& k) {
-        const size_t idx = (size_t)row * N + col;
-        out[idx] = nonorm_out(a, k, RES, RES ? r8[idx] : int8_t(0), p);
-      });
+struct NormArgs {
+  const float* vecs;   // (5, N) rows; 3/4: the fold site
+  const float* scal;   // (1, 2): in_s, in_sh
+  const int8_t* r8;    // (M, N) residual payload or null
+  const float* gb;     // (2, N): gamma_q; beta_q
+  const float* ls;     // (1, 8): -, -, r_s, r_sh, res_s, res_sh, ln_s, ln_sh
+};
+
+// K6's epilogue policy (wgmma_gemm.cuh). RES: the residual r8 is added
+// after the fold site; RQ: the res site fake-quantizes the sum. Tiles of
+// 64 rows and one 8-column block an epilogue step (the header above).
+template <bool RES, bool RQ>
+struct NormEpi {
+  using Col = ColNorm;
+  using Out = int8_t;
+  using Args = NormArgs;
+  static constexpr bool kResidual = RES;
+  static constexpr int kTM = 64;
+  static constexpr int kEpiNB = 1;
+  const float* vecs;
+  const float* gb;
+  const int8_t* r8;
+  int N;
+  float in_s, in_sh, r_s, r_sh, res_s, inv_res, res_sh, ln_s, inv_ln, ln_sh;
+
+  __device__ __forceinline__ NormEpi(const Args& a, int n)
+      : vecs(a.vecs), gb(a.gb), r8(a.r8), N(n), in_s(a.scal[0]),
+        in_sh(a.scal[1]), r_s(a.ls[2]), r_sh(a.ls[3]), res_s(a.ls[4]),
+        inv_res(1.0f / a.ls[4]), res_sh(a.ls[5]), ln_s(a.ls[6]),
+        inv_ln(1.0f / a.ls[6]), ln_sh(a.ls[7]) {}
+  __device__ __forceinline__ static Col pad() {
+    return ColNorm{tqmm::ColSite{0.0f, 0.0f, 0.0f, 1.0f, 1.0f, 0.0f}, 0.0f,
+                   0.0f};
+  }
+  __device__ __forceinline__ Col col(int n) const {
+    return tqmm::col_norm(vecs, gb, N, n, in_s, in_sh);
+  }
+  __device__ __forceinline__ Out apply(int acc, const Col& k,
+                                       int8_t r = 0) const {
+    const float y = tqmm::fold(acc, k.s);
+    const float lvl = fminf(
+        fmaxf(tqmm::rint_div_fma(y, k.s.os, k.s.inv) - k.s.osh, -128.0f),
+        127.0f);
+    float v = k.s.os * (lvl + k.s.osh);
+    if constexpr (RES) v = v + r_s * (tqmm::i8_to_float(r) + r_sh);
+    if constexpr (RQ) {
+      const float q =
+          fminf(fmaxf(rintf(v * inv_res) - res_sh, -128.0f), 127.0f);
+      v = res_s * (q + res_sh);
+    }
+    const float z = v * k.gamma + k.beta;
+    return tqmm::to_i8(fminf(
+        fmaxf(tqmm::rint_div_fma(z, ln_s, inv_ln) - ln_sh, -128.0f),
+        127.0f));
+  }
+};
+
+bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
 }
 
 }  // namespace
@@ -68,28 +131,40 @@ __global__ void __launch_bounds__(THREADS)
 // x: (M, K) int8; w: (N, K) int8; vecs: (5, N) f32 (rows 3/4: the fold
 // site); scal: (1, 2) f32 [in_s, in_sh]; r8: (M, N) int8 residual payload
 // or null; gb: (2, N) f32 [gamma_q; beta_q]; ls: (1, 8) f32 [-, -, r_s,
-// r_sh, res_s, res_sh, ln_s, ln_sh]; out: (M, N) int8. K % 16 == 0.
-// Returns the launch's cudaError_t.
+// r_sh, res_s, res_sh, ln_s, ln_sh]; out: (M, N) int8. K % 16 == 0,
+// N % 8 == 0, x, w, r8 and out 16-byte aligned. Returns the launch's
+// cudaError_t (cudaErrorInvalidValue for arguments the kernel does not
+// take, or a tensor map that cannot be encoded).
 extern "C" int tq_int8_matmul_norm(const void* x, const void* w,
                                    const void* vecs, const void* scal,
                                    const void* r8, const void* gb,
                                    const void* ls, void* out, int M, int N,
                                    int K, int res_quant, void* stream) {
-  dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
+  if (!aligned16(out) || (r8 != nullptr && !aligned16(r8)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap mx, mw;
+  int sms = 0;
+  cudaError_t e = tqwg::gemm_setup(x, w, M, N, K, &mx, &mw, &sms);
+  if (e == cudaSuccess && !tqwg::make_i8_map(&mx, x, M, K, 64))
+    e = cudaErrorInvalidValue;   // x in 64-row boxes (kTM)
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const NormArgs a{static_cast<const float*>(vecs),
+                   static_cast<const float*>(scal),
+                   static_cast<const int8_t*>(r8),
+                   static_cast<const float*>(gb),
+                   static_cast<const float*>(ls)};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int8_t* xp = static_cast<const int8_t*>(x);
-  const int8_t* wp = static_cast<const int8_t*>(w);
-  const float* vp = static_cast<const float*>(vecs);
-  const float* sp = static_cast<const float*>(scal);
-  const int8_t* rp = static_cast<const int8_t*>(r8);
-  const float* gp = static_cast<const float*>(gb);
-  const float* lp = static_cast<const float*>(ls);
-  int8_t* op = static_cast<int8_t*>(out);
-  if (rp != nullptr)
-    mm_nonorm_kernel<true><<<grid, THREADS, 0, st>>>(
-        xp, wp, vp, sp, rp, gp, lp, op, M, N, K, res_quant);
+  using tqwg::gemm_launch;
+  if (r8 != nullptr)
+    e = res_quant
+            ? gemm_launch<NormEpi<true, true>>(mx, mw, a, out, M, N, K, sms, st)
+            : gemm_launch<NormEpi<true, false>>(mx, mw, a, out, M, N, K, sms,
+                                                st);
   else
-    mm_nonorm_kernel<false><<<grid, THREADS, 0, st>>>(
-        xp, wp, vp, sp, rp, gp, lp, op, M, N, K, res_quant);
-  return static_cast<int>(cudaGetLastError());
+    e = res_quant
+            ? gemm_launch<NormEpi<false, true>>(mx, mw, a, out, M, N, K, sms,
+                                                st)
+            : gemm_launch<NormEpi<false, false>>(mx, mw, a, out, M, N, K, sms,
+                                                 st);
+  return static_cast<int>(e);
 }

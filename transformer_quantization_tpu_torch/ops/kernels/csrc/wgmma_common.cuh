@@ -132,6 +132,33 @@ inline bool make_i8_map(CUtensorMap* map, const void* base, int rows,
 }
 
 // ---------------------------------------------------------------------------
+// cp.async: global -> shared without registers
+// ---------------------------------------------------------------------------
+
+// BYTES (8 or 16) bytes from gmem to smem, both BYTES-aligned; only the
+// first `valid` (0 or BYTES) are read, the rest written as zeros
+template <int BYTES>
+__device__ __forceinline__ void cp_async(void* smem, const void* gmem,
+                                         int valid) {
+  static_assert(BYTES == 8 || BYTES == 16, "cp.async of 8 or 16 bytes");
+  if constexpr (BYTES == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                     smem_u32(smem)),
+                 "l"(gmem), "r"(valid)
+                 : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(
+                     smem_u32(smem)),
+                 "l"(gmem), "r"(valid)
+                 : "memory");
+}
+
+// every cp.async this thread issued has landed in shared memory
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// ---------------------------------------------------------------------------
 // wgmma
 // ---------------------------------------------------------------------------
 

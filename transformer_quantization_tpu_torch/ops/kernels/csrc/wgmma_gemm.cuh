@@ -1,11 +1,13 @@
-// The persistent warp-specialized int8 GEMM for Hopper, shared by the
-// payload matmul (int8_matmul.cu, K1) and the fused linear
-// (fused_int8_linear.cu): the producer warpgroup's TMA ring, the two
+// The persistent warp-specialized int8 GEMM for Hopper, shared by three
+// kernels: the payload matmul (int8_matmul.cu, K1), the fused linear
+// (fused_int8_linear.cu) and MobileBERT's NoNorm matmul
+// (int8_matmul_norm.cu, K6): the producer warpgroup's TMA ring, the two
 // consumer warpgroups' wgmma main loop in ping-pong, and a staged
 // epilogue, templated on an epilogue policy that says what an output
 // element is.
 //
-//   out[m][n] = Epi::apply(acc[m][n], col[n])     acc = x (M, K) @ w (N, K)^T
+//   out[m][n] = Epi::apply(acc[m][n], col[n] [, r8[m][n]])
+//   acc = x (M, K) @ w (N, K)^T
 //
 // x and w are int8, K-major, read through host-made tensor maps
 // (make_i8_map). An epilogue policy Epi gives:
@@ -15,23 +17,33 @@
 //   Epi(const Args&, N)   the per-call scalars, once per consumer thread;
 //   static Col pad()      the constants of a column past N (never stored);
 //   Col col(n) const      the constants of column n < N;
-//   Out apply(acc, col)   one element's steps from its int32 sum.
+//   Out apply(acc, col)   one element's steps from its int32 sum;
+// and, where it departs from the defaults (a policy that says nothing
+// compiles as K1 and the fused linear do):
+//   kResidual = true      each element also reads r8[m][n] of an (M, N)
+//                         int8 input, the member `const int8_t* r8`
+//                         (row-major, 16-byte aligned; int8 outputs
+//                         only), through Out apply(acc, col, r);
+//   kTM = 64              tiles of 64 rows, not 128 (x's tensor map then
+//                         has 64-row boxes): a call with few column tiles
+//                         still gives both consumer warpgroups tiles;
+//   kEpiNB = 1            one 8-column block an epilogue step, not two.
 //
-// Design: one 384-thread block per SM walking 128 x 128 output tiles row
+// Design: one 384-thread block per SM walking kTM x 128 output tiles row
 // panel by row panel (tile t = m * n_tiles + n: the blocks in flight cover
 // every column tile of a few row panels, so x is read from memory about
 // once and the weight stays in L2).
 // - Producer warpgroup (threads 256-383, 40 registers after setmaxnreg):
 //   one thread issues cp.async.bulk.tensor.2d (TMA) loads of the x and w
 //   tiles, 128 bytes of K each, 128-byte swizzled, into a ring of five
-//   32 KB stages with full / empty mbarrier pairs. TMA's out-of-bounds
-//   zero fill covers ragged M, N and K: zero rows and zero K columns add
-//   nothing to the products. The tensor maps are passed as
-//   __grid_constant__, which survives CUDA graph capture.
+//   stages (32 KB at 128 rows, 24 KB at 64) with full / empty mbarrier
+//   pairs. TMA's out-of-bounds zero fill covers ragged M, N and K: zero
+//   rows and zero K columns add nothing to the products. The tensor maps
+//   are passed as __grid_constant__, which survives CUDA graph capture.
 // - Two consumer warpgroups (232 registers each) in ping-pong: the
-//   block's tiles alternate between them, and each owns a whole 128 x 128
-//   tile (two wgmma.mma_async m64n128k32 s32.s8.s8 per k32 step, A and B
-//   from shared memory through matrix descriptors, four k32 steps a
+//   block's tiles alternate between them, and each owns a whole tile (one
+//   wgmma.mma_async m64n128k32 s32.s8.s8 per 64 rows and k32 step, A and
+//   B from shared memory through matrix descriptors, four k32 steps a
 //   stage; 8-bit wgmma needs both operands K-major). A pair of turn
 //   mbarriers lets a warpgroup start its main loop only when the other
 //   has issued its own, so one warpgroup's tile streams through the
@@ -40,67 +52,123 @@
 //   phases early, which passes at once.)
 // - Epilogue: a tile's 128 column constants are loaded before its main
 //   loop (which hides the loads) and written to shared memory after it.
-//   Elements go through Epi::apply 16 at a time so that their chains
-//   interleave. Each warp stages its 32 rows in a 4 KB shared-memory
-//   buffer (XOR-swizzled by 16-byte chunk, so the writes and the reads are
-//   free of bank conflicts; float outputs in four passes of 32 columns)
-//   and writes them out in 16-byte vectors, 8 lanes per 128-byte row
-//   segment (8-byte halves where N % 16 != 0).
+//   A thread takes its elements of kEpiNB 8-column blocks through
+//   Epi::apply at once (8 a block at 128 rows, 4 at 64: 16 for K1, 4 for
+//   K6) so that their chains interleave. Each warp stages its
+//   kTM / 4 rows in a 4 KB shared-memory buffer (XOR-swizzled by 16-byte
+//   chunk, so the writes and the reads are free of bank conflicts; float
+//   outputs in four passes of 32 columns) and writes them out in 16-byte
+//   vectors, 8 lanes per 128-byte row segment (8-byte halves where
+//   N % 16 != 0).
+// - The residual (kResidual): before its main loop each warp issues
+//   cp.async loads of its rows of r8 into its staging buffer, with the
+//   store loop's addressing (16-byte vectors, 8-byte halves where
+//   N % 16 != 0, zeros past M and N), so that they land under the main
+//   loop and take no registers; after it each thread reads an element
+//   pair where it then writes the output pair. No shared memory is added.
 // Limits: K % 16 == 0 (TMA's 16-byte row stride), N % 8 == 0, 16-byte
-// aligned operands (gemm_setup checks them); M, N and K ragged against
-// the tiles.
+// aligned operands (gemm_setup checks x and w, the caller out and r8);
+// M, N and K ragged against the tiles.
 
 #pragma once
+
+#include <type_traits>
 
 #include "wgmma_common.cuh"
 
 namespace tqwg {
 
-constexpr int TM = 128;                    // rows of a tile
+constexpr int TM = 128;                    // rows of a tile (Epi::kTM: 64)
 constexpr int TN = 128;                    // columns of a tile (BN)
 constexpr int TK = 128;                    // bytes of K per stage
 constexpr int STAGES = 5;
-constexpr int A_BYTES = TM * TK;
-constexpr int STAGE_BYTES = A_BYTES + TN * TK;
 constexpr int WARP_OUT = 32 * 128;         // a warp's staging buffer
 constexpr int THREADS = 384;               // 2 consumer + 1 producer WGs
-
-// dynamic shared memory of a block: the ring (1 KB aligned), the staging
-// buffers, the two warpgroups' column tables and the mbarriers
-template <class Col>
-constexpr int gemm_smem() {
-  return 1024 + STAGES * STAGE_BYTES + 8 * WARP_OUT +
-         2 * TN * static_cast<int>(sizeof(Col)) + (2 * STAGES + 2) * 8;
-}
 
 // 8-column blocks whose elements one epilogue step interleaves
 constexpr int EPI_NB = 2;
 
-// EPI_NB 8-column blocks j0.. of a warp's 32-row share of the tile:
-// Epi::apply on the thread's 8 elements of each (element e of a block:
-// column lc + (e & 1), warp row e / 2) at once, so that their chains
-// interleave, into the staging buffer (pass p of the float outputs).
+// A policy's optional members (the contract above) and their defaults:
+// kResidual false, kTM = TM, kEpiNB = EPI_NB.
+template <class E, class = void>
+struct epi_residual : std::false_type {};
+template <class E>
+struct epi_residual<E, std::void_t<decltype(E::kResidual)>>
+    : std::bool_constant<E::kResidual> {};
+template <class E, class = void>
+struct epi_tm : std::integral_constant<int, TM> {};
+template <class E>
+struct epi_tm<E, std::void_t<decltype(E::kTM)>>
+    : std::integral_constant<int, E::kTM> {};
+template <class E, class = void>
+struct epi_nb : std::integral_constant<int, EPI_NB> {};
+template <class E>
+struct epi_nb<E, std::void_t<decltype(E::kEpiNB)>>
+    : std::integral_constant<int, E::kEpiNB> {};
+
+// bytes of a ring stage: the x tile (tm rows) and the w tile
+__host__ __device__ constexpr int stage_bytes(int tm) {
+  return (tm + TN) * TK;
+}
+
+// dynamic shared memory of a block: the ring (1 KB aligned), the staging
+// buffers, the two warpgroups' column tables and the mbarriers
 template <class Epi>
-__device__ __forceinline__ void epi_block(const int (&acc)[2][64],
+constexpr int gemm_smem() {
+  return 1024 + STAGES * stage_bytes(epi_tm<Epi>::value) + 8 * WARP_OUT +
+         2 * TN * static_cast<int>(sizeof(typename Epi::Col)) +
+         (2 * STAGES + 2) * 8;
+}
+
+// NB 8-column blocks j0.. of a warp's 16 H-row share of the tile (H =
+// kTM / 64 halves): Epi::apply on the thread's EB = 4 H elements of each
+// (element e of a block: column lc + (e & 1), warp row e / 2) at once, so
+// that their chains interleave, into the staging buffer (pass p of the
+// float outputs). With a residual, each element pair's input bytes are
+// first read from where its output pair is then written.
+template <class Epi, int H>
+__device__ __forceinline__ void epi_block(const int (&acc)[H][64],
                                           const typename Epi::Col* tab,
                                           int j0, int p, int g, int t4,
                                           const Epi& epi, uint8_t* stage) {
   using Out = typename Epi::Out;
-  typename Epi::Col k[2 * EPI_NB];
+  constexpr int NB = epi_nb<Epi>::value;
+  constexpr int EB = 4 * H, LE = H + 1;   // elements of a block, log2
+  constexpr int PB = 2 * H, LP = H;       // element pairs of a block, log2
+  typename Epi::Col k[2 * NB];
 #pragma unroll
-  for (int i = 0; i < 2 * EPI_NB; ++i)
+  for (int i = 0; i < 2 * NB; ++i)
     k[i] = tab[8 * (j0 + (i >> 1)) + 2 * t4 + (i & 1)];
-  Out o[8 * EPI_NB];
+  Out o[EB * NB];
+  if constexpr (epi_residual<Epi>::value) {
+    uint16_t rin[PB * NB];   // the residual's element pairs
 #pragma unroll
-  for (int i = 0; i < 8 * EPI_NB; ++i) {
-    const int j = j0 + (i >> 3), e = i & 7, r = e >> 1;
-    o[i] = epi.apply(acc[r >> 1][4 * j + 2 * (r & 1) + (e & 1)],
-                     k[2 * (i >> 3) + (e & 1)]);
+    for (int i = 0; i < PB * NB; ++i) {
+      const int lc = 8 * (j0 + (i >> LP)) + 2 * t4;
+      const int r = i & (PB - 1);
+      const int lr = 16 * (r >> 1) + 8 * (r & 1) + g;
+      rin[i] = *reinterpret_cast<const uint16_t*>(
+          stage + lr * 128 + (((lc >> 4) ^ (lr & 7)) << 4) + (lc & 15));
+    }
+#pragma unroll
+    for (int i = 0; i < EB * NB; ++i) {
+      const int j = j0 + (i >> LE), e = i & (EB - 1), r = e >> 1;
+      o[i] = epi.apply(acc[r >> 1][4 * j + 2 * (r & 1) + (e & 1)],
+                       k[2 * (i >> LE) + (e & 1)],
+                       static_cast<int8_t>(rin[i >> 1] >> (8 * (i & 1))));
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < EB * NB; ++i) {
+      const int j = j0 + (i >> LE), e = i & (EB - 1), r = e >> 1;
+      o[i] = epi.apply(acc[r >> 1][4 * j + 2 * (r & 1) + (e & 1)],
+                       k[2 * (i >> LE) + (e & 1)]);
+    }
   }
 #pragma unroll
-  for (int i = 0; i < 4 * EPI_NB; ++i) {   // element pairs (c = 0, 1)
-    const int lc = 8 * (j0 + (i >> 2)) + 2 * t4;
-    const int r = i & 3;
+  for (int i = 0; i < PB * NB; ++i) {   // element pairs (c = 0, 1)
+    const int lc = 8 * (j0 + (i >> LP)) + 2 * t4;
+    const int r = i & (PB - 1);
     const int lr = 16 * (r >> 1) + 8 * (r & 1) + g;
     if constexpr (sizeof(Out) == 1) {   // bytes, 16-byte chunk lc / 16
       *reinterpret_cast<uint16_t*>(
@@ -116,6 +184,36 @@ __device__ __forceinline__ void epi_block(const int (&acc)[2][64],
   }
 }
 
+// The warp's 16 H rows x 128 bytes of the (M, N) int8 input r8 at tile
+// (m0, n0) into its staging buffer, laid out as the store loop reads it:
+// cp.async, 8 lanes per row segment, 16 bytes each (8-byte halves where
+// N % 16 != 0), zeros past M and N. The caller waits (cp_async_wait_all,
+// __syncwarp) before it reads them.
+template <int H>
+__device__ __forceinline__ void stage_residual(const int8_t* r8,
+                                               uint8_t* stage, int m0,
+                                               int n0, int M, int N, int w,
+                                               int lane) {
+#pragma unroll
+  for (int i = 0; i < 4 * H; ++i) {
+    const int lr = 4 * i + (lane >> 3);
+    const int chunk = lane & 7;
+    uint8_t* dst = stage + lr * 128 + ((chunk ^ (lr & 7)) << 4);
+    const int row = m0 + 64 * (lr >> 4) + 16 * w + (lr & 15);
+    const int col = n0 + 16 * chunk;
+    const int8_t* src = r8 + static_cast<size_t>(row) * N + col;
+    if ((N & 15) == 0) {
+      const bool in = row < M && col < N;
+      cp_async<16>(dst, in ? src : r8, in ? 16 : 0);
+    } else {
+      const bool lo = row < M && col + 8 <= N;
+      const bool hi = row < M && col + 16 <= N;
+      cp_async<8>(dst, lo ? src : r8, lo ? 8 : 0);
+      cp_async<8>(dst + 8, hi ? src + 8 : r8, hi ? 8 : 0);
+    }
+  }
+}
+
 template <class Epi>
 __device__ __forceinline__ void consume(
     const uint8_t* ring, uint64_t* full, uint64_t* empty, uint64_t* turn,
@@ -123,21 +221,30 @@ __device__ __forceinline__ void consume(
     void* __restrict__ out, int M, int N, int ktiles, int tiles, int n_tiles,
     int wg) {
   constexpr bool BYTES = sizeof(typename Epi::Out) == 1;
+  constexpr bool RES = epi_residual<Epi>::value;
+  static_assert(BYTES || !RES, "a residual needs int8 outputs");
+  constexpr int TMe = epi_tm<Epi>::value;
+  static_assert(TMe == 64 || TMe == 128, "tiles of 64 or 128 rows");
+  constexpr int H = TMe / 64;               // m64 halves of a tile
+  constexpr int A_BYTES = TMe * TK;
+  constexpr int STAGE_BYTES = stage_bytes(TMe);
   const int tid = threadIdx.x & 127;
   const int w = tid >> 5;
   const int lane = tid & 31;
   const int g = lane >> 2;
   const int t4 = lane & 3;
-  int acc[2][64];
+  int acc[H][64];
   for (int t = blockIdx.x + wg * gridDim.x, local = wg; t < tiles;
        t += 2 * gridDim.x, local += 2) {
-    const int m0 = (t / n_tiles) * TM;
+    const int m0 = (t / n_tiles) * TMe;
     const int n0 = (t % n_tiles) * TN;
 
     // this tile's column constants, one column per thread: loaded now,
     // written to the table after the main loop (which hides the loads)
     typename Epi::Col kcol = Epi::pad();
     if (n0 + tid < N) kcol = epi.col(n0 + tid);
+    // the residual's rows, in flight under the main loop
+    if constexpr (RES) stage_residual<H>(epi.r8, stage, m0, n0, M, N, w, lane);
 
     // main loop, in turn with the other warpgroup: it waits until the
     // other one has taken every stage before this tile's (a full barrier
@@ -160,8 +267,9 @@ __device__ __forceinline__ void consume(
       for (int kk = 0; kk < TK / 32; ++kk) {
         const int scale = (kt | kk) != 0;
         wgmma_m64n128k32_s8(acc[0], da + 2 * kk, db + 2 * kk, scale);
-        wgmma_m64n128k32_s8(acc[1], da + (64 * TK >> 4) + 2 * kk,
-                            db + 2 * kk, scale);
+        if constexpr (H == 2)
+          wgmma_m64n128k32_s8(acc[1], da + (64 * TK >> 4) + 2 * kk,
+                              db + 2 * kk, scale);
       }
       wgmma_commit();
       if (kt > 0) {
@@ -180,25 +288,29 @@ __device__ __forceinline__ void consume(
 #pragma unroll
     for (int i = 0; i < 64; ++i) {
       fence_reg(acc[0][i]);
-      fence_reg(acc[1][i]);
+      if constexpr (H == 2) fence_reg(acc[1][i]);
     }
     named_sync(1 + wg, 128);   // the last epilogue is done with the table
     tab[tid] = kcol;
     named_sync(1 + wg, 128);   // the table is written
 
-    // epilogue: the warp's 32 rows (local row lr = 16 half + 8 h + g is
+    // epilogue: the warp's 16 H rows (local row lr = 16 half + 8 h + g is
     // tile row 64 half + 16 w + 8 h + g) through its staging buffer
     constexpr int PASSES = BYTES ? 1 : 4;   // floats: 32 columns a pass
     constexpr int JP = 16 / PASSES;         // 8-column blocks a pass
+    if constexpr (RES) {
+      cp_async_wait_all();
+      __syncwarp();
+    }
 #pragma unroll
     for (int p = 0; p < PASSES; ++p) {
 #pragma unroll
-      for (int jj = 0; jj < JP; jj += EPI_NB)
-        epi_block<Epi>(acc, tab, p * JP + jj, p, g, t4, epi, stage);
+      for (int jj = 0; jj < JP; jj += epi_nb<Epi>::value)
+        epi_block<Epi, H>(acc, tab, p * JP + jj, p, g, t4, epi, stage);
       __syncwarp();
-      // 32 rows x 128 bytes: 8 lanes per row, 16 bytes each
+      // 16 H rows x 128 bytes: 8 lanes per row, 16 bytes each
 #pragma unroll
-      for (int i = 0; i < 8; ++i) {
+      for (int i = 0; i < 4 * H; ++i) {
         const int lr = 4 * i + (lane >> 3);
         const int chunk = lane & 7;
         const uint4 v = *reinterpret_cast<const uint4*>(
@@ -237,6 +349,8 @@ __global__ void __launch_bounds__(THREADS, 1)
                 const typename Epi::Args args, void* __restrict__ out, int M,
                 int N, int K) {
   using Col = typename Epi::Col;
+  constexpr int TMe = epi_tm<Epi>::value;
+  constexpr int STAGE_BYTES = stage_bytes(TMe);
   extern __shared__ uint8_t smem_raw[];
   uint8_t* ring = reinterpret_cast<uint8_t*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
@@ -247,7 +361,7 @@ __global__ void __launch_bounds__(THREADS, 1)
   uint64_t* turn = empty + STAGES;   // turn[c]: warpgroup c's main loop
 
   const int n_tiles = (N + TN - 1) / TN;
-  const int tiles = ((M + TM - 1) / TM) * n_tiles;
+  const int tiles = ((M + TMe - 1) / TMe) * n_tiles;
   const int ktiles = (K + TK - 1) / TK;
   const int wg = threadIdx.x >> 7;
 
@@ -271,14 +385,14 @@ __global__ void __launch_bounds__(THREADS, 1)
       int s = 0;
       uint32_t ph = 0;
       for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
-        const int m0 = (t / n_tiles) * TM;
+        const int m0 = (t / n_tiles) * TMe;
         const int n0 = (t % n_tiles) * TN;
         for (int kt = 0; kt < ktiles; ++kt) {
           mbar_wait(&empty[s], ph ^ 1);
           uint8_t* st = ring + s * STAGE_BYTES;
           mbar_arrive_expect_tx(&full[s], STAGE_BYTES);
           tma_load_2d(st, &map_x, &full[s], kt * TK, m0);
-          tma_load_2d(st + A_BYTES, &map_w, &full[s], kt * TK, n0);
+          tma_load_2d(st + TMe * TK, &map_w, &full[s], kt * TK, n0);
           if (++s == STAGES) {
             s = 0;
             ph ^= 1;
@@ -298,7 +412,8 @@ __global__ void __launch_bounds__(THREADS, 1)
 // The tensor maps of x (M, K) and w (N, K) and the card's SM count, after
 // the checks the kernel needs (M, N, K > 0, K % 16 == 0, N % 8 == 0,
 // 16-byte aligned x and w); cudaErrorInvalidValue for what it does not
-// take or a map that cannot be encoded.
+// take or a map that cannot be encoded. x's boxes are TM rows: a policy
+// with kTM = 64 remakes its map with make_i8_map(mx, x, M, K, 64).
 inline cudaError_t gemm_setup(const void* x, const void* w, int M, int N,
                               int K, CUtensorMap* mx, CUtensorMap* mw,
                               int* sms) {
@@ -320,11 +435,12 @@ template <class Epi>
 cudaError_t gemm_launch(const CUtensorMap& mx, const CUtensorMap& mw,
                         const typename Epi::Args& args, void* out, int M,
                         int N, int K, int sms, cudaStream_t stream) {
-  constexpr int smem = gemm_smem<typename Epi::Col>();
+  constexpr int smem = gemm_smem<Epi>();
+  constexpr int tm = epi_tm<Epi>::value;
   static cudaError_t attr = cudaFuncSetAttribute(
       gemm_kernel<Epi>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (attr != cudaSuccess) return attr;
-  const int tiles = ((M + TM - 1) / TM) * ((N + TN - 1) / TN);
+  const int tiles = ((M + tm - 1) / tm) * ((N + TN - 1) / TN);
   const int grid = tiles < sms ? tiles : sms;
   gemm_kernel<Epi><<<grid, THREADS, smem, stream>>>(mx, mw, args, out, M, N,
                                                     K);

@@ -590,6 +590,9 @@ def _check_matmul(x8, w8, vecs, scalars, what: str):
     if k % 16 or n % 8:
         raise ValueError(f"{what} kernel needs K % 16 == 0 and N % 8 == 0 "
                          f"(got K={k}, N={n})")
+    if not (m and n and k):
+        raise ValueError(f"{what} kernel needs M, N, K > 0 (got M={m}, "
+                         f"N={n}, K={k})")
     return m, n, k
 
 
@@ -618,9 +621,6 @@ def int8_matmul(x8, w8, vecs, scalars, *, activation=None, out_mode="emit",
     act, mode, lo, hi = _mm_modes(activation, out_mode, out_bits,
                                   "int8_matmul")
     m, n, k = _check_matmul(x8, w8, vecs, scalars, "int8_matmul")
-    if not (m and n and k):
-        raise ValueError(f"int8_matmul kernel needs M, N, K > 0 (got M={m},"
-                         f" N={n}, K={k})")
     out = torch.empty((m, n), device=x8.device,
                       dtype=torch.int8 if out_mode == "emit"
                       else torch.float32)
@@ -783,9 +783,12 @@ def int8_attention_qkv(q_arr, k_arr, v_arr, mask_bias, scalars, *, n_heads,
 
 def _matmul_nonorm(x8, w8, vecs, scalars, r8, gb, ln_scalars, *,
                    res_quant) -> Tensor:
-    """Launch ``csrc/int8_matmul_norm.cu``: the matmul with the fold site,
-    the optional residual ``r8``, the res site and NoNorm in its
-    epilogue."""
+    """Launch ``csrc/int8_matmul_norm.cu`` (K6, an instance of the GEMM in
+    ``csrc/wgmma_gemm.cuh``): the matmul with the fold site, the optional
+    residual ``r8`` (staged by the kernel through shared memory under its
+    main loop), the res site and NoNorm in its epilogue. Needs K % 16 ==
+    0, N % 8 == 0 and 16-byte aligned, contiguous operands; raises on
+    anything else (there is no fall-back to the plain version)."""
     m, n, _ = _check_matmul(x8, w8, vecs, scalars, "int8_matmul_norm")
     if r8 is not None:
         _check(r8, "r8", torch.int8, (m, n))
@@ -806,8 +809,10 @@ def _matmul_nonorm(x8, w8, vecs, scalars, r8, gb, ln_scalars, *,
 def int8_matmul_norm(x8, w8, vecs, scalars, gb, ln_scalars, *, eps,
                      res_quant=False, w4=False, norm="nonorm"):
     """Matmul -> fold site -> NoNorm -> norm payload, no residual; see
-    :func:`int8_matmul_norm_ref`. On the card: one launch with the whole
-    tail in the matmul epilogue (``csrc/int8_matmul_norm.cu``)."""
+    :func:`int8_matmul_norm_ref`. On the card: one launch of the
+    persistent TMA / ``wgmma`` GEMM of ``csrc/wgmma_gemm.cuh`` with the
+    whole tail in its epilogue (``csrc/int8_matmul_norm.cu``, K6), under
+    :func:`_matmul_nonorm`'s limits."""
     if not x8.is_cuda:
         return int8_matmul_norm_ref(x8, w8, vecs, scalars, gb, ln_scalars,
                                     eps=eps, res_quant=res_quant, w4=w4,
