@@ -25,14 +25,21 @@ Phases (any failure exits non-zero; nothing is caught):
    five host-clock windows of at least one second each;
 5. the flex kernels, per recipe (``w8a8-mixed``: 16-bit x/h/y sites,
    ``w8a8-peg``: 6 permuted groups with shared-h ranges), on layer 0's
-   inputs: the float-edge inter matmul, the dense matmul's fold on the h
-   grid, the two flex add+LNs, then the flex ``int8_attn_ln`` and
-   ``int8_ffn_ln`` chains, each against its plain version (bit-identical);
+   inputs: the float-edge inter matmul (K4: the whole call, then its
+   level pass alone and its GEMM alone, each with its bound), the dense
+   matmul's fold on the h grid, the two flex add+LNs, then the flex
+   ``int8_attn_ln`` and ``int8_ffn_ln`` chains, each against its plain
+   version (bit-identical); then K4 at ``EDGE_SHAPES`` (M = 1000, N = 136:
+   8-bit edges in 1, 2 and 6 permuted groups, in groups of 64 and 256
+   columns; 16-bit edges in one group at K = 1024 and in 2 and 3 groups)
+   and ``EDGE_TILE_SHAPES`` (M = 16350: the grouped folds over 512 tiles)
+   and K5 at H=256, bit-identical;
 6. each recipe's engine, from the same ``--seed`` params: calibration with
    the PEG pre-pass, three request batches through ``bert_engine_apply``
-   with the launch counts read just after, logits against the plain
-   engine, the forward / encoder split, engine and fake-quant simulation
-   seq/s (five windows);
+   with the launch counts read just after (per forward 36 matmul, 12
+   attention, 12 float-edge matmul and 12 level-pass, 24 flex add+LN
+   launches), logits against the plain engine, the forward / encoder
+   split, engine and fake-quant simulation seq/s (five windows);
 7. MobileBERT-uncased (24 layers, H=512, bottleneck 128, 4 heads of 32,
    3 stacked FFNs, relu, NoNorm): random init from ``--seed``, one-batch
    W8A8 calibration, packing, the engine plan; on layer 0's inputs (B=128,
@@ -79,6 +86,8 @@ The last lines are the kernels JSON (times per encoder layer: the sum
 over that layer's launches of each kernel; the flex kernels' top-level
 numbers are the mixed recipe's, and ``variants`` holds each recipe's,
 for ``int8_matmul`` its dense fold on the h grid and MobileBERT's layer;
+K4's entry holds its level pass (``level_pass``, with its launches) and
+the GEMM alone per recipe (``gemm_alone``);
 the MobileBERT kernels' numbers are MobileBERT-uncased layer 0's, with
 K6's five calls under ``variants`` and the chain's ms per layer beside
 ``int8_mb_layer_ln``; the fused
@@ -216,9 +225,10 @@ def compare_values(got: torch.Tensor, want: torch.Tensor, step,
 def ptxas_lines(log: str) -> list:
     """An nvcc -Xptxas -v log, shortened: each GEMM policy instance's
     registers and spills by name (``NormEpi<1,0>: Used 168 registers, ...;
-    0 bytes stack frame, ...``), then the other kernels' distinct register /
-    static shared memory and stack / spill lines (dynamic shared memory is
-    the source's)."""
+    0 bytes stack frame, ...``; with ptxas's warning where it serializes
+    wgmma for want of registers), then the other kernels' distinct
+    register / static shared memory and stack / spill lines (dynamic
+    shared memory is the source's)."""
     by_inst, other, inst = {}, set(), None
     for ln in log.splitlines():
         ln = ln.strip().replace("ptxas info    : ", "")
@@ -226,7 +236,7 @@ def ptxas_lines(log: str) -> list:
             m = re.search(r"\d([A-Z]\w*?Epi)I((?:L[ib]\d+E)+)E", ln)
             inst = None if m is None else "{}<{}>".format(
                 m.group(1), ",".join(re.findall(r"L[ib](\d+)E", m.group(2))))
-        elif "registers" in ln or "spill" in ln:
+        elif "register" in ln or "spill" in ln:
             if inst is None:
                 other.add(ln)
             else:
@@ -477,11 +487,12 @@ def check_flex_kernels(params, cfg, qcfg, qstate, int_params, static, plan,
     n1 = inter["w"].shape[0]
     report = {}
 
-    # K4: the float-edge inter matmul (gelu_new, emit)
+    # K4: the float-edge inter matmul (gelu_new, emit): the level pass and
+    # the GEMM, then each alone
+    tag = (f"{m}x{h}->{n1} {grid['bits']}-bit, {grid['s'].numel()} groups")
     res = compare(EK.float_edge_matmul(hx, inter["vecs"], grid,
                                        activation="gelu_new"), i8,
-                  f"float_edge_matmul[inter] {m}x{h}->{n1} "
-                  f"{grid['bits']}-bit, {grid['s'].numel()} groups")
+                  f"float_edge_matmul[inter] {tag}")
     t_k = device_ms(lambda: EK.float_edge_matmul(hx, inter["vecs"], grid,
                                                 activation="gelu_new"))
     t_p = timed_ms(lambda: EK.float_edge_matmul_ref(
@@ -499,6 +510,34 @@ def check_flex_kernels(params, cfg, qcfg, qstate, int_params, static, plan,
     report["float_edge_matmul"] = {"ms": t_k, "plain_ms": t_p,
                                    "bound_ms": bnd, "bound_by": by,
                                    "library_ms": t_l, **res}
+    lv_want = EK.float_edge_levels_ref(hx, grid)
+    lv = EK.float_edge_levels(hx, grid)
+    lres = compare(lv, lv_want, f"float_edge_levels[inter] {tag}")
+    t_lk = device_ms(lambda: EK.float_edge_levels(hx, grid))
+    t_lp = timed_ms(lambda: EK.float_edge_levels_ref(hx, grid), iters=5)
+    # bytes: f32 x read once, the levels written once, cols and the grid
+    lbnd, lby = bound_ms(0.0, 4 * m * h + lv.numel() + 8 * h
+                         + 2 * 4 * grid["s"].numel())
+    gres = compare(EK.float_edge_gemm(lv, m, inter["vecs"], grid,
+                                      activation="gelu_new"), i8,
+                   f"float_edge_gemm[inter] {tag}")
+    t_gk = device_ms(lambda: EK.float_edge_gemm(lv, m, inter["vecs"], grid,
+                                               activation="gelu_new"))
+    t_gp = timed_ms(lambda: EK.float_edge_gemm_ref(
+        lv, m, inter["vecs"], grid, activation="gelu_new"), iters=5)
+    gbnd, gby = bound_ms(ops, lv.numel() + n1 * h + m * n1 + 5 * n1 * 4
+                         + grid["gcs"].numel() * 4)
+    print(f"  float_edge_levels (the pass alone): kernel {t_lk:.4f} ms, "
+          f"plain {t_lp:.4f} ms, bound {lbnd:.4f} ms ({lby}); "
+          f"float_edge_gemm (the GEMM alone): kernel {t_gk:.4f} ms, plain "
+          f"{t_gp:.4f} ms, bound {gbnd:.4f} ms ({gby}), "
+          f"{ops / t_gk / 1e9:.1f} TOP/s")
+    report["float_edge_levels"] = {"ms": t_lk, "plain_ms": t_lp,
+                                   "bound_ms": lbnd, "bound_by": lby,
+                                   "library_ms": None, **lres}
+    report["float_edge_gemm"] = {"ms": t_gk, "plain_ms": t_gp,
+                                 "bound_ms": gbnd, "bound_by": gby,
+                                 "library_ms": None, **gres}
 
     # K1: the dense matmul's fold on the h grid (float32 out)
     res = compare_values(
@@ -587,32 +626,72 @@ def check_flex_kernels(params, cfg, qcfg, qstate, int_params, static, plan,
     return report
 
 
+# K4's shapes off the main path, (M, K, N, bits, groups): M not a multiple
+# of 64 and N % 16 != 0 throughout; 8 bits in one group, in 2 and 6
+# permuted groups of whole stages (a fold a stage), in 5 groups of 64 (a
+# fold every two k32 steps) and in 2 groups of 256 (the int32 -> float
+# conversion); 16 bits in one group at K = 1024, and in 2 and 3 groups (of
+# 128, of 64). Each is 32 tiles of 64 x 128: one a consumer warpgroup.
+EDGE_SHAPES = ((1000, 256, 136, 8, 1), (1000, 256, 136, 8, 2),
+               (1000, 768, 136, 8, 6), (1000, 320, 136, 8, 5),
+               (1000, 512, 136, 8, 2), (1000, 1024, 136, 16, 1),
+               (1000, 256, 136, 16, 2), (1000, 192, 136, 16, 3))
+# the grouped folds at 512 tiles, so that every consumer warpgroup of an
+# H100's 132 blocks takes one tile after another (the group table
+# rewritten, the sums and the ring carried from tile to tile): 16 bits in
+# groups of 64 and of 128, 8 bits in groups of 64 and of 256
+EDGE_TILE_SHAPES = ((16350, 192, 136, 16, 3), (16350, 256, 136, 16, 2),
+                    (16350, 320, 136, 8, 5), (16350, 512, 136, 8, 2))
+EDGE_SEED = 30   # edge_inputs' seed of case i: EDGE_SEED + i
+
+
+def edge_inputs(m: int, k: int, n: int, bits: int, groups: int, seed: int):
+    """Seeded numpy inputs of one K4 call, ``(x, w8, vecs, s, zp, cols)``:
+    a float32 edge ``x = s_c (q - zp_c)`` on random levels q of ``bits``
+    bits, one scale and zero point per group of ``k / groups`` columns in
+    the permutation order ``cols`` (the identity for one group), an int8
+    weight, and a weight scale that spreads the output site over tens of
+    levels. ``tests/test_torch_float_edge.py`` holds the plain versions
+    against JAX's ``int8_matmul(in_mode='f')`` on these inputs."""
+    rng = np.random.RandomState(seed)
+    cols = rng.permutation(k) if groups > 1 else np.arange(k)
+    grp = np.empty(k, np.int64)
+    grp[cols] = np.arange(k) // (k // groups)
+    top = 2 ** bits - 1
+    s_g = ((0.5 + rng.rand(groups)) / 2 ** (bits - 1)).astype(np.float32)
+    zp_g = rng.randint(top // 4, 3 * top // 4 + 1, groups).astype(np.float32)
+    q = rng.randint(0, top + 1, (m, k)).astype(np.float32)
+    x = (s_g[grp] * (q - zp_g[grp])).astype(np.float32)
+    w = rng.randint(-127, 128, (n, k)).astype(np.int8)
+    ws = 1.0 / (np.sqrt(k) * x.std() * w.astype(np.float32).std())
+    vecs = np.stack([np.full(n, ws), w.astype(np.float32).sum(1),
+                     0.1 * rng.randn(n), 0.03 + 0.02 * rng.rand(n),
+                     np.full(n, 3.0)]).astype(np.float32)
+    return x, w, vecs, s_g[grp], zp_g[grp], cols
+
+
 def check_flex_shapes(dev) -> None:
-    """The flex kernels off the main path's shapes: ragged rows and
-    columns, both u8-plane counts, with and without gelu_new, H=256 with
-    and without per-column sites."""
+    """The flex kernels off the main path's shapes: K4 (the whole call, its
+    level pass and its GEMM) at ``EDGE_SHAPES`` and ``EDGE_TILE_SHAPES``
+    with and without gelu_new; K5 at H=256 with and without per-column
+    sites."""
     gen = torch.Generator(device=dev).manual_seed(11)
-    m, n, k, groups = 1000, 136, 256, 2
-    w = torch.randint(-127, 128, (n, k), generator=gen, device=dev,
-                      dtype=torch.int8)
-    vecs = torch.stack([torch.full((n,), 3e-3, device=dev),
-                        w.float().sum(1), torch.full((n,), 0.1, device=dev),
-                        torch.full((n,), 0.02, device=dev),
-                        torch.full((n,), 2.0, device=dev)])
-    cols = torch.randperm(k, generator=gen, device=dev)
-    for bits in (8, 16):
-        s = torch.tensor([0.7 / 2 ** (bits - 1), 1.3 / 2 ** (bits - 1)],
-                         device=dev)
-        zp = torch.tensor([2.0 ** (bits - 1) - 3.0, 17.0], device=dev)
-        grp = torch.empty(k, dtype=torch.long, device=dev)
-        grp[cols] = torch.arange(k, device=dev) // (k // groups)
-        q = torch.randint(0, 2 ** bits, (m, k), generator=gen, device=dev)
-        x = (s[grp] * (q.float() - zp[grp])).contiguous()
-        grid = EK.edge_grid(w, s[grp], zp[grp], bits, groups, cols)
+    for i, (m, k, n, bits, groups) in enumerate(EDGE_SHAPES
+                                                + EDGE_TILE_SHAPES):
+        x, w, vecs, s, zp, cols = (
+            torch.from_numpy(a).to(dev) for a in
+            edge_inputs(m, k, n, bits, groups, EDGE_SEED + i))
+        grid = EK.edge_grid(w, s, zp, bits, groups, cols)
+        tag = f"{m}x{k}->{n} {bits}-bit, {groups} groups"
+        lv = EK.float_edge_levels(x, grid)
+        compare(lv, EK.float_edge_levels_ref(x, grid),
+                f"float_edge_levels {tag}")
         for act in (None, "gelu_new"):
+            want = EK.float_edge_matmul_ref(x, vecs, grid, activation=act)
             compare(EK.float_edge_matmul(x, vecs, grid, activation=act),
-                    EK.float_edge_matmul_ref(x, vecs, grid, activation=act),
-                    f"float_edge_matmul {m}x{k}->{n} {bits}-bit act={act}")
+                    want, f"float_edge_matmul {tag} act={act}")
+            compare(EK.float_edge_gemm(lv, m, vecs, grid, activation=act),
+                    want, f"float_edge_gemm {tag} act={act}")
     h = 256
     gb = torch.stack([torch.linspace(0.5, 1.5, h, device=dev),
                       torch.linspace(-0.1, 0.1, h, device=dev)])
@@ -1335,7 +1414,8 @@ def main(argv=None) -> int:
             rname, bert_runner(params, cfg, rq, rs, rstatic, rplan, rint,
                                dev), cfg, batches,
             per_forward(int8_matmul=3 * L, int8_attention=L,
-                        float_edge_matmul=L, flex_add_ln=2 * L))
+                        float_edge_matmul=L, float_edge_levels=L,
+                        flex_add_ln=2 * L))
         rh, rm = entry_value(params, cfg, rq, rs, rint, b0, dev)
         t_enc = window_ms(lambda: ENG.encoder_engine(rh, rm, rstatic, rplan))
         t_eng = window_ms(lambda: B.bert_engine_apply(
@@ -1478,8 +1558,9 @@ def main(argv=None) -> int:
 
     report.update({k: mb_report[k] for k in (
         "int8_matmul_norm", "int8_attention_qkv", "int8_mb_layer_ln")})
-    report["float_edge_matmul"] = flex_reports["w8a8-mixed"][
-        "float_edge_matmul"]
+    report["float_edge_matmul"] = dict(
+        flex_reports["w8a8-mixed"]["float_edge_matmul"],
+        level_pass=flex_reports["w8a8-mixed"]["float_edge_levels"])
     report["flex_add_ln"] = flex_reports["w8a8-mixed"]["flex_add_ln"]
     pallas = "transformer_quantization_tpu/ops/pallas/engine_kernels.py"
     sources = {"int8_matmul": ("int8_matmul.cu", f"{pallas}:254"),
@@ -1520,6 +1601,21 @@ def main(argv=None) -> int:
         if name == "int8_matmul_norm":
             entry["variants"] = {v: {k: c[k] for k in keys}
                                  for v, c in r["variants"].items()}
+        if name == "float_edge_matmul":
+            entry["level_pass"] = {
+                "name": "float_edge_levels", "route": "cuda",
+                "source": entry["source"], "replaces": f"{pallas}:178",
+                "launches": sum(p["float_edge_levels"]
+                                for p in by_path.values()),
+                **{k: r["level_pass"][k] for k in keys},
+                "launches_by_path": {p: c["float_edge_levels"]
+                                     for p, c in by_path.items()},
+                "variants": {rn: {k: fr["float_edge_levels"][k]
+                                  for k in keys}
+                             for rn, fr in flex_reports.items()}}
+            entry["gemm_alone"] = {
+                rn: {k: fr["float_edge_gemm"][k] for k in keys}
+                for rn, fr in flex_reports.items()}
         if name == "fused_int8_linear":
             entry["variants"] = {v: {k: c[k] for k in keys}
                                  for v, c in r["variants"].items()}

@@ -1,9 +1,11 @@
 """A/B the int8 matmul kernel (K1, ``csrc/int8_matmul.cu``) against edited
-copies of itself on one NVIDIA card, at BERT-base's layer shapes, and
+copies of itself on one NVIDIA card, at BERT-base's layer shapes,
 MobileBERT's NoNorm matmul (K6, ``csrc/int8_matmul_norm.cu``) against
-another checkout's at a MobileBERT layer's five shapes.
+another checkout's at a MobileBERT layer's five shapes, and the
+float-edge matmul (K4, ``csrc/float_edge_matmul.cu``) at the recipes'
+inter shape.
 
-    python3 k1_probe.py [--out DIR] [--parent DIR] [--kernels k1,norm]
+    python3 k1_probe.py [--out DIR] [--parent DIR] [--kernels k1,norm,edge]
 
 Each variant is the kernel's source and the shared GEMM header
 (``csrc/wgmma_gemm.cuh``) with one edit, built with the package's
@@ -41,7 +43,28 @@ on ``chip_smoke.norm_inputs`` at M = 16384 for bn_in and bn_attn (512 ->
 out_bn (128 -> 512), the last three with a residual and the res site;
 each that computes the function checked against
 ``int8_matmul_add_ln_ref`` (bit-identical or it fails) and timed beside ``torch._int_mm``, and their sum per layer (the
-FFN dense four times). Imports torch and the port only.
+FFN dense four times).
+
+K4 (``edge`` in ``--kernels``): ``kernel`` (the source as it is),
+``main_loop`` (no epilogue: the products and the in-loop group folds),
+``no_fold`` (the group folds' arithmetic taken out: the products, the
+waits and the table alone), ``half_stage`` (groups of whole stages
+folded after every two k32 steps, as groups of 64 columns are),
+``unrolled`` (the main loop's units of a stage unrolled, two folds in
+one body for groups of 64), ``regs232`` (232 registers a consumer
+thread for 16-bit groups of 64, where the kernel takes 240) and, with
+``--parent``, ``parent`` (that checkout's
+``float_edge_matmul.cu``, called through its own signature), at M =
+16384, K = 768, N = 3072 with gelu_new on ``chip_smoke.edge_inputs``:
+the mixed recipe's 16-bit edge in one group, PEG's 8-bit edge in 6
+permuted groups, and 16-bit and 8-bit edges in 12 permuted groups of 64
+columns; each that computes the function checked against
+``float_edge_matmul_ref`` (bit-identical or it fails) and timed, the
+kernel's level pass and GEMM also alone, beside ``torch.matmul`` (f32,
+TF32 off) and K1's gelu_new inter at the same shape. With ``--parent`` it
+also compares K1's, the fused linear's, K6's, K2's and K8's machine code
+with the parent's (``cuobjdump -sass``, kernel by kernel). Imports torch
+and the port only.
 """
 
 from __future__ import annotations
@@ -110,6 +133,37 @@ NORM_CALLS = [("bn_in", 128, 512, False, 1), ("bn_attn", 128, 512, False, 1),
               ("attn_out", 128, 128, True, 1),
               ("ffn dense", 128, 512, True, 4),
               ("out_bn", 512, 128, True, 1)]
+# K4's variants (the module docstring)
+EDGE_EDITS = {
+    "kernel": [],
+    "main_loop": EDITS["main_loop"],
+    "no_fold": [("    const float s = end ? gs[g] : 0.0f;\n    if (small()) {",
+                 "    return;\n    const float s = end ? gs[g] : 0.0f;\n"
+                 "    if (small()) {"),
+                ("    const float s = end ? gs[g] : 0.0f;\n    const long long z",
+                 "    return;\n    const float s = end ? gs[g] : 0.0f;\n"
+                 "    const long long z")],
+    "half_stage": [("  if (a.gsize % tqwg::TK == 0)\n", "  if (false)\n")],
+    "unrolled": [("#pragma unroll 1\n        for (int u = 0;",
+                  "#pragma unroll\n        for (int u = 0;")],
+    "regs232": [("kRegs = PL == 2 && GR == 2 ? 240 : 232;", "kRegs = 232;")],
+}
+EDGE_COMPUTES = {"kernel", "half_stage", "unrolled", "regs232", "parent"}
+# the recipes' inter matmul, and groups of 64 at its shape: (tag, bits,
+# groups)
+EDGE_CALLS = [("mixed", 16, 1), ("peg", 8, 6), ("g64", 16, 12),
+              ("g64", 8, 12)]
+# the parent's float-edge entry point (one call, no level scratch)
+PARENT_EDGE_SYM = "tq_float_edge_matmul"
+PARENT_EDGE_ARGS = ((ctypes.c_void_p,) * 9 + (ctypes.c_int,) * 5
+                    + (ctypes.c_float, ctypes.c_int, ctypes.c_float,
+                       ctypes.c_void_p))
+# the other kernels on the shared headers (the GEMM skeleton's other
+# instances, and the mma.sync kernels on mm_common.cuh), whose machine
+# code an edit of those headers for K4 must leave as it was
+SASS_SOURCES = ("int8_matmul.cu", "fused_int8_linear.cu",
+                "int8_matmul_norm.cu", "int8_attention.cu",
+                "int8_mb_layer.cu")
 
 
 def build_variants(source: str, variants: dict, out: Path,
@@ -120,40 +174,54 @@ def build_variants(source: str, variants: dict, out: Path,
     first), and with ``parent`` (a checkout's root) that checkout's
     source against its own headers, all ``nvcc`` runs started together;
     returns name -> the library (see :func:`entry`)."""
-    procs = {}
-    for name, edits in variants.items():
-        files = {f: (KB.CSRC / f).read_text() for f in (source, GEMM)}
-        for old, new in edits:
-            holder = [f for f, text in files.items() if old in text]
-            if not holder:
-                raise SystemExit(f"{source}: {name}: the sources no longer "
-                                 f"hold {old!r}")
-            files[holder[0]] = files[holder[0]].replace(old, new)
-        d = out / name
-        d.mkdir(parents=True, exist_ok=True)
-        for f, text in files.items():
-            (d / f).write_text(text)
-        procs[name] = (d, KB.CSRC)
-    if parent is not None:
-        procs["parent"] = (Path(parent) / KB.CSRC.relative_to(
-            KB.CSRC.parents[3]), None)
-    running = {}
-    for name, (d, inc) in procs.items():
-        lib = out / f"{name}.so"
-        running[name] = (lib, subprocess.Popen(
-            [KB._nvcc(), *KB.NVCC_FLAGS, *(["-I", str(inc)] if inc else []),
-             "-o", str(lib), str(d / source)],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-    libs = {}
-    for name, (lib, p) in running.items():
-        log, _ = p.communicate()
-        if p.returncode:
-            raise SystemExit(f"{source}: {name} failed to build:\n{log}")
-        spills = sorted({ln.strip() for ln in log.splitlines()
-                         if "spill" in ln})
-        print(f"  {name}: built; {' | '.join(spills)}")
-        libs[name] = ctypes.CDLL(str(lib))
-    return libs
+    return build_many([(source, variants, out, parent)])[0]
+
+
+def build_many(jobs) -> list:
+    """:func:`build_variants` for every ``(source, variants, out,
+    parent)`` of ``jobs``, every ``nvcc`` run of every job started
+    together; returns each job's name -> library."""
+    running = []
+    for source, variants, out, parent in jobs:
+        procs = {}
+        for name, edits in variants.items():
+            files = {f: (KB.CSRC / f).read_text() for f in (source, GEMM)}
+            for old, new in edits:
+                holder = [f for f, text in files.items() if old in text]
+                if not holder:
+                    raise SystemExit(f"{source}: {name}: the sources no "
+                                     f"longer hold {old!r}")
+                files[holder[0]] = files[holder[0]].replace(old, new)
+            d = out / name
+            d.mkdir(parents=True, exist_ok=True)
+            for f, text in files.items():
+                (d / f).write_text(text)
+            procs[name] = (d, KB.CSRC)
+        if parent is not None:
+            procs["parent"] = (Path(parent) / KB.CSRC.relative_to(
+                KB.CSRC.parents[3]), None)
+        job = {}
+        for name, (d, inc) in procs.items():
+            lib = out / f"{name}.so"
+            job[name] = (lib, subprocess.Popen(
+                [KB._nvcc(), *KB.NVCC_FLAGS,
+                 *(["-I", str(inc)] if inc else []), "-o", str(lib),
+                 str(d / source)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        running.append((source, job))
+    built = []
+    for source, job in running:
+        libs = {}
+        for name, (lib, p) in job.items():
+            log, _ = p.communicate()
+            if p.returncode:
+                raise SystemExit(f"{source}: {name} failed to build:\n{log}")
+            spills = sorted({ln.strip() for ln in log.splitlines()
+                             if "spill" in ln or "serialized" in ln})
+            print(f"  {source} {name}: built; {' | '.join(spills)}")
+            libs[name] = ctypes.CDLL(str(lib))
+        built.append(libs)
+    return built
 
 
 def sass(lib: Path) -> dict:
@@ -249,6 +317,83 @@ def probe_norm(out: Path, parent) -> None:
         f"{name} {t:.4f} ms" for name, t in per_layer.items()), flush=True)
 
 
+def probe_edge(out: Path, parent) -> None:
+    """K4's variants and the parent's K4 at the recipes' inter shape, and
+    (with ``parent``) the other GEMM instances' machine code against the
+    parent's."""
+    jobs = [("float_edge_matmul.cu", EDGE_EDITS, out / "edge", parent)]
+    if parent is not None:
+        jobs += [(src, {"kernel": []}, out / Path(src).stem, parent)
+                 for src in SASS_SOURCES]
+    built = build_many(jobs)
+    for src in SASS_SOURCES if parent is not None else ():
+        print(f"  {src}:", end="")
+        same_sass(out / Path(src).stem)
+    libs = built[0]
+    dev = torch.device("cuda")
+    m, k, n = 16384, 768, 3072
+    st = lambda: torch.cuda.current_stream().cuda_stream
+    for i, (tag, bits, groups) in enumerate(EDGE_CALLS):
+        x, w, vecs, s, zp, cols = (torch.from_numpy(a).to(dev) for a in
+                                   CS.edge_inputs(m, k, n, bits, groups,
+                                                  50 + i))
+        grid = EK.edge_grid(w, s, zp, bits, groups, cols)
+        planes, size = EK.edge_planes(grid), k // groups
+        maxq = float(2 ** bits - 1)
+        want = EK.float_edge_matmul_ref(x, vecs, grid, activation="gelu_new")
+        lv = torch.empty((EK._edge_levels_rows(m, planes), k), device=dev,
+                         dtype=torch.int8)
+        out8 = torch.empty((m, n), device=dev, dtype=torch.int8)
+        g = [grid[key].data_ptr() for key in ("s", "inv_s", "zp", "gcs")]
+        line = f"  K4 [{tag}] {m}x{k}->{n} {bits}-bit, {groups} groups:"
+        for name, lib in libs.items():
+            if name == "parent":
+                fn = getattr(lib, PARENT_EDGE_SYM)
+                fn.argtypes, fn.restype = list(PARENT_EDGE_ARGS), ctypes.c_int
+
+                def call(fn=fn, name=name):
+                    KB.check(fn(x.data_ptr(), cols.data_ptr(),
+                                grid["w"].data_ptr(), vecs.data_ptr(), *g,
+                                out8.data_ptr(), m, n, k, size, planes, maxq,
+                                1, GELU_NEW_C, st()), name)
+            else:
+                lev = entry(lib, "float_edge_levels")
+                gemm = entry(lib, "float_edge_gemm")
+
+                def call(lev=lev, gemm=gemm, name=name):
+                    KB.check(lev(x.data_ptr(), cols.data_ptr(), g[1], g[2],
+                                 lv.data_ptr(), m, k, size, planes, maxq,
+                                 st()), name)
+                    KB.check(gemm(lv.data_ptr(), grid["w"].data_ptr(),
+                                  vecs.data_ptr(), g[0], g[2], g[3],
+                                  out8.data_ptr(), m, n, k, size, planes, 1,
+                                  GELU_NEW_C, st()), name)
+            call()
+            torch.cuda.synchronize()
+            if name in EDGE_COMPUTES and not torch.equal(out8, want):
+                raise SystemExit(f"k1_probe: K4 {name} differs from "
+                                 f"float_edge_matmul_ref at {line}")
+            line += f" {name} {CS.device_ms(call):.4f} ms;"
+        lev = entry(libs["kernel"], "float_edge_levels")
+        gemm = entry(libs["kernel"], "float_edge_gemm")
+        t_lev = CS.device_ms(lambda: KB.check(lev(
+            x.data_ptr(), cols.data_ptr(), g[1], g[2], lv.data_ptr(), m, k,
+            size, planes, maxq, st()), "levels"))
+        t_gemm = CS.device_ms(lambda: KB.check(gemm(
+            lv.data_ptr(), grid["w"].data_ptr(), vecs.data_ptr(), g[0], g[2],
+            g[3], out8.data_ptr(), m, n, k, size, planes, 1, GELU_NEW_C,
+            st()), "gemm"))
+        w_f = grid["w"].float()
+        t_f32 = CS.device_ms(lambda: torch.matmul(x, w_f.t()))
+        x8 = torch.randint(-128, 128, (m, k), device=dev, dtype=torch.int8)
+        scal = torch.tensor([[0.02, 5.0]], device=dev)
+        t_k1 = CS.device_ms(lambda: EK.int8_matmul(
+            x8, grid["w"], vecs, scal, activation="gelu_new"))
+        print(f"{line} the level pass alone {t_lev:.4f} ms, the GEMM alone "
+              f"{t_gemm:.4f} ms; torch.matmul f32 {t_f32:.4f} ms; K1 gelu_new"
+              f" (int8 x) {t_k1:.4f} ms", flush=True)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default="k1_probe_build")
@@ -256,7 +401,7 @@ def main(argv=None) -> int:
                     help="an unpacked checkout whose K1 and K6 to time "
                          "beside")
     ap.add_argument("--kernels", default="k1,norm",
-                    help="which of k1, norm to probe")
+                    help="which of k1, norm, edge to probe")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("k1_probe: needs a card")
@@ -264,6 +409,8 @@ def main(argv=None) -> int:
     kernels = set(args.kernels.split(","))
     if "norm" in kernels:
         probe_norm(Path(args.out), args.parent)
+    if "edge" in kernels:
+        probe_edge(Path(args.out), args.parent)
     if "k1" not in kernels:
         return 0
     fns = {name: entry(lib, "int8_matmul") for name, lib in build_variants(

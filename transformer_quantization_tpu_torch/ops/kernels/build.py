@@ -53,9 +53,10 @@ _SIGNATURES = {
                       + (_F, _F, _F, _P)),
     "add_ln_payload": ("tq_add_ln_payload",
                        (_P, _P, _P, _P, _P, _I, _I, _F, _I, _P)),
-    "float_edge_matmul": ("tq_float_edge_matmul",
-                          (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                           _I, _I, _F, _I, _F, _P)),
+    "float_edge_levels": ("tq_float_edge_levels",
+                          (_P,) * 5 + (_I,) * 4 + (_F, _P)),
+    "float_edge_gemm": ("tq_float_edge_gemm",
+                        (_P,) * 7 + (_I,) * 6 + (_F, _P)),
     "flex_add_ln": ("tq_flex_add_ln",
                     (_P, _P, _I, _P, _P, _P, _P, _P, _I, _I, _F, _I, _F, _F,
                      _F, _F, _P)),
@@ -67,7 +68,9 @@ _SIGNATURES = {
 }
 # entry points that live in another source's library
 _LIBRARY = {"fused_quantize": "fused_int8_linear",
-            "fused_rcp_check": "fused_int8_linear"}
+            "fused_rcp_check": "fused_int8_linear",
+            "float_edge_levels": "float_edge_matmul",
+            "float_edge_gemm": "float_edge_matmul"}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 BUILD_LOG: Dict[str, str] = {}

@@ -111,7 +111,7 @@ __device__ __forceinline__ void attn_head(
       for (int ni = 0; ni < NT; ++ni) {
         unsigned bf[2];
         tqmm::load_b_frag(bf, sk, ldk, ni * 8, kk, g, t);
-        tqmm::mma_k32<false>(acc[ni], af, bf);
+        tqmm::mma_k32(acc[ni], af, bf);
       }
     }
   }
@@ -210,7 +210,7 @@ __device__ __forceinline__ void attn_head(
       for (int ni = 0; ni < ND; ++ni) {
         unsigned bf[2];
         tqmm::load_b_frag(bf, svt, ldv, ni * 8, kk, g, t);
-        tqmm::mma_k32<false>(acc2[ni], af, bf);
+        tqmm::mma_k32(acc2[ni], af, bf);
       }
     }
     const float pv_over_c = (p_s * v_s) * (1.0f / c_s);

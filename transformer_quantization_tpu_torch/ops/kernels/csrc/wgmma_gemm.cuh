@@ -1,10 +1,10 @@
-// The persistent warp-specialized int8 GEMM for Hopper, shared by three
+// The persistent warp-specialized int8 GEMM for Hopper, shared by four
 // kernels: the payload matmul (int8_matmul.cu, K1), the fused linear
-// (fused_int8_linear.cu) and MobileBERT's NoNorm matmul
-// (int8_matmul_norm.cu, K6): the producer warpgroup's TMA ring, the two
-// consumer warpgroups' wgmma main loop in ping-pong, and a staged
-// epilogue, templated on an epilogue policy that says what an output
-// element is.
+// (fused_int8_linear.cu), MobileBERT's NoNorm matmul (int8_matmul_norm.cu,
+// K6) and the float-edge matmul (float_edge_matmul.cu, K4): the producer
+// warpgroup's TMA ring, the two consumer warpgroups' wgmma main loop in
+// ping-pong, and a staged epilogue, templated on an epilogue policy that
+// says what an output element is.
 //
 //   out[m][n] = Epi::apply(acc[m][n], col[n] [, r8[m][n]])
 //   acc = x (M, K) @ w (N, K)^T
@@ -27,7 +27,31 @@
 //   kTM = 64              tiles of 64 rows, not 128 (x's tensor map then
 //                         has 64-row boxes): a call with few column tiles
 //                         still gives both consumer warpgroups tiles;
-//   kEpiNB = 1            one 8-column block an epilogue step, not two.
+//   kEpiNB = 1            one 8-column block an epilogue step, not two;
+//   kPlanes = 2           (kTM = 64, int8 outputs) x's rows come in
+//                         128-row boxes that hold two planes of the tile's
+//                         64 rows (rows 0-63 and 64-127 of the box; x's
+//                         map has 128-row boxes over 2 * 64 * tiles rows),
+//                         summed into acc[0] and acc[1] against one B
+//                         descriptor: Out apply(acc0, acc1, col);
+//   kGroups = G > 0       the K columns fall into the member `int G`
+//                         groups of `int gsize` columns (a multiple of
+//                         32 kFoldSteps) whose int32 sums the main loop
+//                         folds one by one into a float sum, Out
+//                         apply(float, col) then: each tile first writes
+//                         `int gentry(g, n)` for its columns into a
+//                         G x 128 table in shared memory (G <= kGroups);
+//                         after each unit of kFoldSteps k32 steps'
+//                         products has completed, `fold(acc, y, row, g,
+//                         t4, end)` (two planes: `fold(acc0, acc1, y, row,
+//                         g, t4, end)`) adds group g's sums to y where
+//                         `end` (the unit ends the group), and the next
+//                         unit restarts the sums;
+//   kFoldSteps = 2        (kGroups) a commit, wait and fold every two k32
+//                         steps, for groups of 64 columns (default 4: one
+//                         a stage);
+//   kRegs = 240           registers a consumer thread (the producer then
+//                         keeps 24, not 40).
 //
 // Design: one 384-thread block per SM walking kTM x 128 output tiles row
 // panel by row panel (tile t = m * n_tiles + n: the blocks in flight cover
@@ -54,7 +78,7 @@
 //   loop (which hides the loads) and written to shared memory after it.
 //   A thread takes its elements of kEpiNB 8-column blocks through
 //   Epi::apply at once (8 a block at 128 rows, 4 at 64: 16 for K1, 4 for
-//   K6) so that their chains interleave. Each warp stages its
+//   K6, 8 for K4) so that their chains interleave. Each warp stages its
 //   kTM / 4 rows in a 4 KB shared-memory buffer (XOR-swizzled by 16-byte
 //   chunk, so the writes and the reads are free of bank conflicts; float
 //   outputs in four passes of 32 columns) and writes them out in 16-byte
@@ -89,7 +113,8 @@ constexpr int THREADS = 384;               // 2 consumer + 1 producer WGs
 constexpr int EPI_NB = 2;
 
 // A policy's optional members (the contract above) and their defaults:
-// kResidual false, kTM = TM, kEpiNB = EPI_NB.
+// kResidual false, kTM = TM, kEpiNB = EPI_NB, kPlanes 1, kGroups 0,
+// kFoldSteps TK / 32, kRegs 232.
 template <class E, class = void>
 struct epi_residual : std::false_type {};
 template <class E>
@@ -105,6 +130,26 @@ struct epi_nb : std::integral_constant<int, EPI_NB> {};
 template <class E>
 struct epi_nb<E, std::void_t<decltype(E::kEpiNB)>>
     : std::integral_constant<int, E::kEpiNB> {};
+template <class E, class = void>
+struct epi_planes : std::integral_constant<int, 1> {};
+template <class E>
+struct epi_planes<E, std::void_t<decltype(E::kPlanes)>>
+    : std::integral_constant<int, E::kPlanes> {};
+template <class E, class = void>
+struct epi_groups : std::integral_constant<int, 0> {};
+template <class E>
+struct epi_groups<E, std::void_t<decltype(E::kGroups)>>
+    : std::integral_constant<int, E::kGroups> {};
+template <class E, class = void>
+struct epi_fold_steps : std::integral_constant<int, TK / 32> {};
+template <class E>
+struct epi_fold_steps<E, std::void_t<decltype(E::kFoldSteps)>>
+    : std::integral_constant<int, E::kFoldSteps> {};
+template <class E, class = void>
+struct epi_regs : std::integral_constant<int, 232> {};
+template <class E>
+struct epi_regs<E, std::void_t<decltype(E::kRegs)>>
+    : std::integral_constant<int, E::kRegs> {};
 
 // bytes of a ring stage: the x tile (tm rows) and the w tile
 __host__ __device__ constexpr int stage_bytes(int tm) {
@@ -112,12 +157,15 @@ __host__ __device__ constexpr int stage_bytes(int tm) {
 }
 
 // dynamic shared memory of a block: the ring (1 KB aligned), the staging
-// buffers, the two warpgroups' column tables and the mbarriers
+// buffers, the two warpgroups' column tables, the mbarriers and (kGroups)
+// the two warpgroups' group tables
 template <class Epi>
 constexpr int gemm_smem() {
-  return 1024 + STAGES * stage_bytes(epi_tm<Epi>::value) + 8 * WARP_OUT +
+  return 1024 +
+         STAGES * stage_bytes(epi_tm<Epi>::value * epi_planes<Epi>::value) +
+         8 * WARP_OUT +
          2 * TN * static_cast<int>(sizeof(typename Epi::Col)) +
-         (2 * STAGES + 2) * 8;
+         (2 * STAGES + 2) * 8 + 2 * epi_groups<Epi>::value * TN * 4;
 }
 
 // NB 8-column blocks j0.. of a warp's 16 H-row share of the tile (H =
@@ -125,9 +173,11 @@ constexpr int gemm_smem() {
 // (element e of a block: column lc + (e & 1), warp row e / 2) at once, so
 // that their chains interleave, into the staging buffer (pass p of the
 // float outputs). With a residual, each element pair's input bytes are
-// first read from where its output pair is then written.
-template <class Epi, int H>
-__device__ __forceinline__ void epi_block(const int (&acc)[H][64],
+// first read from where its output pair is then written. With two planes
+// (HA = 2 H) an element is apply(acc[0][i], acc[1][i], col); with a group
+// fold the accumulator A is the tile's float sum.
+template <class Epi, int H, int HA, class A>
+__device__ __forceinline__ void epi_block(const A (&acc)[HA][64],
                                           const typename Epi::Col* tab,
                                           int j0, int p, int g, int t4,
                                           const Epi& epi, uint8_t* stage) {
@@ -157,12 +207,20 @@ __device__ __forceinline__ void epi_block(const int (&acc)[H][64],
                        k[2 * (i >> LE) + (e & 1)],
                        static_cast<int8_t>(rin[i >> 1] >> (8 * (i & 1))));
     }
-  } else {
+  } else if constexpr (HA == H) {
 #pragma unroll
     for (int i = 0; i < EB * NB; ++i) {
       const int j = j0 + (i >> LE), e = i & (EB - 1), r = e >> 1;
       o[i] = epi.apply(acc[r >> 1][4 * j + 2 * (r & 1) + (e & 1)],
                        k[2 * (i >> LE) + (e & 1)]);
+    }
+  } else {
+    static_assert(HA == 2 && H == 1, "two planes of 64-row tiles");
+#pragma unroll
+    for (int i = 0; i < EB * NB; ++i) {
+      const int j = j0 + (i >> LE), e = i & (EB - 1);
+      const int a = 4 * j + 2 * (e >> 1) + (e & 1);
+      o[i] = epi.apply(acc[0][a], acc[1][a], k[2 * (i >> LE) + (e & 1)]);
     }
   }
 #pragma unroll
@@ -217,7 +275,7 @@ __device__ __forceinline__ void stage_residual(const int8_t* r8,
 template <class Epi>
 __device__ __forceinline__ void consume(
     const uint8_t* ring, uint64_t* full, uint64_t* empty, uint64_t* turn,
-    typename Epi::Col* tab, uint8_t* stage, const Epi& epi,
+    typename Epi::Col* tab, int* gtab, uint8_t* stage, const Epi& epi,
     void* __restrict__ out, int M, int N, int ktiles, int tiles, int n_tiles,
     int wg) {
   constexpr bool BYTES = sizeof(typename Epi::Out) == 1;
@@ -225,15 +283,21 @@ __device__ __forceinline__ void consume(
   static_assert(BYTES || !RES, "a residual needs int8 outputs");
   constexpr int TMe = epi_tm<Epi>::value;
   static_assert(TMe == 64 || TMe == 128, "tiles of 64 or 128 rows");
+  constexpr int PL = epi_planes<Epi>::value;
+  static_assert(PL == 1 || (PL == 2 && TMe == 64 && BYTES && !RES),
+                "two planes: 64-row tiles, int8 outputs");
+  constexpr bool GROUPS = epi_groups<Epi>::value > 0;
   constexpr int H = TMe / 64;               // m64 halves of a tile
-  constexpr int A_BYTES = TMe * TK;
-  constexpr int STAGE_BYTES = stage_bytes(TMe);
+  constexpr int HA = H * PL;                // accumulators of a stage
+  constexpr int A_BYTES = TMe * PL * TK;
+  constexpr int STAGE_BYTES = stage_bytes(TMe * PL);
   const int tid = threadIdx.x & 127;
   const int w = tid >> 5;
   const int lane = tid & 31;
   const int g = lane >> 2;
   const int t4 = lane & 3;
-  int acc[H][64];
+  int acc[HA][64];
+  float yacc[1][GROUPS ? 64 : 1];           // the group fold's float sum
   for (int t = blockIdx.x + wg * gridDim.x, local = wg; t < tiles;
        t += 2 * gridDim.x, local += 2) {
     const int m0 = (t / n_tiles) * TMe;
@@ -241,10 +305,19 @@ __device__ __forceinline__ void consume(
 
     // this tile's column constants, one column per thread: loaded now,
     // written to the table after the main loop (which hides the loads)
+    // (with a group fold, after it: its registers are all taken)
     typename Epi::Col kcol = Epi::pad();
-    if (n0 + tid < N) kcol = epi.col(n0 + tid);
+    if constexpr (!GROUPS)
+      if (n0 + tid < N) kcol = epi.col(n0 + tid);
     // the residual's rows, in flight under the main loop
     if constexpr (RES) stage_residual<H>(epi.r8, stage, m0, n0, M, N, w, lane);
+    // the group table, read by the folds in the main loop (the last tile's
+    // folds ended before its epilogue's first barrier)
+    if constexpr (GROUPS) {
+      for (int gi = 0; gi < epi.G; ++gi)
+        gtab[gi * TN + tid] = n0 + tid < N ? epi.gentry(gi, n0 + tid) : 0;
+      named_sync(1 + wg, 128);
+    }
 
     // main loop, in turn with the other warpgroup: it waits until the
     // other one has taken every stage before this tile's (a full barrier
@@ -257,6 +330,75 @@ __device__ __forceinline__ void consume(
     int s = static_cast<int>(first % STAGES);
     uint32_t ph = static_cast<uint32_t>((first / STAGES) & 1);
     int prev = 0;
+    if constexpr (GROUPS) {
+      // per group g: acc_g (int32, exact), then y += s_g * f32(acc_g -
+      // zp_g colsum_g) in group order (Epi::fold), once the products of
+      // the unit (U k32 steps of a stage) that ends the group have
+      // completed; the next unit restarts the sums. ptxas serializes
+      // every wgmma of a kernel that reads accumulators in a path it
+      // cannot prove uniform or while a wgmma is in flight (a fold of one
+      // stage under the next stage's products from a copy of its sums ran
+      // 11% slower at PEG's shape on an H100), so a fold follows its wait
+      // and takes `end` as a value, never under a branch.
+      constexpr int U = epi_fold_steps<Epi>::value;
+      static_assert(U > 0 && (TK / 32) % U == 0, "units within a stage");
+#pragma unroll
+      for (int i = 0; i < 64; ++i) yacc[0][i] = -0.0f;   // -0 + t == t
+      const int per = epi.gsize / (32 * U);   // units a group
+      int gi = 0, sg = 0;   // the group, and the unit's place in it
+      for (int kt = 0; kt < ktiles; ++kt) {
+        mbar_wait(&full[s], ph);
+        const uint8_t* a = ring + s * STAGE_BYTES;
+        const uint64_t da = sw128_desc(a);
+        const uint64_t db = sw128_desc(a + A_BYTES);
+        if (kt == ktiles - 1 && tid == 0) mbar_arrive(&turn[wg ^ 1]);
+        // a loop, not unrolled: with two folds in one body ptxas spilled
+        // the two-plane sums (40 bytes at 240 registers, H100 build)
+#pragma unroll 1
+        for (int u = 0; u < TK / 32; u += U) {
+          wgmma_fence();
+#pragma unroll
+          for (int kk = u; kk < u + U; ++kk) {
+            const int scale = (sg | (kk - u)) != 0;
+            wgmma_m64n128k32_s8(acc[0], da + 2 * kk, db + 2 * kk, scale);
+            if constexpr (PL == 2)
+              wgmma_m64n128k32_s8(acc[1], da + (64 * TK >> 4) + 2 * kk,
+                                  db + 2 * kk, scale);
+          }
+          wgmma_commit();
+          wgmma_wait<0>();
+          if (u + U == TK / 32) {   // the stage's last unit
+            mbar_arrive(&empty[s]);
+            if (++s == STAGES) {
+              s = 0;
+              ph ^= 1;
+            }
+          }
+#pragma unroll
+          for (int i = 0; i < 64; ++i) {
+            fence_reg(acc[0][i]);
+            if constexpr (PL == 2) fence_reg(acc[1][i]);
+          }
+          const bool end = ++sg == per && gi < epi.G;
+          const int g = gi < epi.G ? gi : epi.G - 1;   // units past K: zeros
+          gi += end;
+          sg = end ? 0 : sg;
+          if constexpr (PL == 2)
+            epi.fold(acc[0], acc[1], yacc[0], gtab + g * TN, g, t4, end);
+          else
+            epi.fold(acc[0], yacc[0], gtab + g * TN, g, t4, end);
+        }
+      }
+      // the sums are folded: zeros let the compiler free their registers
+      // through the epilogue (the next tile's first products overwrite
+      // them, but read them as wgmma operands)
+#pragma unroll
+      for (int i = 0; i < 64; ++i) {
+        acc[0][i] = 0;
+        if constexpr (PL == 2) acc[1][i] = 0;
+      }
+      if (n0 + tid < N) kcol = epi.col(n0 + tid);
+    } else {
     for (int kt = 0; kt < ktiles; ++kt) {
       mbar_wait(&full[s], ph);
       const uint8_t* a = ring + s * STAGE_BYTES;
@@ -267,7 +409,7 @@ __device__ __forceinline__ void consume(
       for (int kk = 0; kk < TK / 32; ++kk) {
         const int scale = (kt | kk) != 0;
         wgmma_m64n128k32_s8(acc[0], da + 2 * kk, db + 2 * kk, scale);
-        if constexpr (H == 2)
+        if constexpr (HA == 2)
           wgmma_m64n128k32_s8(acc[1], da + (64 * TK >> 4) + 2 * kk,
                               db + 2 * kk, scale);
       }
@@ -288,7 +430,8 @@ __device__ __forceinline__ void consume(
 #pragma unroll
     for (int i = 0; i < 64; ++i) {
       fence_reg(acc[0][i]);
-      if constexpr (H == 2) fence_reg(acc[1][i]);
+      if constexpr (HA == 2) fence_reg(acc[1][i]);
+    }
     }
     named_sync(1 + wg, 128);   // the last epilogue is done with the table
     tab[tid] = kcol;
@@ -305,8 +448,12 @@ __device__ __forceinline__ void consume(
 #pragma unroll
     for (int p = 0; p < PASSES; ++p) {
 #pragma unroll
-      for (int jj = 0; jj < JP; jj += epi_nb<Epi>::value)
-        epi_block<Epi, H>(acc, tab, p * JP + jj, p, g, t4, epi, stage);
+      for (int jj = 0; jj < JP; jj += epi_nb<Epi>::value) {
+        if constexpr (GROUPS)
+          epi_block<Epi, H>(yacc, tab, p * JP + jj, p, g, t4, epi, stage);
+        else
+          epi_block<Epi, H>(acc, tab, p * JP + jj, p, g, t4, epi, stage);
+      }
       __syncwarp();
       // 16 H rows x 128 bytes: 8 lanes per row, 16 bytes each
 #pragma unroll
@@ -350,7 +497,8 @@ __global__ void __launch_bounds__(THREADS, 1)
                 int N, int K) {
   using Col = typename Epi::Col;
   constexpr int TMe = epi_tm<Epi>::value;
-  constexpr int STAGE_BYTES = stage_bytes(TMe);
+  constexpr int BOX = TMe * epi_planes<Epi>::value;   // x rows a stage
+  constexpr int STAGE_BYTES = stage_bytes(BOX);
   extern __shared__ uint8_t smem_raw[];
   uint8_t* ring = reinterpret_cast<uint8_t*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
@@ -359,6 +507,7 @@ __global__ void __launch_bounds__(THREADS, 1)
   uint64_t* full = reinterpret_cast<uint64_t*>(tab + 2 * TN);
   uint64_t* empty = full + STAGES;
   uint64_t* turn = empty + STAGES;   // turn[c]: warpgroup c's main loop
+  int* gtab = reinterpret_cast<int*>(turn + 2);   // kGroups x TN a WG
 
   const int n_tiles = (N + TN - 1) / TN;
   const int tiles = ((M + TMe - 1) / TMe) * n_tiles;
@@ -376,23 +525,29 @@ __global__ void __launch_bounds__(THREADS, 1)
   }
   __syncthreads();
 
+  // registers a thread: the consumers' kRegs, the producer the rest of
+  // the launch's 168 a thread (setmaxnreg.inc takes only what .dec
+  // released, or it waits for ever)
+  constexpr int CREGS = epi_regs<Epi>::value;
+  constexpr int PREGS = 3 * 168 - 2 * CREGS;
+  static_assert(CREGS % 8 == 0 && PREGS >= 24, "setmaxnreg's counts");
   if (wg == 2) {
     // producer: one thread keeps the ring full, tile after tile
-    regs_dealloc<40>();
+    regs_dealloc<PREGS>();
     if (threadIdx.x == 256) {
       tma_prefetch_map(&map_x);
       tma_prefetch_map(&map_w);
       int s = 0;
       uint32_t ph = 0;
       for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
-        const int m0 = (t / n_tiles) * TMe;
+        const int m0 = (t / n_tiles) * BOX;
         const int n0 = (t % n_tiles) * TN;
         for (int kt = 0; kt < ktiles; ++kt) {
           mbar_wait(&empty[s], ph ^ 1);
           uint8_t* st = ring + s * STAGE_BYTES;
           mbar_arrive_expect_tx(&full[s], STAGE_BYTES);
           tma_load_2d(st, &map_x, &full[s], kt * TK, m0);
-          tma_load_2d(st + TMe * TK, &map_w, &full[s], kt * TK, n0);
+          tma_load_2d(st + BOX * TK, &map_w, &full[s], kt * TK, n0);
           if (++s == STAGES) {
             s = 0;
             ph ^= 1;
@@ -401,9 +556,10 @@ __global__ void __launch_bounds__(THREADS, 1)
       }
     }
   } else {
-    regs_alloc<232>();
+    regs_alloc<CREGS>();
     const Epi epi(args, N);
     consume<Epi>(ring, full, empty, turn, tab + wg * TN,
+                 gtab + wg * epi_groups<Epi>::value * TN,
                  staging + (threadIdx.x >> 5) * WARP_OUT, epi, out, M, N,
                  ktiles, tiles, n_tiles, wg);
   }

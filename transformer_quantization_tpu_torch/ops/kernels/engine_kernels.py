@@ -30,7 +30,9 @@ The wrappers here launch kernels written by hand for Hopper (``csrc/``):
 - :func:`float_edge_matmul` -- the matmul of a float value edge (a 16-bit
   or per-column site of the mixed / PEG recipes) against an int8 weight,
   contracted exactly on int8 tensor cores from the edge's grid levels,
-  with optional ``gelu_new`` and an emitted int8 payload;
+  with optional ``gelu_new`` and an emitted int8 payload: a level pass
+  (:func:`float_edge_levels`) then a GEMM on its levels
+  (:func:`float_edge_gemm`);
 - :func:`flex_add_ln` -- float32 y + payload or float residual, res and
   ln sites per tensor or per column (``lnv``) on 8- or 16-bit grids,
   LayerNorm, and an int8 payload or a float value edge out.
@@ -91,7 +93,8 @@ LAUNCHES: Dict[str, int] = {"int8_matmul": 0, "int8_attention": 0,
                             "int8_matmul_norm": 0, "int8_attention_qkv": 0,
                             "int8_mb_layer_ln": 0, "fused_add_ln": 0,
                             "fused_int8_linear": 0,
-                            "fused_linear_quantize": 0}
+                            "fused_linear_quantize": 0,
+                            "float_edge_levels": 0}
 
 LOG2E = float(np.float32(np.log2(np.e)))
 
@@ -220,6 +223,8 @@ def edge_grid(w8: Tensor, s: Tensor, zp: Tensor, bits: int,
     if not (torch.equal(s_c, s_c[:, :1].expand_as(s_c))
             and torch.equal(z_c, z_c[:, :1].expand_as(z_c))):
         raise ValueError("edge grid: the site's params vary inside a group")
+    if not bool(((z_c >= 0) & (z_c <= 2 ** bits - 1)).all()):
+        raise ValueError(f"edge grid: a zero point off the {bits}-bit grid")
     wp = w8[:, cols].contiguous()
     s_g = s_c[:, 0].to(torch.float32).contiguous()
     return {"cols": cols.contiguous(), "bits": int(bits), "s": s_g,
@@ -271,6 +276,66 @@ def float_edge_matmul_ref(x, vecs, grid, *, activation=None,
         acc = (torch.matmul(q[:, cols], wp[:, cols].t())
                - grid["zp"][i].to(torch.float64)
                * grid["gcs"][i].to(torch.float64))
+        t = grid["s"][i] * acc.to(torch.float32)
+        y = t if y is None else y + t
+    y = vecs[0] * y + vecs[2]
+    return _out_site(y, vecs, activation, out_mode, out_bits)
+
+
+def edge_planes(grid: Dict) -> int:
+    """Bytes of an edge level: 1 up to 8 bits, 2 (lo, hi) up to 16."""
+    return 1 if grid["bits"] <= 8 else 2
+
+
+def _edge_shift(planes: int) -> int:
+    """What the stored s8 bytes (byte - 128) take off a level: 128, or
+    256 * 128 + 128 for two planes."""
+    return 128 if planes == 1 else 256 * 128 + 128
+
+
+def float_edge_levels_ref(x: Tensor, grid: Dict) -> Tensor:
+    """The level pass of :func:`float_edge_matmul`: :func:`edge_levels` in
+    group order as int8 bytes ``byte - 128``. Up to 8 bits an (M, K)
+    array; 16 bits (2 Mp, K), Mp = M rounded up to 64, where 64-row panel
+    p holds its levels' low bytes in rows 128 p.. 128 p + 63 and their
+    high bytes in the next 64 (rows past M are 0)."""
+    q = edge_levels(x, grid).to(torch.int32)
+    if edge_planes(grid) == 1:
+        return (q - 128).to(torch.int8)
+    m, k = q.shape
+    mp = -(-m // 64) * 64
+    lo, hi = q.new_zeros((mp, k)), q.new_zeros((mp, k))
+    lo[:m], hi[:m] = (q & 255) - 128, (q >> 8) - 128
+    return torch.stack([lo.view(-1, 64, k), hi.view(-1, 64, k)],
+                       1).reshape(2 * mp, k).to(torch.int8)
+
+
+def float_edge_gemm_ref(lv: Tensor, m: int, vecs, grid, *, activation=None,
+                        out_mode="emit", out_bits=8):
+    """The GEMM of :func:`float_edge_matmul` on the level pass's bytes
+    ``lv`` (:func:`float_edge_levels_ref`) of ``m`` rows: per group g the
+    exact integer sums of the stored bytes, ``acc'`` (``acc_lo`` /
+    ``acc_hi`` for two planes), with the shift folded into the
+    correction, ``acc_g = acc' + (128 - zp_g) colsum_g`` or ``acc_lo +
+    256 acc_hi + (256 * 128 + 128 - zp_g) colsum_g``; then as
+    :func:`float_edge_matmul_ref` from ``acc_g``."""
+    planes = edge_planes(grid)
+    k = lv.shape[1]
+    if planes == 1:
+        b = [lv[:m].to(torch.float64)]
+    else:
+        p = lv.view(-1, 2, 64, k)
+        b = [p[:, i].reshape(-1, k)[:m].to(torch.float64) for i in (0, 1)]
+    wp = grid["w"].to(torch.float64)
+    g = grid["s"].numel()
+    size = k // g
+    y = None
+    for i in range(g):
+        cols = slice(i * size, (i + 1) * size)
+        acc = [torch.matmul(bi[:, cols], wp[:, cols].t()) for bi in b]
+        acc = acc[0] if planes == 1 else acc[0] + 256.0 * acc[1]
+        acc = acc + ((_edge_shift(planes) - grid["zp"][i].to(torch.float64))
+                     * grid["gcs"][i].to(torch.float64))
         t = grid["s"][i] * acc.to(torch.float32)
         y = t if y is None else y + t
     y = vecs[0] * y + vecs[2]
@@ -633,68 +698,117 @@ def int8_matmul(x8, w8, vecs, scalars, *, activation=None, out_mode="emit",
     return out
 
 
-FE_BK = 64  # the float-edge kernel's K step: a group spans whole steps
+FE_BK = 64  # the float-edge kernel's group unit: a group spans whole units
 SMEM_MAX = 232448  # bytes of shared memory a block may take (H100)
+FE_MAX_K = 4096  # the float-edge kernels' widest K
+FE_MAX_GROUPS = {1: 32, 2: 16}  # groups the GEMM folds, by planes
 
 
-def _float_edge_smem(k: int, planes: int) -> int:
-    """Shared memory of one float-edge kernel block: the level planes of
-    128 rows of K + 16 bytes and the weight ring (float_edge_matmul.cu)."""
-    return planes * 128 * (k + 16) + 2 * (128 if planes == 1 else 64) * 80
+def _edge_grid_shape(grid, k: int, n: int, what: str) -> Tuple[int, int]:
+    """(planes, group size) of an edge grid on the card, after checking
+    its tensors; raises for a grid the float-edge kernels do not take."""
+    w, g = grid["w"], grid["s"].numel()
+    _check(w, "grid w", torch.int8, (n, k))
+    _check(grid["cols"], "grid cols", torch.int64, (k,))
+    for key in ("s", "inv_s", "zp"):
+        _check(grid[key], f"grid {key}", torch.float32, (g,))
+    _check(grid["gcs"], "grid gcs", torch.int32, (g, n))
+    _same_device(*(grid[key] for key in ("w", "cols", "s", "inv_s", "zp",
+                                         "gcs")))
+    size, bits = k // g, grid["bits"]
+    planes = edge_planes(grid)
+    if size % FE_BK or n % 8:
+        raise NotImplementedError(
+            f"{what} kernel needs groups of a multiple of {FE_BK} columns "
+            f"and N % 8 == 0 (got {g} groups of {size}, N={n}); other grids "
+            "are not yet ported")
+    if (not 1 <= bits <= 16 or k > FE_MAX_K
+            or (g > 1 and g > FE_MAX_GROUPS[planes])):
+        raise NotImplementedError(
+            f"{what} kernel: a {bits}-bit edge of K={k} in {g} groups is not "
+            f"yet ported (K <= {FE_MAX_K}, at most {FE_MAX_GROUPS[planes]} "
+            "groups)")
+    return planes, size
 
 
-def float_edge_matmul(x, vecs, grid, *, activation=None, out_mode="emit",
-                      out_bits=8):
-    """Float-edge matmul; see :func:`float_edge_matmul_ref`. On the card:
-    a block recovers the edge's levels for its 128 rows once, into shared
-    memory (two u8 planes for a 16-bit grid), and contracts them against
-    every weight tile on int8 tensor cores (``mma.sync`` m16n8k32 u8 x
-    s8), one int32 partial per group folded in group order
-    (``csrc/float_edge_matmul.cu``). The kernel emits the 8-bit payload
-    the flex FFN's inter matmul needs; other outputs raise."""
-    if not x.is_cuda:
-        return float_edge_matmul_ref(x, vecs, grid, activation=activation,
-                                     out_mode=out_mode, out_bits=out_bits)
+def _edge_levels_rows(m: int, planes: int) -> int:
+    return m if planes == 1 else 2 * (-(-m // 64) * 64)
+
+
+def _edge_modes(activation, out_mode, out_bits) -> int:
     if out_mode != "emit":
         raise NotImplementedError(f"float_edge_matmul kernel: out_mode "
                                   f"{out_mode!r} is not yet ported")
     if activation not in (None, "gelu_new"):
         raise NotImplementedError(f"float_edge_matmul kernel: activation "
                                   f"{activation!r} is not yet ported")
-    act = _mm_modes(activation, out_mode, out_bits, "float_edge_matmul")[0]
+    return _mm_modes(activation, out_mode, out_bits, "float_edge_matmul")[0]
+
+
+def float_edge_matmul(x, vecs, grid, *, activation=None, out_mode="emit",
+                      out_bits=8):
+    """Float-edge matmul; see :func:`float_edge_matmul_ref`. On the card
+    two launches (``csrc/float_edge_matmul.cu``): the level pass
+    (:func:`float_edge_levels`) writes the edge's levels once, in group
+    order, into an int8 scratch; then the Hopper GEMM of
+    ``csrc/wgmma_gemm.cuh`` (TMA ring, ``wgmma`` s8 in two ping-pong
+    warpgroups; :func:`float_edge_gemm`) contracts them exactly, folding
+    each group's int32 sums in group order. The kernels emit the 8-bit
+    payload the flex FFN's inter matmul needs; other outputs raise."""
+    if not x.is_cuda:
+        return float_edge_matmul_ref(x, vecs, grid, activation=activation,
+                                     out_mode=out_mode, out_bits=out_bits)
+    _edge_modes(activation, out_mode, out_bits)   # raise before launching
+    _check(vecs, "vecs", torch.float32, (5, grid["w"].shape[0]))
+    return float_edge_gemm(float_edge_levels(x, grid), x.shape[0], vecs,
+                           grid, activation=activation, out_mode=out_mode,
+                           out_bits=out_bits)
+
+
+def float_edge_levels(x, grid):
+    """:func:`float_edge_levels_ref`; on the card the level pass alone,
+    the first of :func:`float_edge_matmul`'s two launches: a block copies
+    rows of x to shared memory in coalesced float4 loads and writes their
+    levels in group order (the ``cols`` gather from shared memory)."""
+    if not x.is_cuda:
+        return float_edge_levels_ref(x, grid)
     m, k = x.shape
-    w = grid["w"]
-    n = w.shape[0]
-    g = grid["s"].numel()
     _check(x, "x", torch.float32)
-    _check(w, "grid w", torch.int8, (n, k))
+    planes, size = _edge_grid_shape(grid, k, grid["w"].shape[0],
+                                    "float_edge_levels")
+    _same_device(x, grid["w"])
+    lv = torch.empty((_edge_levels_rows(m, planes), k), device=x.device,
+                     dtype=torch.int8)
+    err = KB.load("float_edge_levels")(
+        x.data_ptr(), grid["cols"].data_ptr(), grid["inv_s"].data_ptr(),
+        grid["zp"].data_ptr(), lv.data_ptr(), m, k, size, planes,
+        float(2 ** grid["bits"] - 1), _stream())
+    KB.check(err, "float_edge_levels")
+    LAUNCHES["float_edge_levels"] += 1
+    return lv
+
+
+def float_edge_gemm(lv, m: int, vecs, grid, *, activation=None,
+                    out_mode="emit", out_bits=8):
+    """:func:`float_edge_gemm_ref`; on the card the GEMM alone, the second
+    of :func:`float_edge_matmul`'s two launches, on the levels ``lv`` of
+    ``m`` rows that :func:`float_edge_levels` wrote."""
+    if not lv.is_cuda:
+        return float_edge_gemm_ref(lv, m, vecs, grid, activation=activation,
+                                   out_mode=out_mode, out_bits=out_bits)
+    act = _edge_modes(activation, out_mode, out_bits)
+    k = lv.shape[1]
+    n = grid["w"].shape[0]
+    planes, size = _edge_grid_shape(grid, k, n, "float_edge_gemm")
+    _check(lv, "lv", torch.int8, (_edge_levels_rows(m, planes), k))
     _check(vecs, "vecs", torch.float32, (5, n))
-    _check(grid["cols"], "grid cols", torch.int64, (k,))
-    for key in ("s", "inv_s", "zp"):
-        _check(grid[key], f"grid {key}", torch.float32, (g,))
-    _check(grid["gcs"], "grid gcs", torch.int32, (g, n))
-    _same_device(x, w, vecs, *(grid[key] for key in ("cols", "s", "inv_s",
-                                                     "zp", "gcs")))
-    size = k // g
-    if size % FE_BK or n % 8:
-        raise NotImplementedError(
-            f"float_edge_matmul kernel needs groups of a multiple of {FE_BK}"
-            f" columns and N % 8 == 0 (got {g} groups of {size}, N={n}); "
-            "other grids are not yet ported")
-    bits = grid["bits"]
-    planes = 1 if bits <= 8 else 2
-    if not 1 <= bits <= 16 or _float_edge_smem(k, planes) > SMEM_MAX:
-        raise NotImplementedError(f"float_edge_matmul kernel: a {bits}-bit "
-                                  f"edge of K={k} is not yet ported (its "
-                                  "levels exceed shared memory)")
-    out = torch.empty((m, n), device=x.device, dtype=torch.int8)
-    fn = KB.load("float_edge_matmul")
-    err = fn(x.data_ptr(), grid["cols"].data_ptr(), w.data_ptr(),
-             vecs.data_ptr(), grid["s"].data_ptr(), grid["inv_s"].data_ptr(),
-             grid["zp"].data_ptr(), grid["gcs"].data_ptr(), out.data_ptr(),
-             m, n, k, size, planes, float(2 ** bits - 1), act, GELU_NEW_C,
-             _stream())
-    KB.check(err, "float_edge_matmul")
+    _same_device(lv, vecs, grid["w"])
+    out = torch.empty((m, n), device=lv.device, dtype=torch.int8)
+    err = KB.load("float_edge_gemm")(
+        lv.data_ptr(), grid["w"].data_ptr(), vecs.data_ptr(),
+        grid["s"].data_ptr(), grid["zp"].data_ptr(), grid["gcs"].data_ptr(),
+        out.data_ptr(), m, n, k, size, planes, act, GELU_NEW_C, _stream())
+    KB.check(err, "float_edge_gemm")
     LAUNCHES["float_edge_matmul"] += 1
     return out
 
