@@ -5,7 +5,9 @@
 Phases (any failure exits non-zero; nothing is caught):
 
 1. device: the card's name, and its name and power limit from nvidia-smi;
-2. build: compile the engine's CUDA kernels from ``csrc/`` (timed);
+2. build: compile the engine's CUDA kernels from ``csrc/`` (timed), with
+   ptxas's registers and spills per kernel instance and the attention
+   kernel's resident blocks an SM at each built (seq, head_dim);
 3. kernels: each kernel against its plain PyTorch version on the card, on
    the inputs the main path gives it (layer 0 of BERT-base at B=128,
    S=128): max level difference, mismatches, kernel / plain / bound ms,
@@ -14,7 +16,10 @@ Phases (any failure exits non-zero; nothing is caught):
    ``torch._int_mm`` on the same four products; then
    the composed chains against their plain versions; then the kernels'
    other built shapes (the matmul on ragged tiles, M = 8, N = 200 and
-   K = 784 over every activation and output; seq 64 / 32, H=256). Every
+   K = 784 over every activation and output; the attention through
+   ``int8_attention`` at every built (seq, head_dim), B = 1, 7 and 133,
+   skip_max both ways, a fully padded row, saturating, fractional and
+   large shifts (``attention_cases``); add+LN at H=256). Every
    comparison must be bit-identical;
 4. main path at full BERT-base width: random init from ``--seed``,
    one-batch W8A8 calibration, int8 packing, the engine plan, and three
@@ -50,8 +55,11 @@ Phases (any failure exits non-zero; nothing is caught):
    kernel against the chain of the other three; then their other shapes
    (K6 with and without a residual at ``NORM_SHAPES``: ragged M, N % 16
    != 0, three column tiles ragged in every dimension, a partial last
-   column tile at M = 16384; K7 at seq 64 / 32; K8 with the 'bottleneck'
-   attention case). Every comparison must be bit-identical;
+   column tile at M = 16384; K7 through ``int8_attention_qkv`` on
+   ``attention_cases`` in two layouts, MobileBERT's [q|k] + v at cols (0,
+   1, 0) and three arrays of distinct row strides at (1, 2, 0); K8 with
+   the 'bottleneck' attention case). Every comparison must be
+   bit-identical;
 8. MobileBERT's main path: three request batches through
    ``mobilebert_engine_apply`` on the default route (24 launches of the
    layer kernel per forward) and on the chain route (``fuse_layer=False``:
@@ -223,7 +231,8 @@ def compare_values(got: torch.Tensor, want: torch.Tensor, step,
 
 
 def ptxas_lines(log: str) -> list:
-    """An nvcc -Xptxas -v log, shortened: each GEMM policy instance's
+    """An nvcc -Xptxas -v log, shortened: each GEMM policy instance's and
+    each attention instance's (``attn_kernel<T,D>``)
     registers and spills by name (``NormEpi<1,0>: Used 168 registers, ...;
     0 bytes stack frame, ...``; with ptxas's warning where it serializes
     wgmma for want of registers), then the other kernels' distinct
@@ -233,7 +242,8 @@ def ptxas_lines(log: str) -> list:
     for ln in log.splitlines():
         ln = ln.strip().replace("ptxas info    : ", "")
         if ln.startswith("Compiling entry function"):
-            m = re.search(r"\d([A-Z]\w*?Epi)I((?:L[ib]\d+E)+)E", ln)
+            m = (re.search(r"\d([A-Z]\w*?Epi)I((?:L[ib]\d+E)+)E", ln)
+                 or re.search(r"(attn_kernel)I((?:Li\d+E)+)E", ln))
             inst = None if m is None else "{}<{}>".format(
                 m.group(1), ",".join(re.findall(r"L[ib](\d+)E", m.group(2))))
         elif "register" in ln or "spill" in ln:
@@ -427,19 +437,7 @@ def check_other_shapes(plan, dev) -> None:
                 fail(f"{tag}: max err {(got - want).abs().max().item()}")
         print(f"  int8_matmul {m}x{k}->{n}: {len(cases)} act x output cases "
               "bit-identical")
-    # attention at the other built sequence lengths
-    for seq in (64, 32):
-        b = 6
-        qkv = ints(b * seq, 3 * 768, lo=-60, hi=60)
-        mask = torch.zeros(b, seq, device=dev)
-        mask[:, seq // 2:] = -10000.0
-        for skip in (True, False):
-            compare(EK.int8_attention(qkv, mask, lp["attn_scal"], n_heads=12,
-                                      seq=seq, skip_max=skip),
-                    EK.int8_attention_ref(qkv, mask, lp["attn_scal"],
-                                          n_heads=12, seq=seq,
-                                          skip_max=skip),
-                    f"int8_attention seq={seq} skip_max={skip}")
+    check_attention_shapes(dev, ("fused",))
     # add + LayerNorm at another width, ragged rows
     h = 256
     gb = torch.stack([torch.ones(h, device=dev), torch.zeros(h, device=dev)])
@@ -450,6 +448,119 @@ def check_other_shapes(plan, dev) -> None:
                 EK.fused_add_ln_payload_ref(y8, r8, gb, lp["ln1"]["scal"],
                                             eps=1e-12, res_quant=res_quant),
                 f"fused_add_ln_payload 999x{h} res_quant={res_quant}")
+
+
+# The attention kernel off the main path's inputs: every built (seq,
+# head_dim) with heads as BERT-base (d = 64: 12) and MobileBERT (d = 32: 4)
+# have them, at B = 1 (fewer items than resident blocks), 7 and 133 (a
+# ragged last group of items)
+ATTN_BATCHES = (1, 7, 133)
+ATTN_HEADS = {64: 12, 32: 4}
+# site scalars [q_s, q_sh, k_s, k_sh, v_s, v_sh, sc_s, sc_sh, p_s, p_sh,
+# c_s, c_sh]: levels spread over every grid ('spread'); scores and context
+# levels clipped at -128 / 127 and probs at 127 ('saturate'); shifts that
+# are not integers, and a context shift beyond 2^22, which the kernel
+# takes through the reference's formulas with rintf ('fractional',
+# 'big_shift')
+ATTN_SCALARS = {
+    "spread": (0.05, 3.0, 0.05, -2.0, 0.04, 5.0, 0.25, 2.0, 1 / 255, 128.0,
+               0.02, -1.0),
+    "saturate": (0.05, 3.0, 0.05, -2.0, 0.04, 5.0, 0.002, 2.0, 1 / 1024,
+                 128.0, 2e-4, -1.0),
+    "fractional": (0.05, 3.5, 0.05, -2.25, 0.04, 5.0, 0.25, 2.5, 1 / 255,
+                   127.5, 0.02, -1.5),
+    "big_shift": (0.05, 3.0, 0.05, -2.0, 0.04, 5.0, 0.25, 2.0, 1 / 255,
+                  128.0, 0.02, -5e6),
+}
+
+
+def attn_inputs(b: int, seq: int, d: int, n_heads: int, seed: int,
+                scalars: str = "spread", full_pad: bool = True):
+    """Seeded numpy inputs of one attention call, ``(qkv, mask, scal)``:
+    the fused (b*seq, 3H) q|k|v payload in [-60, 60), a (b, seq) mask bias
+    with seeded padding (every row keeps at least one key; with
+    ``full_pad`` and b > 1 the last row is padded whole), and the (1, 12)
+    site scalars ``ATTN_SCALARS[scalars]``.
+    ``tests/test_torch_attention.py`` holds the plain versions against
+    JAX's on these inputs."""
+    rng = np.random.RandomState(seed)
+    qkv = rng.randint(-60, 60, (b * seq, 3 * n_heads * d)).astype(np.int8)
+    lens = rng.randint(1, seq + 1, b)
+    if full_pad and b > 1:
+        lens[-1] = 0
+    mask = np.where(np.arange(seq)[None, :] < lens[:, None], 0.0,
+                    -10000.0).astype(np.float32)
+    scal = np.array([ATTN_SCALARS[scalars]], np.float32)
+    return qkv, mask, scal
+
+
+def attn_split(qkv, hidden: int, layout: str):
+    """q, k and v of a fused q|k|v payload in separate arrays, for
+    ``int8_attention_qkv``: ``(q_arr, k_arr, v_arr, cols)``. 'mobilebert':
+    q and k the column blocks 0 and 1 of one [q|k] array of 2H + 16
+    columns, v block 0 of an array of H + 48 (MobileBERT's cols (0, 1, 0));
+    'three': three arrays of distinct row strides (2H + 16, 3H, H + 48) at
+    blocks (1, 2, 0). The columns outside the blocks are filler."""
+    m = qkv.shape[0]
+    q, k, v = (qkv[:, i * hidden:(i + 1) * hidden] for i in range(3))
+    filler = lambda w: np.full((m, w), 77, np.int8)  # noqa: E731
+    v_arr = np.concatenate([v, filler(48)], axis=1)
+    if layout == "mobilebert":
+        qk = np.concatenate([q, k, filler(16)], axis=1)
+        return qk, qk, v_arr, (0, 1, 0)
+    q_arr = np.concatenate([filler(hidden), q, filler(16)], axis=1)
+    k_arr = np.concatenate([filler(2 * hidden), k], axis=1)
+    return q_arr, k_arr, v_arr, (1, 2, 0)
+
+
+def attn_call(entry: str, qkv, mask, scal, *, n_heads: int, seq: int,
+              skip_max: bool, plain: bool = False):
+    """One attention call on torch tensors through ``entry``: 'fused'
+    (``int8_attention`` over the q|k|v array) or a layout of
+    :func:`attn_split` (``int8_attention_qkv``); ``plain`` calls the
+    plain version."""
+    hidden = qkv.shape[1] // 3
+    if entry == "fused":
+        fn = EK.int8_attention_ref if plain else EK.int8_attention
+        return fn(qkv, mask, scal, n_heads=n_heads, seq=seq,
+                  skip_max=skip_max)
+    arrays = attn_split(qkv.cpu().numpy(), hidden, entry)
+    q, k, v = (torch.from_numpy(a).to(qkv.device) for a in arrays[:3])
+    fn = EK.int8_attention_qkv_ref if plain else EK.int8_attention_qkv
+    return fn(q, k, v, mask, scal, n_heads=n_heads, seq=seq, hidden=hidden,
+              cols=arrays[3], skip_max=skip_max)
+
+
+def attention_cases():
+    """(seq, head_dim, B, scalars, skip_max) of :func:`check_attention_shapes`;
+    case i's inputs are seeded 60 + i."""
+    return ([(seq, d, b, "spread", skip)
+             for seq, d in EK.ATTN_SHAPES for b in ATTN_BATCHES
+             for skip in (False, True)]
+            + [(128, d, 7, sc, skip) for d in (64, 32)
+               for sc in ("saturate", "fractional", "big_shift")
+               for skip in (False, True)])
+
+
+def check_attention_shapes(dev, entries) -> None:
+    """The attention kernel through each of ``entries`` (see
+    :func:`attn_call`) against its plain version, bit-identical or fail:
+    every (seq, head_dim) of ``EK.ATTN_SHAPES`` at ``ATTN_BATCHES``,
+    skip_max both ways ('spread' scalars; the last row fully padded under
+    skip_max=False: under skip_max=True a fully padded row has a zero
+    denominator, whose payload is not defined alike by JAX's kernel and
+    its plain version), then the 'saturate', 'fractional' and
+    'big_shift' scalars at seq 128 and B = 7, skip_max both ways."""
+    for i, (seq, d, b, sc, skip) in enumerate(attention_cases()):
+        nh = ATTN_HEADS[d]
+        qkv, mask, scal = (torch.from_numpy(a).to(dev) for a in attn_inputs(
+            b, seq, d, nh, 60 + i, sc, full_pad=not skip))
+        for entry in entries:
+            kw = dict(n_heads=nh, seq=seq, skip_max=skip)
+            compare(attn_call(entry, qkv, mask, scal, **kw),
+                    attn_call(entry, qkv, mask, scal, plain=True, **kw),
+                    f"attention[{entry}] B={b} T={seq} d={d} heads={nh} "
+                    f"{sc} skip_max={skip}")
 
 
 def check_flex_kernels(params, cfg, qcfg, qstate, int_params, static, plan,
@@ -961,8 +1072,9 @@ def check_norm_shapes(dev) -> None:
 
 def check_mobilebert_shapes(plan, static, dev) -> None:
     """The new kernels off the main path's shapes: K6 at ``NORM_SHAPES``
-    with and without a residual, K7 at seq 64 / 32 (head_dim 32) and K8
-    with the 'bottleneck' attention case, against their plain versions."""
+    with and without a residual, K7 through both ``attn_split`` layouts
+    on ``attention_cases`` and K8 with the 'bottleneck' attention case,
+    against their plain versions."""
     gen = torch.Generator(device=dev).manual_seed(13)
 
     def ints(*shape, lo=-40, hi=40):
@@ -971,20 +1083,7 @@ def check_mobilebert_shapes(plan, static, dev) -> None:
 
     lp = plan["layers"][0]
     check_norm_shapes(dev)
-    for seq in (64, 32):
-        b = 6
-        qk = ints(b * seq, 256, lo=-60, hi=60)
-        v = ints(b * seq, 128, lo=-60, hi=60)
-        mask = torch.zeros(b, seq, device=dev)
-        mask[:, seq // 2:] = -10000.0
-        for skip in (True, False):
-            akw = dict(n_heads=4, seq=seq, hidden=128, cols=(0, 1, 0),
-                       skip_max=skip)
-            compare(EK.int8_attention_qkv(qk, qk, v, mask, lp["attn_scal"],
-                                          **akw),
-                    EK.int8_attention_qkv_ref(qk, qk, v, mask,
-                                              lp["attn_scal"], **akw),
-                    f"int8_attention_qkv seq={seq} d=32 skip_max={skip}")
+    check_attention_shapes(dev, ("mobilebert", "three"))
     # the 'bottleneck' case: q, k and v from the bottleneck-in payload (v's
     # weight is attn_out's, a 128 x 128 stand-in); 8 sequences
     bl = dict(lp, bn_attn=None, bn_attn_norm=None,
@@ -1335,6 +1434,9 @@ def main(argv=None) -> int:
           flush=True)
     for name, log in KB.BUILD_LOG.items():
         print(f"  {name}: " + " | ".join(ptxas_lines(log)))
+    blocks = KB.load("int8_attention_blocks")
+    print("  int8_attention blocks an SM (seq, head_dim): " + ", ".join(
+        f"({t}, {d}) {blocks(t, d)}" for t, d in EK.ATTN_SHAPES))
 
     cfg = B.BertConfig()
     L = cfg.num_hidden_layers

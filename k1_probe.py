@@ -1,11 +1,13 @@
 """A/B the int8 matmul kernel (K1, ``csrc/int8_matmul.cu``) against edited
 copies of itself on one NVIDIA card, at BERT-base's layer shapes,
 MobileBERT's NoNorm matmul (K6, ``csrc/int8_matmul_norm.cu``) against
-another checkout's at a MobileBERT layer's five shapes, and the
-float-edge matmul (K4, ``csrc/float_edge_matmul.cu``) at the recipes'
-inter shape.
+another checkout's at a MobileBERT layer's five shapes, the float-edge
+matmul (K4, ``csrc/float_edge_matmul.cu``) at the recipes' inter shape,
+and the attention (K2 / K7, ``csrc/int8_attention.cu``) at BERT-base's and
+MobileBERT's calls.
 
-    python3 k1_probe.py [--out DIR] [--parent DIR] [--kernels k1,norm,edge]
+    python3 k1_probe.py [--out DIR] [--parent DIR]
+                        [--kernels k1,norm,edge,attn]
 
 Each variant is the kernel's source and the shared GEMM header
 (``csrc/wgmma_gemm.cuh``) with one edit, built with the package's
@@ -63,8 +65,30 @@ columns; each that computes the function checked against
 kernel's level pass and GEMM also alone, beside ``torch.matmul`` (f32,
 TF32 off) and K1's gelu_new inter at the same shape. With ``--parent`` it
 also compares K1's, the fused linear's, K6's, K2's and K8's machine code
-with the parent's (``cuobjdump -sass``, kernel by kernel). Imports torch
-and the port only.
+with the parent's (``cuobjdump -sass``, kernel by kernel).
+
+The attention kernel (``attn`` in ``--kernels``; K2 / K7,
+``csrc/int8_attention.cu``): ``kernel`` (the source as it is),
+``loads_only`` (the TMA loads in and the context tiles out, with no
+shared-memory preparation and no arithmetic: the floor the data movement
+sets), ``no_softmax`` (the softmax chain taken out: the probs are the
+scores' low bytes; the loads, the v transpose, both products and the
+context site stay), ``general`` (the reference's formulas with rintf,
+which the kernel takes for shifts that are not small integers, in place
+of its integer path), ``one_block`` (one block an SM, where the kernel
+takes two), ``no_exp`` / ``no_f64`` (exp2 taken out / the row sums in
+float: the cost of each), ``no_qk`` / ``no_context`` / ``no_prep`` (the
+q.k^T products / p.v and the context site / the block's shared
+preparation taken out) and, with
+``--parent``, ``parent`` (that checkout's ``int8_attention.cu``), at
+BERT-base's call (B = 128, T = 128, 12 heads of 64, one fused q|k|v
+array) and MobileBERT's (4 heads of 32, q and k the halves of one [q|k]
+array, v its own: cols (0, 1, 0)) on ``chip_smoke.attn_inputs``, with
+skip_max as both engines take it; each
+that computes the function checked against ``int8_attention_qkv_ref``
+(bit-identical or it fails) and timed beside its bound. With
+``--parent`` it also compares the machine code of K8, K1, the fused
+linear, K6 and K4 with the parent's. Imports torch and the port only.
 """
 
 from __future__ import annotations
@@ -158,6 +182,91 @@ PARENT_EDGE_SYM = "tq_float_edge_matmul"
 PARENT_EDGE_ARGS = ((ctypes.c_void_p,) * 9 + (ctypes.c_int,) * 5
                     + (ctypes.c_float, ctypes.c_int, ctypes.c_float,
                        ctypes.c_void_p))
+# the attention kernel's variants (the module docstring)
+ATTN_CONSUMER_QK = """    int acc[C::NT][4], qs[4];
+    scores<T, D>(st, st + C::TILE, q0, slot * T, g, t, acc, qs);
+"""
+ATTN_SOFTMAX = """    unsigned pa[C::KC][4];
+    const float* ci = colp + slot * T * 2;
+    if (fast && skip_max)
+      softmax<T, D, true, true>(acc, qs, ci, s, t, pa);
+    else if (fast)
+      softmax<T, D, true, false>(acc, qs, ci, s, t, pa);
+    else if (skip_max)
+      softmax<T, D, false, true>(acc, qs, ci, s, t, pa);
+    else
+      softmax<T, D, false, false>(acc, qs, ci, s, t, pa);
+"""
+ATTN_CONTEXT = """    if (fast)
+      context<T, D, true>(pa, vti, pvi, s, g, t, ost);
+    else
+      context<T, D, false>(pa, vti, pvi, s, g, t, ost);
+"""
+ATTN_PREP = """    if (fast)
+      prep<T, D, true>(st, vtp, colp, pvp, s, log2e, nv);
+    else
+      prep<T, D, false>(st, vtp, colp, pvp, s, log2e, nv);
+"""
+ATTN_EDITS = {
+    "kernel": [],
+    "loads_only": [
+        (ATTN_PREP, ""),
+        (ATTN_CONSUMER_QK, ""), (ATTN_SOFTMAX, ""), (ATTN_CONTEXT, "")],
+    "no_softmax": [(ATTN_SOFTMAX, """    unsigned pa[C::KC][4];
+#pragma unroll
+    for (int c = 0; c < C::KC; ++c)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) pa[c][j] = acc[4 * c + j][j] ^ qs[0];
+""")],
+    "general": [("  const bool fast = small_int", "  const bool fast = false && small_int")],
+    "one_block": [("constexpr int MIN_BLOCKS = 2;", "constexpr int MIN_BLOCKS = 1;")],
+    "no_exp": [("          exp2f(SKIP ? sv[ni][r] : sv[ni][r] - (r < 2 ? m_lo : m_hi));",
+                "          SKIP ? sv[ni][r] : sv[ni][r] - (r < 2 ? m_lo : m_hi);")],
+    "no_context": [(ATTN_CONTEXT, """    {
+      uint32_t x = 0;
+#pragma unroll
+      for (int c = 0; c < C::KC; ++c)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) x ^= pa[c][j];
+      reinterpret_cast<uint32_t*>(ost)[lane] = x;
+    }
+""")],
+    "no_qk": [(ATTN_CONSUMER_QK, """    int acc[C::NT][4], qs[4];
+#pragma unroll
+    for (int ni = 0; ni < C::NT; ++ni)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) acc[ni][r] = (ni * 4 + r) * 37 - lane * 11;
+#pragma unroll
+    for (int r = 0; r < 4; ++r) qs[r] = lane * r;
+""")],
+    "no_prep": [(ATTN_PREP, "")],
+    "ex2_ftz": [("""      const float e =
+          exp2f(SKIP ? sv[ni][r] : sv[ni][r] - (r < 2 ? m_lo : m_hi));""",
+                 """      float e;
+      asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(e)
+          : "f"(SKIP ? sv[ni][r] : sv[ni][r] - (r < 2 ? m_lo : m_hi)));""")],
+    "no_pclip": [("""        u[n][r] = site_bits<INT>(sv[4 * c + n][r] * (r < 2 ? w_lo : w_hi),
+                                 s.p_sh);""", """        u[n][r] = __float_as_uint(
+            (sv[4 * c + n][r] * (r < 2 ? w_lo : w_hi) + BIAS) - s.p_sh);""")],
+    "no_sync": [("""      prep<T, D, false>(st, vtp, colp, pvp, s, log2e, nv);
+    __syncthreads();""", """      prep<T, D, false>(st, vtp, colp, pvp, s, log2e, nv);
+    __syncwarp();""")],
+    "no_f64": [("  double d[2][2] = {{0.0, 0.0}, {0.0, 0.0}};",
+                "  float d[2][2] = {{0.0f, 0.0f}, {0.0f, 0.0f}};"),
+               ("      d[r >> 1][ni & 1] += static_cast<double>(e);",
+                "      d[r >> 1][ni & 1] += e;"),
+               ("  double d_lo = d[0][0] + d[0][1], d_hi = d[1][0] + d[1][1];",
+                "  float d_lo = d[0][0] + d[0][1], d_hi = d[1][0] + d[1][1];")],
+}
+ATTN_COMPUTES = {"kernel", "general", "one_block", "parent"}
+# (tag, B, T, head_dim, heads, chip_smoke.attn_split layout or 'fused');
+# skip_max as both engines' plans take it (their scores' bound < 100)
+ATTN_CALLS = [("bert", 128, 128, 64, 12, "fused"),
+              ("mobilebert", 128, 128, 32, 4, "mobilebert")]
+ATTN_SKIP_MAX = 1
+# the kernels whose machine code this PR's edits must leave as they were
+ATTN_SASS = ("int8_mb_layer.cu", "int8_matmul.cu", "fused_int8_linear.cu",
+             "int8_matmul_norm.cu", "float_edge_matmul.cu")
 # the other kernels on the shared headers (the GEMM skeleton's other
 # instances, and the mma.sync kernels on mm_common.cuh), whose machine
 # code an edit of those headers for K4 must leave as it was
@@ -394,6 +503,59 @@ def probe_edge(out: Path, parent) -> None:
               f" (int8 x) {t_k1:.4f} ms", flush=True)
 
 
+def probe_attn(out: Path, parent) -> None:
+    """The attention kernel's variants and the parent's at BERT-base's and
+    MobileBERT's calls, and (with ``parent``) the other kernels' machine
+    code against the parent's."""
+    jobs = [("int8_attention.cu", ATTN_EDITS, out / "attn", parent)]
+    if parent is not None:
+        jobs += [(src, {"kernel": []}, out / Path(src).stem, parent)
+                 for src in ATTN_SASS]
+    built = build_many(jobs)
+    for src in ATTN_SASS if parent is not None else ():
+        print(f"  {src}:", end="")
+        same_sass(out / Path(src).stem)
+    fns = {name: entry(lib, "int8_attention")
+           for name, lib in built[0].items()}
+    dev = torch.device("cuda")
+    for i, (tag, b, seq, d, nh, layout) in enumerate(ATTN_CALLS):
+        qkv, mask, scal = (torch.from_numpy(a).to(dev) for a in
+                           CS.attn_inputs(b, seq, d, nh, 70 + i,
+                                          full_pad=False))
+        h = nh * d
+        if layout == "fused":
+            q = k = v = qkv
+            cols = (0, 1, 2)
+        else:
+            arrays = CS.attn_split(qkv.cpu().numpy(), h, layout)
+            q, k, v = (torch.from_numpy(a).to(dev) for a in arrays[:3])
+            cols = arrays[3]
+        want = EK.int8_attention_qkv_ref(q, k, v, mask, scal, n_heads=nh,
+                                         seq=seq, hidden=h, cols=cols,
+                                         skip_max=bool(ATTN_SKIP_MAX))
+        out8 = torch.empty((b * seq, h), device=dev, dtype=torch.int8)
+        ops = 4.0 * b * nh * seq * seq * d
+        bnd, by = CS.bound_ms(ops, 4 * b * seq * h + mask.numel() * 4)
+        line = (f"  attention [{tag}] B={b} T={seq} {nh}x{d} skip_max="
+                f"{ATTN_SKIP_MAX} (bound {bnd:.4f} ms, {by}):")
+        for name, fn in fns.items():
+            def call(fn=fn, name=name):
+                KB.check(fn(q.data_ptr() + cols[0] * h,
+                            k.data_ptr() + cols[1] * h,
+                            v.data_ptr() + cols[2] * h, q.shape[1],
+                            k.shape[1], v.shape[1], mask.data_ptr(),
+                            scal.data_ptr(), out8.data_ptr(), b, seq, h, nh,
+                            EK._rsqrt_d(d), EK.LOG2E, ATTN_SKIP_MAX,
+                            torch.cuda.current_stream().cuda_stream), name)
+            call()
+            torch.cuda.synchronize()
+            if name in ATTN_COMPUTES and not torch.equal(out8, want):
+                raise SystemExit(f"k1_probe: attention {name} differs from "
+                                 f"int8_attention_qkv_ref at {line}")
+            line += f" {name} {CS.device_ms(call):.4f} ms;"
+        print(line, flush=True)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default="k1_probe_build")
@@ -401,7 +563,7 @@ def main(argv=None) -> int:
                     help="an unpacked checkout whose K1 and K6 to time "
                          "beside")
     ap.add_argument("--kernels", default="k1,norm",
-                    help="which of k1, norm, edge to probe")
+                    help="which of k1, norm, edge, attn to probe")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("k1_probe: needs a card")
@@ -411,6 +573,8 @@ def main(argv=None) -> int:
         probe_norm(Path(args.out), args.parent)
     if "edge" in kernels:
         probe_edge(Path(args.out), args.parent)
+    if "attn" in kernels:
+        probe_attn(Path(args.out), args.parent)
     if "k1" not in kernels:
         return 0
     fns = {name: entry(lib, "int8_matmul") for name, lib in build_variants(

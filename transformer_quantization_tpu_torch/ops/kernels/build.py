@@ -45,6 +45,7 @@ _SIGNATURES = {
     "int8_attention": ("tq_int8_attention",
                        (_P, _P, _P, _I, _I, _I, _P, _P, _P, _I, _I, _I, _I,
                         _F, _F, _I, _P)),
+    "int8_attention_blocks": ("tq_int8_attention_blocks", (_I, _I)),
     "int8_matmul_norm": ("tq_int8_matmul_norm",
                          (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                           _P)),
@@ -67,7 +68,8 @@ _SIGNATURES = {
     "fused_rcp_check": ("tq_fused_rcp_check", (_P, _P)),
 }
 # entry points that live in another source's library
-_LIBRARY = {"fused_quantize": "fused_int8_linear",
+_LIBRARY = {"int8_attention_blocks": "int8_attention",
+            "fused_quantize": "fused_int8_linear",
             "fused_rcp_check": "fused_int8_linear",
             "float_edge_levels": "float_edge_matmul",
             "float_edge_gemm": "float_edge_matmul"}

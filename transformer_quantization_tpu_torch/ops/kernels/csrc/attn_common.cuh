@@ -1,7 +1,8 @@
-// The attention of one (sequence, head) on int8 tensor cores, shared by
-// the standalone attention kernel (int8_attention.cu) and the MobileBERT
-// layer kernel (int8_mb_layer.cu): the counterpart of the TPU kernels'
-// _attn_row (dots='i8').
+// The attention of one (sequence, head) on int8 tensor cores inside the
+// MobileBERT layer kernel (int8_mb_layer.cu): the counterpart of the TPU
+// kernels' _attn_row (dots='i8'). The standalone attention kernel
+// (int8_attention.cu) computes the same function with a design of its own
+// and agrees with this one bit for bit.
 //
 //   scores = q8 . k8 (int32) + q_sh*ksum + k_sh*qsum + d*q_sh*k_sh
 //   level  = clip(rint(scores * qk_over_sc) - sc_sh, -128, 127)

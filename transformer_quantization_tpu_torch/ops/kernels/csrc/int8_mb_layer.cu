@@ -29,7 +29,7 @@
 // from global memory through a two-stage cp.async ring. Every matmul is
 // K1's main loop (mm_tile with A resident in shared memory) with the K1
 // emit or the K6 NoNorm epilogue, and the attention is attn_head, the
-// same device functions as int8_matmul.cu, int8_matmul_norm.cu and
+// same arithmetic as int8_matmul.cu, int8_matmul_norm.cu and
 // int8_attention.cu, so the layer is bit-identical to the chain of those
 // kernels.
 //

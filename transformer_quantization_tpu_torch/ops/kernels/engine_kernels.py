@@ -846,6 +846,9 @@ def _attention_launch(q_arr, k_arr, v_arr, cols, mask_bias, scalars, *,
             raise ValueError(f"{what}: {name} rows must be a multiple of 16 "
                              "bytes")
     _check(mask_bias, "mask_bias", torch.float32, (b, seq))
+    if mask_bias.data_ptr() % 16:  # the kernel's TMA loads of mask rows
+        raise ValueError(f"{what}: mask_bias must start on a 16-byte "
+                         "boundary")
     _check(scalars, "scalars", torch.float32, (1, 12))
     _same_device(q_arr, k_arr, v_arr, mask_bias, scalars)
     out = torch.empty((mt, hidden), device=q_arr.device, dtype=torch.int8)
@@ -881,9 +884,10 @@ def int8_attention_qkv(q_arr, k_arr, v_arr, mask_bias, scalars, *, n_heads,
                        seq, hidden, cols=(0, 0, 0), skip_max=False,
                        attn_bits=(8, 8)):
     """Attention over separate q, k, v payload arrays; see
-    :func:`int8_attention_qkv_ref`. On the card: one block per (batch row,
-    head), each of q, k, v read at its own column block and row stride,
-    both products on int8 tensor cores (``csrc/int8_attention.cu``)."""
+    :func:`int8_attention_qkv_ref`. On the card: persistent blocks walk
+    the (batch row, head) items, TMA loads of q, k and v at their own
+    column blocks and row strides, both products on int8 tensor cores
+    (``csrc/int8_attention.cu``)."""
     if not q_arr.is_cuda:
         return int8_attention_qkv_ref(q_arr, k_arr, v_arr, mask_bias,
                                       scalars, n_heads=n_heads, seq=seq,
