@@ -38,7 +38,13 @@ Phases (any failure exits non-zero; nothing is caught):
    8-bit edges in 1, 2 and 6 permuted groups, in groups of 64 and 256
    columns; 16-bit edges in one group at K = 1024 and in 2 and 3 groups)
    and ``EDGE_TILE_SHAPES`` (M = 16350: the grouped folds over 512 tiles)
-   and K5 at H=256, bit-identical;
+   and K5 at H=256; then the add+LN kernels (K3, K5, ``fused_add_ln``,
+   all instances of ``csrc/add_ln.cuh``) at every built H (128..1024)
+   and M = 999 and 16384, res_quant both ways, over every form (payload
+   or float32 residual; 8-bit, 16-bit or per-column sites; payload, value
+   or both out), and at saturating scales with float32 outliers up to
+   +-3e38, outliers with no res site, and shifts off the integers
+   (``check_ln_shapes``), bit-identical;
 6. each recipe's engine, from the same ``--seed`` params: calibration with
    the PEG pre-pass, three request batches through ``bert_engine_apply``
    with the launch counts read just after (per forward 36 matmul, 12
@@ -60,13 +66,16 @@ Phases (any failure exits non-zero; nothing is caught):
    1, 0) and three arrays of distinct row strides at (1, 2, 0); K8 with
    the 'bottleneck' attention case). Every comparison must be
    bit-identical;
-8. MobileBERT's main path: three request batches through
-   ``mobilebert_engine_apply`` on the default route (24 launches of the
-   layer kernel per forward) and on the chain route (``fuse_layer=False``:
-   144 matmul, 192 NoNorm-matmul and 24 attention launches), each with
-   the counts read just after and logits against the plain engine; the
-   forward / encoder split of both routes, engine seq/s on each route and
-   fake-quant simulation seq/s (five windows);
+8. MobileBERT's main path: the plan's layer route by seq (the layer
+   kernel at S = 128, the chain at 32 and 64); three request batches
+   through ``mobilebert_engine_apply`` on the default route (24 launches
+   of the layer kernel per forward), on the chain route
+   (``fuse_layer=False``: 144 matmul, 192 NoNorm-matmul and 24 attention
+   launches), and at S = 64 on the default route (the chain's launches),
+   each with the counts read just after and logits against the plain
+   engine; the forward / encoder split of both routes, engine seq/s on
+   each route and at S = 64, and fake-quant simulation seq/s (five
+   windows);
 9. the leave-one-out FP32 kernels, on BERT-base's layer-0 inputs: the
    generic int path's fused linear on the calls one W8A8 forward makes
    (q with a float32 x, attn_out, inter with gelu emitting the payload,
@@ -198,16 +207,19 @@ def bound_ms(ops: float, nbytes: float, peak: float = PEAK_INT8_OPS):
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
-def compare(got: torch.Tensor, want: torch.Tensor, name: str) -> dict:
+def compare(got: torch.Tensor, want: torch.Tensor, name: str,
+            quiet: bool = False) -> dict:
     """Level differences of two int8 payloads; fails unless bit-identical
     (kernels and plain versions sum in float64 and round once, so no
-    summation order or device moves a level)."""
+    summation order or device moves a level). ``quiet``: print only on a
+    failure."""
     torch.cuda.synchronize()
     diff = (got.to(torch.int32) - want.to(torch.int32)).abs()
     max_diff = int(diff.max())
     n_bad = int((diff > 0).sum())
-    print(f"  {name}: max_level_diff={max_diff} mismatches={n_bad} "
-          f"(of {diff.numel()})")
+    if not quiet or max_diff:
+        print(f"  {name}: max_level_diff={max_diff} mismatches={n_bad} "
+              f"(of {diff.numel()})")
     if max_diff:
         fail(f"{name}: expected bit-identical, max level diff {max_diff} "
              f"on {n_bad} elements")
@@ -215,15 +227,17 @@ def compare(got: torch.Tensor, want: torch.Tensor, name: str) -> dict:
 
 
 def compare_values(got: torch.Tensor, want: torch.Tensor, step,
-                   name: str) -> dict:
+                   name: str, quiet: bool = False) -> dict:
     """Float value edges on a grid of ``step`` (per column or per tensor):
-    the difference in levels; fails unless bit-identical."""
+    the difference in levels; fails unless bit-identical. ``quiet``: print
+    only on a failure."""
     torch.cuda.synchronize()
     diff = (got - want).abs() / step
     max_diff = float(diff.max())
     n_bad = int((got != want).sum())
-    print(f"  {name}: max_level_diff={max_diff:.3g} mismatches={n_bad} "
-          f"(of {diff.numel()})")
+    if not quiet or n_bad:
+        print(f"  {name}: max_level_diff={max_diff:.3g} mismatches={n_bad} "
+              f"(of {diff.numel()})")
     if n_bad:
         fail(f"{name}: expected bit-identical, max level diff {max_diff} "
              f"on {n_bad} elements")
@@ -263,18 +277,18 @@ def nvidia_smi_line() -> str:
     return out[0]
 
 
-def request_batches(cfg, n: int, seed: int):
-    """``n`` (B, S) request batches with seeded padding lengths."""
+def request_batches(cfg, n: int, seed: int, seq: int = SEQ):
+    """``n`` (B, seq) request batches with seeded padding lengths."""
     rng = np.random.RandomState(seed + 1)
     out = []
     for _ in range(n):
-        lens = rng.randint(SEQ // 4, SEQ + 1, (BATCH, 1))
+        lens = rng.randint(seq // 4, seq + 1, (BATCH, 1))
         out.append({
             "input_ids": rng.randint(0, cfg.vocab_size,
-                                     (BATCH, SEQ)).astype(np.int32),
-            "attention_mask": (np.arange(SEQ)[None, :] < lens
+                                     (BATCH, seq)).astype(np.int32),
+            "attention_mask": (np.arange(seq)[None, :] < lens
                                ).astype(np.float32),
-            "token_type_ids": np.zeros((BATCH, SEQ), np.int32)})
+            "token_type_ids": np.zeros((BATCH, seq), np.int32)})
     return out
 
 
@@ -829,6 +843,170 @@ def check_flex_shapes(dev) -> None:
                     compare(got, want, tag)
                 else:
                     compare_values(got, want, 1.0, tag)
+
+
+# The add+LN kernels (K3, K5 and fused_add_ln: add_ln.cuh's template) off
+# the main path: every built H, a ragged M and a full one
+LN_WIDTHS = tuple(range(128, 1025, 128))
+LN_ROWS = (999, 16384)
+# [y_s, y_sh, r_s, r_sh, res_s, res_sh, ln_s, ln_sh] of 8-bit sites (the
+# levels spread over the grid, the tails clip) and of 16-bit ones
+LN_SCAL8 = (0.02, 3.0, 0.03, -5.0, 0.02, 4.0, 0.03, -2.0)
+LN_SCAL16 = (0.02, 3.0, 0.03, -5.0, 1e-4, 7.0, 1e-4, -3.0)
+# the special cases, (scalars, y's outliers, res_quant, gamma's scale):
+# every level clips (res_s and ln_s of 1e-30, below the fast division's
+# divisors, and float32 outliers up to +-3e38 in y); outliers up to +-1e15
+# with no res site to clip them; shifts off the integers (the general
+# path); a gamma of ~1e30, whose z passes the fast division's dividends
+LN_SPECIAL = {
+    "saturating": ((0.02, 3.0, 0.03, -5.0, 1e-30, 4.0, 1e-30, -2.0), 3e38,
+                   (True,), 1.0),
+    "outliers": (LN_SCAL8, 1e15, (False,), 1.0),
+    "fractional": ((0.02, 3.5, 0.03, -5.25, 0.02, 4.5, 0.03, -2.25), 0.0,
+                   (True, False), 1.0),
+    "huge_gamma": (LN_SCAL8, 0.0, (True,), 1e30),
+}
+
+
+def ln_inputs(m: int, h: int, seed: int, outlier: float = 0.0,
+              frac_shift: bool = False, gamma: float = 1.0):
+    """Seeded numpy inputs of the add+LN kernels, ``(y8, r8, y, r, gb,
+    lnv)``: int8 payloads, float32 values (with +-``outlier`` on one
+    element in 97 of y where it is not 0), gamma (times ``gamma``) / beta,
+    and PEG's per-column (4, h) site rows [res_s; res_sh; ln_s; ln_sh] on
+    16-bit grids (shifts off the integers with ``frac_shift``).
+    ``tests/test_torch_add_ln_exact.py`` holds the kernels' exact forms
+    to the plain versions on these inputs."""
+    rng = np.random.RandomState(seed)
+    y8 = rng.randint(-128, 128, (m, h)).astype(np.int8)
+    r8 = rng.randint(-128, 128, (m, h)).astype(np.int8)
+    y = (0.5 * rng.randn(m, h)).astype(np.float32)
+    r = (0.5 * rng.randn(m, h)).astype(np.float32)
+    if outlier:
+        hit = rng.rand(m, h) < 1.0 / 97
+        y[hit] = outlier * rng.choice([-1.0, 1.0], int(hit.sum()))
+    gb = np.stack([gamma * (0.5 + rng.rand(h)),
+                   0.2 * rng.randn(h)]).astype(np.float32)
+    lnv = np.stack([4e-4 * (1 + rng.rand(h)), rng.randint(-100, 100, h),
+                    1e-4 * (1 + rng.rand(h)), rng.randint(-100, 100, h)])
+    if frac_shift:
+        lnv[[1, 3]] += 0.25
+    return y8, r8, y, r, gb, lnv.astype(np.float32)
+
+
+def _ln_forms(arrays, scal8, scal16, res_quant: bool, tag: str) -> int:
+    """Every form of the add+LN kernels on one input set against its plain
+    version: K3; fused_add_ln (both outputs); K5 with a payload or float32
+    residual, 8-bit, 16-bit or per-column (PEG, 16-bit) sites, an int8 or
+    a float value out. Returns the number of comparisons."""
+    y8, r8, y, r, gb, lnv = arrays
+    kw = dict(eps=1e-12, res_quant=res_quant)
+    n = 0
+    compare(EK.fused_add_ln_payload(y8, r8, gb, scal8, **kw),
+            EK.fused_add_ln_payload_ref(y8, r8, gb, scal8, **kw),
+            f"fused_add_ln_payload {tag}", quiet=True)
+    (g8, gf), (w8, wf) = (EK.fused_add_ln(y, r, gb, scal8, **kw),
+                          EK.fused_add_ln_ref(y, r, gb, scal8, **kw))
+    compare(g8, w8, f"fused_add_ln {tag} payload", quiet=True)
+    compare_values(gf, wf, scal8[0, 6], f"fused_add_ln {tag} value",
+                   quiet=True)
+    n += 3
+    for rv, res_mode in ((r8, "i8"), (r, "f")):
+        for sites, sc, lv, bits in (("8-bit", scal8, None, 8),
+                                    ("16-bit", scal16, None, 16),
+                                    ("PEG", scal8, lnv, 16)):
+            for ln_out in ("emit", "f"):
+                fkw = dict(kw, res_mode=res_mode, res_bits=bits,
+                           ln_bits=8 if ln_out == "emit" else bits,
+                           ln_out=ln_out)
+                got = EK.flex_add_ln(y, rv, gb, sc, lv, **fkw)
+                want = EK.flex_add_ln_ref(y, rv, gb, sc, lv, **fkw)
+                name = f"flex_add_ln {tag} r={res_mode} {sites} {ln_out}"
+                if ln_out == "emit":
+                    compare(got, want, name, quiet=True)
+                else:
+                    compare_values(got, want, 1.0, name, quiet=True)
+                n += 1
+    return n
+
+
+# the divisors tq_ln_div_check holds the add+LN kernels' fast division at
+# over every dividend: the ends of its range, mantissas of all ones and of
+# one ulp, ln scales like the main path's, every built H (the row
+# statistics' divisor), and log-uniform draws
+def ln_divisors(seed: int = 17) -> np.ndarray:
+    edges = np.array([2.0 ** -30, 2.0 ** 30, 1.0, 2.0 - 2.0 ** -23,
+                      1.0 + 2.0 ** -23, 0.03, 1e-4, 0.5 - 2.0 ** -25,
+                      *LN_WIDTHS], np.float32)
+    rng = np.random.RandomState(seed)
+    draws = np.exp2(rng.uniform(-30, 30, 24)).astype(np.float32)
+    return np.concatenate([edges, np.nextafter(np.float32(2.0 ** 30),
+                                               np.float32(0))[None],
+                           np.nextafter(np.float32(2.0 ** -30),
+                                        np.float32(1))[None], draws])
+
+
+# the random pairs of add_ln.cuh's div_check: SWEEP_K at each pair of the
+# dividend's biased exponents below 2^96's and the divisor's in [2^-30,
+# 2^30]
+LN_DIV_SWEEP = 223 * 61 * 4096
+
+
+def check_ln_division(dev) -> None:
+    """The add+LN kernels' division (``add_ln.cuh`` div_fast) against the
+    IEEE quotient on the card: every float32 dividend below 2^96 in
+    magnitude, both signs, at each of ``ln_divisors``; every divisor in
+    [2^-30, 2^30] at four dividends (the row statistics' reciprocal); and
+    4096 seeded random pairs at each of the domain's 223 x 61 pairs of
+    exponents (``LN_DIV_SWEEP``); fails on any pair that differs."""
+    b = torch.from_numpy(ln_divisors()).to(dev)
+    bad = torch.zeros(1, dtype=torch.int64, device=dev)
+    fn = KB.load("ln_div_check")
+    t0 = time.perf_counter()
+    KB.check(fn(b.data_ptr(), b.numel(), bad.data_ptr(),
+                torch.cuda.current_stream().cuda_stream), "ln_div_check")
+    n_bad = int(bad.item())
+    pairs = (b.numel() * 2 * int(np.float32(2.0 ** 96).view(np.uint32))
+             + 4 * (int(np.float32(2.0 ** 30).view(np.uint32))
+                    - int(np.float32(2.0 ** -30).view(np.uint32)) + 1)
+             + LN_DIV_SWEEP)
+    print(f"  the add+LN division against __fdiv_rn: {pairs} (dividend, "
+          f"divisor) pairs, {n_bad} differ ({time.perf_counter() - t0:.2f} "
+          "s)", flush=True)
+    if n_bad:
+        fail(f"add+LN fast division: {n_bad} quotients differ from the "
+             "IEEE ones")
+
+
+def check_ln_shapes(dev) -> int:
+    """The add+LN kernels (K3, K5, fused_add_ln) off the main path, each
+    form of ``_ln_forms`` against its plain version, bit-identical: every
+    built H at M = 999 and 16384 with res_quant both ways, then
+    ``LN_SPECIAL``'s scalars at H = 768 and 1024. Returns the number of
+    comparisons."""
+    t = lambda v: torch.tensor([v], dtype=torch.float32, device=dev)
+    n = 0
+    for h in LN_WIDTHS:
+        for m in LN_ROWS:
+            arrays = [torch.from_numpy(a).to(dev)
+                      for a in ln_inputs(m, h, seed=m + h)]
+            for rq in (True, False):
+                n += _ln_forms(arrays, t(LN_SCAL8), t(LN_SCAL16), rq,
+                               f"{m}x{h} res_quant={rq}")
+        print(f"  add+LN at H={h}: M = {' and '.join(map(str, LN_ROWS))}, "
+              f"res_quant both ways, {n} comparisons so far, bit-identical",
+              flush=True)
+    for name, (scal, outlier, rqs, gamma) in LN_SPECIAL.items():
+        for m, h in ((999, 768), (16384, 1024)):
+            arrays = [torch.from_numpy(a).to(dev) for a in ln_inputs(
+                m, h, seed=m + h + 1, outlier=outlier,
+                frac_shift=name == "fractional", gamma=gamma)]
+            for rq in rqs:
+                n += _ln_forms(arrays, t(scal), t(scal), rq,
+                               f"{m}x{h} {name} res_quant={rq}")
+        print(f"  add+LN, {name}: {n} comparisons so far, bit-identical",
+              flush=True)
+    return n
 
 
 def kernel_case(tag, got_fn, want_fn, ops, nbytes, lib_fn=None,
@@ -1508,6 +1686,10 @@ def main(argv=None) -> int:
         flex_reports[rname] = check_flex_kernels(params, cfg, rq, rs, rint,
                                                  rstatic, rplan, b0, dev)
     check_flex_shapes(dev)
+    n_ln = check_ln_shapes(dev)
+    print(f"  add+LN kernels off the main path: {n_ln} comparisons, all "
+          "bit-identical", flush=True)
+    check_ln_division(dev)
 
     print("[6] the recipes' engines: BERT-base through bert_engine_apply",
           flush=True)
@@ -1555,6 +1737,10 @@ def main(argv=None) -> int:
           "mobilebert_engine_apply", flush=True)
     ML = mcfg.num_hidden_layers
     n_ffn = mstatic.n_ffn + 1
+    routes = {t: mstatic.layer_route(t) for t in (32, 64, SEQ)}
+    print(f"  the plan's layer routes by seq: {routes}", flush=True)
+    if routes != {32: "chain", 64: "chain", SEQ: "k8"}:
+        fail(f"MobileBERT-uncased layer routes {routes}")
     by_path["mobilebert"] = drive_path(
         "mobilebert", mobilebert_runner(mparams, mcfg, mq, ms, mstatic, mplan,
                                         mint, dev), mcfg, mbatches,
@@ -1567,6 +1753,17 @@ def main(argv=None) -> int:
         per_forward(int8_matmul=(2 + n_ffn) * ML,
                     int8_matmul_norm=(4 + n_ffn) * ML,
                     int8_attention_qkv=ML))
+    # S = 64, a serving bucket the layer kernel is not built for: the
+    # default route is the plan's, the chain
+    mb64 = request_batches(mcfg, 3, args.seed, seq=64)
+    by_path["mobilebert-s64"] = drive_path(
+        "mobilebert-s64", mobilebert_runner(mparams, mcfg, mq, ms, mstatic,
+                                            mplan, mint, dev), mcfg, mb64,
+        per_forward(int8_matmul=(2 + n_ffn) * ML,
+                    int8_matmul_norm=(4 + n_ffn) * ML,
+                    int8_attention_qkv=ML))
+    t_64 = window_ms(lambda: MB.mobilebert_engine_apply(
+        mparams, mb64[0], mcfg, mq, ms, mstatic, mplan, mint, device=dev))
     mb0 = mbatches[0]
     mh, mm_ = MB.entry_value(mparams, mb0, mcfg, mq, ms, mint, device=dev)
     t_enc = window_ms(lambda: MB.mobilebert_encoder_engine(mh, mm_, mstatic,
@@ -1590,7 +1787,10 @@ def main(argv=None) -> int:
     print(f"  [mobilebert] seq/s at B={BATCH}, S={SEQ}, median (range) of 5 "
           f"windows ({kind}, {smi}): engine (int8_mb_layer_ln) "
           f"{seq_per_s(t_fwd)}, engine (chain) {seq_per_s(t_chain)}, "
-          f"fake-quant simulation (f32, TF32 off) {seq_per_s(t_sim)}")
+          f"fake-quant simulation (f32, TF32 off) {seq_per_s(t_sim)}; "
+          f"at S=64 on the default route (the chain): forward "
+          f"{t_64[0]:.3f} ms ({t_64[1]:.3f}-{t_64[2]:.3f}), engine "
+          f"{seq_per_s(t_64)}")
 
     print("[9] the leave-one-out kernels against their plain versions, "
           f"layer-0 inputs (B={BATCH}, S={SEQ})", flush=True)

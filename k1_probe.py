@@ -7,7 +7,7 @@ and the attention (K2 / K7, ``csrc/int8_attention.cu``) at BERT-base's and
 MobileBERT's calls.
 
     python3 k1_probe.py [--out DIR] [--parent DIR]
-                        [--kernels k1,norm,edge,attn]
+                        [--kernels k1,norm,edge,attn,ln]
 
 Each variant is the kernel's source and the shared GEMM header
 (``csrc/wgmma_gemm.cuh``) with one edit, built with the package's
@@ -66,6 +66,31 @@ kernel's level pass and GEMM also alone, beside ``torch.matmul`` (f32,
 TF32 off) and K1's gelu_new inter at the same shape. With ``--parent`` it
 also compares K1's, the fused linear's, K6's, K2's and K8's machine code
 with the parent's (``cuobjdump -sass``, kernel by kernel).
+
+The add+LN template (``ln`` in ``--kernels``; ``csrc/add_ln.cuh``, built
+as K3 ``add_ln_payload.cu`` and as K5 ``flex_add_ln.cu``): ``kernel``
+(the sources as they are), ``loads_only`` (each row's loads in and its
+outputs out, the words XORed: the floor the data movement sets),
+``no_f64_sums`` (the row sums in float), ``rintf`` (the old rounding in
+place of the magic-number one), ``i2f`` (the old int8 -> float
+conversion in place of the byte permutes), ``one_row_a_block`` (one row
+a warp, eight a block, the grid the rows need: the old grid),
+``no_div`` (z * ln_s for z / ln_s: the division's cost), ``e4`` (four
+columns a lane a chunk at every H), ``blocks1`` / ``blocks4`` (one /
+four blocks an SM, where the kernel takes two), ``blocks2`` (at most two
+blocks an SM where the registers allow more), ``balanced`` (a persistent
+grid cut so that every warp takes the same number of rows, give or take
+one round), ``pad_row`` (an eighth, unused shared-memory row for
+per-column sites) and, with ``--parent``,
+``parent`` (that checkout's ``add_ln_payload.cu`` / ``flex_add_ln.cu``),
+at M = 16384, H = 768 on ``chip_smoke.ln_inputs``: K3 (W8A8), K5's two
+calls under the mixed recipe's 16-bit sites and under PEG's per-column
+ones, and ``fused_add_ln`` (K5 builds the variants that split its time:
+``LN_K5_VARIANTS``); each that computes the function checked against its
+plain version (bit-identical or it fails) and timed beside its bound,
+with the sums per layer; and the count of conversion-pipe opcodes in
+K3's machine code at H = 768 (``cuobjdump -sass``). With ``--parent`` it
+also compares the other kernels' machine code with the parent's.
 
 The attention kernel (``attn`` in ``--kernels``; K2 / K7,
 ``csrc/int8_attention.cu``): ``kernel`` (the source as it is),
@@ -126,6 +151,7 @@ EDITS = {
 }
 COMPUTES = {"kernel", "one_warpgroup", "exact_branch", "step8", "parent"}
 GEMM = "wgmma_gemm.cuh"
+LN = "add_ln.cuh"
 # (N, K, activation, output) of a BERT-base layer's four calls, and the
 # recipes' dense fold on a 16-bit grid
 SHAPES = [(2304, 768, None, "emit", 8), (768, 768, None, "emit", 8),
@@ -275,6 +301,136 @@ SASS_SOURCES = ("int8_matmul.cu", "fused_int8_linear.cu",
                 "int8_mb_layer.cu")
 
 
+# the add+LN template's variants (the module docstring), on add_ln.cuh
+LN_CALL = """    if constexpr (COL)
+      ln_row<YT, RT, COL, OUT, NCH, GENERAL>(a, cst, k, cy, cr, row, lane);
+    else if (!ints)
+      ln_row<YT, RT, COL, OUT, NCH, GENERAL>(a, cst, k, cy, cr, row, lane);
+    else if (a.res_quant)
+      ln_row<YT, RT, COL, OUT, NCH, INT_RQ>(a, cst, k, cy, cr, row, lane);
+    else
+      ln_row<YT, RT, COL, OUT, NCH, INT_NO_RQ>(a, cst, k, cy, cr, row, lane);
+"""
+LN_COPY = """template <int NCH>
+__device__ uint32_t bits(const Raw<int8_t, NCH>& r, int i) {
+  return r.w[i >> 2];
+}
+template <int NCH>
+__device__ uint32_t bits(const Raw<float, NCH>& r, int i) {
+  return __float_as_uint(r.v[i]);
+}
+// the loads in and the outputs out, no arithmetic
+template <typename YT, typename RT, int OUT, int NCH>
+__device__ void copy_row(const Args& a, const Raw<YT, NCH>& ry,
+                         const Raw<RT, NCH>& rr, int row, int lane) {
+  using C = Cols<NCH>;
+  constexpr int E = C::E;
+  const size_t base = static_cast<size_t>(row) * C::H;
+#pragma unroll
+  for (int c = 0; c < C::CH; ++c) {
+    const int col = C::col(c, lane);
+    if (OUT & OUT_I8) {
+      uint32_t w[E / 4];
+#pragma unroll
+      for (int q = 0; q < E / 4; ++q) {
+        const int i = c * E + 4 * q;
+        w[q] = bits(ry, i) ^ bits(rr, i);
+        if (sizeof(YT) == 4 || sizeof(RT) == 4)
+          w[q] ^= bits(ry, i + 1) ^ bits(ry, i + 2) ^ bits(ry, i + 3) ^
+                  bits(rr, i + 1) ^ bits(rr, i + 2) ^ bits(rr, i + 3);
+      }
+      if constexpr (E == 8)
+        *reinterpret_cast<uint2*>(a.out8 + base + col) = make_uint2(w[0], w[1]);
+      else
+        *reinterpret_cast<uint32_t*>(a.out8 + base + col) = w[0];
+    }
+    if (OUT & OUT_F32)
+#pragma unroll
+      for (int q = 0; q < E / 4; ++q) {
+        float f[4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int i = c * E + 4 * q + j;
+          f[j] = __uint_as_float(bits(ry, i) ^ bits(rr, i));
+        }
+        *reinterpret_cast<float4*>(a.outf + base + col + 4 * q) =
+            make_float4(f[0], f[1], f[2], f[3]);
+      }
+  }
+}
+
+// YT / RT: int8_t (a payload"""
+LN_EDITS = {
+    "kernel": [],
+    "loads_only": [(LN_CALL, "    copy_row<YT, RT, OUT, NCH>(a, cy, cr, row, lane);\n"),
+                   ("// YT / RT: int8_t (a payload", LN_COPY)],
+    "no_f64_sums": [("using Acc = double;", "using Acc = float;")],
+    "general": [("  const bool ints = !COL && ", "  const bool ints = false && ")],
+    "i2f": [("  return __uint_as_float(__byte_perm(w ^ 0x80808080u, e23, 0x7540 | j));",
+             "  return __fadd_rn(static_cast<float>(static_cast<int8_t>(w >> (8 * j))),\n"
+             "                   BYTE_BIAS);")],
+    "one_row_a_block": [("  return rows < resident ? rows : resident;",
+                         "  return rows;")],
+    "pass1_only": [("  const size_t base = static_cast<size_t>(row) * H;\n",
+                    """  const size_t base = static_cast<size_t>(row) * H;
+  if (lane == 0) {
+    if (OUT & OUT_I8) a.out8[base] = static_cast<int8_t>(rstd > 1.0f);
+    if (OUT & OUT_F32) a.outf[base] = rstd;
+  }
+  return;
+""")],
+    "div_full": [("    bool fast = k.fast_div;", "    bool fast = false;")],
+    "no_div": [("    bool fast = k.fast_div;", "    bool fast = true;"),
+               ("  const float q = __fmaf_rn(r, a, 0.0f);\n"
+                "  return __fmaf_rn(r, __fmaf_rn(-b, q, a), q);",
+                "  return __fmul_rn(a, r);")],
+    "e4": [("constexpr int VEC = 8;", "constexpr int VEC = 4;")],
+    "blocks1": [("    if (per_sm < 1) per_sm = 1;", "    per_sm = 1;")],
+    "blocks4": [("constexpr int MIN_BLOCKS = 2;", "constexpr int MIN_BLOCKS = 4;")],
+    "blocks2": [("    if (per_sm < 1) per_sm = 1;",
+                 "    per_sm = per_sm < 1 ? 1 : per_sm > 2 ? 2 : per_sm;")],
+    "pad_row": [("  __shared__ __align__(16) float cst[(COL ? K_COL : 2) * H];",
+                 "  __shared__ __align__(16) float cst[(COL ? K_COL + 1 : 2) * H];")],
+    "balanced": [("  return rows < resident ? rows : resident;",
+                  "  if (rows <= resident) return rows;\n"
+                  "  const int rounds = (rows + resident - 1) / resident;\n"
+                  "  return (rows + rounds - 1) / rounds;")],
+    "prefetch_all": [("  constexpr bool PREFETCH = sizeof(YT) + sizeof(RT) == 2;",
+                      "  constexpr bool PREFETCH = true;")],
+    "no_prefetch": [("  constexpr bool PREFETCH = sizeof(YT) + sizeof(RT) == 2;",
+                     "  constexpr bool PREFETCH = false;")],
+    "acc4": [("constexpr int NACC = 2;", "constexpr int NACC = 4;")],
+    "stats_ieee": [("  if (div_fast_takes(b) && f >= 0x1p-60f && f < DIV_A_MAX)",
+                    "  if (false)")],
+    "persist_all": [("  return sizeof(YT) + sizeof(RT) == 2 || COL;",
+                     "  return true;")],
+}
+LN_COMPUTES = {"kernel", "general", "i2f", "one_row_a_block", "div_full",
+               "e4", "blocks1", "blocks2", "blocks4", "balanced", "pad_row",
+               "prefetch_all", "no_prefetch",
+               "acc4", "stats_ieee", "persist_all", "parent"}
+# K5's variants: the ones that split its time (its 72 instances build
+# slowly)
+LN_K5_VARIANTS = ("kernel", "loads_only", "no_f64_sums", "general",
+                  "pass1_only", "div_full", "prefetch_all", "persist_all",
+                  "blocks1", "blocks2", "balanced", "pad_row")
+# the add+LN calls of the main path and the recipes at M = 16384, H = 768:
+# (tag, source, residual 'i8' | 'f', sites 'scalar8' | 'scalar16' | 'peg',
+# outputs, launches a layer)
+LN_CALLS = [("K3 (W8A8)", "add_ln_payload", "i8", "scalar8", ("i8",), 2),
+            ("K5 ln1 mixed", "flex_add_ln", "i8", "scalar16", ("f",), 1),
+            ("K5 ln2 mixed", "flex_add_ln", "f", "scalar16", ("i8",), 1),
+            ("K5 ln1 PEG", "flex_add_ln", "i8", "peg", ("f",), 1),
+            ("K5 ln2 PEG", "flex_add_ln", "f", "peg", ("i8",), 1),
+            ("fused_add_ln", "flex_add_ln", "f", "scalar8", ("i8", "f"), 2)]
+# every other source, whose machine code an edit of add_ln.cuh must leave
+# as it was
+LN_SASS = ("int8_matmul.cu", "fused_int8_linear.cu", "int8_matmul_norm.cu",
+           "float_edge_matmul.cu", "int8_attention.cu", "int8_mb_layer.cu")
+# the conversion-pipe opcodes counted in K3's machine code
+CONVERSIONS = ("I2F", "F2F", "FRND", "F2I", "MUFU")
+
+
 def build_variants(source: str, variants: dict, out: Path,
                    parent=None) -> dict:
     """Write and build every variant of ``csrc/<source>`` (its edits
@@ -294,7 +450,8 @@ def build_many(jobs) -> list:
     for source, variants, out, parent in jobs:
         procs = {}
         for name, edits in variants.items():
-            files = {f: (KB.CSRC / f).read_text() for f in (source, GEMM)}
+            files = {f: (KB.CSRC / f).read_text() for f in (source, GEMM,
+                                                             LN)}
             for old, new in edits:
                 holder = [f for f, text in files.items() if old in text]
                 if not holder:
@@ -556,6 +713,120 @@ def probe_attn(out: Path, parent) -> None:
         print(line, flush=True)
 
 
+def conversions(lib: Path, nch: int) -> dict:
+    """Per add+LN kernel instance at H = 128 * ``nch`` in ``lib``: the
+    count of each ``CONVERSIONS`` opcode in its machine code."""
+    out = {}
+    for name, code in sass(lib).items():
+        # (an anonymous namespace's tag, taken out by sass(), may take the
+        # hex-looking start of the name with it)
+        if "ln_kernel" in name and re.search(rf"Li{nch}EE", name):
+            ops = [ln.split()[1] if ln.startswith("@") else ln.split()[0]
+                   for ln in code if ln]
+            out[name] = {c: sum(op.split(".")[0] == c for op in ops)
+                         for c in CONVERSIONS}
+    return out
+
+
+def probe_ln(out: Path, parent) -> None:
+    """The add+LN template's variants, built as K3 (``add_ln_payload.cu``)
+    and K5 (``flex_add_ln.cu``), and (with ``parent``) the parent's K3 and
+    K5, at the main path's and the recipes' add+LN calls (M = 16384, H =
+    768) on ``chip_smoke.ln_inputs``; with ``parent`` also the other
+    kernels' machine code against the parent's."""
+    jobs = [("add_ln_payload.cu", LN_EDITS, out / "k3", parent),
+            ("flex_add_ln.cu", {v: LN_EDITS[v] for v in LN_K5_VARIANTS},
+             out / "k5", parent)]
+    if parent is not None:
+        jobs += [(src, {"kernel": []}, out / Path(src).stem, parent)
+                 for src in LN_SASS]
+    built = build_many(jobs)
+    for src in LN_SASS if parent is not None else ():
+        print(f"  {src}:", end="")
+        same_sass(out / Path(src).stem)
+    for name in ("kernel", "parent") if parent is not None else ("kernel",):
+        for fn_name, counts in conversions(out / "k3" / f"{name}.so",
+                                           6).items():
+            print(f"  K3 {name} {fn_name}: conversion-pipe opcodes {counts}",
+                  flush=True)
+        (out / f"k3_{name}.sass").write_text("\n".join(
+            f"// {fn}\n" + "\n".join(code)
+            for fn, code in sass(out / "k3" / f"{name}.so").items()))
+    fns = {"add_ln_payload": {n: entry(lib, "add_ln_payload")
+                              for n, lib in built[0].items()},
+           "flex_add_ln": {n: entry(lib, "flex_add_ln")
+                           for n, lib in built[1].items()}}
+    dev = torch.device("cuda")
+    m, h, eps = 16384, 768, 1e-12
+    y8, r8, y, r, gb, lnv = (torch.from_numpy(a).to(dev)
+                             for a in CS.ln_inputs(m, h, seed=5))
+    scal = {k: torch.tensor([v], dtype=torch.float32, device=dev)
+            for k, v in (("scalar8", CS.LN_SCAL8),
+                         ("scalar16", CS.LN_SCAL16))}
+    scal["peg"] = scal["scalar8"]
+    st = lambda: torch.cuda.current_stream().cuda_stream
+    per_layer = {}
+    for tag, src, res, sites, outs, launches in LN_CALLS:
+        sc = scal[sites]
+        lv = lnv if sites == "peg" else None
+        bits = 8 if sites == "scalar8" else 16
+        o8 = torch.empty((m, h), device=dev, dtype=torch.int8)
+        of = torch.empty((m, h), device=dev, dtype=torch.float32)
+        rv = r8 if res == "i8" else r
+        if src == "add_ln_payload":
+            want = [EK.fused_add_ln_payload_ref(y8, r8, gb, sc, eps=eps)]
+            nbytes = 3 * m * h
+        elif outs == ("i8", "f"):
+            want = list(EK.fused_add_ln_ref(y, r, gb, sc, eps=eps))
+            nbytes = m * h * (4 + 4 + 1 + 4)
+        else:
+            want = [EK.flex_add_ln_ref(
+                y, rv, gb, sc, lv, eps=eps, res_mode=res, res_bits=bits,
+                ln_bits=8 if outs == ("i8",) else bits,
+                ln_out="emit" if outs == ("i8",) else "f")]
+            nbytes = m * h * (4 + rv.element_size()
+                              + (1 if outs == ("i8",) else 4))
+        got = [o8 if o == "i8" else of for o in outs]
+        res_lo, res_hi = EK._clip_bounds(bits)
+        ln_lo, ln_hi = EK._clip_bounds(8 if outs[0] == "i8" else bits)
+        bnd, by = CS.bound_ms(0.0, nbytes + 2 * h * 4
+                              + (4 * h * 4 if lv is not None else 32))
+        line = f"  {tag} {m}x{h} (bound {bnd:.4f} ms, {by}):"
+        for name, fn in fns[src].items():
+            if src == "add_ln_payload":
+                def call(fn=fn, name=name):
+                    KB.check(fn(y8.data_ptr(), r8.data_ptr(), gb.data_ptr(),
+                                sc.data_ptr(), o8.data_ptr(), m, h, eps, 1,
+                                st()), name)
+            else:
+                def call(fn=fn, name=name):
+                    KB.check(fn(
+                        y.data_ptr(), rv.data_ptr(), int(res == "f"),
+                        gb.data_ptr(), sc.data_ptr(),
+                        lv.data_ptr() if lv is not None else None,
+                        o8.data_ptr() if "i8" in outs else None,
+                        of.data_ptr() if "f" in outs else None, m, h, eps,
+                        1, res_lo, res_hi, ln_lo, ln_hi, st()), name)
+            call()
+            torch.cuda.synchronize()
+            if name in LN_COMPUTES and not all(
+                    torch.equal(g, w) for g, w in zip(got, want)):
+                raise SystemExit(f"k1_probe: {src} {name} differs from its "
+                                 f"plain version at {line}")
+            t = CS.device_ms(call)
+            key = ("K3" if src == "add_ln_payload" else
+                   "fused_add_ln" if tag == "fused_add_ln" else
+                   "K5 PEG" if sites == "peg" else "K5 mixed")
+            per_layer.setdefault(key, {})
+            per_layer[key][name] = (per_layer[key].get(name, 0.0)
+                                    + launches * t)
+            line += f" {name} {t:.4f} ms;"
+        print(line, flush=True)
+    for key, times in per_layer.items():
+        print(f"  {key} per layer: " + "; ".join(
+            f"{n} {t:.4f} ms" for n, t in times.items()), flush=True)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default="k1_probe_build")
@@ -563,7 +834,7 @@ def main(argv=None) -> int:
                     help="an unpacked checkout whose K1 and K6 to time "
                          "beside")
     ap.add_argument("--kernels", default="k1,norm",
-                    help="which of k1, norm, edge, attn to probe")
+                    help="which of k1, norm, edge, attn, ln to probe")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("k1_probe: needs a card")
@@ -575,6 +846,8 @@ def main(argv=None) -> int:
         probe_edge(Path(args.out), args.parent)
     if "attn" in kernels:
         probe_attn(Path(args.out), args.parent)
+    if "ln" in kernels:
+        probe_ln(Path(args.out), args.parent)
     if "k1" not in kernels:
         return 0
     fns = {name: entry(lib, "int8_matmul") for name, lib in build_variants(

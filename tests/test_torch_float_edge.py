@@ -71,6 +71,21 @@ def test_level_layout_recombines_to_edge_levels(i, m, k, n, bits, groups):
     assert int(want.min()) == 0 and int(want.max()) == 2 ** bits - 1
 
 
+def _which_side(got, want, got_fn, want_fn, mode) -> str:
+    """A failure's report: how far the two sides differ, and whether each
+    repeats its own bits when run again (a side that does not is the one
+    that varies with the run: threads, vector tails, the BLAS)."""
+    bad = got != want
+    again = {name: torch.equal(fn(), first) for name, fn, first in
+             (("the product from the layout", got_fn, got),
+              ("the plain version", want_fn, want))}
+    return (f"{mode}: {int(bad.sum())} of {bad.numel()} elements differ "
+            f"(max {float((got.float() - want.float()).abs().max())}); "
+            + "; ".join(f"{name} {'repeats' if ok else 'does NOT repeat'} "
+                        "its bits" for name, ok in again.items())
+            + f"; {torch.get_num_threads()} threads")
+
+
 @pytest.mark.parametrize("activation", [None, "gelu_new"])
 @pytest.mark.parametrize("i,m,k,n,bits,groups", ALL_SHAPES)
 def test_product_from_the_layout_equals_the_plain_version(
@@ -78,11 +93,18 @@ def test_product_from_the_layout_equals_the_plain_version(
     _, x, vecs, grid = _inputs(i, m, k, n, bits, groups)
     lv = EK.float_edge_levels_ref(x, grid)
     for mode in ("emit", "float"):
-        want = EK.float_edge_matmul_ref(x, vecs, grid, activation=activation,
-                                        out_mode=mode)
-        got = EK.float_edge_gemm_ref(lv, m, vecs, grid,
-                                     activation=activation, out_mode=mode)
-        assert torch.equal(got, want), mode
+        def want_fn():
+            return EK.float_edge_matmul_ref(x, vecs, grid,
+                                            activation=activation,
+                                            out_mode=mode)
+
+        def got_fn():
+            return EK.float_edge_gemm_ref(lv, m, vecs, grid,
+                                          activation=activation,
+                                          out_mode=mode)
+        want, got = want_fn(), got_fn()
+        assert torch.equal(got, want), _which_side(got, want, got_fn,
+                                                   want_fn, mode)
         if mode == "emit":   # payloads spread over the int8 grid
             assert len(torch.unique(got)) > 100
 

@@ -452,6 +452,47 @@ def test_engine_matches_jax_engine(attn_case):
                                       got["plain", True].numpy())
 
 
+ROUTES = {"tiny": {32: "chain", 64: "chain", 128: "chain"},
+          "wide": {32: "chain", 64: "chain", 128: "k8"}}
+
+
+def test_the_plan_chooses_the_route_by_seq(setup, monkeypatch):
+    """The default kernels route is the plan's, chosen when it is made:
+    the layer kernel where it is built ((seq, head_dim, heads) = (128, 32,
+    4): the wide config at S = 128), the chain elsewhere (S = 32 and 64,
+    and every seq of the tiny config's head_dim 8). At S = 64 the default
+    route runs the chain and matches the JAX engine."""
+    s = setup
+    tst, tplan, tint = TM.build_mobilebert_engine(s["tp"], s["tcfg"],
+                                                  s["tq"], s["ts"],
+                                                  device="cpu")
+    routes = {t: tst.layer_route(t) for t in (32, 64, 128)}
+    assert routes == ROUTES[s["name"]]
+    why = EK.mb_layer_refusal(
+        seq=64, head_dim=32, n_heads=4, h=512, inter=512,
+        attn_case=tst.attn_case, activation="relu", n_ffn=3,
+        attn_bits=(8, 8, 8), w4=(False,))
+    assert why is not None and "not built" in why
+    calls = {"int8_mb_layer_ln": 0, "mb_layer_chain": 0}
+    for name in calls:
+        real = getattr(EK, name)
+
+        def rec(*a, _real=real, _name=name, **k):
+            calls[_name] += 1
+            return _real(*a, **k)
+        monkeypatch.setattr(EK, name, rec)
+    batch = _request_batch(s["tcfg"].vocab_size, 4, 64, seed=2)
+    want = _jax_engine_logits(s["jcfg"], s["jq"], s["js"], s["jp"],
+                              s["jplan"], s["jint"], s["jstatic"],
+                              _jbatch(batch))
+    got = TM.mobilebert_engine_apply(s["tp"], batch, s["tcfg"], s["tq"],
+                                     s["ts"], tst, tplan, tint,
+                                     device="cpu")["logits"]
+    assert calls == {"int8_mb_layer_ln": 0,
+                     "mb_layer_chain": s["tcfg"].num_hidden_layers}
+    _logits_close(want, got)
+
+
 def test_engine_at_full_depth_stays_within_jax_route_gap():
     """MobileBERT-uncased depth (24 layers) at the tiny width: a rare
     one-level payload flip spreads through its sequence's later layers,

@@ -547,9 +547,20 @@ class MobileBertEngineStatic:
     attn_skip_max: bool = False
     # per layer: (scores_bits, probs_bits, context_bits)
     attn_bits: Tuple[Tuple[int, ...], ...] = ()
+    # the sequence lengths at which the layer kernel takes every layer of
+    # the plan (EK.mb_layer_refusal), chosen when the plan is made
+    k8_seqs: Tuple[int, ...] = ()
 
     def layer_attn_bits(self, i: int) -> Tuple[int, ...]:
         return self.attn_bits[i] if self.attn_bits else (8, 8, 8)
+
+    def layer_route(self, seq: int) -> str:
+        """The kernels' route at ``seq``: ``'k8'``, one
+        :func:`~..ops.kernels.engine_kernels.int8_mb_layer_ln` launch a
+        layer, where the layer kernel is built for the plan's shapes, else
+        ``'chain'``, :func:`~..ops.kernels.engine_kernels.mb_layer_chain`
+        (K1, K6 and K7 launches)."""
+        return "k8" if seq in self.k8_seqs else "chain"
 
 
 def _nonorm_plan(qcfg, qstate, norm_params: Mapping, wsite: str,
@@ -726,13 +737,21 @@ def _build_plan(params, cfg, qcfg, qstate, int_params):
     # below exp2's overflow threshold (~126)
     worst = max(2.0 ** 8 * float(lp_["attn_scal"][0, 6]) for lp_ in layers)
     bound = worst / float(np.sqrt(cfg.head_dim)) * float(np.log2(np.e))
+    attn_bits = ((8, 8, 8),) * cfg.num_hidden_layers
+    seq = EK.MB_LAYER_SHAPE[0]
+    k8 = all(EK.mb_layer_refusal(
+        seq=seq, head_dim=cfg.head_dim, n_heads=cfg.num_attention_heads,
+        h=cfg.hidden_size, inter=lp_["out"]["w"].shape[1],
+        attn_case=attn_case, activation=cfg.hidden_act,
+        n_ffn=cfg.num_stacked_ffn, attn_bits=ab, w4=w4) is None
+        for lp_, ab, w4 in zip(layers, attn_bits, w4_flags))
     static = MobileBertEngineStatic(
         n_layers=cfg.num_hidden_layers, n_heads=cfg.num_attention_heads,
         hidden=cfg.true_hidden_size, n_ffn=cfg.num_stacked_ffn,
         attn_case=attn_case, hidden_act=cfg.hidden_act,
         res_quant=tuple(res_flags), w4=tuple(w4_flags),
-        attn_skip_max=bound < 100.0,
-        attn_bits=((8, 8, 8),) * cfg.num_hidden_layers)
+        attn_skip_max=bound < 100.0, attn_bits=attn_bits,
+        k8_seqs=(seq,) if k8 else ())
     return static, {"layers": layers, "entry_scal": entry_scal}, int_params
 
 
@@ -747,17 +766,20 @@ def mobilebert_encoder_engine(h: Tensor, mask_bias: Tensor,
     value, (B, T, H) float32. ``backend='kernels'`` runs the kernel
     wrappers (the CUDA kernels on the card, their plain versions on the
     CPU), ``'plain'`` the plain versions on any device. ``fuse_layer``
-    (default: on with the kernels): each layer as ONE
-    :func:`~..ops.kernels.engine_kernels.int8_mb_layer_ln`; ``False``
-    runs :func:`~..ops.kernels.engine_kernels.mb_layer_chain`, the
-    per-op route, bit-identical to it.
+    ``True``: each layer as ONE
+    :func:`~..ops.kernels.engine_kernels.int8_mb_layer_ln` (which raises
+    at shapes the layer kernel is not built for); ``False``:
+    :func:`~..ops.kernels.engine_kernels.mb_layer_chain`, the per-op
+    route, bit-identical to it; ``None`` (default): with the kernels the
+    route the plan chose for this seq (``static.layer_route(T)``), the
+    chain on the plain versions.
     """
     if backend not in ("kernels", "plain"):
         raise ValueError(f"unknown engine backend {backend!r}")
     kern = backend == "kernels"
-    if fuse_layer is None:
-        fuse_layer = kern
     b, t, hdim = h.shape
+    if fuse_layer is None:
+        fuse_layer = kern and static.layer_route(t) == "k8"
     es = plan["entry_scal"]
     h8 = EK.quantize_payload(h.reshape(b * t, hdim), es[0, 0], es[0, 1])
     mask_bias = mask_bias.to(torch.float32).contiguous()

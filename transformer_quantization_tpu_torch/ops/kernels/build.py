@@ -66,11 +66,13 @@ _SIGNATURES = {
     "fused_quantize": ("tq_fused_quantize",
                        (_P, _P, _P, _I, _I, _I, _P)),
     "fused_rcp_check": ("tq_fused_rcp_check", (_P, _P)),
+    "ln_div_check": ("tq_ln_div_check", (_P, _I, _P, _P)),
 }
 # entry points that live in another source's library
 _LIBRARY = {"int8_attention_blocks": "int8_attention",
             "fused_quantize": "fused_int8_linear",
             "fused_rcp_check": "fused_int8_linear",
+            "ln_div_check": "add_ln_payload",
             "float_edge_levels": "float_edge_matmul",
             "float_edge_gemm": "float_edge_matmul"}
 

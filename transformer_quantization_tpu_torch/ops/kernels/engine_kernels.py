@@ -959,6 +959,36 @@ MB_LAYER_SHAPE = (128, 32, 4)  # (seq, head_dim, heads) the layer kernel takes
 MB_MAX_FFN = 8
 
 
+def mb_layer_refusal(*, seq, head_dim, n_heads, h, inter, attn_case,
+                     activation, n_ffn, attn_bits, w4):
+    """Why the layer kernel (``csrc/int8_mb_layer.cu``) does not take a
+    MobileBERT layer of these shapes and plan, or None where it does. The
+    engine's plan reads it to choose each seq's route
+    (:func:`~..models.mobilebert.MobileBertEngineStatic.layer_route`);
+    :func:`int8_mb_layer_ln` raises it on the card."""
+    if any(w4):
+        return "int4 weights (w4) are not yet ported"
+    if _attn3(attn_bits) != (8, 8, 8):
+        return "only 8-bit scores/probs/context sites are ported"
+    if attn_case not in ("shared_kq", "bottleneck"):
+        return (f"attn_case {attn_case!r} is not yet ported (the kernel "
+                "takes 'shared_kq' and 'bottleneck')")
+    if (seq, head_dim, n_heads) != MB_LAYER_SHAPE:
+        return (f"(seq, head_dim, heads) = ({seq}, {head_dim}, {n_heads}) "
+                f"is not built (built: {MB_LAYER_SHAPE})")
+    if activation not in _MM_ACTS or n_ffn > MB_MAX_FFN:
+        return (f"activation {activation!r} / {n_ffn} stacked FFNs are not "
+                "yet ported")
+    if h % 64 or inter % 64:
+        return (f"width {h}, intermediate {inter} (needs widths of a "
+                "multiple of 64)")
+    smem = _mb_layer_smem(seq, head_dim, n_heads * head_dim, h, inter)
+    if smem > SMEM_MAX:
+        return (f"a sequence's live set ({smem} bytes) exceeds shared "
+                f"memory ({SMEM_MAX})")
+    return None
+
+
 def int8_mb_layer_ln(h8, mask_bias, attn_scal, flat, *, n_heads, seq,
                      hidden, attn_case, activation, res, w4, n_ffn,
                      skip_max=False, attn_bits=(8, 8)):
@@ -966,53 +996,34 @@ def int8_mb_layer_ln(h8, mask_bias, attn_scal, flat, *, n_heads, seq,
     :func:`mb_layer_flat` for ``flat``. On the card: one launch, one block
     per sequence, every intermediate payload in shared memory
     (``csrc/int8_mb_layer.cu``); bit-identical to :func:`mb_layer_chain`.
-    Shapes and plans the kernel does not take raise NotImplementedError
-    (there is no quiet fall-back to the chain)."""
+    Shapes and plans the kernel does not take (:func:`mb_layer_refusal`)
+    raise NotImplementedError (there is no quiet fall-back to the chain:
+    the engine's plan picks the chain for them before anything runs)."""
     kw = dict(n_heads=n_heads, seq=seq, hidden=hidden, attn_case=attn_case,
               activation=activation, res=res, w4=w4, n_ffn=n_ffn,
               skip_max=skip_max, attn_bits=attn_bits)
     if not h8.is_cuda:
         return int8_mb_layer_ln_ref(h8, mask_bias, attn_scal, flat, **kw)
-    if any(w4):
-        raise NotImplementedError("int8_mb_layer_ln: int4 weights (w4) are "
-                                  "not yet ported")
-    if _attn3(attn_bits) != (8, 8, 8):
-        raise NotImplementedError("int8_mb_layer_ln kernel: only 8-bit "
-                                  "scores/probs/context sites are ported")
-    if attn_case not in ("shared_kq", "bottleneck"):
-        raise NotImplementedError(f"int8_mb_layer_ln kernel: attn_case "
-                                  f"{attn_case!r} is not yet ported (the "
-                                  "kernel takes 'shared_kq' and "
-                                  "'bottleneck')")
-    d = hidden // n_heads
-    if (seq, d, n_heads) != MB_LAYER_SHAPE:
-        raise NotImplementedError(f"int8_mb_layer_ln kernel: (seq, head_dim,"
-                                  f" heads) = ({seq}, {d}, {n_heads}) is not "
-                                  f"built (built: {MB_LAYER_SHAPE})")
-    if activation not in _MM_ACTS or n_ffn > MB_MAX_FFN:
-        raise NotImplementedError(f"int8_mb_layer_ln kernel: activation "
-                                  f"{activation!r} / {n_ffn} stacked FFNs "
-                                  "are not yet ported")
-    mt, h = h8.shape
-    shared_kq = attn_case == "shared_kq"
     # out.dense's (hidden, I) weight, tenth from the end (mb_layer_flat)
     inter = flat[-10].shape[1] if len(flat) >= 10 else 0
+    why = mb_layer_refusal(seq=seq, head_dim=hidden // n_heads,
+                           n_heads=n_heads, h=h8.shape[1], inter=inter,
+                           attn_case=attn_case, activation=activation,
+                           n_ffn=n_ffn, attn_bits=attn_bits, w4=w4)
+    if why is not None:
+        raise NotImplementedError(f"int8_mb_layer_ln kernel: {why}")
+    d = hidden // n_heads
+    mt, h = h8.shape
+    shared_kq = attn_case == "shared_kq"
     shapes = _mb_flat_shapes(shared_kq, n_ffn, h, hidden, inter)
     if len(flat) != len(shapes):
         raise ValueError(f"int8_mb_layer_ln: flat has {len(flat)} arrays, "
                          f"the plan needs {len(shapes)}")
     for i, (a, (shape, dtype)) in enumerate(zip(flat, shapes)):
         _check(a, f"flat[{i}]", dtype, shape)
-    if mt % seq or h % 64 or inter % 64:
-        raise NotImplementedError(f"int8_mb_layer_ln kernel: rows {mt}, "
-                                  f"width {h}, intermediate {inter} (needs "
-                                  "whole sequences and widths of a multiple "
-                                  "of 64)")
-    smem = _mb_layer_smem(seq, d, hidden, h, inter)
-    if smem > SMEM_MAX:
-        raise NotImplementedError(f"int8_mb_layer_ln kernel: a sequence's "
-                                  f"live set ({smem} bytes) exceeds shared "
-                                  f"memory ({SMEM_MAX})")
+    if mt % seq:
+        raise NotImplementedError(f"int8_mb_layer_ln kernel: rows {mt} "
+                                  "(needs whole sequences)")
     _check(h8, "h8", torch.int8)
     _check(mask_bias, "mask_bias", torch.float32, (mt // seq, seq))
     _check(attn_scal, "attn_scal", torch.float32, (1, 12))
@@ -1058,8 +1069,9 @@ def _mb_flat_shapes(shared_kq: bool, n_ffn: int, h: int, hidden: int,
 
 def fused_add_ln_payload(y8, r8, gb, scalars, *, eps, res_quant=True):
     """Payload-in/payload-out add + LayerNorm; see
-    :func:`fused_add_ln_payload_ref`. On the card: one warp per row
-    (``csrc/add_ln_payload.cu``)."""
+    :func:`fused_add_ln_payload_ref`. On the card: K3
+    (``csrc/add_ln_payload.cu``), the int8-in, int8-out instance of
+    ``csrc/add_ln.cuh``'s add+LN template."""
     if not y8.is_cuda:
         return fused_add_ln_payload_ref(y8, r8, gb, scalars, eps=eps,
                                         res_quant=res_quant)
@@ -1085,10 +1097,20 @@ def _h_fits(h: int, what: str) -> None:
                                   f"H <= 1024 (got {h})")
 
 
+def _aligned(*ts: Tensor) -> None:
+    """The add+LN kernels read float32 rows in 16-byte vectors (int8
+    arrays are checked by :func:`_check`)."""
+    for t in ts:
+        if t.data_ptr() % 16:
+            raise ValueError("the add+LN kernel's row arrays must start on "
+                             "a 16-byte boundary")
+
+
 def fused_add_ln(y, r, gb, scalars, *, eps, res_quant=True):
     """Float-in add + LayerNorm emitting the payload and the float value;
-    see :func:`fused_add_ln_ref`. On the card: the ``csrc/flex_add_ln.cu``
-    kernel with a float32 residual, scalar 8-bit sites and both outputs."""
+    see :func:`fused_add_ln_ref`. On the card: ``csrc/flex_add_ln.cu``'s
+    instance with a float32 residual, scalar 8-bit sites and both
+    outputs."""
     if not y.is_cuda:
         return fused_add_ln_ref(y, r, gb, scalars, eps=eps,
                                 res_quant=res_quant)
@@ -1101,6 +1123,7 @@ def fused_add_ln(y, r, gb, scalars, *, eps, res_quant=True):
     _h_fits(h, "fused_add_ln")
     out8 = torch.empty((m, h), device=y.device, dtype=torch.int8)
     outf = torch.empty((m, h), device=y.device, dtype=torch.float32)
+    _aligned(y, r)
     fn = KB.load("flex_add_ln")
     err = fn(y.data_ptr(), r.data_ptr(), 1, gb.data_ptr(), scalars.data_ptr(),
              None, out8.data_ptr(), outf.data_ptr(), m, h, float(eps),
@@ -1113,8 +1136,8 @@ def fused_add_ln(y, r, gb, scalars, *, eps, res_quant=True):
 def flex_add_ln(y, r, gb, scalars, lnv=None, *, eps, res_quant=True,
                 res_mode="i8", res_bits=8, ln_bits=8, ln_out="emit"):
     """Float-in add + LayerNorm with flexible sites; see
-    :func:`flex_add_ln_ref`. On the card: one warp per row
-    (``csrc/flex_add_ln.cu``)."""
+    :func:`flex_add_ln_ref`. On the card: K5 (``csrc/flex_add_ln.cu``),
+    the float-y instances of ``csrc/add_ln.cuh``'s add+LN template."""
     if not y.is_cuda:
         return flex_add_ln_ref(y, r, gb, scalars, lnv, eps=eps,
                                res_quant=res_quant, res_mode=res_mode,
@@ -1142,6 +1165,7 @@ def flex_add_ln(y, r, gb, scalars, lnv=None, *, eps, res_quant=True,
     out = torch.empty((m, h), device=y.device,
                       dtype=torch.int8 if ln_out == "emit"
                       else torch.float32)
+    _aligned(y, r)
     res_lo, res_hi = _clip_bounds(res_bits)
     ln_lo, ln_hi = _clip_bounds(ln_bits)
     fn = KB.load("flex_add_ln")
