@@ -58,24 +58,27 @@ Phases (any failure exits non-zero; nothing is caught):
    ``int8_matmul_norm`` with and without a residual (128- and 512-wide
    outputs), ``int8_attention_qkv`` at head_dim 32 and the whole-layer
    ``int8_mb_layer_ln`` against their plain versions, and the layer
-   kernel against the chain of the other three; then their other shapes
-   (K6 with and without a residual at ``NORM_SHAPES``: ragged M, N % 16
-   != 0, three column tiles ragged in every dimension, a partial last
-   column tile at M = 16384; K7 through ``int8_attention_qkv`` on
-   ``attention_cases`` in two layouts, MobileBERT's [q|k] + v at cols (0,
-   1, 0) and three arrays of distinct row strides at (1, 2, 0); K8 with
-   the 'bottleneck' attention case). Every comparison must be
-   bit-identical;
+   kernel against the chain of the other three, at every seq it is built
+   for (B = 128 at S = 128, 64 and 32: kernel, chain and plain ms); then
+   their other shapes (K6 with and without a residual at
+   ``NORM_SHAPES``: ragged M, N % 16 != 0, three column tiles ragged in
+   every dimension, a partial last column tile at M = 16384; K7 through
+   ``int8_attention_qkv`` on ``attention_cases`` in two layouts,
+   MobileBERT's [q|k] + v at cols (0, 1, 0) and three arrays of distinct
+   row strides at (1, 2, 0); K8 with the 'bottleneck' attention case at
+   each built seq, and at ``MB_CASES`` on seeded plans: ragged batches,
+   both attention cases, the integer and the general path, skip_max both
+   ways). Every comparison must be bit-identical;
 8. MobileBERT's main path: the plan's layer route by seq (the layer
-   kernel at S = 128, the chain at 32 and 64); three request batches
-   through ``mobilebert_engine_apply`` on the default route (24 launches
-   of the layer kernel per forward), on the chain route
-   (``fuse_layer=False``: 144 matmul, 192 NoNorm-matmul and 24 attention
-   launches), and at S = 64 on the default route (the chain's launches),
-   each with the counts read just after and logits against the plain
-   engine; the forward / encoder split of both routes, engine seq/s on
-   each route and at S = 64, and fake-quant simulation seq/s (five
-   windows);
+   kernel at each seq it is built for, ``EK.MB_LAYER_SHAPES``, the chain
+   elsewhere); three request batches through ``mobilebert_engine_apply``
+   on the default route (24 launches of the layer kernel per forward),
+   on the chain route (``fuse_layer=False``: 144 matmul, 192
+   NoNorm-matmul and 24 attention launches), and at S = 64 and 32 on the
+   default route (the plan's), each with the counts read just after and
+   logits against the plain engine; the forward / encoder split of both
+   routes, engine seq/s on each route and at S = 64 and 32, and
+   fake-quant simulation seq/s (five windows);
 9. the leave-one-out FP32 kernels, on BERT-base's layer-0 inputs: the
    generic int path's fused linear on the calls one W8A8 forward makes
    (q with a float32 x, attn_out, inter with gelu emitting the payload,
@@ -107,7 +110,8 @@ K4's entry holds its level pass (``level_pass``, with its launches) and
 the GEMM alone per recipe (``gemm_alone``);
 the MobileBERT kernels' numbers are MobileBERT-uncased layer 0's, with
 K6's five calls under ``variants`` and the chain's ms per layer beside
-``int8_mb_layer_ln``; the fused
+``int8_mb_layer_ln``, which has an entry of its own at each other seq it
+is built for (``int8_mb_layer_ln (S=64)``: that bucket's path); the fused
 linear's and ``fused_add_ln``'s numbers are per encoder layer of the
 generic W8A8 path and of the ``{'h': 'fp32'}`` engine, with the fused
 linear's other calls under ``variants`` and its quantize pass (5 a layer
@@ -1070,18 +1074,26 @@ def _nrm(p):
     return (p["gb"], p["scal"])
 
 
-def mb_layer_kwargs(cfg, static, i: int = 0) -> dict:
-    return dict(n_heads=static.n_heads, seq=SEQ, hidden=static.hidden,
+def mb_layer_kwargs(cfg, static, i: int = 0, seq: int = SEQ) -> dict:
+    return dict(n_heads=static.n_heads, seq=seq, hidden=static.hidden,
                 attn_case=static.attn_case, activation=cfg.hidden_act,
                 res=static.res_quant[i], w4=static.w4[i], n_ffn=static.n_ffn,
                 skip_max=static.attn_skip_max)
 
 
+def mb_seqs() -> tuple:
+    """The seqs the layer kernel is built for (MobileBERT-uncased's
+    head_dim 32 and 4 heads), longest first."""
+    return tuple(sorted((t for t, d, n in EK.MB_LAYER_SHAPES
+                         if (d, n) == (32, 4)), reverse=True))
+
+
 def check_mobilebert_kernels(params, cfg, qcfg, qstate, int_params, static,
-                             plan, batch, dev) -> dict:
-    """Phase 8: K1 + relu, K6, K7 and K8 against their plain versions on
-    layer 0 of MobileBERT-uncased (B=128, S=128), and K8 against the
-    chain of the other kernels; per-layer times."""
+                             plan, batch, dev, seed: int = 0) -> dict:
+    """Phase 7: K1 + relu, K6, K7 and K8 against their plain versions on
+    layer 0 of MobileBERT-uncased (B=128, S=128; K8 also at its other
+    built seqs, B=128), and K8 against the chain of the other kernels;
+    per-layer times."""
     h, mask = MB.entry_value(params, batch, cfg, qcfg, qstate, int_params,
                              device=dev)
     es = plan["entry_scal"]
@@ -1170,36 +1182,58 @@ def check_mobilebert_kernels(params, cfg, qcfg, qstate, int_params, static,
         4.0 * BATCH * nh * SEQ * SEQ * d, 4 * m * th + mask.numel() * 4)
     report["int8_attention_qkv"] = per_layer([(k7, 1)])
 
-    # K8: the whole layer, against its plain version and the chain
+    # K8: the whole layer at each built seq (B = 128, the seq's request
+    # batch), against its plain version and the chain
     flat = EK.mb_layer_flat(lp, static.attn_case)
-    lkw = mb_layer_kwargs(cfg, static)
-    args = (h8, mask, lp["attn_scal"], flat)
+    report["int8_mb_layer_ln"] = {}
+    for seq in mb_seqs():
+        if seq == SEQ:
+            hs, ms = h8, mask
+        else:
+            hb, mb = MB.entry_value(params,
+                                    request_batches(cfg, 1, seed, seq)[0],
+                                    cfg, qcfg, qstate, int_params, device=dev)
+            hs = EK.quantize_payload(hb.reshape(BATCH * seq, -1), es[0, 0],
+                                     es[0, 1])
+            ms = mb.contiguous()
+        report["int8_mb_layer_ln"][seq] = mb_layer_case(
+            flat, hs, ms, lp["attn_scal"], mb_layer_kwargs(cfg, static,
+                                                           seq=seq))
+    return report
+
+
+def mb_layer_case(flat, h8, mask, ascal, kw) -> dict:
+    """K8 on one layer's inputs against its plain version and the chain
+    (bit-identical or fail), with its kernel, plain and bound ms and the
+    chain's device ms."""
+    args = (h8, mask, ascal, flat)
+    seq, m, b = kw["seq"], h8.shape[0], mask.shape[0]
 
     def layer():
-        return EK.int8_mb_layer_ln(*args, **lkw)
+        return EK.int8_mb_layer_ln(*args, **kw)
 
     def chain():
-        return EK.mb_layer_chain(*args, **lkw)
+        return EK.mb_layer_chain(*args, **kw)
 
     def plain():
-        return EK.int8_mb_layer_ln_ref(*args, **lkw)
+        return EK.int8_mb_layer_ln_ref(*args, **kw)
 
-    compare(chain(), plain(), "mb_layer_chain (K1 + K6 + K7) vs plain")
-    compare(layer(), chain(), "int8_mb_layer_ln vs the chain")
+    compare(chain(), plain(), f"mb_layer_chain (K1 + K6 + K7) S={seq} vs "
+            "plain")
+    compare(layer(), chain(), f"int8_mb_layer_ln S={seq} vs the chain")
+    nh, d = kw["n_heads"], kw["hidden"] // kw["n_heads"]
     ops = (sum(2.0 * m * a.shape[0] * a.shape[1] for a in flat
                if a.dtype == torch.int8)
-           + 4.0 * BATCH * nh * SEQ * SEQ * d)
-    nbytes = (2 * m * hdim + mask.numel() * 4 + lp["attn_scal"].numel() * 4
+           + 4.0 * b * nh * seq * seq * d)
+    nbytes = (2 * m * h8.shape[1] + mask.numel() * 4 + ascal.numel() * 4
               + sum(a.numel() * a.element_size() for a in flat))
-    k8 = kernel_case(f"int8_mb_layer_ln B={BATCH} T={SEQ} (one layer)",
-                     layer, plain, ops, nbytes)
+    k8 = kernel_case(f"int8_mb_layer_ln B={b} T={seq} (one layer)", layer,
+                     plain, ops, nbytes)
     t_chain = device_ms(chain)
-    print(f"  mb_layer_chain (15 launches): {t_chain:.4f} ms per layer; "
-          f"int8_mb_layer_ln {k8['ms']:.4f} ms "
+    print(f"  mb_layer_chain S={seq} (15 launches): {t_chain:.4f} ms per "
+          f"layer; int8_mb_layer_ln {k8['ms']:.4f} ms "
           f"({t_chain / k8['ms']:.2f}x the chain's speed)")
-    report["int8_mb_layer_ln"] = per_layer([(k8, 1)])
-    report["int8_mb_layer_ln"]["chain_ms"] = t_chain
-    return report
+    return dict(per_layer([(k8, 1)]), chain_ms=t_chain)
 
 
 # K6's shapes off the main path, (M, K, N): ragged M and N % 16 != 0 (the
@@ -1248,11 +1282,100 @@ def check_norm_shapes(dev) -> None:
                 f"int8_matmul_norm {m}x{k}->{n} no residual")
 
 
+def mb_inputs(b: int, seq: int, seed: int, *, h: int = 512,
+              inter: int = 512, n_ffn: int = 3, shared_kq: bool = True,
+              scalars: str = "spread"):
+    """Seeded numpy inputs of one layer-kernel call at MobileBERT-uncased
+    widths (bottleneck 128, 4 heads of 32), ``(h8, mask, ascal, flat)``:
+    an int8 payload in [-60, 60), a (b, seq) mask bias with seeded padding
+    (every sequence keeps a key), the attention scalars
+    ``ATTN_SCALARS[scalars]`` and a layer plan in ``mb_layer_flat``'s
+    order whose fold and norm sites spread over tens of levels."""
+    rng = np.random.RandomState(seed)
+    th = 128
+
+    def mm(n, k):
+        w = rng.randint(-60, 60, (n, k)).astype(np.int8)
+        vecs = np.stack([0.05 / np.sqrt(k) * (0.5 + rng.rand(n)),
+                         w.astype(np.float32).sum(1), 0.1 * rng.randn(n),
+                         0.04 + 0.02 * rng.rand(n),
+                         np.full(n, 3.0)]).astype(np.float32)
+        return [w, vecs, np.array([[0.03, 5.0]], np.float32)]
+
+    def nrm(n):
+        gb = np.stack([np.linspace(0.5, 1.5, n),
+                       np.linspace(-0.1, 0.1, n)]).astype(np.float32)
+        return [gb, np.array([[1.0, 0.0, 0.04, 2.0, 0.06, -3.0, 0.05, 1.0]],
+                             np.float32)]
+
+    flat = mm(th, h) + nrm(th)
+    if shared_kq:
+        flat += mm(th, h) + nrm(th)
+    flat += mm(2 * th, th) + mm(th, h if shared_kq else th)
+    flat += mm(th, th) + nrm(th)
+    for _ in range(n_ffn + 1):
+        flat += mm(inter, th) + mm(th, inter) + nrm(th)
+    flat += mm(h, th) + nrm(h)
+    h8 = rng.randint(-60, 60, (b * seq, h)).astype(np.int8)
+    lens = rng.randint(1, seq + 1, b)
+    mask = np.where(np.arange(seq)[None, :] < lens[:, None], 0.0,
+                    -10000.0).astype(np.float32)
+    return h8, mask, np.array([ATTN_SCALARS[scalars]], np.float32), flat
+
+
+def mb_kwargs(seq: int, shared_kq: bool = True, n_ffn: int = 3,
+              skip_max: bool = False) -> dict:
+    """The keyword arguments of ``int8_mb_layer_ln`` for ``mb_inputs``."""
+    return dict(n_heads=4, seq=seq, hidden=128,
+                attn_case="shared_kq" if shared_kq else "bottleneck",
+                activation="relu", res=(True, (True,) * n_ffn, False, True),
+                w4=(False,) * (7 + shared_kq + 2 * n_ffn), n_ffn=n_ffn,
+                skip_max=skip_max)
+
+
+# K8 off the main path, per built seq: (batch, shared_kq, scalars,
+# skip_max) on ``mb_inputs``: a ragged batch (B * S not a multiple of
+# 128) and a whole tile's, both attention cases, the integer path
+# ('spread', 'saturate') and the general one ('fractional'); at S <= 64
+# also a ragged batch of more 64-row tiles than the card's SMs, which
+# takes 128-row tiles
+MB_CASES = {32: ((9, True, "spread", False), (9, False, "fractional", True),
+                 (4, True, "saturate", True), (4, False, "spread", False),
+                 (533, True, "spread", False)),
+            64: ((7, True, "spread", False), (7, False, "fractional", True),
+                 (2, True, "saturate", True), (2, False, "spread", False),
+                 (267, False, "fractional", False)),
+            128: ((3, True, "fractional", False), (3, False, "spread", True),
+                  (1, True, "saturate", False))}
+
+
+def check_mb_layer_shapes(dev) -> int:
+    """K8 at ``MB_CASES`` against its plain version; returns the number
+    of comparisons (each bit-identical or fail)."""
+    n = 0
+    for seq in mb_seqs():
+        for i, (b, shared_kq, scalars, skip) in enumerate(MB_CASES[seq]):
+            h8, mask, ascal, flat = mb_inputs(b, seq, 90 + i,
+                                              shared_kq=shared_kq,
+                                              scalars=scalars)
+            h8, mask, ascal = (torch.from_numpy(a).to(dev)
+                               for a in (h8, mask, ascal))
+            flat = [torch.from_numpy(a).to(dev) for a in flat]
+            kw = mb_kwargs(seq, shared_kq=shared_kq, skip_max=skip)
+            compare(EK.int8_mb_layer_ln(h8, mask, ascal, flat, **kw),
+                    EK.int8_mb_layer_ln_ref(h8, mask, ascal, flat, **kw),
+                    f"int8_mb_layer_ln S={seq} B={b} {kw['attn_case']} "
+                    f"{scalars} skip_max={skip}", quiet=True)
+            n += 1
+    return n
+
+
 def check_mobilebert_shapes(plan, static, dev) -> None:
     """The new kernels off the main path's shapes: K6 at ``NORM_SHAPES``
     with and without a residual, K7 through both ``attn_split`` layouts
-    on ``attention_cases`` and K8 with the 'bottleneck' attention case,
-    against their plain versions."""
+    on ``attention_cases``, K8 with the 'bottleneck' attention case on
+    layer 0's weights at each built seq and at ``MB_CASES``, against
+    their plain versions."""
     gen = torch.Generator(device=dev).manual_seed(13)
 
     def ints(*shape, lo=-40, hi=40):
@@ -1267,16 +1390,21 @@ def check_mobilebert_shapes(plan, static, dev) -> None:
     bl = dict(lp, bn_attn=None, bn_attn_norm=None,
               v=dict(lp["v"], w=lp["attn_out"]["w"]))
     flat = EK.mb_layer_flat(bl, "bottleneck")
-    kw = dict(n_heads=static.n_heads, seq=SEQ, hidden=static.hidden,
-              attn_case="bottleneck", activation="relu",
-              res=static.res_quant[0], w4=static.w4[0][1:],
-              n_ffn=static.n_ffn, skip_max=False)
-    h8 = ints(8 * SEQ, lp["bn_in"]["w"].shape[1])
-    mask = torch.zeros(8, SEQ, device=dev)
-    mask[:, 3 * SEQ // 4:] = -10000.0
-    compare(EK.int8_mb_layer_ln(h8, mask, lp["attn_scal"], flat, **kw),
-            EK.int8_mb_layer_ln_ref(h8, mask, lp["attn_scal"], flat, **kw),
-            "int8_mb_layer_ln attn_case=bottleneck")
+    for seq in mb_seqs():
+        kw = dict(n_heads=static.n_heads, seq=seq, hidden=static.hidden,
+                  attn_case="bottleneck", activation="relu",
+                  res=static.res_quant[0], w4=static.w4[0][1:],
+                  n_ffn=static.n_ffn, skip_max=False)
+        h8 = ints(8 * seq, lp["bn_in"]["w"].shape[1])
+        mask = torch.zeros(8, seq, device=dev)
+        mask[:, 3 * seq // 4:] = -10000.0
+        compare(EK.int8_mb_layer_ln(h8, mask, lp["attn_scal"], flat, **kw),
+                EK.int8_mb_layer_ln_ref(h8, mask, lp["attn_scal"], flat,
+                                        **kw),
+                f"int8_mb_layer_ln S={seq} attn_case=bottleneck")
+    n = check_mb_layer_shapes(dev)
+    print(f"  int8_mb_layer_ln off the main path: {n} more comparisons, all "
+          "bit-identical", flush=True)
 
 
 def mobilebert_runner(params, cfg, qcfg, qstate, static, plan, int_params,
@@ -1730,7 +1858,7 @@ def main(argv=None) -> int:
           f"plain versions, layer-0 inputs (B={BATCH}, S={SEQ})", flush=True)
     mbatches = request_batches(mcfg, 3, args.seed)
     mb_report = check_mobilebert_kernels(mparams, mcfg, mq, ms, mint, mstatic,
-                                         mplan, mbatches[0], dev)
+                                         mplan, mbatches[0], dev, args.seed)
     check_mobilebert_shapes(mplan, mstatic, dev)
 
     print("[8] main path: MobileBERT-uncased W8A8 through "
@@ -1739,8 +1867,11 @@ def main(argv=None) -> int:
     n_ffn = mstatic.n_ffn + 1
     routes = {t: mstatic.layer_route(t) for t in (32, 64, SEQ)}
     print(f"  the plan's layer routes by seq: {routes}", flush=True)
-    if routes != {32: "chain", 64: "chain", SEQ: "k8"}:
+    if routes != {t: "k8" if t in mb_seqs() else "chain" for t in routes}:
         fail(f"MobileBERT-uncased layer routes {routes}")
+    chain_fwd = per_forward(int8_matmul=(2 + n_ffn) * ML,
+                            int8_matmul_norm=(4 + n_ffn) * ML,
+                            int8_attention_qkv=ML)
     by_path["mobilebert"] = drive_path(
         "mobilebert", mobilebert_runner(mparams, mcfg, mq, ms, mstatic, mplan,
                                         mint, dev), mcfg, mbatches,
@@ -1749,21 +1880,18 @@ def main(argv=None) -> int:
         "mobilebert-chain", mobilebert_runner(mparams, mcfg, mq, ms, mstatic,
                                               mplan, mint, dev,
                                               fuse_layer=False),
-        mcfg, mbatches,
-        per_forward(int8_matmul=(2 + n_ffn) * ML,
-                    int8_matmul_norm=(4 + n_ffn) * ML,
-                    int8_attention_qkv=ML))
-    # S = 64, a serving bucket the layer kernel is not built for: the
-    # default route is the plan's, the chain
-    mb64 = request_batches(mcfg, 3, args.seed, seq=64)
-    by_path["mobilebert-s64"] = drive_path(
-        "mobilebert-s64", mobilebert_runner(mparams, mcfg, mq, ms, mstatic,
-                                            mplan, mint, dev), mcfg, mb64,
-        per_forward(int8_matmul=(2 + n_ffn) * ML,
-                    int8_matmul_norm=(4 + n_ffn) * ML,
-                    int8_attention_qkv=ML))
-    t_64 = window_ms(lambda: MB.mobilebert_engine_apply(
-        mparams, mb64[0], mcfg, mq, ms, mstatic, mplan, mint, device=dev))
+        mcfg, mbatches, chain_fwd)
+    # the other serving buckets on the default route, the plan's
+    t_seq = {}
+    for seq in (64, 32):
+        sb = request_batches(mcfg, 3, args.seed, seq=seq)
+        by_path[f"mobilebert-s{seq}"] = drive_path(
+            f"mobilebert-s{seq}", mobilebert_runner(
+                mparams, mcfg, mq, ms, mstatic, mplan, mint, dev), mcfg, sb,
+            per_forward(int8_mb_layer_ln=ML) if routes[seq] == "k8"
+            else chain_fwd)
+        t_seq[seq] = window_ms(lambda: MB.mobilebert_engine_apply(
+            mparams, sb[0], mcfg, mq, ms, mstatic, mplan, mint, device=dev))
     mb0 = mbatches[0]
     mh, mm_ = MB.entry_value(mparams, mb0, mcfg, mq, ms, mint, device=dev)
     t_enc = window_ms(lambda: MB.mobilebert_encoder_engine(mh, mm_, mstatic,
@@ -1788,9 +1916,10 @@ def main(argv=None) -> int:
           f"windows ({kind}, {smi}): engine (int8_mb_layer_ln) "
           f"{seq_per_s(t_fwd)}, engine (chain) {seq_per_s(t_chain)}, "
           f"fake-quant simulation (f32, TF32 off) {seq_per_s(t_sim)}; "
-          f"at S=64 on the default route (the chain): forward "
-          f"{t_64[0]:.3f} ms ({t_64[1]:.3f}-{t_64[2]:.3f}), engine "
-          f"{seq_per_s(t_64)}")
+          + "; ".join(
+              f"at S={seq} on the default route ({routes[seq]}): forward "
+              f"{t[0]:.3f} ms ({t[1]:.3f}-{t[2]:.3f}), engine "
+              f"{seq_per_s(t)}" for seq, t in t_seq.items()))
 
     print("[9] the leave-one-out kernels against their plain versions, "
           f"layer-0 inputs (B={BATCH}, S={SEQ})", flush=True)
@@ -1859,7 +1988,9 @@ def main(argv=None) -> int:
           f"simulation (f32, TF32 off) {seq_per_s(t_sim)}")
 
     report.update({k: mb_report[k] for k in (
-        "int8_matmul_norm", "int8_attention_qkv", "int8_mb_layer_ln")})
+        "int8_matmul_norm", "int8_attention_qkv")})
+    k8_by_seq = mb_report["int8_mb_layer_ln"]
+    report["int8_mb_layer_ln"] = k8_by_seq[SEQ]
     report["float_edge_matmul"] = dict(
         flex_reports["w8a8-mixed"]["float_edge_matmul"],
         level_pass=flex_reports["w8a8-mixed"]["float_edge_levels"])
@@ -1935,6 +2066,19 @@ def main(argv=None) -> int:
                 "variants": {v: {k: c[k] for k in keys}
                              for v, c in qp["variants"].items()}}
         kernels.append(entry)
+    # K8 at its other built seqs: their main paths are the serving buckets
+    for seq in mb_seqs():
+        if seq == SEQ:
+            continue
+        path, r = f"mobilebert-s{seq}", k8_by_seq[seq]
+        kernels.append({
+            "name": f"int8_mb_layer_ln (S={seq})", "route": "cuda",
+            "source": "transformer_quantization_tpu_torch/ops/kernels/csrc/"
+                      "int8_mb_layer.cu",
+            "replaces": f"{pallas}:2038",
+            "launches": by_path[path]["int8_mb_layer_ln"],
+            **{k: r[k] for k in keys}, "chain_ms": r["chain_ms"],
+            "launches_by_path": {path: by_path[path]["int8_mb_layer_ln"]}})
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -3,11 +3,12 @@ copies of itself on one NVIDIA card, at BERT-base's layer shapes,
 MobileBERT's NoNorm matmul (K6, ``csrc/int8_matmul_norm.cu``) against
 another checkout's at a MobileBERT layer's five shapes, the float-edge
 matmul (K4, ``csrc/float_edge_matmul.cu``) at the recipes' inter shape,
-and the attention (K2 / K7, ``csrc/int8_attention.cu``) at BERT-base's and
-MobileBERT's calls.
+the attention (K2 / K7, ``csrc/int8_attention.cu``) at BERT-base's and
+MobileBERT's calls, the add+LN template (K3 / K5) and MobileBERT's layer
+kernel (K8, ``csrc/int8_mb_layer.cu``).
 
-    python3 k1_probe.py [--out DIR] [--parent DIR]
-                        [--kernels k1,norm,edge,attn,ln]
+    python3 k1_probe.py [--out DIR] [--parent DIR] [--build-only]
+                        [--kernels k1,norm,edge,attn,ln,mb]
 
 Each variant is the kernel's source and the shared GEMM header
 (``csrc/wgmma_gemm.cuh``) with one edit, built with the package's
@@ -113,7 +114,28 @@ skip_max as both engines take it; each
 that computes the function checked against ``int8_attention_qkv_ref``
 (bit-identical or it fails) and timed beside its bound. With
 ``--parent`` it also compares the machine code of K8, K1, the fused
-linear, K6 and K4 with the parent's. Imports torch and the port only.
+linear, K6 and K4 with the parent's.
+
+MobileBERT's layer kernel (``mb`` in ``--kernels``; K8,
+``csrc/int8_mb_layer.cu``): ``kernel`` (the source as it is),
+``main_loop`` (every unit's products with no epilogue and no attention:
+the weight stream and the tensor cores), ``no_math`` (each element the
+low byte of its sum, the residual XORed in: the epilogues' data movement
+without their arithmetic), ``attn_only`` (no matmul: the attention on
+what shared memory holds), ``lockstep`` (both warpgroups meet at a
+barrier before each unit's products), ``ilp`` (twice the elements an
+epilogue step: 8 NoNorm, 16 emitted) and, with ``--parent``, ``parent``
+(that checkout's ``int8_mb_layer.cu``, at the seqs it takes:
+``PARENT_MB_SEQS``), at ``MB_CALLS`` (S = 128, 64 and 32 at B = 128, over
+16384 rows, and ragged batches) on ``chip_smoke.mb_inputs``; each that
+computes the function checked against ``int8_mb_layer_ln_ref`` and the
+chain of K1, K6 and K7 (bit-identical or it fails) and timed beside that
+chain, with ptxas's registers and spills of every variant and K8's MMA
+opcodes (``cuobjdump -sass``: warpgroup MMAs, no ``mma.sync``); with
+``--parent`` also every other kernel's machine code against the
+parent's (``MB_SASS``). Variants named ``build_*`` are built for
+ptxas's lines and not run; ``--build-only`` stops after the builds.
+Imports torch and the port only.
 """
 
 from __future__ import annotations
@@ -122,6 +144,7 @@ import argparse
 import ctypes
 import re
 import subprocess
+import threading
 from pathlib import Path
 
 import torch
@@ -152,6 +175,7 @@ EDITS = {
 COMPUTES = {"kernel", "one_warpgroup", "exact_branch", "step8", "parent"}
 GEMM = "wgmma_gemm.cuh"
 LN = "add_ln.cuh"
+ATTN = "attn_common.cuh"
 # (N, K, activation, output) of a BERT-base layer's four calls, and the
 # recipes' dense fold on a 16-bit grid
 SHAPES = [(2304, 768, None, "emit", 8), (768, 768, None, "emit", 8),
@@ -430,6 +454,53 @@ LN_SASS = ("int8_matmul.cu", "fused_int8_linear.cu", "int8_matmul_norm.cu",
 # the conversion-pipe opcodes counted in K3's machine code
 CONVERSIONS = ("I2F", "F2F", "FRND", "F2I", "MUFU")
 
+# K8's variants (the module docstring), on int8_mb_layer.cu
+MB_ATTN = """        attention_any<COLS>(c, p.S, st, fast_path(st), p.skip_max, qsm, qp,
+                            qp + P, vt, colv, vs, sh);
+"""
+MB_UNIT = """  const int col = nt * 128 + (COLS ? 64 * c.wg + (c.tid & 63) : c.tid);"""
+MB_V = """  uint8_t* half = COLS ? vt : vt + c.wg * HALF;"""
+MB_EDITS = {
+    "kernel": [],
+    "main_loop": [
+        ("  named_sync(1 + c.wg, 128);   // the last epilogue is done with "
+         "the table", "  if (kch >= 0) return;\n  named_sync(1 + c.wg, 128);"),
+        ("    for (int i = 0; i < 32; ++i) fence_reg(acc[i]);",
+         "    for (int i = 0; i < 32; ++i) fence_reg(acc[i]);\n"
+         "    if (kch >= 0) continue;"),
+        (MB_ATTN, "")],
+    "no_math": [
+        ("return tqmm::site_out<ACT, 0>(acc, k.s, -128.0f, 127.0f, gelu_c);",
+         "return static_cast<int8_t>(acc);"),
+        ("return tqmm::nonorm_out<RES, RQ>(acc, k, r, nn);",
+         "return static_cast<int8_t>(acc ^ r);")],
+    "attn_only": [
+        ("    for (int m = 0; m < p.n_mm; ++m) {\n      const int nt",
+         "    for (int m = 0; m < 0; ++m) {\n      const int nt"),
+        (MB_UNIT, "  if (kch >= 0) return;\n" + MB_UNIT),
+        (MB_V, MB_V + "\n  if (kch >= 0) return;")],
+    "lockstep": [("  int prev = 0;\n  for (int kc = 0; kc < kch; ++kc) {",
+                  "  named_sync(3, 256);\n  int prev = 0;\n"
+                  "  for (int kc = 0; kc < kch; ++kc) {")],
+    "ilp": [("  constexpr int NB = RES ? 1 : 2;   // 8-column blocks a step",
+             "  constexpr int NB = RES ? 2 : 4;")],
+}
+MB_COMPUTES = {"kernel", "lockstep", "ilp", "parent"}
+# every other source, whose machine code this PR's edits of the shared
+# headers must leave as it was
+MB_SASS = ("int8_matmul.cu", "fused_int8_linear.cu", "int8_matmul_norm.cu",
+           "float_edge_matmul.cu", "int8_attention.cu", "add_ln_payload.cu",
+           "flex_add_ln.cu")
+# (seq, batch): the layer kernel's built seqs at the serving batch (B =
+# 128: 64-row tiles at S = 64 and 32) and over 16384 rows (128-row
+# tiles), and ragged batches (B * S not a multiple of 128)
+MB_CALLS = ((128, 128), (64, 128), (32, 128), (64, 256), (32, 512), (64, 7),
+            (32, 9))
+PARENT_MB_SEQS = (128,)   # the seqs the parent's K8 takes
+
+
+LOGS = {}   # (source, variant) -> its nvcc log
+
 
 def build_variants(source: str, variants: dict, out: Path,
                    parent=None) -> dict:
@@ -451,7 +522,7 @@ def build_many(jobs) -> list:
         procs = {}
         for name, edits in variants.items():
             files = {f: (KB.CSRC / f).read_text() for f in (source, GEMM,
-                                                             LN)}
+                                                             LN, ATTN)}
             for old, new in edits:
                 holder = [f for f, text in files.items() if old in text]
                 if not holder:
@@ -485,6 +556,7 @@ def build_many(jobs) -> list:
             spills = sorted({ln.strip() for ln in log.splitlines()
                              if "spill" in ln or "serialized" in ln})
             print(f"  {source} {name}: built; {' | '.join(spills)}")
+            LOGS[source, name] = log
             libs[name] = ctypes.CDLL(str(lib))
         built.append(libs)
     return built
@@ -728,6 +800,92 @@ def conversions(lib: Path, nch: int) -> dict:
     return out
 
 
+def mma_counts(lib: Path) -> dict:
+    """Per layer kernel in ``lib``: how many warpgroup MMAs
+    (``*GMMA``) and warp MMAs (``IMMA`` / ``HMMA``, mma.sync) its machine
+    code holds."""
+    out = {}
+    for name, code in sass(lib).items():
+        if "mb_layer_kernel" in name:
+            ops = [ln.split()[1] if ln.startswith("@") else ln.split()[0]
+                   for ln in code if ln]
+            out[name] = {
+                "GMMA": sum("GMMA" in op for op in ops),
+                "mma.sync": sum(op.split(".")[0] in ("IMMA", "HMMA")
+                                for op in ops)}
+    return out
+
+
+def probe_mb(out: Path, parent, build_only: bool = False) -> None:
+    """K8's variants and (with ``parent``) the parent's K8, at every built
+    seq over 16384 rows and at ragged batches, on ``chip_smoke.mb_inputs``
+    (MobileBERT-uncased widths, the 'spread' scalars, skip_max off),
+    beside the chain of K1, K6 and K7 on the same inputs; ptxas's
+    registers and spills and the MMA opcodes of every instance; with
+    ``parent`` also the other kernels' machine code against the
+    parent's."""
+    jobs = [("int8_mb_layer.cu", MB_EDITS, out / "mb", parent)]
+    if parent is not None:
+        jobs += [(src, {"kernel": []}, out / Path(src).stem, parent)
+                 for src in MB_SASS]
+    # the chain's kernels build beside the variants
+    chain_build = threading.Thread(target=KB.build, args=(
+        ("int8_matmul", "int8_matmul_norm", "int8_attention"),))
+    chain_build.start()
+    built = build_many(jobs)
+    chain_build.join()
+    print("  K8 ptxas: " + " | ".join(
+        CS.ptxas_lines(LOGS["int8_mb_layer.cu", "kernel"])), flush=True)
+    print(f"  K8 MMA opcodes: {mma_counts(out / 'mb' / 'kernel.so')}")
+    if build_only:
+        return
+    for src in MB_SASS if parent is not None else ():
+        print(f"  {src}:", end="")
+        same_sass(out / Path(src).stem)
+    fns = {name: entry(lib, "int8_mb_layer")
+           for name, lib in built[0].items()}
+    dev = torch.device("cuda")
+    for i, (seq, b) in enumerate(MB_CALLS):
+        h8, mask, ascal, flat = (
+            torch.from_numpy(a).to(dev) if not isinstance(a, list) else
+            [torch.from_numpy(x).to(dev) for x in a]
+            for a in CS.mb_inputs(b, seq, 80 + i))
+        kw = CS.mb_kwargs(seq)
+        want = EK.int8_mb_layer_ln_ref(h8, mask, ascal, flat, **kw)
+        chain = EK.mb_layer_chain(h8, mask, ascal, flat, **kw)
+        if not torch.equal(chain, want):
+            raise SystemExit(f"k1_probe: the chain differs from the plain "
+                             f"layer at S={seq}, B={b}")
+        res_ao, res_ffn, res_out, res_obn = kw["res"]
+        ffn_mask = sum(int(r) << j for j, r in enumerate(res_ffn + (res_out,)))
+        ptrs = (ctypes.c_void_p * len(flat))(*(a.data_ptr() for a in flat))
+        out8 = torch.empty_like(h8)
+        print(f"  K8 S={seq} B={b}:", end="", flush=True)
+        for name, fn in fns.items():
+            if (name == "parent" and seq not in PARENT_MB_SEQS
+                    or name.startswith("build_")):
+                continue
+
+            def call(fn=fn, name=name):
+                KB.check(fn(h8.data_ptr(), mask.data_ptr(), ascal.data_ptr(),
+                            ctypes.addressof(ptrs), len(flat),
+                            out8.data_ptr(), b, seq, 512, 128, 512, 32, 3, 1,
+                            2, 0, int(res_ao), ffn_mask, int(res_obn),
+                            EK._rsqrt_d(32), EK.LOG2E, GELU_NEW_C,
+                            torch.cuda.current_stream().cuda_stream), name)
+            call()
+            torch.cuda.synchronize()
+            if name in MB_COMPUTES and not torch.equal(out8, want):
+                bad = int((out8 != want).sum())
+                raise SystemExit(f"k1_probe: K8 {name} differs from the "
+                                 f"plain layer on {bad} elements at S={seq}, "
+                                 f"B={b}")
+            print(f" {name} {CS.device_ms(call):.4f} ms;", end="", flush=True)
+        t_chain = CS.device_ms(lambda: EK.mb_layer_chain(h8, mask, ascal,
+                                                         flat, **kw))
+        print(f" the chain {t_chain:.4f} ms", flush=True)
+
+
 def probe_ln(out: Path, parent) -> None:
     """The add+LN template's variants, built as K3 (``add_ln_payload.cu``)
     and K5 (``flex_add_ln.cu``), and (with ``parent``) the parent's K3 and
@@ -833,8 +991,10 @@ def main(argv=None) -> int:
     ap.add_argument("--parent", default=None,
                     help="an unpacked checkout whose K1 and K6 to time "
                          "beside")
+    ap.add_argument("--build-only", action="store_true",
+                    help="mb: build the variants and print ptxas's lines")
     ap.add_argument("--kernels", default="k1,norm",
-                    help="which of k1, norm, edge, attn, ln to probe")
+                    help="which of k1, norm, edge, attn, ln, mb to probe")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("k1_probe: needs a card")
@@ -848,6 +1008,8 @@ def main(argv=None) -> int:
         probe_attn(Path(args.out), args.parent)
     if "ln" in kernels:
         probe_ln(Path(args.out), args.parent)
+    if "mb" in kernels:
+        probe_mb(Path(args.out), args.parent, args.build_only)
     if "k1" not in kernels:
         return 0
     fns = {name: entry(lib, "int8_matmul") for name, lib in build_variants(

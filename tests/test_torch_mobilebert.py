@@ -414,6 +414,34 @@ def test_int8_mb_layer_ln_against_pallas_interpret(setup, layer0):
     _payload_close(want, got, exact=False)
 
 
+@pytest.mark.parametrize("seq", [32, 64])
+@pytest.mark.parametrize("setup", ["wide"], indirect=True)
+def test_int8_mb_layer_ln_against_pallas_interpret_stacked(setup, layer0,
+                                                           seq):
+    """The layer kernel's shorter seqs: the port's plain whole layer
+    against the JAX megakernel in interpret mode at S = 32 and 64 on the
+    wide config's layer 0 (head_dim 32, the card kernel's), on a seeded
+    payload and padding of 8 sequences, which JAX stacks 8 to a block
+    (``batch_block``: 256 and 512 rows)."""
+    st = layer0["static"]
+    rng = np.random.RandomState(seq)
+    h8 = rng.randint(-60, 60, (8 * seq, setup["tcfg"].hidden_size)).astype(
+        np.int8)
+    lens = rng.randint(1, seq + 1, 8)
+    bias = np.where(np.arange(seq)[None, :] < lens[:, None], 0.0,
+                    -10000.0).astype(np.float32)
+    kw = _layer_kw(st, seq)
+    want = JEK.int8_mb_layer_ln(
+        jnp.asarray(h8), jnp.asarray(bias), layer0["lp"]["attn_scal"],
+        JEK.mb_layer_flat(layer0["lp"], st.attn_case), interpret=True,
+        attn_bits=st.layer_attn_bits(0), **kw)
+    got = EK.int8_mb_layer_ln_ref(
+        torch.from_numpy(h8), torch.from_numpy(bias),
+        layer0["tlp"]["attn_scal"],
+        EK.mb_layer_flat(layer0["tlp"], st.attn_case), **kw)
+    _payload_close(want, got, exact=False)
+
+
 # ---------------------------------------------------------------------------
 # The engine end to end
 # ---------------------------------------------------------------------------
@@ -453,32 +481,37 @@ def test_engine_matches_jax_engine(attn_case):
 
 
 ROUTES = {"tiny": {32: "chain", 64: "chain", 128: "chain"},
-          "wide": {32: "chain", 64: "chain", 128: "k8"}}
+          "wide": {32: "k8", 64: "k8", 128: "k8"}}
 
 
 def test_the_plan_chooses_the_route_by_seq(setup, monkeypatch):
     """The default kernels route is the plan's, chosen when it is made:
-    the layer kernel where it is built ((seq, head_dim, heads) = (128, 32,
-    4): the wide config at S = 128), the chain elsewhere (S = 32 and 64,
-    and every seq of the tiny config's head_dim 8). At S = 64 the default
-    route runs the chain and matches the JAX engine."""
+    the layer kernel where it is built ((seq, head_dim, heads) in
+    ``EK.MB_LAYER_SHAPES``: the wide config at S = 32, 64 and 128), the
+    chain elsewhere (every seq of the tiny config's head_dim 8; a seq or a
+    head_dim that is not built). At S = 64 the default route runs the
+    plan's route and matches the JAX engine."""
     s = setup
     tst, tplan, tint = TM.build_mobilebert_engine(s["tp"], s["tcfg"],
                                                   s["tq"], s["ts"],
                                                   device="cpu")
     routes = {t: tst.layer_route(t) for t in (32, 64, 128)}
     assert routes == ROUTES[s["name"]]
-    why = EK.mb_layer_refusal(
-        seq=64, head_dim=32, n_heads=4, h=512, inter=512,
-        attn_case=tst.attn_case, activation="relu", n_ffn=3,
-        attn_bits=(8, 8, 8), w4=(False,))
-    assert why is not None and "not built" in why
+    assert tst.k8_seqs == tuple(t for t, r in routes.items() if r == "k8")
+    for seq, head_dim in ((256, 32), (64, 64)):
+        why = EK.mb_layer_refusal(
+            seq=seq, head_dim=head_dim, n_heads=4, h=512, inter=512,
+            attn_case=tst.attn_case, activation="relu", n_ffn=3,
+            attn_bits=(8, 8, 8), w4=(False,))
+        assert why is not None and "not built" in why
     calls = {"int8_mb_layer_ln": 0, "mb_layer_chain": 0}
     for name in calls:
         real = getattr(EK, name)
 
+        # the plain whole layer is itself a chain on the plain versions:
+        # only the engine's own calls (on the kernel wrappers) count
         def rec(*a, _real=real, _name=name, **k):
-            calls[_name] += 1
+            calls[_name] += not k.get("plain", False)
             return _real(*a, **k)
         monkeypatch.setattr(EK, name, rec)
     batch = _request_batch(s["tcfg"].vocab_size, 4, 64, seed=2)
@@ -488,8 +521,10 @@ def test_the_plan_chooses_the_route_by_seq(setup, monkeypatch):
     got = TM.mobilebert_engine_apply(s["tp"], batch, s["tcfg"], s["tq"],
                                      s["ts"], tst, tplan, tint,
                                      device="cpu")["logits"]
-    assert calls == {"int8_mb_layer_ln": 0,
-                     "mb_layer_chain": s["tcfg"].num_hidden_layers}
+    n_layers = s["tcfg"].num_hidden_layers
+    k8 = routes[64] == "k8"
+    assert calls == {"int8_mb_layer_ln": n_layers * k8,
+                     "mb_layer_chain": n_layers * (not k8)}
     _logits_close(want, got)
 
 
@@ -601,13 +636,19 @@ def test_engine_incompatible_configs():
 
 
 def test_layer_kernel_holds_mobilebert_uncased_in_shared_memory():
-    """The layer kernel's live set at MobileBERT-uncased widths fits a
-    block's shared memory (its wrapper refuses the shapes that do not)."""
-    at = EK._mb_layer_smem(seq=128, head_dim=32, hidden=128, h=512,
-                           inter=512)
-    assert at == 198272 and at <= EK.SMEM_MAX
-    assert EK._mb_layer_smem(seq=128, head_dim=32, hidden=128, h=1024,
-                             inter=1024) > EK.SMEM_MAX
+    """The layer kernel's shared memory, laid out for its widest H and I
+    (the weight ring, h8, li8 / x8, the attention / FFN union, the column
+    tables, the keys' constants, v's and q's sums), fits a block's shared
+    memory at every built seq, and its wrapper refuses wider layers."""
+    at = EK._mb_layer_smem(head_dim=32, hidden=128)
+    assert at == 230528 and at <= EK.SMEM_MAX
+    assert EK.MB_MAX_WIDTH == 512
+    for h, inter in ((512, 512), (256, 256), (1024, 512), (512, 1024)):
+        why = EK.mb_layer_refusal(seq=128, head_dim=32, n_heads=4, h=h,
+                                  inter=inter, attn_case="shared_kq",
+                                  activation="relu", n_ffn=3,
+                                  attn_bits=(8, 8, 8), w4=(False,))
+        assert (why is None) == (max(h, inter) <= 512), why
 
 
 def test_entry_points_need_a_card_unless_cpu_is_asked():

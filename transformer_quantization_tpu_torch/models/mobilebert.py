@@ -738,20 +738,20 @@ def _build_plan(params, cfg, qcfg, qstate, int_params):
     worst = max(2.0 ** 8 * float(lp_["attn_scal"][0, 6]) for lp_ in layers)
     bound = worst / float(np.sqrt(cfg.head_dim)) * float(np.log2(np.e))
     attn_bits = ((8, 8, 8),) * cfg.num_hidden_layers
-    seq = EK.MB_LAYER_SHAPE[0]
-    k8 = all(EK.mb_layer_refusal(
-        seq=seq, head_dim=cfg.head_dim, n_heads=cfg.num_attention_heads,
-        h=cfg.hidden_size, inter=lp_["out"]["w"].shape[1],
-        attn_case=attn_case, activation=cfg.hidden_act,
-        n_ffn=cfg.num_stacked_ffn, attn_bits=ab, w4=w4) is None
-        for lp_, ab, w4 in zip(layers, attn_bits, w4_flags))
+    k8_seqs = tuple(seq for seq, _, _ in EK.MB_LAYER_SHAPES if all(
+        EK.mb_layer_refusal(
+            seq=seq, head_dim=cfg.head_dim, n_heads=cfg.num_attention_heads,
+            h=cfg.hidden_size, inter=lp_["out"]["w"].shape[1],
+            attn_case=attn_case, activation=cfg.hidden_act,
+            n_ffn=cfg.num_stacked_ffn, attn_bits=ab, w4=w4) is None
+        for lp_, ab, w4 in zip(layers, attn_bits, w4_flags)))
     static = MobileBertEngineStatic(
         n_layers=cfg.num_hidden_layers, n_heads=cfg.num_attention_heads,
         hidden=cfg.true_hidden_size, n_ffn=cfg.num_stacked_ffn,
         attn_case=attn_case, hidden_act=cfg.hidden_act,
         res_quant=tuple(res_flags), w4=tuple(w4_flags),
         attn_skip_max=bound < 100.0, attn_bits=attn_bits,
-        k8_seqs=(seq,) if k8 else ())
+        k8_seqs=k8_seqs)
     return static, {"layers": layers, "entry_scal": entry_scal}, int_params
 
 

@@ -28,12 +28,11 @@
 // under the other's products; 16-byte staged stores), with the epilogue
 // policy SiteEpi: each tile's 128 column constants (ColSite, the (5, N)
 // rows' fold and site) are loaded before the main loop and written to
-// shared memory after it, and each element takes store_site's steps from
-// mm_common.cuh (fold, act_fn, the site level, to_i8) in the same order,
-// 16 elements at a time so that their chains interleave. The level's
-// rint(y / s) is rint_div_fma, which gives rint_div's integers without
-// its branch and out-of-line call (with them the epilogue ran 25%
-// slower). BN = 128: a warpgroup's int32 accumulator is then 128
+// shared memory after it, and each element takes site_out's steps from
+// mm_common.cuh (fold, act_fn, the site level, to_i8), 16 elements at a
+// time so that their chains interleave. The level's rint(y / s) is
+// rint_div_fma, the IEEE quotient's integer without a branch or an
+// out-of-line call (with them the epilogue ran 25% slower). BN = 128: a warpgroup's int32 accumulator is then 128
 // registers a thread, which leaves the epilogue room in a consumer's 232;
 // BN = 256 would need 256.
 // Limits: K % 16 == 0 (TMA's 16-byte row stride), N % 8 == 0, 16-byte
@@ -59,11 +58,9 @@ namespace {
 using tqmm::ColSite;
 
 // K1's epilogue policy (wgmma_gemm.cuh): the column constants are the
-// (5, N) rows' fold and site (ColSite); an element takes store_site's
-// steps from mm_common.cuh (fold, act_fn, the site level, to_i8) in the
-// same order. The site level is site_level's with rint_div_fma for
-// rint_div: the same integers, without the branch and the call that
-// would keep the compiler from interleaving.
+// (5, N) rows' fold and site (ColSite); an element takes mm_common.cuh's
+// site_out (fold, act_fn, the site level through rint_div_fma, to_i8),
+// the steps the MobileBERT layer kernel's emitted payloads take too.
 template <int ACT, int OUT>
 struct SiteEpi {
   using Col = ColSite;
@@ -87,15 +84,7 @@ struct SiteEpi {
     return tqmm::col_site(vecs, N, n, in_s, in_sh);
   }
   __device__ __forceinline__ Out apply(int acc, const Col& kc) const {
-    const float y = tqmm::act_fn<ACT>(tqmm::fold(acc, kc), gelu_c);
-    if constexpr (OUT == 2) {
-      return y;
-    } else {
-      const float lvl = fminf(
-          fmaxf(tqmm::rint_div_fma(y, kc.os, kc.inv) - kc.osh, lo), hi);
-      if constexpr (OUT == 0) return tqmm::to_i8(lvl);
-      else return kc.os * (lvl + kc.osh);
-    }
+    return tqmm::site_out<ACT, OUT>(acc, kc, lo, hi, gelu_c);
   }
 };
 

@@ -38,9 +38,9 @@
 //   beta: 32 bytes a column); 164,960 bytes of shared memory a block;
 // - an element takes the plain version's steps in its order (the fold,
 //   the fold site's level, the residual, the res site, NoNorm, the norm
-//   site's level, to_i8), both site levels through rint_div_fma (the IEEE
-//   quotient's integers without rint_div's branch and call), one 8-column
-//   block (4 elements a thread) a step: two ran 2-3% slower;
+//   site's level, to_i8: mm_common.cuh's nonorm_out, which the MobileBERT
+//   layer kernel takes too), both site levels through rint_div_fma, one
+//   8-column block (4 elements a thread) a step: two ran 2-3% slower;
 // - the residual is the skeleton's per-element input: each warp's rows
 //   of r8 arrive by cp.async in its staging buffer under the main loop
 //   and are read where the output pair is then written (16-byte loads in
@@ -104,21 +104,9 @@ struct NormEpi {
   }
   __device__ __forceinline__ Out apply(int acc, const Col& k,
                                        int8_t r = 0) const {
-    const float y = tqmm::fold(acc, k.s);
-    const float lvl = fminf(
-        fmaxf(tqmm::rint_div_fma(y, k.s.os, k.s.inv) - k.s.osh, -128.0f),
-        127.0f);
-    float v = k.s.os * (lvl + k.s.osh);
-    if constexpr (RES) v = v + r_s * (tqmm::i8_to_float(r) + r_sh);
-    if constexpr (RQ) {
-      const float q =
-          fminf(fmaxf(rintf(v * inv_res) - res_sh, -128.0f), 127.0f);
-      v = res_s * (q + res_sh);
-    }
-    const float z = v * k.gamma + k.beta;
-    return tqmm::to_i8(fminf(
-        fmaxf(tqmm::rint_div_fma(z, ln_s, inv_ln) - ln_sh, -128.0f),
-        127.0f));
+    return tqmm::nonorm_out<RES, RQ>(
+        acc, k, r,
+        tqmm::NoNorm{r_s, r_sh, res_s, inv_res, res_sh, ln_s, inv_ln, ln_sh});
   }
 };
 

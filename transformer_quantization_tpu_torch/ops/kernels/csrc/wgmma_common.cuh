@@ -1,8 +1,10 @@
-// Hopper building blocks of the warp-specialized int8 GEMM
-// (wgmma_gemm.cuh): mbarriers, TMA tile loads and the host-side tensor
-// map, wgmma on s8 operands read from 128-byte swizzled shared memory,
-// register hand-over between warpgroups and named barriers. sm_90a only
-// (wgmma and setmaxnreg do not exist on plain sm_90).
+// Hopper building blocks of the warp-specialized int8 kernels
+// (wgmma_gemm.cuh, the attention kernel, the MobileBERT layer kernel):
+// mbarriers, TMA tile loads and stores and the host-side tensor map, wgmma
+// on s8 operands read from 128- or 64-byte swizzled shared memory (A also
+// from registers), register hand-over between warpgroups and named
+// barriers. sm_90a only (wgmma and setmaxnreg do not exist on plain
+// sm_90).
 
 #pragma once
 
@@ -75,6 +77,35 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
       "r"(c1)
       : "memory");
+}
+
+// the 2-D box at (inner c0, outer c1) of `map` from shared memory, as its
+// own bulk group
+__device__ __forceinline__ void tma_store_2d(const CUtensorMap* map,
+                                             const void* src, int c0,
+                                             int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group"
+      " [%0, {%2, %3}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(src)), "r"(c0), "r"(c1)
+      : "memory");
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// this thread's bulk stores but the newest N have read their sources
+template <int N>
+__device__ __forceinline__ void tma_store_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void tma_store_wait_all() {
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+
+// orders this thread's generic shared-memory writes before later reads
+// of the async proxy (wgmma operands, TMA stores)
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
 __device__ __forceinline__ void tma_prefetch_map(const CUtensorMap* map) {
@@ -225,7 +256,58 @@ __device__ __forceinline__ void wgmma_m64n128k32_s8(int (&d)[64],
       : "l"(desc_a), "l"(desc_b), "r"(scale_d));
 }
 
+// D (64 x 64, s32) (+)= A (64 x 32, s8) * B (64 x 32, s8)^T, both K-major
+// in shared memory; the fragment of wgmma_m64n128k32_s8 for j = 0..7.
+__device__ __forceinline__ void wgmma_m64n64k32_s8(int* d, uint64_t desc_a,
+                                                   uint64_t desc_b,
+                                                   int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31}, "
+      "%32, %33, p;\n"
+      "}\n"
+      : TQWG_R8(0), TQWG_R8(8), TQWG_R8(16), TQWG_R8(24)
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+// D (64 x 32, s32) (+)= A (64 x 32, s8, in registers) * B (32 x 32, s8,
+// K-major in shared memory)^T. A's fragment is mma.sync m16n8k32's for
+// warp w's rows 16 w ..: a[0] = row g, bytes 4t..4t+3; a[1] = row g + 8,
+// the same; a[2] / a[3] = bytes 16 + 4t.. of rows g / g + 8 (g = lane / 4,
+// t = lane % 4); D's fragment that of wgmma_m64n128k32_s8 for j = 0..3.
+__device__ __forceinline__ void wgmma_m64n32k32_s8_rs(int* d,
+                                                      const unsigned* a,
+                                                      uint64_t desc_b,
+                                                      int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15}, {%16, %17, %18, %19}, %20, p;\n"
+      "}\n"
+      : TQWG_R8(0), TQWG_R8(8)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
+        "r"(scale_d));
+}
+
 #undef TQWG_R8
+
+// The matrix descriptor of a K-major tile of 64-byte rows with 64-byte
+// swizzling (16-byte chunk c of row r at c ^ ((r >> 1) & 3)): stride 512
+// bytes between 8-row groups, layout type 2. The tile starts on a
+// 512-byte boundary; a k32 step inside the row adds 32 bytes (2).
+__device__ __forceinline__ uint64_t sw64_desc(const void* tile) {
+  const uint64_t addr = smem_u32(tile);
+  return ((addr & 0x3FFFF) >> 4) | (1ull << 16) | ((512ull >> 4) << 32) |
+         (2ull << 62);
+}
 
 // ---------------------------------------------------------------------------
 // warpgroups

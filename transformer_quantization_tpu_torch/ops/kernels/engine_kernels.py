@@ -18,9 +18,10 @@ The wrappers here launch kernels written by hand for Hopper (``csrc/``):
   payload, probs @ v and the context payload, per (batch row, head), over
   q, k and v picked from up to three arrays by ``cols``;
   :func:`int8_attention` is its instance over one fused q|k|v array;
-- :func:`int8_mb_layer_ln` -- a whole MobileBERT layer in one launch, one
-  block per sequence, every intermediate payload in shared memory, built
-  from the same device functions as the three kernels above;
+- :func:`int8_mb_layer_ln` -- a whole MobileBERT layer in one launch over
+  tiles of whole sequences, every intermediate payload in shared memory,
+  its elements through the same device functions as the three kernels
+  above;
 - :func:`fused_add_ln_payload` -- payload + payload residual add, res
   site, one-pass LayerNorm, ln payload;
 - :func:`fused_add_ln` -- float32 y + float32 residual, res site,
@@ -72,6 +73,7 @@ kernel or raises. :data:`LAUNCHES` counts kernel launches per wrapper.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Dict, Tuple
 
 import numpy as np
@@ -943,20 +945,26 @@ def int8_matmul_norm(x8, w8, vecs, scalars, gb, ln_scalars, *, eps,
                           res_quant=res_quant)
 
 
-def _mb_layer_smem(seq: int, head_dim: int, hidden: int, h: int,
-                   inter: int) -> int:
-    """Shared memory of one ``int8_mb_layer.cu`` block (its ``Layout``):
-    h8, li8 / x8, the union of the attention buffers and the FFN inter
-    payload, the weight ring and the float rows."""
-    attn = (seq * (hidden + 16) + seq * (2 * hidden + 16)
-            + hidden * (seq + 16) + seq * (seq + 16))
-    union = max(attn, seq * (inter + 16))
-    return (seq * (h + 16) + seq * (hidden + 16) + union + 2 * 128 * 80
-            + (3 * seq + head_dim) * 4)
+def _mb_layer_smem(head_dim: int, hidden: int) -> int:
+    """Shared memory of one ``int8_mb_layer.cu`` block (its ``SM_*``
+    offsets), laid out for the widest H and I it takes (``MB_MAX_WIDTH``)
+    whatever the seq: the weight ring (4 stages of 128 x 128 bytes), h8,
+    li8 / x8, the union of sh8 / c8, q, k and v^T with the FFN inter
+    payload, two warpgroups' column tables (32 bytes a column), the keys'
+    attention constants (a float pair a key and head), v's sums (4 key
+    blocks), q's sums (an int a row and head), the mbarriers and 1 KB of
+    alignment."""
+    heads = hidden // head_dim
+    return (4 * 128 * 128 + 128 * MB_MAX_WIDTH + 128 * hidden
+            + 128 * max(MB_MAX_WIDTH, 4 * hidden) + 2 * 128 * 32
+            + heads * 128 * 8 + 4 * hidden * 4 + heads * 128 * 4 + 128
+            + 1024)
 
 
-MB_LAYER_SHAPE = (128, 32, 4)  # (seq, head_dim, heads) the layer kernel takes
+# (seq, head_dim, heads) the layer kernel is built for
+MB_LAYER_SHAPES = ((32, 32, 4), (64, 32, 4), (128, 32, 4))
 MB_MAX_FFN = 8
+MB_MAX_WIDTH = 512  # H and I: a unit's K chunks fill the kernel's ring
 
 
 def mb_layer_refusal(*, seq, head_dim, n_heads, h, inter, attn_case,
@@ -973,18 +981,18 @@ def mb_layer_refusal(*, seq, head_dim, n_heads, h, inter, attn_case,
     if attn_case not in ("shared_kq", "bottleneck"):
         return (f"attn_case {attn_case!r} is not yet ported (the kernel "
                 "takes 'shared_kq' and 'bottleneck')")
-    if (seq, head_dim, n_heads) != MB_LAYER_SHAPE:
+    if (seq, head_dim, n_heads) not in MB_LAYER_SHAPES:
         return (f"(seq, head_dim, heads) = ({seq}, {head_dim}, {n_heads}) "
-                f"is not built (built: {MB_LAYER_SHAPE})")
+                f"is not built (built: {MB_LAYER_SHAPES})")
     if activation not in _MM_ACTS or n_ffn > MB_MAX_FFN:
         return (f"activation {activation!r} / {n_ffn} stacked FFNs are not "
                 "yet ported")
-    if h % 64 or inter % 64:
+    if h % 128 or inter % 128 or max(h, inter) > MB_MAX_WIDTH:
         return (f"width {h}, intermediate {inter} (needs widths of a "
-                "multiple of 64)")
-    smem = _mb_layer_smem(seq, head_dim, n_heads * head_dim, h, inter)
+                f"multiple of 128 up to {MB_MAX_WIDTH})")
+    smem = _mb_layer_smem(head_dim, n_heads * head_dim)
     if smem > SMEM_MAX:
-        return (f"a sequence's live set ({smem} bytes) exceeds shared "
+        return (f"a 128-row tile's live set ({smem} bytes) exceeds shared "
                 f"memory ({SMEM_MAX})")
     return None
 
@@ -993,9 +1001,12 @@ def int8_mb_layer_ln(h8, mask_bias, attn_scal, flat, *, n_heads, seq,
                      hidden, attn_case, activation, res, w4, n_ffn,
                      skip_max=False, attn_bits=(8, 8)):
     """A whole MobileBERT layer; see :func:`int8_mb_layer_ln_ref` and
-    :func:`mb_layer_flat` for ``flat``. On the card: one launch, one block
-    per sequence, every intermediate payload in shared memory
-    (``csrc/int8_mb_layer.cu``); bit-identical to :func:`mb_layer_chain`.
+    :func:`mb_layer_flat` for ``flat``. On the card: one launch of a
+    persistent warp-specialized Hopper kernel (``csrc/int8_mb_layer.cu``):
+    a block an SM walks 128-row tiles of whole sequences, a producer warp
+    streams the layer's weight tiles by TMA, two consumer warpgroups run
+    every matmul and the attention on ``wgmma`` with every intermediate
+    payload in shared memory; bit-identical to :func:`mb_layer_chain`.
     Shapes and plans the kernel does not take (:func:`mb_layer_refusal`)
     raise NotImplementedError (there is no quiet fall-back to the chain:
     the engine's plan picks the chain for them before anything runs)."""
@@ -1019,8 +1030,13 @@ def int8_mb_layer_ln(h8, mask_bias, attn_scal, flat, *, n_heads, seq,
     if len(flat) != len(shapes):
         raise ValueError(f"int8_mb_layer_ln: flat has {len(flat)} arrays, "
                          f"the plan needs {len(shapes)}")
-    for i, (a, (shape, dtype)) in enumerate(zip(flat, shapes)):
-        _check(a, f"flat[{i}]", dtype, shape)
+    # one pass over the plan's 50-odd arrays (a layer's host time), then
+    # _check's message for the first that the kernel does not take
+    for i in [i for i, (a, (shape, dtype)) in enumerate(zip(flat, shapes))
+              if not a.is_cuda or a.dtype != dtype or a.shape != shape
+              or not a.is_contiguous()
+              or (dtype == torch.int8 and a.data_ptr() % 16)][:1]:
+        _check(flat[i], f"flat[{i}]", shapes[i][1], shapes[i][0])
     if mt % seq:
         raise NotImplementedError(f"int8_mb_layer_ln kernel: rows {mt} "
                                   "(needs whole sequences)")
@@ -1045,6 +1061,7 @@ def int8_mb_layer_ln(h8, mask_bias, attn_scal, flat, *, n_heads, seq,
     return out
 
 
+@functools.lru_cache(maxsize=None)
 def _mb_flat_shapes(shared_kq: bool, n_ffn: int, h: int, hidden: int,
                     inter: int):
     """(shape, dtype) of each array of a layer plan in
@@ -1064,7 +1081,7 @@ def _mb_flat_shapes(shared_kq: bool, n_ffn: int, h: int, hidden: int,
     out += mm(hidden, hidden) + nrm(hidden)
     for _ in range(n_ffn + 1):  # the stacked FFNs, then the output FFN
         out += mm(inter, hidden) + mm(hidden, inter) + nrm(hidden)
-    return out + mm(h, hidden) + nrm(h)
+    return tuple(out + mm(h, hidden) + nrm(h))
 
 
 def fused_add_ln_payload(y8, r8, gb, scalars, *, eps, res_quant=True):
