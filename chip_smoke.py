@@ -51,6 +51,20 @@ Phases (any failure exits non-zero; nothing is caught):
    attention, 12 float-edge matmul and 12 level-pass, 24 flex add+LN
    launches), logits against the plain engine, the forward / encoder
    split, engine and fake-quant simulation seq/s (five windows);
+6b. the JAX CLI's PTQ recipes as it defines them (``CAL.CLI_RECIPES``:
+   MSE golden-section weight ranges, current-minmax act ranges, one
+   calibration sequence), from the same ``--seed`` params: ``w8a8``,
+   ``w8a8-mixed`` and ``w8a8-peg`` each calibrated on the card (seconds;
+   ``w8a8`` also on the CPU, its weight ranges held card against CPU by
+   the MSE tolerance: scales within rtol 1e-5, else the card's float64
+   loss no more than 1e-6 relative above the CPU's), packed, planned and
+   driven with three request batches through ``bert_engine_apply``
+   (launches read just after, logits against the plain engine) and
+   engine seq/s (five windows); then one MSE-grid per-channel weight
+   calibration (layer 0's inter weight, card and CPU, timed, the grid
+   rule) and the STS-B variant's ``MSE_logits`` classifier site
+   (its recipe calibrated on the card, and the site's nested
+   golden-section search alone, timed);
 7. MobileBERT-uncased (24 layers, H=512, bottleneck 128, 4 heads of 32,
    3 stacked FFNs, relu, NoNorm): random init from ``--seed``, one-batch
    W8A8 calibration, packing, the engine plan; on layer 0's inputs (B=128,
@@ -125,6 +139,7 @@ the port only.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import re
 import subprocess
@@ -143,6 +158,7 @@ from transformer_quantization_tpu_torch.ops.kernels import build as KB
 from transformer_quantization_tpu_torch.ops.kernels import engine_kernels as EK
 from transformer_quantization_tpu_torch.ops.kernels import int_matmul as IM
 from transformer_quantization_tpu_torch.quant import quantizers as Q
+from transformer_quantization_tpu_torch.quant import ranges as R
 from transformer_quantization_tpu_torch.quant.qconfig import QuantMode
 from transformer_quantization_tpu_torch.training import calibration as CAL
 
@@ -1722,6 +1738,163 @@ def check_engine_fp32_kernels(params, cfg, h_fp32, batch, dev) -> dict:
     return per_layer(cases)
 
 
+# the JAX CLI's PTQ presets the recipes phase drives (MSE golden-section
+# weight ranges), each with the launches per forward of its engine route
+def cli_recipe_launches(L: int) -> dict:
+    flex = per_forward(int8_matmul=3 * L, int8_attention=L,
+                       float_edge_matmul=L, float_edge_levels=L,
+                       flex_add_ln=2 * L)
+    return {"w8a8": per_forward(int8_matmul=4 * L, int8_attention=L,
+                                fused_add_ln_payload=2 * L),
+            "w8a8-mixed": flex, "w8a8-peg": flex}
+
+
+def timed_s(fn):
+    """``fn()`` and its seconds on the host clock, the card synchronised
+    before and after."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def qp_loss64(spec, w, qp) -> float:
+    """The MSE objective of params ``qp`` on the CPU tensor ``w``, summed
+    in float64."""
+    y = Q.fake_quant(spec, qp, w).double()
+    return float(((w.double() - y) ** 2).sum())
+
+
+def check_weight_ranges(qcfg, card_qs, cpu_qs, cpu_tensors) -> None:
+    """Every weight site of a card calibration against the CPU one by the
+    MSE tolerance: the scale within rtol 1e-5, else the card's float64
+    loss no more than 1e-6 relative above the CPU's (printed)."""
+    worst, n_equal, n_sites = 0.0, 0, 0
+    for name, site in qcfg.items():
+        if site.kind != "weight":
+            continue
+        n_sites += 1
+        gq = Q.QuantParams(*(getattr(card_qs[name]["qp"], f).cpu()
+                             for f in ("delta", "zero_float", "signed")))
+        cq = cpu_qs[name]["qp"]
+        rel = ((gq.delta - cq.delta).abs() / cq.delta.abs()).max().item()
+        worst = max(worst, rel)
+        n_equal += int(torch.equal(gq.delta, cq.delta))
+        if rel <= 1e-5:
+            continue
+        lg = qp_loss64(site.spec, cpu_tensors[name], gq)
+        lc = qp_loss64(site.spec, cpu_tensors[name], cq)
+        print(f"  {name}: card scale {gq.delta.item()!r} loss {lg!r}, CPU "
+              f"scale {cq.delta.item()!r} loss {lc!r}")
+        if lg > lc * (1 + 1e-6):
+            fail(f"{name}: the card's MSE weight range is worse than the "
+                 "CPU's beyond the near-tie rule")
+    print(f"  weight ranges, card against CPU: {n_sites} MSE golden-section "
+          f"sites, {n_equal} bit-equal, largest scale difference "
+          f"{worst:.3e} relative (rtol 1e-5, else the near-tie rule)")
+
+
+def check_mse_estimators(params, cfg, seed: int, dev) -> None:
+    """One MSE-grid per-channel weight calibration (BERT-base's layer-0
+    inter weight, 3072 channels, 100 candidates) on the card, timed and
+    held to the CPU's by the grid rule (the same candidate per channel,
+    or the CPU's two smallest losses within 1e-6 relative); then the
+    STS-B variant's MSE_logits classifier site: that recipe's calibration
+    on the card, and its classifier output's nested golden-section search
+    alone on the calibration batch's logits, timed."""
+    site = dataclasses.replace(
+        CAL.cli_w8a8_defaults(), per_channel_weights=True,
+        weight_range_opt=R.OptMethod.grid).weight_site()
+    w = params["layers"][0]["ffn"]["inter"]["kernel"]
+    ests = []
+    for x in (w, w.cpu()):
+        est = R.make_estimator(site.spec, site.range_cfg, per_channel=True)
+        _, t = timed_s(lambda: est.update(x))
+        ests.append((est, t))
+    (ge, tg), (ce, tc) = ests
+    gl, cl = ge.loss_array.cpu(), ce.loss_array
+    gi, ci = gl.argmin(dim=1), cl.argmin(dim=1)
+    two = cl.sort(dim=1).values[:, :2]
+    ties = (two[:, 1] - two[:, 0]) <= 1e-6 * two[:, 0].abs()
+    bad = ((gi != ci) & ~ties).sum().item()
+    print(f"  MSE grid, per channel ({tuple(w.shape)}, "
+          f"{site.range_cfg.num_candidates} candidates): card {tg:.3f} s, "
+          f"CPU {tc:.3f} s; candidate per channel equal to the CPU's on "
+          f"{(gi == ci).sum().item()} of {len(ci)} channels, the rest "
+          f"near-ties of the CPU's losses")
+    if bad:
+        fail(f"MSE grid: {bad} channels chose another candidate than the "
+             "CPU without a near-tie")
+    (_, sq, ss), t_cal = timed_s(lambda: CAL.calibrated_bert(
+        cfg, batch_size=CAL.CLI_RECIPES["w8a8-mixed-stsb"].est_batch_size,
+        seq=SEQ, seed=seed, device=dev, params=params,
+        recipe="w8a8-mixed-stsb"))
+    name = "classifier.out"
+    off = sq.replace_site(name, enabled=False)
+    batch = CAL.calibration_batch(cfg.vocab_size, 1, SEQ, seed)
+    logits = B.bert_apply(params, batch, cfg, off, ss, QuantMode(),
+                          device=dev)[0]["logits"]
+    rc = sq[name].range_cfg
+    est = R.make_estimator(sq[name].spec, rc)
+    _, t_site = timed_s(lambda: est.update(logits))
+    lo, hi = (v.item() for v in est.finalize())
+    qp = ss[name]["qp"]
+    print(f"  STS-B variant (quant_setup MSE_logits): calibration "
+          f"{t_cal:.3f} s on the card; {name} ({rc.method.name}, "
+          f"{rc.opt_method.name}) on logits {tuple(logits.shape)}: the "
+          f"search alone {t_site:.3f} s, range ({lo:.6g}, {hi:.6g}), the "
+          f"calibrated scale {qp.delta.item():.6g}")
+    if not (np.isfinite(lo) and np.isfinite(hi) and lo < hi):
+        fail(f"{name}: MSE range ({lo}, {hi})")
+
+
+def run_cli_recipes(params, cfg, batches, by_path, seed: int, kind: str,
+                    smi: str, dev) -> None:
+    """The JAX CLI's ``w8a8``, ``w8a8-mixed`` and ``w8a8-peg`` from the
+    same params: calibration on the card (timed; for ``w8a8`` also on
+    the CPU, and the weight ranges held card against CPU), packing, the
+    plan, three request batches through the engine (launches, logits
+    against the plain engine) and engine seq/s."""
+    L = cfg.num_hidden_layers
+    want = cli_recipe_launches(L)
+    b0 = batches[0]
+    for rname in ("w8a8", "w8a8-mixed", "w8a8-peg"):
+        recipe = CAL.CLI_RECIPES[rname]
+        (_, rq, rs), t_cal = timed_s(lambda: CAL.calibrated_bert(
+            cfg, batch_size=recipe.est_batch_size, seq=SEQ, seed=seed,
+            device=dev, params=params, recipe=rname))
+        line = (f"  [cli-{rname}] calibration (MSE golden-section weight "
+                f"ranges, {recipe.est_batch_size} x {SEQ} tokens): "
+                f"{t_cal:.3f} s on the card")
+        if rname == "w8a8":
+            cpu_params = B.params_to(params, device="cpu")
+            t0 = time.perf_counter()
+            _, cq, cs = CAL.calibrated_bert(
+                cfg, batch_size=recipe.est_batch_size, seq=SEQ, seed=seed,
+                device="cpu", params=cpu_params, recipe=rname)
+            line += (f", {time.perf_counter() - t0:.3f} s on the CPU "
+                     f"({torch.get_num_threads()} threads)")
+        print(line, flush=True)
+        if rname == "w8a8":
+            check_weight_ranges(rq, rs, cs,
+                                B.bert_weight_site_tensors(cpu_params))
+            del cpu_params, cq, cs
+        rstatic, rplan, rint = B.build_bert_engine(params, cfg, rq, rs,
+                                                   device=dev)
+        by_path[f"cli-{rname}"] = drive_path(
+            f"cli-{rname}", bert_runner(params, cfg, rq, rs, rstatic, rplan,
+                                        rint, dev), cfg, batches,
+            want[rname])
+        t_eng = window_ms(lambda: B.bert_engine_apply(
+            params, b0, cfg, rq, rs, rstatic, rplan, rint, device=dev))
+        print(f"  [cli-{rname}] seq/s at B={BATCH}, S={SEQ}, median (range) "
+              f"of 5 windows ({kind}, {smi}): engine {seq_per_s(t_eng)}; "
+              f"forward {t_eng[0]:.3f} ms ({t_eng[1]:.3f}-{t_eng[2]:.3f})",
+              flush=True)
+    check_mse_estimators(params, cfg, seed, dev)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1752,7 +1925,7 @@ def main(argv=None) -> int:
     static, plan, int_params = B.build_bert_engine(params, cfg, qcfg, qstate,
                                                    device=dev)
     recipes = {}
-    for rname, (qd, shared_h) in CAL.RECIPES.items():
+    for rname, (qd, shared_h) in CAL.MINMAX_RECIPES.items():
         _, rq, rs = CAL.calibrated_bert(cfg, batch_size=8, seq=SEQ,
                                         seed=args.seed, device=dev,
                                         params=params, quant_dict=qd,
@@ -1841,6 +2014,11 @@ def main(argv=None) -> int:
         print(f"  [{rname}] seq/s at B={BATCH}, S={SEQ}, median (range) of "
               f"5 windows ({kind}, {smi}): engine {seq_per_s(t_eng)}, "
               f"fake-quant simulation (f32, TF32 off) {seq_per_s(t_sim)}")
+
+    print("[6b] the JAX CLI's PTQ recipes (MSE golden-section weight "
+          "ranges): BERT-base calibrated on the card and through "
+          "bert_engine_apply", flush=True)
+    run_cli_recipes(params, cfg, batches, by_path, args.seed, kind, smi, dev)
 
     mcfg = MB.MobileBertConfig()
     t0 = time.perf_counter()

@@ -42,7 +42,7 @@ BASE = dict(vocab_size=512, hidden_size=768, num_hidden_layers=2,
             num_attention_heads=12, intermediate_size=3072,
             max_position_embeddings=64, num_labels=2)
 SEQ, N_SEQ = 32, 16
-RECIPES = {"w8a8": ({}, False), **TC.RECIPES}
+RECIPES = {"w8a8": ({}, False), **TC.MINMAX_RECIPES}
 
 
 def _np(tree):

@@ -19,6 +19,7 @@ from transformer_quantization_tpu.quant.manager import QuantCtx as JCtx
 from transformer_quantization_tpu_torch.ops import int_linear as TIL
 from transformer_quantization_tpu_torch.quant import qconfig as TQC
 from transformer_quantization_tpu_torch.quant import quantizers as TQ
+from transformer_quantization_tpu_torch.quant import manager as TM
 from transformer_quantization_tpu_torch.quant import ranges as TR
 from transformer_quantization_tpu_torch.quant.manager import QuantCtx as TCtx
 
@@ -134,14 +135,38 @@ def test_current_minmax_update(rs):
 
 
 def test_unported_estimators_raise():
-    x = torch.from_numpy(_x(5))
-    st = TR.init_range_state(())
-    for m in (TR.RangeMethod.running_minmax, TR.RangeMethod.allminmax):
-        with pytest.raises(NotImplementedError):
-            TR.update_range_state(st, x, TR.RangeEstimatorConfig(method=m),
-                                  TR.ReduceSpec())
-    with pytest.raises(NotImplementedError):
-        TR.reduce_min_max(x, TR.ReduceSpec(), percentile=1.0)
+    """What the port still leaves to the training slice raises (the
+    ``learn`` phase of weight and act sites, AdaRound weights); the
+    estimators that raised here before (all-minmax, running-minmax,
+    percentile) now match JAX on the same input."""
+    x = _x(5)
+    jst, tst = JR.init_range_state(()), TR.init_range_state(())
+    for m in ("running_minmax", "allminmax"):
+        jc = JR.RangeEstimatorConfig(method=JR.RangeMethod[m])
+        tc = TR.RangeEstimatorConfig(method=TR.RangeMethod[m])
+        for a, b in zip(JR.update_range_state(jst, x, jc, JR.ReduceSpec())
+                        .values(),
+                        TR.update_range_state(tst, torch.from_numpy(x), tc,
+                                              TR.ReduceSpec()).values()):
+            _eq(a, b)
+    for a, b in zip(JR.reduce_min_max(x, JR.ReduceSpec(), percentile=1.0),
+                    TR.reduce_min_max(torch.from_numpy(x), TR.ReduceSpec(),
+                                      percentile=1.0)):
+        np.testing.assert_allclose(b.numpy(), np.asarray(a), rtol=1e-6)
+    b = TQC.QuantConfigBuilder(_w8a8(TQC))
+    b.weight("lin.w")
+    b.act("lin.out")
+    cfg = b.build()
+    w, xt = torch.from_numpy(_x(6, (5, 8))), torch.from_numpy(x)
+    learn = TQC.Phase.learn
+    with pytest.raises(NotImplementedError, match="learn"):
+        TCtx(cfg, {}, TQC.QuantMode(act_phase=learn)).act("lin.out", xt)
+    with pytest.raises(NotImplementedError, match="learn"):
+        TCtx(cfg, {}, TQC.QuantMode(weight_phase=learn)).weight("lin.w", w)
+    qs = {"lin.w": dict(TM.init_weight_site_state(cfg["lin.w"], w),
+                        alpha=torch.zeros_like(w))}
+    with pytest.raises(NotImplementedError, match="AdaRound"):
+        TCtx(cfg, qs, TQC.QuantMode()).weight("lin.w", w)
 
 
 def _w8a8(q, **over):

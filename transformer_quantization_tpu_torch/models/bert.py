@@ -388,9 +388,11 @@ def prepare_inputs(batch: Mapping, device):
     return input_ids, token_type_ids, position_ids, mask_bias
 
 
-def make_ctx(qcfg, qstate, mode, *, int_params=None) -> QuantCtx:
+def make_ctx(qcfg, qstate, mode, *, mse_session=None,
+             int_params=None) -> QuantCtx:
     ctx = QuantCtx(qcfg if qcfg is not None else QuantModelConfig(()),
-                   qstate or {}, mode or QuantMode())
+                   qstate or {}, mode or QuantMode(),
+                   mse_session=mse_session)
     ctx.int_params = int_params or None
     return ctx
 
@@ -485,6 +487,7 @@ def bert_apply(params: Dict, batch: Mapping, cfg: BertConfig,
                qstate: Optional[Dict] = None,
                mode: Optional[QuantMode] = None, *, train: bool = False,
                dropout_generator: Optional[torch.Generator] = None,
+               mse_session: Optional[Dict] = None,
                int_params: Optional[Dict] = None,
                fused_linear=False,
                device="cuda") -> Tuple[Dict, Dict]:
@@ -496,11 +499,14 @@ def bert_apply(params: Dict, batch: Mapping, cfg: BertConfig,
     ``use_pallas``) runs those with a per-tensor input site through the
     fused linear kernel, ``ffn.inter`` handing its output payload to
     ``ffn.dense`` as int8; ``'plain'`` runs the kernel's plain version on
-    any device. ``params`` must live on ``device``.
+    any device. ``mse_session`` holds the MSE / cross-entropy act sites'
+    estimators across calibration batches. ``params`` must live on
+    ``device``.
     """
     dev = _check_device(params, device)
     with torch.no_grad():
-        ctx = make_ctx(qcfg, qstate, mode, int_params=int_params)
+        ctx = make_ctx(qcfg, qstate, mode, mse_session=mse_session,
+                       int_params=int_params)
         if int_params and fused_linear:
             ctx.fused_linear = fused_linear
             # consumed only by the next int8 matmul: emitted as payloads

@@ -500,17 +500,21 @@ def mobilebert_apply(params: Dict, batch: Mapping, cfg: MobileBertConfig,
                      qcfg: Optional[QuantModelConfig] = None,
                      qstate: Optional[Dict] = None,
                      mode: Optional[QuantMode] = None, *, train: bool = False,
+                     mse_session: Optional[Dict] = None,
                      int_params: Optional[Dict] = None,
                      device="cuda") -> Tuple[Dict, Dict]:
     """Inference / calibration forward; returns ``(outputs, new_qstate)``.
     ``qcfg=None`` is the float model; ``int_params`` runs every packable
-    matmul on the exact int8 path. ``params`` must live on ``device``."""
+    matmul on the exact int8 path; ``mse_session`` holds the MSE /
+    cross-entropy act sites' estimators across calibration batches.
+    ``params`` must live on ``device``."""
     if train:
         raise NotImplementedError("the MobileBERT training forward (dropout)"
                                   " is not yet ported")
     dev = B._check_device(params, device)
     with torch.no_grad():
-        ctx = B.make_ctx(qcfg, qstate, mode, int_params=int_params)
+        ctx = B.make_ctx(qcfg, qstate, mode, mse_session=mse_session,
+                         int_params=int_params)
         input_ids, token_type_ids, position_ids, mask_bias = B.prepare_inputs(
             batch, dev)
         h = _embeddings(ctx, params, cfg, input_ids, token_type_ids,

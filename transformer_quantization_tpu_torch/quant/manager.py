@@ -11,13 +11,15 @@ returns the updated per-site state:
 - weight sites: ``{"qp": QuantParams, "alpha": None}``
 
 Phases ``estimate``, ``fix`` and the PEG ``record_ranges`` pre-pass are
-ported; ``learn`` (QAT), AdaRound ``alpha`` and capture wait for their
-slices and raise.
+ported, with every range estimator: the MSE and cross-entropy act sites
+take their estimators from an ``mse_session`` that persists across
+calibration batches. ``learn`` (QAT), AdaRound ``alpha`` and capture wait
+for the training slice and raise.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Mapping
+from typing import Dict, Mapping, Optional
 
 import torch
 
@@ -32,6 +34,8 @@ from transformer_quantization_tpu_torch.quant.qconfig import (
 
 Tensor = torch.Tensor
 SiteState = Dict[str, object]
+
+_MSE_METHODS = (R.RangeMethod.MSE, R.RangeMethod.cross_entropy)
 
 
 def init_act_site_state(cfg: QuantSiteConfig, x: Tensor) -> SiteState:
@@ -49,10 +53,14 @@ def init_act_site_state(cfg: QuantSiteConfig, x: Tensor) -> SiteState:
 
 
 def estimate_weight_qp(cfg: QuantSiteConfig, w: Tensor) -> Q.QuantParams:
-    """Range of a weight re-derived from the weight itself (min-max)."""
+    """Range of a weight re-derived from the weight itself in the estimate
+    phase: min-max only, as in JAX (MSE weight ranges are set up front by
+    :func:`init_weight_site_state`)."""
     rc = cfg.range_cfg
-    if rc.method in (R.RangeMethod.MSE, R.RangeMethod.cross_entropy):
-        raise NotImplementedError("MSE weight ranges are not yet ported")
+    if rc.method in _MSE_METHODS:
+        raise ValueError(
+            "MSE weight range estimation inside a forward; initialize "
+            "weight ranges up front instead")
     xmin, xmax = R.reduce_min_max(
         w, R.ReduceSpec(per_channel=cfg.per_channel),
         rc.percentile if rc.method == R.RangeMethod.current_minmax else None)
@@ -60,14 +68,20 @@ def estimate_weight_qp(cfg: QuantSiteConfig, w: Tensor) -> Q.QuantParams:
 
 
 def init_weight_site_state(cfg: QuantSiteConfig, w: Tensor) -> SiteState:
-    """Estimate a weight site's range once from its (static) weight; every
-    min-max method reduces to current minmax on one unchanging tensor."""
+    """Estimate a weight site's range once from its (static) weight: MSE
+    and cross-entropy through their search, current-minmax with its
+    percentile; all/running minmax on one unchanging tensor reduce to
+    current-minmax without it."""
     rc = cfg.range_cfg
-    if rc.method in (R.RangeMethod.MSE, R.RangeMethod.cross_entropy):
-        raise NotImplementedError("MSE weight ranges are not yet ported")
-    pct = rc.percentile if rc.method == R.RangeMethod.current_minmax else None
-    xmin, xmax = R.reduce_min_max(
-        w, R.ReduceSpec(per_channel=cfg.per_channel), pct)
+    rs = R.ReduceSpec(per_channel=cfg.per_channel)
+    if rc.method in _MSE_METHODS:
+        est = R.make_estimator(cfg.spec, rc, cfg.per_channel)
+        est.update(w)
+        xmin, xmax = est.finalize()
+    elif rc.method == R.RangeMethod.current_minmax:
+        xmin, xmax = R.reduce_min_max(w, rs, rc.percentile)
+    else:
+        xmin, xmax = R.reduce_min_max(w, rs)
     shape = (-1,) if cfg.per_channel else ()
     return {"qp": Q.set_quant_range(cfg.spec, xmin.reshape(shape),
                                     xmax.reshape(shape)),
@@ -95,13 +109,17 @@ class QuantCtx:
     act sites consumed only by the next int8 matmul, whose producer emits
     the int8 payload; ``int8_handoffs``, those payloads by site, each
     taken once by its consumer.
+
+    ``mse_session``: the MSE / cross-entropy act sites' estimators by
+    site name, kept across calibration batches by the caller.
     """
 
     def __init__(self, cfg: QuantModelConfig, qstate: Mapping[str, SiteState],
-                 mode: QuantMode):
+                 mode: QuantMode, mse_session: Optional[Dict] = None):
         self.cfg = cfg
         self.mode = mode
         self.qstate: Dict[str, SiteState] = dict(qstate)
+        self.mse_session = mse_session
         self.int_params = None
         self.requant_only_sites = frozenset()
         self.fused_linear = False
@@ -120,11 +138,10 @@ class QuantCtx:
             qp = estimate_weight_qp(cfg, w)
             self.qstate[name] = dict(self.qstate.get(name, {"alpha": None}),
                                      qp=qp)
-        elif phase == Phase.fix:
+        elif phase == Phase.learn:
+            raise NotImplementedError("weight phase learn is not yet ported")
+        else:  # fix, and the record pre-pass: the stored params
             qp = self.qstate[name]["qp"]
-        else:
-            raise NotImplementedError(f"weight phase {phase.name} is not "
-                                      "yet ported")
         if self.qstate.get(name, {}).get("alpha") is not None:
             raise NotImplementedError("AdaRound weights are not yet ported")
         return Q.fake_quant(cfg.spec, qp, w,
@@ -155,16 +172,58 @@ class QuantCtx:
             self.qstate[name] = init_act_site_state(cfg, x)
         st = dict(self.qstate[name])
         if phase == Phase.estimate:
-            st["range_state"] = R.update_range_state(
-                st["range_state"], x.detach(), cfg.range_cfg,
-                cfg.reduce_spec, perm=st.get("perm"))
-            xmin, xmax = R.finalize_ranges(st["range_state"])
+            rc = cfg.range_cfg
+            if rc.method in _MSE_METHODS:
+                if self.mse_session is None:
+                    raise RuntimeError(
+                        f"site {name!r} uses {rc.method} act ranges; run "
+                        "calibration with an mse_session")
+                est = self.mse_session.get(name)
+                if est is None:
+                    est = self.mse_session[name] = R.make_estimator(
+                        cfg.spec, rc)
+                est.update(x.detach())
+                xmin, xmax = est.finalize()
+            else:
+                st["range_state"] = R.update_range_state(
+                    st["range_state"], x.detach(), rc, cfg.reduce_spec,
+                    perm=st.get("perm"))
+                xmin, xmax = R.finalize_ranges(st["range_state"])
             st["qp"] = Q.set_quant_range(cfg.spec, xmin, xmax)
             self.qstate[name] = st
         return Q.fake_quant(cfg.spec, st["qp"], x, axis=cfg.axis)
 
     def export(self) -> Dict[str, SiteState]:
         return self.qstate
+
+
+def reset_act_ranges(cfg: QuantModelConfig,
+                     qstate: Mapping[str, SiteState]) -> Dict[str, SiteState]:
+    """Zero the act sites' range state and params so they can be
+    re-estimated (the reference's ``reset_act_ranges``); the PEG
+    permutation state is kept."""
+    out = dict(qstate)
+    for name, site_cfg in cfg.items():
+        if site_cfg.kind != "act" or name not in out:
+            continue
+        st = dict(out[name])
+        rs = st["range_state"]
+        st["range_state"] = {
+            "xmin": torch.zeros_like(rs["xmin"]),
+            "xmax": torch.zeros_like(rs["xmax"]),
+            "initialized": torch.zeros_like(rs["initialized"]),
+        }
+        st["qp"] = QuantParamsReset(st["qp"])
+        out[name] = st
+    return out
+
+
+def QuantParamsReset(qp: Q.QuantParams) -> Q.QuantParams:
+    """Params back to their initial values: unit scale, zero offset,
+    unsigned."""
+    return Q.QuantParams(delta=torch.ones_like(qp.delta),
+                         zero_float=torch.zeros_like(qp.zero_float),
+                         signed=torch.zeros_like(qp.signed))
 
 
 def finalize_permutations(cfg: QuantModelConfig,
