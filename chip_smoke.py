@@ -82,7 +82,8 @@ Phases (any failure exits non-zero; nothing is caught):
    row strides at (1, 2, 0); K8 with the 'bottleneck' attention case at
    each built seq, and at ``MB_CASES`` on seeded plans: ragged batches,
    both attention cases, the integer and the general path, skip_max both
-   ways). Every comparison must be bit-identical;
+   ways, and one or two sequences, the serving buckets' smallest). Every
+   comparison must be bit-identical;
 8. MobileBERT's main path: the plan's layer route by seq (the layer
    kernel at each seq it is built for, ``EK.MB_LAYER_SHAPES``, the chain
    elsewhere); three request batches through ``mobilebert_engine_apply``
@@ -116,6 +117,30 @@ Phases (any failure exits non-zero; nothing is caught):
    of the ``{'h': 'fp32'}`` engine (with its forward / encoder split) and
    its fake-quant simulation (five windows).
 
+11. serving: phase 4's BERT-base and phase 7's MobileBERT-uncased W8A8
+   calibrations written as checkpoint directories (``save_checkpoint``)
+   and served by ``build_engine_from_checkpoint(dir, device='cuda')``
+   with the JAX bench's settings (seq buckets 32 / 64 / 128, batch
+   buckets 8 / 32 / 64, max_batch 64, a 2 ms wait, pipeline depth 5, the
+   fused transfer): the nine buckets captured largest first, one CUDA
+   graph each, with the launch counts read over the captures (the eager
+   warm-up and the capture: twice a forward's a bucket); at every bucket
+   and at B = 1 and 2 the graph replay equal to the eager forward bit
+   for bit and the eager forward within the logit tolerance of the
+   plain versions', graph and eager ms at the bench's buckets (five
+   windows of >= 0.25 s); the closed loop (512 requests of seeded
+   lengths 8-127 at concurrency 64: seq/s, tokens/s, latency p50 / p99,
+   average batch) on the graphs with no launch outside them, every served
+   batch equal to the eager forward on it and every request to its row;
+   for BERT-base the same loop on the eager forward (its launches read
+   just after) and the HTTP front end (``make_server`` on a free
+   localhost port: three /classify answers equal ``classify()`` bit for
+   bit, /metrics, /healthz), and ``precompile=False`` (the JAX default)
+   on a fresh ``BucketGraphs``: 15 bursts of requests of new shapes,
+   each captured on first use on the scheduler thread while the
+   resolver copies the batch before, every batch and request checked
+   as above.
+
 The last lines are the kernels JSON (times per encoder layer: the sum
 over that layer's launches of each kernel; the flex kernels' top-level
 numbers are the mixed recipe's, and ``variants`` holds each recipe's,
@@ -131,7 +156,10 @@ generic W8A8 path and of the ``{'h': 'fp32'}`` engine, with the fused
 linear's other calls under ``variants`` and its quantize pass (5 a layer
 at K = 768, and on the ``{'x': 'fp32'}`` dense) under
 ``quantize_pass``; ``launches`` sums the three runs
-of every path, ``launches_by_path`` splits them), the
+of every path, ``launches_by_path`` splits them; the serving paths
+``serve-bert`` / ``serve-mobilebert`` count the launches the wrappers
+made while their buckets were captured, ``serve-bert-eager`` those of
+the eager loop), the
 nvidia-smi line, and ``{"ok": true, "device": {...}}``. Imports torch and
 the port only.
 """
@@ -140,10 +168,13 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import gc
 import json
 import re
 import subprocess
 import sys
+import tempfile
+import threading
 import time
 
 import numpy as np
@@ -160,7 +191,11 @@ from transformer_quantization_tpu_torch.ops.kernels import int_matmul as IM
 from transformer_quantization_tpu_torch.quant import quantizers as Q
 from transformer_quantization_tpu_torch.quant import ranges as R
 from transformer_quantization_tpu_torch.quant.qconfig import QuantMode
+from transformer_quantization_tpu_torch.serving import engine as SE
+from transformer_quantization_tpu_torch.serving import graphs as SG
+from transformer_quantization_tpu_torch.serving import server as SVS
 from transformer_quantization_tpu_torch.training import calibration as CAL
+from transformer_quantization_tpu_torch.utils import checkpoint as CK
 
 # H100 SXM dense peaks (NVIDIA data sheet) used for the bounds
 PEAK_INT8_OPS = 1979e12
@@ -1363,6 +1398,10 @@ MB_CASES = {32: ((9, True, "spread", False), (9, False, "fractional", True),
                  (267, False, "fractional", False)),
             128: ((3, True, "fractional", False), (3, False, "spread", True),
                   (1, True, "saturate", False))}
+# the serving buckets' smallest batches (phase 11): one or two sequences,
+# under one 64- or 128-row tile at S = 32 / 64
+for _seq, _b in ((32, 1), (32, 2), (64, 1), (128, 2)):
+    MB_CASES[_seq] += ((_b, True, "spread", False),)
 
 
 def check_mb_layer_shapes(dev) -> int:
@@ -1895,6 +1934,290 @@ def run_cli_recipes(params, cfg, batches, by_path, seed: int, kind: str,
     check_mse_estimators(params, cfg, seed, dev)
 
 
+# phase 11: the JAX bench's serving settings (bench.py ``bench_serving``):
+# seq buckets, batch buckets, closed-loop requests and concurrency; the
+# smallest batches of ``ServeConfig``'s default buckets beside them
+SERVE_SEQS = (32, 64, 128)
+SERVE_BATCHES = (8, 32, 64)
+SERVE_SMALL = (1, 2)
+SERVE_REQUESTS, SERVE_CONCURRENCY = 512, 64
+SERVE_TEXTS = (("the quick brown fox", "jumps over the lazy dog"),
+               ("hello world", None), ("word " * 200, None))
+
+
+def serve_config() -> SE.ServeConfig:
+    """The JAX bench's closed-loop settings: max_batch 64, a 2 ms wait,
+    pipeline depth 5, the fused transfer, every bucket warmed at start."""
+    return SE.ServeConfig(max_batch=64, max_wait_ms=2.0,
+                          seq_buckets=SERVE_SEQS,
+                          batch_buckets=SERVE_BATCHES, precompile=True,
+                          fused_transfer=True, pipeline_depth=5)
+
+
+def packed_batch(vocab: int, b: int, s: int, seed: int, dev) -> torch.Tensor:
+    """A seeded (3, b, s) int32 fused-transfer batch as the engine
+    assembles one: ids of seeded lengths in [1, s], zero past them, the
+    mask, zero type ids."""
+    rng = np.random.RandomState(seed)
+    out = np.zeros((3, b, s), np.int32)
+    out[1] = np.arange(s)[None, :] < rng.randint(1, s + 1, (b, 1))
+    out[0] = rng.randint(4, vocab, (b, s)) * out[1]
+    return torch.from_numpy(out).to(dev)
+
+
+def serve_requests(vocab: int, seed: int) -> list:
+    """The bench's closed-loop requests: seeded ids of lengths 8-127."""
+    rng = np.random.RandomState(seed)
+    return [rng.randint(4, vocab, rng.randint(8, 128)).astype(np.int32)
+            for _ in range(SERVE_REQUESTS)]
+
+
+def check_buckets(name, graphs, plain, vocab, seed, dev, kind, smi) -> None:
+    """Every served bucket (``SERVE_SEQS`` x ``SERVE_SMALL`` +
+    ``SERVE_BATCHES``) on a seeded padded batch: the graph replay equals
+    the eager forward bit for bit, and the eager forward (the kernels)
+    agrees with the plain versions' forward within the logit tolerance;
+    the bench's buckets timed eagerly and as replays (5 windows of >=
+    0.25 s)."""
+    eager = graphs.forward
+    for s in SERVE_SEQS:
+        for b in SERVE_SMALL + SERVE_BATCHES:
+            x = packed_batch(vocab, b, s, seed + 1000 * s + b, dev)
+            got, want = graphs(x), eager(x)
+            ref = plain(SE.unpack_batch(x), "plain")["logits"]
+            torch.cuda.synchronize()
+            if not torch.equal(got, want):
+                fail(f"{name} B={b} S={s}: the graph replay differs from "
+                     "the eager forward")
+            if not (torch.isfinite(want).all() and torch.allclose(
+                    want, ref, rtol=LOGIT_RTOL, atol=LOGIT_ATOL)):
+                fail(f"{name} B={b} S={s}: the kernels' logits disagree "
+                     "with the plain versions'")
+            line = (f"  [{name}] B={b} S={s}: graph == eager bit for bit; "
+                    f"|eager - plain| {(want - ref).abs().max().item():.3e}")
+            if b in SERVE_BATCHES:
+                tg = window_ms(lambda: graphs(x), window_s=0.25)
+                te = window_ms(lambda: eager(x), window_s=0.25)
+                line += (f"; ms per call, median (least-most) of 5 windows "
+                         f"({kind}, {smi}): graph {tg[0]:.3f} ({tg[1]:.3f}-"
+                         f"{tg[2]:.3f}), eager {te[0]:.3f} ({te[1]:.3f}-"
+                         f"{te[2]:.3f}), eager / graph {te[0] / tg[0]:.2f}")
+            print(line, flush=True)
+
+
+def closed_loop(name, eng, vocab, seed, kind, smi) -> tuple:
+    """The bench's closed loop through ``eng`` (started and stopped here),
+    then every request once more for its answer; every batch's input and
+    logits recorded by a wrapper of its forward (references only: each is
+    a fresh tensor). Returns (log, requests, answers)."""
+    log, forward = [], eng.forward
+
+    def recording(batch):
+        out = forward(batch)
+        log.append((batch, out))
+        return out
+
+    eng.forward = recording
+    reqs = serve_requests(vocab, seed)
+    try:
+        with eng:
+            del log[:]  # the warm-up's batches
+            # garbage of earlier phases (an engine kept by a reference
+            # cycle frees its graphs and pool when collected) is freed
+            # now, not inside the timed loop
+            gc.collect()
+            snap = eng.run_closed_loop(reqs, concurrency=SERVE_CONCURRENCY)
+            # every request again, for its answer (run_closed_loop keeps
+            # its futures to itself)
+            futs = [eng.submit_ids(r) for r in reqs]
+            answers = [f.result(120) for f in futs]
+    finally:
+        eng.forward = forward
+    print(f"  [{name}] closed loop, {SERVE_REQUESTS} requests of 8-127 "
+          f"tokens at concurrency {SERVE_CONCURRENCY} ({kind}, {smi}): "
+          f"seq/s {snap['seq_per_sec']:.1f}, tokens/s "
+          f"{snap['tokens_per_sec']:.1f}, latency ms p50 "
+          f"{snap['latency_ms_p50']:.3f} p99 {snap['latency_ms_p99']:.3f}, "
+          f"avg_batch {snap['avg_batch']:.2f} over {snap['batches']} "
+          f"batches, {snap['wall_s']:.3f} s", flush=True)
+    if snap["requests"] != SERVE_REQUESTS:
+        fail(f"{name}: {snap['requests']} requests answered")
+    return log, reqs, answers
+
+
+def check_requests(name, eager, log, reqs, answers) -> None:
+    """Every recorded batch's logits equal the eager forward's on the same
+    padded bucket batch bit for bit, and each request was answered with
+    its row in a batch that held it (found by its ids and length)."""
+    rows = {}
+    for batch, out in log:
+        if not torch.equal(out, eager(batch)):
+            fail(f"{name}: a served batch {tuple(batch.shape)} differs from "
+                 "the eager forward on it")
+        ids, n = batch[0].cpu().numpy(), batch[1].sum(1).cpu().numpy()
+        for i in np.flatnonzero(n):
+            rows.setdefault(ids[i, :n[i]].tobytes(), []).append(
+                out[i].cpu().numpy())
+    for r, got in zip(reqs, answers):
+        if not any(np.array_equal(got, w) for w in rows.get(r.tobytes(), [])):
+            fail(f"{name}: a request's logits are not its batch row's")
+    print(f"  [{name}] {len(log)} served batches equal the eager forward "
+          f"bit for bit; {len(reqs)} requests' logits equal their rows",
+          flush=True)
+
+
+def check_lazy_capture(tag, eager, vocab, seed, dev) -> None:
+    """``precompile=False`` (the JAX default) on a fresh ``BucketGraphs``
+    over the eager forward, with the dict transfer and ``ServeConfig``'s
+    default batch buckets up to 64: 15 seeded bursts (1, 3, 7, 20 or 50
+    requests, all of one seq bucket), each sent once the one before is
+    dispatched, so each batch is of a new shape, captured on first use
+    on the scheduler thread while the resolver copies the batch before;
+    every served batch equals the eager forward on it bit for bit and
+    every request its row."""
+    graphs = SG.BucketGraphs(eager, dev)
+    log = []
+
+    def recording(batch):
+        out = graphs(batch)
+        log.append((torch.stack([batch["input_ids"],
+                                 batch["attention_mask"].to(torch.int32),
+                                 batch["token_type_ids"]]), out))
+        return out
+
+    cfg = SE.ServeConfig(max_batch=64, seq_buckets=SERVE_SEQS,
+                         batch_buckets=(1, 2, 4, 8, 16, 32, 64),
+                         pipeline_depth=5)
+    rng = np.random.RandomState(seed + 2)
+    bursts = [(n, s) for n in (1, 3, 7, 20, 50) for s in SERVE_SEQS]
+    rng.shuffle(bursts)
+    reqs, futs = [], []
+    with SE.ServingEngine(recording, cfg, device=dev) as eng:
+        for k, (n, s) in enumerate(bursts):
+            for length in rng.randint(s // 2 + 1, s + 1, n):
+                reqs.append(rng.randint(4, vocab, length).astype(np.int32))
+                futs.append(eng.submit_ids(reqs[-1]))
+            # the next burst once this one is dispatched: its batch is
+            # captured while the resolver copies this one's logits
+            deadline = time.perf_counter() + 120
+            while len(log) <= k and time.perf_counter() < deadline:
+                time.sleep(0.0002)
+        answers = [f.result(120) for f in futs]
+    print(f"  [{tag} lazy] {len(graphs.graphs)} buckets captured on first "
+          f"use while serving {len(log)} batches of {len(reqs)} requests",
+          flush=True)
+    shapes = {tuple(b.shape) for b, _ in log}
+    if len(graphs.graphs) != len(shapes) or len(shapes) < len(bursts) // 2:
+        fail(f"{tag} lazy: {len(graphs.graphs)} captures for {len(shapes)} "
+             f"batch shapes from {len(bursts)} bursts")
+    check_requests(f"{tag} lazy", lambda x: eager(SE.unpack_batch(x)), log,
+                   reqs, answers)
+
+
+def check_http(eng) -> None:
+    """``make_server`` (``serve``'s socket) on a free localhost port in a
+    thread: /classify on ``SERVE_TEXTS`` equals ``classify()`` bit for
+    bit, /metrics counts them, /healthz answers; stopped after."""
+    import urllib.request
+
+    eng.metrics = SE.Metrics()
+    eng.start()
+    httpd = SVS.make_server(eng, 0, "127.0.0.1")
+    t = threading.Thread(target=httpd.serve_forever, daemon=True)
+    t.start()
+    url = f"http://127.0.0.1:{httpd.server_address[1]}"
+    try:
+        for a, b in SERVE_TEXTS:
+            body = json.dumps({"text": a, "pair": b}).encode()
+            req = urllib.request.Request(
+                url + "/classify", data=body,
+                headers={"Content-Type": "application/json"})
+            with urllib.request.urlopen(req, timeout=60) as r:
+                got = np.float32(json.loads(r.read())["logits"])
+            if not np.array_equal(got, eng.classify(a, b)):
+                fail(f"HTTP /classify {a[:20]!r}: differs from classify()")
+        with urllib.request.urlopen(url + "/metrics", timeout=30) as r:
+            m = json.loads(r.read())
+        with urllib.request.urlopen(url + "/healthz", timeout=30) as r:
+            health = json.loads(r.read())
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        t.join(timeout=30)
+        eng.stop()
+    if m["requests"] != 2 * len(SERVE_TEXTS) or health != {"status": "ok"}:
+        fail(f"HTTP /metrics {m} or /healthz {health}")
+    print(f"  [http] {len(SERVE_TEXTS)} /classify answers equal classify() "
+          f"bit for bit; /metrics requests={m['requests']}; /healthz ok",
+          flush=True)
+
+
+def serve_checkpoint(family, cfg, params, qstate, dev) -> SE.ServingEngine:
+    """The W8A8 model written as a checkpoint directory (a temporary one)
+    and served from it by ``build_engine_from_checkpoint`` on ``dev``
+    with :func:`serve_config` (not started)."""
+    with tempfile.TemporaryDirectory() as d:
+        CK.save_checkpoint(d, params=params, family=family, cfg=cfg,
+                           qstate=qstate)
+        eng = SVS.build_engine_from_checkpoint(d, device=dev,
+                                               serve_cfg=serve_config())
+    torch.cuda.synchronize()
+    return eng
+
+
+def serve_phase(tag, cfg, params, qstate, plain, per_fwd, seed, dev, kind,
+                smi, by_path, eager_loop=False) -> None:
+    """Phase 11 for one model: its W8A8 checkpoint written and served by
+    ``build_engine_from_checkpoint`` on the card; the bench's buckets
+    captured largest first (launch counts read over the captures: the
+    eager warm-up and the capture of each), every bucket checked, the
+    closed loop on the graphs (no Python-counted launch: replays only),
+    its requests checked; with ``eager_loop`` the same loop on the eager
+    forward and the HTTP front end."""
+    t0 = time.perf_counter()
+    eng = serve_checkpoint(tag, cfg, params, qstate, dev)
+    t_load = time.perf_counter() - t0
+    graphs = eng.forward
+    EK.reset_launches()
+    t0 = time.perf_counter()
+    eng.warmup()
+    t_cap = time.perf_counter() - t0
+    n = len(eng.buckets())
+    caps = dict(EK.LAUNCHES)
+    print(f"  [{tag}] checkpoint written and served: {t_load:.1f} s; "
+          f"{n} buckets captured largest first in {t_cap:.2f} s; launches "
+          f"over the captures {caps}", flush=True)
+    if caps != {k: 2 * n * v for k, v in per_fwd.items()}:
+        fail(f"{tag}: launches over {n} captures {caps}, expected twice "
+             f"{per_fwd} a bucket")
+    by_path[f"serve-{tag}"] = caps
+    check_buckets(tag, graphs, plain, cfg.vocab_size, seed, dev, kind, smi)
+    EK.reset_launches()
+    log, reqs, answers = closed_loop(f"{tag} graphs", eng, cfg.vocab_size,
+                                     seed, kind, smi)
+    if any(EK.LAUNCHES.values()):
+        fail(f"{tag}: the closed loop launched outside its graphs: "
+             f"{EK.LAUNCHES}")
+    check_requests(f"{tag} graphs", graphs.forward, log, reqs, answers)
+    if not eager_loop:
+        return
+    eager = SE.ServingEngine(graphs.forward, serve_config(), device=dev)
+    EK.reset_launches()
+    elog, reqs, answers = closed_loop(f"{tag} eager", eager, cfg.vocab_size,
+                                      seed, kind, smi)
+    launches = dict(EK.LAUNCHES)
+    fwds = n + len(elog)  # the warm-up's and the served batches'
+    print(f"  [{tag} eager] launches over {fwds} forwards: {launches}",
+          flush=True)
+    if launches != {k: fwds * v for k, v in per_fwd.items()}:
+        fail(f"{tag} eager: launches {launches}, expected {per_fwd} a "
+             "forward")
+    by_path[f"serve-{tag}-eager"] = launches
+    check_requests(f"{tag} eager", graphs.forward, elog, reqs, answers)
+    check_lazy_capture(tag, graphs.forward, cfg.vocab_size, seed, dev)
+    check_http(eng)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2164,6 +2487,23 @@ def main(argv=None) -> int:
           f"generic {{'x': 'fp32'}} on the fused linear {seq_per_s(t_genx)};"
           f" {{'h': 'fp32'}} engine {seq_per_s(t_eng)}, its fake-quant "
           f"simulation (f32, TF32 off) {seq_per_s(t_sim)}")
+
+    print("[11] serving: the W8A8 checkpoints of phases 4 and 7 served by "
+          "build_engine_from_checkpoint, one CUDA graph per (batch, seq) "
+          "bucket", flush=True)
+    t0 = time.perf_counter()
+    serve_phase("bert", cfg, params, qstate,
+                bert_runner(params, cfg, qcfg, qstate, static, plan,
+                            int_params, dev),
+                per_forward(int8_matmul=4 * L, int8_attention=L,
+                            fused_add_ln_payload=2 * L),
+                args.seed, dev, kind, smi, by_path, eager_loop=True)
+    serve_phase("mobilebert", mcfg, mparams, ms,
+                mobilebert_runner(mparams, mcfg, mq, ms, mstatic, mplan, mint,
+                                  dev),
+                per_forward(int8_mb_layer_ln=ML), args.seed, dev, kind, smi,
+                by_path)
+    print(f"  phase 11: {time.perf_counter() - t0:.1f} s", flush=True)
 
     report.update({k: mb_report[k] for k in (
         "int8_matmul_norm", "int8_attention_qkv")})

@@ -1,0 +1,284 @@
+"""The port's HTTP server (``transformer_quantization_tpu_torch/serving/
+server.py``) on the CPU, from checkpoints the JAX package wrote.
+
+- BERT (2 layers, hidden 32) and MobileBERT (the registry's tiny preset)
+  calibrated by JAX's ``prepare_quantized_model`` (W8A8 current-minmax)
+  and written by JAX's ``save_checkpoint``; the same request ids served
+  by JAX's ``build_engine_from_checkpoint`` and the port's give logits
+  within rtol 1e-3 / atol 2e-3 (the engine tolerance of
+  ``tests/test_engine.py``);
+- HTTP through the port's ``serve``: /classify, /metrics and /healthz,
+  400 on bad JSON or non-string text, 404, overlong input truncated,
+  concurrent clients, 503 on a full queue (mirrors
+  ``tests/test_server.py``);
+- what the port does not serve raises, naming its ROADMAP item.
+"""
+
+import functools
+import json
+import socket
+import threading
+import urllib.error
+import urllib.request
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from transformer_quantization_tpu.models import bert as JB
+from transformer_quantization_tpu.models import mobilebert as JMB
+from transformer_quantization_tpu.quant.qconfig import QuantDefaults
+from transformer_quantization_tpu.quant.quantizers import QMethod
+from transformer_quantization_tpu.quant.ranges import RangeMethod
+from transformer_quantization_tpu.serving import ServeConfig as JServeConfig
+from transformer_quantization_tpu.serving import server as JS
+from transformer_quantization_tpu.training.calibration import (
+    prepare_quantized_model,
+)
+from transformer_quantization_tpu.utils import checkpoint as JCK
+from transformer_quantization_tpu_torch.models.registry import get_family
+from transformer_quantization_tpu_torch.serving import ServeConfig
+from transformer_quantization_tpu_torch.serving import server as TS
+from transformer_quantization_tpu_torch.utils import checkpoint as TCK
+
+CFG = JB.BertConfig(vocab_size=256, hidden_size=32, num_hidden_layers=2,
+                    num_attention_heads=4, intermediate_size=64,
+                    max_position_embeddings=64, num_labels=2)
+MB_CFG = JMB.MobileBertConfig(num_labels=2,
+                              **get_family("mobilebert").tiny_preset)
+RTOL, ATOL = 1e-3, 2e-3
+SERVE = dict(max_batch=4, max_wait_ms=2.0, seq_buckets=(16, 32),
+             batch_buckets=(1, 2, 4))
+
+
+def _defaults():
+    return QuantDefaults(method=QMethod.symmetric_uniform,
+                         act_method=QMethod.asymmetric_uniform, n_bits=8,
+                         weight_range_method=RangeMethod.current_minmax,
+                         act_range_method=RangeMethod.current_minmax)
+
+
+def _jax_checkpoint(path, family, cfg) -> str:
+    """JAX init, one-batch W8A8 calibration, JAX ``save_checkpoint``."""
+    init, declare, apply, tensors = {
+        "bert": (JB.init_bert_params, JB.declare_bert_sites, JB.bert_apply,
+                 JB.bert_weight_site_tensors),
+        "mobilebert": (JMB.init_mobilebert_params,
+                       JMB.declare_mobilebert_sites, JMB.mobilebert_apply,
+                       JMB.mobilebert_weight_site_tensors)}[family]
+    params = init(jax.random.PRNGKey(0), cfg)
+    qcfg = declare(_defaults(), cfg)
+    rng = np.random.RandomState(0)
+    batch = {"input_ids": jnp.asarray(rng.randint(0, cfg.vocab_size,
+                                                  (2, 16)), jnp.int32),
+             "attention_mask": jnp.ones((2, 16), jnp.float32)}
+    qstate, _ = prepare_quantized_model(
+        functools.partial(apply, cfg=cfg), params, qcfg, [batch],
+        weight_tensors=tensors(params))
+    ckpt = str(path / family)
+    JCK.save_checkpoint(ckpt, params=params, family=family, cfg=cfg,
+                        qstate=qstate)
+    return ckpt
+
+
+@pytest.fixture(scope="module")
+def bert_ckpt(tmp_path_factory):
+    return _jax_checkpoint(tmp_path_factory.mktemp("ck"), "bert", CFG)
+
+
+@pytest.fixture(scope="module")
+def mobilebert_ckpt(tmp_path_factory):
+    return _jax_checkpoint(tmp_path_factory.mktemp("ck"), "mobilebert",
+                           MB_CFG)
+
+
+def _requests(vocab, n, seed):
+    rng = np.random.RandomState(seed)
+    return [rng.randint(4, vocab, rng.randint(5, 31)).astype(np.int32)
+            for _ in range(n)]
+
+
+@pytest.mark.parametrize("family", ["bert", "mobilebert"])
+def test_port_server_matches_jax_server(family, request):
+    """The same checkpoint and request ids through both packages' servers
+    (one request at a time: each at B = 1, S = 16 or 32, two JAX
+    compiles); the logits agree within the engine tolerance."""
+    ckpt = request.getfixturevalue(f"{family}_ckpt")
+    vocab = CFG.vocab_size if family == "bert" else MB_CFG.vocab_size
+    reqs = _requests(vocab, 6, seed=7)
+    jeng = JS.build_engine_from_checkpoint(ckpt,
+                                           serve_cfg=JServeConfig(**SERVE))
+    teng = TS.build_engine_from_checkpoint(ckpt, device="cpu",
+                                           serve_cfg=ServeConfig(**SERVE))
+    with jeng:
+        want = [np.asarray(jeng.submit_ids(r).result(300)) for r in reqs]
+    with teng:
+        got = [teng.submit_ids(r).result(60) for r in reqs]
+    for w, g in zip(want, got):
+        assert g.shape == w.shape == (2,)
+        np.testing.assert_allclose(g, w, rtol=RTOL, atol=ATOL)
+
+
+def test_checkpoint_serves_through_the_registry(bert_ckpt):
+    """The port's server runs the registry's family on the port's own
+    ``load_checkpoint`` of the JAX-written directory."""
+    ck = TCK.load_checkpoint(bert_ckpt, device="cpu")
+    assert ck["family"] == "bert" and "qstate" in ck
+    eng = TS.build_engine_from_checkpoint(bert_ckpt, device="cpu")
+    assert eng.device == torch.device("cpu")
+    assert eng.tokenizer.vocab_size == CFG.vocab_size
+    assert callable(eng.forward) and not hasattr(eng.forward, "graphs")
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+@pytest.fixture(scope="module")
+def http(bert_ckpt):
+    """The port's ``serve`` in a thread on a free localhost port (20 ms
+    batching window, so concurrent clients coalesce)."""
+    eng = TS.build_engine_from_checkpoint(
+        bert_ckpt, device="cpu",
+        serve_cfg=ServeConfig(**dict(SERVE, max_wait_ms=20.0)))
+    port = _free_port()
+    ready = threading.Event()
+    threading.Thread(target=TS.serve, args=(eng, port, ready, "127.0.0.1"),
+                     daemon=True).start()
+    assert ready.wait(timeout=60)
+    return eng, port
+
+
+def _post(port, payload: bytes, path="/classify", timeout=120):
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}{path}", data=payload,
+        headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            return r.status, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+def _get(port, path):
+    try:
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}",
+                                    timeout=30) as r:
+            return r.status, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+def test_http_classify_metrics_healthz(http):
+    eng, port = http
+    code, out = _post(port, json.dumps({"text": "hello world",
+                                        "pair": "general"}).encode())
+    assert code == 200 and len(out["logits"]) == 2
+    np.testing.assert_array_equal(
+        np.float32(out["logits"]), eng.classify("hello world", "general"))
+    code, m = _get(port, "/metrics")
+    assert code == 200 and m["requests"] >= 2
+    assert _get(port, "/healthz") == (200, {"status": "ok"})
+    assert _get(port, "/nope")[0] == 404
+
+
+def test_http_error_handling(http):
+    """Malformed JSON, a missing or non-string text -> 400; an unknown
+    POST path -> 404; never a 500 for client mistakes."""
+    _, port = http
+    code, out = _post(port, b"{not json")
+    assert code == 400 and "bad request" in out["error"]
+    assert _post(port, json.dumps({"pair": "no text"}).encode())[0] == 400
+    assert _post(port, json.dumps({"text": 42}).encode())[0] == 400
+    assert _post(port, json.dumps({"text": "a", "pair": 1}).encode())[0] \
+        == 400
+    code, out = _post(port, json.dumps({"text": "ok"}).encode())
+    assert code == 200 and len(out["logits"]) == 2
+    assert _post(port, b"{}", path="/nope")[0] == 404
+
+
+def test_http_overlong_input_truncates(http):
+    """Inputs past the largest seq bucket truncate at ingress and still
+    classify."""
+    eng, port = http
+    before = eng.metrics.snapshot()
+    code, out = _post(port, json.dumps({"text": "word " * 500}).encode())
+    assert code == 200 and all(np.isfinite(out["logits"]))
+    after = eng.metrics.snapshot()
+    assert after["tokens"] - before["tokens"] == 32
+
+
+def test_http_concurrent_clients(http):
+    """8 threads x 6 requests, all served, all finite, coalesced into
+    batches of more than one on average."""
+    eng, port = http
+    before = eng.metrics.snapshot()
+    results, errs = [], []
+
+    def client(i):
+        try:
+            for j in range(6):
+                results.append(_post(port, json.dumps(
+                    {"text": f"client {i} request {j}"}).encode()))
+        except Exception as e:  # reported below
+            errs.append(e)
+
+    threads = [threading.Thread(target=client, args=(i,)) for i in range(8)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=300)
+    assert not errs and not any(t.is_alive() for t in threads)
+    assert len(results) == 48
+    assert all(c == 200 and np.isfinite(o["logits"]).all()
+               for c, o in results)
+    after = eng.metrics.snapshot()
+    assert after["requests"] - before["requests"] == 48
+    assert after["batches"] - before["batches"] < 48
+
+
+def test_http_full_queue_answers_503(bert_ckpt):
+    """With the queue full (the engine not draining it), /classify answers
+    503 at once."""
+    eng = TS.build_engine_from_checkpoint(
+        bert_ckpt, device="cpu",
+        serve_cfg=ServeConfig(**dict(SERVE, max_queue=1)))
+    eng.submit_ids([5, 6, 7])
+    httpd = TS.make_server(eng, 0, "127.0.0.1")
+    t = threading.Thread(target=httpd.serve_forever, daemon=True)
+    t.start()
+    try:
+        code, out = _post(httpd.server_address[1],
+                          json.dumps({"text": "shed me"}).encode())
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        t.join(timeout=30)
+    assert code == 503 and "queue full" in out["error"]
+
+
+def test_unported_serving_paths_raise(bert_ckpt, tmp_path):
+    with pytest.raises(NotImplementedError, match="item 4.5"):
+        TS.build_engine_from_checkpoint(bert_ckpt, device="cpu", bf16=True)
+    with pytest.raises(NotImplementedError, match="export"):
+        TS.build_engine_from_export(str(tmp_path))
+    with pytest.raises(NotImplementedError, match="export"):
+        TS.main(["--export-dir", str(tmp_path), "--device", "cpu"])
+    # a checkpoint without quant state: JAX serves its generic path
+    ck = JCK.load_checkpoint(bert_ckpt)
+    bare = str(tmp_path / "bare")
+    JCK.save_checkpoint(bare, params=ck["params"], family="bert",
+                        cfg=ck["cfg"])
+    with pytest.raises(NotImplementedError, match="item 4.6"):
+        TS.build_engine_from_checkpoint(bare, device="cpu")
+
+
+def test_server_on_cuda_without_a_card_raises(bert_ckpt):
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: nothing to refuse")
+    with pytest.raises(RuntimeError, match="cuda"):
+        TS.build_engine_from_checkpoint(bert_ckpt)

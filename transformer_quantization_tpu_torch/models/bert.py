@@ -12,9 +12,9 @@ Ported: the fake-quant forward :func:`bert_apply` (also the FP baseline
 with ``qcfg=None``), the generic int8 path (``int_params``) with its fused
 linear (``fused_linear``, the JAX ``use_pallas``), packing, the
 ``quant_dict`` key language (:func:`apply_bert_quant_dict`) with the PEG
-shared-permutation groups, and the full-handoff engine
-(:func:`build_bert_engine` / :func:`bert_engine_apply`). The
-``--per-embd`` / ``--per-groups`` wiring (``apply_peg_wiring``), AdaRound
+shared-permutation groups, the ``--per-token`` / ``--per-embd`` /
+``--per-groups`` wiring (:func:`apply_peg_wiring`), and the full-handoff
+engine (:func:`build_bert_engine` / :func:`bert_engine_apply`). AdaRound
 specs, int8 attention, compute dtypes, scan, remat and the pipeline wait.
 """
 
@@ -264,6 +264,37 @@ def apply_bert_quant_dict(qcfg: QuantModelConfig, quant_dict: Mapping,
         ("wC", ("classifier.w",)),
     ]
     return _apply_ordered_quant_dict(qcfg, quant_dict, ordered)
+
+
+def apply_peg_wiring(qcfg: QuantModelConfig, n_layers: int,
+                     per_token: bool = False, per_embd: bool = False,
+                     per_groups: Optional[int] = None,
+                     permute: bool = False,
+                     pooler_site: str = "pooler.dense.out"
+                     ) -> QuantModelConfig:
+    """Per-token / per-embedding / per-group activation quantization
+    wiring (the CLI's ``--per-token`` / ``--per-embd`` / ``--per-groups``):
+    ``axis=2`` for per-embedding / per-group on (B, T, d) sites, ``axis=1``
+    for per-token; applied to the embedding sums + LayerNorm and, per
+    layer, to the q/k/v outputs, context, self-output dense / residual /
+    LN and FFN-output dense / residual / LN. The pooler (B, d) gets
+    ``axis=1`` only in per-embedding mode."""
+    base_axis = 2 if (per_embd or per_groups) else 1
+    if not (per_token or per_embd or per_groups):
+        return qcfg
+    changes = {"axis": base_axis, "n_groups": per_groups, "permute": permute}
+    sites = ["emb.sum_tt", "emb.sum_pos", "emb.ln.out"]
+    for i in range(n_layers):
+        p = f"L{i}."
+        sites += [p + s for s in (
+            "attn.q.out", "attn.k.out", "attn.v.out", "attn.context",
+            "attn_out.dense.out", "attn_out.res", "attn_out.ln.out",
+            "ffn.dense.out", "ffn.res", "ffn.ln.out")]
+    qcfg = qcfg.replace_sites({s: dict(changes) for s in sites})
+    if per_embd and pooler_site in qcfg:
+        qcfg = qcfg.replace_site(pooler_site, axis=1,
+                                 n_groups=per_groups, permute=permute)
+    return qcfg
 
 
 def shared_permutation_groups(n_layers: int

@@ -16,8 +16,9 @@ path with ``int_params``), the site inventory with the MobileBERT
 ``quant_dict`` (static enables and the attention-probs overrides), int8
 packing, and the full-handoff engine (:func:`build_mobilebert_engine`,
 :func:`mobilebert_encoder_engine`, :func:`mobilebert_engine_apply`).
-Training (dropout), AdaRound specs, the pipeline, scan, remat and capture
-wait; the engine raises "not yet ported" for int4 weights and for 16-bit
+:func:`apply_peg_wiring` passes the config through, as in the JAX
+package. Training (dropout), AdaRound specs, the pipeline, scan, remat
+and capture wait; the engine raises "not yet ported" for int4 weights and for 16-bit
 or disabled attention sites.
 """
 
@@ -274,6 +275,13 @@ def apply_mobilebert_quant_dict(qcfg: QuantModelConfig, quant_dict: Mapping,
                                 n_layers: int) -> QuantModelConfig:
     """MobileBERT takes its quant_dict at declaration time
     (:func:`declare_mobilebert_sites`), not through BERT's letter keys."""
+    return qcfg
+
+
+def apply_peg_wiring(qcfg: QuantModelConfig, n_layers: int,
+                     **_kw) -> QuantModelConfig:
+    """The reference applies the per-embedding / per-group wiring only to
+    BERT; MobileBERT passes through unchanged."""
     return qcfg
 
 

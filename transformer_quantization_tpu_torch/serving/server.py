@@ -1,0 +1,221 @@
+"""HTTP serving front end over the dynamic-batching engine.
+
+Counterpart of ``transformer_quantization_tpu/serving/server.py``. Minimal
+stdlib server (no extra dependencies):
+
+    POST /classify   {"text": "...", "pair": "...?"}  -> {"logits": [...]}
+    GET  /metrics                                      -> engine metrics
+    GET  /healthz                                      -> ok
+
+Start from a checkpoint directory (the JAX package's format,
+``utils/checkpoint.py``):
+
+    python -m transformer_quantization_tpu_torch.serving.server \\
+        --checkpoint DIR [--port 8080] [--vocab vocab.txt] [--device cuda|cpu]
+
+Requests are tokenized (native C++ WordPiece when a vocab.txt is given,
+else the synthetic word-hash tokenizer), enqueued, dynamically batched
+onto (batch, seq) buckets, each one CUDA graph on the card, and answered
+with the classification logits. The full-handoff int8 engine serves;
+the JAX server's generic-path fallback (bf16 attention), ``--bf16`` and
+``--export-dir`` are not yet ported and raise.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import threading
+from concurrent.futures import TimeoutError as FutTimeout
+from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+from typing import Optional
+
+from transformer_quantization_tpu_torch import resolve_device
+from transformer_quantization_tpu_torch.serving.engine import (
+    QueueFullError,
+    ServeConfig,
+    ServingEngine,
+    unpack_batch,
+)
+
+
+def build_engine_from_checkpoint(ckpt_dir: str, *, device="cuda",
+                                 bf16: bool = False, tokenizer=None,
+                                 serve_cfg: Optional[ServeConfig] = None
+                                 ) -> ServingEngine:
+    """Quantized int8 engine from a framework checkpoint directory: the
+    family's full-handoff engine under the W8A8 current-minmax sites the
+    checkpoint was calibrated with; on the card each bucket is one CUDA
+    graph (:class:`~.graphs.BucketGraphs`), on the CPU the eager forward
+    serves. The forward takes the batch dict or the fused-transfer
+    (3, B, S) array."""
+    if bf16:
+        raise NotImplementedError(
+            "bf16 serving (engine_dtype bf16) is not yet ported (ROADMAP §1 "
+            "item 4.5)")
+    from transformer_quantization_tpu_torch.models.registry import get_family
+    from transformer_quantization_tpu_torch.ops.engine import (
+        EngineIncompatible,
+    )
+    from transformer_quantization_tpu_torch.training.calibration import (
+        w8a8_defaults,
+    )
+    from transformer_quantization_tpu_torch.utils import checkpoint as CK
+    from transformer_quantization_tpu_torch.utils.data import (
+        SyntheticTokenizer,
+    )
+
+    dev = resolve_device(device)
+    ck = CK.load_checkpoint(ckpt_dir, device=dev)
+    fam = get_family(ck["family"])
+    cfg, params = ck["cfg"], ck["params"]
+    qstate = ck.get("qstate")
+    generic = ("the JAX server then serves the generic int path with bf16 "
+               "attention, which is not yet ported (ROADMAP §1 item 4.6)")
+    if qstate is None:
+        raise NotImplementedError(f"{ckpt_dir} holds no quant state; "
+                                  + generic)
+    # the W8A8 recipe the checkpoint was calibrated with
+    qcfg = fam.declare_sites(w8a8_defaults(), cfg)
+    try:
+        static, plan, int_params = fam.build_engine(params, cfg, qcfg,
+                                                    qstate, device=dev)
+    except EngineIncompatible as e:
+        raise NotImplementedError(
+            f"the checkpoint does not ride the int8 engine ({e}); "
+            + generic) from e
+
+    def forward(batch):
+        if not isinstance(batch, dict):
+            batch = unpack_batch(batch)
+        return fam.engine_apply(params, batch, cfg, qcfg, qstate, static,
+                                plan, int_params, device=dev)["logits"]
+
+    if dev.type == "cuda":
+        from transformer_quantization_tpu_torch.serving.graphs import (
+            BucketGraphs,
+        )
+
+        forward = BucketGraphs(forward, dev)
+    if tokenizer is None:
+        tokenizer = SyntheticTokenizer(cfg.vocab_size)
+    return ServingEngine(forward, serve_cfg or ServeConfig(),
+                         tokenizer=tokenizer, device=dev)
+
+
+def build_engine_from_export(export_dir: str, *, tokenizer=None,
+                             serve_cfg: Optional[ServeConfig] = None
+                             ) -> ServingEngine:
+    """Serving from an exported artifact: not yet ported."""
+    raise NotImplementedError(
+        "serving from an export (serving/export.py) is not yet ported "
+        "(ROADMAP §1 item 6: the torch.export artifact)")
+
+
+def make_handler(engine: ServingEngine):
+    class Handler(BaseHTTPRequestHandler):
+        def _send(self, code: int, payload: dict):
+            body = json.dumps(payload).encode()
+            self.send_response(code)
+            self.send_header("Content-Type", "application/json")
+            self.send_header("Content-Length", str(len(body)))
+            self.end_headers()
+            self.wfile.write(body)
+
+        def do_GET(self):
+            if self.path == "/healthz":
+                self._send(200, {"status": "ok"})
+            elif self.path == "/metrics":
+                self._send(200, engine.metrics.snapshot())
+            else:
+                self._send(404, {"error": "unknown path"})
+
+        def do_POST(self):
+            if self.path != "/classify":
+                self._send(404, {"error": "unknown path"})
+                return
+            try:
+                n = int(self.headers.get("Content-Length", 0))
+                req = json.loads(self.rfile.read(n) or b"{}")
+                text = req["text"]
+                pair = req.get("pair")
+                if not isinstance(text, str) or (
+                        pair is not None and not isinstance(pair, str)):
+                    raise TypeError("'text'/'pair' must be strings")
+            except (json.JSONDecodeError, KeyError, TypeError,
+                    UnicodeDecodeError, ValueError) as e:
+                self._send(400, {"error": f"bad request: {e}"})
+                return
+            try:
+                fut = engine.submit_text(text, pair)
+            except QueueFullError as e:
+                self._send(503, {"error": str(e)})
+                return
+            try:
+                logits = fut.result(timeout=60)
+                self._send(200, {"logits": [float(v) for v in logits]})
+            except FutTimeout:
+                self._send(504, {"error": "inference timed out"})
+            except Exception as e:  # the forward's error, to the client
+                self._send(500, {"error": str(e)})
+
+        def log_message(self, *a):  # quiet
+            pass
+
+    return Handler
+
+
+def make_server(engine: ServingEngine, port: int = 8080,
+                host: str = "0.0.0.0") -> ThreadingHTTPServer:
+    """The HTTP server of :func:`serve`, bound and not yet serving (port 0
+    picks a free one: ``server_address[1]``); the caller starts
+    ``engine`` and, when done, calls ``shutdown()`` and stops it."""
+    return ThreadingHTTPServer((host, port), make_handler(engine))
+
+
+def serve(engine: ServingEngine, port: int = 8080,
+          ready_event: Optional[threading.Event] = None,
+          host: str = "0.0.0.0"):
+    """Start ``engine`` and answer HTTP on ``host:port`` for ever; stops
+    the engine on the way out. ``ready_event`` is set once the socket
+    listens."""
+    engine.start()
+    try:
+        with make_server(engine, port, host) as httpd:
+            if ready_event is not None:
+                ready_event.set()
+            httpd.serve_forever()
+    finally:
+        engine.stop()
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    src = ap.add_mutually_exclusive_group(required=True)
+    src.add_argument("--checkpoint")
+    src.add_argument("--export-dir",
+                     help="serve an exported artifact (not yet ported)")
+    ap.add_argument("--port", type=int, default=8080)
+    ap.add_argument("--bf16", action="store_true")
+    ap.add_argument("--vocab", default=None,
+                    help="vocab.txt for the native WordPiece tokenizer")
+    ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
+    args = ap.parse_args(argv)
+    tok = None
+    if args.vocab:
+        from transformer_quantization_tpu_torch.utils.native import (
+            WordPieceTokenizer,
+        )
+
+        tok = WordPieceTokenizer(args.vocab)
+    if args.export_dir:
+        eng = build_engine_from_export(args.export_dir, tokenizer=tok)
+    else:
+        eng = build_engine_from_checkpoint(args.checkpoint, bf16=args.bf16,
+                                           tokenizer=tok, device=args.device)
+    print(f"serving on :{args.port}", flush=True)
+    serve(eng, args.port)
+
+
+if __name__ == "__main__":
+    main()
