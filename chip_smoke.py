@@ -140,6 +140,27 @@ Phases (any failure exits non-zero; nothing is caught):
    each captured on first use on the scheduler thread while the
    resolver copies the batch before, every batch and request checked
    as above.
+12. W4A8 (split-half packed int4 weights): BERT-base from ``--seed``'s
+   params calibrated with current-minmax 4-bit symmetric weights and
+   8-bit activations, packed int4 (``build_bert_int_params(use_int4=
+   True)``) and planned (every matmul's ``w4`` flag set), with the packed
+   encoder weights' bytes beside W8A8's; K1's packed-int4 instance on
+   layer 0's four matmuls at B=128, S=128 (M = 16384) and on their first
+   256 rows (the (8, 32) serving bucket's M), each bit-identical to its
+   plain version and to K1 int8 on the unpacked weight, with w4, K1 int8,
+   plain and ``torch._int_mm`` (on the unpacked weight) ms and the bound
+   (the weight at K/2 bytes a row); the fused linear's packed-int4
+   instance on the int4 calls of one W4A8 generic forward (q, attn_out,
+   inter, dense, the pooler), bit-identical to its plain version and to
+   the int8 kernel on the unpacked weight; both at ragged shapes (M = 8,
+   N = 200, K = 800 and 864, whose last packed box TMA zero-fills) over
+   every activation and output; K = 784 raising in K1's wrapper and
+   declined by the fused linear; then three request batches through
+   ``bert_engine_apply`` (48 w4 matmul, 12 attention, 24 add+LN launches a
+   forward) and ``bert_apply(fused_linear=True)`` (73 w4 fused linears,
+   61 quantize passes), each with the counts read just after and logits
+   against the same path on the plain versions, and engine and generic
+   seq/s (five windows).
 
 The last lines are the kernels JSON (times per encoder layer: the sum
 over that layer's launches of each kernel; the flex kernels' top-level
@@ -155,8 +176,11 @@ linear's and ``fused_add_ln``'s numbers are per encoder layer of the
 generic W8A8 path and of the ``{'h': 'fp32'}`` engine, with the fused
 linear's other calls under ``variants`` and its quantize pass (5 a layer
 at K = 768, and on the ``{'x': 'fp32'}`` dense) under
-``quantize_pass``; ``launches`` sums the three runs
-of every path, ``launches_by_path`` splits them; the serving paths
+``quantize_pass``; ``int8_matmul_w4`` and ``fused_int8_linear_w4`` are
+the W4A8 engine's and generic path's per layer, the first with K1 int8's
+ms on the unpacked weights (``int8_ms``) and the M = 256 sum under
+``variants``, the second with the pooler there; ``launches`` sums the
+three runs of every path, ``launches_by_path`` splits them; the serving paths
 ``serve-bert`` / ``serve-mobilebert`` count the launches the wrappers
 made while their buckets were captured, ``serve-bert-eager`` those of
 the eager loop), the
@@ -300,8 +324,9 @@ def compare_values(got: torch.Tensor, want: torch.Tensor, step,
 
 
 def ptxas_lines(log: str) -> list:
-    """An nvcc -Xptxas -v log, shortened: each GEMM policy instance's and
-    each attention instance's (``attn_kernel<T,D>``)
+    """An nvcc -Xptxas -v log, shortened: each GEMM policy instance's (``W4
+    SiteEpi<0,0>`` for its packed-int4 instance) and each attention
+    instance's (``attn_kernel<T,D>``)
     registers and spills by name (``NormEpi<1,0>: Used 168 registers, ...;
     0 bytes stack frame, ...``; with ptxas's warning where it serializes
     wgmma for want of registers), then the other kernels' distinct
@@ -311,10 +336,11 @@ def ptxas_lines(log: str) -> list:
     for ln in log.splitlines():
         ln = ln.strip().replace("ptxas info    : ", "")
         if ln.startswith("Compiling entry function"):
-            m = (re.search(r"\d([A-Z]\w*?Epi)I((?:L[ib]\d+E)+)E", ln)
+            m = (re.search(r"\d([A-Z][A-Za-z]*Epi)I((?:L[ib]\d+E)+)E", ln)
                  or re.search(r"(attn_kernel)I((?:Li\d+E)+)E", ln))
-            inst = None if m is None else "{}<{}>".format(
-                m.group(1), ",".join(re.findall(r"L[ib](\d+)E", m.group(2))))
+            inst = None if m is None else "{}{}<{}>".format(
+                "W4 " if "W4Epi" in ln else "", m.group(1),
+                ",".join(re.findall(r"L[ib](\d+)E", m.group(2))))
         elif "register" in ln or "spill" in ln:
             if inst is None:
                 other.add(ln)
@@ -1569,18 +1595,20 @@ def linear_case(tag, args, kw) -> dict:
     kw = dict(kw, plain=False)
     x, packed, in_spec, in_qp = args[:4]
     k = x.shape[-1]
-    m, n = x.numel() // k, packed["w_int"].shape[0]
+    w4 = "w_packed" in packed
+    w8 = IL.unpack_int4(packed["w_packed"], k) if w4 else packed["w_int"]
+    m, n = x.numel() // k, w8.shape[0]
     x8 = (x.reshape(m, k) if x.dtype == torch.int8 else
           IL.quantize_activation_int8(in_spec, in_qp, x.reshape(m, k))[0])
-    x8, w_t = x8.contiguous(), packed["w_int"].t()
+    x8, w_t = x8.contiguous(), w8.t()
     emit = kw.get("emit_int8", False)
     step = None if emit else Q.scale_of(kw["out_spec"], kw["out_qp"])
     plain = lambda: IM.fused_int8_linear(*args, **dict(kw, plain=True))
     want = plain()
-    nbytes = (x.numel() * x.element_size() + n * k + 3 * n * 4 + 32
-              + m * n * (1 if emit else 4))
+    nbytes = (x.numel() * x.element_size() + n * k // (2 if w4 else 1)
+              + 3 * n * 4 + 32 + m * n * (1 if emit else 4))
     return kernel_case(
-        f"fused_int8_linear[{tag}] {m}x{k}->{n} "
+        f"fused_int8_linear{'_w4' if w4 else ''}[{tag}] {m}x{k}->{n} "
         f"{'int8' if x.dtype == torch.int8 else 'f32'} in, "
         f"{kw.get('activation')}, {'emit' if emit else 'fold'}",
         lambda: IM.fused_int8_linear(*args, **kw), lambda: want,
@@ -2218,6 +2246,280 @@ def serve_phase(tag, cfg, params, qstate, plain, per_fwd, seed, dev, kind,
     check_http(eng)
 
 
+# phase 12: W4A8, split-half packed int4 weights (K1's and the fused
+# linear's packed-int4 instances). The ragged shapes: M = 8 and N = 200 as
+# check_other_shapes, K = 800 and 864 (K/2 = 400, 432: a ragged last
+# packed box, which TMA zero-fills) and M, N off the tiles
+W4_SHAPES = ((8, 200, 800), (1000, 136, 864), (300, 200, 800))
+W4_REFUSED_K = 784   # K/2 = 392: packed rows off TMA's 16-byte stride
+
+
+def w4a8_defaults():
+    """The W4A8 recipe: current-minmax 4-bit symmetric weights, 8-bit
+    asymmetric activations (the JAX package's tests/test_engine.py W4A8
+    engine test)."""
+    return dataclasses.replace(CAL.w8a8_defaults(), n_bits=4, n_bits_act=8)
+
+
+def w4_matmul_case(tag, x, mp, act) -> dict:
+    """K1's packed-int4 instance on ``x`` with the int4 matmul plan ``mp``:
+    bit-identical to its plain version and to K1 int8 on the unpacked
+    weight; kernel, K1 int8 (``int8_ms``), plain and ``torch._int_mm`` (on
+    the unpacked weight, the int32 product only) ms; the bound with the
+    weight at K/2 bytes a row."""
+    m = x.shape[0]
+    n, k2 = mp["w"].shape
+    k = 2 * k2
+    w8 = IL.unpack_int4(mp["w"], k)
+    vecs, scal = mp["vecs"], mp["scal"]
+    w4 = lambda: EK.int8_matmul(x, mp["w"], vecs, scal, activation=act,
+                                w4=True)
+    int8 = lambda: EK.int8_matmul(x, w8, vecs, scal, activation=act)
+    name = f"int8_matmul_w4[{tag}] {m}x{k}->{n}"
+    compare(w4(), int8(), f"{name} vs K1 int8 on the unpacked weight")
+    w_t = w8.t()
+    res = kernel_case(
+        name, w4,
+        lambda: EK.int8_matmul_ref(x, mp["w"], vecs, scal, activation=act,
+                                   w4=True),
+        2.0 * m * n * k, m * k + n * k2 + 5 * n * 4 + m * n,
+        lib_fn=lambda: torch._int_mm(x, w_t))
+    res["int8_ms"] = device_ms(int8)
+    print(f"  {name}: w4 {res['ms']:.4f} ms, K1 int8 {res['int8_ms']:.4f} "
+          f"ms, torch._int_mm {res['library_ms']:.4f} ms")
+    return res
+
+
+def w4_layer_cases(x8, c8, hx8, i8, lp, rows=None) -> dict:
+    """The four matmuls of a W4A8 layer (on the first ``rows`` rows of
+    their inputs), per layer."""
+    sl = slice(None) if rows is None else slice(0, rows)
+    cases = [(w4_matmul_case("qkv", x8[sl], lp["qkv"], None), 1),
+             (w4_matmul_case("attn_out", c8[sl], lp["attn_out"], None), 1),
+             (w4_matmul_case("inter", hx8[sl], lp["inter"], "gelu_new"), 1),
+             (w4_matmul_case("dense", i8[sl], lp["dense"], None), 1)]
+    out = per_layer(cases)
+    out["int8_ms"] = sum(c["int8_ms"] for c, _ in cases)
+    return out
+
+
+def check_w4_kernels(params, cfg, q4, s4, int4, static4, plan4, batch,
+                     dev) -> dict:
+    """Phase 12, the matmul: K1 w4 on layer 0's inputs of the W4A8 engine
+    (plain versions) at B=128, S=128 (M = 16384) and on their first 256
+    rows (M = 256, the (8, 32) serving bucket's rows)."""
+    h, mask = entry_value(params, cfg, q4, s4, int4, batch, dev)
+    es = plan4["entry_scal"]
+    x8 = EK.quantize_payload(h.reshape(BATCH * SEQ, -1), es[0, 0], es[0, 1])
+    lp = plan4["layers"][0]
+    w4q, w4o, w4i, w4d = static4.w4[0]
+    if not (w4q and w4o and w4i and w4d):
+        fail(f"W4A8 layer 0's matmuls are not all int4: {static4.w4[0]}")
+    qkv8 = EK.int8_matmul_ref(x8, *_mm(lp["qkv"]), w4=True)
+    c8 = EK.int8_attention_ref(qkv8, mask, lp["attn_scal"],
+                               n_heads=cfg.num_attention_heads, seq=SEQ,
+                               skip_max=static4.attn_skip_max)
+    hx8 = EK.int8_matmul_add_ln_ref(c8, *_mm(lp["attn_out"]), x8,
+                                    lp["ln1"]["gb"], lp["ln1"]["scal"],
+                                    eps=static4.ln_eps, w4=True)
+    i8 = EK.int8_matmul_ref(hx8, *_mm(lp["inter"]), activation="gelu_new",
+                            w4=True)
+    out = w4_layer_cases(x8, c8, hx8, i8, lp)
+    small = w4_layer_cases(x8, c8, hx8, i8, lp, rows=256)
+    out["variants"] = {"M=256": small}
+    for tag, r in (("M=16384", out), ("M=256", small)):
+        print(f"  int8_matmul_w4 per layer at {tag}: w4 {r['ms']:.4f} ms, "
+              f"K1 int8 {r['int8_ms']:.4f} ms, torch._int_mm "
+              f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+              f"({r['bound_by']})")
+    return out
+
+
+def check_w4_linear_kernels(params, cfg, q4, s4, int4, batch, dev) -> dict:
+    """Phase 12, the fused linear: its int4 calls in one W4A8 generic
+    forward on the plain version (layer 0's q with a float32 x, attn_out,
+    inter with gelu emitting the payload, dense on the payload, the pooler
+    at M = B), each bit-identical to its plain version and to the int8
+    kernel on the unpacked weight."""
+    run = generic_runner(params, cfg, q4, s4, int4, dev)
+    calls = record_calls(lambda: run(batch, "plain"),
+                         (LY, "fused_int8_linear"))[0]
+    L = cfg.num_hidden_layers
+    if len(calls) != 6 * L + 2:
+        fail(f"W4A8 fused linear calls per forward: {len(calls)}")
+    cases = {"q": calls[0], "attn_out": calls[3], "inter": calls[4],
+             "dense": calls[5], "pooler": calls[-2]}
+    res = {}
+    for tag, (args, kw) in cases.items():
+        packed = args[1]
+        if "w_packed" not in packed:
+            fail(f"W4A8 fused linear [{tag}]: an int8 weight")
+        k = args[0].shape[-1]
+        p8 = {key: v for key, v in packed.items()
+              if key not in ("w_packed", "in_features")}
+        p8["w_int"] = IL.unpack_int4(packed["w_packed"], k)
+        got = IM.fused_int8_linear(*args, **dict(kw, plain=False))
+        int8 = IM.fused_int8_linear(args[0], p8, *args[2:],
+                                    **dict(kw, plain=False))
+        torch.cuda.synchronize()
+        if not torch.equal(got, int8):
+            fail(f"fused_int8_linear_w4[{tag}] differs from the int8 kernel "
+                 "on the unpacked weight")
+        res[tag] = linear_case(tag, args, kw)
+    out = per_layer([(res["q"], 3), (res["attn_out"], 1), (res["inter"], 1),
+                     (res["dense"], 1)])
+    out["variants"] = {"pooler": per_layer([(res["pooler"], 1)])}
+    print(f"  fused_int8_linear_w4 per layer {out['ms']:.4f} ms, bound "
+          f"{out['bound_ms']:.4f} ms ({out['bound_by']})")
+    return out
+
+
+def check_w4_shapes(dev) -> None:
+    """Phase 12, the edges: K1 w4 at ``W4_SHAPES`` over every activation and
+    output (and the 16-bit fold), and the fused linear w4 on a float32 x
+    and a payload over its outputs, each against its plain version and the
+    int8 kernel on the unpacked weight; K = 784 raises in K1's wrapper and
+    the fused linear declines it (None: the caller's int path)."""
+    gen = torch.Generator(device=dev).manual_seed(13)
+    asym = Q.QuantizerSpec(n_bits=8, method=Q.QMethod.asymmetric_uniform)
+    scal = torch.tensor([[0.03, 5.0]], device=dev)
+    for m, n, k in W4_SHAPES:
+        wp = torch.randint(0, 256, (n, k // 2), generator=gen, device=dev,
+                           dtype=torch.uint8)
+        w8 = IL.unpack_int4(wp, k)
+        vecs = torch.stack([torch.full((n,), 2e-3, device=dev),
+                            w8.float().sum(1), torch.zeros(n, device=dev),
+                            torch.full((n,), 0.05, device=dev),
+                            torch.full((n,), 3.0, device=dev)])
+        x = torch.randint(-128, 128, (m, k), generator=gen, device=dev,
+                          dtype=torch.int8)
+        cases = [(a, mode, 8) for a in (None, "gelu_new", "relu")
+                 for mode in ("emit", "fold", "float")] + [(None, "fold", 16)]
+        for act, mode, bits in cases:
+            kw = dict(activation=act, out_mode=mode, out_bits=bits)
+            got = EK.int8_matmul(x, wp, vecs, scal, w4=True, **kw)
+            tag = f"int8_matmul_w4 {m}x{k}->{n} act={act} {mode} {bits}-bit"
+            for want, what in ((EK.int8_matmul_ref(x, wp, vecs, scal,
+                                                   w4=True, **kw), "plain"),
+                               (EK.int8_matmul(x, w8, vecs, scal, **kw),
+                                "K1 int8")):
+                torch.cuda.synchronize()
+                if not torch.equal(got, want):
+                    fail(f"{tag} vs {what}: max err "
+                         f"{(got.float() - want.float()).abs().max()}")
+        print(f"  int8_matmul_w4 {m}x{k}->{n}: {len(cases)} act x output "
+              "cases bit-identical to the plain version and to K1 int8")
+        packed = {"w_packed": wp, "in_features": k,
+                  "scale": 1e-2 * (1 + torch.rand(n, generator=gen,
+                                                  device=dev)),
+                  "colsum": w8.float().sum(1)}
+        p8 = {"w_int": w8, "scale": packed["scale"],
+              "colsum": packed["colsum"]}
+        bias = 0.1 * torch.randn(n, generator=gen, device=dev)
+        xf = 1.5 * torch.randn(m, k, generator=gen, device=dev)
+        if m % 8:
+            continue   # the fused linear takes M % 8 == 0
+        in_qp = Q.set_quant_range(asym, xf.min(), xf.max())
+        n_cases = 0
+        for xin in (xf, IL.quantize_activation_int8(asym, in_qp, xf)[0]):
+            for act in (None, "gelu", "relu"):
+                y = IM.fused_int8_linear(xin, packed, asym, in_qp, bias=bias,
+                                         activation=act, plain=True)
+                oqp = Q.set_quant_range(asym, y.min(), y.max())
+                for out in ("none", "fold", "emit"):
+                    kw = dict(bias=bias, activation=act)
+                    if out != "none":
+                        kw.update(out_spec=asym, out_qp=oqp,
+                                  emit_int8=out == "emit")
+                    got = IM.fused_int8_linear(xin, packed, asym, in_qp, **kw)
+                    for want in (IM.fused_int8_linear(xin, packed, asym,
+                                                      in_qp, plain=True, **kw),
+                                 IM.fused_int8_linear(xin, p8, asym, in_qp,
+                                                      **kw)):
+                        torch.cuda.synchronize()
+                        if not torch.equal(got, want):
+                            fail(f"fused_int8_linear_w4 {m}x{k}->{n} act="
+                                 f"{act} {out}: max err "
+                                 f"{(got.float() - want.float()).abs().max()}")
+                    n_cases += 1
+        print(f"  fused_int8_linear_w4 {m}x{k}->{n}: {n_cases} input x act "
+              "x output cases bit-identical to the plain version and to the "
+              "int8 kernel")
+    k = W4_REFUSED_K
+    wp = torch.zeros((136, k // 2), device=dev, dtype=torch.uint8)
+    x = torch.zeros((8, k), device=dev, dtype=torch.int8)
+    vecs = torch.ones((5, 136), device=dev)
+    try:
+        EK.int8_matmul(x, wp, vecs, scal, w4=True)
+    except ValueError as e:
+        print(f"  int8_matmul_w4 at K = {k} raises: {e}")
+    else:
+        fail(f"int8_matmul_w4 took K = {k}")
+    packed = {"w_packed": wp, "in_features": k,
+              "scale": torch.ones(136, device=dev),
+              "colsum": torch.zeros(136, device=dev)}
+    xf = torch.randn(8, k, generator=gen, device=dev)
+    if IM.fused_int8_linear(xf, packed, asym,
+                            Q.set_quant_range(asym, xf.min(),
+                                              xf.max())) is not None:
+        fail(f"fused_int8_linear_w4 took K = {k}")
+    print(f"  fused_int8_linear at K = {k} on an int4 weight: None (the int "
+          "path)")
+
+
+def encoder_weight_bytes(plan) -> int:
+    """Bytes of an engine plan's encoder weights as stored on the card."""
+    return sum(lp[k]["w"].numel() * lp[k]["w"].element_size()
+               for lp in plan["layers"]
+               for k in ("qkv", "attn_out", "inter", "dense"))
+
+
+def w4a8_phase(params, cfg, plan8, batches, by_path, seed, dev, kind,
+               smi) -> dict:
+    """Phase 12: BERT-base W4A8 from ``seed``'s params: calibration,
+    int4 packing and the engine plan; K1 w4 and the fused linear w4 on the
+    main path's inputs and at the edges; three request batches through the
+    engine and the generic path, with the launch counts read just after;
+    engine and generic seq/s; the packed encoder weights' bytes."""
+    L = cfg.num_hidden_layers
+    t0 = time.perf_counter()
+    _, q4, s4 = CAL.calibrated_bert(cfg, batch_size=8, seq=SEQ, seed=seed,
+                                    device=dev, params=params,
+                                    defaults=w4a8_defaults())
+    int4 = B.build_bert_int_params(params, q4, s4, use_int4=True)
+    static4, plan4, _ = B.build_bert_engine(params, cfg, q4, s4,
+                                            int_params=int4, device=dev)
+    torch.cuda.synchronize()
+    b4, b8 = encoder_weight_bytes(plan4), encoder_weight_bytes(plan8)
+    print(f"  set-up (W4A8 calibration, int4 packing, plan): "
+          f"{time.perf_counter() - t0:.1f} s; w4 flags {static4.w4[0]} a "
+          f"layer; packed encoder weights {b4} bytes (int4) against {b8} "
+          f"(int8), {b4 / b8:.3f}x", flush=True)
+    b0 = batches[0]
+    report = {"int8_matmul_w4": check_w4_kernels(
+        params, cfg, q4, s4, int4, static4, plan4, b0, dev)}
+    report["fused_int8_linear_w4"] = check_w4_linear_kernels(
+        params, cfg, q4, s4, int4, b0, dev)
+    check_w4_shapes(dev)
+    eng = bert_runner(params, cfg, q4, s4, static4, plan4, int4, dev)
+    by_path["w4a8"] = drive_path(
+        "w4a8", eng, cfg, batches,
+        per_forward(int8_matmul_w4=4 * L, int8_attention=L,
+                    fused_add_ln_payload=2 * L))
+    gen = generic_runner(params, cfg, q4, s4, int4, dev)
+    by_path["generic-w4a8"] = drive_path(
+        "generic-w4a8", gen, cfg, batches,
+        per_forward(fused_int8_linear_w4=6 * L + 1,
+                    fused_linear_quantize=5 * L + 1))
+    t_eng = window_ms(lambda: eng(b0, "kernels"))
+    t_gen = window_ms(lambda: gen(b0, "kernels"))
+    print(f"  seq/s at B={BATCH}, S={SEQ}, median (range) of 5 windows "
+          f"({kind}, {smi}): W4A8 engine {seq_per_s(t_eng)} (forward "
+          f"{t_eng[0]:.3f} ms), W4A8 generic on the fused linear "
+          f"{seq_per_s(t_gen)} (forward {t_gen[0]:.3f} ms)")
+    return report
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2505,6 +2807,13 @@ def main(argv=None) -> int:
                 by_path)
     print(f"  phase 11: {time.perf_counter() - t0:.1f} s", flush=True)
 
+    print("[12] W4A8: BERT-base on split-half packed int4 weights through "
+          "bert_engine_apply and the generic path", flush=True)
+    t0 = time.perf_counter()
+    report.update(w4a8_phase(params, cfg, plan, batches, by_path, args.seed,
+                             dev, kind, smi))
+    print(f"  phase 12: {time.perf_counter() - t0:.1f} s", flush=True)
+
     report.update({k: mb_report[k] for k in (
         "int8_matmul_norm", "int8_attention_qkv")})
     k8_by_seq = mb_report["int8_mb_layer_ln"]
@@ -2515,6 +2824,7 @@ def main(argv=None) -> int:
     report["flex_add_ln"] = flex_reports["w8a8-mixed"]["flex_add_ln"]
     pallas = "transformer_quantization_tpu/ops/pallas/engine_kernels.py"
     sources = {"int8_matmul": ("int8_matmul.cu", f"{pallas}:254"),
+               "int8_matmul_w4": ("int8_matmul.cu", f"{pallas}:254"),
                "int8_attention": ("int8_attention.cu", f"{pallas}:804"),
                "fused_add_ln_payload": ("add_ln_payload.cu", f"{pallas}:1073"),
                "float_edge_matmul": ("float_edge_matmul.cu",
@@ -2525,6 +2835,9 @@ def main(argv=None) -> int:
                "int8_mb_layer_ln": ("int8_mb_layer.cu", f"{pallas}:2038"),
                "fused_add_ln": ("flex_add_ln.cu", f"{pallas}:1021"),
                "fused_int8_linear": (
+                   "fused_int8_linear.cu",
+                   "transformer_quantization_tpu/ops/pallas/int_matmul.py:257"),
+               "fused_int8_linear_w4": (
                    "fused_int8_linear.cu",
                    "transformer_quantization_tpu/ops/pallas/int_matmul.py:257")}
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
@@ -2567,6 +2880,13 @@ def main(argv=None) -> int:
             entry["gemm_alone"] = {
                 rn: {k: fr["float_edge_gemm"][k] for k in keys}
                 for rn, fr in flex_reports.items()}
+        if name in ("int8_matmul_w4", "fused_int8_linear_w4"):
+            entry["variants"] = {v: {k: c[k] for k in keys}
+                                 for v, c in r["variants"].items()}
+        if name == "int8_matmul_w4":
+            entry["int8_ms"] = r["int8_ms"]
+            entry["variants"]["M=256"]["int8_ms"] = r["variants"]["M=256"][
+                "int8_ms"]
         if name == "fused_int8_linear":
             entry["variants"] = {v: {k: c[k] for k in keys}
                                  for v, c in r["variants"].items()}

@@ -8,7 +8,7 @@ MobileBERT's calls, the add+LN template (K3 / K5) and MobileBERT's layer
 kernel (K8, ``csrc/int8_mb_layer.cu``).
 
     python3 k1_probe.py [--out DIR] [--parent DIR] [--build-only]
-                        [--kernels k1,norm,edge,attn,ln,mb]
+                        [--kernels k1,norm,edge,attn,ln,mb,w4]
 
 Each variant is the kernel's source and the shared GEMM header
 (``csrc/wgmma_gemm.cuh``) with one edit, built with the package's
@@ -135,6 +135,25 @@ opcodes (``cuobjdump -sass``: warpgroup MMAs, no ``mma.sync``); with
 ``--parent`` also every other kernel's machine code against the
 parent's (``MB_SASS``). Variants named ``build_*`` are built for
 ptxas's lines and not run; ``--build-only`` stops after the builds.
+
+K1's packed-int4 instance (``w4`` in ``--kernels``; ``gemm_kernel_w4``
+in ``csrc/wgmma_gemm.cuh``): ``kernel`` (the source as it is), ``ilp1``
+/ ``ilp4`` / ``ilp6`` (the unpacking warps load 1 / 4 / 6 blocks of 8
+weight rows before they store any, where the kernel takes ``W4_ILP``),
+``no_unpack`` (the nibbles left packed: the loads, the ring and the
+products alone), ``no_fence`` (no proxy fence after the unpack),
+``unpack_alone`` (no products: the loads and the unpack alone),
+``no_loads`` / ``no_stores`` (the unpack without its shared-memory loads
+/ stores) and
+``two_warps`` (two unpacking warps, where the kernel takes three), at
+BERT-base's four matmul shapes at M = 16384 and M = 256 (the (8, 32)
+serving bucket's rows) on random packed weights; each that computes the
+function checked against ``int8_matmul_ref(w4=True)`` and K1 int8 on the
+unpacked weight (bit-identical or it fails) and timed beside K1 int8 and
+``torch._int_mm`` on the unpacked weight, with the sums per layer and
+ptxas's lines per variant. With ``--parent`` it also compares the other
+GEMM instances' machine code (K1 int8, the fused linear, K6, K4) with the
+parent's.
 Imports torch and the port only.
 """
 
@@ -150,6 +169,7 @@ from pathlib import Path
 import torch
 
 import chip_smoke as CS
+from transformer_quantization_tpu_torch.ops import int_linear as IL
 from transformer_quantization_tpu_torch.ops.kernels import build as KB
 from transformer_quantization_tpu_torch.ops.kernels import engine_kernels as EK
 from transformer_quantization_tpu_torch.ops.kernels.activations import (
@@ -585,10 +605,11 @@ def same_sass(out: Path, a: str = "kernel", b: str = "parent") -> None:
     the same machine code, kernel by kernel."""
     fa, fb = sass(out / f"{a}.so"), sass(out / f"{b}.so")
     same = [n for n in fa if fb.get(n) == fa[n]]
+    new = [n for n in fa if n not in fb]
     print(f"  SASS {a} vs {b}: {len(same)} of {len(fa)} kernels identical"
           + ("" if len(same) == len(fa) == len(fb) else
-             f" (differ: {sorted(set(fa) ^ set(same))[:4]}; "
-             f"{len(fb)} in {b})"), flush=True)
+             f" (differ: {sorted(set(fa) ^ set(same) ^ set(new))[:4]}; "
+             f"{len(fb)} in {b}; {len(new)} only in {a})"), flush=True)
 
 
 def entry(lib: ctypes.CDLL, name: str, argtypes=None):
@@ -985,6 +1006,104 @@ def probe_ln(out: Path, parent) -> None:
             f"{n} {t:.4f} ms" for n, t in times.items()), flush=True)
 
 
+# K1's packed-int4 instance's variants (the module docstring)
+W4_UNPACK = ("          unpack_w4(ring + s * STAGE_BYTES + TM * TK, w, 3,\n"
+             "                    threadIdx.x & 31);")
+W4_EDITS = {
+    "kernel": [],
+    "ilp1": [("constexpr int W4_ILP = 2;", "constexpr int W4_ILP = 1;")],
+    "ilp4": [("constexpr int W4_ILP = 2;", "constexpr int W4_ILP = 4;")],
+    "ilp6": [("constexpr int W4_ILP = 2;", "constexpr int W4_ILP = 6;")],
+    "no_unpack": [(W4_UNPACK, "")],
+    "no_fence": [("          fence_proxy_async();   // the writes, visible "
+                  "to wgmma", "")],
+    "unpack_alone": [("          wgmma_m64n128k32_s8(acc[0], da + oa, db + ob, "
+                      "scale);\n          wgmma_m64n128k32_s8(acc[1], da + oa "
+                      "+ (64 * 64 >> 4), db + ob,\n                         "
+                      "     scale);", "")],
+    "no_loads": [("        v[i] = *reinterpret_cast<const uint4*>(bh + r * 64 + "
+                  "c * 16);", "        v[i] = make_uint4(r, c, lane, j0);")],
+    "no_stores": [("""      *reinterpret_cast<uint4*>(b + off) =
+          make_uint4((v[i].x << 4) & HI, (v[i].y << 4) & HI,
+                     (v[i].z << 4) & HI, (v[i].w << 4) & HI);
+      *reinterpret_cast<uint4*>(bh + off) =
+          make_uint4(v[i].x & HI, v[i].y & HI, v[i].z & HI, v[i].w & HI);""",
+                   """      if (((((v[i].x << 4) & HI) ^ (v[i].y & HI) ^ v[i].z ^ v[i].w)
+           == 0x1234567u))
+        b[off] = 1;""")],
+    "two_warps": [("} else if (threadIdx.x >= 288) {",
+                   "} else if (threadIdx.x >= 320) {"),
+                  ("const int w = (threadIdx.x >> 5) - 9;",
+                   "const int w = (threadIdx.x >> 5) - 10;"),
+                  ("unpack_w4(ring + s * STAGE_BYTES + TM * TK, w, 3,",
+                   "unpack_w4(ring + s * STAGE_BYTES + TM * TK, w, 2,"),
+                  ("mbar_init(&unpacked[s], 96);",
+                   "mbar_init(&unpacked[s], 64);")],
+}
+W4_COMPUTES = {"kernel", "ilp1", "ilp4", "ilp6", "two_warps"}
+# the GEMM instances whose machine code a packed-int4 edit must leave
+W4_SASS = ("int8_matmul.cu", "fused_int8_linear.cu", "int8_matmul_norm.cu",
+           "float_edge_matmul.cu")
+
+
+def probe_w4(out: Path, parent) -> None:
+    """K1 w4's variants at BERT-base's shapes, M = 16384 and 256, beside K1
+    int8 and ``torch._int_mm`` on the unpacked weight."""
+    jobs = [("int8_matmul.cu", W4_EDITS, out / "w4", None)]
+    if parent is not None:
+        jobs += [(src, {"kernel": []}, out / f"w4_{Path(src).stem}", parent)
+                 for src in W4_SASS]
+    built = build_many(jobs)
+    for src in W4_SASS if parent is not None else ():
+        print(f"  {src}:", end="")
+        same_sass(out / f"w4_{Path(src).stem}")
+    libs = built[0]
+    fns = {name: entry(lib, "int8_matmul_w4") for name, lib in libs.items()}
+    int8 = entry(libs["kernel"], "int8_matmul")
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(4)
+    st = lambda: torch.cuda.current_stream().cuda_stream
+    for m in (16384, 256):
+        per_layer = dict.fromkeys([*fns, "K1 int8", "torch._int_mm"], 0.0)
+        for n, k, act, mode, bits in SHAPES[:4]:
+            x = torch.randint(-128, 128, (m, k), generator=gen, device=dev,
+                              dtype=torch.int8)
+            wp = torch.randint(0, 256, (n, k // 2), generator=gen,
+                               device=dev, dtype=torch.uint8)
+            w8 = IL.unpack_int4(wp, k)
+            _, _, vecs, scal = inputs(1, n, 16, gen, dev)
+            vecs[1] = w8.float().sum(1)
+            lo, hi = EK._clip_bounds(bits)
+            out8 = torch.empty((m, n), device=dev, dtype=torch.int8)
+            want = EK.int8_matmul_ref(x, wp, vecs, scal, activation=act,
+                                      w4=True)
+            line = f"  K1 w4 {m}x{k}->{n} act={act}:"
+            for name, fn in [*fns.items(), ("K1 int8", int8)]:
+                w = w8 if name == "K1 int8" else wp
+
+                def call(fn=fn, w=w, name=name):
+                    KB.check(fn(x.data_ptr(), w.data_ptr(), vecs.data_ptr(),
+                                scal.data_ptr(), out8.data_ptr(), m, n, k,
+                                ACT[act], MODE[mode], lo, hi, GELU_NEW_C,
+                                st()), name)
+                call()
+                torch.cuda.synchronize()
+                if ((name in W4_COMPUTES or name == "K1 int8")
+                        and not torch.equal(out8, want)):
+                    raise SystemExit(f"k1_probe: {name} differs from "
+                                     f"int8_matmul_ref(w4=True) at {line}")
+                t = CS.device_ms(call)
+                per_layer[name] += t
+                line += f" {name} {t:.4f} ms;"
+            w_t = w8.t()
+            t = CS.device_ms(lambda: torch._int_mm(x, w_t))
+            per_layer["torch._int_mm"] += t
+            print(f"{line} torch._int_mm {t:.4f} ms", flush=True)
+        print(f"  K1 w4 per layer at M = {m}: " + "; ".join(
+            f"{name} {t:.4f} ms" for name, t in per_layer.items()),
+            flush=True)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default="k1_probe_build")
@@ -994,7 +1113,8 @@ def main(argv=None) -> int:
     ap.add_argument("--build-only", action="store_true",
                     help="mb: build the variants and print ptxas's lines")
     ap.add_argument("--kernels", default="k1,norm",
-                    help="which of k1, norm, edge, attn, ln, mb to probe")
+                    help="which of k1, norm, edge, attn, ln, mb, w4 to "
+                         "probe")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("k1_probe: needs a card")
@@ -1010,6 +1130,8 @@ def main(argv=None) -> int:
         probe_ln(Path(args.out), args.parent)
     if "mb" in kernels:
         probe_mb(Path(args.out), args.parent, args.build_only)
+    if "w4" in kernels:
+        probe_w4(Path(args.out), args.parent)
     if "k1" not in kernels:
         return 0
     fns = {name: entry(lib, "int8_matmul") for name, lib in build_variants(

@@ -291,8 +291,11 @@ def test_engine_rejects_unported_configs():
                                              quant_dict={"L": 16})
     with pytest.raises(TENG.EngineIncompatible, match="not yet ported"):
         TB.build_bert_engine(params, cfg, wide, wide_state, device="cpu")
-    with pytest.raises(NotImplementedError):
-        TB.build_bert_int_params(params, qcfg, qstate, use_int4=True)
+    # use_int4 packs only 4-bit weight sites: W8A8's stay int8, and an
+    # int4 plan is tests/test_torch_int4.py's
+    packed = TB.build_bert_int_params(params, qcfg, qstate, use_int4=True)
+    assert not any("w_packed" in p for p in packed.values())
+    assert "w_int" in packed["L0.attn.q"]
 
 
 def test_chip_smoke_refuses_without_a_card():

@@ -196,8 +196,8 @@ def test_fused_linear_acceptance_rules():
     """None where the JAX function returns None whatever the device (m not
     a multiple of 8, m < 8, a dtype other than float32 / int8, a K
     mismatch, emit without an 8-bit output site), and where the kernel's
-    tile rule refuses (K % 16, N % 8); int4 weights and bfloat16 x raise
-    "not yet ported"."""
+    tile rule refuses (K % 16, N % 8; packed int4 K % 32); bfloat16 x
+    raises "not yet ported"."""
     c = _case_inputs("f32-asym", True, False, "asym-fold")
     args = (c["tpacked"], c["in_t"], c["tiqp"])
     jargs = (c["jpacked"], c["in_j"], c["jiqp"])
@@ -220,10 +220,20 @@ def test_fused_linear_acceptance_rules():
     assert TIM.fused_int8_linear(torch.zeros(16, 40), k40, *args[1:]) is None
     n20 = {key: v[:20] for key, v in c["tpacked"].items()}
     assert TIM.fused_int8_linear(x, n20, *args[1:]) is None
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        TIM.fused_int8_linear(x, {"w_packed": torch.zeros((24, 16),
-                                                          dtype=torch.uint8)},
-                              *args[1:])
+    # split-half int4 weights compute (tests/test_torch_int4.py holds them
+    # against JAX) on the int8 path's steps, and take the kernel's K % 32
+    rng = np.random.RandomState(2)
+    wp = torch.from_numpy(rng.randint(0, 256, (24, 16)).astype(np.uint8))
+    lv = TIL.unpack_int4(wp, 32)
+    w4 = {"w_packed": wp, "scale": c["tpacked"]["scale"],
+          "colsum": lv.float().sum(1), "n_bits": 4, "in_features": 32}
+    w8 = {"w_int": lv, "scale": w4["scale"], "colsum": w4["colsum"]}
+    np.testing.assert_array_equal(
+        TIM.fused_int8_linear(x, w4, *args[1:]).numpy(),
+        TIM.fused_int8_linear(x, w8, *args[1:]).numpy())
+    k48 = dict(w4, w_packed=torch.zeros((24, 24), dtype=torch.uint8),
+               in_features=48)
+    assert TIM.fused_int8_linear(torch.zeros(16, 48), k48, *args[1:]) is None
     with pytest.raises(NotImplementedError, match="not yet ported"):
         TIM.fused_int8_linear(x.bfloat16(), *args)
 

@@ -27,7 +27,10 @@ from transformer_quantization_tpu.models import bert as JB
 from transformer_quantization_tpu.ops.pallas import engine_kernels as JEK
 from transformer_quantization_tpu.ops.pallas.int_matmul import _ACTS as J_ACTS
 from transformer_quantization_tpu.quant.qconfig import QuantMode as JMode
-from transformer_quantization_tpu_torch.ops.int_linear import exact_int_matmul
+from transformer_quantization_tpu_torch.ops.int_linear import (
+    exact_int_matmul,
+    unpack_int4,
+)
 from transformer_quantization_tpu_torch.ops.kernels import engine_kernels as EK
 from transformer_quantization_tpu_torch.ops.kernels.activations import ACTS
 
@@ -289,8 +292,17 @@ def test_int8_layer_ln_against_pallas_interpret(layer0):
 def test_unported_modes_raise(layer0):
     tlp = layer0["tlp"]["qkv"]
     x8 = layer0["t"]["x8"]
-    with pytest.raises(NotImplementedError):
-        EK.int8_matmul_ref(x8, tlp["w"], tlp["vecs"], tlp["scal"], w4=True)
+    # w4 computes on the packed int4 weight (tests/test_torch_int4.py);
+    # K4's and K8's w4 forms are not ported
+    wp = tlp["w"][:, ::2].contiguous().view(torch.uint8)  # any nibbles
+    np.testing.assert_array_equal(
+        EK.int8_matmul_ref(x8, wp, tlp["vecs"], tlp["scal"],
+                           w4=True).numpy(),
+        EK.int8_matmul_ref(x8, unpack_int4(wp, x8.shape[1]), tlp["vecs"],
+                           tlp["scal"]).numpy())
+    with pytest.raises(NotImplementedError, match="not yet ported"):
+        EK.int8_matmul_ref(x8.float(), tlp["w"], tlp["vecs"], tlp["scal"],
+                           w4=True, in_mode="f", in_grid={})
     args = _layer_args(layer0["tplan"]["layers"][0], x8, layer0["t"]["bias"])
     kw = dict(n_heads=4, seq=16, eps=layer0["static"].ln_eps)
     with pytest.raises(NotImplementedError, match="not yet ported"):

@@ -608,10 +608,18 @@ def test_engine_incompatible_configs():
     cfg = TM.MobileBertConfig(**TINY)
     params, qcfg, qstate = TC.calibrated_mobilebert(cfg, seq=16,
                                                     device="cpu")
+    # 4-bit weights pack as split-half int4 (NoNorm sites stay
+    # elementwise, the tables int8); the engine has no w4 K6 / K8 yet
+    d4 = dataclasses.replace(TC.w8a8_defaults(), n_bits=4, n_bits_act=8)
+    _, q4, s4 = TC.calibrated_mobilebert(cfg, seq=16, device="cpu",
+                                         params=params, defaults=d4)
+    packed = TM.build_mobilebert_int_params(params, q4, s4, use_int4=True)
+    assert packed["L0.bn.in.dense"]["w_packed"].dtype == torch.uint8
+    assert "w_int" in TM.build_mobilebert_int_params(params, q4, s4)[
+        "L0.bn.in.dense"]
+    assert not any(k.endswith("norm") for k in packed)
     with pytest.raises(NotImplementedError, match="not yet ported"):
-        TM.build_mobilebert_int_params(params, qcfg, qstate, use_int4=True)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        TM.build_mobilebert_engine(params, cfg, qcfg, qstate, use_int4=True,
+        TM.build_mobilebert_engine(params, cfg, q4, s4, use_int4=True,
                                    device="cpu")
     # global 16-bit activations: the same reason as JAX
     d16 = dataclasses.replace(TC.w8a8_defaults(), n_bits_act=16)

@@ -74,14 +74,13 @@ def qstate_from_jax(qstate: Mapping, device="cuda") -> Dict:
 
 
 def int_params_from_jax(int_params: Mapping, device="cuda") -> Dict:
-    """Packed int8 weights / tables -> tensors (int8 stays int8, scales
-    and column sums float32, ``n_bits`` an int)."""
+    """Packed int8 / split-half int4 weights and tables -> tensors (int8
+    stays int8, packed int4 uint8, scales and column sums float32,
+    ``n_bits`` and ``in_features`` ints)."""
     dev = resolve_device(device)
     out = {}
     for name, p in int_params.items():
-        if "w_packed" in p:
-            raise NotImplementedError(f"{name}: int4 weights are not yet "
-                                      "ported")
-        out[name] = {k: (int(v) if k == "n_bits" else _tensor(v, dev))
+        out[name] = {k: (int(v) if k in ("n_bits", "in_features")
+                         else _tensor(v, dev))
                      for k, v in p.items()}
     return out

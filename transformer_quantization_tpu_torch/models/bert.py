@@ -346,9 +346,9 @@ def bert_weight_site_tensors(params: Dict) -> Dict[str, Tensor]:
 def pack_int_params(tensors: Dict[str, Tensor], qcfg: QuantModelConfig,
                     qstate: Mapping, use_int4: bool = False) -> Dict:
     """Int8 payloads for every packable weight site (LayerNorm gammas stay
-    on the fake-quant path)."""
-    if use_int4:
-        raise NotImplementedError("int4 packing (W4A8) is not yet ported")
+    on the fake-quant path). With ``use_int4`` a 2-D weight whose site is
+    4-bit (and has no AdaRound ``alpha``) is packed as split-half int4;
+    embedding tables stay int8."""
     out: Dict = {}
     for wname, w in tensors.items():
         if wname.endswith("ln.w") or wname not in qcfg:
@@ -364,14 +364,19 @@ def pack_int_params(tensors: Dict[str, Tensor], qcfg: QuantModelConfig,
         name = wname[:-len(".w")]
         if name in EMBEDDING_TABLE_SITES:
             out[name] = IL.pack_embedding_int8(site_cfg.spec, qp, w)
-        elif w.ndim == 2:
+        elif w.ndim != 2:
+            continue
+        elif use_int4 and site_cfg.spec.n_bits == 4:
+            out[name] = IL.pack_weight_int4(site_cfg.spec, qp, w)
+        else:
             out[name] = IL.pack_weight_int8(site_cfg.spec, qp, w)
     return out
 
 
 def build_bert_int_params(params: Dict, qcfg: QuantModelConfig,
                           qstate: Mapping, use_int4: bool = False) -> Dict:
-    """Pack BERT's linear kernels and embedding tables into int8."""
+    """Pack BERT's linear kernels and embedding tables into int8 (4-bit
+    weight sites into split-half int4 with ``use_int4``)."""
     with torch.no_grad():
         return pack_int_params(bert_weight_site_tensors(params), qcfg,
                                qstate, use_int4=use_int4)

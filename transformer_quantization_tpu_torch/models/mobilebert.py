@@ -14,12 +14,13 @@ Ported: the fake-quant forward :func:`mobilebert_apply` (inference and
 calibration; also the FP baseline with ``qcfg=None`` and the generic int8
 path with ``int_params``), the site inventory with the MobileBERT
 ``quant_dict`` (static enables and the attention-probs overrides), int8
-packing, and the full-handoff engine (:func:`build_mobilebert_engine`,
+packing (int8, and split-half int4 with ``use_int4`` as in the JAX
+package), and the full-handoff engine (:func:`build_mobilebert_engine`,
 :func:`mobilebert_encoder_engine`, :func:`mobilebert_engine_apply`).
 :func:`apply_peg_wiring` passes the config through, as in the JAX
 package. Training (dropout), AdaRound specs, the pipeline, scan, remat
-and capture wait; the engine raises "not yet ported" for int4 weights and for 16-bit
-or disabled attention sites.
+and capture wait; the engine raises "not yet ported" for int4 weights
+(MobileBERT W4A8) and for 16-bit or disabled attention sites.
 """
 
 from __future__ import annotations
@@ -340,8 +341,9 @@ def mobilebert_weight_site_tensors(params: Dict) -> Dict[str, Tensor]:
 def build_mobilebert_int_params(params: Dict, qcfg: QuantModelConfig,
                                 qstate: Mapping,
                                 use_int4: bool = False) -> Dict:
-    """Pack the linear kernels and embedding tables into int8 (NoNorm
-    sites stay elementwise)."""
+    """Pack the linear kernels and embedding tables into int8 (4-bit weight
+    sites into split-half int4 with ``use_int4``; NoNorm sites stay
+    elementwise)."""
     with torch.no_grad():
         tensors = {k: v for k, v in
                    mobilebert_weight_site_tensors(params).items()
@@ -643,7 +645,12 @@ def _build_plan(params, cfg, qcfg, qstate, int_params):
         return ENG.act_site_scalars(qcfg, qstate, name)
 
     def mm(names, biases, in_scal, outs):
-        return ENG._mm_plan(int_params, names, biases, in_scal, outs)
+        plan, w4 = ENG._mm_plan(int_params, names, biases, in_scal, outs)
+        if w4:
+            raise NotImplementedError(
+                f"{names[0]}: an int4 weight; MobileBERT W4A8 (the w4 forms "
+                "of K6 and K8) is not yet ported")
+        return plan
 
     layers, res_flags, w4_flags = [], [], []
     for i, lp in enumerate(params["layers"]):

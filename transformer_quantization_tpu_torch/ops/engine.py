@@ -25,10 +25,12 @@ the stack returns the last float value.
 assembles the same plan dict as the JAX package (per layer ``qkv``,
 ``attn_scal``, ``attn_out``, ``ln1``, ``inter``, ``dense``, ``ln2``; a
 float ``x`` edge adds ``inter["grid"]``, the edge's grid for the
-float-edge matmul). Configurations the JAX engine serves through routes
-not ported yet (int4 weights, a float layer-input / ``z`` edge, 16-bit or
-PEG q/k/v, a 16-bit ``inter.out``, 16-bit or disabled attention sites)
-raise :class:`EngineIncompatible` with "not yet ported".
+float-edge matmul). Split-half packed int4 weights (W4A8, ``use_int4``)
+ride every route's payload matmuls (``EngineStatic.w4``). Configurations
+the JAX engine serves through routes not ported yet (an int4 weight under
+a float-edge matmul, a float layer-input / ``z`` edge, 16-bit or PEG
+q/k/v, a 16-bit ``inter.out``, 16-bit or disabled attention sites) raise
+:class:`EngineIncompatible` with "not yet ported".
 """
 
 from __future__ import annotations
@@ -192,21 +194,25 @@ def _bcast(v: Tensor, n: int) -> Tensor:
 
 
 def _packed_weight(int_params: Mapping, name: str):
+    """``(weight, packed dict, w4)``: the (N, K) int8 weight, or with
+    ``w4`` the (N, K/2) split-half packed int4 one."""
     _require(name in int_params, f"weight of {name!r} not int-packed")
     p = int_params[name]
-    _require("w_packed" not in p,
-             f"int4 weight of {name!r}: the W4A8 engine is not yet ported")
-    return p["w_int"], p
+    w4 = "w_packed" in p
+    return (p["w_packed"] if w4 else p["w_int"]), p, w4
 
 
 def _mm_plan(int_params: Mapping, names: List[str], biases: List[Tensor],
              in_scal: Tuple[Tensor, Tensor],
-             out_sites: Optional[List[Tuple[Tensor, Tensor]]]) -> Dict:
-    """One matmul's plan: (N, K) int8 weight (row-concat over ``names`` for
-    the fused q|k|v matmul), (5, N) epilogue rows [wscale, colsum, bias,
-    out_s, out_shift] and the (1, 2) input-site scalars. ``out_sites``
-    None (a disabled fold site): out_s 1, out_shift 0."""
-    ws, packs = zip(*(_packed_weight(int_params, n) for n in names))
+             out_sites: Optional[List[Tuple[Tensor, Tensor]]]
+             ) -> Tuple[Dict, bool]:
+    """One matmul's plan and whether its weight is packed int4: (N, K)
+    int8 or (N, K/2) packed int4 weight (row-concat over ``names`` for the
+    fused q|k|v matmul, all of one width), (5, N) epilogue rows [wscale,
+    colsum, bias, out_s, out_shift] and the (1, 2) input-site scalars.
+    ``out_sites`` None (a disabled fold site): out_s 1, out_shift 0."""
+    ws, packs, w4s = zip(*(_packed_weight(int_params, n) for n in names))
+    _require(len(set(w4s)) == 1, "mixed int4/int8 sub-weights in one matmul")
     w = ws[0] if len(ws) == 1 else torch.cat(ws, dim=0)
     ns = [p["colsum"].shape[0] for p in packs]
     n = sum(ns)
@@ -223,7 +229,7 @@ def _mm_plan(int_params: Mapping, names: List[str], biases: List[Tensor],
                                for (_, sh), nn in zip(out_sites, ns)])
     vecs = torch.stack([wscale, colsum, bias, out_s, out_shift]).contiguous()
     scal = torch.stack([_f32(v).reshape(()) for v in in_scal]).reshape(1, 2)
-    return {"w": w.contiguous(), "vecs": vecs, "scal": scal}
+    return {"w": w.contiguous(), "vecs": vecs, "scal": scal}, w4s[0]
 
 
 def _ln_plan(qcfg, qstate, params_ln: Mapping, res_site: str, ln_site: str,
@@ -315,7 +321,7 @@ def build_encoder_plan(qcfg, qstate: Mapping, int_params: Mapping,
     the shared ``L{i}.*`` site naming. Raises :class:`EngineIncompatible`
     when an edge fits no ported route."""
     layers, fold_flags, res_flags, attn_bits_flags = [], [], [], []
-    flex_flags, io_flags, int8_flags = [], [], []
+    flex_flags, io_flags, int8_flags, w4_flags = [], [], [], []
     for i, lp in enumerate(layer_params):
         p = f"L{i}."
         in_site = entry_site if i == 0 else f"L{i - 1}.ffn.ln.out"
@@ -325,9 +331,9 @@ def build_encoder_plan(qcfg, qstate: Mapping, int_params: Mapping,
         in_scal = (in_edge[2], in_edge[3])
         qkv_out = [act_site_scalars(qcfg, qstate, p + f"attn.{x}.out")
                    for x in "qkv"]
-        qkv = _mm_plan(int_params, [p + f"attn.{x}" for x in "qkv"],
-                       [lp["attn"][x]["bias"] for x in "qkv"], in_scal,
-                       qkv_out)
+        qkv, qkv_w4 = _mm_plan(int_params, [p + f"attn.{x}" for x in "qkv"],
+                               [lp["attn"][x]["bias"] for x in "qkv"],
+                               in_scal, qkv_out)
 
         sc_s, sc_sh, sc_bits = attn_edge_scalars(qcfg, qstate,
                                                  p + "attn.scores")
@@ -349,9 +355,9 @@ def build_encoder_plan(qcfg, qstate: Mapping, int_params: Mapping,
             _, g_bits, g_s, g_sh = act_edge_params(qcfg, qstate,
                                                    p + "attn_out.dense.out")
             g_out = (g_s, g_sh)
-        attn_out = _mm_plan(int_params, [p + "attn_out.dense"],
-                            [lp["attn_out"]["dense"]["bias"]], (c_s, c_sh),
-                            [g_out] if ao_fold else None)
+        attn_out, ao_w4 = _mm_plan(int_params, [p + "attn_out.dense"],
+                                   [lp["attn_out"]["dense"]["bias"]],
+                                   (c_s, c_sh), [g_out] if ao_fold else None)
         # ln1's LN site is the FFN input, quant_dict 'x': flexible
         ln1, res1, u_bits, x_edge = _ln_plan(
             qcfg, qstate, lp["attn_out"]["ln"], p + "attn_out.res",
@@ -364,9 +370,13 @@ def build_encoder_plan(qcfg, qstate: Mapping, int_params: Mapping,
         x_scal = ((x_s, x_sh) if x_mode == "i8" else
                   (torch.ones((), device=dev), torch.zeros((), device=dev)))
         i_site = act_site_scalars(qcfg, qstate, p + "ffn.inter.out")
-        inter = _mm_plan(int_params, [p + "ffn.inter"],
-                         [lp["ffn"]["inter"]["bias"]], x_scal, [i_site])
+        inter, inter_w4 = _mm_plan(int_params, [p + "ffn.inter"],
+                                   [lp["ffn"]["inter"]["bias"]], x_scal,
+                                   [i_site])
         if x_mode == "f":
+            _require(not inter_w4,
+                     f"{p}ffn.inter: an int4 weight under a float x edge "
+                     "(the float-edge matmul's w4): not yet ported")
             inter["grid"] = _x_edge_grid(qcfg, qstate, p + "attn_out.ln.out",
                                          x_edge, inter["w"])
         # the dense fold site is quant_dict 'h': flexible, or disabled
@@ -376,9 +386,9 @@ def build_encoder_plan(qcfg, qstate: Mapping, int_params: Mapping,
             _, h_bits, h_s, h_sh = act_edge_params(qcfg, qstate,
                                                    p + "ffn.dense.out")
             h_out = (h_s, h_sh)
-        dense = _mm_plan(int_params, [p + "ffn.dense"],
-                         [lp["ffn"]["dense"]["bias"]], i_site,
-                         [h_out] if d_fold else None)
+        dense, dense_w4 = _mm_plan(int_params, [p + "ffn.dense"],
+                                   [lp["ffn"]["dense"]["bias"]], i_site,
+                                   [h_out] if d_fold else None)
         # ln2's res site is quant_dict 'y': flexible; its LN site (the
         # next layer's input) stays an int8 payload
         ln2, res2, y_bits, _ = _ln_plan(
@@ -399,6 +409,7 @@ def build_encoder_plan(qcfg, qstate: Mapping, int_params: Mapping,
         fold_flags.append((ao_fold, d_fold))
         res_flags.append((res1, res2))
         attn_bits_flags.append((sc_bits, p_bits, c_bits))
+        w4_flags.append((qkv_w4, ao_w4, inter_w4, dense_w4))
         flex_flags.append(flex)
         io_flags.append(io)
         int8_flags.append(default and ao_fold and d_fold and g_s.ndim == 0
@@ -418,7 +429,7 @@ def build_encoder_plan(qcfg, qstate: Mapping, int_params: Mapping,
     payload_res = all(ao and d for ao, d in fold_flags)
     static = EngineStatic(
         n_layers=n, n_heads=n_heads, ln_eps=ln_eps, hidden_act=hidden_act,
-        w4=((False, False, False, False),) * n, fold=tuple(fold_flags),
+        w4=tuple(w4_flags), fold=tuple(fold_flags),
         res_quant=tuple(res_flags), attn_skip_max=bound < 100.0,
         flex=tuple(flex_flags), attn_bits=tuple(attn_bits_flags),
         io=tuple(io_flags),
@@ -466,6 +477,7 @@ def encoder_engine(h: Tensor, mask_bias: Tensor, static: EngineStatic,
         return hf.reshape(b, t, hdim)
     for i, lp in enumerate(plan["layers"]):
         res1, res2 = static.res_quant[i]
+        w4q, w4o, w4i, w4d = static.w4[i]
         if not static.int8_layer[i]:
             # the flex route: the x edge (the FFN input and its residual)
             # is an int8 payload or a float32 value edge
@@ -480,7 +492,7 @@ def encoder_engine(h: Tensor, mask_bias: Tensor, static: EngineStatic,
                 res_quant=res1, skip_max=static.attn_skip_max,
                 ln_out="emit" if x_mode == "i8" else "f", ln_bits=x_bits,
                 attn_bits=static.layer_attn_bits(i), g_bits=g_bits,
-                u_bits=u_bits)
+                u_bits=u_bits, w4q=w4q, w4o=w4o)
             h8 = ffn_fn(
                 hx, lp["inter"]["w"], lp["inter"]["vecs"],
                 lp["inter"]["scal"], lp["dense"]["w"], lp["dense"]["vecs"],
@@ -488,7 +500,7 @@ def encoder_engine(h: Tensor, mask_bias: Tensor, static: EngineStatic,
                 lp["ln2"].get("lnv"), activation=hidden_act,
                 eps=static.ln_eps, res_quant=res2, in_mode=x_mode,
                 res_mode=x_mode, h_bits=h_bits, y_bits=y_bits,
-                x_grid=lp["inter"].get("grid"))
+                x_grid=lp["inter"].get("grid"), w4i=w4i, w4d=w4d)
             continue
         h8 = layer_fn(
             h8, lp["qkv"]["w"], lp["qkv"]["vecs"], lp["qkv"]["scal"],
@@ -501,7 +513,8 @@ def encoder_engine(h: Tensor, mask_bias: Tensor, static: EngineStatic,
             n_heads=static.n_heads, seq=t, eps=static.ln_eps,
             activation=hidden_act, res1=res1, res2=res2,
             skip_max=static.attn_skip_max,
-            attn_bits=static.layer_attn_bits(i))
+            attn_bits=static.layer_attn_bits(i), w4q=w4q, w4o=w4o, w4i=w4i,
+            w4d=w4d)
     ln2 = plan["layers"][-1]["ln2"]
     if "lnv" in ln2:
         # a per-column plan carries the (per-tensor) ffn.ln.out params
@@ -533,17 +546,20 @@ def _non_payload_stack(h8: Tensor, hf: Tensor, mask_bias: Tensor,
     for i, lp in enumerate(plan["layers"]):
         ao_fold, d_fold = static.fold[i]
         res1, res2 = static.res_quant[i]
-        qkv8 = mm(h8, *mp(lp["qkv"]), activation=None, out_mode="emit")
+        w4q, w4o, w4i, w4d = static.w4[i]
+        qkv8 = mm(h8, *mp(lp["qkv"]), activation=None, out_mode="emit",
+                  w4=w4q)
         c8 = attn(qkv8, mask_bias, lp["attn_scal"], n_heads=static.n_heads,
                   seq=t, skip_max=static.attn_skip_max,
                   attn_bits=static.layer_attn_bits(i))
         y = mm(c8, *mp(lp["attn_out"]), activation=None,
-               out_mode="fold" if ao_fold else "float")
+               out_mode="fold" if ao_fold else "float", w4=w4o)
         h8, hf = add_ln(y, hf, lp["ln1"]["gb"], lp["ln1"]["scal"],
                         eps=static.ln_eps, res_quant=res1)
-        i8 = mm(h8, *mp(lp["inter"]), activation=hidden_act, out_mode="emit")
+        i8 = mm(h8, *mp(lp["inter"]), activation=hidden_act, out_mode="emit",
+                w4=w4i)
         y = mm(i8, *mp(lp["dense"]), activation=None,
-               out_mode="fold" if d_fold else "float")
+               out_mode="fold" if d_fold else "float", w4=w4d)
         h8, hf = add_ln(y, hf, lp["ln2"]["gb"], lp["ln2"]["scal"],
                         eps=static.ln_eps, res_quant=res2)
     return hf

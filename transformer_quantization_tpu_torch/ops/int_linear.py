@@ -9,8 +9,9 @@ matmul accumulated exactly in integers and the dequantization folded in:
 PyTorch has no general int8 x int8 -> int32 matmul on CUDA, so
 :func:`exact_int_matmul` computes the integer product as a floating-point
 product of the integer values, in float32 where every partial sum stays
-below 2^24 (exact) and in float64 otherwise. Packed int4 weights belong
-to the W4A8 slice and are not ported yet.
+below 2^24 (exact) and in float64 otherwise. 4-bit weights may be stored
+as split-half packed int4 (:func:`pack_weight_int4`): two nibbles a byte,
+unpacked to int8 before the exact product.
 """
 
 from __future__ import annotations
@@ -69,11 +70,17 @@ def pack_weight_int8(spec: Q.QuantizerSpec, qp: Q.QuantParams,
     }
 
 
+def _weight_ints(packed: Dict) -> Tensor:
+    """The ``(O, I)`` int8 levels of a packed weight (int8 or int4)."""
+    if "w_packed" in packed:
+        return unpack_int4(packed["w_packed"], packed["in_features"])
+    return packed["w_int"]
+
+
 def dequantize_packed_weight(packed: Dict) -> Tensor:
-    """Packed int8 weight -> the dequantized float32 ``(O, I)`` tensor."""
-    if "w_int" not in packed:
-        raise NotImplementedError("packed int4 weights are not yet ported")
-    return packed["w_int"].to(torch.float32) * packed["scale"][:, None]
+    """Packed int8 / int4 weight -> the dequantized float32 ``(O, I)``
+    tensor (the W4A32 weight-only form for int4)."""
+    return _weight_ints(packed).to(torch.float32) * packed["scale"][:, None]
 
 
 def quantize_activation_int8(spec: Q.QuantizerSpec, qp: Q.QuantParams,
@@ -110,9 +117,7 @@ def int8_linear(x_int8: Tensor, x_scale: Tensor, x_shift: Tensor,
                 activation=None) -> Tensor:
     """Int8 matmul (exact int32 accumulation) + dequant fold + bias +
     optional activation."""
-    if "w_int" not in packed:
-        raise NotImplementedError("packed int4 weights are not yet ported")
-    acc = exact_int_matmul(x_int8, packed["w_int"]).to(torch.float32)
+    acc = exact_int_matmul(x_int8, _weight_ints(packed)).to(torch.float32)
     acc = acc + x_shift * packed["colsum"]
     y = (x_scale * packed["scale"]) * acc
     if bias is not None:
@@ -120,6 +125,48 @@ def int8_linear(x_int8: Tensor, x_scale: Tensor, x_shift: Tensor,
     if activation is not None:
         y = activation(y)
     return y
+
+
+def pack_weight_int4(spec: Q.QuantizerSpec, qp: Q.QuantParams,
+                     w: Tensor) -> Dict:
+    """A symmetric 4-bit ``(O, I)`` weight packed two nibbles a byte in
+    the split-half layout ``byte[:, j] = (w[:, j] & 0xF) | ((w[:, j + I/2]
+    & 0xF) << 4)`` (uint8, ``(O, I/2)``), bit for bit the JAX package's:
+    ``scale`` ``(1,)`` or ``(O,)``, ``colsum`` the float32 sum of the
+    levels, ``n_bits`` 4, ``in_features`` I."""
+    if not (spec.symmetric and spec.n_bits == 4):
+        raise ValueError("int4 packing needs symmetric 4-bit weights")
+    qpe = Q.expand_qparams(qp, w.ndim, 0)
+    scale = Q.scale_of(spec, qpe)
+    int_min, int_max = Q.int_min_max(spec, qp.signed)
+    w_int = torch.clamp(torch.round(w / scale), int_min, int_max).to(
+        torch.int32)
+    i = w_int.shape[1]
+    if i % 2:
+        raise ValueError(f"int4 packing needs an even in_features, got {i}")
+    k2 = i // 2
+    packed = (w_int[:, :k2] & 0xF) | ((w_int[:, k2:] & 0xF) << 4)
+    return {
+        "w_packed": packed.to(torch.uint8),
+        "scale": Q.scale_of(spec, qp).reshape(-1).to(torch.float32),
+        "colsum": w_int.to(torch.float32).sum(dim=-1),
+        "n_bits": 4,
+        "in_features": i,
+    }
+
+
+def unpack_int4(packed: Tensor, in_features: int) -> Tensor:
+    """Split-half uint8 nibbles ``(O, I/2)`` -> int8 levels ``(O, I)`` in
+    [-8, 7] (each nibble sign-extended)."""
+    p = packed.to(torch.int16)
+    lo, hi = p & 0xF, p >> 4
+    lo = torch.where(lo >= 8, lo - 16, lo)
+    hi = torch.where(hi >= 8, hi - 16, hi)
+    w = torch.cat([lo, hi], dim=1).to(torch.int8)
+    if w.shape[1] != in_features:
+        raise ValueError(f"packed int4 of {w.shape[1]} columns, expected "
+                         f"{in_features}")
+    return w
 
 
 def pack_embedding_int8(spec: Q.QuantizerSpec, qp: Q.QuantParams,

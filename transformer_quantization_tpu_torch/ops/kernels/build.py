@@ -42,6 +42,9 @@ _SIGNATURES = {
     "int8_matmul": ("tq_int8_matmul",
                     (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _F,
                      _P)),
+    "int8_matmul_w4": ("tq_int8_matmul_w4",
+                       (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _F,
+                        _P)),
     "int8_attention": ("tq_int8_attention",
                        (_P, _P, _P, _I, _I, _I, _P, _P, _P, _I, _I, _I, _I,
                         _F, _F, _I, _P)),
@@ -63,13 +66,17 @@ _SIGNATURES = {
                      _F, _F, _P)),
     "fused_int8_linear": ("tq_fused_int8_linear",
                           (_P, _I) + (_P,) * 7 + (_I,) * 8 + (_F, _P)),
+    "fused_int8_linear_w4": ("tq_fused_int8_linear_w4",
+                             (_P, _I) + (_P,) * 7 + (_I,) * 8 + (_F, _P)),
     "fused_quantize": ("tq_fused_quantize",
                        (_P, _P, _P, _I, _I, _I, _P)),
     "fused_rcp_check": ("tq_fused_rcp_check", (_P, _P)),
     "ln_div_check": ("tq_ln_div_check", (_P, _I, _P, _P)),
 }
 # entry points that live in another source's library
-_LIBRARY = {"int8_attention_blocks": "int8_attention",
+_LIBRARY = {"int8_matmul_w4": "int8_matmul",
+            "fused_int8_linear_w4": "fused_int8_linear",
+            "int8_attention_blocks": "int8_attention",
             "fused_quantize": "fused_int8_linear",
             "fused_rcp_check": "fused_int8_linear",
             "ln_div_check": "add_ln_payload",

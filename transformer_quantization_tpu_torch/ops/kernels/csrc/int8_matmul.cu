@@ -2,10 +2,13 @@
 // site in the epilogue (K1), for Hopper.
 //
 // Replaces: transformer_quantization_tpu/ops/pallas/engine_kernels.py
-//   int8_matmul (_mm_kernel / _mm_body / _int_dot), and the matmul halves
-//   of int8_matmul_add_ln, int8_ffn_ln, int8_attn_ln and int8_layer_ln.
+//   int8_matmul (_mm_kernel / _mm_body / _int_dot, w4 too), and the matmul
+//   halves of int8_matmul_add_ln, int8_ffn_ln, int8_attn_ln and
+//   int8_layer_ln.
 //
 //   acc = x8 (M, K) @ w8 (N, K)^T                 exact int32
+//         (w4: x8[:, :K/2] @ lo^T + x8[:, K/2:] @ hi^T, the nibbles of the
+//         (N, K/2) split-half packed int4 weight, tq_int8_matmul_w4)
 //   y   = (in_s * wscale[n]) * (acc + in_shift * colsum[n]) + bias[n]
 //   y   = act(y)                              (none | gelu_new | relu)
 //   out = emit:  clip(rint(y / out_s[n]) - out_sh[n], -128, 127)  int8
@@ -35,15 +38,28 @@
 // out-of-line call (with them the epilogue ran 25% slower). BN = 128: a warpgroup's int32 accumulator is then 128
 // registers a thread, which leaves the epilogue room in a consumer's 232;
 // BN = 256 would need 256.
-// Limits: K % 16 == 0 (TMA's 16-byte row stride), N % 8 == 0, 16-byte
-// aligned operands; M, N and K ragged against the tiles.
+// The packed int4 weight (W4A8) is every policy's W4Epi instance
+// (gemm_kernel_w4): the weight stays packed in device memory, half its
+// int8 bytes, and each stage's nibbles are unpacked in shared memory by
+// the producer warpgroup's idle warps (wgmma_gemm.cuh, kW4). At
+// BERT-base's serving buckets (M = 256) the weight is most of a call's
+// bytes, but a call is then a few dozen tiles, each a serial chain of
+// K / 128 stages, and the chain's latency sets its time; at M = 16384
+// the products do, and the unpack's shared-memory traffic beside
+// wgmma's operand reads costs a third more than the int8 instance
+// (PERF.md).
+// Limits: K % 16 == 0 (TMA's 16-byte row stride; w4: K % 32 == 0), N % 8
+// == 0, 16-byte aligned operands; M, N and K ragged against the tiles.
 // Resources (nvcc 12.9 -Xptxas -v, every instance): 168 registers a
 // thread at launch, moved by setmaxnreg to 40 (producer) / 232
-// (consumers), no spills; 203,872 bytes of dynamic shared memory.
+// (consumers), no spills; 203,872 bytes of dynamic shared memory (the
+// w4 instances 203,912: five "unpacked" mbarriers more).
 //
 // Numerics: integer accumulation is exact in any order (|acc| < 2^31 at
-// K = 3072); the int32 accumulator converts with __int2float_rn (as XLA's
-// convert does) and the epilogue keeps the reference's association order;
+// K = 3072; w4 sums 16 acc, |16 acc| < 2^31 for K < 131072, and shifts
+// it back exactly); the int32 accumulator converts with __int2float_rn
+// (as XLA's convert does) and the epilogue keeps the reference's
+// association order;
 // the file is built with -fmad=false so no multiply-add is contracted.
 // rintf rounds half to even like torch.round / jnp.round. Every output is
 // bit-identical to int8_matmul_ref.
@@ -88,7 +104,11 @@ struct SiteEpi {
   }
 };
 
-template <int ACT>
+// the policy E, or its packed-int4 instance
+template <class E, bool W4>
+using Pick = typename std::conditional<W4, tqwg::W4Epi<E>, E>::type;
+
+template <int ACT, bool W4>
 cudaError_t launch_act(int out_mode, const CUtensorMap& mx,
                        const CUtensorMap& mw, const float* vecs,
                        const float* scal, void* out, int M, int N, int K,
@@ -96,10 +116,32 @@ cudaError_t launch_act(int out_mode, const CUtensorMap& mx,
                        cudaStream_t st) {
   using tqwg::gemm_launch;
   switch (out_mode) {
-    case 0: return gemm_launch<SiteEpi<ACT, 0>>(mx, mw, {vecs, scal, lo, hi, gelu_c}, out, M, N, K, sms, st);
-    case 1: return gemm_launch<SiteEpi<ACT, 1>>(mx, mw, {vecs, scal, lo, hi, gelu_c}, out, M, N, K, sms, st);
-    default: return gemm_launch<SiteEpi<ACT, 2>>(mx, mw, {vecs, scal, lo, hi, gelu_c}, out, M, N, K, sms, st);
+    case 0: return gemm_launch<Pick<SiteEpi<ACT, 0>, W4>>(mx, mw, {vecs, scal, lo, hi, gelu_c}, out, M, N, K, sms, st);
+    case 1: return gemm_launch<Pick<SiteEpi<ACT, 1>, W4>>(mx, mw, {vecs, scal, lo, hi, gelu_c}, out, M, N, K, sms, st);
+    default: return gemm_launch<Pick<SiteEpi<ACT, 2>, W4>>(mx, mw, {vecs, scal, lo, hi, gelu_c}, out, M, N, K, sms, st);
   }
+}
+
+template <bool W4>
+int matmul(const void* x, const void* w, const void* vecs, const void* scal,
+           void* out, int M, int N, int K, int act, int out_mode, float lo,
+           float hi, float gelu_c, void* stream) {
+  if (act < 0 || act > 2 || out_mode < 0 || out_mode > 2)
+    return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap mx, mw;
+  int sms = 0;
+  cudaError_t e = W4 ? tqwg::gemm_setup_w4(x, w, M, N, K, &mx, &mw, &sms)
+                     : tqwg::gemm_setup(x, w, M, N, K, &mx, &mw, &sms);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const float* vp = static_cast<const float*>(vecs);
+  const float* sp = static_cast<const float*>(scal);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (act) {
+    case 0: e = launch_act<0, W4>(out_mode, mx, mw, vp, sp, out, M, N, K, lo, hi, gelu_c, sms, st); break;
+    case 1: e = launch_act<1, W4>(out_mode, mx, mw, vp, sp, out, M, N, K, lo, hi, gelu_c, sms, st); break;
+    default: e = launch_act<2, W4>(out_mode, mx, mw, vp, sp, out, M, N, K, lo, hi, gelu_c, sms, st); break;
+  }
+  return static_cast<int>(e);
 }
 
 }  // namespace
@@ -113,19 +155,17 @@ extern "C" int tq_int8_matmul(const void* x, const void* w, const void* vecs,
                               const void* scal, void* out, int M, int N,
                               int K, int act, int out_mode, float lo,
                               float hi, float gelu_c, void* stream) {
-  if (act < 0 || act > 2 || out_mode < 0 || out_mode > 2)
-    return static_cast<int>(cudaErrorInvalidValue);
-  CUtensorMap mx, mw;
-  int sms = 0;
-  cudaError_t e = tqwg::gemm_setup(x, w, M, N, K, &mx, &mw, &sms);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  const float* vp = static_cast<const float*>(vecs);
-  const float* sp = static_cast<const float*>(scal);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (act) {
-    case 0: e = launch_act<0>(out_mode, mx, mw, vp, sp, out, M, N, K, lo, hi, gelu_c, sms, st); break;
-    case 1: e = launch_act<1>(out_mode, mx, mw, vp, sp, out, M, N, K, lo, hi, gelu_c, sms, st); break;
-    default: e = launch_act<2>(out_mode, mx, mw, vp, sp, out, M, N, K, lo, hi, gelu_c, sms, st); break;
-  }
-  return static_cast<int>(e);
+  return matmul<false>(x, w, vecs, scal, out, M, N, K, act, out_mode, lo, hi,
+                       gelu_c, stream);
+}
+
+// tq_int8_matmul on the (N, K/2) split-half packed int4 weight w (uint8,
+// 16-byte aligned), K % 32 == 0.
+extern "C" int tq_int8_matmul_w4(const void* x, const void* w,
+                                 const void* vecs, const void* scal,
+                                 void* out, int M, int N, int K, int act,
+                                 int out_mode, float lo, float hi,
+                                 float gelu_c, void* stream) {
+  return matmul<true>(x, w, vecs, scal, out, M, N, K, act, out_mode, lo, hi,
+                      gelu_c, stream);
 }

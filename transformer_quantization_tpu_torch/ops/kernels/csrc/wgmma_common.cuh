@@ -143,23 +143,35 @@ inline EncodeTiledFn encode_tiled() {
   return fn;
 }
 
+// The tensor map of a row-major (rows, cols) byte matrix read in boxes of
+// box_rows x box_cols bytes with the given swizzle. cols % 16 == 0 and a
+// 16-byte aligned base are the caller's to check. Returns false if the
+// encoding is refused.
+inline bool make_u8_map(CUtensorMap* map, const void* base, int rows,
+                        int cols, int box_cols, int box_rows,
+                        CUtensorMapSwizzle swz) {
+  EncodeTiledFn enc = encode_tiled();
+  if (enc == nullptr) return false;
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols),
+                              static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols)};
+  const cuuint32_t box[2] = {static_cast<cuuint32_t>(box_cols),
+                             static_cast<cuuint32_t>(box_rows)};
+  const cuuint32_t elem[2] = {1u, 1u};
+  return enc(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<void*>(base),
+             dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, swz,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
 // The tensor map of a row-major (rows, cols) int8 matrix read in boxes of
 // box_rows x 128 bytes, 128-byte swizzled (the layout wgmma's descriptors
 // below expect). cols % 16 == 0 and a 16-byte aligned base are the
 // caller's to check. Returns false if the encoding is refused.
 inline bool make_i8_map(CUtensorMap* map, const void* base, int rows,
                         int cols, int box_rows) {
-  EncodeTiledFn enc = encode_tiled();
-  if (enc == nullptr) return false;
-  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols),
-                              static_cast<cuuint64_t>(rows)};
-  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols)};
-  const cuuint32_t box[2] = {128u, static_cast<cuuint32_t>(box_rows)};
-  const cuuint32_t elem[2] = {1u, 1u};
-  return enc(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<void*>(base),
-             dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+  return make_u8_map(map, base, rows, cols, 128, box_rows,
+                     CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
 // ---------------------------------------------------------------------------

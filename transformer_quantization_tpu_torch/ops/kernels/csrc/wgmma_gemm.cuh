@@ -4,7 +4,8 @@
 // K6) and the float-edge matmul (float_edge_matmul.cu, K4): the producer
 // warpgroup's TMA ring, the two consumer warpgroups' wgmma main loop in
 // ping-pong, and a staged epilogue, templated on an epilogue policy that
-// says what an output element is.
+// says what an output element is. K1 and the fused linear also build
+// each policy on a split-half packed int4 weight (W4Epi, kW4 below).
 //
 //   out[m][n] = Epi::apply(acc[m][n], col[n] [, r8[m][n]])
 //   acc = x (M, K) @ w (N, K)^T
@@ -51,7 +52,13 @@
 //                         steps, for groups of 64 columns (default 4: one
 //                         a stage);
 //   kRegs = 240           registers a consumer thread (the producer then
-//                         keeps 24, not 40).
+//                         keeps 24, not 40);
+//   kW4 = true            (W4Epi<E>: kTM = 128, one plane, no residual or
+//                         groups) w is the (N, K/2) split-half packed int4
+//                         weight, byte j of a row holding column j in its
+//                         low nibble and column K/2 + j in its high one
+//                         (the JAX package's layout), read through a map
+//                         made by gemm_setup_w4; K % 32 == 0.
 //
 // Design: one 384-thread block per SM walking kTM x 128 output tiles row
 // panel by row panel (tile t = m * n_tiles + n: the blocks in flight cover
@@ -84,15 +91,31 @@
 //   outputs in four passes of 32 columns) and writes them out in 16-byte
 //   vectors, 8 lanes per 128-byte row segment (8-byte halves where
 //   N % 16 != 0).
+// - Packed int4 weights (kW4): the weight stays packed in device memory.
+//   A stage holds K columns k0..k0+63 and K/2 + k0..K/2 + k0 + 63 (k0 =
+//   64 kt): TMA loads x's two 64-byte boxes (64-byte swizzled) as the A
+//   tile's two halves and the packed weight's 128 x 64-byte box, both
+//   nibbles of those columns, unswizzled over the B tile's second half.
+//   The producer warpgroup's other three warps unpack it in place once the
+//   stage's loads land (unpack_w4: lo nibbles to the first half, hi
+//   nibbles to the second, each as 16 w, 64-byte swizzled) and arrive on
+//   the stage's third mbarrier, "unpacked", which the consumers wait on
+//   beside "full"; the consumers run the k32 steps on the lo halves and
+//   the hi halves (sw64_desc). The kernel is gemm_kernel_w4. The sum is
+//   x[:, :K/2] @ lo^T + x[:, K/2:] @ hi^T, the JAX _int_dot(w4). Where
+//   K/2 % 64 != 0 the last packed box runs past K/2 and TMA fills it with
+//   zeros, so both nibbles of those columns are 0 and add nothing,
+//   whatever x's boxes hold there (the lo box reads x's real columns past
+//   K/2; the hi box past K reads zeros).
 // - The residual (kResidual): before its main loop each warp issues
 //   cp.async loads of its rows of r8 into its staging buffer, with the
 //   store loop's addressing (16-byte vectors, 8-byte halves where
 //   N % 16 != 0, zeros past M and N), so that they land under the main
 //   loop and take no registers; after it each thread reads an element
 //   pair where it then writes the output pair. No shared memory is added.
-// Limits: K % 16 == 0 (TMA's 16-byte row stride), N % 8 == 0, 16-byte
-// aligned operands (gemm_setup checks x and w, the caller out and r8);
-// M, N and K ragged against the tiles.
+// Limits: K % 16 == 0 (TMA's 16-byte row stride; kW4: K % 32 == 0),
+// N % 8 == 0, 16-byte aligned operands (gemm_setup checks x and w, the
+// caller out and r8); M, N and K ragged against the tiles.
 
 #pragma once
 
@@ -150,6 +173,18 @@ struct epi_regs : std::integral_constant<int, 232> {};
 template <class E>
 struct epi_regs<E, std::void_t<decltype(E::kRegs)>>
     : std::integral_constant<int, E::kRegs> {};
+template <class E, class = void>
+struct epi_w4 : std::false_type {};
+template <class E>
+struct epi_w4<E, std::void_t<decltype(E::kW4)>>
+    : std::bool_constant<E::kW4> {};
+
+// policy E on a split-half packed int4 weight (kW4)
+template <class E>
+struct W4Epi : E {
+  static constexpr bool kW4 = true;
+  using E::E;
+};
 
 // bytes of a ring stage: the x tile (tm rows) and the w tile
 __host__ __device__ constexpr int stage_bytes(int tm) {
@@ -272,6 +307,53 @@ __device__ __forceinline__ void stage_residual(const int8_t* r8,
   }
 }
 
+// blocks of 8 weight rows an unpacking warp loads before it stores any
+constexpr int W4_ILP = 2;
+
+// (kW4) The stage's packed weight box (TN rows x 64 bytes, unswizzled, as
+// TMA wrote it over the B tile's second half) unpacked in place into the
+// B tile's two TN x 64-byte halves, 64-byte swizzled as sw64_desc reads
+// them (16-byte chunk c of row r at c ^ ((r >> 1) & 3)): the lo nibbles
+// into the first half, the hi nibbles into the second, each as the high
+// half of its byte, an int8 of 16 w (lo: (v << 4) & 0xF0.., hi: v &
+// 0xF0..: two operations a word, where sign-extending w took nine), so
+// the products sum 16 acc, exact in int32 (|16 acc| < 2^31 for K <
+// 131072), and the consumers take acc back by an arithmetic shift right
+// of 4 before the epilogue. Warp w of `warps`
+// takes the blocks of 8 rows w, w + warps, .., W4_ILP blocks' loads
+// before their stores; four lanes a row, one 16-byte chunk each (loads
+// and stores free of bank conflicts), so a row's lanes are one warp,
+// which reads the row before it writes it.
+__device__ __forceinline__ void unpack_w4(uint8_t* b, int w, int warps,
+                                          int lane) {
+  constexpr int ILP = W4_ILP;
+  uint8_t* bh = b + TN * 64;
+  const int c = lane & 3;
+#pragma unroll 1
+  for (int j0 = w; j0 < TN / 8; j0 += ILP * warps) {
+    uint4 v[ILP];
+#pragma unroll
+    for (int i = 0; i < ILP; ++i) {
+      const int r = 8 * (j0 + i * warps) + (lane >> 2);
+      if (r < TN)
+        v[i] = *reinterpret_cast<const uint4*>(bh + r * 64 + c * 16);
+    }
+    __syncwarp();
+#pragma unroll
+    for (int i = 0; i < ILP; ++i) {
+      const int r = 8 * (j0 + i * warps) + (lane >> 2);
+      if (r >= TN) break;
+      const int off = r * 64 + ((c ^ ((r >> 1) & 3)) << 4);
+      constexpr uint32_t HI = 0xF0F0F0F0u;
+      *reinterpret_cast<uint4*>(b + off) =
+          make_uint4((v[i].x << 4) & HI, (v[i].y << 4) & HI,
+                     (v[i].z << 4) & HI, (v[i].w << 4) & HI);
+      *reinterpret_cast<uint4*>(bh + off) =
+          make_uint4(v[i].x & HI, v[i].y & HI, v[i].z & HI, v[i].w & HI);
+    }
+  }
+}
+
 template <class Epi>
 __device__ __forceinline__ void consume(
     const uint8_t* ring, uint64_t* full, uint64_t* empty, uint64_t* turn,
@@ -287,6 +369,9 @@ __device__ __forceinline__ void consume(
   static_assert(PL == 1 || (PL == 2 && TMe == 64 && BYTES && !RES),
                 "two planes: 64-row tiles, int8 outputs");
   constexpr bool GROUPS = epi_groups<Epi>::value > 0;
+  constexpr bool W4 = epi_w4<Epi>::value;
+  static_assert(!W4 || (TMe == 128 && PL == 1 && !GROUPS && !RES),
+                "packed int4: 128-row tiles, one plane");
   constexpr int H = TMe / 64;               // m64 halves of a tile
   constexpr int HA = H * PL;                // accumulators of a stage
   constexpr int A_BYTES = TMe * PL * TK;
@@ -402,6 +487,25 @@ __device__ __forceinline__ void consume(
     for (int kt = 0; kt < ktiles; ++kt) {
       mbar_wait(&full[s], ph);
       const uint8_t* a = ring + s * STAGE_BYTES;
+      if constexpr (W4) {
+        // the weight's nibbles are in the B tile (gemm_kernel_w4's
+        // "unpacked" barriers follow the turns); the k32 steps: x's lo
+        // half against the lo nibbles (kk = 0, 1), the hi halves (2, 3),
+        // 32 bytes into each 64-byte row
+        mbar_wait(&turn[2 + s], ph);
+        const uint64_t da = sw64_desc(a);
+        const uint64_t db = sw64_desc(a + A_BYTES);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < TK / 32; ++kk) {
+          const int scale = (kt | kk) != 0;
+          const int oa = (kk >> 1) * (TMe * 64 >> 4) + 2 * (kk & 1);
+          const int ob = (kk >> 1) * (TN * 64 >> 4) + 2 * (kk & 1);
+          wgmma_m64n128k32_s8(acc[0], da + oa, db + ob, scale);
+          wgmma_m64n128k32_s8(acc[1], da + oa + (64 * 64 >> 4), db + ob,
+                              scale);
+        }
+      } else {
       const uint64_t da = sw128_desc(a);
       const uint64_t db = sw128_desc(a + A_BYTES);
       wgmma_fence();
@@ -412,6 +516,7 @@ __device__ __forceinline__ void consume(
         if constexpr (HA == 2)
           wgmma_m64n128k32_s8(acc[1], da + (64 * TK >> 4) + 2 * kk,
                               db + 2 * kk, scale);
+      }
       }
       wgmma_commit();
       if (kt > 0) {
@@ -431,6 +536,13 @@ __device__ __forceinline__ void consume(
     for (int i = 0; i < 64; ++i) {
       fence_reg(acc[0][i]);
       if constexpr (HA == 2) fence_reg(acc[1][i]);
+    }
+    if constexpr (W4) {   // the products of 16 w: acc exactly
+#pragma unroll
+      for (int i = 0; i < 64; ++i) {
+        acc[0][i] >>= 4;
+        acc[1][i] >>= 4;
+      }
     }
     }
     named_sync(1 + wg, 128);   // the last epilogue is done with the table
@@ -565,6 +677,115 @@ __global__ void __launch_bounds__(THREADS, 1)
   }
 }
 
+// The kernel of a policy with kW4: gemm_kernel (kTM = 128, one plane)
+// with the packed weight's stage loads ("Packed int4 weights" above). It
+// is a kernel of its own so that the other instances' machine code stays
+// as it was: a branch on kW4 in gemm_kernel's producer loop, though
+// discarded at compile time, changed ptxas's code for every instance.
+template <class Epi>
+__global__ void __launch_bounds__(THREADS, 1)
+    gemm_kernel_w4(const __grid_constant__ CUtensorMap map_x,
+                   const __grid_constant__ CUtensorMap map_w,
+                   const typename Epi::Args args, void* __restrict__ out,
+                   int M, int N, int K) {
+  static_assert(epi_w4<Epi>::value, "a packed-int4 policy");
+  using Col = typename Epi::Col;
+  constexpr int STAGE_BYTES = stage_bytes(TM);
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* ring = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint8_t* staging = ring + STAGES * STAGE_BYTES;
+  Col* tab = reinterpret_cast<Col*>(staging + 8 * WARP_OUT);
+  uint64_t* full = reinterpret_cast<uint64_t*>(tab + 2 * TN);
+  uint64_t* empty = full + STAGES;
+  uint64_t* turn = empty + STAGES;
+  uint64_t* unpacked = turn + 2;   // a stage's B tile is unpacked
+
+  const int n_tiles = (N + TN - 1) / TN;
+  const int tiles = ((M + TM - 1) / TM) * n_tiles;
+  const int ktiles = (K + TK - 1) / TK;   // = K/2 / 64 rounded up
+  const int wg = threadIdx.x >> 7;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 128);
+      mbar_init(&unpacked[s], 96);
+    }
+    mbar_init(&turn[0], 1);
+    mbar_init(&turn[1], 1);
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  constexpr int CREGS = epi_regs<Epi>::value;
+  constexpr int PREGS = 3 * 168 - 2 * CREGS;
+  if (wg == 2) {
+    regs_dealloc<PREGS>();
+    if (threadIdx.x == 256) {
+      tma_prefetch_map(&map_x);
+      tma_prefetch_map(&map_w);
+      int s = 0;
+      uint32_t ph = 0;
+      for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+        const int m0 = (t / n_tiles) * TM;
+        const int n0 = (t % n_tiles) * TN;
+        for (int kt = 0; kt < ktiles; ++kt) {
+          mbar_wait(&empty[s], ph ^ 1);
+          uint8_t* st = ring + s * STAGE_BYTES;
+          // x's columns k0.. and K/2 + k0.. into the A tile's halves, the
+          // packed columns k0.. (both nibbles) over the B tile's second
+          // half (k0 = 64 kt)
+          mbar_arrive_expect_tx(&full[s], 2 * TM * 64 + TN * 64);
+          tma_load_2d(st, &map_x, &full[s], kt * 64, m0);
+          tma_load_2d(st + TM * 64, &map_x, &full[s], (K >> 1) + kt * 64,
+                      m0);
+          tma_load_2d(st + TM * TK + TN * 64, &map_w, &full[s], kt * 64,
+                      n0);
+          if (++s == STAGES) {
+            s = 0;
+            ph ^= 1;
+          }
+        }
+      }
+    } else if (threadIdx.x >= 288) {
+      // warps 1-3: each stage's weight unpacked once its loads land,
+      // in the ring's order, up to STAGES stages ahead of the consumers
+      const int w = (threadIdx.x >> 5) - 9;
+      int s = 0;
+      uint32_t ph = 0;
+      for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+        for (int kt = 0; kt < ktiles; ++kt) {
+          mbar_wait(&full[s], ph);
+          unpack_w4(ring + s * STAGE_BYTES + TM * TK, w, 3,
+                    threadIdx.x & 31);
+          fence_proxy_async();   // the writes, visible to wgmma
+          mbar_arrive(&unpacked[s]);
+          if (++s == STAGES) {
+            s = 0;
+            ph ^= 1;
+          }
+        }
+      }
+    }
+  } else {
+    regs_alloc<CREGS>();
+    const Epi epi(args, N);
+    consume<Epi>(ring, full, empty, turn, tab + wg * TN, nullptr,
+                 staging + (threadIdx.x >> 5) * WARP_OUT, epi, out, M, N,
+                 ktiles, tiles, n_tiles, wg);
+  }
+}
+
+// the card's SM count
+inline cudaError_t sm_count(int* sms) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
+  return e;
+}
+
 // The tensor maps of x (M, K) and w (N, K) and the card's SM count, after
 // the checks the kernel needs (M, N, K > 0, K % 16 == 0, N % 8 == 0,
 // 16-byte aligned x and w); cudaErrorInvalidValue for what it does not
@@ -578,11 +799,23 @@ inline cudaError_t gemm_setup(const void* x, const void* w, int M, int N,
     return cudaErrorInvalidValue;
   if (!make_i8_map(mx, x, M, K, TM) || !make_i8_map(mw, w, N, K, TN))
     return cudaErrorInvalidValue;
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e == cudaSuccess)
-    e = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
-  return e;
+  return sm_count(sms);
+}
+
+// gemm_setup for a policy with kW4: x (M, K) read in TM x 64-byte boxes,
+// 64-byte swizzled, and the packed weight wp (N, K/2) in TN x 64-byte
+// boxes, unswizzled; K % 32 == 0 (the packed rows' 16-byte stride)
+inline cudaError_t gemm_setup_w4(const void* x, const void* wp, int M,
+                                 int N, int K, CUtensorMap* mx,
+                                 CUtensorMap* mw, int* sms) {
+  if (M <= 0 || N <= 0 || K <= 0 || K % 32 || N % 8 ||
+      (reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(wp)) &
+          15)
+    return cudaErrorInvalidValue;
+  if (!make_u8_map(mx, x, M, K, 64, TM, CU_TENSOR_MAP_SWIZZLE_64B) ||
+      !make_u8_map(mw, wp, N, K / 2, 64, TN, CU_TENSOR_MAP_SWIZZLE_NONE))
+    return cudaErrorInvalidValue;
+  return sm_count(sms);
 }
 
 // one launch of the GEMM with epilogue Epi: a block per SM, at most one
@@ -593,13 +826,24 @@ cudaError_t gemm_launch(const CUtensorMap& mx, const CUtensorMap& mw,
                         int N, int K, int sms, cudaStream_t stream) {
   constexpr int smem = gemm_smem<Epi>();
   constexpr int tm = epi_tm<Epi>::value;
-  static cudaError_t attr = cudaFuncSetAttribute(
-      gemm_kernel<Epi>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (attr != cudaSuccess) return attr;
   const int tiles = ((M + tm - 1) / tm) * ((N + TN - 1) / TN);
   const int grid = tiles < sms ? tiles : sms;
-  gemm_kernel<Epi><<<grid, THREADS, smem, stream>>>(mx, mw, args, out, M, N,
-                                                    K);
+  if constexpr (epi_w4<Epi>::value) {
+    constexpr int smem4 = smem + STAGES * 8;   // the "unpacked" barriers
+    static cudaError_t attr = cudaFuncSetAttribute(
+        gemm_kernel_w4<Epi>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        smem4);
+    if (attr != cudaSuccess) return attr;
+    gemm_kernel_w4<Epi><<<grid, THREADS, smem4, stream>>>(mx, mw, args, out,
+                                                          M, N, K);
+  } else {
+    static cudaError_t attr = cudaFuncSetAttribute(
+        gemm_kernel<Epi>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        smem);
+    if (attr != cudaSuccess) return attr;
+    gemm_kernel<Epi><<<grid, THREADS, smem, stream>>>(mx, mw, args, out, M,
+                                                      N, K);
+  }
   return cudaGetLastError();
 }
 

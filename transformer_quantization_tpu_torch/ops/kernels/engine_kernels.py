@@ -9,7 +9,8 @@ The wrappers here launch kernels written by hand for Hopper (``csrc/``):
 - :func:`int8_matmul` -- payload matmul with the dequant fold, bias,
   optional ``gelu_new`` or ``relu``, and a per-column output site
   (``emit`` int8 payload, ``fold`` fake-quantized float on an
-  ``out_bits`` grid, or raw ``float``);
+  ``out_bits`` grid, or raw ``float``), against an int8 weight or
+  (``w4``) a split-half packed int4 one, unpacked inside the kernel;
 - :func:`int8_matmul_norm` -- the same matmul with MobileBERT's whole
   elementwise tail in its epilogue: fold site, optional + residual
   payload, res site, NoNorm, norm-site payload (also the ``nonorm`` forms
@@ -79,7 +80,10 @@ from typing import Dict, Tuple
 import numpy as np
 import torch
 
-from transformer_quantization_tpu_torch.ops.int_linear import exact_int_matmul
+from transformer_quantization_tpu_torch.ops.int_linear import (
+    exact_int_matmul,
+    unpack_int4,
+)
 from transformer_quantization_tpu_torch.ops.kernels import build as KB
 from transformer_quantization_tpu_torch.ops.kernels.activations import (
     ACTS,
@@ -89,12 +93,14 @@ from transformer_quantization_tpu_torch.ops.kernels.activations import (
 Tensor = torch.Tensor
 
 # kernel launches per wrapper; a wrapper adds one only where it launches
-LAUNCHES: Dict[str, int] = {"int8_matmul": 0, "int8_attention": 0,
+LAUNCHES: Dict[str, int] = {"int8_matmul": 0, "int8_matmul_w4": 0,
+                            "int8_attention": 0,
                             "fused_add_ln_payload": 0,
                             "float_edge_matmul": 0, "flex_add_ln": 0,
                             "int8_matmul_norm": 0, "int8_attention_qkv": 0,
                             "int8_mb_layer_ln": 0, "fused_add_ln": 0,
                             "fused_int8_linear": 0,
+                            "fused_int8_linear_w4": 0,
                             "fused_linear_quantize": 0,
                             "float_edge_levels": 0}
 
@@ -155,9 +161,12 @@ def _attn3(attn_bits) -> Tuple[int, int, int]:
 
 
 def _require_w8(w4: bool, what: str) -> None:
+    """Int4 weights where the port has no w4 form yet: the float-edge
+    matmul (K4) and MobileBERT's NoNorm matmul (K6) and layer (K8),
+    ROADMAP.md section 2a."""
     if w4:
         raise NotImplementedError(f"{what}: int4 weights (w4) are not yet "
-                                  "ported")
+                                  "ported (ROADMAP.md section 2a)")
 
 
 def _out_site(y, vecs, activation, out_mode, out_bits):
@@ -187,17 +196,21 @@ def int8_matmul_ref(x8, w8, vecs, scalars, *, activation=None,
                     in_grid=None):
     """``act(s_x s_w (x8 @ w8^T + shift colsum) + b)`` then the per-column
     output site. ``vecs`` rows: [wscale, colsum, bias, out_s, out_shift];
-    ``scalars``: (1, 2) [in_s, in_shift]. ``in_mode='f'``: ``x8`` is a
-    float value edge on the grid ``in_grid`` (:func:`edge_grid`), and the
-    product is :func:`float_edge_matmul_ref`'s."""
-    _require_w8(w4, "int8_matmul")
+    ``scalars``: (1, 2) [in_s, in_shift]. ``w4``: ``w8`` is the (N, K/2)
+    split-half packed int4 weight, unpacked first (the JAX
+    ``int8_matmul_ref``). ``in_mode='f'``: ``x8`` is a float value edge
+    on the grid ``in_grid`` (:func:`edge_grid`), and the product is
+    :func:`float_edge_matmul_ref`'s."""
     if in_mode == "f":
+        _require_w8(w4, "int8_matmul(in_mode='f')")
         _check_grid_weight(in_grid, w8)
         return float_edge_matmul_ref(x8, vecs, in_grid,
                                      activation=activation,
                                      out_mode=out_mode, out_bits=out_bits)
     if in_mode != "i8":
         raise ValueError(f"unknown in_mode {in_mode!r}")
+    if w4:
+        w8 = unpack_int4(w8, x8.shape[1])
     acc = exact_int_matmul(x8, w8).to(torch.float32)
     in_s, in_shift = scalars[0, 0], scalars[0, 1]
     y = (in_s * vecs[0]) * (acc + in_shift * vecs[1]) + vecs[2]
@@ -610,8 +623,8 @@ def _check(t: Tensor, name: str, dtype, shape=None) -> None:
                          f"{tuple(t.shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
-    # the kernels read int8 rows in 16-byte vectors
-    if dtype == torch.int8 and t.data_ptr() % 16:
+    # the kernels read int8 (and packed int4) rows in 16-byte vectors
+    if dtype in (torch.int8, torch.uint8) and t.data_ptr() % 16:
         raise ValueError(f"{name} must start on a 16-byte boundary")
 
 
@@ -645,18 +658,23 @@ def _mm_modes(activation, out_mode: str, out_bits: int, what: str):
     return _MM_ACTS[activation], _MM_OUT[out_mode], lo, hi
 
 
-def _check_matmul(x8, w8, vecs, scalars, what: str):
-    """(M, N, K) of a payload matmul's operands on the card."""
+def _check_matmul(x8, w8, vecs, scalars, what: str, w4: bool = False):
+    """(M, N, K) of a payload matmul's operands on the card; ``w4``: ``w8``
+    is the (N, K/2) packed int4 weight, whose rows TMA reads at a stride
+    of K/2 bytes, so K % 32 == 0."""
     m, k = x8.shape
     n = w8.shape[0]
     _check(x8, "x8", torch.int8)
-    _check(w8, "w8", torch.int8, (n, k))
+    if w4:
+        _check(w8, "w8 (packed int4)", torch.uint8, (n, k // 2))
+    else:
+        _check(w8, "w8", torch.int8, (n, k))
     _check(vecs, "vecs", torch.float32, (5, n))
     _check(scalars, "scalars", torch.float32, (1, 2))
     _same_device(x8, w8, vecs, scalars)
-    if k % 16 or n % 8:
-        raise ValueError(f"{what} kernel needs K % 16 == 0 and N % 8 == 0 "
-                         f"(got K={k}, N={n})")
+    if k % (32 if w4 else 16) or n % 8:
+        raise ValueError(f"{what} kernel needs K % {32 if w4 else 16} == 0 "
+                         f"and N % 8 == 0 (got K={k}, N={n})")
     if not (m and n and k):
         raise ValueError(f"{what} kernel needs M, N, K > 0 (got M={m}, "
                          f"N={n}, K={k})")
@@ -672,14 +690,17 @@ def int8_matmul(x8, w8, vecs, scalars, *, activation=None, out_mode="emit",
     consumer warpgroups, and the fold, activation and output site in an
     epilogue that runs under the other warpgroup's products and stores
     through shared memory in 16-byte vectors. Needs K % 16 == 0, N % 8 ==
-    0 and 16-byte aligned, contiguous operands (raises otherwise). A float
-    input edge (``in_mode='f'``) launches :func:`float_edge_matmul`."""
+    0 and 16-byte aligned, contiguous operands (raises otherwise). ``w4``:
+    the kernel's packed-int4 instance, which reads the (N, K/2) weight as
+    it is stored and unpacks each stage's nibbles in shared memory (no
+    int8 copy of the weight is made); K % 32 == 0. A float input edge
+    (``in_mode='f'``) launches :func:`float_edge_matmul`."""
     if not x8.is_cuda:
         return int8_matmul_ref(x8, w8, vecs, scalars, activation=activation,
                                out_mode=out_mode, w4=w4, in_mode=in_mode,
                                out_bits=out_bits, in_grid=in_grid)
-    _require_w8(w4, "int8_matmul")
     if in_mode == "f":
+        _require_w8(w4, "int8_matmul(in_mode='f')")
         _check_grid_weight(in_grid, w8)
         return float_edge_matmul(x8, vecs, in_grid, activation=activation,
                                  out_mode=out_mode, out_bits=out_bits)
@@ -687,16 +708,17 @@ def int8_matmul(x8, w8, vecs, scalars, *, activation=None, out_mode="emit",
         raise ValueError(f"unknown in_mode {in_mode!r}")
     act, mode, lo, hi = _mm_modes(activation, out_mode, out_bits,
                                   "int8_matmul")
-    m, n, k = _check_matmul(x8, w8, vecs, scalars, "int8_matmul")
+    m, n, k = _check_matmul(x8, w8, vecs, scalars, "int8_matmul", w4=w4)
     out = torch.empty((m, n), device=x8.device,
                       dtype=torch.int8 if out_mode == "emit"
                       else torch.float32)
-    fn = KB.load("int8_matmul")
+    name = "int8_matmul_w4" if w4 else "int8_matmul"
+    fn = KB.load(name)
     err = fn(x8.data_ptr(), w8.data_ptr(), vecs.data_ptr(),
              scalars.data_ptr(), out.data_ptr(), m, n, k, act, mode, lo, hi,
              GELU_NEW_C, _stream())
-    KB.check(err, "int8_matmul")
-    LAUNCHES["int8_matmul"] += 1
+    KB.check(err, name)
+    LAUNCHES[name] += 1
     return out
 
 

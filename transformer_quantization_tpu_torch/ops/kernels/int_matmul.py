@@ -12,7 +12,10 @@ Counterpart of ``transformer_quantization_tpu/ops/pallas/int_matmul.py``
              y_int = clip(round(y * (1/s_o)) + zp_o, imin, imax)
 
 ``x`` may already be an int8 payload of its input site (the hand-off of
-``ffn.inter.out`` to ``ffn.dense``): quantize-on-load is skipped.
+``ffn.inter.out`` to ``ffn.dense``): quantize-on-load is skipped. The
+weight is int8 or split-half packed int4 (W4A8: ``w_int8`` is then the
+(N, K/2) uint8 nibbles, ``x_int8[:, :K/2] @ lo^T + x_int8[:, K/2:] @
+hi^T``).
 
 :func:`fused_int8_linear_ref` is the plain version, the TPU kernel's
 arithmetic in its order (reciprocal products, not quotients, as the TPU
@@ -25,8 +28,10 @@ TPU's 128-tile rule it applies the kernel's own, K % 16 and N % 8, on
 every device, so the CPU takes the card's route. On CPU tensors it runs
 the plain version, on CUDA tensors ``csrc/fused_int8_linear.cu``: a
 float32 x is quantized once into an int8 scratch payload
-(:func:`quantize_input`'s pass), which the Hopper GEMM then reads.
-Split-half int4 weights and bfloat16 x raise "not yet ported".
+(:func:`quantize_input`'s pass), which the Hopper GEMM then reads; an
+int4 weight takes the GEMM's packed-int4 instance, which unpacks each
+stage's nibbles in shared memory (K % 32 == 0 there, else None). A
+bfloat16 x raises "not yet ported".
 """
 
 from __future__ import annotations
@@ -36,7 +41,10 @@ from typing import Optional
 
 import torch
 
-from transformer_quantization_tpu_torch.ops.int_linear import exact_int_matmul
+from transformer_quantization_tpu_torch.ops.int_linear import (
+    exact_int_matmul,
+    unpack_int4,
+)
 from transformer_quantization_tpu_torch.ops.kernels import build as KB
 from transformer_quantization_tpu_torch.ops.kernels import engine_kernels as EK
 from transformer_quantization_tpu_torch.ops.kernels.activations import (
@@ -85,16 +93,19 @@ def quantize_input_ref(x2d: Tensor, scalars: Tensor, asym_in: bool) -> Tensor:
 def fused_int8_linear_ref(x2d: Tensor, w: Tensor, w_scale: Tensor,
                           colsum: Tensor, bias: Optional[Tensor],
                           scalars: Tensor, *, activation, asym_in: bool,
-                          out_bits: int, out_sym: bool,
-                          out_int8: bool) -> Tensor:
+                          out_bits: int, out_sym: bool, out_int8: bool,
+                          w4: bool = False) -> Tensor:
     """The TPU ``_kernel``'s arithmetic on (M, K) ``x2d`` (float32, or an
-    int8 payload) against the (N, K) int8 ``w``. ``scalars`` (1, 8):
+    int8 payload) against the (N, K) int8 ``w`` (``w4``: the (N, K/2)
+    split-half packed int4 weight, unpacked first). ``scalars`` (1, 8):
     [s_x, zp_x, s_o, zp_o, signed_o, 0, 0, 0]; ``out_bits`` 0: no output
     site."""
     s = scalars[0]
     s_x, zp_x = s[0], s[1]
     x8 = (x2d if x2d.dtype == torch.int8
           else quantize_input_ref(x2d, scalars, asym_in))
+    if w4:
+        w = unpack_int4(w, x2d.shape[1])
     acc = exact_int_matmul(x8, w).to(torch.float32)
     if asym_in:
         acc = acc + (128.0 - zp_x) * colsum
@@ -115,9 +126,10 @@ def fused_int8_linear_ref(x2d: Tensor, w: Tensor, w_scale: Tensor,
 
 
 def _launch(x2d, w, w_scale, colsum, bias, scalars, *, activation, asym_in,
-            out_bits, out_sym, out_int8) -> Tensor:
+            out_bits, out_sym, out_int8, w4=False) -> Tensor:
     """``csrc/fused_int8_linear.cu`` on CUDA tensors: for a float32 x the
-    quantize pass into a scratch payload, then the GEMM, in one call."""
+    quantize pass into a scratch payload, then the GEMM (``w4``: its
+    packed-int4 instance on the (N, K/2) weight), in one call."""
     m, k = x2d.shape
     n = w.shape[0]
     x_f32 = x2d.dtype != torch.int8
@@ -127,7 +139,10 @@ def _launch(x2d, w, w_scale, colsum, bias, scalars, *, activation, asym_in,
             raise ValueError("x must start on a 16-byte boundary")
     else:
         EK._check(x2d, "x", torch.int8)
-    EK._check(w, "w", torch.int8, (n, k))
+    if w4:
+        EK._check(w, "w (packed int4)", torch.uint8, (n, k // 2))
+    else:
+        EK._check(w, "w", torch.int8, (n, k))
     for name, v in (("w_scale", w_scale), ("colsum", colsum)) + (
             (("bias", bias),) if bias is not None else ()):
         EK._check(v, name, torch.float32, (n,))
@@ -140,9 +155,10 @@ def _launch(x2d, w, w_scale, colsum, bias, scalars, *, activation, asym_in,
     if out_bits and not 2 <= out_bits <= 16:
         raise NotImplementedError(f"fused_int8_linear kernel: a {out_bits}-"
                                   "bit output site is not yet ported")
-    if not (m and n and k) or k % 16 or n % 8:
+    kq = 32 if w4 else 16
+    if not (m and n and k) or k % kq or n % 8:
         raise ValueError(f"fused_int8_linear kernel needs M, N, K > 0, "
-                         f"K % 16 == 0 and N % 8 == 0 (got M={m}, N={n}, "
+                         f"K % {kq} == 0 and N % 8 == 0 (got M={m}, N={n}, "
                          f"K={k})")
     mode = _OUT_EMIT if out_int8 else (_OUT_FOLD if out_bits else _OUT_FLOAT)
     # the scratch payload of a float32 x, which the GEMM reads by TMA
@@ -150,7 +166,8 @@ def _launch(x2d, w, w_scale, colsum, bias, scalars, *, activation, asym_in,
         else None
     out = torch.empty((m, n), device=x2d.device,
                       dtype=torch.int8 if out_int8 else torch.float32)
-    fn = KB.load("fused_int8_linear")
+    name = "fused_int8_linear_w4" if w4 else "fused_int8_linear"
+    fn = KB.load(name)
     err = fn(x2d.data_ptr(), int(x_f32),
              xq.data_ptr() if x_f32 else None, w.data_ptr(),
              w_scale.data_ptr(), colsum.data_ptr(),
@@ -158,10 +175,10 @@ def _launch(x2d, w, w_scale, colsum, bias, scalars, *, activation, asym_in,
              scalars.data_ptr(), out.data_ptr(), m, n, k,
              _ACT_CODES[activation], int(asym_in), mode, int(out_bits),
              int(out_sym), GELU_NEW_C, EK._stream())
-    KB.check(err, "fused_int8_linear")
+    KB.check(err, name)
     if x_f32:
         EK.LAUNCHES["fused_linear_quantize"] += 1
-    EK.LAUNCHES["fused_int8_linear"] += 1
+    EK.LAUNCHES[name] += 1
     return out
 
 
@@ -196,20 +213,21 @@ def fused_int8_linear(x: Tensor, packed, in_spec: Q.QuantizerSpec,
     the last dim of ``x``; None when the layer does not fit (the caller
     runs the int path). ``in_qp`` per-tensor. The output site folds in
     when ``out_qp`` is per-tensor; ``emit_int8`` writes its int8 payload
-    instead of floats (8-bit sites only). ``plain``: the plain version on
-    any device (the yardstick the kernel is held against)."""
-    if "w_int" not in packed:
-        if "w_packed" in packed:
-            raise NotImplementedError("fused_int8_linear: split-half int4 "
-                                      "weights (W4A8) are not yet ported")
+    instead of floats (8-bit sites only). A split-half int4 weight
+    (``w_packed``) runs the same steps on its unpacked levels; the kernel
+    takes it at K % 32 == 0. ``plain``: the plain version on any device
+    (the yardstick the kernel is held against)."""
+    w4 = "w_packed" in packed
+    w = packed["w_packed"] if w4 else packed.get("w_int")
+    if w is None:
         return None
-    w = packed["w_int"]
     k = x.shape[-1]
     n = w.shape[0]
     if x.dtype == torch.bfloat16:
         raise NotImplementedError("fused_int8_linear: bfloat16 x (the "
                                   "compute_dtype path) is not yet ported")
-    if x.dtype not in (torch.float32, torch.int8) or w.shape[1] != k:
+    if (x.dtype not in (torch.float32, torch.int8)
+            or w.shape[1] * (2 if w4 else 1) != k):
         return None
     fold = (out_spec is not None and out_qp is not None
             and out_qp.delta.ndim == 0)
@@ -217,7 +235,7 @@ def fused_int8_linear(x: Tensor, packed, in_spec: Q.QuantizerSpec,
         return None
     lead = x.shape[:-1]
     m = math.prod(lead)
-    if m % 8 or m < 8 or k % 16 or n % 8:
+    if m % 8 or m < 8 or k % (32 if w4 else 16) or n % 8:
         return None
 
     dev = x.device
@@ -239,7 +257,7 @@ def fused_int8_linear(x: Tensor, packed, in_spec: Q.QuantizerSpec,
             packed["colsum"].to(torch.float32),
             None if bias is None else bias.to(torch.float32), scalars)
     kw = dict(activation=activation, asym_in=not in_spec.symmetric,
-              out_bits=out_bits, out_sym=out_sym, out_int8=emit_int8)
+              out_bits=out_bits, out_sym=out_sym, out_int8=emit_int8, w4=w4)
     if plain or not x.is_cuda:
         y = fused_int8_linear_ref(*args, **kw)
     else:
