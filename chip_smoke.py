@@ -161,6 +161,26 @@ Phases (any failure exits non-zero; nothing is caught):
    61 quantize passes), each with the counts read just after and logits
    against the same path on the plain versions, and engine and generic
    seq/s (five windows).
+13. QAT: the JAX CLI's ``qat-w4a8`` recipe (``CAL.CLI_RECIPES`` /
+   ``TT.QAT_RECIPES``) at BERT-base width and depth, both dropouts 0, from
+   ``--seed``'s params on synthetic RTE examples (``utils/glue.py`` through
+   the hash tokenizer, 128 tokens): calibration (MSE golden-section 4-bit
+   weights, one padded batch of 16); the int8 QAT forward's 74 products a
+   forward, recorded on one training batch, with layer 0's four and the
+   classifier's (M = 8, N = 2, zero-padded) ``torch._int_mm`` products
+   equal to the exact plain product bit for bit; 40 optimizer steps of
+   ``TT.train`` at B = 8 on the int8 forward and 20 on the float
+   fake-quant forward (ms a step as the median of steps 10-40 / 10-20 on
+   the host clock, the first and last loss, the range entries that moved
+   and their largest relative change); on the trained model the int8 and
+   the float forward's logits on a request batch within
+   ``QAT_LOGIT_LEVELS`` levels of the classifier.out grid with at most
+   ``QAT_LOGIT_FRAC`` of them off; then the learned ranges merged, packed
+   int4 and planned: K1 w4 (layer 0's four matmuls), K2 and K3 (both
+   add+LNs) against their plain versions bit for bit, three request
+   batches through ``bert_engine_apply`` (48 / 12 / 24 launches a forward,
+   logits against the plain engine), the engine's logits against the
+   fake-quant forward's by the same gate, and engine seq/s.
 
 The last lines are the kernels JSON (times per encoder layer: the sum
 over that layer's launches of each kernel; the flex kernels' top-level
@@ -180,7 +200,8 @@ at K = 768, and on the ``{'x': 'fp32'}`` dense) under
 the W4A8 engine's and generic path's per layer, the first with K1 int8's
 ms on the unpacked weights (``int8_ms``) and the M = 256 sum under
 ``variants``, the second with the pooler there; ``launches`` sums the
-three runs of every path, ``launches_by_path`` splits them; the serving paths
+three runs of every path, ``launches_by_path`` splits them (``qat-w4a8``:
+phase 13's trained model on the W4A8 engine); the serving paths
 ``serve-bert`` / ``serve-mobilebert`` count the launches the wrappers
 made while their buckets were captured, ``serve-bert-eager`` those of
 the eager loop), the
@@ -192,6 +213,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import functools
 import gc
 import json
 import re
@@ -219,7 +241,11 @@ from transformer_quantization_tpu_torch.serving import engine as SE
 from transformer_quantization_tpu_torch.serving import graphs as SG
 from transformer_quantization_tpu_torch.serving import server as SVS
 from transformer_quantization_tpu_torch.training import calibration as CAL
+from transformer_quantization_tpu_torch.training import int8_qat as TI
+from transformer_quantization_tpu_torch.training import trainer as TT
 from transformer_quantization_tpu_torch.utils import checkpoint as CK
+from transformer_quantization_tpu_torch.utils import data as DATA
+from transformer_quantization_tpu_torch.utils import glue as GL
 
 # H100 SXM dense peaks (NVIDIA data sheet) used for the bounds
 PEAK_INT8_OPS = 1979e12
@@ -2520,6 +2546,212 @@ def w4a8_phase(params, cfg, plan8, batches, by_path, seed, dev, kind,
     return report
 
 
+# phase 13: the JAX CLI's qat-w4a8 recipe, trained for QAT_STEPS optimizer
+# steps on synthetic RTE examples (QAT_EXAMPLES: every step in the first
+# epoch), its float fake-quant forward for QAT_FLOAT_STEPS beside it
+QAT_STEPS, QAT_FLOAT_STEPS, QAT_TIMED_FROM = 40, 20, 10
+QAT_EXAMPLES = 8 * 48
+# the logit gate between two routes of the same trained model at 12
+# layers: a level flip from another rounding order spreads through its
+# sequence (the parity contract's depth rule), and the logits are the
+# classifier.out site's grid: within QAT_LOGIT_LEVELS levels, and at most
+# QAT_LOGIT_FRAC of them off at all
+QAT_LOGIT_LEVELS, QAT_LOGIT_FRAC = 2, 0.1
+
+
+def logit_levels(got, want, step, name) -> None:
+    """Two routes' logits on the classifier.out grid of ``step``: fails
+    beyond ``QAT_LOGIT_LEVELS`` levels or past ``QAT_LOGIT_FRAC`` of them
+    off."""
+    diff = ((got - want).abs() / step).float()
+    frac = float((diff > 0.5).float().mean())
+    print(f"  {name}: max |diff| {float((got - want).abs().max()):.4e} = "
+          f"{float(diff.max()):.2f} levels of classifier.out (step "
+          f"{float(step):.4e}); {frac:.4f} of {diff.numel()} logits off")
+    if not torch.isfinite(got).all():
+        fail(f"{name}: non-finite logits")
+    if float(diff.max()) > QAT_LOGIT_LEVELS + 0.01 or frac > QAT_LOGIT_FRAC:
+        fail(f"{name}: beyond {QAT_LOGIT_LEVELS} levels or more than "
+             f"{QAT_LOGIT_FRAC} of the logits off")
+
+
+def check_qat_products(apply_fn, params, qcfg, qstate, qat, batch) -> None:
+    """The int8 QAT forward's products on one training batch's calls:
+    layer 0's four matmuls (q, attn_out, inter, dense) and the classifier
+    (M = 8, N = 2: ``torch._int_mm`` on zero-padded operands), each
+    ``int8_product`` (``torch._int_mm``) against the exact plain product,
+    bit for bit."""
+    calls, = record_calls(
+        lambda: apply_fn(params, batch, qcfg=qcfg, qstate=qstate,
+                         mode=QuantMode(),
+                         int8_qat_sites=qat.int8_sites),
+        (TI, "int8_qat_linear"))
+    n_layers = (len(calls) - 2) // 6
+    print(f"  int8 QAT forward: {len(calls)} int8 matmuls a forward")
+    if len(calls) != 6 * n_layers + 2 or n_layers != len(params["layers"]):
+        fail(f"int8 QAT forward: {len(calls)} int8 matmuls, expected "
+             f"{6 * len(params['layers']) + 2}")
+    for tag, i in (("L0.attn.q", 0), ("L0.attn_out", 3), ("L0.ffn.inter", 4),
+                   ("L0.ffn.dense", 5), ("classifier", len(calls) - 1)):
+        a = calls[i][0]
+        p_x, p_w, _, _ = TI.int8_payloads(a[0], a[1], a[3], a[4], a[5],
+                                          a[6], a[7])
+        p_x = p_x.reshape(-1, p_x.shape[-1])
+        got = TI.int8_product(p_x, p_w)
+        want = IL.exact_int_matmul(p_x, p_w)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            fail(f"int8 QAT {tag}: torch._int_mm product differs from the "
+                 "exact plain product")
+        print(f"  int8 QAT {tag} {tuple(p_x.shape)} x {tuple(p_w.shape)}: "
+              f"torch._int_mm product == exact plain product (bit for bit)")
+
+
+def qat_train(apply_fn, params, task, arrays, tcfg, qcfg, qstate, qat,
+              steps):
+    """``TT.train`` for ``steps`` optimizer steps: the trained ``(params,
+    qstate)``, each step's loss and the median ms a step over steps
+    ``QAT_TIMED_FROM``.. (host clock between steps, each step's loss read
+    back)."""
+    marks, losses = [], []
+
+    def cb(i, loss):
+        losses.append(float(loss))
+        marks.append(time.perf_counter())
+
+    out = TT.train(apply_fn, params, task, arrays,
+                   dataclasses.replace(tcfg, max_steps=steps, log_every=10),
+                   qcfg=qcfg, qstate=qstate, qat_cfg=qat,
+                   log_fn=lambda s: print(f"    {s}"), step_callback=cb)
+    ms = float(np.median(np.diff(marks[QAT_TIMED_FROM - 1:]))) * 1e3
+    return out, losses, ms
+
+
+def check_qat_engine_kernels(params, cfg, qcfg, qstate, int4, static, plan,
+                             batch, dev) -> None:
+    """K1 w4 (layer 0's four matmuls), K2 and K3 (both add+LNs) on the
+    trained W4A8 engine's layer-0 payloads, each against its plain
+    version, bit for bit."""
+    h, mask = entry_value(params, cfg, qcfg, qstate, int4, batch, dev)
+    es = plan["entry_scal"]
+    x8 = EK.quantize_payload(h.reshape(BATCH * SEQ, -1), es[0, 0], es[0, 1])
+    lp = plan["layers"][0]
+    akw = dict(n_heads=cfg.num_attention_heads, seq=SEQ,
+               skip_max=static.attn_skip_max)
+    eps = static.ln_eps
+    qkv = lambda f: f(x8, *_mm(lp["qkv"]), w4=True)
+    qkv8 = qkv(EK.int8_matmul_ref)
+    compare(qkv(EK.int8_matmul), qkv8, "qat-w4a8 K1 w4 qkv")
+    c8 = EK.int8_attention_ref(qkv8, mask, lp["attn_scal"], **akw)
+    compare(EK.int8_attention(qkv8, mask, lp["attn_scal"], **akw), c8,
+            "qat-w4a8 K2")
+    ao = lambda f: f(c8, *_mm(lp["attn_out"]), w4=True)
+    y8 = ao(EK.int8_matmul_ref)
+    compare(ao(EK.int8_matmul), y8, "qat-w4a8 K1 w4 attn_out")
+    ln1 = EK.fold_ln_scalars(lp["attn_out"]["vecs"], lp["ln1"]["scal"])
+    hx8 = EK.fused_add_ln_payload_ref(y8, x8, lp["ln1"]["gb"], ln1, eps=eps)
+    compare(EK.fused_add_ln_payload(y8, x8, lp["ln1"]["gb"], ln1, eps=eps),
+            hx8, "qat-w4a8 K3 ln1")
+    inter = lambda f: f(hx8, *_mm(lp["inter"]), activation="gelu_new",
+                        w4=True)
+    i8 = inter(EK.int8_matmul_ref)
+    compare(inter(EK.int8_matmul), i8, "qat-w4a8 K1 w4 inter")
+    dense = lambda f: f(i8, *_mm(lp["dense"]), w4=True)
+    d8 = dense(EK.int8_matmul_ref)
+    compare(dense(EK.int8_matmul), d8, "qat-w4a8 K1 w4 dense")
+    ln2 = EK.fold_ln_scalars(lp["dense"]["vecs"], lp["ln2"]["scal"])
+    compare(EK.fused_add_ln_payload(d8, hx8, lp["ln2"]["gb"], ln2, eps=eps),
+            EK.fused_add_ln_payload_ref(d8, hx8, lp["ln2"]["gb"], ln2,
+                                        eps=eps), "qat-w4a8 K3 ln2")
+
+
+def qat_phase(params, batches, by_path, seed, dev, kind, smi) -> None:
+    """Phase 13: the JAX CLI's ``qat-w4a8`` at BERT-base width and depth
+    from ``seed``'s params on synthetic RTE examples: calibration; the
+    int8 QAT forward's ``torch._int_mm`` products against the exact plain
+    product; ``QAT_STEPS`` optimizer steps on the int8 forward (ms a step
+    beside the float fake-quant forward's); the trained model's int8 and
+    float forwards; then the learned ranges merged, packed int4 and
+    served by the W4A8 engine (K1 w4 / K2 / K3 against their plain
+    versions, three request batches with the launches read just after,
+    logits against the plain engine and the fake-quant forward, seq/s)."""
+    tcfg, qat0 = TT.QAT_RECIPES["qat-w4a8"]
+    cfg = dataclasses.replace(B.BertConfig(), hidden_dropout_prob=0.0,
+                              attention_probs_dropout_prob=0.0)
+    L = cfg.num_hidden_layers
+    task = GL.TASKS["rte"]
+    arrays = DATA.encode_examples(
+        DATA.SyntheticTokenizer(cfg.vocab_size), task,
+        GL.synthetic_examples(task, "train", QAT_EXAMPLES, seed=seed), SEQ)
+    rec = CAL.CLI_RECIPES["qat-w4a8"]
+    qcfg = B.declare_bert_sites(rec.defaults, cfg, quant_setup=rec.quant_setup)
+    apply_fn = functools.partial(B.bert_apply, cfg=cfg, device=dev)
+    (qstate, qat), t_cal = timed_s(lambda: TT.prepare_qat(
+        apply_fn, params, qcfg, arrays, B.bert_weight_site_tensors(params),
+        qat0, rec, device=dev))
+    print(f"  calibration (MSE golden-section 4-bit weights, one batch of "
+          f"{rec.est_batch_size} x {SEQ} padded): {t_cal:.3f} s", flush=True)
+    b8 = {k: v[:tcfg.batch_size] for k, v in arrays.items()}
+    check_qat_products(apply_fn, params, qcfg, qstate, qat, b8)
+
+    (p2, q2), losses, ms_i8 = qat_train(apply_fn, params, task, arrays, tcfg,
+                                        qcfg, qstate, qat, QAT_STEPS)
+    _, _, ms_f = qat_train(apply_fn, params, task, arrays, tcfg, qcfg,
+                           qstate, dataclasses.replace(qat, int8_sites=None),
+                           QAT_FLOAT_STEPS)
+    moved = total = 0
+    rel = 0.0
+    for site, st in qstate.items():
+        if "qp" not in st or not qcfg[site].enabled:
+            continue
+        for f in ("delta", "zero_float"):
+            old, new = getattr(st["qp"], f), getattr(q2[site]["qp"], f)
+            total += old.numel()
+            moved += int((old != new).sum())
+            nz = old != 0
+            if nz.any():
+                rel = max(rel, float(((new - old).abs()[nz]
+                                      / old.abs()[nz]).max()))
+    if not all(np.isfinite(losses)):
+        fail(f"qat-w4a8: non-finite losses {losses}")
+    print(f"  [qat-w4a8] {QAT_STEPS} steps at B={tcfg.batch_size}, S={SEQ} "
+          f"({kind}, {smi}): int8 forward {ms_i8:.2f} ms a step (median of "
+          f"steps {QAT_TIMED_FROM}-{QAT_STEPS}), float fake-quant forward "
+          f"{ms_f:.2f} ms a step (steps {QAT_TIMED_FROM}-{QAT_FLOAT_STEPS}); "
+          f"loss {losses[0]:.4f} -> {losses[-1]:.4f}; range entries moved "
+          f"{moved} of {total}, largest relative change {rel:.4e}",
+          flush=True)
+    if moved == 0:
+        fail("qat-w4a8: no learned range moved")
+
+    b0 = batches[0]
+    step = Q.scale_of(qcfg["classifier.out"].spec, q2["classifier.out"]["qp"])
+    with torch.no_grad():
+        flt = apply_fn(p2, b0, qcfg=qcfg, qstate=q2)[0]["logits"]
+        i8 = apply_fn(p2, b0, qcfg=qcfg, qstate=q2,
+                      int8_qat_sites=qat.int8_sites)[0]["logits"]
+    logit_levels(i8, flt, step, "[qat-w4a8] int8 QAT forward vs float "
+                 "fake-quant forward")
+
+    int4 = B.build_bert_int_params(p2, qcfg, q2, use_int4=True)
+    static, plan, _ = B.build_bert_engine(p2, cfg, qcfg, q2, int_params=int4,
+                                          device=dev)
+    if not all(all(f) for f in static.w4):
+        fail(f"qat-w4a8: the engine's matmuls are not all int4: {static.w4}")
+    check_qat_engine_kernels(p2, cfg, qcfg, q2, int4, static, plan, b0, dev)
+    eng = bert_runner(p2, cfg, qcfg, q2, static, plan, int4, dev)
+    by_path["qat-w4a8"] = drive_path(
+        "qat-w4a8", eng, cfg, batches,
+        per_forward(int8_matmul_w4=4 * L, int8_attention=L,
+                    fused_add_ln_payload=2 * L))
+    logit_levels(eng(b0, "kernels")["logits"], flt, step,
+                 "[qat-w4a8] W4A8 engine vs the fake-quant forward")
+    t_eng = window_ms(lambda: eng(b0, "kernels"))
+    print(f"  [qat-w4a8] seq/s at B={BATCH}, S={SEQ}, median (range) of 5 "
+          f"windows ({kind}, {smi}): trained W4A8 engine {seq_per_s(t_eng)} "
+          f"(forward {t_eng[0]:.3f} ms)")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2813,6 +3045,12 @@ def main(argv=None) -> int:
     report.update(w4a8_phase(params, cfg, plan, batches, by_path, args.seed,
                              dev, kind, smi))
     print(f"  phase 12: {time.perf_counter() - t0:.1f} s", flush=True)
+
+    print("[13] QAT: the JAX CLI's qat-w4a8 recipe trained at BERT-base "
+          "width and deployed through the W4A8 engine", flush=True)
+    t0 = time.perf_counter()
+    qat_phase(params, batches, by_path, args.seed, dev, kind, smi)
+    print(f"  phase 13: {time.perf_counter() - t0:.1f} s", flush=True)
 
     report.update({k: mb_report[k] for k in (
         "int8_matmul_norm", "int8_attention_qkv")})

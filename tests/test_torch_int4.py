@@ -495,6 +495,24 @@ def test_engine_refuses_int4_under_a_float_edge(w4a8):
     assert static.any_flex and not any(any(f) for f in static.w4)
 
 
+def test_engine_refuses_widths_outside_the_matmul_kernel():
+    """An intermediate width of 784 is a multiple of 16 but not of 32:
+    under packed int4 weights the FFN dense matmul (K = 784) is outside
+    K1's limits, so the plan is refused when it is made; on int8 weights
+    the same model plans."""
+    cfg = TB.BertConfig(**dict(KW, intermediate_size=784))
+    params, tq, ts = TC.calibrated_bert(
+        cfg, batch_size=2, seq=SEQ, device="cpu",
+        defaults=dataclasses.replace(TC.w8a8_defaults(), n_bits=4,
+                                     n_bits_act=8))
+    with pytest.raises(TENG.EngineIncompatible,
+                       match=r"L0\.ffn\.dense: K = 784, N = 64 .*K % 32"):
+        TB.build_bert_engine(params, cfg, tq, ts, use_int4=True,
+                             device="cpu")
+    static, _, _ = TB.build_bert_engine(params, cfg, tq, ts, device="cpu")
+    assert not any(any(f) for f in static.w4)
+
+
 def test_int4_checkpoint_round_trip(w4a8, tmp_path):
     """JAX ``save_checkpoint`` with int4 int_params -> port
     ``load_checkpoint`` (uint8 nibbles, int ``in_features``) -> port

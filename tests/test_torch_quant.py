@@ -135,8 +135,8 @@ def test_current_minmax_update(rs):
 
 
 def test_unported_estimators_raise():
-    """What the port still leaves to the training slice raises (the
-    ``learn`` phase of weight and act sites, AdaRound weights); the
+    """What the port still leaves to a later slice raises (AdaRound
+    weights); the ``learn`` phase of weight and act sites computes; the
     estimators that raised here before (all-minmax, running-minmax,
     percentile) now match JAX on the same input."""
     x = _x(5)
@@ -158,11 +158,18 @@ def test_unported_estimators_raise():
     b.act("lin.out")
     cfg = b.build()
     w, xt = torch.from_numpy(_x(6, (5, 8))), torch.from_numpy(x)
+    # the learn phase (QAT) computes: it quantizes with the stored params,
+    # so on a calibrated state it equals the fix phase
     learn = TQC.Phase.learn
-    with pytest.raises(NotImplementedError, match="learn"):
-        TCtx(cfg, {}, TQC.QuantMode(act_phase=learn)).act("lin.out", xt)
-    with pytest.raises(NotImplementedError, match="learn"):
-        TCtx(cfg, {}, TQC.QuantMode(weight_phase=learn)).weight("lin.w", w)
+    cal = TCtx(cfg, {"lin.w": TM.init_weight_site_state(cfg["lin.w"], w)},
+               TQC.QuantMode(act_phase=TQC.Phase.estimate))
+    cal.act("lin.out", xt)
+    st = cal.export()
+    for phase_kw in ({"act_phase": learn}, {"weight_phase": learn}):
+        got = TCtx(cfg, st, TQC.QuantMode(**phase_kw))
+        want = TCtx(cfg, st, TQC.QuantMode())
+        assert torch.equal(got.act("lin.out", xt), want.act("lin.out", xt))
+        assert torch.equal(got.weight("lin.w", w), want.weight("lin.w", w))
     qs = {"lin.w": dict(TM.init_weight_site_state(cfg["lin.w"], w),
                         alpha=torch.zeros_like(w))}
     with pytest.raises(NotImplementedError, match="AdaRound"):

@@ -7,7 +7,9 @@ Takes ``params``, ``qstate`` and ``int_params`` of
 with numpy ``delta`` / ``zero_float`` / ``signed``) and builds the port's
 counterparts on ``device``. Both packages keep kernels in the ``(out,
 in)`` layout and the same nesting, so this is a re-nesting into tensors.
-Imports no JAX.
+QAT state comes across too: the ``learnable`` / ``rest`` split of
+``training/qat.py`` (``rest`` holding a learned site's ``qp_signed``) and
+a JAX train state's params and ranges. Imports no JAX.
 """
 
 from __future__ import annotations
@@ -49,28 +51,55 @@ def qparams_from_jax(qp, device="cuda") -> QuantParams:
         signed=_tensor(qp.signed, dev).to(torch.float32))
 
 
+def _site_from_jax(name: str, st: Mapping, dev) -> Dict:
+    if st.get("alpha") is not None:
+        raise NotImplementedError(f"{name}: AdaRound state is not yet "
+                                  "ported")
+    new = {}
+    if st.get("qp") is not None:
+        new["qp"] = qparams_from_jax(st["qp"], dev)
+    if st.get("qp_signed") is not None:
+        new["qp_signed"] = _tensor(st["qp_signed"], dev).to(torch.float32)
+    if "alpha" in st:
+        new["alpha"] = None
+    if st.get("range_state") is not None:
+        new["range_state"] = {k: _tensor(v, dev)
+                              for k, v in st["range_state"].items()}
+    if st.get("perm") is not None:
+        new["perm"] = _tensor(st["perm"], dev).to(torch.int64)
+    if st.get("ranges") is not None:
+        new["ranges"] = _tensor(st["ranges"], dev).to(torch.float32)
+    return new
+
+
 def qstate_from_jax(qstate: Mapping, device="cuda") -> Dict:
     """Per-site state: ``qp`` becomes a :class:`QuantParams`, the
     ``range_state`` dict its tensors, a PEG site's ``perm`` an int64 and
-    its ``ranges`` a float32 tensor; AdaRound ``alpha`` must be None."""
+    its ``ranges`` a float32 tensor; AdaRound ``alpha`` must be None.
+    The ``rest`` of a QAT split (``qp_signed`` for a learned site's
+    ``qp``) converts the same way."""
     dev = resolve_device(device)
-    out = {}
-    for name, st in qstate.items():
-        if st.get("alpha") is not None:
-            raise NotImplementedError(f"{name}: AdaRound state is not yet "
-                                      "ported")
-        new = {"qp": qparams_from_jax(st["qp"], dev)}
-        if "alpha" in st:
-            new["alpha"] = None
-        if st.get("range_state") is not None:
-            new["range_state"] = {k: _tensor(v, dev)
-                                  for k, v in st["range_state"].items()}
-        if st.get("perm") is not None:
-            new["perm"] = _tensor(st["perm"], dev).to(torch.int64)
-        if st.get("ranges") is not None:
-            new["ranges"] = _tensor(st["ranges"], dev).to(torch.float32)
-        out[name] = new
-    return out
+    return {name: _site_from_jax(name, st, dev)
+            for name, st in qstate.items()}
+
+
+def learnable_from_jax(learnable: Mapping, device="cuda") -> Dict:
+    """``{site: {'delta', 'zero_float'}}`` (JAX ``split_learnable_ranges``)
+    -> float32 tensors."""
+    dev = resolve_device(device)
+    return {name: {k: _tensor(v, dev).to(torch.float32)
+                   for k, v in st.items()}
+            for name, st in learnable.items()}
+
+
+def train_state_from_jax(model_tree: Mapping, device="cuda"):
+    """A JAX train state's weights and ranges, its ``<path>.model.npz``
+    tree (read with ``utils/checkpoint.py`` ``load_tree``) -> ``(params,
+    learnable, rest)`` on ``device``. The optimizer state stays behind:
+    its leaves are optax's."""
+    return (params_from_jax(model_tree["params"], device),
+            learnable_from_jax(model_tree.get("learnable") or {}, device),
+            qstate_from_jax(model_tree.get("rest") or {}, device))
 
 
 def int_params_from_jax(int_params: Mapping, device="cuda") -> Dict:

@@ -14,12 +14,16 @@ linear (``fused_linear``, the JAX ``use_pallas``), packing, the
 ``quant_dict`` key language (:func:`apply_bert_quant_dict`) with the PEG
 shared-permutation groups, the ``--per-token`` / ``--per-embd`` /
 ``--per-groups`` wiring (:func:`apply_peg_wiring`), and the full-handoff
-engine (:func:`build_bert_engine` / :func:`bert_engine_apply`). AdaRound
+engine (:func:`build_bert_engine` / :func:`bert_engine_apply`), and the
+training forward (``bert_apply(train=True)``: an autograd graph through
+the fake-quant sites' STE / LSQ backward, dropout from a
+``torch.Generator``, the int8 QAT matmul at ``int8_qat_sites``). AdaRound
 specs, int8 attention, compute dtypes, scan, remat and the pipeline wait.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Dict, List, Mapping, Optional, Tuple
 
@@ -424,6 +428,20 @@ def prepare_inputs(batch: Mapping, device):
     return input_ids, token_type_ids, position_ids, mask_bias
 
 
+def int8_sites_for_mode(int8_qat_sites, train: bool, cfg):
+    """The int8 QAT forward's sites, or None when training with hidden
+    dropout: dropout between an act site and its consumer matmul
+    (embeddings -> L0 q/k/v, pooled -> classifier) rescales survivors by
+    1/(1-p), off the producer's 8-bit grid, where the int8 path's exact
+    level recovery would re-quantize and clip them (the JAX
+    ``int8_sites_for_mode``). The reference QAT recipe trains with dropout
+    0."""
+    if (int8_qat_sites and train
+            and getattr(cfg, "hidden_dropout_prob", 0.0) > 0.0):
+        return None
+    return int8_qat_sites
+
+
 def make_ctx(qcfg, qstate, mode, *, mse_session=None,
              int_params=None) -> QuantCtx:
     ctx = QuantCtx(qcfg if qcfg is not None else QuantModelConfig(()),
@@ -526,6 +544,7 @@ def bert_apply(params: Dict, batch: Mapping, cfg: BertConfig,
                mse_session: Optional[Dict] = None,
                int_params: Optional[Dict] = None,
                fused_linear=False,
+               int8_qat_sites=None,
                device="cuda") -> Tuple[Dict, Dict]:
     """Forward pass; returns ``(outputs, new_qstate)``.
 
@@ -538,11 +557,26 @@ def bert_apply(params: Dict, batch: Mapping, cfg: BertConfig,
     any device. ``mse_session`` holds the MSE / cross-entropy act sites'
     estimators across calibration batches. ``params`` must live on
     ``device``.
+
+    ``train=True`` is the training forward: dropout draws from
+    ``dropout_generator`` (required when a dropout rate is above 0), and
+    where gradients are enabled the forward builds the autograd graph
+    (inference and calibration run under ``torch.no_grad``).
+    ``int8_qat_sites`` (``training/qat.py`` ``int8_forward_sites``) runs
+    those layers' fake-quant matmuls on int8 payloads
+    (``training/int8_qat.py``); off in training with hidden dropout
+    (:func:`int8_sites_for_mode`). The engine-only ``int_params`` paths
+    are inference paths and refuse ``train``.
     """
     dev = _check_device(params, device)
-    with torch.no_grad():
+    if train and int_params:
+        raise ValueError("int_params is an inference path; train with the "
+                         "fake-quant forward")
+    with contextlib.nullcontext() if train else torch.no_grad():
         ctx = make_ctx(qcfg, qstate, mode, mse_session=mse_session,
                        int_params=int_params)
+        ctx.int8_qat_sites = frozenset(
+            int8_sites_for_mode(int8_qat_sites, train, cfg) or ())
         if int_params and fused_linear:
             ctx.fused_linear = fused_linear
             # consumed only by the next int8 matmul: emitted as payloads

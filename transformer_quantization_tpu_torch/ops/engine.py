@@ -232,6 +232,20 @@ def _mm_plan(int_params: Mapping, names: List[str], biases: List[Tensor],
     return {"w": w.contiguous(), "vecs": vecs, "scal": scal}, w4s[0]
 
 
+def _require_k1_width(int_params: Mapping, name: str, mm: Dict,
+                      w4: bool) -> None:
+    """Refuse, when the plan is made, a matmul whose width the int8 matmul
+    kernel (K1) does not take: K % 16 == 0 (K % 32 for a packed int4
+    weight, whose rows TMA reads at K/2 bytes) and N % 8 == 0, the limits
+    its wrapper checks on the card (``EK._check_matmul``)."""
+    n = mm["w"].shape[0]
+    k = int_params[name]["in_features"] if w4 else mm["w"].shape[1]
+    align = 32 if w4 else 16
+    _require(k % align == 0 and n % 8 == 0,
+             f"{name}: K = {k}, N = {n} is outside the int8 matmul kernel's "
+             f"limits (K % {align} == 0, N % 8 == 0): not yet ported")
+
+
 def _ln_plan(qcfg, qstate, params_ln: Mapping, res_site: str, ln_site: str,
              ln_wsite: str, y_site: Optional[Tuple[Tensor, Tensor]],
              r_site: Tuple[Tensor, Tensor]) -> Tuple[Dict, bool, int, Tuple]:
@@ -389,6 +403,14 @@ def build_encoder_plan(qcfg, qstate: Mapping, int_params: Mapping,
         dense, dense_w4 = _mm_plan(int_params, [p + "ffn.dense"],
                                    [lp["ffn"]["dense"]["bias"]], i_site,
                                    [h_out] if d_fold else None)
+        # every matmul but a float-x-edge inter (the float-edge matmul)
+        # runs on K1
+        for name, mm, w4 in ((p + "attn.q", qkv, qkv_w4),
+                             (p + "attn_out.dense", attn_out, ao_w4),
+                             (p + "ffn.inter", inter, inter_w4),
+                             (p + "ffn.dense", dense, dense_w4)):
+            if not (name.endswith("inter") and x_mode == "f"):
+                _require_k1_width(int_params, name, mm, w4)
         # ln2's res site is quant_dict 'y': flexible; its LN site (the
         # next layer's input) stays an int8 payload
         ln2, res2, y_bits, _ = _ln_plan(

@@ -6,9 +6,10 @@ weight quantizer lives at ``<name>.w``, the output activation quantizer
 at ``<name>.out``. Biases are never quantized.
 
 Ported: the float path, the generic int8 branch and its fused linear
-(the JAX ``use_pallas``, ``ctx.fused_linear``) of :func:`quant_linear`,
-:func:`quant_layernorm`, :func:`quant_nonorm`, :func:`quant_embedding`
-and :func:`dropout`. The int8-QAT matmul, capture hooks and grouped
+(the JAX ``use_pallas``, ``ctx.fused_linear``) and the int8 QAT matmul
+(``ctx.int8_qat_sites``, :func:`_int8_qat_matmul`) of
+:func:`quant_linear`, :func:`quant_layernorm`, :func:`quant_nonorm`,
+:func:`quant_embedding` and :func:`dropout`. Capture hooks and grouped
 layers wait for their slices.
 """
 
@@ -24,6 +25,10 @@ from transformer_quantization_tpu_torch.ops.kernels.int_matmul import (
     fused_int8_linear,
 )
 from transformer_quantization_tpu_torch.quant import quantizers as Q
+from transformer_quantization_tpu_torch.quant import ranges as R
+from transformer_quantization_tpu_torch.quant.manager import (
+    estimate_weight_qp,
+)
 from transformer_quantization_tpu_torch.quant.qconfig import Phase
 
 Tensor = torch.Tensor
@@ -131,6 +136,74 @@ def _fused_linear(ctx, name: str, x: Tensor, b: Optional[Tensor],
     return ctx.act(out_site, y)
 
 
+def _int8_qat_matmul(ctx, name: str, x: Tensor, w: Tensor,
+                     b: Optional[Tensor], input_site: Optional[str]):
+    """The QAT matmul on int8 payloads when every condition holds, else
+    None: the layer is in ``ctx.int8_qat_sites`` (weights screened by
+    ``training/qat.py`` ``int8_forward_sites``), the input site is an
+    enabled per-tensor asymmetric 8-bit linear-domain act site with stored
+    params (so ``x`` arrives as its fake-quantized value and its levels
+    are recovered exactly), and the act phase is not ``record_ranges``.
+    Weights may be fixed, learned or estimated (the range re-derived from
+    the live weight, as ``QuantCtx.weight``'s estimate branch, on the
+    signed grid)."""
+    # imported here, as JAX does: the training package sits above the ops
+    from transformer_quantization_tpu_torch.training.int8_qat import (
+        int8_qat_linear,
+    )
+
+    if name not in ctx.int8_qat_sites or input_site is None:
+        return None
+    m = ctx.mode
+    if not (m.weight_quant and m.act_quant):
+        return None
+    if m.act_phase == Phase.record_ranges:
+        return None
+    wname = f"{name}.w"
+    if wname not in ctx.cfg or input_site not in ctx.cfg:
+        return None
+    ic = ctx.cfg[input_site]
+    if not (ic.kind == "act" and ic.enabled and ic.axis is None
+            and not ic.n_groups and ic.spec.n_bits == 8
+            and not ic.spec.symmetric and ic.spec.scale_domain == "linear"):
+        return None
+    wc = ctx.cfg[wname]
+    ist = ctx.qstate.get(input_site)
+    if ist is None:
+        return None
+    qp_x = ist["qp"]
+    if qp_x.delta.ndim != 0:
+        return None
+    if m.weight_phase == Phase.estimate:
+        if wc.range_cfg.method in (R.RangeMethod.MSE,
+                                   R.RangeMethod.cross_entropy):
+            return None  # estimate_weight_qp refuses these
+        if ctx.qstate.get(wname, {}).get("alpha") is not None:
+            return None
+        qp_w = estimate_weight_qp(wc, w)
+        # the int8 matmul's grid is the signed one; a weight with no
+        # negative entry gets a self-consistent signed grid (absmax /
+        # (2^b - 1) -> absmax / (2^(b-1) - 1)), a no-op for every other
+        b_ = wc.spec.n_bits
+        factor = (2.0 ** b_ - 1.0) / (2.0 ** (b_ - 1) - 1.0)
+        qp_w = Q.QuantParams(
+            delta=torch.where(qp_w.signed > 0, qp_w.delta,
+                              qp_w.delta * factor),
+            zero_float=qp_w.zero_float,
+            signed=torch.ones_like(qp_w.signed))
+        ctx.qstate[wname] = dict(ctx.qstate.get(wname, {"alpha": None}),
+                                 qp=qp_w)
+    else:
+        wst = ctx.qstate.get(wname)
+        if wst is None or wst.get("alpha") is not None:
+            return None
+        qp_w = wst["qp"]
+    return int8_qat_linear(x, w, b, qp_x.delta, qp_x.zero_float,
+                           qp_w.delta.reshape(-1) if wc.per_channel
+                           else qp_w.delta, wc.spec.n_bits, wc.per_channel,
+                           False)
+
+
 def quant_linear(ctx, name: str, x: Tensor, w: Tensor, b: Optional[Tensor],
                  activation=None, input_site: Optional[str] = None) -> Tensor:
     """Quantized affine layer: quantize weight -> x @ W^T + b -> activation
@@ -138,7 +211,8 @@ def quant_linear(ctx, name: str, x: Tensor, w: Tensor, b: Optional[Tensor],
     weights and a per-tensor (or per-token) input site the matmul runs on
     the exact int8 path; with ``ctx.fused_linear`` and a per-tensor input
     site, through :func:`~.kernels.int_matmul.fused_int8_linear`, which
-    takes the input site's int8 payload where its producer emitted one."""
+    takes the input site's int8 payload where its producer emitted one.
+    A layer of ``ctx.int8_qat_sites`` takes :func:`_int8_qat_matmul`."""
     act = _resolve_act(activation)
     fast = _int8_fast_path(ctx, name, input_site)
     if fast is not None and fast[0].axis == x.ndim - 1:
@@ -161,6 +235,14 @@ def quant_linear(ctx, name: str, x: Tensor, w: Tensor, b: Optional[Tensor],
         y = IL.int8_linear(x_int8, s_x, shift, packed, b, act)
         y = y.to(x.dtype)
         return ctx.act(f"{name}.out", y)
+
+    if ctx.int8_qat_sites:
+        y = _int8_qat_matmul(ctx, name, x, w, b, input_site)
+        if y is not None:
+            y = y.to(x.dtype)
+            if act is not None:
+                y = act(y)
+            return ctx.act(f"{name}.out", y)
 
     w_q = _weight_from_int_or_fake(ctx, name, w).to(x.dtype)
     y = float_matmul(x, w_q.transpose(0, 1),
@@ -240,9 +322,12 @@ def quant_embedding(ctx, name: str, ids: Tensor, table: Tensor) -> Tensor:
 
 def dropout(x: Tensor, rate: float, generator: Optional[torch.Generator],
             deterministic: bool) -> Tensor:
-    """Inverted dropout; identity in eval mode."""
-    if deterministic or rate == 0.0 or generator is None:
+    """Inverted dropout drawing its mask from ``generator``; identity in
+    eval mode or at rate 0."""
+    if deterministic or rate == 0.0:
         return x
+    if generator is None:
+        raise ValueError("training dropout needs a torch.Generator")
     keep = 1.0 - rate
     mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
     return torch.where(mask, x / keep, torch.zeros_like(x))

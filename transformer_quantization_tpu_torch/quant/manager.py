@@ -10,11 +10,15 @@ returns the updated per-site state:
   ``(C,)``) at permuted PEG sites
 - weight sites: ``{"qp": QuantParams, "alpha": None}``
 
-Phases ``estimate``, ``fix`` and the PEG ``record_ranges`` pre-pass are
-ported, with every range estimator: the MSE and cross-entropy act sites
-take their estimators from an ``mse_session`` that persists across
-calibration batches. ``learn`` (QAT), AdaRound ``alpha`` and capture wait
-for the training slice and raise.
+Phases ``estimate``, ``fix``, ``learn`` and the PEG ``record_ranges``
+pre-pass are ported, with every range estimator: the MSE and
+cross-entropy act sites take their estimators from an ``mse_session``
+that persists across calibration batches. In ``learn`` (QAT with learned
+ranges) a site quantizes with its stored ``qp``, whose ``delta`` and
+``zero_float`` are the tensors the optimizer trains; range updates in
+``estimate`` read ``x.detach()``, as the JAX version's
+``stop_gradient``. AdaRound ``alpha`` and capture wait for their slice
+and raise.
 """
 
 from __future__ import annotations
@@ -62,7 +66,7 @@ def estimate_weight_qp(cfg: QuantSiteConfig, w: Tensor) -> Q.QuantParams:
             "MSE weight range estimation inside a forward; initialize "
             "weight ranges up front instead")
     xmin, xmax = R.reduce_min_max(
-        w, R.ReduceSpec(per_channel=cfg.per_channel),
+        w.detach(), R.ReduceSpec(per_channel=cfg.per_channel),
         rc.percentile if rc.method == R.RangeMethod.current_minmax else None)
     return Q.set_quant_range(cfg.spec, xmin, xmax)
 
@@ -112,6 +116,10 @@ class QuantCtx:
 
     ``mse_session``: the MSE / cross-entropy act sites' estimators by
     site name, kept across calibration batches by the caller.
+
+    ``int8_qat_sites``: layers whose QAT fake-quant matmul runs on int8
+    payloads (``training/int8_qat.py``; ``training/qat.py``
+    ``int8_forward_sites``).
     """
 
     def __init__(self, cfg: QuantModelConfig, qstate: Mapping[str, SiteState],
@@ -125,6 +133,7 @@ class QuantCtx:
         self.fused_linear = False
         self.int8_only_sites = frozenset()
         self.int8_handoffs: Dict[str, Tensor] = {}
+        self.int8_qat_sites = frozenset()
 
     def weight(self, name: str, w: Tensor) -> Tensor:
         if name not in self.cfg:
@@ -138,9 +147,7 @@ class QuantCtx:
             qp = estimate_weight_qp(cfg, w)
             self.qstate[name] = dict(self.qstate.get(name, {"alpha": None}),
                                      qp=qp)
-        elif phase == Phase.learn:
-            raise NotImplementedError("weight phase learn is not yet ported")
-        else:  # fix, and the record pre-pass: the stored params
+        else:  # fix, learn, and the record pre-pass: the stored params
             qp = self.qstate[name]["qp"]
         if self.qstate.get(name, {}).get("alpha") is not None:
             raise NotImplementedError("AdaRound weights are not yet ported")
@@ -155,8 +162,6 @@ class QuantCtx:
         if not (self.mode.act_quant and cfg.enabled):
             return x
         phase = self.mode.act_phase
-        if phase == Phase.learn:
-            raise NotImplementedError("act phase learn is not yet ported")
         if (phase == Phase.fix and cfg.axis is None
                 and name in self.requant_only_sites):
             return x

@@ -30,7 +30,8 @@ class Phase(enum.Enum):
     """Quantizer phase: ``estimate`` updates ranges from data then
     quantizes, ``fix`` quantizes with stored params, ``record_ranges``
     records per-channel dynamic ranges for the PEG permutation and passes
-    activations through. ``learn`` belongs to the training slice."""
+    activations through, ``learn`` quantizes with stored params whose
+    ``delta`` / ``zero_float`` are trained (QAT with learned ranges)."""
 
     estimate = "estimate"
     fix = "fix"

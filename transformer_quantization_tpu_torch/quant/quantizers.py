@@ -1,4 +1,4 @@
-"""Uniform quantizer math on torch tensors (forward only).
+"""Uniform quantizer math on torch tensors.
 
 Counterpart of ``transformer_quantization_tpu/quant/quantizers.py``:
 configuration in a hashable :class:`QuantizerSpec`, state (scale /
@@ -6,9 +6,12 @@ zero-point / signedness) in a :class:`QuantParams` dataclass of tensors.
 Every function repeats the JAX version's operations in the same order so
 the two agree bit for bit on the same float32 inputs.
 
-The straight-through / LSQ backward (``_fq_bwd`` in the JAX package)
-belongs to the training slice and is not here: these functions are for
-calibration and inference, and run under ``torch.no_grad`` in the port.
+:func:`fake_quant` carries the straight-through / LSQ backward of the
+JAX ``_fq_bwd`` as a :class:`torch.autograd.Function` (:class:`FakeQuant`)
+when a gradient is wanted (quantization-aware training); otherwise, as
+in calibration, inference and serving, it runs the same forward
+operations without building a graph. :func:`set_quant_range` returns
+detached params, as the JAX version's ``stop_gradient`` does.
 """
 
 from __future__ import annotations
@@ -110,7 +113,8 @@ def set_quant_range(spec: QuantizerSpec, x_min, x_max) -> QuantParams:
         zero_float = -x_min / delta
     if spec.scale_domain == "log":
         delta = torch.log(delta)
-    return QuantParams(delta=delta, zero_float=zero_float, signed=signed)
+    return QuantParams(delta=delta.detach(), zero_float=zero_float.detach(),
+                       signed=signed.detach())
 
 
 def broadcast_shape(rank: int, axis: int) -> Tuple[int, ...]:
@@ -143,13 +147,84 @@ def from_int(spec: QuantizerSpec, qp: QuantParams, x_int: Tensor) -> Tensor:
     return scale_of(spec, qp) * (x_int - zero_point_of(spec, qp))
 
 
-def fake_quant(spec: QuantizerSpec, qp: QuantParams, x: Tensor,
-               axis: Optional[int] = None) -> Tensor:
-    """Quantize-dequantize. bf16/f16 inputs are upcast to float32 for the
-    grid arithmetic and returned in their own dtype."""
+def _fake_quant_forward(spec: QuantizerSpec, qp: QuantParams, x: Tensor,
+                        axis: Optional[int]) -> Tensor:
     qpe = expand_qparams(qp, x.ndim, axis)
     orig = x.dtype
     if orig in (torch.bfloat16, torch.float16):
         x = x.to(torch.float32)
     y = from_int(spec, qpe, to_int(spec, qpe, x))
     return y.to(orig) if y.dtype != orig else y
+
+
+def fake_quant(spec: QuantizerSpec, qp: QuantParams, x: Tensor,
+               axis: Optional[int] = None) -> Tensor:
+    """Quantize-dequantize. bf16/f16 inputs are upcast to float32 for the
+    grid arithmetic and returned in their own dtype. When a gradient is
+    wanted for ``x``, ``qp.delta`` or ``qp.zero_float``, the result
+    carries the straight-through / LSQ backward (:class:`FakeQuant`)."""
+    if torch.is_grad_enabled() and (x.requires_grad or qp.delta.requires_grad
+                                    or qp.zero_float.requires_grad):
+        return FakeQuant.apply(qp.delta, qp.zero_float, qp.signed, x, spec,
+                               axis)
+    return _fake_quant_forward(spec, qp, x, axis)
+
+
+class FakeQuant(torch.autograd.Function):
+    """:func:`fake_quant` with the JAX ``_fq_bwd`` backward: ``g_x = g *
+    keep`` (the gradient on the closed grid interval, torch-clamp
+    semantics), ``g_delta = sum g * ((r - zp) - keep * x / s)`` through the
+    scale domain (a ``delta >= eps`` mask for linear, ``* exp(delta)`` for
+    log), ``g_zero_float = sum g * s * zkeep * (keep - 1)`` (zero for
+    symmetric quantizers), each reduced to its stored shape: a scalar, or
+    per channel along ``axis``. ``signed`` gets no gradient."""
+
+    @staticmethod
+    def forward(ctx, delta, zero_float, signed, x, spec, axis):
+        qp = QuantParams(delta=delta, zero_float=zero_float, signed=signed)
+        ctx.save_for_backward(delta, zero_float, signed, x)
+        ctx.spec, ctx.axis = spec, axis
+        return _fake_quant_forward(spec, qp, x, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        delta, zero_float, signed, x = ctx.saved_tensors
+        spec, axis = ctx.spec, ctx.axis
+        qp = QuantParams(delta=delta, zero_float=zero_float, signed=signed)
+        x32 = x.to(torch.float32)
+        g32 = g.to(torch.float32)
+        qpe = expand_qparams(qp, x.ndim, axis)
+        s = scale_of(spec, qpe)
+        zp = zero_point_of(spec, qpe)
+        int_min, int_max = int_min_max(spec, qpe.signed)
+        u = torch.round(x32 / s) + zp
+        keep = ((u >= int_min) & (u <= int_max)).to(torch.float32)
+        r = torch.clamp(u, int_min, int_max)
+        g_x = (g32 * keep).to(x.dtype)
+        g_s = g32 * ((r - zp) - keep * (x32 / s))
+        g_z_full = None
+        if not spec.symmetric:
+            # +zp inside the clamp (its own rounding and clamp keep), -zp
+            # in the dequantization
+            zr = torch.round(qpe.zero_float)
+            lo_z, hi_z = int_min_max(spec, zr)
+            zkeep = ((zr >= lo_z) & (zr <= hi_z)).to(torch.float32)
+            g_z_full = g32 * s * zkeep * (keep - 1.0)
+        if delta.ndim == 0:
+            def red(t):
+                return torch.sum(t)
+        else:
+            ax = 0 if axis is None else axis
+            axes = tuple(d for d in range(x.ndim) if d != ax)
+
+            def red(t):
+                return torch.sum(t, dim=axes)
+        g_d = red(g_s)
+        if spec.scale_domain == "linear":
+            g_d = g_d * (delta >= spec.eps).to(torch.float32)
+        else:
+            g_d = g_d * torch.exp(delta)
+        g_z = (torch.zeros_like(zero_float) if g_z_full is None
+               else red(g_z_full).reshape(zero_float.shape))
+        return (g_d.reshape(delta.shape), g_z, None,
+                g_x if ctx.needs_input_grad[3] else None, None, None)

@@ -8,7 +8,8 @@ after initializing every weight site from its own tensor; for permuted
 PEG sites, first the full-precision pre-pass that records per-channel
 ranges and fixes the permutations. :func:`prepare_quantized_model` also
 gives dynamic (unfixed) act ranges, and :data:`CLI_RECIPES` holds the JAX
-CLI's PTQ presets.
+CLI's PTQ presets and the calibration of its ``qat-w4a8`` recipe (whose
+training options are ``training/trainer.py`` ``QAT_RECIPES``).
 """
 
 from __future__ import annotations
@@ -173,16 +174,18 @@ MINMAX_RECIPES = {
 
 @dataclasses.dataclass(frozen=True)
 class Recipe:
-    """One PTQ preset of the JAX CLI: the site defaults, the quant_dict,
-    the PEG shared-h permutation, the classifier's ``quant_setup`` and
-    the sequences of its one calibration batch (``est_batch_size``,
-    trimmed to their real length)."""
+    """One calibration preset of the JAX CLI: the site defaults, the
+    quant_dict, the PEG shared-h permutation, the classifier's
+    ``quant_setup`` and the sequences of its one calibration batch
+    (``est_batch_size``, trimmed to their real length unless
+    ``est_pad``)."""
 
     defaults: QuantDefaults
     quant_dict: Mapping
     shared_h: bool = False
     quant_setup: str = "all"
     est_batch_size: int = 1
+    est_pad: bool = False
 
 
 def cli_w8a8_defaults() -> QuantDefaults:
@@ -201,9 +204,18 @@ def cli_w8a8_defaults() -> QuantDefaults:
                          act_momentum=0.9, act_num_candidates=100)
 
 
+def cli_w4a8_qat_defaults() -> QuantDefaults:
+    """The CLI's ``qat-w4a8`` calibration: symmetric 4-bit weights with MSE
+    golden-section ranges, asymmetric 8-bit activations with
+    current-minmax ranges (the other options at the CLI's defaults)."""
+    return dataclasses.replace(cli_w8a8_defaults(), n_bits=4, n_bits_act=8)
+
+
 # a copy of the JAX CLI's ``RECIPES`` PTQ presets and ``apply_recipe``'s
 # STS-B variant of the mixed one (pooler and classifier sites 16-bit, the
-# classifier output's range by MSE golden section)
+# classifier output's range by MSE golden section), and the calibration of
+# its ``qat-w4a8`` recipe: one estimation batch of 16 sequences padded to
+# their full length
 CLI_RECIPES = {
     "w8a8": Recipe(cli_w8a8_defaults(), {}),
     "w8a8-mixed": Recipe(cli_w8a8_defaults(), {"y": 16, "h": 16, "x": 16}),
@@ -214,6 +226,8 @@ CLI_RECIPES = {
     "w8a8-peg": Recipe(cli_w8a8_defaults(),
                        {"y": "ngp6", "h": "ngp6", "x": "ngp6"},
                        shared_h=True),
+    "qat-w4a8": Recipe(cli_w4a8_qat_defaults(), {}, est_batch_size=16,
+                       est_pad=True),
 }
 
 

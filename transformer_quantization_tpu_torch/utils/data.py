@@ -4,9 +4,10 @@ Counterpart of the tokenizer half of ``transformer_quantization_tpu/
 utils/data.py``: the special token ids, the deterministic word-hash
 tokenizer that stands in offline, and :func:`load_tokenizer` (the native
 WordPiece over a local ``vocab.txt``, else a local HF tokenizer, else the
-stand-in). The HF tokenizer adapter and the GLUE encoding and batching
-(``encode_examples``, ``batch_iterator``, ``trim_to_real_length``) are
-not yet ported (ROADMAP §1 item 8).
+stand-in), and the GLUE encoding and batching (:func:`encode_examples`,
+:func:`trim_to_real_length`, :func:`batch_iterator`, whose
+``np.random.RandomState`` shuffle gives the JAX package's batch order).
+The HF tokenizer adapter is not yet ported (ROADMAP §1 item 8).
 """
 
 from __future__ import annotations
@@ -14,7 +15,11 @@ from __future__ import annotations
 import hashlib
 import logging
 import os
-from typing import Optional
+from typing import Dict, Iterator, List, Optional
+
+import numpy as np
+
+from transformer_quantization_tpu_torch.utils.glue import GlueTask
 
 PAD_ID, UNK_ID, CLS_ID, SEP_ID = 0, 1, 2, 3
 
@@ -73,3 +78,77 @@ def load_tokenizer(model_path: Optional[str], vocab_size: int = 30522):
                 f"{model_path} holds a HF tokenizer; the HF tokenizer "
                 "adapter is not yet ported (ROADMAP §1 item 8)")
     return SyntheticTokenizer(vocab_size)
+
+
+def encode_examples(tokenizer, task: GlueTask, examples: List[Dict],
+                    max_len: int = 128) -> Dict[str, np.ndarray]:
+    """Tokenize a split into fixed-shape arrays (+labels)."""
+    ids, types, masks, labels = [], [], [], []
+    k = task.sentence_keys
+    for ex in examples:
+        a = ex[k[0]]
+        b = ex[k[1]] if len(k) > 1 else None
+        i, t, m = tokenizer.encode_pair(a, b, max_len)
+        ids.append(i)
+        types.append(t)
+        masks.append(m)
+        labels.append(ex["label"])
+    label_dtype = np.float32 if task.num_labels == 1 else np.int32
+    return {
+        "input_ids": np.asarray(ids, np.int32),
+        "token_type_ids": np.asarray(types, np.int32),
+        "attention_mask": np.asarray(masks, np.float32),
+        "labels": np.asarray(labels, label_dtype),
+    }
+
+
+def trim_to_real_length(batch: Dict[str, np.ndarray],
+                        multiple: int = 1) -> Dict[str, np.ndarray]:
+    """Trim (B, T) arrays to the batch's longest real sequence.
+
+    The reference's ``--est-ranges-no-pad`` tokenizes calibration batches
+    with dynamic padding so PAD tokens never enter range estimation
+    (transformer_click_options.py:405-410, main.py:504-510). Calibration
+    here is eager, so per-batch shapes are fine; ``multiple`` optionally
+    rounds the length up (e.g. to 8) to bound the shape count.
+    """
+    mask = batch.get("attention_mask")
+    if mask is None:
+        return batch
+    t = int(np.max(np.sum(np.asarray(mask) > 0, axis=1)))
+    t = max(1, -(-t // multiple) * multiple)
+    out = {}
+    for k, v in batch.items():
+        v = np.asarray(v)
+        out[k] = v[:, :t] if v.ndim == 2 and v.shape[1] == mask.shape[1] else v
+    return out
+
+
+def batch_iterator(arrays: Dict[str, np.ndarray], batch_size: int,
+                   shuffle: bool = False, rng: Optional[np.random.RandomState]
+                   = None, drop_last: bool = False,
+                   pad_final: bool = False) -> Iterator[Dict[str, np.ndarray]]:
+    """Fixed-size batches. ``pad_final`` repeats rows to fill the last batch
+    and adds an ``example_mask`` so metrics can ignore the padding — keeps
+    every step on one compiled shape."""
+    n = len(arrays["input_ids"])
+    idx = np.arange(n)
+    if shuffle:
+        (rng or np.random).shuffle(idx)
+    for start in range(0, n, batch_size):
+        take = idx[start:start + batch_size]
+        if len(take) < batch_size:
+            if drop_last:
+                return
+            if pad_final:
+                pad = np.zeros(batch_size - len(take), np.int64)
+                full = np.concatenate([take, pad])
+                batch = {k: v[full] for k, v in arrays.items()}
+                em = np.zeros(batch_size, np.float32)
+                em[: len(take)] = 1.0
+                batch["example_mask"] = em
+                yield batch
+                return
+        batch = {k: v[take] for k, v in arrays.items()}
+        batch["example_mask"] = np.ones(len(take), np.float32)
+        yield batch
