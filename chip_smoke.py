@@ -181,6 +181,32 @@ Phases (any failure exits non-zero; nothing is caught):
    batches through ``bert_engine_apply`` (48 / 12 / 24 launches a forward,
    logits against the plain engine), the engine's logits against the
    fake-quant forward's by the same gate, and engine seq/s.
+14. AdaRound: the JAX CLI's ``w4-adaround`` recipe (``CAL.
+   ADAROUND_RECIPES``) at BERT-base width and depth from ``--seed``'s
+   params on synthetic RTE examples, cut to ``ADAROUND_SAMPLES`` samples
+   and ``ADAROUND_ITERS`` iterations a layer (each cut printed beside the
+   preset's value): the 4-bit MSE-grid weight calibration, AdaRound over
+   all 102 layer specs with the optimizer loop held to never wait on the
+   host (``torch.cuda.set_sync_debug_mode('error')``), the capture
+   seconds, ms an iteration by layer shape (the median from iteration
+   ``ADAROUND_TIMED_FROM``), the full preset's time extrapolated (an
+   estimate), the layers whose hard local loss fell, the W4A32 accuracy
+   on the fake-quant forward (``adaround_multi_eval``); then post_adaround
+   8-bit asymmetric act ranges on one batch of 16 trimmed to its real
+   length (the recipe's ``est_pad=False``), the alphas packed as
+   int8 storage of their 4-bit levels (each equal to its hard-alpha
+   fake-quant weight bit for bit) and planned: K1, K2 and K3 on layer 0
+   against their plain versions bit for bit, three request batches
+   through ``bert_engine_apply`` (48 / 12 / 24 launches a forward, logits
+   against the plain engine), the gaps between the engine, the generic
+   int path and the hard-alpha fake-quant forward by the rule the JAX
+   package's routes keep at 12 layers (``ADAROUND_ROUTE_RATIO``, from
+   tests/test_torch_adaround_depth.py: the engine's gaps within that
+   many times the generic int path's, and the AdaRound model's within
+   that many times the nearest-rounding model's; at most
+   ``ADAROUND_MAX_CLIPPED`` of the logits at an end of the classifier.out
+   grid, where every route agrees), and engine seq/s. Phase 13's logit
+   comparisons print that share too.
 
 The last lines are the kernels JSON (times per encoder layer: the sum
 over that layer's launches of each kernel; the flex kernels' top-level
@@ -201,7 +227,8 @@ the W4A8 engine's and generic path's per layer, the first with K1 int8's
 ms on the unpacked weights (``int8_ms``) and the M = 256 sum under
 ``variants``, the second with the pooler there; ``launches`` sums the
 three runs of every path, ``launches_by_path`` splits them (``qat-w4a8``:
-phase 13's trained model on the W4A8 engine); the serving paths
+phase 13's trained model on the W4A8 engine; ``adaround-w4a8``: phase
+14's AdaRound model on the all-int8 engine); the serving paths
 ``serve-bert`` / ``serve-mobilebert`` count the launches the wrappers
 made while their buckets were captured, ``serve-bert-eager`` those of
 the eager loop), the
@@ -234,12 +261,15 @@ from transformer_quantization_tpu_torch.ops import layers as LY
 from transformer_quantization_tpu_torch.ops.kernels import build as KB
 from transformer_quantization_tpu_torch.ops.kernels import engine_kernels as EK
 from transformer_quantization_tpu_torch.ops.kernels import int_matmul as IM
+from transformer_quantization_tpu_torch.quant import adaround as AR
 from transformer_quantization_tpu_torch.quant import quantizers as Q
 from transformer_quantization_tpu_torch.quant import ranges as R
+from transformer_quantization_tpu_torch.quant.manager import reset_act_ranges
 from transformer_quantization_tpu_torch.quant.qconfig import QuantMode
 from transformer_quantization_tpu_torch.serving import engine as SE
 from transformer_quantization_tpu_torch.serving import graphs as SG
 from transformer_quantization_tpu_torch.serving import server as SVS
+from transformer_quantization_tpu_torch.training import adaround_driver as AD
 from transformer_quantization_tpu_torch.training import calibration as CAL
 from transformer_quantization_tpu_torch.training import int8_qat as TI
 from transformer_quantization_tpu_torch.training import trainer as TT
@@ -2559,15 +2589,27 @@ QAT_EXAMPLES = 8 * 48
 QAT_LOGIT_LEVELS, QAT_LOGIT_FRAC = 2, 0.1
 
 
-def logit_levels(got, want, step, name) -> None:
+def grid_end_frac(logits, spec, qp) -> float:
+    """The share of ``logits`` whose level on the classifier.out grid is
+    its smallest or largest: a clipped logit agrees across routes
+    whatever came before it."""
+    lv = Q.to_int(spec, qp, logits)
+    lo, hi = Q.int_min_max(spec, qp.signed)
+    return float(((lv == lo) | (lv == hi)).float().mean())
+
+
+def logit_levels(got, want, step, name, ends=None) -> None:
     """Two routes' logits on the classifier.out grid of ``step``: fails
     beyond ``QAT_LOGIT_LEVELS`` levels or past ``QAT_LOGIT_FRAC`` of them
-    off."""
+    off. ``ends``, when given, is the share of ``want`` at an end of the
+    grid, printed beside."""
     diff = ((got - want).abs() / step).float()
     frac = float((diff > 0.5).float().mean())
     print(f"  {name}: max |diff| {float((got - want).abs().max()):.4e} = "
           f"{float(diff.max()):.2f} levels of classifier.out (step "
-          f"{float(step):.4e}); {frac:.4f} of {diff.numel()} logits off")
+          f"{float(step):.4e}); {frac:.4f} of {diff.numel()} logits off"
+          + ("" if ends is None else
+             f"; {ends:.4f} of them at an end of the grid"))
     if not torch.isfinite(got).all():
         fail(f"{name}: non-finite logits")
     if float(diff.max()) > QAT_LOGIT_LEVELS + 0.01 or frac > QAT_LOGIT_FRAC:
@@ -2627,42 +2669,43 @@ def qat_train(apply_fn, params, task, arrays, tcfg, qcfg, qstate, qat,
     return out, losses, ms
 
 
-def check_qat_engine_kernels(params, cfg, qcfg, qstate, int4, static, plan,
-                             batch, dev) -> None:
-    """K1 w4 (layer 0's four matmuls), K2 and K3 (both add+LNs) on the
-    trained W4A8 engine's layer-0 payloads, each against its plain
-    version, bit for bit."""
-    h, mask = entry_value(params, cfg, qcfg, qstate, int4, batch, dev)
+def check_layer0_kernels(tag, params, cfg, qcfg, qstate, int_params, static,
+                         plan, batch, dev, w4) -> None:
+    """K1 (layer 0's four matmuls; the packed int4 instance with ``w4``),
+    K2 and K3 (both add+LNs) on an engine's layer-0 payloads, each against
+    its plain version, bit for bit."""
+    h, mask = entry_value(params, cfg, qcfg, qstate, int_params, batch, dev)
     es = plan["entry_scal"]
     x8 = EK.quantize_payload(h.reshape(BATCH * SEQ, -1), es[0, 0], es[0, 1])
     lp = plan["layers"][0]
     akw = dict(n_heads=cfg.num_attention_heads, seq=SEQ,
                skip_max=static.attn_skip_max)
     eps = static.ln_eps
-    qkv = lambda f: f(x8, *_mm(lp["qkv"]), w4=True)
+    k1 = f"{tag} K1" + (" w4" if w4 else "")
+    qkv = lambda f: f(x8, *_mm(lp["qkv"]), w4=w4)
     qkv8 = qkv(EK.int8_matmul_ref)
-    compare(qkv(EK.int8_matmul), qkv8, "qat-w4a8 K1 w4 qkv")
+    compare(qkv(EK.int8_matmul), qkv8, f"{k1} qkv")
     c8 = EK.int8_attention_ref(qkv8, mask, lp["attn_scal"], **akw)
     compare(EK.int8_attention(qkv8, mask, lp["attn_scal"], **akw), c8,
-            "qat-w4a8 K2")
-    ao = lambda f: f(c8, *_mm(lp["attn_out"]), w4=True)
+            f"{tag} K2")
+    ao = lambda f: f(c8, *_mm(lp["attn_out"]), w4=w4)
     y8 = ao(EK.int8_matmul_ref)
-    compare(ao(EK.int8_matmul), y8, "qat-w4a8 K1 w4 attn_out")
+    compare(ao(EK.int8_matmul), y8, f"{k1} attn_out")
     ln1 = EK.fold_ln_scalars(lp["attn_out"]["vecs"], lp["ln1"]["scal"])
     hx8 = EK.fused_add_ln_payload_ref(y8, x8, lp["ln1"]["gb"], ln1, eps=eps)
     compare(EK.fused_add_ln_payload(y8, x8, lp["ln1"]["gb"], ln1, eps=eps),
-            hx8, "qat-w4a8 K3 ln1")
+            hx8, f"{tag} K3 ln1")
     inter = lambda f: f(hx8, *_mm(lp["inter"]), activation="gelu_new",
-                        w4=True)
+                        w4=w4)
     i8 = inter(EK.int8_matmul_ref)
-    compare(inter(EK.int8_matmul), i8, "qat-w4a8 K1 w4 inter")
-    dense = lambda f: f(i8, *_mm(lp["dense"]), w4=True)
+    compare(inter(EK.int8_matmul), i8, f"{k1} inter")
+    dense = lambda f: f(i8, *_mm(lp["dense"]), w4=w4)
     d8 = dense(EK.int8_matmul_ref)
-    compare(dense(EK.int8_matmul), d8, "qat-w4a8 K1 w4 dense")
+    compare(dense(EK.int8_matmul), d8, f"{k1} dense")
     ln2 = EK.fold_ln_scalars(lp["dense"]["vecs"], lp["ln2"]["scal"])
     compare(EK.fused_add_ln_payload(d8, hx8, lp["ln2"]["gb"], ln2, eps=eps),
             EK.fused_add_ln_payload_ref(d8, hx8, lp["ln2"]["gb"], ln2,
-                                        eps=eps), "qat-w4a8 K3 ln2")
+                                        eps=eps), f"{tag} K3 ln2")
 
 
 def qat_phase(params, batches, by_path, seed, dev, kind, smi) -> None:
@@ -2730,26 +2773,353 @@ def qat_phase(params, batches, by_path, seed, dev, kind, smi) -> None:
         flt = apply_fn(p2, b0, qcfg=qcfg, qstate=q2)[0]["logits"]
         i8 = apply_fn(p2, b0, qcfg=qcfg, qstate=q2,
                       int8_qat_sites=qat.int8_sites)[0]["logits"]
+    ends = grid_end_frac(flt, qcfg["classifier.out"].spec,
+                         q2["classifier.out"]["qp"])
     logit_levels(i8, flt, step, "[qat-w4a8] int8 QAT forward vs float "
-                 "fake-quant forward")
+                 "fake-quant forward", ends)
 
     int4 = B.build_bert_int_params(p2, qcfg, q2, use_int4=True)
     static, plan, _ = B.build_bert_engine(p2, cfg, qcfg, q2, int_params=int4,
                                           device=dev)
     if not all(all(f) for f in static.w4):
         fail(f"qat-w4a8: the engine's matmuls are not all int4: {static.w4}")
-    check_qat_engine_kernels(p2, cfg, qcfg, q2, int4, static, plan, b0, dev)
+    check_layer0_kernels("qat-w4a8", p2, cfg, qcfg, q2, int4, static, plan,
+                         b0, dev, w4=True)
     eng = bert_runner(p2, cfg, qcfg, q2, static, plan, int4, dev)
     by_path["qat-w4a8"] = drive_path(
         "qat-w4a8", eng, cfg, batches,
         per_forward(int8_matmul_w4=4 * L, int8_attention=L,
                     fused_add_ln_payload=2 * L))
     logit_levels(eng(b0, "kernels")["logits"], flt, step,
-                 "[qat-w4a8] W4A8 engine vs the fake-quant forward")
+                 "[qat-w4a8] W4A8 engine vs the fake-quant forward", ends)
     t_eng = window_ms(lambda: eng(b0, "kernels"))
     print(f"  [qat-w4a8] seq/s at B={BATCH}, S={SEQ}, median (range) of 5 "
           f"windows ({kind}, {smi}): trained W4A8 engine {seq_per_s(t_eng)} "
           f"(forward {t_eng[0]:.3f} ms)")
+
+
+# phase 14: the JAX CLI's w4-adaround recipe (CAL.ADAROUND_RECIPES), cut to
+# ADAROUND_SAMPLES samples and ADAROUND_ITERS iterations a layer, on
+# synthetic RTE examples; per-iteration times from ADAROUND_TIMED_FROM on
+ADAROUND_SAMPLES, ADAROUND_ITERS, ADAROUND_TIMED_FROM = 64, 200, 10
+ADAROUND_EVAL = 128
+# the largest ratio between two of a model's route gaps, and between the
+# AdaRound model's gap and the nearest-rounding model's
+# (tests/test_torch_adaround_depth.py's ROUTE_RATIO)
+ADAROUND_ROUTE_RATIO = 2.0
+# the most of the fake-quant logits that may sit at an end of the
+# classifier.out grid, where every route agrees whatever came before
+ADAROUND_MAX_CLIPPED = 0.5
+# a layer's shape class, for the per-iteration times
+ADAROUND_SHAPES = (("768x768", ("attn.q", "attn.k", "attn.v",
+                                "attn_out.dense", "pooler.dense")),
+                   ("768x3072 gelu", ("ffn.inter",)),
+                   ("3072x768", ("ffn.dense",)),
+                   ("word table", ("emb.word",)),
+                   ("LayerNorm", ("ln",)))
+
+
+def adaround_shape(name: str) -> str:
+    for label, keys in ADAROUND_SHAPES:
+        if any(name.endswith(k) for k in keys):
+            return label
+    return "other"
+
+
+class AdaRoundClock:
+    """Wraps ``AR.optimize_layer_rounding`` and ``AD._capture_layer_io``
+    (the driver calls both through their modules) while AdaRound runs:
+    the capture seconds (synchronized) and each layer's optimizer
+    iterations on CUDA events. The loop runs ``layer_apply`` once a step,
+    then four times for the local losses, so an event is recorded as each
+    call starts: the first ``iters + 1`` events bound the ``iters``
+    steps. From the start of step 1 to the end of the last step
+    ``torch.cuda.set_sync_debug_mode('error')`` makes any synchronizing
+    call in the loop raise."""
+
+    def __init__(self):
+        self.capture_s = 0.0
+        self.captures = 0
+        self.step_ms = []
+
+    def __enter__(self):
+        self.real = AR.optimize_layer_rounding, AD._capture_layer_io
+
+        def capture(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = self.real[1](*a, **k)
+            torch.cuda.synchronize()
+            self.capture_s += time.perf_counter() - t0
+            self.captures += 1
+            return out
+
+        def optimize(layer_apply, spec, qp, w, inp, out, cfg, **k):
+            events = []
+
+            def timed_apply(w_q, x):
+                t = len(events)
+                if t <= cfg.iters:
+                    ev = torch.cuda.Event(enable_timing=True)
+                    ev.record()
+                    events.append(ev)
+                if t == 1:
+                    torch.cuda.set_sync_debug_mode("error")
+                elif t == cfg.iters:
+                    torch.cuda.set_sync_debug_mode(0)
+                return layer_apply(w_q, x)
+            try:
+                res = self.real[0](timed_apply, spec, qp, w, inp, out, cfg,
+                                   **k)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            torch.cuda.synchronize()
+            if len(events) != cfg.iters + 1:
+                fail(f"adaround clock: {len(events)} layer calls seen, "
+                     f"expected {cfg.iters + 1}")
+            self.step_ms.append([a.elapsed_time(b)
+                                 for a, b in zip(events, events[1:])])
+            return res
+
+        AR.optimize_layer_rounding, AD._capture_layer_io = optimize, capture
+        return self
+
+    def __exit__(self, *exc):
+        AR.optimize_layer_rounding, AD._capture_layer_io = self.real
+
+
+def decisions_off_nearest(qcfg, qstate, tensors, names) -> tuple:
+    """(hard decisions that differ from round-to-nearest, entries) over the
+    weight sites ``names`` (the engine deploys those sites' nearest
+    rounding, as the JAX package does)."""
+    off = total = 0
+    for n in names:
+        st, c = qstate[n], qcfg[n]
+        w = tensors[n]
+        hard = Q.adaround_fake_quant(Q.AdaRoundMode.learned_hard_sigmoid,
+                                     c.spec, st["qp"], w, st["alpha"],
+                                     soft=False)
+        off += int((hard != Q.fake_quant(c.spec, st["qp"], w)).sum())
+        total += w.numel()
+    return off, total
+
+
+def adaround_phase(params, batches, by_path, seed, dev, kind, smi) -> None:
+    """Phase 14: the JAX CLI's ``w4-adaround`` at BERT-base width and depth
+    from ``seed``'s params on synthetic RTE examples, cut to
+    ``ADAROUND_SAMPLES`` samples and ``ADAROUND_ITERS`` iterations: the
+    weight calibration, AdaRound over all 102 layer specs (capture
+    seconds, ms an optimizer iteration by layer shape, the full preset's
+    time extrapolated, the layers whose hard local loss fell), the W4A32
+    score on the fake-quant forward; then post_adaround 8-bit asymmetric
+    act ranges on one batch of 16, the alphas packed as int8 storage of
+    their 4-bit levels and planned: K1, K2 and K3 on layer 0 against their
+    plain versions bit for bit, three request batches through
+    ``bert_engine_apply`` (48 / 12 / 24 launches a forward, logits against
+    the plain engine), the gaps between the engine, the generic int path
+    and the hard-alpha fake-quant forward by ``ADAROUND_ROUTE_RATIO``,
+    and engine seq/s."""
+    rec, arc0 = CAL.ADAROUND_RECIPES["w4-adaround"]
+    arc = dataclasses.replace(arc0, num_samples=ADAROUND_SAMPLES,
+                              iters=ADAROUND_ITERS)
+    print(f"  cuts of the preset: num_samples {arc.num_samples} (preset "
+          f"{arc0.num_samples}), iters {arc.iters} (preset {arc0.iters}); "
+          f"kept: init {arc.init.name}, mode {arc.round_mode.name}, "
+          f"minibatch {arc.batch_size}, lr {arc.lr}, annealing "
+          f"{arc.annealing} {arc.decay_type.name}, warmup {arc.warmup}, "
+          f"{arc.act_quant_mode.name}")
+    cfg = B.BertConfig()
+    task = GL.TASKS["rte"]
+    tok = DATA.SyntheticTokenizer(cfg.vocab_size)
+    train = DATA.encode_examples(tok, task, GL.synthetic_examples(
+        task, "train", ADAROUND_SAMPLES, seed=seed), SEQ)
+    val = DATA.encode_examples(tok, task, GL.synthetic_examples(
+        task, "validation", ADAROUND_EVAL, seed=seed), SEQ)
+    qcfg = B.declare_bert_sites(rec.defaults, cfg,
+                                quant_setup=rec.quant_setup)
+    apply_fn = functools.partial(B.bert_apply, cfg=cfg, device=dev)
+    tensors = B.bert_weight_site_tensors(params)
+    est = [DATA.trim_to_real_length(
+        {k: v for k, v in b.items() if k not in ("labels", "example_mask")})
+        for b in DATA.batch_iterator(train, rec.est_batch_size,
+                                     drop_last=True)][:1]
+    (q0, _), t_cal = timed_s(lambda: CAL.prepare_quantized_model(
+        apply_fn, params, qcfg, est, weight_tensors=tensors,
+        act_quant=rec.act_quant, device=dev))
+    print(f"  weight calibration (MSE grid, "
+          f"{rec.defaults.weight_num_candidates} candidates, 4-bit "
+          f"symmetric): {t_cal:.3f} s", flush=True)
+    specs = B.bert_adaround_specs(params, cfg)
+    stats = []
+    with AdaRoundClock() as clock:
+        q_ar, t_ar = timed_s(lambda: AD.apply_adaround_to_model(
+            apply_fn, params, qcfg, q0, specs,
+            list(DATA.batch_iterator(train, arc.batch_size, drop_last=True)),
+            arc, batch_size=arc.batch_size, seed=seed, stats_out=stats,
+            device=dev))
+    if len(stats) != len(specs) or len(specs) != 8 * cfg.num_hidden_layers + 6:
+        fail(f"adaround: {len(stats)} layers optimized of {len(specs)} specs")
+    if len(clock.step_ms) != len(specs) or clock.captures != len(specs):
+        fail(f"adaround clock: {len(clock.step_ms)} loops and "
+             f"{clock.captures} captures timed for {len(specs)} specs")
+    fell = sum(s["loss_hard_after"] < s["loss_hard_before"] for _, s in stats)
+    if not all(np.isfinite(list(s.values())).all() for _, s in stats):
+        fail("adaround: non-finite local losses")
+    by_shape = {}
+    layer_ms = []
+    for i, (name, _) in enumerate(stats):
+        ms = clock.step_ms[i][ADAROUND_TIMED_FROM - 1:]
+        layer_ms.append(float(np.median(ms)))
+        by_shape.setdefault(adaround_shape(name), []).extend(ms)
+    print(f"  [w4-adaround] {len(specs)} layers, {ADAROUND_SAMPLES} samples, "
+          f"{ADAROUND_ITERS} iterations a layer ({kind}, {smi}): {t_ar:.1f} s"
+          f", of it capture {clock.capture_s:.1f} s; the loop never waited on "
+          f"the host (sync debug mode 'error' from step 1 to the last)",
+          flush=True)
+    for label, ms in by_shape.items():
+        print(f"    ms an iteration, {label}: {float(np.median(ms)):.3f} "
+              f"(median of iterations {ADAROUND_TIMED_FROM}-{ADAROUND_ITERS}"
+              f", {len(ms)} of them)")
+    est_s = (sum(layer_ms) * arc0.iters / 1e3
+             + clock.capture_s * arc0.num_samples / ADAROUND_SAMPLES)
+    print(f"    estimate, not measured: the full preset ({arc0.iters} "
+          f"iterations x {len(specs)} layers, {arc0.num_samples} samples) "
+          f"{est_s:.0f} s = {est_s / 60:.1f} min (each layer's median ms an "
+          f"iteration x {arc0.iters}, capture scaled by the samples)")
+    print(f"    hard local loss fell in {fell} of {len(stats)} layers")
+    if fell == 0:
+        fail("adaround: no layer's hard local loss fell")
+
+    def score(qs, mode):
+        m = TT.evaluate(apply_fn, params, qs, task, val, qcfg=qcfg,
+                        mode=mode)
+        return m[task.final_metric], m
+    fp_score = score({}, QuantMode(weight_quant=False, act_quant=False))[0]
+    w4, det = AD.adaround_multi_eval(
+        apply_fn, params, qcfg, q_ar, eval_fn=score, est_arrays=train,
+        act_quant_mode=arc.act_quant_mode, act_quant=rec.act_quant,
+        est_pad=rec.est_pad, log_fn=lambda s: None, device=dev)
+    nearest = score(q0, QuantMode(act_quant=False))[0]
+    print(f"  [w4-adaround] {task.final_metric} on {ADAROUND_EVAL} synthetic "
+          f"validation examples (random weights: chance): W4A32 fake-quant "
+          f"{w4:.4f} (nearest rounding {nearest:.4f}, float {fp_score:.4f})")
+
+    # post_adaround: 8-bit asymmetric act ranges on one batch of 16,
+    # trimmed to its real length as the recipe's est_pad=False asks
+    b16 = DATA.trim_to_real_length(
+        {k: v for k, v in next(DATA.batch_iterator(
+            train, 16, drop_last=True)).items()
+         if k not in ("labels", "example_mask")})
+    qs = CAL.calibrate_model(apply_fn, params, qcfg, [b16],
+                             act_quant=True, device=dev,
+                             qstate=reset_act_ranges(qcfg, q_ar))
+    int_params = B.build_bert_int_params(params, qcfg, qs, use_int4=True)
+    lin = [n for n, p in int_params.items() if "w_int" in p]
+    if (any("w_packed" in p for p in int_params.values())
+            or any(int_params[n]["n_bits"] != 4 for n in lin)):
+        fail("adaround: an alpha site did not pack as int8 storage of 4-bit "
+             "levels")
+    for n in lin:
+        want = Q.adaround_fake_quant(
+            Q.AdaRoundMode.learned_hard_sigmoid, qcfg[n + ".w"].spec,
+            qs[n + ".w"]["qp"], tensors[n + ".w"], qs[n + ".w"]["alpha"],
+            soft=False)
+        if not torch.equal(IL.dequantize_packed_weight(int_params[n]), want):
+            fail(f"adaround: {n}'s packed levels are not its hard decisions")
+    print(f"  [adaround-w4a8] {len(lin)} matmul weights packed as int8 "
+          f"storage of their 4-bit levels, each equal to its hard-alpha "
+          f"fake-quant weight bit for bit")
+    static, plan, _ = B.build_bert_engine(params, cfg, qcfg, qs,
+                                          int_params=int_params, device=dev)
+    if any(any(f) for f in static.w4) or not all(static.int8_layer):
+        fail(f"adaround: the engine is not all-int8: w4 {static.w4}, "
+             f"int8 {static.int8_layer}")
+    b0 = batches[0]
+    check_layer0_kernels("adaround-w4a8", params, cfg, qcfg, qs, int_params,
+                         static, plan, b0, dev, w4=False)
+    L = cfg.num_hidden_layers
+    eng = bert_runner(params, cfg, qcfg, qs, static, plan, int_params, dev)
+    by_path["adaround-w4a8"] = drive_path(
+        "adaround-w4a8", eng, cfg, batches,
+        per_forward(int8_matmul=4 * L, int8_attention=L,
+                    fused_add_ln_payload=2 * L))
+    off, total = decisions_off_nearest(
+        qcfg, qs, tensors, [n for n in tensors if n.startswith("emb.")
+                            or n.endswith("ln.w")])
+    print(f"  [adaround-w4a8] the embedding tables and LayerNorm gammas pack "
+          f"round-to-nearest (the JAX package's packing): {off} of {total} "
+          f"of their hard decisions differ from it")
+    # the engine against the hard-alpha fake-quant forward. At 12 layers
+    # no two of a model's routes (engine, generic int path, fake-quant
+    # forward) meet phase 13's gate, in the JAX package as in the port: a
+    # rounding-order level flip spreads through its sequence (ROADMAP,
+    # "Parity contract"). tests/test_torch_adaround_depth.py holds the
+    # port's engine to the JAX engine there and records JAX's own three
+    # gaps, which keep within ADAROUND_ROUTE_RATIO of each other, with
+    # and without alphas; the gate here is that rule, in logit units: the
+    # engine's gaps to the fake-quant forward and to the generic int path
+    # at most ADAROUND_ROUTE_RATIO times the generic int path's gap to the
+    # fake-quant forward, and the AdaRound model's three gaps at most
+    # ADAROUND_ROUTE_RATIO times those of the same model at nearest
+    # rounding (the same act calibration)
+    gaps = {}
+    for tag, qs_, ip_ in (("adaround", qs, int_params),
+                          ("nearest", None, None)):
+        if qs_ is None:
+            qs_ = CAL.calibrate_model(apply_fn, params, qcfg, [b16],
+                                      act_quant=True, device=dev,
+                                      qstate=reset_act_ranges(qcfg, q0))
+            ip_ = B.build_bert_int_params(params, qcfg, qs_)
+            st_, pl_, _ = B.build_bert_engine(params, cfg, qcfg, qs_,
+                                              int_params=ip_, device=dev)
+            run = bert_runner(params, cfg, qcfg, qs_, st_, pl_, ip_, dev)
+        else:
+            run = eng
+        spec, qp = qcfg["classifier.out"].spec, qs_["classifier.out"]["qp"]
+        step = float(Q.scale_of(spec, qp))
+        with torch.no_grad():
+            flt = apply_fn(params, b0, qcfg=qcfg, qstate=qs_)[0]["logits"]
+            gen = apply_fn(params, b0, qcfg=qcfg, qstate=qs_,
+                           int_params=ip_)[0]["logits"]
+        got = run(b0, "kernels")["logits"]
+        ends = grid_end_frac(flt, spec, qp)
+        print(f"  [adaround-w4a8] {tag} model: logit scale "
+              f"{float(flt.abs().max()):.4e}, classifier.out step "
+              f"{step:.4e}, {ends:.4f} of the fake-quant logits at an end "
+              f"of its grid")
+        if ends > ADAROUND_MAX_CLIPPED:
+            fail(f"adaround-w4a8 {tag}: {ends:.4f} of the logits clipped, "
+                 f"the routes' gaps would not show")
+        for route, a, b in (("engine-fq", got, flt),
+                            ("generic-fq", gen, flt),
+                            ("engine-generic", got, gen)):
+            if not torch.isfinite(a).all():
+                fail(f"adaround-w4a8 {tag} {route}: non-finite logits")
+            d = (a - b).abs()
+            gaps[tag, route] = float(d.max())
+            print(f"    {route}: max |diff| {gaps[tag, route]:.4e} = "
+                  f"{gaps[tag, route] / step:.2f} levels, "
+                  f"{float((d / step > 0.5).float().mean()):.4f} of "
+                  f"{d.numel()} logits off")
+    r = ADAROUND_ROUTE_RATIO
+    for tag in ("adaround", "nearest"):
+        for route in ("engine-fq", "engine-generic"):
+            if gaps[tag, route] > r * gaps[tag, "generic-fq"]:
+                fail(f"adaround-w4a8 {tag} model: {route} "
+                     f"{gaps[tag, route]:.4e} beyond {r} x generic-fq "
+                     f"{gaps[tag, 'generic-fq']:.4e}")
+    for route in ("engine-fq", "generic-fq", "engine-generic"):
+        if gaps["adaround", route] > r * gaps["nearest", route]:
+            fail(f"adaround-w4a8: {route} {gaps['adaround', route]:.4e} "
+                 f"beyond {r} x the nearest model's "
+                 f"{gaps['nearest', route]:.4e}")
+    print(f"  [adaround-w4a8] route gaps within {r} x of each other and of "
+          f"the nearest-rounding model's (the JAX package's rule at 12 "
+          f"layers, tests/test_torch_adaround_depth.py)")
+    t_eng = window_ms(lambda: eng(b0, "kernels"))
+    print(f"  [adaround-w4a8] seq/s at B={BATCH}, S={SEQ}, median (range) of "
+          f"5 windows ({kind}, {smi}): engine {seq_per_s(t_eng)} (forward "
+          f"{t_eng[0]:.3f} ms)")
 
 
 def main(argv=None) -> int:
@@ -3051,6 +3421,13 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     qat_phase(params, batches, by_path, args.seed, dev, kind, smi)
     print(f"  phase 13: {time.perf_counter() - t0:.1f} s", flush=True)
+
+    print("[14] AdaRound: the JAX CLI's w4-adaround recipe at BERT-base "
+          "width and depth, then post_adaround W4A8 through the int8 engine",
+          flush=True)
+    t0 = time.perf_counter()
+    adaround_phase(params, batches, by_path, args.seed, dev, kind, smi)
+    print(f"  phase 14: {time.perf_counter() - t0:.1f} s", flush=True)
 
     report.update({k: mb_report[k] for k in (
         "int8_matmul_norm", "int8_attention_qkv")})

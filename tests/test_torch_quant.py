@@ -135,10 +135,11 @@ def test_current_minmax_update(rs):
 
 
 def test_unported_estimators_raise():
-    """What the port still leaves to a later slice raises (AdaRound
-    weights); the ``learn`` phase of weight and act sites computes; the
-    estimators that raised here before (all-minmax, running-minmax,
-    percentile) now match JAX on the same input."""
+    """What raised here before now computes: the ``learn`` phase of
+    weight and act sites; the estimators (all-minmax, running-minmax,
+    percentile), which match JAX on the same input; and a weight site
+    with an AdaRound ``alpha``, which quantizes with its hard decisions as
+    JAX's does (bit for bit)."""
     x = _x(5)
     jst, tst = JR.init_range_state(()), TR.init_range_state(())
     for m in ("running_minmax", "allminmax"):
@@ -171,9 +172,20 @@ def test_unported_estimators_raise():
         assert torch.equal(got.act("lin.out", xt), want.act("lin.out", xt))
         assert torch.equal(got.weight("lin.w", w), want.weight("lin.w", w))
     qs = {"lin.w": dict(TM.init_weight_site_state(cfg["lin.w"], w),
-                        alpha=torch.zeros_like(w))}
-    with pytest.raises(NotImplementedError, match="AdaRound"):
-        TCtx(cfg, qs, TQC.QuantMode()).weight("lin.w", w)
+                        alpha=torch.from_numpy(_x(7, (5, 8))))}
+    got = TCtx(cfg, qs, TQC.QuantMode()).weight("lin.w", w)
+    jb = JQC.QuantConfigBuilder(_w8a8(JQC))
+    jb.weight("lin.w")
+    jqs = {"lin.w": {"qp": JQ.QuantParams(
+        delta=qs["lin.w"]["qp"].delta.numpy(),
+        zero_float=qs["lin.w"]["qp"].zero_float.numpy(),
+        signed=qs["lin.w"]["qp"].signed.numpy()),
+        "alpha": jnp.asarray(qs["lin.w"]["alpha"].numpy())}}
+    want = JCtx(jb.build(), jqs, JQC.QuantMode()).weight(
+        "lin.w", jnp.asarray(w.numpy()))
+    _eq(want, got)
+    assert not torch.equal(got, TCtx(cfg, st, TQC.QuantMode()).weight(
+        "lin.w", w))
 
 
 def _w8a8(q, **over):

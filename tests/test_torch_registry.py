@@ -114,9 +114,8 @@ def test_unported_families_raise(name):
 
 
 def test_unported_branches_raise(tmp_path):
-    fam = TR.get_family("bert")
-    with pytest.raises(NotImplementedError, match="item 7"):
-        fam.adaround_specs({}, TB.BertConfig())
+    with pytest.raises(NotImplementedError, match="item 5"):
+        TR.get_family("mobilebert").adaround_specs({}, TMB.MobileBertConfig())
     (tmp_path / "config.json").write_text("{}")
     with pytest.raises(NotImplementedError, match="item 5"):
         TR.build_model("bert_base_uncased", model_path=str(tmp_path),

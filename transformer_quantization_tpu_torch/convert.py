@@ -9,7 +9,8 @@ counterparts on ``device``. Both packages keep kernels in the ``(out,
 in)`` layout and the same nesting, so this is a re-nesting into tensors.
 QAT state comes across too: the ``learnable`` / ``rest`` split of
 ``training/qat.py`` (``rest`` holding a learned site's ``qp_signed``) and
-a JAX train state's params and ranges. Imports no JAX.
+a JAX train state's params and ranges, and AdaRound's rounding logits
+(``alpha``, float32). Imports no JAX.
 """
 
 from __future__ import annotations
@@ -51,17 +52,15 @@ def qparams_from_jax(qp, device="cuda") -> QuantParams:
         signed=_tensor(qp.signed, dev).to(torch.float32))
 
 
-def _site_from_jax(name: str, st: Mapping, dev) -> Dict:
-    if st.get("alpha") is not None:
-        raise NotImplementedError(f"{name}: AdaRound state is not yet "
-                                  "ported")
+def _site_from_jax(st: Mapping, dev) -> Dict:
     new = {}
     if st.get("qp") is not None:
         new["qp"] = qparams_from_jax(st["qp"], dev)
     if st.get("qp_signed") is not None:
         new["qp_signed"] = _tensor(st["qp_signed"], dev).to(torch.float32)
     if "alpha" in st:
-        new["alpha"] = None
+        new["alpha"] = (None if st["alpha"] is None
+                        else _tensor(st["alpha"], dev).to(torch.float32))
     if st.get("range_state") is not None:
         new["range_state"] = {k: _tensor(v, dev)
                               for k, v in st["range_state"].items()}
@@ -75,12 +74,12 @@ def _site_from_jax(name: str, st: Mapping, dev) -> Dict:
 def qstate_from_jax(qstate: Mapping, device="cuda") -> Dict:
     """Per-site state: ``qp`` becomes a :class:`QuantParams`, the
     ``range_state`` dict its tensors, a PEG site's ``perm`` an int64 and
-    its ``ranges`` a float32 tensor; AdaRound ``alpha`` must be None.
+    its ``ranges`` a float32 tensor, an AdaRound ``alpha`` a float32
+    tensor.
     The ``rest`` of a QAT split (``qp_signed`` for a learned site's
     ``qp``) converts the same way."""
     dev = resolve_device(device)
-    return {name: _site_from_jax(name, st, dev)
-            for name, st in qstate.items()}
+    return {name: _site_from_jax(st, dev) for name, st in qstate.items()}
 
 
 def learnable_from_jax(learnable: Mapping, device="cuda") -> Dict:

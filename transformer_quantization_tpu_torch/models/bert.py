@@ -17,8 +17,10 @@ shared-permutation groups, the ``--per-token`` / ``--per-embd`` /
 engine (:func:`build_bert_engine` / :func:`bert_engine_apply`), and the
 training forward (``bert_apply(train=True)``: an autograd graph through
 the fake-quant sites' STE / LSQ backward, dropout from a
-``torch.Generator``, the int8 QAT matmul at ``int8_qat_sites``). AdaRound
-specs, int8 attention, compute dtypes, scan, remat and the pipeline wait.
+``torch.Generator``, the int8 QAT matmul at ``int8_qat_sites``), and
+AdaRound: the layer specs (:func:`bert_adaround_specs`), layer I/O
+capture (``bert_apply(capture_sites=...)``) and the packing of alphas.
+Int8 attention, compute dtypes, scan, remat and the pipeline wait.
 """
 
 from __future__ import annotations
@@ -347,12 +349,66 @@ def bert_weight_site_tensors(params: Dict) -> Dict[str, Tensor]:
     return out
 
 
+def bert_adaround_specs(params: Dict, cfg: BertConfig
+                        ) -> List[Tuple[str, Dict]]:
+    """The weighted layers in module order, each with what a re-run of
+    the layer alone needs: the embeddings (their LayerNorm too), each
+    encoder layer's q / k / v, attention-output dense and LayerNorm,
+    intermediate (dense + gelu), output dense and LayerNorm, then the
+    pooler and the classifier (102 at 12 layers)."""
+    return encoder_adaround_specs(params, cfg) + [
+        ("pooler.dense", {"kind": "linear", "w": params["pooler"]["kernel"],
+                          "b": params["pooler"]["bias"], "act": "tanh"}),
+        ("classifier", {"kind": "linear", "w": params["classifier"]["kernel"],
+                        "b": params["classifier"]["bias"], "act": None}),
+    ]
+
+
+def encoder_adaround_specs(params: Dict, cfg) -> List[Tuple[str, Dict]]:
+    """The embedding and encoder-layer AdaRound specs. The intermediate
+    layer's activation is named ``"gelu"`` (exact), as in the JAX
+    package, whatever ``cfg.hidden_act`` is."""
+    e = params["embeddings"]
+    specs: List[Tuple[str, Dict]] = [
+        ("emb.word", {"kind": "embedding", "w": e["word"]}),
+        ("emb.position", {"kind": "embedding", "w": e["position"]}),
+        ("emb.token_type", {"kind": "embedding", "w": e["token_type"]}),
+        ("emb.ln", {"kind": "layernorm", "w": e["ln"]["scale"],
+                    "b": e["ln"]["bias"], "eps": cfg.layer_norm_eps}),
+    ]
+    for i, layer in enumerate(params["layers"]):
+        p = f"L{i}."
+        a, so, f = layer["attn"], layer["attn_out"], layer["ffn"]
+
+        def lin(d, act=None):
+            return {"kind": "linear", "w": d["kernel"], "b": d["bias"],
+                    "act": act}
+
+        def ln(d):
+            return {"kind": "layernorm", "w": d["scale"], "b": d["bias"],
+                    "eps": cfg.layer_norm_eps}
+
+        specs += [
+            (p + "attn.q", lin(a["q"])),
+            (p + "attn.k", lin(a["k"])),
+            (p + "attn.v", lin(a["v"])),
+            (p + "attn_out.dense", lin(so["dense"])),
+            (p + "attn_out.ln", ln(so["ln"])),
+            (p + "ffn.inter", lin(f["inter"], "gelu")),
+            (p + "ffn.dense", lin(f["dense"])),
+            (p + "ffn.ln", ln(f["ln"])),
+        ]
+    return specs
+
+
 def pack_int_params(tensors: Dict[str, Tensor], qcfg: QuantModelConfig,
                     qstate: Mapping, use_int4: bool = False) -> Dict:
     """Int8 payloads for every packable weight site (LayerNorm gammas stay
-    on the fake-quant path). With ``use_int4`` a 2-D weight whose site is
-    4-bit (and has no AdaRound ``alpha``) is packed as split-half int4;
-    embedding tables stay int8."""
+    on the fake-quant path). A matmul weight with an AdaRound ``alpha``
+    packs its hard rounding decisions, always as int8 storage of its
+    levels; with ``use_int4`` any other 2-D weight whose site is 4-bit is
+    packed as split-half int4. Embedding tables stay int8 and round to
+    nearest, alpha or not, as in the JAX package."""
     out: Dict = {}
     for wname, w in tensors.items():
         if wname.endswith("ln.w") or wname not in qcfg:
@@ -362,18 +418,18 @@ def pack_int_params(tensors: Dict[str, Tensor], qcfg: QuantModelConfig,
             continue
         if wname not in qstate:
             continue
-        if qstate[wname].get("alpha") is not None:
-            raise NotImplementedError("AdaRound weights are not yet ported")
         qp = qstate[wname]["qp"]
+        alpha = qstate[wname].get("alpha")
         name = wname[:-len(".w")]
         if name in EMBEDDING_TABLE_SITES:
             out[name] = IL.pack_embedding_int8(site_cfg.spec, qp, w)
         elif w.ndim != 2:
             continue
-        elif use_int4 and site_cfg.spec.n_bits == 4:
+        elif use_int4 and site_cfg.spec.n_bits == 4 and alpha is None:
             out[name] = IL.pack_weight_int4(site_cfg.spec, qp, w)
         else:
-            out[name] = IL.pack_weight_int8(site_cfg.spec, qp, w)
+            out[name] = IL.pack_weight_int8(site_cfg.spec, qp, w,
+                                            alpha=alpha)
     return out
 
 
@@ -443,11 +499,15 @@ def int8_sites_for_mode(int8_qat_sites, train: bool, cfg):
 
 
 def make_ctx(qcfg, qstate, mode, *, mse_session=None,
-             int_params=None) -> QuantCtx:
+             int_params=None, capture_sites=None,
+             capture_pre_act: bool = False) -> QuantCtx:
     ctx = QuantCtx(qcfg if qcfg is not None else QuantModelConfig(()),
                    qstate or {}, mode or QuantMode(),
                    mse_session=mse_session)
     ctx.int_params = int_params or None
+    if capture_sites:
+        ctx.capture_sites = frozenset(capture_sites)
+        ctx.capture_pre_act = capture_pre_act
     return ctx
 
 
@@ -545,6 +605,8 @@ def bert_apply(params: Dict, batch: Mapping, cfg: BertConfig,
                int_params: Optional[Dict] = None,
                fused_linear=False,
                int8_qat_sites=None,
+               capture_sites=None,
+               capture_pre_act: bool = False,
                device="cuda") -> Tuple[Dict, Dict]:
     """Forward pass; returns ``(outputs, new_qstate)``.
 
@@ -567,6 +629,11 @@ def bert_apply(params: Dict, batch: Mapping, cfg: BertConfig,
     (``training/int8_qat.py``); off in training with hidden dropout
     (:func:`int8_sites_for_mode`). The engine-only ``int_params`` paths
     are inference paths and refuse ``train``.
+
+    ``capture_sites`` (AdaRound's layer I/O) records each named layer's
+    (input, output) pair in ``outputs["captures"]``, the output before
+    the fused activation with ``capture_pre_act``; the fused linear and
+    the int8 QAT matmul stand aside while capturing.
     """
     dev = _check_device(params, device)
     if train and int_params:
@@ -574,7 +641,8 @@ def bert_apply(params: Dict, batch: Mapping, cfg: BertConfig,
                          "fake-quant forward")
     with contextlib.nullcontext() if train else torch.no_grad():
         ctx = make_ctx(qcfg, qstate, mode, mse_session=mse_session,
-                       int_params=int_params)
+                       int_params=int_params, capture_sites=capture_sites,
+                       capture_pre_act=capture_pre_act)
         ctx.int8_qat_sites = frozenset(
             int8_sites_for_mode(int8_qat_sites, train, cfg) or ())
         if int_params and fused_linear:
@@ -601,6 +669,8 @@ def bert_apply(params: Dict, batch: Mapping, cfg: BertConfig,
                                 first_site="emb.ln.out")
         outputs = _classification_head(ctx, params, cfg, h, h_site, batch,
                                        train, gen)
+        if capture_sites:
+            outputs["captures"] = ctx.captures
     return outputs, ctx.export()
 
 

@@ -5,8 +5,8 @@ family exposes one uniform functional surface, so the serving engine (and
 later the CLI, trainer and AdaRound driver) are family-agnostic. The port
 has BERT and MobileBERT; ``roberta``, ``distilbert``, ``albert`` and
 ``squeezebert`` resolve by name and raise ``NotImplementedError`` (ROADMAP
-§1 item 5), as do the HF ``config.json`` loader (item 5) and the AdaRound
-specs (item 7).
+§1 item 5), as do the HF ``config.json`` loader (item 5) and MobileBERT's
+AdaRound specs (item 5).
 """
 
 from __future__ import annotations
@@ -45,9 +45,11 @@ class ModelFamily:
     tiny_preset: Dict = dataclasses.field(default_factory=dict)
 
 
-def _adaround_specs(params, cfg):
+def _mobilebert_adaround_specs(params, cfg):
     raise NotImplementedError(
-        "AdaRound is not yet ported (ROADMAP §1 item 7)")
+        "MobileBERT's AdaRound specs (its NoNorm layers' stacked [w; b] "
+        "alphas and their deployment) are not yet ported (ROADMAP §1 item "
+        "5)")
 
 
 def _hf_loader(family: str) -> Callable:
@@ -77,7 +79,7 @@ def _bert_family() -> ModelFamily:
         apply_quant_dict=B.apply_bert_quant_dict,
         apply_peg=B.apply_peg_wiring,
         weight_site_tensors=B.bert_weight_site_tensors,
-        adaround_specs=_adaround_specs,
+        adaround_specs=B.bert_adaround_specs,
         build_int_params=B.build_bert_int_params,
         shared_perm_groups=B.shared_permutation_groups,
         load_checkpoint=_hf_loader("bert"),
@@ -117,7 +119,7 @@ def _mobilebert_family() -> ModelFamily:
         apply_quant_dict=M.apply_mobilebert_quant_dict,
         apply_peg=M.apply_peg_wiring,
         weight_site_tensors=M.mobilebert_weight_site_tensors,
-        adaround_specs=_adaround_specs,
+        adaround_specs=_mobilebert_adaround_specs,
         build_int_params=M.build_mobilebert_int_params,
         build_engine=M.build_mobilebert_engine,
         engine_apply=M.mobilebert_engine_apply,

@@ -51,17 +51,22 @@ def can_pack_weight(spec: Q.QuantizerSpec) -> bool:
 
 
 def pack_weight_int8(spec: Q.QuantizerSpec, qp: Q.QuantParams,
-                     w: Tensor) -> Dict:
-    """Quantize a ``(O, I)`` weight to a real int8 payload: ``w_int``,
-    ``scale`` ``(1,)`` or ``(O,)``, ``colsum`` ``(O,)`` (sum over the
-    contraction dim, for the activation zero-point correction)."""
+                     w: Tensor, alpha: Optional[Tensor] = None) -> Dict:
+    """Quantize a ``(O, I)`` weight to a real int8 payload (4-bit
+    levels too): ``w_int``, ``scale`` ``(1,)`` or ``(O,)``, ``colsum``
+    ``(O,)`` (sum over the contraction dim, for the activation zero-point
+    correction). ``alpha`` applies AdaRound's hard decision,
+    ``floor(w / s) + (alpha >= 0)``, instead of round-to-nearest."""
     if not can_pack_weight(spec):
         raise ValueError("int8 packing needs symmetric <=8-bit weights")
     qpe = Q.expand_qparams(qp, w.ndim, 0)
     scale = Q.scale_of(spec, qpe)
     int_min, int_max = Q.int_min_max(spec, qp.signed)
-    w_int = torch.clamp(torch.round(w / scale), int_min, int_max).to(
-        torch.int8)
+    if alpha is not None:
+        w_round = torch.floor(w / scale) + (alpha >= 0).to(torch.float32)
+    else:
+        w_round = torch.round(w / scale)
+    w_int = torch.clamp(w_round, int_min, int_max).to(torch.int8)
     return {
         "w_int": w_int,
         "scale": Q.scale_of(spec, qp).reshape(-1).to(torch.float32),

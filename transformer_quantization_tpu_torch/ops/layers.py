@@ -9,8 +9,11 @@ Ported: the float path, the generic int8 branch and its fused linear
 (the JAX ``use_pallas``, ``ctx.fused_linear``) and the int8 QAT matmul
 (``ctx.int8_qat_sites``, :func:`_int8_qat_matmul`) of
 :func:`quant_linear`, :func:`quant_layernorm`, :func:`quant_nonorm`,
-:func:`quant_embedding` and :func:`dropout`. Capture hooks and grouped
-layers wait for their slices.
+:func:`quant_embedding` and :func:`dropout`, and AdaRound's I/O capture:
+when ``name`` is in ``ctx.capture_sites`` a primitive records its
+(input, output before the output act site) pair in ``ctx.captures``
+(:func:`_maybe_capture`); the int8 fused linear and QAT matmul stand
+aside while capturing. Grouped layers wait for their slice.
 """
 
 from __future__ import annotations
@@ -66,6 +69,11 @@ def _resolve_act(activation) -> Optional[Callable]:
     return ACTIVATIONS[activation]
 
 
+def _maybe_capture(ctx, name: str, x: Tensor, y: Tensor) -> None:
+    if name in ctx.capture_sites:
+        ctx.captures[name] = (x, y)
+
+
 def _int8_fast_path(ctx, name: str, input_site: Optional[str]):
     """(input site cfg, its params, packed weight) when the matmul can run
     on the int8 path, else None. Sites wider than 8 bits never ride int8
@@ -93,12 +101,13 @@ def _int8_fast_path(ctx, name: str, input_site: Optional[str]):
 
 def _weight_from_int_or_fake(ctx, name: str, w: Tensor) -> Tensor:
     """Quantized weight for the float path: the dequantized packed int8
-    payload when fixed ranges have one (bit-identical values), else the
-    fake-quant chain."""
+    payload when fixed ranges have one (bit-identical values) and nothing
+    is captured, else the fake-quant chain."""
     wname = f"{name}.w"
     if (ctx.int_params and name in ctx.int_params and ctx.mode.weight_quant
             and ctx.mode.weight_phase == Phase.fix
-            and not (wname in ctx.cfg and not ctx.cfg[wname].enabled)):
+            and not (wname in ctx.cfg and not ctx.cfg[wname].enabled)
+            and not ctx.capture_sites):
         return IL.dequantize_packed_weight(ctx.int_params[name])
     return ctx.weight(wname, w)
 
@@ -143,7 +152,8 @@ def _int8_qat_matmul(ctx, name: str, x: Tensor, w: Tensor,
     ``training/qat.py`` ``int8_forward_sites``), the input site is an
     enabled per-tensor asymmetric 8-bit linear-domain act site with stored
     params (so ``x`` arrives as its fake-quantized value and its levels
-    are recovered exactly), and the act phase is not ``record_ranges``.
+    are recovered exactly), the act phase is not ``record_ranges`` and
+    nothing is captured.
     Weights may be fixed, learned or estimated (the range re-derived from
     the live weight, as ``QuantCtx.weight``'s estimate branch, on the
     signed grid)."""
@@ -152,7 +162,8 @@ def _int8_qat_matmul(ctx, name: str, x: Tensor, w: Tensor,
         int8_qat_linear,
     )
 
-    if name not in ctx.int8_qat_sites or input_site is None:
+    if (name not in ctx.int8_qat_sites or input_site is None
+            or ctx.capture_sites):
         return None
     m = ctx.mode
     if not (m.weight_quant and m.act_quant):
@@ -221,7 +232,8 @@ def quant_linear(ctx, name: str, x: Tensor, w: Tensor, b: Optional[Tensor],
         in_cfg, in_qp, packed = fast
         if in_cfg.axis is not None:
             in_qp = Q.expand_qparams(in_qp, x.ndim, in_cfg.axis)
-        elif ctx.fused_linear and not callable(activation):
+        elif (ctx.fused_linear and not callable(activation)
+              and not ctx.capture_sites):
             x = ctx.int8_handoffs.pop(input_site, x)
             y = _fused_linear(ctx, name, x, b, activation, in_cfg, in_qp,
                               packed)
@@ -234,6 +246,7 @@ def quant_linear(ctx, name: str, x: Tensor, w: Tensor, b: Optional[Tensor],
                                                          x)
         y = IL.int8_linear(x_int8, s_x, shift, packed, b, act)
         y = y.to(x.dtype)
+        _maybe_capture(ctx, name, x, y)
         return ctx.act(f"{name}.out", y)
 
     if ctx.int8_qat_sites:
@@ -249,8 +262,14 @@ def quant_linear(ctx, name: str, x: Tensor, w: Tensor, b: Optional[Tensor],
                      wide_matmul_precision(ctx, input_site, f"{name}.w"))
     if b is not None:
         y = (y + b).to(y.dtype)
-    if act is not None:
+    if act is not None and ctx.capture_pre_act:
+        # AdaRound's include_act_func=False: the pre-activation target
+        _maybe_capture(ctx, name, x, y)
         y = act(y)
+    else:
+        if act is not None:
+            y = act(y)
+        _maybe_capture(ctx, name, x, y)
     return ctx.act(f"{name}.out", y)
 
 
@@ -298,6 +317,7 @@ def quant_layernorm(ctx, name: str, x: Tensor, scale: Tensor, bias: Tensor,
     var = torch.mean(torch.square(x32 - mean), dim=-1, keepdim=True)
     y = (x32 - mean) * torch.rsqrt(var + eps)
     y = (y * scale_q.to(torch.float32) + bias.to(torch.float32)).to(x.dtype)
+    _maybe_capture(ctx, name, x, y)
     return ctx.act(f"{name}.out", y)
 
 
@@ -308,7 +328,9 @@ def quant_nonorm(ctx, name: str, x: Tensor, weight: Tensor,
     range over both), then the output act site."""
     wb_q = ctx.weight(f"{name}.w", torch.cat([weight, bias]))
     w_q, b_q = torch.split(wb_q, weight.shape[0])
-    return ctx.act(f"{name}.out", x * w_q + b_q)
+    y = x * w_q + b_q
+    _maybe_capture(ctx, name, x, y)
+    return ctx.act(f"{name}.out", y)
 
 
 def quant_embedding(ctx, name: str, ids: Tensor, table: Tensor) -> Tensor:
@@ -317,7 +339,9 @@ def quant_embedding(ctx, name: str, ids: Tensor, table: Tensor) -> Tensor:
     after the gather."""
     if ctx.int_params and name in ctx.int_params and ctx.mode.weight_quant:
         return IL.int8_embedding_lookup(ids, ctx.int_params[name])
-    return ctx.weight(f"{name}.w", table)[ids]
+    rows = ctx.weight(f"{name}.w", table)[ids]
+    _maybe_capture(ctx, name, ids, rows)
+    return rows
 
 
 def dropout(x: Tensor, rate: float, generator: Optional[torch.Generator],

@@ -8,7 +8,8 @@ returns the updated per-site state:
 - act sites: ``{"qp": QuantParams, "range_state": {xmin, xmax,
   initialized}}``, plus ``perm`` (int64 ``(C,)``) and ``ranges`` (float32
   ``(C,)``) at permuted PEG sites
-- weight sites: ``{"qp": QuantParams, "alpha": None}``
+- weight sites: ``{"qp": QuantParams, "alpha": None}``, or AdaRound's
+  rounding logits (the weight's shape) as ``alpha``
 
 Phases ``estimate``, ``fix``, ``learn`` and the PEG ``record_ranges``
 pre-pass are ported, with every range estimator: the MSE and
@@ -17,8 +18,11 @@ that persists across calibration batches. In ``learn`` (QAT with learned
 ranges) a site quantizes with its stored ``qp``, whose ``delta`` and
 ``zero_float`` are the tensors the optimizer trains; range updates in
 ``estimate`` read ``x.detach()``, as the JAX version's
-``stop_gradient``. AdaRound ``alpha`` and capture wait for their slice
-and raise.
+``stop_gradient``. A weight site with an AdaRound ``alpha`` quantizes
+with its hard rounding decisions. With ``capture_sites`` set, the
+layers record their (input, output) pairs in ``captures`` (AdaRound's
+layer I/O, ``ops/layers.py`` ``_maybe_capture``), and a standalone act
+site named there records ``(x, x)``.
 """
 
 from __future__ import annotations
@@ -120,6 +124,12 @@ class QuantCtx:
     ``int8_qat_sites``: layers whose QAT fake-quant matmul runs on int8
     payloads (``training/int8_qat.py``; ``training/qat.py``
     ``int8_forward_sites``).
+
+    ``capture_sites``: the sites whose (input, output) pairs the forward
+    records in ``captures``; ``capture_pre_act`` records a fused
+    activation's input instead of its output (AdaRound's
+    ``include_act_func=False``). While capturing, the int8 payload paths
+    stand aside for the float ones.
     """
 
     def __init__(self, cfg: QuantModelConfig, qstate: Mapping[str, SiteState],
@@ -134,6 +144,9 @@ class QuantCtx:
         self.int8_only_sites = frozenset()
         self.int8_handoffs: Dict[str, Tensor] = {}
         self.int8_qat_sites = frozenset()
+        self.capture_sites = frozenset()
+        self.capture_pre_act = False
+        self.captures: Dict[str, tuple] = {}
 
     def weight(self, name: str, w: Tensor) -> Tensor:
         if name not in self.cfg:
@@ -149,16 +162,21 @@ class QuantCtx:
                                      qp=qp)
         else:  # fix, learn, and the record pre-pass: the stored params
             qp = self.qstate[name]["qp"]
-        if self.qstate.get(name, {}).get("alpha") is not None:
-            raise NotImplementedError("AdaRound weights are not yet ported")
-        return Q.fake_quant(cfg.spec, qp, w,
-                            axis=0 if cfg.per_channel else None)
+        alpha = self.qstate.get(name, {}).get("alpha")
+        axis = 0 if cfg.per_channel else None
+        if alpha is not None:
+            return Q.adaround_fake_quant(
+                Q.AdaRoundMode.learned_hard_sigmoid, cfg.spec, qp, w, alpha,
+                soft=False, axis=axis)
+        return Q.fake_quant(cfg.spec, qp, w, axis=axis)
 
     def act(self, name: str, x: Tensor) -> Tensor:
         if name not in self.cfg:
             return x
         cfg = self.cfg[name]
         assert cfg.kind == "act", name
+        if name in self.capture_sites:
+            self.captures[name] = (x, x)
         if not (self.mode.act_quant and cfg.enabled):
             return x
         phase = self.mode.act_phase

@@ -12,6 +12,9 @@ when a gradient is wanted (quantization-aware training); otherwise, as
 in calibration, inference and serving, it runs the same forward
 operations without building a graph. :func:`set_quant_range` returns
 detached params, as the JAX version's ``stop_gradient`` does.
+
+AdaRound's relaxation (:func:`adaround_fake_quant` and its helpers) is
+the JAX version's, its gradient with respect to ``alpha`` autograd's.
 """
 
 from __future__ import annotations
@@ -228,3 +231,95 @@ class FakeQuant(torch.autograd.Function):
                else red(g_z_full).reshape(zero_float.shape))
         return (g_d.reshape(delta.shape), g_z, None,
                 g_x if ctx.needs_input_grad[3] else None, None, None)
+
+
+# ---------------------------------------------------------------------------
+# AdaRound relaxation
+# ---------------------------------------------------------------------------
+
+ZETA = 1.1
+GAMMA = -0.1
+
+
+def logit(p: Tensor, eps: float = 1e-16) -> Tensor:
+    """Inverse sigmoid."""
+    p = torch.clamp(p, eps, 1 - eps)
+    return -torch.log(1.0 / p - 1.0)
+
+
+def hard_sigmoid(x: Tensor, zeta: float = ZETA,
+                 gamma: float = GAMMA) -> Tensor:
+    """Rectified sigmoid h(alpha)."""
+    p = torch.sigmoid(x)
+    return torch.clamp(p * (zeta - gamma) + gamma, 0.0, 1.0)
+
+
+def hard_logit(p: Tensor, zeta: float = ZETA, gamma: float = GAMMA) -> Tensor:
+    """Inverse of :func:`hard_sigmoid`."""
+    return -torch.log((zeta - p) / (p - gamma))
+
+
+class AdaRoundMode(enum.Enum):
+    """Rounding relaxations."""
+
+    nearest = "nearest"
+    learned_sigmoid = "learned_sigmoid"
+    learned_hard_sigmoid = "learned_hard_sigmoid"
+    sigmoid_temp_decay = "sigmoid_temp_decay"
+
+
+def adaround_rest(mode: AdaRoundMode, alpha: Tensor,
+                  temperature=None) -> Tensor:
+    """h(alpha): the continuous rounding offset."""
+    if mode == AdaRoundMode.learned_sigmoid:
+        return torch.sigmoid(alpha)
+    if mode == AdaRoundMode.learned_hard_sigmoid:
+        return hard_sigmoid(alpha)
+    if mode == AdaRoundMode.sigmoid_temp_decay:
+        return torch.sigmoid(alpha / temperature)
+    raise ValueError(f"Unknown rounding mode: {mode}")
+
+
+def adaround_init_alpha(mode: AdaRoundMode, spec: QuantizerSpec,
+                        qp: QuantParams, w: Tensor,
+                        axis: Optional[int] = None,
+                        temperature=None) -> Tensor:
+    """alpha such that h(alpha) is the float rounding rest of ``w / s``."""
+    scale = scale_of(spec, expand_qparams(qp, w.ndim, axis))
+    x = w / scale
+    rest = x - torch.floor(x)
+    if mode == AdaRoundMode.learned_sigmoid:
+        return logit(rest)
+    if mode == AdaRoundMode.learned_hard_sigmoid:
+        return hard_logit(rest)
+    if mode == AdaRoundMode.sigmoid_temp_decay:
+        return temperature * logit(rest)
+    raise ValueError(f"Unknown rounding mode: {mode}")
+
+
+def adaround_fake_quant(mode: AdaRoundMode, spec: QuantizerSpec,
+                        qp: QuantParams, w: Tensor, alpha: Tensor,
+                        soft: bool, axis: Optional[int] = None,
+                        temperature=None) -> Tensor:
+    """AdaRound forward: ``floor(w / s)`` plus the learned offset, the
+    continuous h(alpha) with ``soft`` or the hard decision ``alpha >= 0``,
+    then the zero point, the grid clamp and the dequantization. Autograd
+    gives alpha its gradient through h; ``floor`` passes none and the
+    clamp passes it on the closed grid interval, as ``jax.grad`` of the
+    JAX version does."""
+    if mode == AdaRoundMode.nearest:
+        return fake_quant(spec, qp, w, axis=axis)
+    qpe = expand_qparams(qp, w.ndim, axis)
+    scale = scale_of(spec, qpe)
+    zp = zero_point_of(spec, qpe)
+    int_min, int_max = int_min_max(spec, qpe.signed)
+    x_floor = torch.floor(w / scale)
+    if soft:
+        offset = adaround_rest(mode, alpha, temperature)
+    else:
+        offset = (alpha >= 0).to(w.dtype)
+    x_int = x_floor + offset
+    if not spec.symmetric:
+        x_int = x_int + zp
+    x_int = torch.clamp(x_int, int_min, int_max)
+    return scale * (x_int - zp)

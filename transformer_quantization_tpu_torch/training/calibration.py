@@ -9,7 +9,9 @@ PEG sites, first the full-precision pre-pass that records per-channel
 ranges and fixes the permutations. :func:`prepare_quantized_model` also
 gives dynamic (unfixed) act ranges, and :data:`CLI_RECIPES` holds the JAX
 CLI's PTQ presets and the calibration of its ``qat-w4a8`` recipe (whose
-training options are ``training/trainer.py`` ``QAT_RECIPES``).
+training options are ``training/trainer.py`` ``QAT_RECIPES``);
+:data:`ADAROUND_RECIPES` its ``w4-adaround`` recipe (``training/
+adaround_driver.py`` runs it).
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ import torch
 from transformer_quantization_tpu_torch import resolve_device
 from transformer_quantization_tpu_torch.models import bert as B
 from transformer_quantization_tpu_torch.models import mobilebert as MB
+from transformer_quantization_tpu_torch.quant import adaround as AR
 from transformer_quantization_tpu_torch.quant.manager import (
     finalize_permutations,
     init_weight_qstate,
@@ -34,7 +37,10 @@ from transformer_quantization_tpu_torch.quant.qconfig import (
     QuantModelConfig,
     QuantMode,
 )
-from transformer_quantization_tpu_torch.quant.quantizers import QMethod
+from transformer_quantization_tpu_torch.quant.quantizers import (
+    AdaRoundMode,
+    QMethod,
+)
 from transformer_quantization_tpu_torch.quant.ranges import (
     OptMethod,
     RangeMethod,
@@ -176,9 +182,10 @@ MINMAX_RECIPES = {
 class Recipe:
     """One calibration preset of the JAX CLI: the site defaults, the
     quant_dict, the PEG shared-h permutation, the classifier's
-    ``quant_setup`` and the sequences of its one calibration batch
+    ``quant_setup``, the sequences of its one calibration batch
     (``est_batch_size``, trimmed to their real length unless
-    ``est_pad``)."""
+    ``est_pad``) and whether activations are quantized (the CLI's
+    ``--no-act-quant`` clears ``act_quant``)."""
 
     defaults: QuantDefaults
     quant_dict: Mapping
@@ -186,6 +193,7 @@ class Recipe:
     quant_setup: str = "all"
     est_batch_size: int = 1
     est_pad: bool = False
+    act_quant: bool = True
 
 
 def cli_w8a8_defaults() -> QuantDefaults:
@@ -228,6 +236,31 @@ CLI_RECIPES = {
                        shared_h=True),
     "qat-w4a8": Recipe(cli_w4a8_qat_defaults(), {}, est_batch_size=16,
                        est_pad=True),
+}
+
+
+def cli_w4_adaround_defaults() -> QuantDefaults:
+    """The CLI's ``w4-adaround`` ranges: symmetric 4-bit weights with MSE
+    ranges by grid search over 100 candidates (the act options at the
+    CLI's defaults, unused while acts stay float)."""
+    return dataclasses.replace(cli_w8a8_defaults(), n_bits=4,
+                               weight_range_opt=OptMethod.grid)
+
+
+# the JAX CLI's ``w4-adaround`` recipe: W4A32 (no act quant), every layer's
+# rounding learned over 1,024 samples for 10,000 iterations from the
+# weights' own ranges, act ranges left alone (``no_act_quant``); the
+# AdaRound minibatch is the CLI's default ``--batch-size`` (32)
+ADAROUND_RECIPES = {
+    "w4-adaround": (
+        Recipe(cli_w4_adaround_defaults(), {}, act_quant=False),
+        AR.AdaRoundConfig(
+            layers=("all",), num_samples=1024,
+            init=AR.AdaRoundInitMode.range_estimator,
+            round_mode=AdaRoundMode.learned_hard_sigmoid,
+            iters=10000,
+            act_quant_mode=AR.AdaRoundActQuantMode.no_act_quant,
+            batch_size=32)),
 }
 
 

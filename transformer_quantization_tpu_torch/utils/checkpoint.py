@@ -5,7 +5,7 @@ directory holds
 
 - ``params.npz``: the model weights;
 - ``qstate.npz``: the per-site quant state (scales, zero points,
-  signedness, range state, PEG permutations);
+  signedness, range state, PEG permutations, AdaRound alphas);
 - ``int_params.npz``: optionally, the packed int8 / int4 payloads;
 - ``manifest.json``: the model family, its config and the ``has_*``
   flags.
@@ -141,8 +141,8 @@ def save_checkpoint(ckpt_dir: str, *, params: Any, family: str, cfg: Any,
 def load_checkpoint(ckpt_dir: str, device="cuda") -> Dict[str, Any]:
     """Read a checkpoint directory onto ``device`` -> ``{family, cfg,
     params, qstate?, int_params?, extra}``. Raises for a family the port
-    lacks, and (through ``convert.py``) for AdaRound state. Packed int4
-    weights (W4A8) load as they are stored."""
+    lacks. Packed int4 weights (W4A8) load as they are stored, AdaRound
+    alphas as float32 tensors."""
     dev = resolve_device(device)
     with open(os.path.join(ckpt_dir, "manifest.json")) as f:
         manifest = json.load(f)
