@@ -172,15 +172,19 @@ Phases (any failure exits non-zero; nothing is caught):
    ``TT.train`` at B = 8 on the int8 forward and 20 on the float
    fake-quant forward (ms a step as the median of steps 10-40 / 10-20 on
    the host clock, the first and last loss, the range entries that moved
-   and their largest relative change); on the trained model the int8 and
-   the float forward's logits on a request batch within
-   ``QAT_LOGIT_LEVELS`` levels of the classifier.out grid with at most
-   ``QAT_LOGIT_FRAC`` of them off; then the learned ranges merged, packed
-   int4 and planned: K1 w4 (layer 0's four matmuls), K2 and K3 (both
-   add+LNs) against their plain versions bit for bit, three request
+   and their largest relative change); then the learned ranges merged,
+   packed int4 and planned: K1 w4 (layer 0's four matmuls), K2 and K3
+   (both add+LNs) against their plain versions bit for bit, three request
    batches through ``bert_engine_apply`` (48 / 12 / 24 launches a forward,
-   logits against the plain engine), the engine's logits against the
-   fake-quant forward's by the same gate, and engine seq/s.
+   logits against the plain engine); the W4A8 engine, the int8 QAT
+   forward and the float fake-quant forward on 128 synthetic RTE
+   examples drawn as the calibration examples are, with the share of
+   their logits at an end of the learned classifier.out grid, compared
+   with that site off by the route-ratio rule (``route_gaps``: the
+   engine's gaps within ``ROUTE_RATIO`` times the int8 forward's gap to
+   the fake-quant forward; a compared logit at an end of the grid agrees
+   across routes whatever came before, and at most ``ROUTE_MAX_CLIPPED``
+   may); and engine seq/s.
 14. AdaRound: the JAX CLI's ``w4-adaround`` recipe (``CAL.
    ADAROUND_RECIPES``) at BERT-base width and depth from ``--seed``'s
    params on synthetic RTE examples, cut to ``ADAROUND_SAMPLES`` samples
@@ -200,13 +204,29 @@ Phases (any failure exits non-zero; nothing is caught):
    through ``bert_engine_apply`` (48 / 12 / 24 launches a forward, logits
    against the plain engine), the gaps between the engine, the generic
    int path and the hard-alpha fake-quant forward by the rule the JAX
-   package's routes keep at 12 layers (``ADAROUND_ROUTE_RATIO``, from
-   tests/test_torch_adaround_depth.py: the engine's gaps within that
-   many times the generic int path's, and the AdaRound model's within
-   that many times the nearest-rounding model's; at most
-   ``ADAROUND_MAX_CLIPPED`` of the logits at an end of the classifier.out
-   grid, where every route agrees), and engine seq/s. Phase 13's logit
-   comparisons print that share too.
+   package's routes keep at 12 layers (``route_gaps``, ``ROUTE_RATIO``
+   from tests/test_torch_adaround_depth.py: the engine's gaps within
+   that many times the generic int path's, and the AdaRound model's
+   within that many times the nearest-rounding model's), and engine
+   seq/s.
+15. the BERT-shaped families at their published base configurations
+   (``FAMILY_MODELS``: RoBERTa-base, DistilBERT-base-uncased, 6 layers,
+   ALBERT-base-v2, one shared layer applied 12 times on 128-wide
+   factorized embeddings, SqueezeBERT-uncased, groups 4/4/4/1/4/4): random
+   init from ``--seed`` through the registry's ``build_model``, one-batch
+   W8A8 calibration (B = 8), the family's engine plan (ALBERT's layers on
+   one weight storage, SqueezeBERT's grouped kernels densified
+   block-diagonal); on request batches (B = 128, S = 128, seeded padding,
+   pads carrying the pad id) K1 / K2 / K3 on layer 0 bit-identical to
+   their plain versions, with K1's device ms on the four matmuls; three
+   request batches through the family's ``engine_apply`` (4L / L / 2L
+   launches a forward) and through its generic int path on the fused
+   linear, each against the same path on the plain versions; the engine,
+   the generic int path and the fake-quant forward by the route-ratio
+   rule; engine seq/s (five windows); the phase's seconds.
+
+``python3 chip_smoke.py --only 13,14,15`` runs phases 1 and 2 and the named
+ones of 13-15 alone (the kernels JSON only comes with every phase).
 
 The last lines are the kernels JSON (times per encoder layer: the sum
 over that layer's launches of each kernel; the flex kernels' top-level
@@ -228,7 +248,9 @@ ms on the unpacked weights (``int8_ms``) and the M = 256 sum under
 ``variants``, the second with the pooler there; ``launches`` sums the
 three runs of every path, ``launches_by_path`` splits them (``qat-w4a8``:
 phase 13's trained model on the W4A8 engine; ``adaround-w4a8``: phase
-14's AdaRound model on the all-int8 engine); the serving paths
+14's AdaRound model on the all-int8 engine; ``<family>`` and
+``<family>-generic``: phase 15's engines and generic int paths); the
+serving paths
 ``serve-bert`` / ``serve-mobilebert`` count the launches the wrappers
 made while their buckets were captured, ``serve-bert-eager`` those of
 the eager loop), the
@@ -255,6 +277,7 @@ import torch
 
 from transformer_quantization_tpu_torch.models import bert as B
 from transformer_quantization_tpu_torch.models import mobilebert as MB
+from transformer_quantization_tpu_torch.models import registry as REG
 from transformer_quantization_tpu_torch.ops import engine as ENG
 from transformer_quantization_tpu_torch.ops import int_linear as IL
 from transformer_quantization_tpu_torch.ops import layers as LY
@@ -2581,12 +2604,18 @@ def w4a8_phase(params, cfg, plan8, batches, by_path, seed, dev, kind,
 # epoch), its float fake-quant forward for QAT_FLOAT_STEPS beside it
 QAT_STEPS, QAT_FLOAT_STEPS, QAT_TIMED_FROM = 40, 20, 10
 QAT_EXAMPLES = 8 * 48
-# the logit gate between two routes of the same trained model at 12
-# layers: a level flip from another rounding order spreads through its
-# sequence (the parity contract's depth rule), and the logits are the
-# classifier.out site's grid: within QAT_LOGIT_LEVELS levels, and at most
-# QAT_LOGIT_FRAC of them off at all
-QAT_LOGIT_LEVELS, QAT_LOGIT_FRAC = 2, 0.1
+# the route-ratio rule between three routes of one model at 12 layers
+# (tests/test_torch_adaround_depth.py's ROUTE_RATIO): a level flip from
+# another rounding order spreads through its sequence (the parity
+# contract's depth rule), so no two routes meet the logit tolerance, but
+# the JAX package's own routes keep their gaps within ROUTE_RATIO of each
+# other: the engine's gaps to the fake-quant forward and to the middle
+# route (the generic int path, or the int8 QAT forward) at most
+# ROUTE_RATIO times the middle route's gap to the fake-quant forward
+ROUTE_RATIO = 2.0
+# the most of the fake-quant logits that may sit at an end of the
+# classifier.out grid, where every route agrees whatever came before
+ROUTE_MAX_CLIPPED = 0.5
 
 
 def grid_end_frac(logits, spec, qp) -> float:
@@ -2598,23 +2627,62 @@ def grid_end_frac(logits, spec, qp) -> float:
     return float(((lv == lo) | (lv == hi)).float().mean())
 
 
-def logit_levels(got, want, step, name, ends=None) -> None:
-    """Two routes' logits on the classifier.out grid of ``step``: fails
-    beyond ``QAT_LOGIT_LEVELS`` levels or past ``QAT_LOGIT_FRAC`` of them
-    off. ``ends``, when given, is the share of ``want`` at an end of the
-    grid, printed beside."""
-    diff = ((got - want).abs() / step).float()
-    frac = float((diff > 0.5).float().mean())
-    print(f"  {name}: max |diff| {float((got - want).abs().max()):.4e} = "
-          f"{float(diff.max()):.2f} levels of classifier.out (step "
-          f"{float(step):.4e}); {frac:.4f} of {diff.numel()} logits off"
-          + ("" if ends is None else
-             f"; {ends:.4f} of them at an end of the grid"))
-    if not torch.isfinite(got).all():
-        fail(f"{name}: non-finite logits")
-    if float(diff.max()) > QAT_LOGIT_LEVELS + 0.01 or frac > QAT_LOGIT_FRAC:
-        fail(f"{name}: beyond {QAT_LOGIT_LEVELS} levels or more than "
-             f"{QAT_LOGIT_FRAC} of the logits off")
+def route_gaps(tag, engine, mid, flt, mid_name, step, clipped) -> dict:
+    """The gaps between an engine's logits, a middle route's (``mid``,
+    named ``mid_name``) and the fake-quant forward's (``flt``) on one
+    batch, in logits and in levels of the classifier.out grid (``step``),
+    beside ``clipped``, the share of the compared fake-quant logits at an
+    end of that grid. Fails on non-finite logits, past
+    ``ROUTE_MAX_CLIPPED`` clipped, or where an engine gap exceeds
+    ``ROUTE_RATIO`` times the middle route's gap to the fake-quant
+    forward. Returns {pair: max |diff|}."""
+    print(f"  {tag}: logit scale {float(flt.abs().max()):.4e}, "
+          f"classifier.out step {step:.4e}, {clipped:.4f} of {flt.numel()} "
+          "compared fake-quant logits at an end of its grid")
+    if clipped > ROUTE_MAX_CLIPPED:
+        fail(f"{tag}: {clipped:.4f} of the logits clipped, the routes' "
+             "gaps would not show")
+    ref = f"{mid_name}-fq"
+    gaps = {}
+    for pair, a, b in (("engine-fq", engine, flt), (ref, mid, flt),
+                       (f"engine-{mid_name}", engine, mid)):
+        if not torch.isfinite(a).all():
+            fail(f"{tag} {pair}: non-finite logits")
+        d = (a - b).abs()
+        gaps[pair] = float(d.max())
+        print(f"    {pair}: max |diff| {gaps[pair]:.4e} = "
+              f"{gaps[pair] / step:.2f} levels, "
+              f"{float((d / step > 0.5).float().mean()):.4f} of "
+              f"{d.numel()} logits off")
+    for pair in ("engine-fq", f"engine-{mid_name}"):
+        if gaps[pair] > ROUTE_RATIO * gaps[ref]:
+            fail(f"{tag}: {pair} {gaps[pair]:.4e} beyond {ROUTE_RATIO} x "
+                 f"{ref} {gaps[ref]:.4e}")
+    print(f"  {tag}: engine gaps within {ROUTE_RATIO} x {ref} (ratios "
+          + ", ".join(f"{pair} / {ref} {gaps[pair] / max(gaps[ref], 1e-30):.2f}"
+                      for pair in ("engine-fq", f"engine-{mid_name}"))
+          + ")")
+    return gaps
+
+
+def site_gaps(tag, engine, mid, flt, mid_name, spec, qp) -> dict:
+    """:func:`route_gaps` on logits quantized on the classifier.out grid
+    (``spec``, ``qp``)."""
+    return route_gaps(tag, engine, mid, flt, mid_name,
+                      float(Q.scale_of(spec, qp)),
+                      grid_end_frac(flt, spec, qp))
+
+
+def rte_batch(cfg, seed: int, n: int = BATCH) -> dict:
+    """``n`` synthetic RTE validation examples through the hash tokenizer
+    (``SEQ`` tokens), drawn as the QAT and AdaRound recipes' calibration
+    examples are: the model inputs only."""
+    task = GL.TASKS["rte"]
+    arrays = DATA.encode_examples(
+        DATA.SyntheticTokenizer(cfg.vocab_size), task,
+        GL.synthetic_examples(task, "validation", n, seed=seed), SEQ)
+    return {k: arrays[k] for k in ("input_ids", "attention_mask",
+                                   "token_type_ids")}
 
 
 def check_qat_products(apply_fn, params, qcfg, qstate, qat, batch) -> None:
@@ -2669,17 +2737,27 @@ def qat_train(apply_fn, params, task, arrays, tcfg, qcfg, qstate, qat,
     return out, losses, ms
 
 
-def check_layer0_kernels(tag, params, cfg, qcfg, qstate, int_params, static,
-                         plan, batch, dev, w4) -> None:
+def engine_entry(run, batch):
+    """The entry value (B, S, H) and (B, S) mask bias that the engine
+    forward ``run`` hands ``encoder_engine`` on ``batch`` (one forward on
+    the plain versions, recorded)."""
+    (call,), = record_calls(lambda: run(batch, "plain"),
+                            (ENG, "encoder_engine"))
+    h, mask = call[0][:2]
+    return h, mask
+
+
+def check_layer0_kernels(tag, h, mask, n_heads, static, plan, w4,
+                         timed=False):
     """K1 (layer 0's four matmuls; the packed int4 instance with ``w4``),
-    K2 and K3 (both add+LNs) on an engine's layer-0 payloads, each against
-    its plain version, bit for bit."""
-    h, mask = entry_value(params, cfg, qcfg, qstate, int_params, batch, dev)
+    K2 and K3 (both add+LNs) on an engine's layer-0 payloads from the
+    entry value ``h`` and mask bias ``mask``, each against its plain
+    version, bit for bit. With ``timed``, returns K1's device ms on each
+    of the four matmuls (CUDA-graph replay)."""
     es = plan["entry_scal"]
     x8 = EK.quantize_payload(h.reshape(BATCH * SEQ, -1), es[0, 0], es[0, 1])
     lp = plan["layers"][0]
-    akw = dict(n_heads=cfg.num_attention_heads, seq=SEQ,
-               skip_max=static.attn_skip_max)
+    akw = dict(n_heads=n_heads, seq=SEQ, skip_max=static.attn_skip_max)
     eps = static.ln_eps
     k1 = f"{tag} K1" + (" w4" if w4 else "")
     qkv = lambda f: f(x8, *_mm(lp["qkv"]), w4=w4)
@@ -2706,6 +2784,11 @@ def check_layer0_kernels(tag, params, cfg, qcfg, qstate, int_params, static,
     compare(EK.fused_add_ln_payload(d8, hx8, lp["ln2"]["gb"], ln2, eps=eps),
             EK.fused_add_ln_payload_ref(d8, hx8, lp["ln2"]["gb"], ln2,
                                         eps=eps), f"{tag} K3 ln2")
+    if not timed:
+        return None
+    return {name: device_ms(lambda f=f: f(EK.int8_matmul))
+            for name, f in (("qkv", qkv), ("attn_out", ao), ("inter", inter),
+                            ("dense", dense))}
 
 
 def qat_phase(params, batches, by_path, seed, dev, kind, smi) -> None:
@@ -2768,30 +2851,41 @@ def qat_phase(params, batches, by_path, seed, dev, kind, smi) -> None:
         fail("qat-w4a8: no learned range moved")
 
     b0 = batches[0]
-    step = Q.scale_of(qcfg["classifier.out"].spec, q2["classifier.out"]["qp"])
-    with torch.no_grad():
-        flt = apply_fn(p2, b0, qcfg=qcfg, qstate=q2)[0]["logits"]
-        i8 = apply_fn(p2, b0, qcfg=qcfg, qstate=q2,
-                      int8_qat_sites=qat.int8_sites)[0]["logits"]
-    ends = grid_end_frac(flt, qcfg["classifier.out"].spec,
-                         q2["classifier.out"]["qp"])
-    logit_levels(i8, flt, step, "[qat-w4a8] int8 QAT forward vs float "
-                 "fake-quant forward", ends)
-
     int4 = B.build_bert_int_params(p2, qcfg, q2, use_int4=True)
     static, plan, _ = B.build_bert_engine(p2, cfg, qcfg, q2, int_params=int4,
                                           device=dev)
     if not all(all(f) for f in static.w4):
         fail(f"qat-w4a8: the engine's matmuls are not all int4: {static.w4}")
-    check_layer0_kernels("qat-w4a8", p2, cfg, qcfg, q2, int4, static, plan,
-                         b0, dev, w4=True)
     eng = bert_runner(p2, cfg, qcfg, q2, static, plan, int4, dev)
+    check_layer0_kernels("qat-w4a8", *engine_entry(eng, b0),
+                         cfg.num_attention_heads, static, plan, w4=True)
     by_path["qat-w4a8"] = drive_path(
         "qat-w4a8", eng, cfg, batches,
         per_forward(int8_matmul_w4=4 * L, int8_attention=L,
                     fused_add_ln_payload=2 * L))
-    logit_levels(eng(b0, "kernels")["logits"], flt, step,
-                 "[qat-w4a8] W4A8 engine vs the fake-quant forward", ends)
+    # the trained model's three routes on examples drawn as its
+    # calibration and training examples are, by the route-ratio rule.
+    # Training shrinks the learned classifier.out range inside the two
+    # classes' logit clusters, so most quantized logits clip to an end of
+    # the grid, where every route agrees: the routes are compared with
+    # the classifier.out site off (its step the unit)
+    rb = rte_batch(cfg, seed)
+    spec, qp = qcfg["classifier.out"].spec, q2["classifier.out"]["qp"]
+    open_q = qcfg.replace_site("classifier.out", enabled=False)
+    with torch.no_grad():
+        clipped = grid_end_frac(
+            apply_fn(p2, rb, qcfg=qcfg, qstate=q2)[0]["logits"], spec, qp)
+        flt = apply_fn(p2, rb, qcfg=open_q, qstate=q2)[0]["logits"]
+        i8 = apply_fn(p2, rb, qcfg=open_q, qstate=q2,
+                      int8_qat_sites=qat.int8_sites)[0]["logits"]
+    print(f"  [qat-w4a8] on {BATCH} synthetic RTE examples {clipped:.4f} of "
+          "the fake-quant logits sit at an end of the learned classifier.out "
+          "grid; compared below with that site off")
+    route_gaps(f"[qat-w4a8] W4A8 engine, int8 QAT forward, fake-quant "
+               f"forward on {BATCH} synthetic RTE examples, classifier.out "
+               "off", bert_runner(p2, cfg, open_q, q2, static, plan, int4,
+                                  dev)(rb, "kernels")["logits"],
+               i8, flt, "int8", float(Q.scale_of(spec, qp)), 0.0)
     t_eng = window_ms(lambda: eng(b0, "kernels"))
     print(f"  [qat-w4a8] seq/s at B={BATCH}, S={SEQ}, median (range) of 5 "
           f"windows ({kind}, {smi}): trained W4A8 engine {seq_per_s(t_eng)} "
@@ -2803,13 +2897,6 @@ def qat_phase(params, batches, by_path, seed, dev, kind, smi) -> None:
 # synthetic RTE examples; per-iteration times from ADAROUND_TIMED_FROM on
 ADAROUND_SAMPLES, ADAROUND_ITERS, ADAROUND_TIMED_FROM = 64, 200, 10
 ADAROUND_EVAL = 128
-# the largest ratio between two of a model's route gaps, and between the
-# AdaRound model's gap and the nearest-rounding model's
-# (tests/test_torch_adaround_depth.py's ROUTE_RATIO)
-ADAROUND_ROUTE_RATIO = 2.0
-# the most of the fake-quant logits that may sit at an end of the
-# classifier.out grid, where every route agrees whatever came before
-ADAROUND_MAX_CLIPPED = 0.5
 # a layer's shape class, for the per-iteration times
 ADAROUND_SHAPES = (("768x768", ("attn.q", "attn.k", "attn.v",
                                 "attn_out.dense", "pooler.dense")),
@@ -2917,7 +3004,7 @@ def adaround_phase(params, batches, by_path, seed, dev, kind, smi) -> None:
     plain versions bit for bit, three request batches through
     ``bert_engine_apply`` (48 / 12 / 24 launches a forward, logits against
     the plain engine), the gaps between the engine, the generic int path
-    and the hard-alpha fake-quant forward by ``ADAROUND_ROUTE_RATIO``,
+    and the hard-alpha fake-quant forward by ``ROUTE_RATIO``,
     and engine seq/s."""
     rec, arc0 = CAL.ADAROUND_RECIPES["w4-adaround"]
     arc = dataclasses.replace(arc0, num_samples=ADAROUND_SAMPLES,
@@ -3035,10 +3122,10 @@ def adaround_phase(params, batches, by_path, seed, dev, kind, smi) -> None:
         fail(f"adaround: the engine is not all-int8: w4 {static.w4}, "
              f"int8 {static.int8_layer}")
     b0 = batches[0]
-    check_layer0_kernels("adaround-w4a8", params, cfg, qcfg, qs, int_params,
-                         static, plan, b0, dev, w4=False)
     L = cfg.num_hidden_layers
     eng = bert_runner(params, cfg, qcfg, qs, static, plan, int_params, dev)
+    check_layer0_kernels("adaround-w4a8", *engine_entry(eng, b0),
+                         cfg.num_attention_heads, static, plan, w4=False)
     by_path["adaround-w4a8"] = drive_path(
         "adaround-w4a8", eng, cfg, batches,
         per_forward(int8_matmul=4 * L, int8_attention=L,
@@ -3051,17 +3138,15 @@ def adaround_phase(params, batches, by_path, seed, dev, kind, smi) -> None:
           f"of their hard decisions differ from it")
     # the engine against the hard-alpha fake-quant forward. At 12 layers
     # no two of a model's routes (engine, generic int path, fake-quant
-    # forward) meet phase 13's gate, in the JAX package as in the port: a
-    # rounding-order level flip spreads through its sequence (ROADMAP,
-    # "Parity contract"). tests/test_torch_adaround_depth.py holds the
-    # port's engine to the JAX engine there and records JAX's own three
-    # gaps, which keep within ADAROUND_ROUTE_RATIO of each other, with
-    # and without alphas; the gate here is that rule, in logit units: the
-    # engine's gaps to the fake-quant forward and to the generic int path
-    # at most ADAROUND_ROUTE_RATIO times the generic int path's gap to the
-    # fake-quant forward, and the AdaRound model's three gaps at most
-    # ADAROUND_ROUTE_RATIO times those of the same model at nearest
-    # rounding (the same act calibration)
+    # forward) meet the logit tolerance, in the JAX package as in the
+    # port: a rounding-order level flip spreads through its sequence
+    # (ROADMAP, "Parity contract"). tests/test_torch_adaround_depth.py
+    # holds the port's engine to the JAX engine there and records JAX's
+    # own three gaps, which keep within ROUTE_RATIO of each other, with
+    # and without alphas; the gate here is that rule, in logit units
+    # (route_gaps), and the AdaRound model's three gaps at most
+    # ROUTE_RATIO times those of the same model at nearest rounding (the
+    # same act calibration)
     gaps = {}
     for tag, qs_, ip_ in (("adaround", qs, int_params),
                           ("nearest", None, None)):
@@ -3075,39 +3160,16 @@ def adaround_phase(params, batches, by_path, seed, dev, kind, smi) -> None:
             run = bert_runner(params, cfg, qcfg, qs_, st_, pl_, ip_, dev)
         else:
             run = eng
-        spec, qp = qcfg["classifier.out"].spec, qs_["classifier.out"]["qp"]
-        step = float(Q.scale_of(spec, qp))
         with torch.no_grad():
             flt = apply_fn(params, b0, qcfg=qcfg, qstate=qs_)[0]["logits"]
             gen = apply_fn(params, b0, qcfg=qcfg, qstate=qs_,
                            int_params=ip_)[0]["logits"]
-        got = run(b0, "kernels")["logits"]
-        ends = grid_end_frac(flt, spec, qp)
-        print(f"  [adaround-w4a8] {tag} model: logit scale "
-              f"{float(flt.abs().max()):.4e}, classifier.out step "
-              f"{step:.4e}, {ends:.4f} of the fake-quant logits at an end "
-              f"of its grid")
-        if ends > ADAROUND_MAX_CLIPPED:
-            fail(f"adaround-w4a8 {tag}: {ends:.4f} of the logits clipped, "
-                 f"the routes' gaps would not show")
-        for route, a, b in (("engine-fq", got, flt),
-                            ("generic-fq", gen, flt),
-                            ("engine-generic", got, gen)):
-            if not torch.isfinite(a).all():
-                fail(f"adaround-w4a8 {tag} {route}: non-finite logits")
-            d = (a - b).abs()
-            gaps[tag, route] = float(d.max())
-            print(f"    {route}: max |diff| {gaps[tag, route]:.4e} = "
-                  f"{gaps[tag, route] / step:.2f} levels, "
-                  f"{float((d / step > 0.5).float().mean()):.4f} of "
-                  f"{d.numel()} logits off")
-    r = ADAROUND_ROUTE_RATIO
-    for tag in ("adaround", "nearest"):
-        for route in ("engine-fq", "engine-generic"):
-            if gaps[tag, route] > r * gaps[tag, "generic-fq"]:
-                fail(f"adaround-w4a8 {tag} model: {route} "
-                     f"{gaps[tag, route]:.4e} beyond {r} x generic-fq "
-                     f"{gaps[tag, 'generic-fq']:.4e}")
+        for route, gap in site_gaps(
+                f"[adaround-w4a8] {tag} model", run(b0, "kernels")["logits"],
+                gen, flt, "generic", qcfg["classifier.out"].spec,
+                qs_["classifier.out"]["qp"]).items():
+            gaps[tag, route] = gap
+    r = ROUTE_RATIO
     for route in ("engine-fq", "generic-fq", "engine-generic"):
         if gaps["adaround", route] > r * gaps["nearest", route]:
             fail(f"adaround-w4a8: {route} {gaps['adaround', route]:.4e} "
@@ -3122,10 +3184,160 @@ def adaround_phase(params, batches, by_path, seed, dev, kind, smi) -> None:
           f"{t_eng[0]:.3f} ms)")
 
 
+# phase 15: the BERT-shaped families at their published base
+# configurations, and the fused linears and quantize passes of one
+# generic-path forward by family and depth L (every linear whose input
+# site is per-tensor and whose N % 8 == 0 takes the fused linear on a
+# float32 x: none emits a payload for the next)
+FAMILY_MODELS = ("roberta_base", "distilbert_base_uncased", "albert_base_v2",
+                 "squeezebert_uncased")
+# float32 x: none emits a payload for the next), and its logits site
+FAMILY_GENERIC = {
+    "roberta": (lambda L: 6 * L + 1, "clf.out_proj.out"),  # + clf.dense
+    "distilbert": (lambda L: 6 * L + 1, "clf.out.out"),    # + clf.pre
+    "albert": (lambda L: 6 * L + 2, "classifier.out"),     # + emb_proj, pooler
+    # attn_out (one group) + pooler
+    "squeezebert": (lambda L: L + 1, "classifier.out"),
+}
+
+
+def family_batches(cfg, seed: int) -> list:
+    """Three request batches, the padded positions carrying the model's
+    pad id (RoBERTa numbers its positions from the non-pad ids)."""
+    out = request_batches(cfg, 3, seed)
+    pad = getattr(cfg, "pad_token_id", 0)
+    for b in out:
+        b["input_ids"] = np.where(b["attention_mask"] > 0, b["input_ids"],
+                                  pad).astype(np.int32)
+    return out
+
+
+def family_phase(model: str, seed: int, by_path, dev, kind, smi) -> dict:
+    """One family of phase 15 (see the module docstring); returns K1's
+    device ms on layer 0's four matmuls."""
+    t0 = time.perf_counter()
+    fam, cfg, params = REG.build_model(model, seed=seed, device=dev)
+    qcfg = fam.declare_sites(CAL.w8a8_defaults(), cfg)
+
+    def apply_fn(p, b, **kw):
+        return fam.apply(p, b, cfg, **kw)
+
+    qstate, _ = CAL.prepare_quantized_model(
+        apply_fn, params, qcfg,
+        [CAL.calibration_batch(cfg.vocab_size, 8, SEQ, seed)],
+        weight_tensors=fam.weight_site_tensors(params), device=dev)
+    static, plan, ip = fam.build_engine(params, cfg, qcfg, qstate,
+                                        device=dev)
+    torch.cuda.synchronize()
+    L = cfg.num_hidden_layers
+    print(f"  [{fam.name}] {model}: {L} layers, H={cfg.hidden_size}, "
+          f"I={cfg.intermediate_size}, {cfg.num_attention_heads} heads, "
+          f"vocab {cfg.vocab_size}, LayerNorm eps {cfg.layer_norm_eps:g}; "
+          f"init, W8A8 calibration, packing, plan "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    if not all(static.int8_layer):
+        fail(f"{model}: not every layer on the all-int8 route")
+    if fam.name == "albert":
+        ptrs = {mm: {lp[mm]["w"].untyped_storage().data_ptr()
+                     for lp in plan["layers"]}
+                for mm in ("qkv", "attn_out", "inter", "dense")}
+        if any(len(v) != 1 for v in ptrs.values()):
+            fail(f"albert: the plan's layers hold {ptrs} weight storages")
+        print(f"  [albert] the {L} plan layers share one weight storage a "
+              "matmul (q|k|v, attn_out, inter, dense)")
+    batches = family_batches(cfg, seed)
+    b0 = batches[0]
+
+    def engine(batch, backend):
+        return fam.engine_apply(params, batch, cfg, qcfg, qstate, static,
+                                plan, ip, backend=backend, device=dev)
+
+    def generic(batch, backend):
+        return apply_fn(params, batch, qcfg=qcfg, qstate=qstate,
+                        mode=QuantMode(), int_params=ip,
+                        fused_linear=(True if backend == "kernels"
+                                      else "plain"), device=dev)[0]
+
+    k1 = check_layer0_kernels(fam.name, *engine_entry(engine, b0),
+                              cfg.num_attention_heads, static, plan,
+                              w4=False, timed=True)
+    print(f"  [{fam.name}] K1 device ms, layer 0 (B={BATCH}, S={SEQ}): "
+          + ", ".join(f"{k} {v:.4f}" for k, v in k1.items())
+          + f"; per layer {sum(k1.values()):.4f}")
+    by_path[fam.name] = drive_path(
+        fam.name, engine, cfg, batches,
+        per_forward(int8_matmul=4 * L, int8_attention=L,
+                    fused_add_ln_payload=2 * L))
+    linears, logits_site = FAMILY_GENERIC[fam.name]
+    n_lin = linears(L)
+    by_path[f"{fam.name}-generic"] = drive_path(
+        f"{fam.name}-generic", generic, cfg, batches,
+        per_forward(fused_int8_linear=n_lin, fused_linear_quantize=n_lin))
+    with torch.no_grad():
+        flt = apply_fn(params, b0, qcfg=qcfg, qstate=qstate,
+                       mode=QuantMode(), device=dev)[0]["logits"]
+    site_gaps(f"[{fam.name}] engine, generic int path, fake-quant forward",
+              engine(b0, "kernels")["logits"],
+              generic(b0, "kernels")["logits"], flt, "generic",
+              qcfg[logits_site].spec, qstate[logits_site]["qp"])
+    t_eng = window_ms(lambda: engine(b0, "kernels"))
+    print(f"  [{fam.name}] seq/s at B={BATCH}, S={SEQ}, median (range) of 5 "
+          f"windows ({kind}, {smi}): engine {seq_per_s(t_eng)} (forward "
+          f"{t_eng[0]:.3f} ms)", flush=True)
+    return k1
+
+
+def families_phase(by_path, seed: int, dev, kind, smi) -> None:
+    """Phase 15: each of ``FAMILY_MODELS`` in turn (its weights freed
+    before the next); K1's ms a layer of SqueezeBERT's block-diagonal
+    weights beside RoBERTa-base's dense ones (BERT-base's shapes)."""
+    k1 = {}
+    for model in FAMILY_MODELS:
+        k1[model] = sum(family_phase(model, seed, by_path, dev, kind,
+                                     smi).values())
+        gc.collect()
+        torch.cuda.empty_cache()
+    print(f"  K1 device ms a layer ({kind}, {smi}): "
+          + ", ".join(f"{m} {t:.4f}" for m, t in k1.items())
+          + "; SqueezeBERT's block-diagonal weights against RoBERTa's dense "
+          f"ones {k1['squeezebert_uncased'] / k1['roberta_base']:.3f}x")
+
+
+# the phases after serving: (title, runner(params, batches, by_path,
+# seed, dev, kind, smi))
+LATE_PHASES = {
+    13: ("QAT: the JAX CLI's qat-w4a8 recipe trained at BERT-base width and "
+         "deployed through the W4A8 engine", qat_phase),
+    14: ("AdaRound: the JAX CLI's w4-adaround recipe at BERT-base width and "
+         "depth, then post_adaround W4A8 through the int8 engine",
+         adaround_phase),
+    15: ("the families: RoBERTa-base, DistilBERT-base, ALBERT-base-v2 and "
+         "SqueezeBERT through their W8A8 engines and generic int paths",
+         lambda params, batches, *a: families_phase(*a)),
+}
+
+
+def late_phases(phases, params, batches, by_path, seed, dev, kind,
+                smi) -> None:
+    """Phases 13-15 of ``phases`` in order, each timed."""
+    for n in phases:
+        title, run = LATE_PHASES[n]
+        print(f"[{n}] {title}", flush=True)
+        t0 = time.perf_counter()
+        run(params, batches, by_path, seed, dev, kind, smi)
+        print(f"  phase {n}: {time.perf_counter() - t0:.1f} s", flush=True)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--only", default="",
+                    help="comma-separated phases of 13-15 to run alone, "
+                         "after phases 1 and 2")
     args = ap.parse_args(argv)
+    only = {int(p) for p in args.only.split(",") if p}
+    if only - set(LATE_PHASES):
+        ap.error(f"--only takes phases {sorted(LATE_PHASES)}")
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script needs a card")
     dev = torch.device("cuda")
@@ -3146,6 +3358,17 @@ def main(argv=None) -> int:
 
     cfg = B.BertConfig()
     L = cfg.num_hidden_layers
+    if only:
+        # the late phases alone, from the BERT-base params and request
+        # batches the whole run would give them
+        late_phases(sorted(only), B.init_bert_params(cfg, args.seed, dev),
+                    request_batches(cfg, 3, args.seed), {}, args.seed, dev,
+                    kind, smi)
+        print(smi)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": kind,
+            "count": torch.cuda.device_count()}}))
+        return 0
     t0 = time.perf_counter()
     params, qcfg, qstate = CAL.calibrated_bert(cfg, batch_size=8, seq=SEQ,
                                                seed=args.seed, device=dev)
@@ -3416,18 +3639,8 @@ def main(argv=None) -> int:
                              dev, kind, smi))
     print(f"  phase 12: {time.perf_counter() - t0:.1f} s", flush=True)
 
-    print("[13] QAT: the JAX CLI's qat-w4a8 recipe trained at BERT-base "
-          "width and deployed through the W4A8 engine", flush=True)
-    t0 = time.perf_counter()
-    qat_phase(params, batches, by_path, args.seed, dev, kind, smi)
-    print(f"  phase 13: {time.perf_counter() - t0:.1f} s", flush=True)
-
-    print("[14] AdaRound: the JAX CLI's w4-adaround recipe at BERT-base "
-          "width and depth, then post_adaround W4A8 through the int8 engine",
-          flush=True)
-    t0 = time.perf_counter()
-    adaround_phase(params, batches, by_path, args.seed, dev, kind, smi)
-    print(f"  phase 14: {time.perf_counter() - t0:.1f} s", flush=True)
+    late_phases(sorted(LATE_PHASES), params, batches, by_path, args.seed, dev,
+                kind, smi)
 
     report.update({k: mb_report[k] for k in (
         "int8_matmul_norm", "int8_attention_qkv")})

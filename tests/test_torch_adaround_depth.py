@@ -54,7 +54,7 @@ KW = dict(vocab_size=512, hidden_size=256, num_hidden_layers=12,
 SEQ, N = 32, 16
 # the largest ratio between two route gaps of one model, and between the
 # alphas state's gap and the nearest state's; chip_smoke.py's
-# ADAROUND_ROUTE_RATIO holds the card's routes to the same number
+# ROUTE_RATIO holds the card's routes to the same number
 ROUTE_RATIO = 2.0
 NOISE = 1.0
 

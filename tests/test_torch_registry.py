@@ -2,9 +2,10 @@
 tokenizers on the CPU, against the JAX package.
 
 - ``models/registry.py``: the families' fields, the model names, the
-  presets, ``build_model`` (random init; a JAX-written checkpoint
-  directory), and the families and branches that are not ported raising
-  ``NotImplementedError`` with their ROADMAP item;
+  presets, ``build_model`` (random init for every family; a JAX-written
+  checkpoint directory; a local Hugging Face directory), and the branches
+  that are not ported raising ``NotImplementedError`` with their ROADMAP
+  item;
 - ``apply_peg_wiring``: JAX's ``axis`` / ``n_groups`` / ``permute`` on
   every site, for per-token, per-embd and per-groups with and without
   permutation, for BERT and MobileBERT; fake-quant logits under per-embd
@@ -86,7 +87,8 @@ def test_family_fields_and_model_names_match_jax():
     assert set(TR._FAMILIES) == set(JR._FAMILIES)
 
 
-@pytest.mark.parametrize("name", ["bert", "mobilebert"])
+@pytest.mark.parametrize("name", ["bert", "mobilebert", "roberta",
+                                  "distilbert", "albert", "squeezebert"])
 def test_ported_family_matches_jax(name):
     t, j = TR.get_family(name), JR.get_family(name)
     assert t.name == j.name and t.head_key == j.head_key
@@ -94,10 +96,14 @@ def test_ported_family_matches_jax(name):
     assert t.tiny_preset == j.tiny_preset
     assert ([f.name for f in dataclasses.fields(t.config_cls)]
             == [f.name for f in dataclasses.fields(j.config_cls)])
+    assert t.config_cls() == t.config_cls(
+        **dataclasses.asdict(j.config_cls()))
     assert (t.shared_perm_groups is None) == (j.shared_perm_groups is None)
     assert t.build_engine is not None and t.engine_apply is not None
-    M = TB if name == "bert" else TMB
-    assert t.apply_peg is M.apply_peg_wiring
+    assert t.apply_peg.__name__ == j.apply_peg.__name__
+    assert t.apply_quant_dict.__name__ == j.apply_quant_dict.__name__
+    if name in ("bert", "mobilebert"):
+        assert t.apply_peg is (TB if name == "bert" else TMB).apply_peg_wiring
     for model_name, fam in TR.MODEL_NAME_TO_FAMILY.items():
         if fam == name:
             assert TR.get_family(model_name).name == name
@@ -106,22 +112,45 @@ def test_ported_family_matches_jax(name):
 @pytest.mark.parametrize("name", ["roberta", "distilbert", "albert",
                                   "squeezebert", "distilroberta_base",
                                   "albert_base_v2"])
-def test_unported_families_raise(name):
-    with pytest.raises(NotImplementedError, match="item 5"):
-        TR.get_family(name)
-    with pytest.raises(NotImplementedError, match="item 5"):
-        TR.build_model(name, device="cpu")
+def test_family_resolves_and_builds(name):
+    """Each family of the slice resolves, and ``build_model(tiny=True)``
+    gives JAX's config and a parameter tree of JAX's structure and
+    shapes."""
+    fam = TR.get_family(name)
+    assert fam.name == JR.get_family(name).name
+    jfam, jcfg, jp = JR.build_model(name, tiny=True)
+    tfam, tcfg, tp = TR.build_model(name, tiny=True, device="cpu")
+    assert tfam.name == jfam.name
+    assert dataclasses.asdict(tcfg) == dataclasses.asdict(jcfg)
+    shapes = jax.tree.map(lambda a: tuple(a.shape), jp)
+    assert jax.tree.map(lambda a: tuple(a.shape), tp) == shapes
+    head = tfam.init_head(tcfg, 1, "cpu")
+    assert (jax.tree.map(lambda a: tuple(a.shape), head)
+            == jax.tree.map(lambda a: tuple(a.shape),
+                            jfam.init_head(jax.random.PRNGKey(1), jcfg)))
 
 
 def test_unported_branches_raise(tmp_path):
     with pytest.raises(NotImplementedError, match="item 5"):
         TR.get_family("mobilebert").adaround_specs({}, TMB.MobileBertConfig())
-    (tmp_path / "config.json").write_text("{}")
-    with pytest.raises(NotImplementedError, match="item 5"):
-        TR.build_model("bert_base_uncased", model_path=str(tmp_path),
-                       device="cpu")
     with pytest.raises(KeyError):
         TR.get_family("gpt2")
+    # a local Hugging Face directory loads (models/hf_loader.py; each
+    # family is tests/test_torch_hf_loader.py's)
+    transformers = pytest.importorskip("transformers")
+    hf = transformers.BertConfig(vocab_size=64, hidden_size=32,
+                                 num_hidden_layers=1, num_attention_heads=2,
+                                 intermediate_size=64,
+                                 max_position_embeddings=32)
+    model = transformers.BertForSequenceClassification(hf)
+    model.save_pretrained(str(tmp_path))
+    fam, cfg, params = TR.build_model("bert_base_uncased",
+                                      model_path=str(tmp_path), device="cpu")
+    assert fam.name == "bert" and cfg.hidden_size == 32
+    sd = model.state_dict()
+    np.testing.assert_array_equal(
+        params["layers"][0]["ffn"]["inter"]["kernel"].numpy(),
+        sd["bert.encoder.layer.0.intermediate.dense.weight"].numpy())
 
 
 def test_build_model_random_init():

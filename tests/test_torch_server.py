@@ -11,6 +11,9 @@ server.py``) on the CPU, from checkpoints the JAX package wrote.
   400 on bad JSON or non-string text, 404, overlong input truncated,
   concurrent clients, 503 on a full queue (mirrors
   ``tests/test_server.py``);
+- a tiny RoBERTa and ALBERT the port calibrated and wrote, served through
+  the family's engine and answering exactly what its ``engine_apply``
+  gives on the same batch;
 - what the port does not serve raises, naming its ROADMAP item.
 """
 
@@ -130,6 +133,60 @@ def test_checkpoint_serves_through_the_registry(bert_ckpt):
     assert eng.device == torch.device("cpu")
     assert eng.tokenizer.vocab_size == CFG.vocab_size
     assert callable(eng.forward) and not hasattr(eng.forward, "graphs")
+
+
+@pytest.mark.parametrize("family", ["roberta", "albert"])
+def test_family_checkpoint_serves_its_engine(family, tmp_path):
+    """A tiny RoBERTa / ALBERT calibrated by the port (W8A8 current-minmax)
+    and written by its ``save_checkpoint`` is served by
+    ``build_engine_from_checkpoint`` on the CPU (the plain versions): the
+    forward, and each request alone through the queue (batch bucket 1),
+    answer exactly what the family's ``engine_apply`` gives on the same
+    batch."""
+    from transformer_quantization_tpu_torch.models import registry as TR
+    from transformer_quantization_tpu_torch.training import calibration as TC
+
+    fam, cfg, params = TR.build_model(family, tiny=True, seed=2,
+                                      device="cpu")
+    qcfg = fam.declare_sites(TC.w8a8_defaults(), cfg)
+    qstate, _ = TC.prepare_quantized_model(
+        lambda p, b, **kw: fam.apply(p, b, cfg, **kw), params, qcfg,
+        [TC.calibration_batch(cfg.vocab_size, 2, 32, 0)],
+        weight_tensors=fam.weight_site_tensors(params), device="cpu")
+    TCK.save_checkpoint(str(tmp_path), params=params, family=family, cfg=cfg,
+                        qstate=qstate)
+    ck = TCK.load_checkpoint(str(tmp_path), device="cpu")
+    assert ck["family"] == family and ck["cfg"] == cfg
+    static, plan, ip = fam.build_engine(ck["params"], cfg, qcfg, ck["qstate"],
+                                        device="cpu")
+
+    def engine(batch):
+        return fam.engine_apply(ck["params"], batch, cfg, qcfg, ck["qstate"],
+                                static, plan, ip, device="cpu")["logits"]
+
+    eng = TS.build_engine_from_checkpoint(
+        str(tmp_path), device="cpu",
+        serve_cfg=ServeConfig(**dict(SERVE, max_batch=1,
+                                     batch_buckets=(1,))))
+    reqs = _requests(cfg.vocab_size, 4, seed=3)
+    batch = {"input_ids": np.zeros((4, 32), np.int32),
+             "attention_mask": np.zeros((4, 32), np.float32),
+             "token_type_ids": np.zeros((4, 32), np.int32)}
+    for i, r in enumerate(reqs):
+        batch["input_ids"][i, :len(r)] = r
+        batch["attention_mask"][i, :len(r)] = 1
+    torch.testing.assert_close(eng.forward(batch), engine(batch), rtol=0,
+                               atol=0)
+    with eng:
+        got = [eng.submit_ids(r).result(60) for r in reqs]
+    for r, g in zip(reqs, got):
+        s = 16 if len(r) <= 16 else 32
+        one = {"input_ids": np.zeros((1, s), np.int32),
+               "attention_mask": np.zeros((1, s), np.float32),
+               "token_type_ids": np.zeros((1, s), np.int32)}
+        one["input_ids"][0, :len(r)] = r
+        one["attention_mask"][0, :len(r)] = 1
+        np.testing.assert_array_equal(np.asarray(g), engine(one)[0].numpy())
 
 
 def _free_port() -> int:

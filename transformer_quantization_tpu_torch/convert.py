@@ -6,7 +6,9 @@ Takes ``params``, ``qstate`` and ``int_params`` of
 ``jax.tree.map(np.asarray, tree)``, which keeps each ``QuantParams``
 with numpy ``delta`` / ``zero_float`` / ``signed``) and builds the port's
 counterparts on ``device``. Both packages keep kernels in the ``(out,
-in)`` layout and the same nesting, so this is a re-nesting into tensors.
+in)`` layout and the same nesting for every family (ALBERT's ``shared``
+layer and ``emb_proj``, SqueezeBERT's ``(out, in/groups)`` kernels), so
+this is a re-nesting into tensors.
 QAT state comes across too: the ``learnable`` / ``rest`` split of
 ``training/qat.py`` (``rest`` holding a learned site's ``qp_signed``) and
 a JAX train state's params and ranges, and AdaRound's rounding logits

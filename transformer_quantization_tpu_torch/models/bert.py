@@ -20,7 +20,10 @@ the fake-quant sites' STE / LSQ backward, dropout from a
 ``torch.Generator``, the int8 QAT matmul at ``int8_qat_sites``), and
 AdaRound: the layer specs (:func:`bert_adaround_specs`), layer I/O
 capture (``bert_apply(capture_sites=...)``) and the packing of alphas.
-Int8 attention, compute dtypes, scan, remat and the pipeline wait.
+Int8 attention, compute dtypes, scan, remat and the pipeline wait. The
+BERT-shaped families (RoBERTa, DistilBERT, ALBERT, SqueezeBERT) build on
+its embeddings, encoder, packing and engine entry (:func:`family_ctx`,
+:func:`engine_bias`, :func:`encoder_weight_site_tensors`).
 """
 
 from __future__ import annotations
@@ -126,6 +129,15 @@ def init_bert_params(cfg: BertConfig, seed: int = 0,
             "ffn": {"inter": linear(m, h), "dense": linear(h, m), "ln": ln(h)},
         })
     return params
+
+
+def linear_init(gen: torch.Generator, n_out: int, n_in: int, std: float,
+                dev) -> Dict:
+    """normal(0, std) ``(out, in)`` kernel drawn from ``gen`` (on the CPU),
+    zero bias, on ``dev``."""
+    return {"kernel": (std * torch.randn((n_out, n_in), generator=gen)
+                       ).to(dev),
+            "bias": torch.zeros((n_out,), device=dev)}
 
 
 def params_to(params, dtype=None, device=None):
@@ -330,6 +342,15 @@ EMBEDDING_TABLE_SITES = frozenset(
 
 def bert_weight_site_tensors(params: Dict) -> Dict[str, Tensor]:
     """Map weight-site names to their tensors."""
+    out = encoder_weight_site_tensors(params)
+    out["pooler.dense.w"] = params["pooler"]["kernel"]
+    out["classifier.w"] = params["classifier"]["kernel"]
+    return out
+
+
+def encoder_weight_site_tensors(params: Dict) -> Dict[str, Tensor]:
+    """The embedding and encoder weight sites, shared by the BERT-shaped
+    families."""
     e = params["embeddings"]
     out = {"emb.word.w": e["word"], "emb.position.w": e["position"],
            "emb.token_type.w": e["token_type"],
@@ -344,8 +365,6 @@ def bert_weight_site_tensors(params: Dict) -> Dict[str, Tensor]:
         out[p + "ffn.inter.w"] = layer["ffn"]["inter"]["kernel"]
         out[p + "ffn.dense.w"] = layer["ffn"]["dense"]["kernel"]
         out[p + "ffn.ln.w"] = layer["ffn"]["ln"]["scale"]
-    out["pooler.dense.w"] = params["pooler"]["kernel"]
-    out["classifier.w"] = params["classifier"]["kernel"]
     return out
 
 
@@ -511,6 +530,25 @@ def make_ctx(qcfg, qstate, mode, *, mse_session=None,
     return ctx
 
 
+def family_ctx(qcfg, qstate, mode, *, train: bool, int_params=None,
+               fused_linear=False, mse_session=None, capture_sites=None,
+               capture_pre_act: bool = False, family: str) -> QuantCtx:
+    """The forward's context for a family beyond BERT: the training
+    forward raises, and ``fused_linear`` (the JAX ``use_pallas``) runs the
+    int8 matmuls through the fused linear, without BERT's int8 hand-off
+    and requant-only sites (the JAX families set neither)."""
+    if train:
+        raise NotImplementedError(
+            f"the {family} training forward is not yet ported (ROADMAP §1 "
+            "item 5)")
+    ctx = make_ctx(qcfg, qstate, mode, mse_session=mse_session,
+                   int_params=int_params, capture_sites=capture_sites,
+                   capture_pre_act=capture_pre_act)
+    if int_params and fused_linear:
+        ctx.fused_linear = fused_linear
+    return ctx
+
+
 def _embeddings(ctx, params, cfg: BertConfig, input_ids, token_type_ids,
                 position_ids, train, gen):
     """Two-stage quantized embedding sum."""
@@ -527,17 +565,19 @@ def _embeddings(ctx, params, cfg: BertConfig, input_ids, token_type_ids,
 
 
 def _self_attention(ctx, layer, cfg: BertConfig, h, mask_bias, prefix,
-                    train, gen, h_site=None):
-    """Quantized self-attention (float einsums between fake-quant sites)."""
+                    train, gen, h_site=None, linear=quant_linear):
+    """Quantized self-attention (float einsums between fake-quant sites);
+    ``linear`` computes q, k and v (:func:`~..ops.layers.quant_linear`'s
+    signature)."""
     B, T, H = h.shape
     nh, hd = cfg.num_attention_heads, cfg.head_dim
     a = layer["attn"]
-    q = quant_linear(ctx, prefix + "attn.q", h, a["q"]["kernel"],
-                     a["q"]["bias"], input_site=h_site)
-    k = quant_linear(ctx, prefix + "attn.k", h, a["k"]["kernel"],
-                     a["k"]["bias"], input_site=h_site)
-    v = quant_linear(ctx, prefix + "attn.v", h, a["v"]["kernel"],
-                     a["v"]["bias"], input_site=h_site)
+    q = linear(ctx, prefix + "attn.q", h, a["q"]["kernel"], a["q"]["bias"],
+               input_site=h_site)
+    k = linear(ctx, prefix + "attn.k", h, a["k"]["kernel"], a["k"]["bias"],
+               input_site=h_site)
+    v = linear(ctx, prefix + "attn.v", h, a["v"]["kernel"], a["v"]["bias"],
+               input_site=h_site)
     q = q.reshape(B, T, nh, hd).permute(0, 2, 1, 3)
     k = k.reshape(B, T, nh, hd).permute(0, 2, 1, 3)
     v = v.reshape(B, T, nh, hd).permute(0, 2, 1, 3)
@@ -559,26 +599,26 @@ def _self_attention(ctx, layer, cfg: BertConfig, h, mask_bias, prefix,
 
 
 def _layer(ctx, layer, cfg: BertConfig, h, mask_bias, prefix, train, gen,
-           h_site=None):
-    """One encoder layer."""
+           h_site=None, linear=quant_linear):
+    """One encoder layer; ``linear`` computes each of its matmuls
+    (SqueezeBERT's grouped layers)."""
     context = _self_attention(ctx, layer, cfg, h, mask_bias, prefix, train,
-                              gen, h_site=h_site)
+                              gen, h_site=h_site, linear=linear)
     so = layer["attn_out"]
-    y = quant_linear(ctx, prefix + "attn_out.dense", context,
-                     so["dense"]["kernel"], so["dense"]["bias"],
-                     input_site=prefix + "attn.context")
+    y = linear(ctx, prefix + "attn_out.dense", context,
+               so["dense"]["kernel"], so["dense"]["bias"],
+               input_site=prefix + "attn.context")
     y = dropout(y, cfg.hidden_dropout_prob, gen, not train)
     y = ctx.act(prefix + "attn_out.res", y + h)
     attn_out = quant_layernorm(ctx, prefix + "attn_out.ln", y,
                                so["ln"]["scale"], so["ln"]["bias"],
                                cfg.layer_norm_eps)
     f = layer["ffn"]
-    inter = quant_linear(ctx, prefix + "ffn.inter", attn_out,
-                         f["inter"]["kernel"], f["inter"]["bias"],
-                         activation=cfg.hidden_act,
-                         input_site=prefix + "attn_out.ln.out")
-    y = quant_linear(ctx, prefix + "ffn.dense", inter, f["dense"]["kernel"],
-                     f["dense"]["bias"], input_site=prefix + "ffn.inter.out")
+    inter = linear(ctx, prefix + "ffn.inter", attn_out, f["inter"]["kernel"],
+                   f["inter"]["bias"], activation=cfg.hidden_act,
+                   input_site=prefix + "attn_out.ln.out")
+    y = linear(ctx, prefix + "ffn.dense", inter, f["dense"]["kernel"],
+               f["dense"]["bias"], input_site=prefix + "ffn.inter.out")
     y = dropout(y, cfg.hidden_dropout_prob, gen, not train)
     y = ctx.act(prefix + "ffn.res", y + attn_out)
     return quant_layernorm(ctx, prefix + "ffn.ln", y, f["ln"]["scale"],
@@ -586,12 +626,12 @@ def _layer(ctx, layer, cfg: BertConfig, h, mask_bias, prefix, train, gen,
 
 
 def run_encoder(ctx, params, cfg, h, mask_bias, train, gen, *,
-                first_site: str):
+                first_site: str, linear=quant_linear):
     """The encoder-layer stack as a plain loop; returns (h, last site)."""
     h_site = first_site
     for i in range(cfg.num_hidden_layers):
         h = _layer(ctx, params["layers"][i], cfg, h, mask_bias, f"L{i}.",
-                   train, gen, h_site=h_site)
+                   train, gen, h_site=h_site, linear=linear)
         h_site = f"L{i}.ffn.ln.out"
     return h, h_site
 
@@ -675,8 +715,9 @@ def bert_apply(params: Dict, batch: Mapping, cfg: BertConfig,
 
 
 def _classification_head(ctx, params, cfg: BertConfig, h, h_site, batch,
-                         train, gen):
-    """Pooler + classifier + loss."""
+                         train, gen, clamp: bool = True):
+    """Pooler + classifier + loss; ``clamp`` the STS-B regression logits
+    to [0, 5] (ALBERT's and SqueezeBERT's fake-quant forwards do not)."""
     pooled = quant_linear(ctx, "pooler.dense", h[:, 0],
                           params["pooler"]["kernel"], params["pooler"]["bias"],
                           activation="tanh", input_site=h_site)
@@ -685,7 +726,7 @@ def _classification_head(ctx, params, cfg: BertConfig, h, h_site, batch,
                           params["classifier"]["kernel"],
                           params["classifier"]["bias"],
                           input_site="pooler.dense.out")
-    if cfg.num_labels == 1:
+    if cfg.num_labels == 1 and clamp:
         logits = torch.clamp(logits, 0.0, 5.0)  # STS-B regression
     outputs = {"logits": logits, "pooled": pooled, "sequence_output": h}
     labels = batch.get("labels")
@@ -730,6 +771,13 @@ def build_bert_engine(params: Dict, cfg: BertConfig, qcfg: QuantModelConfig,
     return static, plan, int_params
 
 
+def engine_bias(batch: Mapping, input_ids: Tensor, dev) -> Tensor:
+    """The engine's (B, T) additive attention bias: -10000 on padding."""
+    if batch.get("attention_mask") is None:
+        return torch.zeros(input_ids.shape, device=dev)
+    return (1.0 - _attention_mask(batch, dev)) * -10000.0
+
+
 def bert_engine_apply(params: Dict, batch: Mapping, cfg: BertConfig,
                       qcfg: QuantModelConfig, qstate: Mapping, static, plan,
                       int_params: Dict, *, backend: str = "kernels",
@@ -745,11 +793,8 @@ def bert_engine_apply(params: Dict, batch: Mapping, cfg: BertConfig,
                                                                     dev)
         h = _embeddings(ctx, params, cfg, input_ids, token_type_ids,
                         position_ids, False, None)
-        if batch.get("attention_mask") is None:
-            bias_vec = torch.zeros(input_ids.shape, device=dev)
-        else:
-            bias_vec = (1.0 - _attention_mask(batch, dev)) * -10000.0
-        h = ENG.encoder_engine(h, bias_vec, static, plan, backend=backend)
+        h = ENG.encoder_engine(h, engine_bias(batch, input_ids, dev), static,
+                               plan, backend=backend)
         h_site = f"L{cfg.num_hidden_layers - 1}.ffn.ln.out"
         return _classification_head(ctx, params, cfg, h, h_site, batch,
                                     False, None)

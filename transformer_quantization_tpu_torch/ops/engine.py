@@ -204,16 +204,23 @@ def _packed_weight(int_params: Mapping, name: str):
 
 def _mm_plan(int_params: Mapping, names: List[str], biases: List[Tensor],
              in_scal: Tuple[Tensor, Tensor],
-             out_sites: Optional[List[Tuple[Tensor, Tensor]]]
-             ) -> Tuple[Dict, bool]:
+             out_sites: Optional[List[Tuple[Tensor, Tensor]]],
+             weights: Optional[Dict] = None) -> Tuple[Dict, bool]:
     """One matmul's plan and whether its weight is packed int4: (N, K)
     int8 or (N, K/2) packed int4 weight (row-concat over ``names`` for the
     fused q|k|v matmul, all of one width), (5, N) epilogue rows [wscale,
     colsum, bias, out_s, out_shift] and the (1, 2) input-site scalars.
-    ``out_sites`` None (a disabled fold site): out_s 1, out_shift 0."""
+    ``out_sites`` None (a disabled fold site): out_s 1, out_shift 0.
+    ``weights`` maps the ``names`` of each weight already assembled to its
+    tensor, so that layers that share their sites share one weight."""
     ws, packs, w4s = zip(*(_packed_weight(int_params, n) for n in names))
     _require(len(set(w4s)) == 1, "mixed int4/int8 sub-weights in one matmul")
-    w = ws[0] if len(ws) == 1 else torch.cat(ws, dim=0)
+    key = tuple(names)
+    w = None if weights is None else weights.get(key)
+    if w is None:
+        w = (ws[0] if len(ws) == 1 else torch.cat(ws, dim=0)).contiguous()
+        if weights is not None:
+            weights[key] = w
     ns = [p["colsum"].shape[0] for p in packs]
     n = sum(ns)
     wscale = torch.cat([_bcast(p["scale"], nn) for p, nn in zip(packs, ns)])
@@ -229,7 +236,7 @@ def _mm_plan(int_params: Mapping, names: List[str], biases: List[Tensor],
                                for (_, sh), nn in zip(out_sites, ns)])
     vecs = torch.stack([wscale, colsum, bias, out_s, out_shift]).contiguous()
     scal = torch.stack([_f32(v).reshape(()) for v in in_scal]).reshape(1, 2)
-    return {"w": w.contiguous(), "vecs": vecs, "scal": scal}, w4s[0]
+    return {"w": w, "vecs": vecs, "scal": scal}, w4s[0]
 
 
 def _require_k1_width(int_params: Mapping, name: str, mm: Dict,
@@ -329,16 +336,24 @@ def _flex_reason(qcfg, qstate, p: str, in_site: str) -> Optional[str]:
 
 def build_encoder_plan(qcfg, qstate: Mapping, int_params: Mapping,
                        layer_params: List[Mapping], *, n_heads: int,
-                       ln_eps: float, hidden_act: str, entry_site: str
+                       ln_eps: float, hidden_act: str, entry_site: str,
+                       prefixes: Optional[List[str]] = None
                        ) -> Tuple[EngineStatic, Dict]:
     """Validate and assemble the engine plan for a BERT-family encoder with
-    the shared ``L{i}.*`` site naming. Raises :class:`EngineIncompatible`
-    when an edge fits no ported route."""
+    the shared ``L{i}.*`` site naming. ``prefixes`` sets each layer's site
+    prefix instead (ALBERT's ``["shared."] * n``: every layer reads the
+    one shared layer's sites, and layer i > 0 takes its input from
+    ``prefixes[i - 1] + "ffn.ln.out"``); layers of one prefix share one
+    weight tensor a matmul in the plan. Raises
+    :class:`EngineIncompatible` when an edge fits no ported route."""
     layers, fold_flags, res_flags, attn_bits_flags = [], [], [], []
     flex_flags, io_flags, int8_flags, w4_flags = [], [], [], []
+    if prefixes is None:
+        prefixes = [f"L{i}." for i in range(len(layer_params))]
+    weights: Dict = {}
     for i, lp in enumerate(layer_params):
-        p = f"L{i}."
-        in_site = entry_site if i == 0 else f"L{i - 1}.ffn.ln.out"
+        p = prefixes[i]
+        in_site = entry_site if i == 0 else prefixes[i - 1] + "ffn.ln.out"
         why = _flex_reason(qcfg, qstate, p, in_site)
         _require(why is None, f"{why}: not yet ported")
         in_edge = act_edge_params(qcfg, qstate, in_site)
@@ -347,7 +362,7 @@ def build_encoder_plan(qcfg, qstate: Mapping, int_params: Mapping,
                    for x in "qkv"]
         qkv, qkv_w4 = _mm_plan(int_params, [p + f"attn.{x}" for x in "qkv"],
                                [lp["attn"][x]["bias"] for x in "qkv"],
-                               in_scal, qkv_out)
+                               in_scal, qkv_out, weights)
 
         sc_s, sc_sh, sc_bits = attn_edge_scalars(qcfg, qstate,
                                                  p + "attn.scores")
@@ -371,7 +386,8 @@ def build_encoder_plan(qcfg, qstate: Mapping, int_params: Mapping,
             g_out = (g_s, g_sh)
         attn_out, ao_w4 = _mm_plan(int_params, [p + "attn_out.dense"],
                                    [lp["attn_out"]["dense"]["bias"]],
-                                   (c_s, c_sh), [g_out] if ao_fold else None)
+                                   (c_s, c_sh), [g_out] if ao_fold else None,
+                                   weights)
         # ln1's LN site is the FFN input, quant_dict 'x': flexible
         ln1, res1, u_bits, x_edge = _ln_plan(
             qcfg, qstate, lp["attn_out"]["ln"], p + "attn_out.res",
@@ -386,7 +402,7 @@ def build_encoder_plan(qcfg, qstate: Mapping, int_params: Mapping,
         i_site = act_site_scalars(qcfg, qstate, p + "ffn.inter.out")
         inter, inter_w4 = _mm_plan(int_params, [p + "ffn.inter"],
                                    [lp["ffn"]["inter"]["bias"]], x_scal,
-                                   [i_site])
+                                   [i_site], weights)
         if x_mode == "f":
             _require(not inter_w4,
                      f"{p}ffn.inter: an int4 weight under a float x edge "
@@ -402,7 +418,7 @@ def build_encoder_plan(qcfg, qstate: Mapping, int_params: Mapping,
             h_out = (h_s, h_sh)
         dense, dense_w4 = _mm_plan(int_params, [p + "ffn.dense"],
                                    [lp["ffn"]["dense"]["bias"]], i_site,
-                                   [h_out] if d_fold else None)
+                                   [h_out] if d_fold else None, weights)
         # every matmul but a float-x-edge inter (the float-edge matmul)
         # runs on K1
         for name, mm, w4 in ((p + "attn.q", qkv, qkv_w4),

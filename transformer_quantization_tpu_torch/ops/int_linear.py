@@ -132,6 +132,30 @@ def int8_linear(x_int8: Tensor, x_scale: Tensor, x_shift: Tensor,
     return y
 
 
+def int8_grouped_linear(x_int8: Tensor, x_scale: Tensor, x_shift: Tensor,
+                        packed: Dict, bias: Optional[Tensor], groups: int,
+                        activation=None) -> Tensor:
+    """Block-diagonal (grouped) :func:`int8_linear`, SqueezeBERT's
+    kernel-size-1 grouped convs: the packed weight is ``(O, I/groups)``
+    and output group j contracts input group j only, exactly in integers
+    (:func:`exact_int_matmul` a group, the counterpart of XLA's int dot
+    in the JAX package). ``colsum`` is per output row over that row's own
+    inputs, so the zero-point correction is exact per group."""
+    w_int = _weight_ints(packed)
+    out_f, in_g = w_int.shape
+    lead = x_int8.shape[:-1]
+    xg = x_int8.reshape(-1, groups, in_g).transpose(0, 1)
+    wg = w_int.reshape(groups, out_f // groups, in_g)
+    acc = exact_int_matmul(xg, wg).transpose(0, 1).reshape(*lead, out_f)
+    acc = acc.to(torch.float32) + x_shift * packed["colsum"]
+    y = (x_scale * packed["scale"]) * acc
+    if bias is not None:
+        y = y + bias
+    if activation is not None:
+        y = activation(y)
+    return y
+
+
 def pack_weight_int4(spec: Q.QuantizerSpec, qp: Q.QuantParams,
                      w: Tensor) -> Dict:
     """A symmetric 4-bit ``(O, I)`` weight packed two nibbles a byte in

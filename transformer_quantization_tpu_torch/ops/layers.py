@@ -13,7 +13,8 @@ Ported: the float path, the generic int8 branch and its fused linear
 when ``name`` is in ``ctx.capture_sites`` a primitive records its
 (input, output before the output act site) pair in ``ctx.captures``
 (:func:`_maybe_capture`); the int8 fused linear and QAT matmul stand
-aside while capturing. Grouped layers wait for their slice.
+aside while capturing; and SqueezeBERT's grouped (block-diagonal) layer
+:func:`quant_grouped_linear`, float and int8.
 """
 
 from __future__ import annotations
@@ -270,6 +271,50 @@ def quant_linear(ctx, name: str, x: Tensor, w: Tensor, b: Optional[Tensor],
         if act is not None:
             y = act(y)
         _maybe_capture(ctx, name, x, y)
+    return ctx.act(f"{name}.out", y)
+
+
+def quant_grouped_linear(ctx, name: str, x: Tensor, w: Tensor,
+                         b: Optional[Tensor], groups: int, activation=None,
+                         input_site: Optional[str] = None) -> Tensor:
+    """Block-diagonal (grouped) affine layer: SqueezeBERT's kernel-size-1
+    grouped Conv1d in (B, T, C) layout. ``w`` is stored ``(out,
+    in/groups)``; output group j contracts input group j only. One group
+    is :func:`quant_linear` (and its int8 and fused-linear paths). With
+    packed int weights and a per-tensor (or per-token) input site the
+    groups' products run on the exact int8 path
+    (:func:`~.int_linear.int8_grouped_linear`); a per-embedding input site
+    (scales along the contraction) keeps the float path."""
+    if groups == 1:
+        return quant_linear(ctx, name, x, w, b, activation=activation,
+                            input_site=input_site)
+    act = _resolve_act(activation)
+    fast = _int8_fast_path(ctx, name, input_site)
+    if fast is not None and fast[0].axis == x.ndim - 1:
+        fast = None  # per-embd: scales vary along the contraction
+    if fast is not None:
+        in_cfg, in_qp, packed = fast
+        if in_cfg.axis is not None:
+            in_qp = Q.expand_qparams(in_qp, x.ndim, in_cfg.axis)
+        x_int8, s_x, shift = IL.quantize_activation_int8(in_cfg.spec, in_qp,
+                                                         x)
+        y = IL.int8_grouped_linear(x_int8, s_x, shift, packed, b, groups,
+                                   act).to(x.dtype)
+        _maybe_capture(ctx, name, x, y)
+        return ctx.act(f"{name}.out", y)
+    w_q = _weight_from_int_or_fake(ctx, name, w).to(x.dtype)
+    out_f, in_g = w_q.shape
+    lead = x.shape[:-1]
+    xg = x.reshape(-1, groups, in_g).transpose(0, 1)
+    wg = w_q.reshape(groups, out_f // groups, in_g).transpose(1, 2)
+    y = float_matmul(xg, wg, wide_matmul_precision(ctx, input_site,
+                                                   f"{name}.w"))
+    y = y.transpose(0, 1).reshape(*lead, out_f)
+    if b is not None:
+        y = (y + b).to(y.dtype)
+    if act is not None:
+        y = act(y)
+    _maybe_capture(ctx, name, x, y)
     return ctx.act(f"{name}.out", y)
 
 

@@ -31,14 +31,21 @@ import torch
 
 from transformer_quantization_tpu_torch import convert as C
 from transformer_quantization_tpu_torch import resolve_device
+from transformer_quantization_tpu_torch.models import albert as AL
 from transformer_quantization_tpu_torch.models import bert as B
+from transformer_quantization_tpu_torch.models import distilbert as DB
 from transformer_quantization_tpu_torch.models import mobilebert as MB
+from transformer_quantization_tpu_torch.models import roberta as RB
+from transformer_quantization_tpu_torch.models import squeezebert as SB
 from transformer_quantization_tpu_torch.quant.quantizers import QuantParams
 
 _NONE_PATHS = "__none_paths__"
 
 # the families the port has: manifest name -> config class
-FAMILIES = {"bert": B.BertConfig, "mobilebert": MB.MobileBertConfig}
+FAMILIES = {"bert": B.BertConfig, "roberta": RB.RobertaConfig,
+            "mobilebert": MB.MobileBertConfig,
+            "distilbert": DB.DistilBertConfig, "albert": AL.AlbertConfig,
+            "squeezebert": SB.SqueezeBertConfig}
 
 
 def _array(v) -> np.ndarray:
