@@ -225,8 +225,30 @@ Phases (any failure exits non-zero; nothing is caught):
    the generic int path and the fake-quant forward by the route-ratio
    rule; engine seq/s (five windows); the phase's seconds.
 
-``python3 chip_smoke.py --only 13,14,15`` runs phases 1 and 2 and the named
-ones of 13-15 alone (the kernels JSON only comes with every phase).
+16. leave-one-out: the engine's float edges at BERT-base width and depth
+   (``FLOAT_EDGE_CONFIGS``: quant_dict ``{'s': 'fp32'}``, ``{'p':
+   'fp32'}``, ``{'c': 'fp32'}``, ``{'s': 16, 'p': 16}``, ``{'c': 16}``,
+   ``{'z': 16}``, ``{'L': 16}``, and global W8A16 and W8A6), from
+   ``--seed``'s params, each calibrated on one batch (B = 8) with
+   ``calibrated_bert(quant_dict=...)``, packed and planned; on one request
+   batch (B = 128, S = 128) every call the engine makes to the new
+   kernels is recorded (``record_calls``) and each distinct form, layer
+   0's first, held against its plain version on those inputs: the
+   attention's second kernel (``int8_attention_flex``: disabled, 16-bit
+   and sub-8 scores / probs / context sites, the value-space form), the
+   float-edge matmul's fold and float epilogues (K4; the float one off
+   the path, on the 16-bit context's inputs) and the float x int8 matmul
+   (K9; its fold and float epilogues off the path): the integer forms
+   bit-identical, the float-dot forms (float64 sums) within one level or
+   one float32 ulp on at most ``TIE_FRAC`` of the elements; kernel, plain
+   and library ms and the bound; then three request batches through
+   ``bert_engine_apply`` per configuration (``float_edge_launches`` a
+   forward, logits against the plain engine) and engine seq/s beside
+   W8A8's (five windows of >= 0.5 s).
+
+``python3 chip_smoke.py --only 13,14,15,16`` runs phases 1 and 2 and the
+named ones of 13-16 alone (the kernels JSON only comes with every phase;
+``--only 16``: the float edges alone).
 
 The last lines are the kernels JSON (times per encoder layer: the sum
 over that layer's launches of each kernel; the flex kernels' top-level
@@ -249,7 +271,11 @@ ms on the unpacked weights (``int8_ms``) and the M = 256 sum under
 three runs of every path, ``launches_by_path`` splits them (``qat-w4a8``:
 phase 13's trained model on the W4A8 engine; ``adaround-w4a8``: phase
 14's AdaRound model on the all-int8 engine; ``<family>`` and
-``<family>-generic``: phase 15's engines and generic int paths); the
+``<family>-generic``: phase 15's engines and generic int paths; phase
+16's configurations by name, whose new kernels close the list:
+``int8_attention_flex``, ``float_edge_matmul (fold / float)`` and
+``float_int8_matmul``, each with one form's numbers on top and every
+form's under ``variants``); the
 serving paths
 ``serve-bert`` / ``serve-mobilebert`` count the launches the wrappers
 made while their buckets were captured, ``serve-bert-eager`` those of
@@ -3303,6 +3329,255 @@ def families_phase(by_path, seed: int, dev, kind, smi) -> None:
           f"ones {k1['squeezebert_uncased'] / k1['roberta_base']:.3f}x")
 
 
+# phase 16: the leave-one-out and bit-width study's configurations
+# (quant_dict keys, activation bits) at BERT-base width and depth
+FLOAT_EDGE_CONFIGS = (
+    ("s-fp32", {"s": "fp32"}, 8), ("p-fp32", {"p": "fp32"}, 8),
+    ("c-fp32", {"c": "fp32"}, 8), ("s16-p16", {"s": 16, "p": 16}, 8),
+    ("c16", {"c": 16}, 8), ("z16", {"z": 16}, 8), ("L16", {"L": 16}, 8),
+    ("w8a16", {}, 16), ("w8a6", {}, 6))
+# a float-dot form against its plain version: both sum in float64, so
+# they part only where a float64 sum's rounding meets a float32 tie: at
+# most one level (one float32 unit in the last place of a raw value) on
+# at most this share of the elements
+TIE_FRAC = 1e-5
+
+
+def float_edge_launches(name: str, L: int) -> dict:
+    """The launches a forward of each configuration makes (see
+    ``ops/engine.py``): the all-int8 layer chain with the attention's
+    second kernel and a float context on K4 (16-bit) or K9 (disabled);
+    the flex route with float layer inputs (K4 emit), value-space
+    attention and float inter edges (K4 fold)."""
+    chain = dict(int8_matmul=4 * L, int8_attention_flex=L,
+                 fused_add_ln_payload=2 * L)
+    return per_forward(**{
+        "s-fp32": chain, "p-fp32": chain, "s16-p16": chain,
+        "c-fp32": dict(chain, int8_matmul=3 * L, float_int8_matmul=L),
+        "c16": dict(chain, int8_matmul=3 * L, float_edge_levels=L,
+                    float_edge_matmul=L),
+        "z16": dict(int8_matmul=3 * L + 1, int8_attention=L,
+                    float_edge_levels=L - 1, float_edge_matmul=L - 1,
+                    flex_add_ln=2 * L),
+        "L16": dict(int8_matmul=1, int8_attention_flex=L,
+                    float_edge_levels=4 * L - 1,
+                    float_edge_matmul_fold=4 * L - 1, flex_add_ln=2 * L),
+        "w8a16": dict(int8_attention_flex=L, float_edge_levels=4 * L,
+                      float_edge_matmul_fold=4 * L, flex_add_ln=2 * L),
+        "w8a6": dict(int8_matmul=L, int8_attention_flex=L,
+                     float_edge_levels=3 * L, float_edge_matmul_fold=3 * L,
+                     flex_add_ln=2 * L),
+    }[name])
+
+
+def compare_ties(got, want, step, name) -> dict:
+    """A float-dot form's output against its plain version's: at most one
+    level (``step``: a float grid's step; None: an int8 payload; 'ulp': a
+    raw float, one float32 unit in the last place) on at most ``TIE_FRAC``
+    of the elements, else fail."""
+    torch.cuda.synchronize()
+    if step is None:
+        diff = (got.to(torch.int32) - want.to(torch.int32)).abs().double()
+    elif isinstance(step, str):
+        diff = ((got.double() - want.double()).abs()
+                / (want.double().abs() * 2.0 ** -23 + 1e-30))
+    else:
+        diff = (got.double() - want.double()).abs() / step
+    max_diff = float(diff.max())
+    n_bad = int((got != want).sum())
+    print(f"  {name}: max_diff={max_diff:.3g} (levels / ulps) mismatches="
+          f"{n_bad} (of {diff.numel()}; float64 ties)")
+    if max_diff > 1.0 + 1e-6 or n_bad > TIE_FRAC * diff.numel():
+        fail(f"{name}: {n_bad} elements off by up to {max_diff:.3g} levels "
+             f"(allowed: one level on {TIE_FRAC} of them)")
+    return {"max_abs_err": max_diff, "mismatches": n_bad}
+
+
+def flex_form_case(tag, got_fn, want_fn, step, ties, ops_i8, ops_f,
+                   nbytes, lib_fn=None) -> dict:
+    """One call of a new kernel against its plain version on the main
+    path's inputs: bit-identical (an integer form) or within the float64
+    ties (``ties``); kernel device ms, plain and library ms; the bound from
+    the integer products at the int8 peak, the float ones at the float32
+    one, and the bytes."""
+    got, want = got_fn(), want_fn()
+    if ties:
+        res = compare_ties(got, want, step, tag)
+    elif step is None:
+        res = compare(got, want, tag)
+    else:
+        res = compare_values(got, want, 1.0 if isinstance(step, str)
+                             else step, tag)
+    t_k = device_ms(got_fn)
+    t_p = timed_ms(want_fn, iters=3, warmup=1)
+    t_l = device_ms(lib_fn) if lib_fn is not None else None
+    t_ops = (ops_i8 / PEAK_INT8_OPS + ops_f / PEAK_F32_OPS) * 1e3
+    t_b = nbytes / PEAK_BYTES * 1e3
+    bnd, by = (t_ops, "operations") if t_ops >= t_b else (t_b, "bytes")
+    lib = f", library {t_l:.4f} ms" if t_l is not None else ""
+    print(f"  {tag}: kernel {t_k:.4f} ms, plain {t_p:.4f} ms{lib}, bound "
+          f"{bnd:.4f} ms ({by}), {bnd / t_k * 100:.1f}% of the bound")
+    return {"ms": t_k, "plain_ms": t_p, "library_ms": t_l, "bound_ms": bnd,
+            "bound_by": by, **res}
+
+
+def flex_attention_cases(name, call, seen) -> list:
+    """The attention's second kernel on one recorded call, unless its form
+    (site bits and dots) was held already (``seen``)."""
+    (qkv, mask, scal), kw = call
+    ab, dots = EK._attn3(kw["attn_bits"]), kw.get("dots", "i8")
+    form = f"{ab} {dots}"
+    if form in seen:
+        return []
+    nh, seq = kw["n_heads"], kw["seq"]
+    m, h = qkv.shape[0], qkv.shape[1] // 3
+    b, d = m // seq, h // nh
+    c_bits = ab[2]
+    out_b = 1 if 1 <= c_bits <= 8 else 4
+    # integer dots: q.k on payloads, p.v on a payload probs site
+    qk_i8 = dots == "i8"
+    pv_i8 = qk_i8 and 1 <= ab[1] <= 8
+    ops = 2.0 * b * nh * seq * seq * d
+    step = (None if 1 <= c_bits <= 8 else
+            float(scal[0, 10]) if c_bits > 8 else "ulp")
+    ties = not (qk_i8 and ab[1] != 0)
+    return [(form, flex_form_case(
+        f"int8_attention_flex[{name}: {form}] B={b} T={seq} {nh}x{d}",
+        lambda: EK.int8_attention_flex(qkv, mask, scal, **kw),
+        lambda: EK.int8_attention_ref(qkv, mask, scal, **kw), step, ties,
+        ops * (qk_i8 + pv_i8), ops * (2 - qk_i8 - pv_i8),
+        qkv.numel() * qkv.element_size() + mask.numel() * 4
+        + m * h * out_b))]
+
+
+def _out_step(vecs, mode):
+    return None if mode == "emit" else (vecs[3] if mode == "fold" else "ulp")
+
+
+def edge_matmul_cases(name, call, seen) -> list:
+    """The float-edge matmul (its level pass and GEMM) on one recorded
+    call, unless its form was held already; the library yardstick
+    ``torch.matmul`` of the float x against the dequantized weight. A
+    one-group call that emits (attn_out on a 16-bit context) is also held
+    with the raw float out, the epilogue of a disabled fold site, off the
+    path."""
+    (x, vecs, grid), kw = call
+    m, k = x.shape
+    n = grid["w"].shape[0]
+    w_f = (grid["w"].float() * vecs[0][:, None]).t().contiguous()
+    xg = x.index_select(1, grid["cols"]) if grid["s"].numel() > 1 else x
+    mode = kw.get("out_mode", "emit")
+    extra = ([("float", "off the path")]
+             if mode == "emit" and grid["s"].numel() == 1 else [])
+    out = []
+    for mode, where in [(mode, "")] + extra:
+        kwm = dict(kw, out_mode=mode, out_bits=kw.get("out_bits", 8))
+        form = (f"{kw.get('activation')} {mode} {kwm['out_bits']}-bit out, "
+                f"{grid['bits']}-bit x, K={k}, N={n}")
+        if form in seen:
+            continue
+        seen.add(form)
+        r = flex_form_case(
+            f"float_edge_matmul[{name}{' ' + where if where else ''}: "
+            f"{form}] {m}x{k}->{n}",
+            lambda kwm=kwm: EK.float_edge_matmul(x, vecs, grid, **kwm),
+            lambda kwm=kwm: EK.float_edge_matmul_ref(x, vecs, grid, **kwm),
+            _out_step(vecs, mode), False,
+            2.0 * m * n * k * EK.edge_planes(grid), 0.0,
+            m * k * 4 + n * k + m * n * (1 if mode == "emit" else 4),
+            lib_fn=lambda: torch.matmul(xg, w_f))
+        out.append((form, dict(r, where=where)))
+    return out
+
+
+def float_int8_cases(name, call, seen) -> list:
+    """K9 on one recorded call (and, off the path, its fold and float
+    epilogues on the same inputs); the library yardstick ``torch.matmul``
+    of x against the dequantized weight (float32, TF32 off)."""
+    (x, w8, vecs), kw = call
+    m, k = x.shape
+    n = w8.shape[0]
+    w_f = (w8.float() * vecs[0][:, None]).t().contiguous()
+    mode = kw.get("out_mode", "emit")
+    out = []
+    for md in [mode] + [o for o in ("fold", "float") if o != mode]:
+        kwm = dict(kw, out_mode=md)
+        form = f"{kw.get('activation')} {md} {kw.get('out_bits', 8)}-bit"
+        if form in seen:
+            continue
+        seen.add(form)
+        where = "" if md == mode else "off the path"
+        r = flex_form_case(
+            f"float_int8_matmul[{name}{' ' + where if where else ''}: "
+            f"{form}] {m}x{k}->{n}",
+            lambda kwm=kwm: EK.float_int8_matmul(x, w8, vecs, **kwm),
+            lambda kwm=kwm: EK.float_int8_matmul_ref(x, w8, vecs, **kwm),
+            _out_step(vecs, md), True, 0.0, 2.0 * m * n * k,
+            m * k * 4 + n * k + m * n * (1 if md == "emit" else 4),
+            lib_fn=lambda: torch.matmul(x, w_f))
+        out.append((form, dict(r, where=where)))
+    return out
+
+
+NEW_KERNEL_CASES = (("int8_attention_flex", flex_attention_cases),
+                    ("float_edge_matmul", edge_matmul_cases),
+                    ("float_int8_matmul", float_int8_cases))
+
+
+def float_edges_phase(params, batches, by_path, seed, dev, kind,
+                      smi) -> dict:
+    """Phase 16 (see the module docstring); returns each new kernel's
+    numbers by form, for the kernels JSON."""
+    cfg = B.BertConfig()
+    L = cfg.num_hidden_layers
+    b0 = batches[0]
+    forms = {k: {} for k, _ in NEW_KERNEL_CASES}
+    seqs = {}
+    for name, qd, bits in (("w8a8", {}, 8),) + FLOAT_EDGE_CONFIGS:
+        t0 = time.perf_counter()
+        defaults = dataclasses.replace(CAL.w8a8_defaults(), n_bits_act=bits)
+        _, qcfg, qstate = CAL.calibrated_bert(
+            cfg, batch_size=8, seq=SEQ, seed=seed, device=dev, params=params,
+            quant_dict=qd or None, defaults=defaults)
+        static, plan, ip = B.build_bert_engine(params, cfg, qcfg, qstate,
+                                               device=dev)
+        torch.cuda.synchronize()
+        run = bert_runner(params, cfg, qcfg, qstate, static, plan, ip, dev)
+        print(f"  [{name}] quant_dict {qd}, activations {bits}-bit: "
+              f"calibration, packing, plan {time.perf_counter() - t0:.1f} s;"
+              f" layer 0 io {static.layer_io(0)}, attn_bits "
+              f"{static.layer_attn_bits(0)}, flex {static.layer_flex(0)}; "
+              f"all-int8 layers {sum(static.int8_layer)}, skip_max "
+              f"{static.attn_skip_max}", flush=True)
+        if name != "w8a8":
+            # layer 0's call of each new kernel as the main path makes it
+            calls = record_calls(lambda: run(b0, "kernels"),
+                                 *((EK, k) for k, _ in NEW_KERNEL_CASES))
+            for (kname, cases), kcalls in zip(NEW_KERNEL_CASES, calls):
+                seen = set(forms[kname])
+                for c in kcalls:
+                    for form, r in cases(name, c, seen):
+                        seen.add(form)
+                        forms[kname][form] = dict(r, config=name)
+            del calls
+            by_path[name] = drive_path(name, run, cfg, batches,
+                                       float_edge_launches(name, L))
+        seqs[name] = window_ms(lambda: run(b0, "kernels"), window_s=0.5)
+        del static, plan, ip, qstate
+        gc.collect()
+        torch.cuda.empty_cache()
+    print(f"  seq/s at B={BATCH}, S={SEQ}, median (range) of 5 windows of "
+          f">= 0.5 s ({kind}, {smi}): " + "; ".join(
+              f"{n} {seq_per_s(t)} (forward {t[0]:.3f} ms)"
+              for n, t in seqs.items()), flush=True)
+    for kname, f in forms.items():
+        if not f:
+            fail(f"phase 16 launched no {kname}")
+    if all(" emit " in f for f in forms["float_edge_matmul"]):
+        fail("phase 16 held no fold / float form of the float-edge matmul")
+    return forms
+
+
 # the phases after serving: (title, runner(params, batches, by_path,
 # seed, dev, kind, smi))
 LATE_PHASES = {
@@ -3314,25 +3589,30 @@ LATE_PHASES = {
     15: ("the families: RoBERTa-base, DistilBERT-base, ALBERT-base-v2 and "
          "SqueezeBERT through their W8A8 engines and generic int paths",
          lambda params, batches, *a: families_phase(*a)),
+    16: ("leave-one-out: the engine's float edges at BERT-base width",
+         float_edges_phase),
 }
 
 
 def late_phases(phases, params, batches, by_path, seed, dev, kind,
-                smi) -> None:
-    """Phases 13-15 of ``phases`` in order, each timed."""
+                smi) -> dict:
+    """Phases 13-16 of ``phases`` in order, each timed; returns what each
+    returned."""
+    out = {}
     for n in phases:
         title, run = LATE_PHASES[n]
         print(f"[{n}] {title}", flush=True)
         t0 = time.perf_counter()
-        run(params, batches, by_path, seed, dev, kind, smi)
+        out[n] = run(params, batches, by_path, seed, dev, kind, smi)
         print(f"  phase {n}: {time.perf_counter() - t0:.1f} s", flush=True)
+    return out
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--only", default="",
-                    help="comma-separated phases of 13-15 to run alone, "
+                    help="comma-separated phases of 13-16 to run alone, "
                          "after phases 1 and 2")
     args = ap.parse_args(argv)
     only = {int(p) for p in args.only.split(",") if p}
@@ -3639,8 +3919,8 @@ def main(argv=None) -> int:
                              dev, kind, smi))
     print(f"  phase 12: {time.perf_counter() - t0:.1f} s", flush=True)
 
-    late_phases(sorted(LATE_PHASES), params, batches, by_path, args.seed, dev,
-                kind, smi)
+    late = late_phases(sorted(LATE_PHASES), params, batches, by_path,
+                       args.seed, dev, kind, smi)
 
     report.update({k: mb_report[k] for k in (
         "int8_matmul_norm", "int8_attention_qkv")})
@@ -3745,6 +4025,34 @@ def main(argv=None) -> int:
             "launches": by_path[path]["int8_mb_layer_ln"],
             **{k: r[k] for k in keys}, "chain_ms": r["chain_ms"],
             "launches_by_path": {path: by_path[path]["int8_mb_layer_ln"]}})
+    # the new forms of phase 16: each kernel's headline numbers are one
+    # form's (the first listed of FLOAT_EDGE_HEADLINE that ran), the rest
+    # under ``variants``
+    src = "transformer_quantization_tpu_torch/ops/kernels/csrc/"
+    for name, (file, replaces, key) in {
+            "int8_attention_flex": ("int8_attention.cu", f"{pallas}:804",
+                                    "int8_attention_flex"),
+            "float_edge_matmul (fold / float)": (
+                "float_edge_matmul.cu", f"{pallas}:201",
+                "float_edge_matmul_fold"),
+            "float_int8_matmul": ("float_int8_gemm.cu", f"{pallas}:178",
+                                  "float_int8_matmul")}.items():
+        fm = late[16][name.split(" ")[0]]
+        if name.startswith("float_edge"):
+            fm = {f: r for f, r in fm.items() if " emit " not in f}
+        head = next(r for f, r in fm.items())
+        kernels.append({
+            "name": name, "route": "cuda", "source": src + file,
+            "replaces": replaces,
+            "launches": sum(p[key] for p in by_path.values()),
+            **{k: head[k] for k in keys},
+            "launches_by_path": {p: c[key] for p, c in by_path.items()
+                                 if c[key]},
+            "variants": {f: {**{k: r[k] for k in keys},
+                             "config": r["config"],
+                             **({"where": r["where"]} if r.get("where")
+                                else {})}
+                         for f, r in fm.items()}})
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

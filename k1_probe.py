@@ -8,7 +8,7 @@ MobileBERT's calls, the add+LN template (K3 / K5) and MobileBERT's layer
 kernel (K8, ``csrc/int8_mb_layer.cu``).
 
     python3 k1_probe.py [--out DIR] [--parent DIR] [--build-only]
-                        [--kernels k1,norm,edge,attn,ln,mb,w4]
+                        [--kernels k1,norm,edge,attn,ln,mb,w4,sass]
 
 Each variant is the kernel's source and the shared GEMM header
 (``csrc/wgmma_gemm.cuh``) with one edit, built with the package's
@@ -154,6 +154,11 @@ unpacked weight (bit-identical or it fails) and timed beside K1 int8 and
 ptxas's lines per variant. With ``--parent`` it also compares the other
 GEMM instances' machine code (K1 int8, the fused linear, K6, K4) with the
 parent's.
+
+``sass`` in ``--kernels`` (with ``--parent``): every source of the
+package built as it is and as the parent has it, and each kernel's
+machine code compared with the parent's (identical, differing, or only
+in this tree), seconds of builds and nothing run.
 Imports torch and the port only.
 """
 
@@ -726,7 +731,7 @@ def probe_edge(out: Path, parent) -> None:
                     KB.check(gemm(lv.data_ptr(), grid["w"].data_ptr(),
                                   vecs.data_ptr(), g[0], g[2], g[3],
                                   out8.data_ptr(), m, n, k, size, planes, 1,
-                                  GELU_NEW_C, st()), name)
+                                  0, -128.0, 127.0, GELU_NEW_C, st()), name)
             call()
             torch.cuda.synchronize()
             if name in EDGE_COMPUTES and not torch.equal(out8, want):
@@ -740,8 +745,8 @@ def probe_edge(out: Path, parent) -> None:
             size, planes, maxq, st()), "levels"))
         t_gemm = CS.device_ms(lambda: KB.check(gemm(
             lv.data_ptr(), grid["w"].data_ptr(), vecs.data_ptr(), g[0], g[2],
-            g[3], out8.data_ptr(), m, n, k, size, planes, 1, GELU_NEW_C,
-            st()), "gemm"))
+            g[3], out8.data_ptr(), m, n, k, size, planes, 1, 0, -128.0, 127.0,
+            GELU_NEW_C, st()), "gemm"))
         w_f = grid["w"].float()
         t_f32 = CS.device_ms(lambda: torch.matmul(x, w_f.t()))
         x8 = torch.randint(-128, 128, (m, k), device=dev, dtype=torch.int8)
@@ -1104,6 +1109,21 @@ def probe_w4(out: Path, parent) -> None:
             flush=True)
 
 
+def probe_sass(out: Path, parent) -> None:
+    """Every source's machine code against the parent checkout's, kernel
+    by kernel (``sass`` in ``--kernels``): the kernels a change must leave
+    as they were are then those it lists as identical."""
+    if parent is None:
+        raise SystemExit("k1_probe: sass needs --parent")
+    rel = KB.CSRC.relative_to(KB.CSRC.parents[3])
+    srcs = [s for s in KB.SOURCES if (Path(parent) / rel / f"{s}.cu").exists()]
+    build_many([(f"{s}.cu", {"kernel": []}, out / f"sass_{s}", parent)
+                for s in srcs])
+    for s in srcs:
+        print(f"  {s}.cu:", end="")
+        same_sass(out / f"sass_{s}")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default="k1_probe_build")
@@ -1113,8 +1133,8 @@ def main(argv=None) -> int:
     ap.add_argument("--build-only", action="store_true",
                     help="mb: build the variants and print ptxas's lines")
     ap.add_argument("--kernels", default="k1,norm",
-                    help="which of k1, norm, edge, attn, ln, mb, w4 to "
-                         "probe")
+                    help="which of k1, norm, edge, attn, ln, mb, w4, sass "
+                         "to probe")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("k1_probe: needs a card")
@@ -1132,6 +1152,8 @@ def main(argv=None) -> int:
         probe_mb(Path(args.out), args.parent, args.build_only)
     if "w4" in kernels:
         probe_w4(Path(args.out), args.parent)
+    if "sass" in kernels:
+        probe_sass(Path(args.out), args.parent)
     if "k1" not in kernels:
         return 0
     fns = {name: entry(lib, "int8_matmul") for name, lib in build_variants(

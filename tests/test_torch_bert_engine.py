@@ -20,6 +20,7 @@ Tolerances:
   differ by 8.8e-3 there), so deeper sites are held to 1e-2.
 """
 
+import dataclasses
 import os
 import subprocess
 import sys
@@ -32,6 +33,7 @@ import torch
 
 import __graft_entry__ as G
 from transformer_quantization_tpu.models import bert as JB
+from transformer_quantization_tpu.quant import quantizers as JQ
 from transformer_quantization_tpu.quant.qconfig import QuantMode as JMode
 from transformer_quantization_tpu_torch import convert as C
 from transformer_quantization_tpu_torch.models import bert as TB
@@ -285,12 +287,43 @@ def test_engine_rejects_unported_configs():
                                         device="cpu")
     assert static.fold[1] == (True, False)
     # quant_dict 'L': every act site of every layer 16-bit, so value-space
-    # q/k/v attention and a float layer-input edge
+    # q/k/v attention and float layer-input, inter and z edges: planned as
+    # the JAX package plans it, and its logits the JAX engine's on the same
+    # params and ranges
     _, wide, wide_state = TC.calibrated_bert(cfg, batch_size=2, seq=seq,
                                              device="cpu", params=params,
                                              quant_dict={"L": 16})
-    with pytest.raises(TENG.EngineIncompatible, match="not yet ported"):
-        TB.build_bert_engine(params, cfg, wide, wide_state, device="cpu")
+    st, plan, ip = TB.build_bert_engine(params, cfg, wide, wide_state,
+                                        device="cpu")
+    jcfg = JB.BertConfig(**kw)
+    jq = JB.apply_bert_quant_dict(
+        JB.declare_bert_sites(G._w8a8_defaults(), jcfg), {"L": 16},
+        jcfg.num_hidden_layers)
+    jp = jax.tree.map(lambda t: jnp.asarray(t.numpy()), params)
+    js = {n: {"qp": JQ.QuantParams(*(jnp.asarray(getattr(v["qp"], f).numpy())
+                                     for f in ("delta", "zero_float",
+                                               "signed")))}
+          for n, v in wide_state.items() if "qp" in v}
+    jint = JB.build_bert_int_params(jp, jq, js)
+    jst, jplan, _ = JB.build_bert_engine(jp, jcfg, jq, js, int_params=jint)
+    assert st.io == jst.io and st.io[0][1:4] == ("f", 16, "f")
+    batch = TC.calibration_batch(cfg.vocab_size, 4, seq, seed=4)
+    want = JB.bert_engine_apply(jp, {k: jnp.asarray(v) for k, v in
+                                     batch.items()}, jcfg, jq, js, jst,
+                                jplan, jint, backend="xla")["logits"]
+    got = TB.bert_engine_apply(params, batch, cfg, wide, wide_state, st,
+                               plan, ip, device="cpu")["logits"]
+    _logits_close(want, got)
+    # the refusals the JAX package makes too: q / k / v sites of different
+    # widths, a site wider than 16 bits
+    mixed = wide.replace_site("L0.attn.k.out", spec=qcfg["L0.attn.k.out"].spec)
+    with pytest.raises(TENG.EngineIncompatible, match="share one grid width"):
+        TB.build_bert_engine(params, cfg, mixed, wide_state, device="cpu")
+    for site in ("L1.attn.probs", "L1.ffn.ln.out"):
+        w32 = wide.replace_site(site, spec=dataclasses.replace(
+            wide[site].spec, n_bits=32))
+        with pytest.raises(TENG.EngineIncompatible, match="32-bit"):
+            TB.build_bert_engine(params, cfg, w32, wide_state, device="cpu")
     # use_int4 packs only 4-bit weight sites: W8A8's stay int8, and an
     # int4 plan is tests/test_torch_int4.py's
     packed = TB.build_bert_int_params(params, qcfg, qstate, use_int4=True)

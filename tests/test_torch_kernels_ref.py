@@ -305,14 +305,24 @@ def test_unported_modes_raise(layer0):
                            w4=True, in_mode="f", in_grid={})
     args = _layer_args(layer0["tplan"]["layers"][0], x8, layer0["t"]["bias"])
     kw = dict(n_heads=4, seq=16, eps=layer0["static"].ln_eps)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        EK.int8_attn_ln_ref(*args[:11], qkv_mode="f", **kw)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        EK.int8_attn_ln(*args[:11], in_mode="f", **kw)
-    with pytest.raises(NotImplementedError):
+    # value-space q / k / v, float layer inputs and 16-bit or disabled
+    # attention sites are ported (tests/test_torch_flex_edges.py holds
+    # them against JAX); modes outside the JAX package's still raise
+    out = EK.int8_attn_ln_ref(*args[:11], qkv_mode="f", qkv_bits=16, **kw)
+    assert out.dtype == torch.int8 and out.shape == x8.shape
+    for mode in ("qkv_mode", "in_mode"):
+        with pytest.raises(ValueError, match=f"unknown {mode}"):
+            EK.int8_attn_ln_ref(*args[:11], **{mode: "f16"}, **kw)
+        with pytest.raises(ValueError, match=f"unknown {mode}"):
+            EK.int8_attn_ln(*args[:11], **{mode: "f16"}, **kw)
+    c8 = EK.int8_attention_ref(layer0["t"]["qkv8"], layer0["t"]["bias"],
+                               layer0["tlp"]["attn_scal"], n_heads=4, seq=16,
+                               attn_bits=(16, 8, 8))
+    assert c8.dtype == torch.int8
+    with pytest.raises(ValueError, match="1-16 bits or disabled"):
         EK.int8_attention_ref(layer0["t"]["qkv8"], layer0["t"]["bias"],
                               layer0["tlp"]["attn_scal"], n_heads=4, seq=16,
-                              attn_bits=(16, 8, 8))
+                              attn_bits=(8, 17, 8))
 
 
 def _rn32(x):

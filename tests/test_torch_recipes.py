@@ -29,6 +29,8 @@ Tolerances:
   and the generic int path against JAX within rtol 1e-3 / atol 2e-3.
 """
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -39,6 +41,7 @@ import __graft_entry__ as G
 from transformer_quantization_tpu.models import bert as JB
 from transformer_quantization_tpu.ops.pallas import engine_kernels as JEK
 from transformer_quantization_tpu.quant import manager as JM
+from transformer_quantization_tpu.quant import quantizers as JQ
 from transformer_quantization_tpu.quant import ranges as JR
 from transformer_quantization_tpu.quant.qconfig import Phase as JPhase
 from transformer_quantization_tpu.quant.qconfig import QuantMode as JMode
@@ -503,14 +506,50 @@ def test_per_column_fold_site_takes_the_flex_route(qd):
 
 
 def test_engine_rejects_still_unported_recipes():
-    """Keys whose engine routes are not ported yet raise "not yet
-    ported": a float layer input ('L' / 'z'), 16-bit q/k/v, a 16-bit
-    inter.out, a 16-bit context site."""
+    """The keys whose engine routes the port lacked until the float edges
+    were ported -- a float layer input ('L' / 'z'), 16-bit q/k/v, a 16-bit
+    inter.out, a 16-bit context site -- now plan as the JAX package plans
+    them, and their logits are the JAX engine's on the same params and
+    ranges; the refusals JAX makes too still raise: q/k/v sites of
+    different widths, a disabled q.out, a site wider than 16 bits."""
     kw, seq, _ = SIZES["tiny"]
-    cfg = TB.BertConfig(**kw)
+    cfg, jcfg = TB.BertConfig(**kw), JB.BertConfig(**kw)
     params = TB.init_bert_params(cfg, device="cpu")
+    jp = jax.tree.map(lambda t: jnp.asarray(t.numpy()), params)
+    batch = TC.calibration_batch(cfg.vocab_size, 4, seq, seed=4)
+    jb = {k: jnp.asarray(v) for k, v in batch.items()}
     for qd in ({"L": 16}, {"z": 16}, {"L0": 16}, {"c": 16}):
         _, qcfg, qstate = TC.calibrated_bert(cfg, seq=seq, device="cpu",
                                              params=params, quant_dict=qd)
-        with pytest.raises(TENG.EngineIncompatible, match="not yet ported"):
-            TB.build_bert_engine(params, cfg, qcfg, qstate, device="cpu")
+        static, plan, ip = TB.build_bert_engine(params, cfg, qcfg, qstate,
+                                                device="cpu")
+        jq = JB.apply_bert_quant_dict(
+            JB.declare_bert_sites(G._w8a8_defaults(), jcfg), qd,
+            jcfg.num_hidden_layers)
+        js = {n: {"qp": JQ.QuantParams(
+            *(jnp.asarray(getattr(v["qp"], f).numpy())
+              for f in ("delta", "zero_float", "signed")))}
+            for n, v in qstate.items() if "qp" in v}
+        jint = JB.build_bert_int_params(jp, jq, js)
+        jst, jplan, _ = JB.build_bert_engine(jp, jcfg, jq, js,
+                                             int_params=jint)
+        assert (static.io, static.attn_bits) == (jst.io, jst.attn_bits), qd
+        want = JB.bert_engine_apply(jp, jb, jcfg, jq, js, jst, jplan, jint,
+                                    backend="xla")["logits"]
+        got = TB.bert_engine_apply(params, batch, cfg, qcfg, qstate, static,
+                                   plan, ip, device="cpu")["logits"]
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=RTOL,
+                                   atol=ATOL, err_msg=str(qd))
+    q16 = qcfg.replace_site("L0.attn.q.out", spec=dataclasses.replace(
+        qcfg["L0.attn.q.out"].spec, n_bits=16))
+    with pytest.raises(TENG.EngineIncompatible, match="share one grid width"):
+        TB.build_bert_engine(params, cfg, q16, qstate, device="cpu")
+    with pytest.raises(TENG.EngineIncompatible, match="disabled"):
+        TB.build_bert_engine(params, cfg,
+                             qcfg.replace_site("L0.attn.q.out",
+                                               enabled=False), qstate,
+                             device="cpu")
+    c32 = qcfg.replace_site("L0.attn.context", spec=dataclasses.replace(
+        qcfg["L0.attn.context"].spec, n_bits=32))
+    with pytest.raises(TENG.EngineIncompatible, match="32-bit"):
+        TB.build_bert_engine(params, cfg, c32, qstate, device="cpu")

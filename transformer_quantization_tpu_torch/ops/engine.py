@@ -6,12 +6,20 @@ activation edge between matmuls is an int8 payload:
     entry value -> quantize_payload -> per layer int8_layer_ln
                 -> dequantize_payload (the last ffn.ln site)
 
-A flex layer -- 16-bit or per-column (PEG) ``g``, ``u``, ``x``, ``h`` or
-``y`` sites, the paper's mixed-precision and PEG recipes -- runs the JAX
-engine's "mega" route instead: one :func:`~.kernels.engine_kernels.
-int8_attn_ln` and one flex :func:`~.kernels.engine_kernels.int8_ffn_ln`,
-with the ``x`` site (the FFN input and residual) a float32 value edge
-when it leaves the int8 payload protocol.
+A flex layer -- 16-bit, sub-8 or per-column (PEG) sites off the attention
+interior: the paper's mixed-precision and PEG recipes, its leave-one-out
+and bit-width study (quant_dict ``L`` / ``L{i}`` / ``z`` keys, global 16-
+or sub-8-bit activations) -- runs the JAX engine's "mega" route instead:
+one :func:`~.kernels.engine_kernels.int8_attn_ln` and one flex
+:func:`~.kernels.engine_kernels.int8_ffn_ln`, each edge (the layer input,
+q / k / v, the FFN input ``x``, ``ffn.inter.out``, the next layer's input
+``z``) an int8 payload or a float32 value edge as ``EngineStatic.io`` and
+``EngineStatic.flex`` say. A float edge into a matmul carries its grid
+(``grid`` in the consuming matmul's plan) for the float-edge matmul.
+
+The attention sites (quant_dict ``s``, ``p``, ``c``) may be 2-16 bits or
+disabled on any route; a context site outside 1-8 bits hands attn_out a
+float value edge (on its grid at 9-16 bits, on none when disabled).
 
 A disabled fold site (``attn_out.dense.out`` or ``ffn.dense.out``, the
 leave-one-out ``{'g': 'fp32'}`` / ``{'h': 'fp32'}``) in any layer moves
@@ -24,12 +32,9 @@ the stack returns the last float value.
 :func:`build_encoder_plan` validates a model's quantization config and
 assembles the same plan dict as the JAX package (per layer ``qkv``,
 ``attn_scal``, ``attn_out``, ``ln1``, ``inter``, ``dense``, ``ln2``; a
-float ``x`` edge adds ``inter["grid"]``, the edge's grid for the
-float-edge matmul). Split-half packed int4 weights (W4A8, ``use_int4``)
-ride every route's payload matmuls (``EngineStatic.w4``). Configurations
-the JAX engine serves through routes not ported yet (an int4 weight under
-a float-edge matmul, a float layer-input / ``z`` edge, 16-bit or PEG
-q/k/v, a 16-bit ``inter.out``, 16-bit or disabled attention sites) raise
+float edge adds the consuming matmul's ``grid``). Split-half packed int4
+weights (W4A8, ``use_int4``) ride every route's payload matmuls
+(``EngineStatic.w4``); an int4 weight under a float edge raises
 :class:`EngineIncompatible` with "not yet ported".
 """
 
@@ -134,15 +139,16 @@ def act_site_scalars(qcfg, qstate: Mapping, name: str) -> Tuple[Tensor, Tensor]:
     return s, shift
 
 
-def attn_edge_scalars(qcfg, qstate: Mapping,
-                      name: str) -> Tuple[Tensor, Tensor, int]:
+def attn_edge_scalars(qcfg, qstate: Mapping, name: str,
+                      device=None) -> Tuple[Tensor, Tensor, int]:
     """(scale, shift, bits) of an attention-interior act site (scores /
-    probs / context): 8 or 16 bits, or disabled (``bits=0``, identity
-    params). shift = 2^(bits-1) - zero_point."""
+    probs / context): 2-16 bits, or disabled (``bits=0``, identity params
+    on ``device``). shift = 2^(bits-1) - zero_point."""
     _require(name in qcfg, f"no act site {name!r}")
     c = qcfg[name]
     if not c.enabled:
-        return torch.ones(()), torch.zeros(()), 0
+        return (torch.ones((), device=device),
+                torch.zeros((), device=device), 0)
     _require(c.axis is None and not c.n_groups,
              f"act site {name!r} is per-axis/grouped")
     _require(2 <= c.spec.n_bits <= 16,
@@ -300,10 +306,11 @@ def _ln_plan(qcfg, qstate, params_ln: Mapping, res_site: str, ln_site: str,
 
 
 def _x_edge_grid(qcfg, qstate, site: str, edge, w8: Tensor) -> Dict:
-    """The grid of a float ``x`` value edge (``site``), for the float-edge
-    matmul that consumes it: its groups follow the site's quantizer (one
-    for a per-tensor site; a PEG site's groups in its permutation order; a
-    group per column for a per-embedding site)."""
+    """The grid of a float value edge (``site``: a 16-bit / sub-8 /
+    per-column act site) for the float-edge matmul that consumes it: its
+    groups follow the site's quantizer (one for a per-tensor site; a PEG
+    site's groups in its permutation order; a group per column for a
+    per-embedding site)."""
     c = qcfg[site]
     _, bits, s, shift = edge
     k = w8.shape[1]
@@ -318,20 +325,12 @@ def _x_edge_grid(qcfg, qstate, site: str, edge, w8: Tensor) -> Dict:
     return EK.edge_grid(w8, s, zp, bits, n_groups, cols)
 
 
-def _flex_reason(qcfg, qstate, p: str, in_site: str) -> Optional[str]:
-    """Why layer prefix ``p`` would need an engine route that is not
-    ported yet, else None."""
-    if act_edge_params(qcfg, qstate, in_site)[0] != "i8":
-        return (f"{in_site} is a float layer-input edge (quant_dict 'L' / "
-                "'z' keys)")
-    for site in ("attn.q.out", "attn.k.out", "attn.v.out"):
-        if act_edge_params(qcfg, qstate, p + site)[0] != "i8":
-            return f"{p}{site} is a 16-bit / per-embedding q/k/v edge"
-    if act_edge_params(qcfg, qstate, p + "ffn.inter.out")[0] != "i8":
-        return f"{p}ffn.inter.out is a 16-bit / per-embedding edge"
-    if act_edge_params(qcfg, qstate, p + "ffn.ln.out")[0] != "i8":
-        return f"{p}ffn.ln.out is a 16-bit / per-embedding 'z' edge"
-    return None
+def _grid(grids: Dict, key, make) -> Dict:
+    """The edge grid of ``key`` (its matmul's weight names and the edge's
+    site), made once: layers that share their sites share it."""
+    if key not in grids:
+        grids[key] = make()
+    return grids[key]
 
 
 def build_encoder_plan(qcfg, qstate: Mapping, int_params: Mapping,
@@ -340,41 +339,71 @@ def build_encoder_plan(qcfg, qstate: Mapping, int_params: Mapping,
                        prefixes: Optional[List[str]] = None
                        ) -> Tuple[EngineStatic, Dict]:
     """Validate and assemble the engine plan for a BERT-family encoder with
-    the shared ``L{i}.*`` site naming. ``prefixes`` sets each layer's site
-    prefix instead (ALBERT's ``["shared."] * n``: every layer reads the
-    one shared layer's sites, and layer i > 0 takes its input from
-    ``prefixes[i - 1] + "ffn.ln.out"``); layers of one prefix share one
-    weight tensor a matmul in the plan. Raises
-    :class:`EngineIncompatible` when an edge fits no ported route."""
+    the shared ``L{i}.*`` site naming, as the JAX package's plan. ``prefixes``
+    sets each layer's site prefix instead (ALBERT's ``["shared."] * n``:
+    every layer reads the one shared layer's sites, and layer i > 0 takes
+    its input from ``prefixes[i - 1] + "ffn.ln.out"``); layers of one
+    prefix share one weight tensor a matmul in the plan, and one grid a
+    float edge. Raises :class:`EngineIncompatible` when an edge fits no
+    route (JAX's refusals: a disabled or wider than 16-bit act site on a
+    matmul edge, q / k / v sites of different widths; and the port's:
+    int4 weights under a float edge, widths outside the int8 matmul
+    kernel's limits)."""
     layers, fold_flags, res_flags, attn_bits_flags = [], [], [], []
     flex_flags, io_flags, int8_flags, w4_flags = [], [], [], []
     if prefixes is None:
         prefixes = [f"L{i}." for i in range(len(layer_params))]
     weights: Dict = {}
+    grids: Dict = {}
     for i, lp in enumerate(layer_params):
         p = prefixes[i]
         in_site = entry_site if i == 0 else prefixes[i - 1] + "ffn.ln.out"
-        why = _flex_reason(qcfg, qstate, p, in_site)
-        _require(why is None, f"{why}: not yet ported")
         in_edge = act_edge_params(qcfg, qstate, in_site)
-        in_scal = (in_edge[2], in_edge[3])
-        qkv_out = [act_site_scalars(qcfg, qstate, p + f"attn.{x}.out")
-                   for x in "qkv"]
+        in_mode = in_edge[0]
+        dev = in_edge[2].device
+        ident = (torch.ones((), device=dev), torch.zeros((), device=dev))
+        # a float input edge carries its own (fake-quantized) values: the
+        # consuming matmul folds no input-site params
+        in_scal = (in_edge[2], in_edge[3]) if in_mode == "i8" else ident
+        qkv_edges = [act_edge_params(qcfg, qstate, p + f"attn.{x}.out")
+                     for x in "qkv"]
+        qkv_out = [(e[2], e[3]) for e in qkv_edges]
+        if all(e[0] == "i8" for e in qkv_edges):
+            qkv_mode, qkv_bits, qkv_sv = "i8", 8, qkv_out
+        else:
+            # q / k / v leave the payload protocol (16-bit, sub-8 or per-
+            # column sites: quant_dict 'L' keys): the matmul folds them on
+            # their grids and the attention runs value-space float dots
+            # with identity site scalars (the values carry their scales)
+            bset = {e[1] for e in qkv_edges}
+            _require(len(bset) == 1,
+                     "q/k/v sites must share one grid width for the "
+                     "engine's value-space attention "
+                     f"(got {sorted(e[1] for e in qkv_edges)})")
+            qkv_mode, qkv_bits, qkv_sv = "f", bset.pop(), [ident] * 3
         qkv, qkv_w4 = _mm_plan(int_params, [p + f"attn.{x}" for x in "qkv"],
                                [lp["attn"][x]["bias"] for x in "qkv"],
                                in_scal, qkv_out, weights)
+        if in_mode == "f":
+            _require(not qkv_w4, f"{p}attn.q: an int4 weight under a float "
+                     "layer input (the float-edge matmul's w4): not yet "
+                     "ported")
+            qkv["grid"] = _grid(grids, (p + "attn.qkv", in_site),
+                                lambda: _x_edge_grid(qcfg, qstate, in_site,
+                                                     in_edge, qkv["w"]))
 
         sc_s, sc_sh, sc_bits = attn_edge_scalars(qcfg, qstate,
-                                                 p + "attn.scores")
-        p_s, p_sh, p_bits = attn_edge_scalars(qcfg, qstate, p + "attn.probs")
+                                                 p + "attn.scores", dev)
+        p_s, p_sh, p_bits = attn_edge_scalars(qcfg, qstate, p + "attn.probs",
+                                              dev)
         c_s, c_sh, c_bits = attn_edge_scalars(qcfg, qstate,
-                                              p + "attn.context")
-        _require((sc_bits, p_bits, c_bits) == (8, 8, 8),
-                 f"{p}attn sites are ({sc_bits}, {p_bits}, {c_bits})-bit: "
-                 "16-bit / disabled attention sites are not yet ported")
+                                              p + "attn.context", dev)
         attn_scal = torch.stack(
-            [v.reshape(()) for pair in qkv_out for v in pair]
+            [_f32(v).reshape(()) for pair in qkv_sv for v in pair]
             + [sc_s, sc_sh, p_s, p_sh, c_s, c_sh]).reshape(1, 12)
+        # a context site outside 1-8 bits ('c': 16 / 'fp32') is a float
+        # value edge into attn_out: no input-site params fold in
+        ctx_scal = (c_s, c_sh) if 1 <= c_bits <= 8 else ident
 
         # the attn_out fold site is quant_dict 'g': flexible, or disabled
         # (the non-payload residual route)
@@ -386,8 +415,19 @@ def build_encoder_plan(qcfg, qstate: Mapping, int_params: Mapping,
             g_out = (g_s, g_sh)
         attn_out, ao_w4 = _mm_plan(int_params, [p + "attn_out.dense"],
                                    [lp["attn_out"]["dense"]["bias"]],
-                                   (c_s, c_sh), [g_out] if ao_fold else None,
+                                   ctx_scal, [g_out] if ao_fold else None,
                                    weights)
+        if not 1 <= c_bits <= 8:
+            _require(not ao_w4, f"{p}attn_out.dense: an int4 weight under a "
+                     "float context edge: not yet ported")
+        if c_bits > 8:
+            # the 16-bit context's grid; a disabled one has none (its raw
+            # value runs the float x int8 matmul)
+            attn_out["grid"] = _grid(
+                grids, (p + "attn_out.dense", p + "attn.context"),
+                lambda: EK.edge_grid(
+                    attn_out["w"], c_s, 2.0 ** (c_bits - 1) - c_sh, c_bits,
+                    1, torch.arange(attn_out["w"].shape[1], device=dev)))
         # ln1's LN site is the FFN input, quant_dict 'x': flexible
         ln1, res1, u_bits, x_edge = _ln_plan(
             qcfg, qstate, lp["attn_out"]["ln"], p + "attn_out.res",
@@ -396,19 +436,23 @@ def build_encoder_plan(qcfg, qstate: Mapping, int_params: Mapping,
             in_scal)
         x_mode, x_bits, x_s, x_sh = x_edge
         # a float x edge carries its own values: no input params fold in
-        dev = x_s.device
-        x_scal = ((x_s, x_sh) if x_mode == "i8" else
-                  (torch.ones((), device=dev), torch.zeros((), device=dev)))
-        i_site = act_site_scalars(qcfg, qstate, p + "ffn.inter.out")
+        x_scal = (x_s, x_sh) if x_mode == "i8" else ident
+        # the ffn.inter.out edge into the dense matmul: a payload, or a
+        # float value edge ('L': 16, global 16-bit or sub-8 activations)
+        i_edge = act_edge_params(qcfg, qstate, p + "ffn.inter.out")
+        inter_mode, i_bits = i_edge[0], i_edge[1]
         inter, inter_w4 = _mm_plan(int_params, [p + "ffn.inter"],
                                    [lp["ffn"]["inter"]["bias"]], x_scal,
-                                   [i_site], weights)
+                                   [(i_edge[2], i_edge[3])], weights)
         if x_mode == "f":
             _require(not inter_w4,
                      f"{p}ffn.inter: an int4 weight under a float x edge "
                      "(the float-edge matmul's w4): not yet ported")
-            inter["grid"] = _x_edge_grid(qcfg, qstate, p + "attn_out.ln.out",
-                                         x_edge, inter["w"])
+            inter["grid"] = _grid(
+                grids, (p + "ffn.inter", p + "attn_out.ln.out"),
+                lambda: _x_edge_grid(qcfg, qstate, p + "attn_out.ln.out",
+                                     x_edge, inter["w"]))
+        i_scal = (i_edge[2], i_edge[3]) if inter_mode == "i8" else ident
         # the dense fold site is quant_dict 'h': flexible, or disabled
         d_fold = _act_enabled(qcfg, p + "ffn.dense.out")
         h_bits, h_out = 8, None
@@ -417,25 +461,36 @@ def build_encoder_plan(qcfg, qstate: Mapping, int_params: Mapping,
                                                    p + "ffn.dense.out")
             h_out = (h_s, h_sh)
         dense, dense_w4 = _mm_plan(int_params, [p + "ffn.dense"],
-                                   [lp["ffn"]["dense"]["bias"]], i_site,
+                                   [lp["ffn"]["dense"]["bias"]], i_scal,
                                    [h_out] if d_fold else None, weights)
-        # every matmul but a float-x-edge inter (the float-edge matmul)
-        # runs on K1
-        for name, mm, w4 in ((p + "attn.q", qkv, qkv_w4),
-                             (p + "attn_out.dense", attn_out, ao_w4),
-                             (p + "ffn.inter", inter, inter_w4),
-                             (p + "ffn.dense", dense, dense_w4)):
-            if not (name.endswith("inter") and x_mode == "f"):
+        if inter_mode == "f":
+            _require(not dense_w4,
+                     f"{p}ffn.dense: an int4 weight under a float inter "
+                     "edge (the float-edge matmul's w4): not yet ported")
+            dense["grid"] = _grid(
+                grids, (p + "ffn.dense", p + "ffn.inter.out"),
+                lambda: _x_edge_grid(qcfg, qstate, p + "ffn.inter.out",
+                                     i_edge, dense["w"]))
+        # every matmul on an int8 payload runs on K1 (a float edge on the
+        # float-edge or the float x int8 matmul)
+        for name, mm, w4, mode in (
+                (p + "attn.q", qkv, qkv_w4, in_mode),
+                (p + "attn_out.dense", attn_out, ao_w4,
+                 "i8" if 1 <= c_bits <= 8 else "f"),
+                (p + "ffn.inter", inter, inter_w4, x_mode),
+                (p + "ffn.dense", dense, dense_w4, inter_mode)):
+            if mode == "i8":
                 _require_k1_width(int_params, name, mm, w4)
-        # ln2's res site is quant_dict 'y': flexible; its LN site (the
-        # next layer's input) stays an int8 payload
-        ln2, res2, y_bits, _ = _ln_plan(
+        # ln2's res site is quant_dict 'y', its LN site quant_dict 'z' (the
+        # next layer's input): both flexible
+        ln2, res2, y_bits, z_edge = _ln_plan(
             qcfg, qstate, lp["ffn"]["ln"], p + "ffn.res", p + "ffn.ln.out",
             p + "ffn.ln.w",
             h_out if d_fold and h_bits == 8 and h_s.ndim == 0 else None,
             x_scal)
         flex = (x_mode, x_bits, h_bits, y_bits, "lnv" in ln1, "lnv" in ln2)
-        io = ("i8", "i8", 8, "i8", 8, g_bits, u_bits, "i8", 8)
+        io = (in_mode, qkv_mode, qkv_bits, z_edge[0], z_edge[1], g_bits,
+              u_bits, inter_mode, i_bits)
         default = (flex == EngineStatic.FLEX_DEFAULT
                    and io == EngineStatic.IO_DEFAULT)
         _require(default or (ao_fold and d_fold),
@@ -454,21 +509,28 @@ def build_encoder_plan(qcfg, qstate: Mapping, int_params: Mapping,
                           and h_s.ndim == 0)
 
     entry_edge = act_edge_params(qcfg, qstate, entry_site)
+    _require(entry_edge[2].ndim == 0,
+             f"entry site {entry_site!r} must be per-tensor")
     entry_scal = torch.stack((entry_edge[2], entry_edge[3])).reshape(1, 2)
     # the softmax max-subtraction is dead work when the grid-bounded
-    # quantized scores keep |s2| <= 256 * sc_s / sqrt(d) * log2(e) far
-    # below exp2's overflow threshold (~126)
-    hidden = int(layer_params[0]["attn"]["q"]["bias"].shape[0])
-    head_dim = hidden // n_heads
-    worst = max((2.0 ** attn_bits_flags[li][0]) * float(lp_["attn_scal"][0, 6])
-                for li, lp_ in enumerate(layers))
-    bound = worst / float(np.sqrt(head_dim)) * float(np.log2(np.e))
+    # quantized scores keep |s2| <= 2^bits * sc_s / sqrt(d) * log2(e) far
+    # below exp2's overflow threshold (~126); a disabled scores site (bits
+    # 0) has no grid bound
+    skip_max = False
+    if all(b[0] for b in attn_bits_flags):
+        hidden = int(layer_params[0]["attn"]["q"]["bias"].shape[0])
+        head_dim = hidden // n_heads
+        worst = max((2.0 ** attn_bits_flags[li][0])
+                    * float(lp_["attn_scal"][0, 6])
+                    for li, lp_ in enumerate(layers))
+        skip_max = (worst / float(np.sqrt(head_dim))
+                    * float(np.log2(np.e))) < 100.0
     n = len(layer_params)
     payload_res = all(ao and d for ao, d in fold_flags)
     static = EngineStatic(
         n_layers=n, n_heads=n_heads, ln_eps=ln_eps, hidden_act=hidden_act,
         w4=tuple(w4_flags), fold=tuple(fold_flags),
-        res_quant=tuple(res_flags), attn_skip_max=bound < 100.0,
+        res_quant=tuple(res_flags), attn_skip_max=skip_max,
         flex=tuple(flex_flags), attn_bits=tuple(attn_bits_flags),
         io=tuple(io_flags),
         int8_layer=tuple(f and payload_res for f in int8_flags))
@@ -477,7 +539,7 @@ def build_encoder_plan(qcfg, qstate: Mapping, int_params: Mapping,
 
 def encoder_engine(h: Tensor, mask_bias: Tensor, static: EngineStatic,
                    plan: Dict, *, backend: str = "kernels") -> Tensor:
-    """Run the encoder stack on payloads.
+    """Run the encoder stack on payloads and value edges.
 
     ``h``: (B, T, H) float, the (fake-quantized) entry-site value.
     ``mask_bias``: (B, T) float32 additive attention bias. Returns the last
@@ -485,11 +547,14 @@ def encoder_engine(h: Tensor, mask_bias: Tensor, static: EngineStatic,
     each layer through the kernel wrappers (the CUDA kernels on the card,
     their plain versions on the CPU); ``'plain'`` runs the plain versions
     on any device, the yardstick the kernels are held against. An all-int8
-    layer is one ``int8_layer_ln``; a flex layer one ``int8_attn_ln`` and
-    one flex ``int8_ffn_ln``. With a disabled fold site anywhere the stack
-    takes the non-payload residual route (:func:`_non_payload_stack`).
-    ``hidden_act='gelu'`` runs as the tanh form ``gelu_new``, the JAX
-    engine's default ``gelu_impl='tanh'``.
+    layer is one ``int8_layer_ln`` (its attention sites any of 2-16 bits
+    or disabled); a flex layer one ``int8_attn_ln`` and one flex
+    ``int8_ffn_ln`` with the layer's edge modes (``static.io``); a float
+    entry edge starts the stream as the entry value itself, and a float
+    last ``z`` edge is returned as it is. With a disabled fold site
+    anywhere the stack takes the non-payload residual route
+    (:func:`_non_payload_stack`). ``hidden_act='gelu'`` runs as the tanh
+    form ``gelu_new``, the JAX engine's default ``gelu_impl='tanh'``.
     """
     if backend not in ("kernels", "plain"):
         raise ValueError(f"unknown engine backend {backend!r}")
@@ -502,7 +567,10 @@ def encoder_engine(h: Tensor, mask_bias: Tensor, static: EngineStatic,
     ffn_fn = EK.int8_ffn_ln if kern else EK.int8_ffn_ln_ref
     es = plan["entry_scal"]
     hf = h.reshape(b * t, hdim).to(torch.float32)
-    h8 = EK.quantize_payload(hf, es[0, 0], es[0, 1])
+    # a float entry edge (a 16-bit or sub-8 entry site): the stream starts
+    # as the fake-quantized value itself
+    h8 = (hf if static.layer_io(0)[0] == "f"
+          else EK.quantize_payload(hf, es[0, 0], es[0, 1]))
     mask_bias = mask_bias.to(torch.float32).contiguous()
     if not all(ao and d for ao, d in static.fold):
         # the residual stream rides payloads only when every fold site is
@@ -517,10 +585,11 @@ def encoder_engine(h: Tensor, mask_bias: Tensor, static: EngineStatic,
         res1, res2 = static.res_quant[i]
         w4q, w4o, w4i, w4d = static.w4[i]
         if not static.int8_layer[i]:
-            # the flex route: the x edge (the FFN input and its residual)
-            # is an int8 payload or a float32 value edge
+            # the flex route: each edge an int8 payload or a float32 value
+            # edge, as the layer's io and flex descriptors say
             x_mode, x_bits, h_bits, y_bits, _, _ = static.layer_flex(i)
-            g_bits, u_bits = static.layer_io(i)[5:7]
+            (in_mode, qkv_mode, qkv_bits, z_mode, z_bits, g_bits, u_bits,
+             inter_mode, i_bits) = static.layer_io(i)
             hx = attn_fn(
                 h8, lp["qkv"]["w"], lp["qkv"]["vecs"], lp["qkv"]["scal"],
                 mask_bias, lp["attn_scal"], lp["attn_out"]["w"],
@@ -529,8 +598,11 @@ def encoder_engine(h: Tensor, mask_bias: Tensor, static: EngineStatic,
                 n_heads=static.n_heads, seq=t, eps=static.ln_eps,
                 res_quant=res1, skip_max=static.attn_skip_max,
                 ln_out="emit" if x_mode == "i8" else "f", ln_bits=x_bits,
-                attn_bits=static.layer_attn_bits(i), g_bits=g_bits,
-                u_bits=u_bits, w4q=w4q, w4o=w4o)
+                attn_bits=static.layer_attn_bits(i), in_mode=in_mode,
+                qkv_mode=qkv_mode, qkv_bits=qkv_bits, g_bits=g_bits,
+                u_bits=u_bits, w4q=w4q, w4o=w4o,
+                in_grid=lp["qkv"].get("grid"),
+                ctx_grid=lp["attn_out"].get("grid"))
             h8 = ffn_fn(
                 hx, lp["inter"]["w"], lp["inter"]["vecs"],
                 lp["inter"]["scal"], lp["dense"]["w"], lp["dense"]["vecs"],
@@ -538,7 +610,10 @@ def encoder_engine(h: Tensor, mask_bias: Tensor, static: EngineStatic,
                 lp["ln2"].get("lnv"), activation=hidden_act,
                 eps=static.ln_eps, res_quant=res2, in_mode=x_mode,
                 res_mode=x_mode, h_bits=h_bits, y_bits=y_bits,
-                x_grid=lp["inter"].get("grid"), w4i=w4i, w4d=w4d)
+                ln_out="emit" if z_mode == "i8" else "f", ln_bits=z_bits,
+                inter_mode=inter_mode, inter_bits=i_bits,
+                x_grid=lp["inter"].get("grid"),
+                i_grid=lp["dense"].get("grid"), w4i=w4i, w4d=w4d)
             continue
         h8 = layer_fn(
             h8, lp["qkv"]["w"], lp["qkv"]["vecs"], lp["qkv"]["scal"],
@@ -552,7 +627,11 @@ def encoder_engine(h: Tensor, mask_bias: Tensor, static: EngineStatic,
             activation=hidden_act, res1=res1, res2=res2,
             skip_max=static.attn_skip_max,
             attn_bits=static.layer_attn_bits(i), w4q=w4q, w4o=w4o, w4i=w4i,
-            w4d=w4d)
+            w4d=w4d, ctx_grid=lp["attn_out"].get("grid"))
+    if static.layer_io(static.n_layers - 1)[3] == "f":
+        # the last layer's z is a float value edge: the stream already
+        # holds the fake-quantized ln-site values
+        return h8.reshape(b, t, hdim)
     ln2 = plan["layers"][-1]["ln2"]
     if "lnv" in ln2:
         # a per-column plan carries the (per-tensor) ffn.ln.out params
@@ -571,9 +650,11 @@ def _non_payload_stack(h8: Tensor, hf: Tensor, mask_bias: Tensor,
     ``hf`` is float32 (the entry value, then each add+LN's float output),
     and each layer runs q|k|v matmul (emit) -> attention -> attn_out
     matmul (``'fold'`` on its site, or ``'float'`` when the site is
-    disabled) -> :func:`~.kernels.engine_kernels.fused_add_ln` -> inter
-    matmul (act, emit) -> dense matmul (fold or float) -> fused_add_ln.
-    Returns the last layer's float output, (M, H)."""
+    disabled; a float context edge, ``'c': 16`` / ``'fp32'``, on the
+    float-edge or the float x int8 matmul) ->
+    :func:`~.kernels.engine_kernels.fused_add_ln` -> inter matmul (act,
+    emit) -> dense matmul (fold or float) -> fused_add_ln. Returns the
+    last layer's float output, (M, H)."""
     mm = EK.int8_matmul if kern else EK.int8_matmul_ref
     attn = EK.int8_attention if kern else EK.int8_attention_ref
     add_ln = EK.fused_add_ln if kern else EK.fused_add_ln_ref
@@ -585,13 +666,15 @@ def _non_payload_stack(h8: Tensor, hf: Tensor, mask_bias: Tensor,
         ao_fold, d_fold = static.fold[i]
         res1, res2 = static.res_quant[i]
         w4q, w4o, w4i, w4d = static.w4[i]
+        attn_bits = static.layer_attn_bits(i)
         qkv8 = mm(h8, *mp(lp["qkv"]), activation=None, out_mode="emit",
                   w4=w4q)
         c8 = attn(qkv8, mask_bias, lp["attn_scal"], n_heads=static.n_heads,
-                  seq=t, skip_max=static.attn_skip_max,
-                  attn_bits=static.layer_attn_bits(i))
+                  seq=t, skip_max=static.attn_skip_max, attn_bits=attn_bits)
         y = mm(c8, *mp(lp["attn_out"]), activation=None,
-               out_mode="fold" if ao_fold else "float", w4=w4o)
+               out_mode="fold" if ao_fold else "float", w4=w4o,
+               in_mode=EK._ctx_mode(attn_bits),
+               in_grid=lp["attn_out"].get("grid"))
         h8, hf = add_ln(y, hf, lp["ln1"]["gb"], lp["ln1"]["scal"],
                         eps=static.ln_eps, res_quant=res1)
         i8 = mm(h8, *mp(lp["inter"]), activation=hidden_act, out_mode="emit",

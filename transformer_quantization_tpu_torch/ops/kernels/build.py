@@ -29,7 +29,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 SOURCES = ("int8_matmul", "int8_attention", "add_ln_payload",
            "float_edge_matmul", "flex_add_ln", "int8_matmul_norm",
-           "int8_mb_layer", "fused_int8_linear")
+           "int8_mb_layer", "fused_int8_linear", "float_int8_gemm")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
@@ -49,6 +49,11 @@ _SIGNATURES = {
                        (_P, _P, _P, _I, _I, _I, _P, _P, _P, _I, _I, _I, _I,
                         _F, _F, _I, _P)),
     "int8_attention_blocks": ("tq_int8_attention_blocks", (_I, _I)),
+    "int8_attention_flex": ("tq_int8_attention_flex",
+                            (_P, _I, _P, _P, _P) + (_I,) * 7
+                            + (_F, _F, _I, _P)),
+    "float_int8_matmul": ("tq_float_int8_matmul",
+                          (_P,) * 4 + (_I,) * 5 + (_F, _F, _F, _P)),
     "int8_matmul_norm": ("tq_int8_matmul_norm",
                          (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                           _P)),
@@ -60,7 +65,7 @@ _SIGNATURES = {
     "float_edge_levels": ("tq_float_edge_levels",
                           (_P,) * 5 + (_I,) * 4 + (_F, _P)),
     "float_edge_gemm": ("tq_float_edge_gemm",
-                        (_P,) * 7 + (_I,) * 6 + (_F, _P)),
+                        (_P,) * 7 + (_I,) * 7 + (_F, _F, _F, _P)),
     "flex_add_ln": ("tq_flex_add_ln",
                     (_P, _P, _I, _P, _P, _P, _P, _P, _I, _I, _F, _I, _F, _F,
                      _F, _F, _P)),
@@ -77,6 +82,8 @@ _SIGNATURES = {
 _LIBRARY = {"int8_matmul_w4": "int8_matmul",
             "fused_int8_linear_w4": "fused_int8_linear",
             "int8_attention_blocks": "int8_attention",
+            "int8_attention_flex": "int8_attention",
+            "float_int8_matmul": "float_int8_gemm",
             "fused_quantize": "fused_int8_linear",
             "fused_rcp_check": "fused_int8_linear",
             "ln_div_check": "add_ln_payload",

@@ -16,9 +16,14 @@
 //                  for |q - zp| < 2^16)
 //   acc_g[m, n]  = sum_{k in g} q[m, k] w[n, k] - zp_g * colsum_g[n]  (int)
 //   y            = wscale[n] * (sum_g s_g * float(acc_g)) + bias[n]
-// with the group sum taken in group order, then act and the 8-bit output
-// site emitted as an int8 payload, as in int8_matmul (the flex FFN's inter
-// matmul; fold and float outputs are not yet ported here). The JAX
+// with the group sum taken in group order, then act and the output site,
+// as in int8_matmul: its int8 payload (emit: the flex FFN's inter matmul,
+// an 8-bit attn_out fold site after a 16-bit context), or for a one-group
+// edge its float32 value on a 2-16-bit grid (fold: the q|k|v matmul on a
+// float layer input, the dense matmul on a 16-bit inter edge, attn_out on
+// a 16-bit context, the inter matmul folding a 16-bit inter site) or y
+// itself (float: attn_out on a 16-bit context with a disabled fold
+// site). The JAX
 // reference takes x @ w^T as a float32 dot product, whose result depends
 // on its summation order; here every rounding happens after an exact
 // integer sum, so the kernel and its plain version (float_edge_matmul_ref)
@@ -89,6 +94,8 @@
 // quotient's integer); every output is bit-identical to
 // float_edge_matmul_ref, and the scratch to float_edge_levels_ref.
 
+#include <type_traits>
+
 #include "mm_common.cuh"
 #include "wgmma_gemm.cuh"
 
@@ -108,17 +115,18 @@ struct EdgeArgs {
   const float* gzp;    // (G,) zero points
   const int* gcs;      // (G, N) per-group column sums of w
   int G, gsize;
-  float gelu_c;
+  float gelu_c, lo, hi;   // [lo, hi]: a fold's level bounds
 };
 
 // K4's epilogue policy (wgmma_gemm.cuh). PL: bytes of a level (1: up to
 // 8 bits, 2: 16); GR: one group (0), or several folded in the main loop
 // after each stage (1: groups of a multiple of 128 columns) or every two
-// k32 steps (2: of an odd multiple of 64).
-template <int PL, int GR, int ACT>
+// k32 steps (2: of an odd multiple of 64). OUT: 0 emit (int8, the 8-bit
+// site), 1 fold (f32 on the [lo, hi] grid), 2 float (f32 y).
+template <int PL, int GR, int ACT, int OUT = 0>
 struct EdgeEpi {
   using Col = ColEdge;
-  using Out = int8_t;
+  using Out = typename std::conditional<OUT == 0, int8_t, float>::type;
   using Args = EdgeArgs;
   static constexpr int kTM = 64;
   static constexpr int kPlanes = PL;
@@ -132,12 +140,12 @@ struct EdgeEpi {
   const float* gzp;
   const int* gcs;
   int N, G, gsize, zc;   // zc: kShift - zp_0
-  float s0, gelu_c;
+  float s0, gelu_c, lo, hi;
 
   __device__ __forceinline__ EdgeEpi(const Args& a, int n)
       : vecs(a.vecs), gs(a.gs), gzp(a.gzp), gcs(a.gcs), N(n), G(a.G),
         gsize(a.gsize), zc(kShift - static_cast<int>(a.gzp[0])),
-        s0(a.gs[0]), gelu_c(a.gelu_c) {}
+        s0(a.gs[0]), gelu_c(a.gelu_c), lo(a.lo), hi(a.hi) {}
   __device__ __forceinline__ static Col pad() {
     return ColEdge{0.0f, 0.0f, 1.0f, 1.0f, 0.0f, 0};
   }
@@ -151,11 +159,21 @@ struct EdgeEpi {
     k.cs = GR ? 0 : (PL == 1 ? zc * gcs[n] : gcs[n]);
     return k;
   }
-  // y = wscale * x + bias, act, the 8-bit output site's level
+  // y = wscale * x + bias, act, then the 8-bit output site's level
+  // (emit), that site's value on the [lo, hi] grid (fold) or y (float)
   __device__ __forceinline__ Out site(float x, const Col& k) const {
     const float y = tqmm::act_fn<ACT>(k.ws * x + k.b, gelu_c);
-    return tqmm::to_i8(fminf(
-        fmaxf(tqmm::rint_div_fma(y, k.os, k.inv) - k.osh, -128.0f), 127.0f));
+    if constexpr (OUT == 2) {
+      return y;
+    } else if constexpr (OUT == 1) {
+      const float lvl =
+          fminf(fmaxf(tqmm::rint_div_fma(y, k.os, k.inv) - k.osh, lo), hi);
+      return k.os * (lvl + k.osh);
+    } else {
+      return tqmm::to_i8(fminf(
+          fmaxf(tqmm::rint_div_fma(y, k.os, k.inv) - k.osh, -128.0f),
+          127.0f));
+    }
   }
   // one group of one plane: x = s_0 * f32(acc' + (128 - zp_0) colsum)
   __device__ __forceinline__ Out apply(int acc, const Col& k) const {
@@ -372,34 +390,43 @@ cudaError_t launch_levels(const void* x, const void* cols, const void* ginv,
   return cudaGetLastError();
 }
 
-template <int PL, int GR>
+template <int PL, int GR, int OUT>
 cudaError_t launch_policy(int act, const CUtensorMap& mx,
                           const CUtensorMap& mw, const EdgeArgs& a, void* out,
                           int M, int N, int K, int sms, cudaStream_t st) {
   using tqwg::gemm_launch;
-  return act ? gemm_launch<EdgeEpi<PL, GR, 1>>(mx, mw, a, out, M, N, K, sms,
-                                                st)
-             : gemm_launch<EdgeEpi<PL, GR, 0>>(mx, mw, a, out, M, N, K, sms,
-                                                st);
+  return act ? gemm_launch<EdgeEpi<PL, GR, 1, OUT>>(mx, mw, a, out, M, N, K,
+                                                     sms, st)
+             : gemm_launch<EdgeEpi<PL, GR, 0, OUT>>(mx, mw, a, out, M, N, K,
+                                                     sms, st);
 }
 
+// fold and float outputs: one group only (the grouped epilogues emit)
 template <int PL>
-cudaError_t launch_planes(int act, const CUtensorMap& mx,
+cudaError_t launch_planes(int act, int out_mode, const CUtensorMap& mx,
                           const CUtensorMap& mw, const EdgeArgs& a, void* out,
                           int M, int N, int K, int sms, cudaStream_t st) {
-  if (a.G == 1)
-    return launch_policy<PL, 0>(act, mx, mw, a, out, M, N, K, sms, st);
+  if (a.G == 1) {
+    switch (out_mode) {
+      case 0: return launch_policy<PL, 0, 0>(act, mx, mw, a, out, M, N, K, sms, st);
+      case 1: return launch_policy<PL, 0, 1>(act, mx, mw, a, out, M, N, K, sms, st);
+      default: return launch_policy<PL, 0, 2>(act, mx, mw, a, out, M, N, K, sms, st);
+    }
+  }
+  if (out_mode != 0) return cudaErrorInvalidValue;
   if (a.gsize % tqwg::TK == 0)
-    return launch_policy<PL, 1>(act, mx, mw, a, out, M, N, K, sms, st);
-  return launch_policy<PL, 2>(act, mx, mw, a, out, M, N, K, sms, st);
+    return launch_policy<PL, 1, 0>(act, mx, mw, a, out, M, N, K, sms, st);
+  return launch_policy<PL, 2, 0>(act, mx, mw, a, out, M, N, K, sms, st);
 }
 
 cudaError_t launch_gemm(const void* lv, const void* w, const void* vecs,
                         const void* gs, const void* gzp, const void* gcs,
                         void* out, int M, int N, int K, int gsize,
-                        int planes, int act, float gelu_c, cudaStream_t st) {
+                        int planes, int act, int out_mode, float lo,
+                        float hi, float gelu_c, cudaStream_t st) {
   const int G = edge_ok(M, K, gsize, planes) ? K / gsize : 0;
   if (G == 0 || G > (planes == 1 ? 32 : 16) || act < 0 || act > 1 ||
+      out_mode < 0 || out_mode > 2 || (out_mode != 0 && G != 1) ||
       !aligned16(out))
     return cudaErrorInvalidValue;
   const int rows = planes * plane_rows(M, planes);
@@ -412,10 +439,12 @@ cudaError_t launch_gemm(const void* lv, const void* w, const void* vecs,
   const EdgeArgs a{static_cast<const float*>(vecs),
                    static_cast<const float*>(gs),
                    static_cast<const float*>(gzp),
-                   static_cast<const int*>(gcs), G, gsize, gelu_c};
+                   static_cast<const int*>(gcs), G, gsize, gelu_c, lo, hi};
   return planes == 1
-             ? launch_planes<1>(act, mx, mw, a, out, M, N, K, sms, st)
-             : launch_planes<2>(act, mx, mw, a, out, M, N, K, sms, st);
+             ? launch_planes<1>(act, out_mode, mx, mw, a, out, M, N, K, sms,
+                                st)
+             : launch_planes<2>(act, out_mode, mx, mw, a, out, M, N, K, sms,
+                                st);
 }
 
 }  // namespace
@@ -439,15 +468,19 @@ extern "C" int tq_float_edge_levels(const void* x, const void* cols,
 // lv: a level pass's scratch of M rows (arguments as above); w: (N, K)
 // int8, columns in `cols` order; vecs: (5, N) f32; gs / gzp: (G,) f32
 // group scale, zero point; gcs: (G, N) int32 per-group column sums of w;
-// out: (M, N) int8, the 8-bit output site's levels (vecs rows 3 / 4).
-// G <= 32 (planes 1) or 16 (planes 2); N % 8 == 0; act: 0 none, 1
-// gelu_new; w and out 16-byte aligned. Launches the GEMM on `stream`.
+// out: (M, N), int8 for out_mode 0 (emit: the 8-bit output site's levels,
+// vecs rows 3 / 4) or f32 for 1 (fold: the site's values on the [lo, hi]
+// level grid) and 2 (float: y); fold and float need G == 1. G <= 32
+// (planes 1) or 16 (planes 2); N % 8 == 0; act: 0 none, 1 gelu_new; w and
+// out 16-byte aligned. Launches the GEMM on `stream`.
 extern "C" int tq_float_edge_gemm(const void* lv, const void* w,
                                   const void* vecs, const void* gs,
                                   const void* gzp, const void* gcs, void* out,
                                   int M, int N, int K, int gsize, int planes,
-                                  int act, float gelu_c, void* stream) {
+                                  int act, int out_mode, float lo, float hi,
+                                  float gelu_c, void* stream) {
   return static_cast<int>(launch_gemm(lv, w, vecs, gs, gzp, gcs, out, M, N, K,
-                                      gsize, planes, act, gelu_c,
+                                      gsize, planes, act, out_mode, lo, hi,
+                                      gelu_c,
                                       static_cast<cudaStream_t>(stream)));
 }

@@ -816,3 +816,366 @@ extern "C" int tq_int8_attention_blocks(int T, int D) {
     default: return -1;
   }
 }
+
+// ---------------------------------------------------------------------------
+// The attention's other forms (attn_flex_kernel)
+//
+// Replaces the same TPU function for every form but the all-8-bit payload
+// one above: _attn_row with a scores site of 2-16 bits or disabled (bits
+// 0: s2 = q_s k_s rsqrt(d) log2e * scores + mask log2e), a probs site of
+// 9-16 bits (shifted float levels) or disabled (the raw softmax), a
+// context site of 9-16 bits or disabled (a float32 value edge out,
+// _emit_ctx), sub-8-bit sites, and the value-space form of float32 q / k /
+// v values with identity site scalars (int8_attention_ref(dots='f32'),
+// the engine's 16-bit / sub-8 / per-column q / k / v sites).
+//
+//   scores = q . k   (payloads: + q_sh*ksum + k_sh*qsum + d*q_sh*k_sh)
+//   s2     = the scores site as above, or its disabled form
+//   e      = exp2(s2 [- rowmax]), sum in double rounded once
+//   probs  = the probs site's payload, shifted levels or e / sum
+//   ctx    = probs . v (a payload probs site on payloads: the integer sum
+//            + p_sh*vsum + v_sh*psum + T*p_sh*v_sh; else probs . (v +
+//            v_sh))
+//   out    = the context site: a payload, or float values (_emit_ctx)
+//
+// What bounds it on the card: operations, the float dots. At BERT-base
+// (B = 128, T = 128, 12 heads of 64) q.k and p.v are 6.4 GFLOP: 0.10 ms at
+// the 67 TFLOP/s float64 (tensor-core) peak, against 50-150 MB of traffic
+// (15-45 us: int8 or float32 q / k / v, an int8 or float32 context).
+//
+// Design (a simple first form): a block of 256 threads a (batch row,
+// head) and 64 of its query rows (T = 32: all 32); q^T, k^T, the scores
+// and probs and then v are staged in shared memory as float64 (166 KB at
+// T = 128, D = 64: one block an SM), both products on the float64 FMA
+// units with register tiles of 4 x 8 (scores) and 4 x 4 (context) sums a
+// thread, the softmax a warp a row. Every element of q, k, v and the
+// probs is exact in float64 and so is every product: the integer forms'
+// sums (|q.k| < 2^21, |p.v| < 2^31) are exact, and the float forms' are
+// the exact sums' roundings but where the float64 sum's own rounding meets
+// a float32 tie. Then each step in int8_attention_ref's float32 order
+// (-fmad=false, exp2f, the IEEE divisions), bit-identical to it but on
+// such ties; a payload level off the integers truncates as its cast does.
+// A tensor-core (DMMA or split-bf16 wgmma) redesign is later work.
+// ---------------------------------------------------------------------------
+
+namespace {
+
+constexpr int FT = 256;   // threads of a flex block
+
+template <int T, int D>
+struct FCfg {
+  static constexpr int QR = T < 64 ? T : 64;   // query rows a block
+  static constexpr int SPLIT = T / QR;         // blocks a (row, head) item
+  static constexpr int LQ = QR + 1;            // q^T row stride (doubles)
+  static constexpr int LK = T + 1;             // k^T row stride
+  static constexpr int LV = D + 1;             // v row stride
+  static constexpr int LP = T + 1;             // probs row stride
+  static constexpr int KV = D * LK > T * LV ? D * LK : T * LV;
+  static constexpr int RI = QR / 16;           // rows a thread
+  static constexpr int CJ = T / 16;            // keys a thread (scores)
+  static constexpr int CD = D / 16;            // head dims a thread (p.v)
+  // doubles: q^T, k^T then v, the probs; floats: qsum, ksum, the keys'
+  // mask terms, psum, vsum
+  static constexpr int SMEM =
+      8 * (D * LQ + KV + QR * LP) + 4 * (QR + T + T + QR + D);
+};
+
+__device__ __forceinline__ float clipf(float x, float lo, float hi) {
+  return fminf(fmaxf(x, lo), hi);
+}
+
+template <int T, int D, bool QF>
+__global__ void __launch_bounds__(FT, 1)
+    attn_flex_kernel(const void* __restrict__ qkv,
+                     const float* __restrict__ mask,
+                     const float* __restrict__ scal, void* __restrict__ out,
+                     int hidden, int n_heads, int sc_bits, int p_bits,
+                     int c_bits, float rsqrt_d, float log2e, int skip_max) {
+  using C = FCfg<T, D>;
+  extern __shared__ double fsm[];
+  double* qT = fsm;                    // [D][LQ]
+  double* kv = qT + D * C::LQ;         // k^T [D][LK], then v [T][LV]
+  double* P = kv + C::KV;              // [QR][LP]
+  float* qsum = reinterpret_cast<float*>(P + C::QR * C::LP);
+  float* ksum = qsum + C::QR;
+  float* mk = ksum + T;                // a key's mask term
+  float* psum = mk + T;
+  float* vsum = psum + C::QR;
+  const int t = threadIdx.x, warp = t >> 5, lane = t & 31;
+  const int ty = t >> 4, tx = t & 15;
+  const int item = blockIdx.x / C::SPLIT;
+  const int i0 = (blockIdx.x % C::SPLIT) * C::QR;   // first query row
+  const int b = item / n_heads, h = item - b * n_heads;
+  const int ld = 3 * hidden;
+  const size_t row0 = static_cast<size_t>(b) * T;
+  const int8_t* q8 = static_cast<const int8_t*>(qkv);
+  const float* qf = static_cast<const float*>(qkv);
+  auto at = [&](size_t row, int col) -> float {
+    const size_t i = row * ld + col;
+    return QF ? qf[i] : static_cast<float>(q8[i]);
+  };
+  const float q_s = scal[0], q_sh = scal[1], k_s = scal[2], k_sh = scal[3];
+  const float v_s = scal[4], v_sh = scal[5], sc_s = scal[6], sc_sh = scal[7];
+  const float p_s = scal[8], p_sh = scal[9], c_s = scal[10], c_sh = scal[11];
+  // a payload probs site on payloads: the integer p.v and its corrections
+  const bool int_pv = !QF && p_bits >= 1 && p_bits <= 8;
+
+  // q^T and k^T (and the payloads' row sums), the keys' mask terms
+  for (int e = t; e < C::QR * D; e += FT) {
+    const int r = e / D, d = e - r * D;
+    qT[d * C::LQ + r] = at(row0 + i0 + r, h * D + d);
+  }
+  for (int e = t; e < T * D; e += FT) {
+    const int j = e / D, d = e - j * D;
+    kv[d * C::LK + j] = at(row0 + j, hidden + h * D + d);
+  }
+  const float a = (sc_s * rsqrt_d) * log2e;
+  for (int j = t; j < T; j += FT) {
+    const float ml = mask[row0 + j] * log2e;
+    mk[j] = sc_bits ? ml + a * sc_sh : ml;
+  }
+  __syncthreads();
+  if (!QF) {
+    for (int r = t; r < C::QR; r += FT) {
+      float s = 0.0f;
+      for (int d = 0; d < D; ++d) s += static_cast<float>(qT[d * C::LQ + r]);
+      qsum[r] = s;
+    }
+    for (int j = t; j < T; j += FT) {
+      float s = 0.0f;
+      for (int d = 0; d < D; ++d) s += static_cast<float>(kv[d * C::LK + j]);
+      ksum[j] = s;
+    }
+    __syncthreads();
+  }
+
+  // scores -> s2 into P
+  {
+    double acc[C::RI][C::CJ];
+#pragma unroll
+    for (int i = 0; i < C::RI; ++i)
+#pragma unroll
+      for (int j = 0; j < C::CJ; ++j) acc[i][j] = 0.0;
+#pragma unroll 4
+    for (int d = 0; d < D; ++d) {
+      double x[C::RI], y[C::CJ];
+#pragma unroll
+      for (int i = 0; i < C::RI; ++i) x[i] = qT[d * C::LQ + ty + 16 * i];
+#pragma unroll
+      for (int j = 0; j < C::CJ; ++j) y[j] = kv[d * C::LK + tx + 16 * j];
+#pragma unroll
+      for (int i = 0; i < C::RI; ++i)
+#pragma unroll
+        for (int j = 0; j < C::CJ; ++j)
+          acc[i][j] = __fma_rn(x[i], y[j], acc[i][j]);
+    }
+    const float qk_over_sc = (q_s * k_s) * (1.0f / sc_s);
+    const float coef = ((q_s * k_s) * rsqrt_d) * log2e;   // scores off
+    const float dqk = (static_cast<float>(D) * q_sh) * k_sh;
+    const float half_sc = sc_bits ? static_cast<float>(1 << (sc_bits - 1))
+                                  : 0.0f;
+#pragma unroll
+    for (int i = 0; i < C::RI; ++i) {
+      const int r = ty + 16 * i;
+#pragma unroll
+      for (int j = 0; j < C::CJ; ++j) {
+        const int k = tx + 16 * j;
+        float scr = __double2float_rn(acc[i][j]);
+        if (!QF) scr = ((scr + q_sh * ksum[k]) + k_sh * qsum[r]) + dqk;
+        float s2;
+        if (sc_bits == 0) {
+          s2 = coef * scr + mk[k];
+        } else {
+          const float lvl =
+              clipf(rintf(scr * qk_over_sc) - sc_sh, -half_sc, half_sc - 1.0f);
+          s2 = a * lvl + mk[k];
+        }
+        P[r * C::LP + k] = s2;
+      }
+    }
+  }
+  __syncthreads();
+
+  // the softmax and the probs site, a warp a row; then v into the k^T
+  // buffer (no longer read)
+  {
+    const float inv_ps = 1.0f / p_s;
+    const float half_p = p_bits ? static_cast<float>(1 << (p_bits - 1)) : 0.0f;
+    for (int r = warp; r < C::QR; r += FT / 32) {
+      double* pr = P + r * C::LP;
+      float s2[T / 32];
+      float m = __int_as_float(0xff800000);   // -inf
+#pragma unroll
+      for (int u = 0; u < T / 32; ++u) {
+        s2[u] = static_cast<float>(pr[lane + 32 * u]);
+        m = fmaxf(m, s2[u]);
+      }
+#pragma unroll
+      for (int o = 16; o >= 1; o >>= 1)
+        m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
+      double den = 0.0;
+#pragma unroll
+      for (int u = 0; u < T / 32; ++u) {
+        s2[u] = skip_max ? exp2f(s2[u]) : exp2f(s2[u] - m);
+        den += static_cast<double>(s2[u]);
+      }
+#pragma unroll
+      for (int o = 16; o >= 1; o >>= 1)
+        den += __shfl_xor_sync(0xffffffffu, den, o);
+      const float dn = static_cast<float>(den);
+      const float w = inv_ps / dn;
+      const float inv_den = 1.0f / dn;
+      float ps = 0.0f;
+#pragma unroll
+      for (int u = 0; u < T / 32; ++u) {
+        const float e = s2[u];
+        float p;
+        if (p_bits == 0) {
+          p = e * inv_den;
+        } else if (p_bits > 8) {
+          p = clipf(rintf(e * w), p_sh - half_p, p_sh + half_p - 1.0f);
+        } else if (int_pv) {
+          // the int8 payload, a level off the integers truncated as the
+          // plain version's cast does
+          p = truncf(clipf(rintf(e * w) - p_sh, -half_p, half_p - 1.0f));
+          ps += p;
+        } else {
+          p = clipf(rintf(e * w), p_sh + -half_p, p_sh + (half_p - 1.0f));
+        }
+        pr[lane + 32 * u] = p;
+      }
+      if (int_pv) {
+#pragma unroll
+        for (int o = 16; o >= 1; o >>= 1)
+          ps += __shfl_xor_sync(0xffffffffu, ps, o);
+        if (lane == 0) psum[r] = ps;
+      }
+    }
+  }
+  __syncthreads();   // the scores phase is done with k^T
+  for (int e = t; e < T * D; e += FT) {
+    const int j = e / D, d = e - j * D;
+    const float v = at(row0 + j, 2 * hidden + h * D + d);
+    kv[j * C::LV + d] = int_pv ? v : v + v_sh;
+  }
+  __syncthreads();
+  if (int_pv) {
+    for (int d = t; d < D; d += FT) {
+      float s = 0.0f;
+      for (int j = 0; j < T; ++j) s += static_cast<float>(kv[j * C::LV + d]);
+      vsum[d] = s;
+    }
+    __syncthreads();
+  }
+
+  // the context and its site
+  double acc[C::RI][C::CD];
+#pragma unroll
+  for (int i = 0; i < C::RI; ++i)
+#pragma unroll
+    for (int j = 0; j < C::CD; ++j) acc[i][j] = 0.0;
+#pragma unroll 4
+  for (int k = 0; k < T; ++k) {
+    double x[C::RI], y[C::CD];
+#pragma unroll
+    for (int i = 0; i < C::RI; ++i) x[i] = P[(ty + 16 * i) * C::LP + k];
+#pragma unroll
+    for (int j = 0; j < C::CD; ++j) y[j] = kv[k * C::LV + tx + 16 * j];
+#pragma unroll
+    for (int i = 0; i < C::RI; ++i)
+#pragma unroll
+      for (int j = 0; j < C::CD; ++j)
+        acc[i][j] = __fma_rn(x[i], y[j], acc[i][j]);
+  }
+  const float pv_over_c = (p_s * v_s) * (1.0f / c_s);
+  const float tpv = (static_cast<float>(T) * p_sh) * v_sh;
+  const float half_c = c_bits ? static_cast<float>(1 << (c_bits - 1)) : 0.0f;
+#pragma unroll
+  for (int i = 0; i < C::RI; ++i) {
+    const int r = ty + 16 * i;
+    const size_t orow = (row0 + i0 + r) * static_cast<size_t>(hidden);
+#pragma unroll
+    for (int j = 0; j < C::CD; ++j) {
+      const int d = tx + 16 * j;
+      float ctx = __double2float_rn(acc[i][j]);
+      if (int_pv) ctx = ((ctx + p_sh * vsum[d]) + v_sh * psum[r]) + tpv;
+      const float x = ctx * pv_over_c;
+      const size_t o = orow + h * D + d;
+      if (c_bits == 0) {
+        static_cast<float*>(out)[o] = x;
+      } else if (c_bits > 8) {
+        static_cast<float*>(out)[o] =
+            c_s * clipf(rintf(x), c_sh - half_c, c_sh + half_c - 1.0f);
+      } else {
+        static_cast<int8_t*>(out)[o] = static_cast<int8_t>(__float2int_rz(
+            clipf(rintf(x) - c_sh, -half_c, half_c - 1.0f)));
+      }
+    }
+  }
+}
+
+template <int T, int D, bool QF>
+cudaError_t launch_flex(const void* qkv, const float* mask,
+                        const float* scal, void* out, int B, int hidden,
+                        int n_heads, int sc_bits, int p_bits, int c_bits,
+                        float rsqrt_d, float log2e, int skip_max,
+                        cudaStream_t st) {
+  using C = FCfg<T, D>;
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      attn_flex_kernel<T, D, QF>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
+  if (attr != cudaSuccess) return attr;
+  const int blocks = B * n_heads * C::SPLIT;
+  attn_flex_kernel<T, D, QF><<<blocks, FT, C::SMEM, st>>>(
+      qkv, mask, scal, out, hidden, n_heads, sc_bits, p_bits, c_bits,
+      rsqrt_d, log2e, skip_max);
+  return cudaGetLastError();
+}
+
+template <bool QF>
+cudaError_t launch_flex_td(int T, int D, const void* qkv, const float* mask,
+                           const float* scal, void* out, int B, int hidden,
+                           int n_heads, int sc_bits, int p_bits, int c_bits,
+                           float rsqrt_d, float log2e, int skip_max,
+                           cudaStream_t st) {
+  switch (D * 1000 + T) {
+    case 32032: return launch_flex<32, 32, QF>(qkv, mask, scal, out, B, hidden, n_heads, sc_bits, p_bits, c_bits, rsqrt_d, log2e, skip_max, st);
+    case 32064: return launch_flex<64, 32, QF>(qkv, mask, scal, out, B, hidden, n_heads, sc_bits, p_bits, c_bits, rsqrt_d, log2e, skip_max, st);
+    case 32128: return launch_flex<128, 32, QF>(qkv, mask, scal, out, B, hidden, n_heads, sc_bits, p_bits, c_bits, rsqrt_d, log2e, skip_max, st);
+    case 64032: return launch_flex<32, 64, QF>(qkv, mask, scal, out, B, hidden, n_heads, sc_bits, p_bits, c_bits, rsqrt_d, log2e, skip_max, st);
+    case 64064: return launch_flex<64, 64, QF>(qkv, mask, scal, out, B, hidden, n_heads, sc_bits, p_bits, c_bits, rsqrt_d, log2e, skip_max, st);
+    case 64128: return launch_flex<128, 64, QF>(qkv, mask, scal, out, B, hidden, n_heads, sc_bits, p_bits, c_bits, rsqrt_d, log2e, skip_max, st);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace
+
+// qkv: the (B*T, 3 hidden) fused q|k|v edge, int8 payloads (f32 0) or
+// float32 values (f32 1), heads head-minor inside each third; mask: (B, T)
+// f32 additive bias; scal: 12 f32 site scalars; out: (B*T, hidden), int8
+// for a context site of 1-8 bits, else f32. sc_bits / p_bits / c_bits:
+// 1-16, or 0 for a disabled site. T in {32, 64, 128}, head_dim = hidden /
+// n_heads in {32, 64}. Returns the launch's cudaError_t
+// (cudaErrorInvalidValue for arguments the kernel does not take).
+extern "C" int tq_int8_attention_flex(const void* qkv, int f32,
+                                      const void* mask, const void* scal,
+                                      void* out, int B, int T, int hidden,
+                                      int n_heads, int sc_bits, int p_bits,
+                                      int c_bits, float rsqrt_d, float log2e,
+                                      int skip_max, void* stream) {
+  if (B <= 0 || n_heads <= 0 || hidden % n_heads || sc_bits < 0 ||
+      sc_bits > 16 || p_bits < 0 || p_bits > 16 || c_bits < 0 || c_bits > 16)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int D = hidden / n_heads;
+  const float* m = static_cast<const float*>(mask);
+  const float* s = static_cast<const float*>(scal);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(
+      f32 ? launch_flex_td<true>(T, D, qkv, m, s, out, B, hidden, n_heads,
+                                 sc_bits, p_bits, c_bits, rsqrt_d, log2e,
+                                 skip_max, st)
+          : launch_flex_td<false>(T, D, qkv, m, s, out, B, hidden, n_heads,
+                                  sc_bits, p_bits, c_bits, rsqrt_d, log2e,
+                                  skip_max, st));
+}

@@ -29,7 +29,7 @@
 //                         has 64-row boxes): a call with few column tiles
 //                         still gives both consumer warpgroups tiles;
 //   kEpiNB = 1            one 8-column block an epilogue step, not two;
-//   kPlanes = 2           (kTM = 64, int8 outputs) x's rows come in
+//   kPlanes = 2           (kTM = 64, no residual) x's rows come in
 //                         128-row boxes that hold two planes of the tile's
 //                         64 rows (rows 0-63 and 64-127 of the box; x's
 //                         map has 128-row boxes over 2 * 64 * tiles rows),
@@ -366,8 +366,8 @@ __device__ __forceinline__ void consume(
   constexpr int TMe = epi_tm<Epi>::value;
   static_assert(TMe == 64 || TMe == 128, "tiles of 64 or 128 rows");
   constexpr int PL = epi_planes<Epi>::value;
-  static_assert(PL == 1 || (PL == 2 && TMe == 64 && BYTES && !RES),
-                "two planes: 64-row tiles, int8 outputs");
+  static_assert(PL == 1 || (PL == 2 && TMe == 64 && !RES),
+                "two planes: 64-row tiles, no residual");
   constexpr bool GROUPS = epi_groups<Epi>::value > 0;
   constexpr bool W4 = epi_w4<Epi>::value;
   static_assert(!W4 || (TMe == 128 && PL == 1 && !GROUPS && !RES),

@@ -18,7 +18,11 @@ The wrappers here launch kernels written by hand for Hopper (``csrc/``):
 - :func:`int8_attention_qkv` -- scores, scores site, exp2 softmax, probs
   payload, probs @ v and the context payload, per (batch row, head), over
   q, k and v picked from up to three arrays by ``cols``;
-  :func:`int8_attention` is its instance over one fused q|k|v array;
+  :func:`int8_attention` is its instance over one fused q|k|v array, and
+  launches its second kernel (:func:`int8_attention_flex`) for every other
+  form: scores / probs / context sites of 2-16 bits or disabled (bits 0),
+  a float32 context value edge out, and the value-space form of float32
+  q / k / v values (``dots='f32'``);
 - :func:`int8_mb_layer_ln` -- a whole MobileBERT layer in one launch over
   tiles of whole sequences, every intermediate payload in shared memory,
   its elements through the same device functions as the three kernels
@@ -30,11 +34,15 @@ The wrappers here launch kernels written by hand for Hopper (``csrc/``):
   the engine's non-payload residual route (a disabled fold site), an
   instance of the :func:`flex_add_ln` kernel;
 - :func:`float_edge_matmul` -- the matmul of a float value edge (a 16-bit
-  or per-column site of the mixed / PEG recipes) against an int8 weight,
-  contracted exactly on int8 tensor cores from the edge's grid levels,
-  with optional ``gelu_new`` and an emitted int8 payload: a level pass
-  (:func:`float_edge_levels`) then a GEMM on its levels
-  (:func:`float_edge_gemm`);
+  or per-column site of the mixed / PEG recipes, a 16-bit or sub-8 layer
+  input, inter or context edge) against an int8 weight, contracted
+  exactly on int8 tensor cores from the edge's grid levels, with optional
+  ``gelu_new`` and an emitted int8 payload, a fold on a 2-16-bit grid or
+  the raw float out: a level pass (:func:`float_edge_levels`) then a GEMM
+  on its levels (:func:`float_edge_gemm`);
+- :func:`float_int8_matmul` -- the matmul of a float edge on no grid (the
+  disabled context site's raw value) against an int8 weight, products
+  summed in float64 and rounded once;
 - :func:`flex_add_ln` -- float32 y + payload or float residual, res and
   ln sites per tensor or per column (``lnv``) on 8- or 16-bit grids,
   LayerNorm, and an int8 payload or a float value edge out.
@@ -60,9 +68,15 @@ Each ``*_ref`` repeats the JAX ``*_ref`` operation for operation (same
 association order, division where it divides), with one deliberate
 difference: the row sums of the softmax and of LayerNorm accumulate in
 float64 and round once to float32, and LayerNorm takes ``1 / sqrt`` (both
-IEEE-rounded) for ``rsqrt``; and the float-edge contraction, which JAX
+IEEE-rounded) for ``rsqrt``; the float-edge contraction, which JAX
 computes as a float32 dot product, is the exact integer contraction of
-the edge's grid levels (:func:`float_edge_matmul_ref`). The result then
+the edge's grid levels (:func:`float_edge_matmul_ref`); and every other
+float dot product of JAX's (the value-space attention's q.k and p.v, p.v
+on 16-bit or raw probabilities, a float edge on no grid) sums its
+products in float64 and rounds once to float32 (:func:`_f64_matmul`:
+each product of two float32 values, or of a float32 and an int8, is
+exact in float64, so only the float64 sum's rounding depends on the
+order, some 2^-29 of a float32 step). The result then
 does not depend on the summation order or the device, so the kernels,
 which do the same, agree with these versions bit for bit; against the
 JAX oracles (float32 sums) a payload may sit one level off on rare
@@ -102,7 +116,10 @@ LAUNCHES: Dict[str, int] = {"int8_matmul": 0, "int8_matmul_w4": 0,
                             "fused_int8_linear": 0,
                             "fused_int8_linear_w4": 0,
                             "fused_linear_quantize": 0,
-                            "float_edge_levels": 0}
+                            "float_edge_levels": 0,
+                            "float_edge_matmul_fold": 0,
+                            "int8_attention_flex": 0,
+                            "float_int8_matmul": 0}
 
 LOG2E = float(np.float32(np.log2(np.e)))
 
@@ -198,11 +215,16 @@ def int8_matmul_ref(x8, w8, vecs, scalars, *, activation=None,
     output site. ``vecs`` rows: [wscale, colsum, bias, out_s, out_shift];
     ``scalars``: (1, 2) [in_s, in_shift]. ``w4``: ``w8`` is the (N, K/2)
     split-half packed int4 weight, unpacked first (the JAX
-    ``int8_matmul_ref``). ``in_mode='f'``: ``x8`` is a float value edge
-    on the grid ``in_grid`` (:func:`edge_grid`), and the product is
-    :func:`float_edge_matmul_ref`'s."""
+    ``int8_matmul_ref``). ``in_mode='f'``: ``x8`` is a float value edge,
+    carrying its own scale (``scalars`` unused): on the grid ``in_grid``
+    (:func:`edge_grid`) the product is :func:`float_edge_matmul_ref`'s,
+    on no grid (``in_grid`` None: the disabled context site's raw value)
+    :func:`float_int8_matmul_ref`'s."""
     if in_mode == "f":
         _require_w8(w4, "int8_matmul(in_mode='f')")
+        if in_grid is None:
+            return float_int8_matmul_ref(x8, w8, vecs, activation=activation,
+                                         out_mode=out_mode, out_bits=out_bits)
         _check_grid_weight(in_grid, w8)
         return float_edge_matmul_ref(x8, vecs, in_grid,
                                      activation=activation,
@@ -214,6 +236,26 @@ def int8_matmul_ref(x8, w8, vecs, scalars, *, activation=None,
     acc = exact_int_matmul(x8, w8).to(torch.float32)
     in_s, in_shift = scalars[0, 0], scalars[0, 1]
     y = (in_s * vecs[0]) * (acc + in_shift * vecs[1]) + vecs[2]
+    return _out_site(y, vecs, activation, out_mode, out_bits)
+
+
+def _f64_matmul(a: Tensor, b: Tensor) -> Tensor:
+    """``a @ b`` of float32 (or int8-valued) operands with the products
+    summed in float64 and rounded once to float32: each product is exact in
+    float64 (24 + 24 bits at most), so the result is the float32 rounding
+    of the exact sum but where the float64 sum's own rounding (some 2^-29
+    of a float32 step) meets a tie."""
+    return torch.matmul(a.to(torch.float64), b.to(torch.float64)).to(
+        torch.float32)
+
+
+def float_int8_matmul_ref(x, w8, vecs, *, activation=None, out_mode="emit",
+                          out_bits=8):
+    """The matmul of a float edge on no grid (JAX ``_f_dot`` with
+    ``_mm_body(in_mode='f')``): ``act(wscale * (x @ w8^T) + b)`` then the
+    output site, ``x @ w8^T`` summed in float64 (:func:`_f64_matmul`)
+    where JAX sums in float32."""
+    y = vecs[0] * _f64_matmul(x.to(torch.float32), w8.t()) + vecs[2]
     return _out_site(y, vecs, activation, out_mode, out_bits)
 
 
@@ -240,7 +282,9 @@ def edge_grid(w8: Tensor, s: Tensor, zp: Tensor, bits: int,
         raise ValueError("edge grid: the site's params vary inside a group")
     if not bool(((z_c >= 0) & (z_c <= 2 ** bits - 1)).all()):
         raise ValueError(f"edge grid: a zero point off the {bits}-bit grid")
-    wp = w8[:, cols].contiguous()
+    # the identity order (a per-tensor site) takes the weight as it is
+    same = torch.equal(cols, torch.arange(k, device=cols.device))
+    wp = w8 if same else w8[:, cols].contiguous()
     s_g = s_c[:, 0].to(torch.float32).contiguous()
     return {"cols": cols.contiguous(), "bits": int(bits), "s": s_g,
             "inv_s": (1.0 / s_g).contiguous(),
@@ -358,24 +402,49 @@ def float_edge_gemm_ref(lv: Tensor, m: int, vecs, grid, *, activation=None,
 
 
 def _emit_ctx(ctx, pv_over_c, c_s, c_sh, c_bits: int):
-    if not 1 <= c_bits <= 8:
-        raise NotImplementedError("float context edges are not yet ported")
+    """The context site from the float context sum (JAX ``_emit_ctx``):
+    1-8 bits an int8 payload; 9-16 bits a float value edge on the site's
+    grid, ``c_s * clip(rint(ctx * pv_over_c), c_sh - half, c_sh + half -
+    1)``; disabled (bits 0, identity c_s / c_sh) the raw float value
+    ``ctx * pv_over_c``."""
+    if c_bits == 0:
+        return ctx * pv_over_c
+    if c_bits > 8:
+        half = float(2 ** (c_bits - 1))
+        return c_s * torch.clamp(torch.round(ctx * pv_over_c), c_sh - half,
+                                 c_sh + half - 1.0)
     lo, hi = _clip_bounds(c_bits)
     return torch.clamp(torch.round(ctx * pv_over_c) - c_sh, lo, hi).to(
         torch.int8)
 
 
+def _check_attn_bits(attn_bits) -> Tuple[int, int, int]:
+    bits = _attn3(attn_bits)
+    if any(not 0 <= b <= 16 for b in bits):
+        raise ValueError(f"attention sites of {bits} bits: each is 1-16 "
+                         "bits or disabled (0)")
+    return bits
+
+
 def int8_attention_ref(qkv8, mask_bias, scalars, *, n_heads, seq,
-                       skip_max=False, attn_bits=(8, 8)):
-    """Attention over the fused q|k|v payload (``dots='i8'`` form):
-    scores -> scores site -> 1/sqrt(d) + mask -> exp2 softmax -> probs
-    payload -> probs @ v with rank-1 shift corrections -> context payload.
-    ``scalars`` (1, 12): [q_s, q_sh, k_s, k_sh, v_s, v_sh, sc_s, sc_sh,
-    p_s, p_sh, c_s, c_sh]."""
-    sc_bits, p_bits, c_bits = _attn3(attn_bits)
-    if not (1 <= sc_bits <= 8 and 1 <= p_bits <= 8):
-        raise NotImplementedError("16-bit or disabled scores/probs sites "
-                                  "are not yet ported")
+                       skip_max=False, attn_bits=(8, 8), dots="i8"):
+    """Attention over the fused q|k|v edge: scores -> scores site -> 1/sqrt(d)
+    + mask -> exp2 softmax -> probs site -> probs @ v -> context site, the
+    JAX ``int8_attention_ref``. ``scalars`` (1, 12): [q_s, q_sh, k_s, k_sh,
+    v_s, v_sh, sc_s, sc_sh, p_s, p_sh, c_s, c_sh]; ``attn_bits`` the
+    (scores, probs, context) sites' bits, 0 for a disabled site.
+    ``dots='i8'``: int8 payloads, integer q.k with rank-1 shift
+    corrections; ``'f32'``: float32 q / k / v values with identity site
+    scalars (the value-space form of 16-bit, sub-8 or per-column q / k / v
+    sites), q.k a float dot. probs @ v is the integer product with
+    corrections for a 1-8-bit probs site on payloads, else a float dot on
+    the probs (shifted grid levels, or the raw softmax at bits 0) and v's
+    values (``v8 + v_sh``). Float dots sum in float64
+    (:func:`_f64_matmul`). Returns the (M, H) context: an int8 payload for
+    a 1-8-bit site, else float32 values (:func:`_emit_ctx`)."""
+    sc_bits, p_bits, c_bits = _check_attn_bits(attn_bits)
+    if dots not in ("i8", "f32"):
+        raise ValueError(f"unknown dots {dots!r}")
     mt, h3 = qkv8.shape
     h = h3 // 3
     d = h // n_heads
@@ -383,20 +452,28 @@ def int8_attention_ref(qkv8, mask_bias, scalars, *, n_heads, seq,
     s = scalars[0]
     q8, k8, v8 = (qkv8[:, i * h:(i + 1) * h].reshape(b, seq, n_heads, d)
                   for i in range(3))
-    acc = exact_int_matmul(q8.permute(0, 2, 1, 3),
-                           k8.permute(0, 2, 1, 3)).to(torch.float32)
-    qsum = torch.sum(q8.to(torch.float32), dim=-1)  # (b, T, n)
-    ksum = torch.sum(k8.to(torch.float32), dim=-1)
-    scr = (acc + s[1] * ksum.permute(0, 2, 1)[:, :, None, :]
-           + s[3] * qsum.permute(0, 2, 1)[:, :, :, None]
-           + d * s[1] * s[3])
-    rsqrt_d = float(np.float32(1.0 / np.sqrt(d)))
-    qk_over_sc = s[0] * s[2] * (1.0 / s[6])
-    a = s[6] * rsqrt_d * LOG2E
-    mask2 = mask_bias[:, None, None, :] * LOG2E + a * s[7]
-    lo_sc, hi_sc = _clip_bounds(sc_bits)
-    r = torch.clamp(torch.round(scr * qk_over_sc) - s[7], lo_sc, hi_sc)
-    s2 = a * r + mask2
+    if dots == "f32":
+        scr = _f64_matmul(q8.permute(0, 2, 1, 3), k8.permute(0, 2, 3, 1))
+    else:
+        acc = exact_int_matmul(q8.permute(0, 2, 1, 3),
+                               k8.permute(0, 2, 1, 3)).to(torch.float32)
+        qsum = torch.sum(q8.to(torch.float32), dim=-1)  # (b, T, n)
+        ksum = torch.sum(k8.to(torch.float32), dim=-1)
+        scr = (acc + s[1] * ksum.permute(0, 2, 1)[:, :, None, :]
+               + s[3] * qsum.permute(0, 2, 1)[:, :, :, None]
+               + d * s[1] * s[3])
+    rsqrt_d = _rsqrt_d(d)
+    if sc_bits == 0:
+        # the scores site disabled: the dequantized raw scores
+        s2 = ((s[0] * s[2] * rsqrt_d * LOG2E) * scr
+              + mask_bias[:, None, None, :] * LOG2E)
+    else:
+        qk_over_sc = s[0] * s[2] * (1.0 / s[6])
+        a = s[6] * rsqrt_d * LOG2E
+        mask2 = mask_bias[:, None, None, :] * LOG2E + a * s[7]
+        lo_sc, hi_sc = _clip_bounds(sc_bits)
+        r = torch.clamp(torch.round(scr * qk_over_sc) - s[7], lo_sc, hi_sc)
+        s2 = a * r + mask2
     if skip_max:
         e = torch.exp2(s2)
     else:
@@ -404,6 +481,20 @@ def int8_attention_ref(qkv8, mask_bias, scalars, *, n_heads, seq,
         e = torch.exp2(s2 - m)
     denom = _row_sum(e)
     pv_over_c = s[8] * s[4] * (1.0 / s[10])
+    if p_bits == 0 or p_bits > 8 or dots == "f32":
+        if p_bits == 0:
+            pf = e * (1.0 / denom)
+        elif p_bits > 8:
+            half = float(2 ** (p_bits - 1))
+            pf = torch.clamp(torch.round(e * ((1.0 / s[8]) / denom)),
+                             s[9] - half, s[9] + half - 1.0)
+        else:
+            lo_p, hi_p = _clip_bounds(p_bits)
+            pf = torch.clamp(torch.round(e * ((1.0 / s[8]) / denom)),
+                             s[9] + lo_p, s[9] + hi_p)
+        vf = v8.to(torch.float32) + s[5]
+        ctx = _f64_matmul(pf, vf.permute(0, 2, 1, 3)).permute(0, 2, 1, 3)
+        return _emit_ctx(ctx, pv_over_c, s[10], s[11], c_bits).reshape(mt, h)
     lo_p, hi_p = _clip_bounds(p_bits)
     p8 = torch.clamp(torch.round(e * ((1.0 / s[8]) / denom)) - s[9],
                      lo_p, hi_p).to(torch.int8)
@@ -511,12 +602,14 @@ def flex_add_ln_ref(y, r, gb, scalars, lnv=None, *, eps, res_quant=True,
 
 def int8_matmul_add_ln_ref(x8, w8, vecs, scalars, r8, gb, ln_scalars, *,
                            eps, res_quant=True, w4=False, norm="layernorm",
-                           in_mode="i8"):
+                           in_mode="i8", in_grid=None):
     """Matmul with the fold site -> + residual payload -> res site -> LN
     or NoNorm -> ln payload. ``r8`` None: no residual (the
-    :func:`int8_matmul_norm_ref` form)."""
+    :func:`int8_matmul_norm_ref` form). ``in_mode='f'``: ``x8`` is a float
+    context edge, on the grid ``in_grid`` or (None) on none."""
     y = int8_matmul_ref(x8, w8, vecs, scalars, activation=None,
-                        out_mode="fold", w4=w4, in_mode=in_mode)
+                        out_mode="fold", w4=w4, in_mode=in_mode,
+                        in_grid=in_grid)
     s = ln_scalars[0]
     if r8 is not None:
         y = y + s[2] * (r8.to(torch.float32) + s[3])
@@ -533,63 +626,76 @@ def int8_matmul_norm_ref(x8, w8, vecs, scalars, gb, ln_scalars, *, eps,
                                   w4=w4, norm=norm)
 
 
-def _require_payload_inter(inter_mode: str) -> None:
-    if inter_mode != "i8":
-        raise NotImplementedError("a 16-bit ffn.inter.out edge "
-                                  "(inter_mode='f') is not yet ported")
+def _edge_mode(mode: str, what: str) -> str:
+    if mode not in ("i8", "f"):
+        raise ValueError(f"unknown {what} {mode!r}")
+    return mode
+
+
+def _ctx_mode(attn_bits) -> str:
+    """The context edge into attn_out: an int8 payload for a 1-8-bit
+    context site, else a float value edge (JAX ``ctx_mode``)."""
+    return "i8" if 1 <= _attn3(attn_bits)[2] <= 8 else "f"
 
 
 def int8_ffn_ln_ref(x8, wi, vi, si, wd, vd, sd, r8, gb, ln_scalars,
                     lnv=None, *, activation, eps, res_quant=True, w4i=False,
                     w4d=False, norm="layernorm", in_mode="i8", res_mode="i8",
                     h_bits=8, y_bits=8, ln_out="emit", ln_bits=8,
-                    inter_mode="i8", x_grid=None):
-    """Inter matmul + act -> inter payload -> dense matmul (fold on the
+                    inter_mode="i8", inter_bits=8, x_grid=None,
+                    i_grid=None):
+    """Inter matmul + act -> inter site -> dense matmul (fold on the
     ``h_bits`` grid) -> + residual -> res site (``y_bits``) -> LN or
     NoNorm -> ln site. The flex keywords are the JAX ones: ``in_mode='f'``
     takes the FFN input as a float value edge on the grid ``x_grid``,
-    ``res_mode='f'`` the residual likewise, ``lnv`` per-column site rows,
-    ``ln_out='f'`` a float value out."""
-    _require_payload_inter(inter_mode)
+    ``res_mode='f'`` the residual likewise, ``inter_mode='f'`` makes the
+    inter site a float value edge on its ``inter_bits`` grid (``i_grid``,
+    the dense matmul's), ``lnv`` per-column site rows, ``ln_out='f'`` a
+    float value out."""
+    inter_mode = _edge_mode(inter_mode, "inter_mode")
     i8 = int8_matmul_ref(x8, wi, vi, si, activation=activation, w4=w4i,
-                         out_mode="emit", in_mode=in_mode, in_grid=x_grid)
+                         out_mode="emit" if inter_mode == "i8" else "fold",
+                         out_bits=8 if inter_mode == "i8" else inter_bits,
+                         in_mode=in_mode, in_grid=x_grid)
     y = int8_matmul_ref(i8, wd, vd, sd, activation=None, out_mode="fold",
-                        w4=w4d, out_bits=h_bits)
+                        w4=w4d, out_bits=h_bits, in_mode=inter_mode,
+                        in_grid=i_grid)
     return flex_add_ln_ref(y, r8, gb, ln_scalars, lnv, eps=eps,
                            res_quant=res_quant, res_mode=res_mode,
                            res_bits=y_bits, ln_bits=ln_bits, ln_out=ln_out,
                            norm=norm)
 
 
-def _require_payload_layer_input(in_mode: str, qkv_mode: str) -> None:
-    if in_mode != "i8":
-        raise NotImplementedError("a float layer-input edge (in_mode='f', "
-                                  "quant_dict 'L' / 'z' keys) is not yet "
-                                  "ported")
-    if qkv_mode != "i8":
-        raise NotImplementedError("value-space q/k/v attention "
-                                  "(qkv_mode='f') is not yet ported")
-
-
 def int8_attn_ln_ref(x8, wq, vq, sq, mask_bias, attn_scal, wo, vo, so, gb,
                      ln_scalars, lnv=None, *, n_heads, seq, eps,
                      res_quant=True, skip_max=False, w4q=False, w4o=False,
                      ln_out="emit", ln_bits=8, attn_bits=(8, 8),
-                     in_mode="i8", qkv_mode="i8", g_bits=8, u_bits=8):
+                     in_mode="i8", qkv_mode="i8", qkv_bits=8, g_bits=8,
+                     u_bits=8, in_grid=None, ctx_grid=None):
     """q|k|v matmul -> attention -> attn_out (fold on the ``g_bits``
     grid) -> + layer input -> res site (``u_bits``) -> LN -> ln site: the
     payload ``'emit'`` or, for a 16-bit / PEG ``x`` site, the float value
-    edge (``ln_out='f'``, ``lnv`` per-column rows). Value edges are
+    edge (``ln_out='f'``, ``lnv`` per-column rows). ``in_mode='f'``: the
+    layer input is a float value edge on the grid ``in_grid``, and the
+    residual is that value. ``qkv_mode='f'``: q / k / v are float values
+    on their ``qkv_bits`` grid and the attention runs in value space.
+    A context site outside 1-8 bits hands attn_out a float edge, on the
+    grid ``ctx_grid`` (9-16 bits) or on none (disabled). Value edges are
     float32 (JAX's ``out_dtype=float32``)."""
-    _require_payload_layer_input(in_mode, qkv_mode)
-    qkv8 = int8_matmul_ref(x8, wq, vq, sq, activation=None,
-                           out_mode="emit", w4=w4q)
-    c8 = int8_attention_ref(qkv8, mask_bias, attn_scal, n_heads=n_heads,
-                            seq=seq, skip_max=skip_max, attn_bits=attn_bits)
-    y = int8_matmul_ref(c8, wo, vo, so, activation=None, out_mode="fold",
-                        w4=w4o, out_bits=g_bits)
+    in_mode = _edge_mode(in_mode, "in_mode")
+    qf = _edge_mode(qkv_mode, "qkv_mode") == "f"
+    qkv = int8_matmul_ref(x8, wq, vq, sq, activation=None,
+                          out_mode="fold" if qf else "emit",
+                          out_bits=qkv_bits if qf else 8, w4=w4q,
+                          in_mode=in_mode, in_grid=in_grid)
+    c = int8_attention_ref(qkv, mask_bias, attn_scal, n_heads=n_heads,
+                           seq=seq, skip_max=skip_max, attn_bits=attn_bits,
+                           dots="f32" if qf else "i8")
+    y = int8_matmul_ref(c, wo, vo, so, activation=None, out_mode="fold",
+                        w4=w4o, out_bits=g_bits,
+                        in_mode=_ctx_mode(attn_bits), in_grid=ctx_grid)
     return flex_add_ln_ref(y, x8, gb, ln_scalars, lnv, eps=eps,
-                           res_quant=res_quant, res_mode="i8",
+                           res_quant=res_quant, res_mode=in_mode,
                            res_bits=u_bits, ln_bits=ln_bits, ln_out=ln_out)
 
 
@@ -597,12 +703,14 @@ def int8_layer_ln_ref(x8, wq, vq, sq, mask_bias, attn_scal, wo, vo, so,
                       gb1, ln1_scal, wi, vi, si, wd, vd, sd, gb2, ln2_scal,
                       *, n_heads, seq, eps, activation, res1=True, res2=True,
                       skip_max=False, w4q=False, w4o=False, w4i=False,
-                      w4d=False, attn_bits=(8, 8)):
-    """A whole all-int8 encoder layer: attention block then FFN block."""
+                      w4d=False, attn_bits=(8, 8), ctx_grid=None):
+    """A whole all-int8 encoder layer: attention block then FFN block; a
+    context site outside 1-8 bits feeds attn_out a float edge
+    (``ctx_grid``, see :func:`int8_attn_ln_ref`)."""
     hx8 = int8_attn_ln_ref(x8, wq, vq, sq, mask_bias, attn_scal, wo, vo, so,
                            gb1, ln1_scal, n_heads=n_heads, seq=seq, eps=eps,
                            res_quant=res1, skip_max=skip_max, w4q=w4q,
-                           w4o=w4o, attn_bits=attn_bits)
+                           w4o=w4o, attn_bits=attn_bits, ctx_grid=ctx_grid)
     return int8_ffn_ln_ref(hx8, wi, vi, si, wd, vd, sd, hx8, gb2, ln2_scal,
                            activation=activation, eps=eps, res_quant=res2,
                            w4i=w4i, w4d=w4d)
@@ -694,13 +802,17 @@ def int8_matmul(x8, w8, vecs, scalars, *, activation=None, out_mode="emit",
     the kernel's packed-int4 instance, which reads the (N, K/2) weight as
     it is stored and unpacks each stage's nibbles in shared memory (no
     int8 copy of the weight is made); K % 32 == 0. A float input edge
-    (``in_mode='f'``) launches :func:`float_edge_matmul`."""
+    (``in_mode='f'``) launches :func:`float_edge_matmul` on its grid
+    ``in_grid``, or :func:`float_int8_matmul` where it has none."""
     if not x8.is_cuda:
         return int8_matmul_ref(x8, w8, vecs, scalars, activation=activation,
                                out_mode=out_mode, w4=w4, in_mode=in_mode,
                                out_bits=out_bits, in_grid=in_grid)
     if in_mode == "f":
         _require_w8(w4, "int8_matmul(in_mode='f')")
+        if in_grid is None:
+            return float_int8_matmul(x8, w8, vecs, activation=activation,
+                                     out_mode=out_mode, out_bits=out_bits)
         _check_grid_weight(in_grid, w8)
         return float_edge_matmul(x8, vecs, in_grid, activation=activation,
                                  out_mode=out_mode, out_bits=out_bits)
@@ -759,14 +871,20 @@ def _edge_levels_rows(m: int, planes: int) -> int:
     return m if planes == 1 else 2 * (-(-m // 64) * 64)
 
 
-def _edge_modes(activation, out_mode, out_bits) -> int:
-    if out_mode != "emit":
-        raise NotImplementedError(f"float_edge_matmul kernel: out_mode "
-                                  f"{out_mode!r} is not yet ported")
+def _edge_modes(activation, out_mode, out_bits, groups: int):
+    """The float-edge GEMM's (act, out_mode, lo, hi) codes: gelu_new or no
+    activation; an emitted payload at any grouping, a fold or the raw
+    float out of a one-group (per-tensor) edge."""
     if activation not in (None, "gelu_new"):
         raise NotImplementedError(f"float_edge_matmul kernel: activation "
                                   f"{activation!r} is not yet ported")
-    return _mm_modes(activation, out_mode, out_bits, "float_edge_matmul")[0]
+    act, mode, lo, hi = _mm_modes(activation, out_mode, out_bits,
+                                  "float_edge_matmul")
+    if out_mode != "emit" and groups > 1:
+        raise NotImplementedError(f"float_edge_matmul kernel: out_mode "
+                                  f"{out_mode!r} of a {groups}-group edge is "
+                                  "not yet ported")
+    return act, mode, lo, hi
 
 
 def float_edge_matmul(x, vecs, grid, *, activation=None, out_mode="emit",
@@ -777,12 +895,14 @@ def float_edge_matmul(x, vecs, grid, *, activation=None, out_mode="emit",
     order, into an int8 scratch; then the Hopper GEMM of
     ``csrc/wgmma_gemm.cuh`` (TMA ring, ``wgmma`` s8 in two ping-pong
     warpgroups; :func:`float_edge_gemm`) contracts them exactly, folding
-    each group's int32 sums in group order. The kernels emit the 8-bit
-    payload the flex FFN's inter matmul needs; other outputs raise."""
+    each group's int32 sums in group order. The GEMM emits the 8-bit
+    payload, or for a one-group edge also the fold on a 2-16-bit grid or
+    the raw float (float32 out); other outputs raise."""
     if not x.is_cuda:
         return float_edge_matmul_ref(x, vecs, grid, activation=activation,
                                      out_mode=out_mode, out_bits=out_bits)
-    _edge_modes(activation, out_mode, out_bits)   # raise before launching
+    _edge_modes(activation, out_mode, out_bits,
+                grid["s"].numel())   # raise before launching
     _check(vecs, "vecs", torch.float32, (5, grid["w"].shape[0]))
     return float_edge_gemm(float_edge_levels(x, grid), x.shape[0], vecs,
                            grid, activation=activation, out_mode=out_mode,
@@ -816,24 +936,71 @@ def float_edge_gemm(lv, m: int, vecs, grid, *, activation=None,
                     out_mode="emit", out_bits=8):
     """:func:`float_edge_gemm_ref`; on the card the GEMM alone, the second
     of :func:`float_edge_matmul`'s two launches, on the levels ``lv`` of
-    ``m`` rows that :func:`float_edge_levels` wrote."""
+    ``m`` rows that :func:`float_edge_levels` wrote. Counted under
+    ``float_edge_matmul`` (an emitted payload) or
+    ``float_edge_matmul_fold`` (a fold or the raw float out)."""
     if not lv.is_cuda:
         return float_edge_gemm_ref(lv, m, vecs, grid, activation=activation,
                                    out_mode=out_mode, out_bits=out_bits)
-    act = _edge_modes(activation, out_mode, out_bits)
+    act, mode, lo, hi = _edge_modes(activation, out_mode, out_bits,
+                                    grid["s"].numel())
     k = lv.shape[1]
     n = grid["w"].shape[0]
     planes, size = _edge_grid_shape(grid, k, n, "float_edge_gemm")
     _check(lv, "lv", torch.int8, (_edge_levels_rows(m, planes), k))
     _check(vecs, "vecs", torch.float32, (5, n))
     _same_device(lv, vecs, grid["w"])
-    out = torch.empty((m, n), device=lv.device, dtype=torch.int8)
+    out = torch.empty((m, n), device=lv.device,
+                      dtype=torch.int8 if out_mode == "emit"
+                      else torch.float32)
     err = KB.load("float_edge_gemm")(
         lv.data_ptr(), grid["w"].data_ptr(), vecs.data_ptr(),
         grid["s"].data_ptr(), grid["zp"].data_ptr(), grid["gcs"].data_ptr(),
-        out.data_ptr(), m, n, k, size, planes, act, GELU_NEW_C, _stream())
+        out.data_ptr(), m, n, k, size, planes, act, mode, lo, hi, GELU_NEW_C,
+        _stream())
     KB.check(err, "float_edge_gemm")
-    LAUNCHES["float_edge_matmul"] += 1
+    name = ("float_edge_matmul" if out_mode == "emit"
+            else "float_edge_matmul_fold")
+    LAUNCHES[name] += 1
+    return out
+
+
+FI_MAX_K = 8192  # the float x int8 GEMM's widest K
+
+
+def float_int8_matmul(x, w8, vecs, *, activation=None, out_mode="emit",
+                      out_bits=8):
+    """The matmul of a float edge on no grid; see
+    :func:`float_int8_matmul_ref`. On the card
+    (``csrc/float_int8_gemm.cu``): a tiled GEMM on the float64 FMA units,
+    x's float32 values and the int8 weight converted exactly to float64 in
+    shared memory, each output's sum rounded once to float32, then the
+    epilogue of :func:`int8_matmul` (wscale, bias, activation, the output
+    site emitted, folded on a 2-16-bit grid or the raw float). Needs
+    16-byte aligned, contiguous operands, K % 4 == 0 and K <= 8192."""
+    if not x.is_cuda:
+        return float_int8_matmul_ref(x, w8, vecs, activation=activation,
+                                     out_mode=out_mode, out_bits=out_bits)
+    act, mode, lo, hi = _mm_modes(activation, out_mode, out_bits,
+                                  "float_int8_matmul")
+    m, k = x.shape
+    n = w8.shape[0]
+    _check(x, "x", torch.float32)
+    _check(w8, "w8", torch.int8, (n, k))
+    _check(vecs, "vecs", torch.float32, (5, n))
+    _same_device(x, w8, vecs)
+    if not (m and n and k) or k % 4 or k > FI_MAX_K or x.data_ptr() % 16:
+        raise NotImplementedError(
+            f"float_int8_matmul kernel needs M, N, K > 0, K % 4 == 0, K <= "
+            f"{FI_MAX_K} and a 16-byte aligned x (got M={m}, N={n}, K={k})")
+    out = torch.empty((m, n), device=x.device,
+                      dtype=torch.int8 if out_mode == "emit"
+                      else torch.float32)
+    err = KB.load("float_int8_matmul")(
+        x.data_ptr(), w8.data_ptr(), vecs.data_ptr(), out.data_ptr(), m, n,
+        k, act, mode, lo, hi, GELU_NEW_C, _stream())
+    KB.check(err, "float_int8_matmul")
+    LAUNCHES["float_int8_matmul"] += 1
     return out
 
 
@@ -889,19 +1056,69 @@ def _attention_launch(q_arr, k_arr, v_arr, cols, mask_bias, scalars, *,
 
 
 def int8_attention(qkv8, mask_bias, scalars, *, n_heads, seq,
-                   skip_max=False, attn_bits=(8, 8)):
-    """Fused attention over the q|k|v payload; see
-    :func:`int8_attention_ref`. On the card: the kernel of
-    :func:`int8_attention_qkv` with q, k, v the column blocks 0, 1, 2 of
-    ``qkv8`` (``csrc/int8_attention.cu``)."""
+                   skip_max=False, attn_bits=(8, 8), dots="i8"):
+    """Fused attention over the q|k|v edge; see :func:`int8_attention_ref`.
+    On the card: for int8 payloads and 8-bit scores / probs / context
+    sites, the kernel of :func:`int8_attention_qkv` with q, k, v the column
+    blocks 0, 1, 2 of ``qkv8`` (``csrc/int8_attention.cu``); for every
+    other form its second kernel, :func:`int8_attention_flex`."""
     if not qkv8.is_cuda:
         return int8_attention_ref(qkv8, mask_bias, scalars, n_heads=n_heads,
                                   seq=seq, skip_max=skip_max,
-                                  attn_bits=attn_bits)
+                                  attn_bits=attn_bits, dots=dots)
+    if dots != "i8" or _attn3(attn_bits) != (8, 8, 8):
+        return int8_attention_flex(qkv8, mask_bias, scalars, n_heads=n_heads,
+                                   seq=seq, skip_max=skip_max,
+                                   attn_bits=attn_bits, dots=dots)
     return _attention_launch(qkv8, qkv8, qkv8, (0, 1, 2), mask_bias,
                              scalars, n_heads=n_heads, seq=seq,
                              hidden=qkv8.shape[1] // 3, skip_max=skip_max,
                              attn_bits=attn_bits, what="int8_attention")
+
+
+def int8_attention_flex(qkv, mask_bias, scalars, *, n_heads, seq,
+                        skip_max=False, attn_bits=(8, 8), dots="i8"):
+    """The attention's other forms; see :func:`int8_attention_ref`: scores
+    and probs sites of 1-16 bits or disabled, a context payload (1-8 bits)
+    or float32 context values (9-16 bits, or disabled), on int8 payloads
+    (``dots='i8'``) or float32 q / k / v values (``'f32'``). On the card
+    (``csrc/int8_attention.cu``, ``attn_flex_kernel``): a block a (batch
+    row, head) and half of its query rows, q^T, k^T, the scores and v in
+    shared memory as float64, both products on the float64 FMA units (the
+    integer forms' sums are exact there too), the softmax chain and the
+    sites in the plain version's float32 order; bit-identical to it but
+    where a float64 sum meets a float32 tie."""
+    if not qkv.is_cuda:
+        return int8_attention_ref(qkv, mask_bias, scalars, n_heads=n_heads,
+                                  seq=seq, skip_max=skip_max,
+                                  attn_bits=attn_bits, dots=dots)
+    sc_bits, p_bits, c_bits = _check_attn_bits(attn_bits)
+    if dots not in ("i8", "f32"):
+        raise ValueError(f"unknown dots {dots!r}")
+    mt, h3 = qkv.shape
+    hidden = h3 // 3
+    d = hidden // n_heads
+    b = mt // seq
+    if ((seq, d) not in ATTN_SHAPES or b * seq != mt or h3 != 3 * hidden
+            or d * n_heads != hidden):
+        raise NotImplementedError(f"int8_attention_flex kernel: (seq, "
+                                  f"head_dim) = ({seq}, {d}) is not built "
+                                  f"(built: {ATTN_SHAPES})")
+    _check(qkv, "qkv", torch.float32 if dots == "f32" else torch.int8)
+    _check(mask_bias, "mask_bias", torch.float32, (b, seq))
+    _check(scalars, "scalars", torch.float32, (1, 12))
+    _same_device(qkv, mask_bias, scalars)
+    out = torch.empty((mt, hidden), device=qkv.device,
+                      dtype=torch.int8 if 1 <= c_bits <= 8
+                      else torch.float32)
+    err = KB.load("int8_attention_flex")(
+        qkv.data_ptr(), int(dots == "f32"), mask_bias.data_ptr(),
+        scalars.data_ptr(), out.data_ptr(), b, seq, hidden, n_heads,
+        sc_bits, p_bits, c_bits, _rsqrt_d(d), LOG2E, int(skip_max),
+        _stream())
+    KB.check(err, "int8_attention_flex")
+    LAUNCHES["int8_attention_flex"] += 1
+    return out
 
 
 def int8_attention_qkv(q_arr, k_arr, v_arr, mask_bias, scalars, *, n_heads,
@@ -1233,9 +1450,10 @@ def fold_ln_scalars(vecs: Tensor, ln_scalars: Tensor) -> Tensor:
 
 def int8_matmul_add_ln(x8, w8, vecs, scalars, r8, gb, ln_scalars, *, eps,
                        res_quant=True, w4=False, norm="layernorm",
-                       in_mode="i8"):
-    """LayerNorm: matmul (emit on the fold site) ->
-    :func:`fused_add_ln_payload`; bit-identical to
+                       in_mode="i8", in_grid=None):
+    """LayerNorm: matmul (emit on the fold site; a float context edge
+    through :func:`int8_matmul`'s ``in_mode='f'`` on ``in_grid`` or on no
+    grid) -> :func:`fused_add_ln_payload`; bit-identical to
     :func:`int8_matmul_add_ln_ref` when the fold site is 8-bit per-tensor,
     as in every all-int8 layer plan (a per-column fold site takes the flex
     chains). NoNorm: one :func:`int8_matmul_norm` kernel launch with the
@@ -1245,7 +1463,8 @@ def int8_matmul_add_ln(x8, w8, vecs, scalars, r8, gb, ln_scalars, *, eps,
             return int8_matmul_add_ln_ref(x8, w8, vecs, scalars, r8, gb,
                                           ln_scalars, eps=eps,
                                           res_quant=res_quant, w4=w4,
-                                          norm=norm, in_mode=in_mode)
+                                          norm=norm, in_mode=in_mode,
+                                          in_grid=in_grid)
         _require_w8(w4, "int8_matmul_add_ln")
         if in_mode != "i8":
             raise NotImplementedError("int8_matmul_add_ln kernel: a float "
@@ -1256,7 +1475,8 @@ def int8_matmul_add_ln(x8, w8, vecs, scalars, r8, gb, ln_scalars, *, eps,
     if norm != "layernorm":
         raise ValueError(f"unknown norm {norm!r}")
     y8 = int8_matmul(x8, w8, vecs, scalars, activation=None,
-                     out_mode="emit", w4=w4, in_mode=in_mode)
+                     out_mode="emit", w4=w4, in_mode=in_mode,
+                     in_grid=in_grid)
     return fused_add_ln_payload(y8, r8, gb, fold_ln_scalars(vecs, ln_scalars),
                                 eps=eps, res_quant=res_quant)
 
@@ -1265,19 +1485,21 @@ def int8_ffn_ln(x8, wi, vi, si, wd, vd, sd, r8, gb, ln_scalars, lnv=None, *,
                 activation, eps, res_quant=True, w4i=False, w4d=False,
                 norm="layernorm", in_mode="i8", res_mode="i8", h_bits=8,
                 y_bits=8, ln_out="emit", ln_bits=8, inter_mode="i8",
-                x_grid=None):
-    """The FFN block; see :func:`int8_ffn_ln_ref`: inter matmul (act,
-    emit; the float-edge kernel when ``in_mode='f'``) -> dense matmul
-    (fold on the ``h_bits`` grid, float32 out) -> :func:`flex_add_ln`.
-    The dense fold value reaches the add+LN as float32, so the fold site
-    may be per-tensor or per-column (three launches). NoNorm (all-int8
-    sites only): inter matmul -> dense :func:`int8_matmul_add_ln`, two
-    launches."""
-    _require_payload_inter(inter_mode)
+                inter_bits=8, x_grid=None, i_grid=None):
+    """The FFN block; see :func:`int8_ffn_ln_ref`: inter matmul (act; the
+    float-edge kernel when ``in_mode='f'``; the inter site emitted, or
+    folded on its ``inter_bits`` grid when ``inter_mode='f'``) -> dense
+    matmul (the float-edge kernel on ``i_grid`` for a float inter edge;
+    fold on the ``h_bits`` grid, float32 out) -> :func:`flex_add_ln`. The
+    dense fold value reaches the add+LN as float32, so the fold site may be
+    per-tensor or per-column (three launches, and a level pass for each
+    float edge). NoNorm (all-int8 sites only): inter matmul -> dense
+    :func:`int8_matmul_add_ln`, two launches."""
+    inter_mode = _edge_mode(inter_mode, "inter_mode")
     if norm == "nonorm":
         flex = (in_mode, res_mode, h_bits, y_bits, ln_out, ln_bits,
-                lnv is None)
-        if flex != ("i8", "i8", 8, 8, "emit", 8, True):
+                lnv is None, inter_mode)
+        if flex != ("i8", "i8", 8, 8, "emit", 8, True, "i8"):
             raise NotImplementedError("int8_ffn_ln: flex sites with NoNorm "
                                       "are not yet ported")
         i8 = int8_matmul(x8, wi, vi, si, activation=activation,
@@ -1285,10 +1507,13 @@ def int8_ffn_ln(x8, wi, vi, si, wd, vd, sd, r8, gb, ln_scalars, lnv=None, *,
         return int8_matmul_add_ln(i8, wd, vd, sd, r8, gb, ln_scalars,
                                   eps=eps, res_quant=res_quant, w4=w4d,
                                   norm="nonorm")
-    i8 = int8_matmul(x8, wi, vi, si, activation=activation, out_mode="emit",
+    i8 = int8_matmul(x8, wi, vi, si, activation=activation,
+                     out_mode="emit" if inter_mode == "i8" else "fold",
+                     out_bits=8 if inter_mode == "i8" else inter_bits,
                      w4=w4i, in_mode=in_mode, in_grid=x_grid)
     y = int8_matmul(i8, wd, vd, sd, activation=None, out_mode="fold",
-                    w4=w4d, out_bits=h_bits)
+                    w4=w4d, out_bits=h_bits, in_mode=inter_mode,
+                    in_grid=i_grid)
     return flex_add_ln(y, r8, gb, ln_scalars, lnv, eps=eps,
                        res_quant=res_quant, res_mode=res_mode,
                        res_bits=y_bits, ln_bits=ln_bits, ln_out=ln_out)
@@ -1298,20 +1523,30 @@ def int8_attn_ln(x8, wq, vq, sq, mask_bias, attn_scal, wo, vo, so, gb,
                  ln_scalars, lnv=None, *, n_heads, seq, eps, res_quant=True,
                  skip_max=False, w4q=False, w4o=False, ln_out="emit",
                  ln_bits=8, attn_bits=(8, 8), in_mode="i8", qkv_mode="i8",
-                 g_bits=8, u_bits=8):
-    """The attention block; see :func:`int8_attn_ln_ref`: qkv matmul ->
-    attention -> attn_out matmul (fold on the ``g_bits`` grid, float32
-    out) -> :func:`flex_add_ln` with the layer-input payload as the
-    residual (four launches)."""
-    _require_payload_layer_input(in_mode, qkv_mode)
-    qkv8 = int8_matmul(x8, wq, vq, sq, activation=None, out_mode="emit",
-                       w4=w4q)
-    c8 = int8_attention(qkv8, mask_bias, attn_scal, n_heads=n_heads,
-                        seq=seq, skip_max=skip_max, attn_bits=attn_bits)
-    y = int8_matmul(c8, wo, vo, so, activation=None, out_mode="fold",
-                    w4=w4o, out_bits=g_bits)
+                 qkv_bits=8, g_bits=8, u_bits=8, in_grid=None,
+                 ctx_grid=None):
+    """The attention block; see :func:`int8_attn_ln_ref`: qkv matmul (a
+    float layer input on the float-edge kernel; q / k / v emitted, or
+    folded on their ``qkv_bits`` grid for the value-space attention) ->
+    attention -> attn_out matmul (the float-edge kernel or the float x
+    int8 one for a float context edge; fold on the ``g_bits`` grid,
+    float32 out) -> :func:`flex_add_ln` with the layer input (payload or
+    value) as the residual (four launches, and a level pass for each
+    float edge on a grid)."""
+    in_mode = _edge_mode(in_mode, "in_mode")
+    qf = _edge_mode(qkv_mode, "qkv_mode") == "f"
+    qkv = int8_matmul(x8, wq, vq, sq, activation=None,
+                      out_mode="fold" if qf else "emit",
+                      out_bits=qkv_bits if qf else 8, w4=w4q,
+                      in_mode=in_mode, in_grid=in_grid)
+    c = int8_attention(qkv, mask_bias, attn_scal, n_heads=n_heads, seq=seq,
+                       skip_max=skip_max, attn_bits=attn_bits,
+                       dots="f32" if qf else "i8")
+    y = int8_matmul(c, wo, vo, so, activation=None, out_mode="fold",
+                    w4=w4o, out_bits=g_bits, in_mode=_ctx_mode(attn_bits),
+                    in_grid=ctx_grid)
     return flex_add_ln(y, x8, gb, ln_scalars, lnv, eps=eps,
-                       res_quant=res_quant, res_mode="i8", res_bits=u_bits,
+                       res_quant=res_quant, res_mode=in_mode, res_bits=u_bits,
                        ln_bits=ln_bits, ln_out=ln_out)
 
 
@@ -1319,17 +1554,21 @@ def int8_layer_ln(x8, wq, vq, sq, mask_bias, attn_scal, wo, vo, so, gb1,
                   ln1_scal, wi, vi, si, wd, vd, sd, gb2, ln2_scal, *,
                   n_heads, seq, eps, activation, res1=True, res2=True,
                   skip_max=False, w4q=False, w4o=False, w4i=False, w4d=False,
-                  attn_bits=(8, 8)):
+                  attn_bits=(8, 8), ctx_grid=None):
     """A whole all-int8 encoder layer as the chain qkv matmul -> attention
     -> attn_out matmul -> add+LN -> inter matmul -> dense matmul -> add+LN
     (four matmul, one attention and two add+LN launches); both fold sites
-    8-bit per-tensor, as the engine plans it."""
+    8-bit per-tensor, as the engine plans it. Attention sites other than
+    8-bit take the attention's second kernel, and a float context edge the
+    float-edge matmul (``ctx_grid``, with its level pass) or the float x
+    int8 one into attn_out."""
     qkv8 = int8_matmul(x8, wq, vq, sq, activation=None, out_mode="emit",
                        w4=w4q)
     c8 = int8_attention(qkv8, mask_bias, attn_scal, n_heads=n_heads,
                         seq=seq, skip_max=skip_max, attn_bits=attn_bits)
     hx8 = int8_matmul_add_ln(c8, wo, vo, so, x8, gb1, ln1_scal, eps=eps,
-                             res_quant=res1, w4=w4o)
+                             res_quant=res1, w4=w4o,
+                             in_mode=_ctx_mode(attn_bits), in_grid=ctx_grid)
     i8 = int8_matmul(hx8, wi, vi, si, activation=activation, out_mode="emit",
                      w4=w4i)
     return int8_matmul_add_ln(i8, wd, vd, sd, hx8, gb2, ln2_scal, eps=eps,
