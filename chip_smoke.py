@@ -244,7 +244,15 @@ Phases (any failure exits non-zero; nothing is caught):
    and library ms and the bound; then three request batches through
    ``bert_engine_apply`` per configuration (``float_edge_launches`` a
    forward, logits against the plain engine) and engine seq/s beside
-   W8A8's (five windows of >= 0.5 s).
+   W8A8's (five windows of >= 0.5 s). Before the configurations, both
+   redesigned kernels off the main path's shapes: the attention's second
+   kernel on both routes (``EK.attn_flex_route``) at every
+   ``EK.ATTN_SHAPES`` x ``ATTN_BATCHES`` x skip_max for one form of each
+   route class (``FLEX_FORMS``) and with the 'saturate', 'fractional' and
+   'big_shift' scalars at seq 128 (``check_flex_attention_shapes``: the
+   integer route bit-identical, the float64 one within the ties), and K9
+   at ragged M and N, K = 16 and ``EK.FI_MAX_K``, with every epilogue
+   (``check_float_int8_shapes``).
 
 ``python3 chip_smoke.py --only 13,14,15,16`` runs phases 1 and 2 and the
 named ones of 13-16 alone (the kernels JSON only comes with every phase;
@@ -329,6 +337,7 @@ from transformer_quantization_tpu_torch.utils import glue as GL
 # H100 SXM dense peaks (NVIDIA data sheet) used for the bounds
 PEAK_INT8_OPS = 1979e12
 PEAK_F32_OPS = 67e12   # outside the tensor cores
+PEAK_F64_OPS = 67e12   # float64 on the tensor cores (DMMA)
 PEAK_BYTES = 3.35e12
 BATCH, SEQ = 128, 128
 LOGIT_RTOL, LOGIT_ATOL = 1e-3, 2e-3
@@ -430,8 +439,10 @@ def compare_values(got: torch.Tensor, want: torch.Tensor, step,
 
 def ptxas_lines(log: str) -> list:
     """An nvcc -Xptxas -v log, shortened: each GEMM policy instance's (``W4
-    SiteEpi<0,0>`` for its packed-int4 instance) and each attention
-    instance's (``attn_kernel<T,D>``)
+    SiteEpi<0,0>`` for its packed-int4 instance), each attention
+    instance's (``attn_kernel<T,D>``, the second kernel's
+    ``attn_flex_i8_kernel<T,D,PV>`` / ``attn_flex_f32_kernel<T,D>``) and
+    K9's (``float_int8_kernel<ACT,OUT>``)
     registers and spills by name (``NormEpi<1,0>: Used 168 registers, ...;
     0 bytes stack frame, ...``; with ptxas's warning where it serializes
     wgmma for want of registers), then the other kernels' distinct
@@ -442,7 +453,8 @@ def ptxas_lines(log: str) -> list:
         ln = ln.strip().replace("ptxas info    : ", "")
         if ln.startswith("Compiling entry function"):
             m = (re.search(r"\d([A-Z][A-Za-z]*Epi)I((?:L[ib]\d+E)+)E", ln)
-                 or re.search(r"(attn_kernel)I((?:Li\d+E)+)E", ln))
+                 or re.search(r"((?:attn|attn_flex_i8|attn_flex_f32|"
+                              r"float_int8)_kernel)I((?:Li\d+E)+)E", ln))
             inst = None if m is None else "{}{}<{}>".format(
                 "W4 " if "W4Epi" in ln else "", m.group(1),
                 ",".join(re.findall(r"L[ib](\d+)E", m.group(2))))
@@ -3370,11 +3382,11 @@ def float_edge_launches(name: str, L: int) -> dict:
     }[name])
 
 
-def compare_ties(got, want, step, name) -> dict:
+def compare_ties(got, want, step, name, quiet: bool = False) -> dict:
     """A float-dot form's output against its plain version's: at most one
     level (``step``: a float grid's step; None: an int8 payload; 'ulp': a
     raw float, one float32 unit in the last place) on at most ``TIE_FRAC``
-    of the elements, else fail."""
+    of the elements, else fail. ``quiet``: print only where they part."""
     torch.cuda.synchronize()
     if step is None:
         diff = (got.to(torch.int32) - want.to(torch.int32)).abs().double()
@@ -3385,8 +3397,9 @@ def compare_ties(got, want, step, name) -> dict:
         diff = (got.double() - want.double()).abs() / step
     max_diff = float(diff.max())
     n_bad = int((got != want).sum())
-    print(f"  {name}: max_diff={max_diff:.3g} (levels / ulps) mismatches="
-          f"{n_bad} (of {diff.numel()}; float64 ties)")
+    if not quiet or n_bad:
+        print(f"  {name}: max_diff={max_diff:.3g} (levels / ulps) "
+              f"mismatches={n_bad} (of {diff.numel()}; float64 ties)")
     if max_diff > 1.0 + 1e-6 or n_bad > TIE_FRAC * diff.numel():
         fail(f"{name}: {n_bad} elements off by up to {max_diff:.3g} levels "
              f"(allowed: one level on {TIE_FRAC} of them)")
@@ -3394,12 +3407,14 @@ def compare_ties(got, want, step, name) -> dict:
 
 
 def flex_form_case(tag, got_fn, want_fn, step, ties, ops_i8, ops_f,
-                   nbytes, lib_fn=None) -> dict:
-    """One call of a new kernel against its plain version on the main
-    path's inputs: bit-identical (an integer form) or within the float64
-    ties (``ties``); kernel device ms, plain and library ms; the bound from
-    the integer products at the int8 peak, the float ones at the float32
-    one, and the bytes."""
+                   nbytes, lib_fn=None, first_ms=None, lib64_fn=None) -> dict:
+    """One call of a redesigned kernel against its plain version on the
+    main path's inputs: bit-identical (an integer form) or within the
+    float64 ties (``ties``); kernel device ms, plain and library ms (and,
+    with ``lib64_fn``, the float64 library product's); the bound from the
+    integer products at the int8 peak, the float64 ones at the float64
+    tensor-core one, and the bytes; ``first_ms``, the first design's ms
+    on the same form (``FLEX_FIRST_MS``), printed beside."""
     got, want = got_fn(), want_fn()
     if ties:
         res = compare_ties(got, want, step, tag)
@@ -3411,14 +3426,22 @@ def flex_form_case(tag, got_fn, want_fn, step, ties, ops_i8, ops_f,
     t_k = device_ms(got_fn)
     t_p = timed_ms(want_fn, iters=3, warmup=1)
     t_l = device_ms(lib_fn) if lib_fn is not None else None
-    t_ops = (ops_i8 / PEAK_INT8_OPS + ops_f / PEAK_F32_OPS) * 1e3
+    t_l64 = device_ms(lib64_fn) if lib64_fn is not None else None
+    t_ops = (ops_i8 / PEAK_INT8_OPS + ops_f / PEAK_F64_OPS) * 1e3
     t_b = nbytes / PEAK_BYTES * 1e3
     bnd, by = (t_ops, "operations") if t_ops >= t_b else (t_b, "bytes")
     lib = f", library {t_l:.4f} ms" if t_l is not None else ""
+    lib += (f", float64 library product {t_l64:.4f} ms"
+            if t_l64 is not None else "")
+    first = (f", first design {first_ms:.4f} ms (its own run)"
+             if first_ms is not None else "")
     print(f"  {tag}: kernel {t_k:.4f} ms, plain {t_p:.4f} ms{lib}, bound "
-          f"{bnd:.4f} ms ({by}), {bnd / t_k * 100:.1f}% of the bound")
-    return {"ms": t_k, "plain_ms": t_p, "library_ms": t_l, "bound_ms": bnd,
-            "bound_by": by, **res}
+          f"{bnd:.4f} ms ({by}), {bnd / t_k * 100:.1f}% of the bound{first}")
+    out = {"ms": t_k, "plain_ms": t_p, "library_ms": t_l, "bound_ms": bnd,
+           "bound_by": by, **res}
+    if t_l64 is not None:
+        out["library_f64_ms"] = t_l64
+    return out
 
 
 def flex_attention_cases(name, call, seen) -> list:
@@ -3434,20 +3457,24 @@ def flex_attention_cases(name, call, seen) -> list:
     b, d = m // seq, h // nh
     c_bits = ab[2]
     out_b = 1 if 1 <= c_bits <= 8 else 4
-    # integer dots: q.k on payloads, p.v on a payload probs site
-    qk_i8 = dots == "i8"
-    pv_i8 = qk_i8 and 1 <= ab[1] <= 8
+    qk_i8 = dots == "i8"   # q.k on payloads
     ops = 2.0 * b * nh * seq * seq * d
     step = (None if 1 <= c_bits <= 8 else
             float(scal[0, 10]) if c_bits > 8 else "ulp")
-    ties = not (qk_i8 and ab[1] != 0)
-    return [(form, flex_form_case(
-        f"int8_attention_flex[{name}: {form}] B={b} T={seq} {nh}x{d}",
+    route = EK.attn_flex_route(ab, dots)
+    # the integer route's 9-16-bit probs: p.v on the int8 tensor cores,
+    # two byte planes
+    pv_ops = ops * (2 if ab[1] > 8 else 1) if route == "int" else 0.0
+    r = flex_form_case(
+        f"int8_attention_flex[{name}: {form}, route {route}] B={b} T={seq} "
+        f"{nh}x{d}",
         lambda: EK.int8_attention_flex(qkv, mask, scal, **kw),
-        lambda: EK.int8_attention_ref(qkv, mask, scal, **kw), step, ties,
-        ops * (qk_i8 + pv_i8), ops * (2 - qk_i8 - pv_i8),
-        qkv.numel() * qkv.element_size() + mask.numel() * 4
-        + m * h * out_b))]
+        lambda: EK.int8_attention_ref(qkv, mask, scal, **kw), step,
+        route == "f64", ops * qk_i8 + pv_ops,
+        ops * (2 - qk_i8 - (route == "int")),
+        qkv.numel() * qkv.element_size() + mask.numel() * 4 + m * h * out_b,
+        first_ms=FLEX_FIRST_MS.get(form))
+    return [(form, dict(r, route=route))]
 
 
 def _out_step(vecs, mode):
@@ -3493,11 +3520,14 @@ def edge_matmul_cases(name, call, seen) -> list:
 def float_int8_cases(name, call, seen) -> list:
     """K9 on one recorded call (and, off the path, its fold and float
     epilogues on the same inputs); the library yardstick ``torch.matmul``
-    of x against the dequantized weight (float32, TF32 off)."""
+    of x against the dequantized weight (float32, TF32 off), and beside it
+    the float64 product of the same sums (``torch.matmul`` on float64
+    operands, the conversions made before)."""
     (x, w8, vecs), kw = call
     m, k = x.shape
     n = w8.shape[0]
     w_f = (w8.float() * vecs[0][:, None]).t().contiguous()
+    x64, w64 = x.double(), w8.double().t().contiguous()
     mode = kw.get("out_mode", "emit")
     out = []
     for md in [mode] + [o for o in ("fold", "float") if o != mode]:
@@ -3514,9 +3544,125 @@ def float_int8_cases(name, call, seen) -> list:
             lambda kwm=kwm: EK.float_int8_matmul_ref(x, w8, vecs, **kwm),
             _out_step(vecs, md), True, 0.0, 2.0 * m * n * k,
             m * k * 4 + n * k + m * n * (1 if md == "emit" else 4),
-            lib_fn=lambda: torch.matmul(x, w_f))
+            lib_fn=lambda: torch.matmul(x, w_f),
+            first_ms=K9_FIRST_MS.get(md) if (m, k, n) == (
+                BATCH * SEQ, 768, 768) else None,
+            lib64_fn=lambda: torch.matmul(x64, w64))
         out.append((form, dict(r, where=where)))
     return out
+
+
+# the first designs' device ms at B = 128, S = 128 (this script's phase 16
+# on the float64 FMA-unit designs, an H100 80GB HBM3 at 700 W), printed
+# beside the second's
+FLEX_FIRST_MS = {"(0, 8, 8) i8": 0.8156, "(8, 0, 8) i8": 0.7785,
+                 "(8, 8, 0) i8": 0.8312, "(16, 16, 8) i8": 0.7807,
+                 "(8, 8, 16) i8": 0.8298, "(16, 16, 16) f32": 0.7410,
+                 "(6, 6, 6) f32": 0.7220}
+K9_FIRST_MS = {"emit": 1.1527, "fold": 1.1539, "float": 1.1473}
+
+# The attention's second kernel off the main path: one form of each route
+# class (attn_bits, dots): the scores site disabled, 16-bit probs (the
+# byte planes), a 16-bit context, the probs site disabled (p.v on DMMA),
+# value space
+FLEX_FORMS = (((0, 8, 8), "i8"), ((16, 16, 8), "i8"), ((8, 8, 16), "i8"),
+              ((8, 0, 8), "i8"), ((16, 16, 16), "f32"))
+
+
+def flex_attn_case(qkv8, scal, bits, dots):
+    """``ATTN_SCALARS``-style inputs for a flex form: a site of more than 8
+    bits gets a step 256 times finer and its shift's integer part 256
+    times larger (an 8-bit shift of 128 becomes 32768; a fractional part
+    stays); ``dots='f32'`` takes q, k and v as their float32 values
+    through the scalars (q_s (q8 + q_sh), ...) with identity q / k / v
+    site scalars, as the engine's value-space attention does."""
+    s = scal.clone()
+    for site, b in zip((6, 8, 10), bits):
+        if b > 8:
+            sh = s[0, site + 1]
+            s[0, site] = s[0, site] / 256.0
+            s[0, site + 1] = torch.floor(sh) * 256.0 + (sh - torch.floor(sh))
+    if dots == "i8":
+        return qkv8, s
+    h = qkv8.shape[1] // 3
+    vals = torch.cat([s[0, 2 * i] * (qkv8[:, i * h:(i + 1) * h].float()
+                                     + s[0, 2 * i + 1]) for i in range(3)],
+                     dim=1).contiguous()
+    s[0, :6] = torch.tensor([1.0, 0.0, 1.0, 0.0, 1.0, 0.0])
+    return vals, s
+
+
+def check_flex_attention_shapes(dev) -> int:
+    """The attention's second kernel through ``int8_attention_flex``
+    against its plain version: each of ``FLEX_FORMS`` at every (seq,
+    head_dim) of ``EK.ATTN_SHAPES`` x ``ATTN_BATCHES`` x skip_max
+    ('spread' scalars, as :func:`check_attention_shapes`), then with the
+    'saturate', 'fractional' and 'big_shift' scalars at seq 128, B = 7:
+    the integer route bit-identical, the float64 one within the float64
+    ties (``compare_ties``). Returns the comparisons made and the float64
+    route's ties (elements that part from the plain version's)."""
+    n = ties = 0
+    for i, (seq, d, b, sc, skip) in enumerate(attention_cases()):
+        nh = ATTN_HEADS[d]
+        qkv8, mask, scal = (torch.from_numpy(a).to(dev) for a in attn_inputs(
+            b, seq, d, nh, 160 + i, sc, full_pad=not skip))
+        for bits, dots in FLEX_FORMS:
+            qkv, s = flex_attn_case(qkv8, scal, bits, dots)
+            kw = dict(n_heads=nh, seq=seq, skip_max=skip, attn_bits=bits,
+                      dots=dots)
+            got = EK.int8_attention_flex(qkv, mask, s, **kw)
+            want = EK.int8_attention_ref(qkv, mask, s, **kw)
+            c_bits = bits[2]
+            step = (None if 1 <= c_bits <= 8 else
+                    float(s[0, 10]) if c_bits > 8 else "ulp")
+            tag = (f"int8_attention_flex {bits} {dots} route "
+                   f"{EK.attn_flex_route(bits, dots)} B={b} T={seq} d={d} "
+                   f"heads={nh} {sc} skip_max={skip}")
+            if EK.attn_flex_route(bits, dots) == "f64":
+                ties += compare_ties(got, want, step, tag,
+                                     quiet=True)["mismatches"]
+            elif step is None:
+                compare(got, want, tag, quiet=True)
+            else:
+                compare_values(got, want, 1.0 if step == "ulp" else step,
+                               tag, quiet=True)
+            n += 1
+    return n, ties
+
+
+# K9 off the main path: (M, K, N) ragged against its 128 x 128 tiles, at
+# the least K it takes and at FI_MAX_K
+K9_SHAPES = ((1000, 16, 136), (999, 784, 200), (300, EK.FI_MAX_K, 72))
+K9_EPILOGUES = tuple((act, mode, bits) for act in (None, "gelu_new", "relu")
+                     for mode, bits in (("emit", 8), ("fold", 8),
+                                        ("fold", 16), ("float", 8)))
+
+
+def check_float_int8_shapes(dev) -> int:
+    """K9 through ``float_int8_matmul`` against its plain version at
+    ``K9_SHAPES`` with every epilogue of ``K9_EPILOGUES``, within the
+    float64 ties; returns the comparisons made and the ties."""
+    gen = torch.Generator(device=dev).manual_seed(19)
+    n = ties = 0
+    for m, k, nn in K9_SHAPES:
+        x = torch.randn(m, k, generator=gen, device=dev)
+        w8 = torch.randint(-128, 128, (nn, k), generator=gen, device=dev,
+                           dtype=torch.int8)
+        vecs = torch.stack([
+            torch.rand(nn, generator=gen, device=dev) * 2e-3 + 1e-4,
+            torch.zeros(nn, device=dev),
+            torch.randn(nn, generator=gen, device=dev) * 0.1,
+            0.02 * (1 + torch.rand(nn, generator=gen, device=dev)),
+            torch.full((nn,), 3.0, device=dev)]).contiguous()
+        for act, mode, bits in K9_EPILOGUES:
+            kw = dict(activation=act, out_mode=mode, out_bits=bits)
+            ties += compare_ties(
+                EK.float_int8_matmul(x, w8, vecs, **kw),
+                EK.float_int8_matmul_ref(x, w8, vecs, **kw),
+                _out_step(vecs, mode), f"float_int8_matmul {m}x{k}->{nn} "
+                f"{act} {mode} {bits}-bit", quiet=True)["mismatches"]
+            n += 1
+    return n, ties
 
 
 NEW_KERNEL_CASES = (("int8_attention_flex", flex_attention_cases),
@@ -3528,6 +3674,13 @@ def float_edges_phase(params, batches, by_path, seed, dev, kind,
                       smi) -> dict:
     """Phase 16 (see the module docstring); returns each new kernel's
     numbers by form, for the kernels JSON."""
+    t0 = time.perf_counter()
+    n_flex, t_flex = check_flex_attention_shapes(dev)
+    n_k9, t_k9 = check_float_int8_shapes(dev)
+    print(f"  off the main path: {n_flex} attention (second kernel) "
+          f"comparisons (the integer route bit-identical; float64 ties "
+          f"{t_flex}) and {n_k9} K9 comparisons (float64 ties {t_k9}) "
+          f"passed, {time.perf_counter() - t0:.1f} s", flush=True)
     cfg = B.BertConfig()
     L = cfg.num_hidden_layers
     b0 = batches[0]
@@ -3635,6 +3788,11 @@ def main(argv=None) -> int:
     blocks = KB.load("int8_attention_blocks")
     print("  int8_attention blocks an SM (seq, head_dim): " + ", ".join(
         f"({t}, {d}) {blocks(t, d)}" for t, d in EK.ATTN_SHAPES))
+    fblocks = KB.load("int8_attention_flex_blocks")
+    print("  int8_attention_flex blocks an SM (seq, head_dim): integer "
+          "route / float64 route " + ", ".join(
+              f"({t}, {d}) {fblocks(t, d, 0)} / {fblocks(t, d, 1)}"
+              for t, d in EK.ATTN_SHAPES))
 
     cfg = B.BertConfig()
     L = cfg.num_hidden_layers
@@ -4050,8 +4208,9 @@ def main(argv=None) -> int:
                                  if c[key]},
             "variants": {f: {**{k: r[k] for k in keys},
                              "config": r["config"],
-                             **({"where": r["where"]} if r.get("where")
-                                else {})}
+                             **{x: r[x] for x in ("where", "route",
+                                                  "library_f64_ms")
+                                if r.get(x)}}
                          for f, r in fm.items()}})
     print(json.dumps({"kernels": kernels}))
     print(smi)

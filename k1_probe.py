@@ -8,7 +8,7 @@ MobileBERT's calls, the add+LN template (K3 / K5) and MobileBERT's layer
 kernel (K8, ``csrc/int8_mb_layer.cu``).
 
     python3 k1_probe.py [--out DIR] [--parent DIR] [--build-only]
-                        [--kernels k1,norm,edge,attn,ln,mb,w4,sass]
+                        [--kernels k1,norm,edge,attn,ln,mb,w4,sass,k9,flex]
 
 Each variant is the kernel's source and the shared GEMM header
 (``csrc/wgmma_gemm.cuh``) with one edit, built with the package's
@@ -155,10 +155,45 @@ ptxas's lines per variant. With ``--parent`` it also compares the other
 GEMM instances' machine code (K1 int8, the fused linear, K6, K4) with the
 parent's.
 
+The float x int8 matmul (``k9`` in ``--kernels``; K9,
+``csrc/float_int8_gemm.cu``): ``kernel`` (the source as it is: DMMA
+m16n8k4), ``k16`` / ``k8`` (the same products as m16n8k16 / m16n8k8
+DMMAs), ``stages3`` (a 3-stage ring, where the kernel takes 4),
+``main_loop`` (no epilogue: the ring, the conversions and the products),
+``w_magic`` (w's bytes to float64 by a byte permute and a float64 add
+of 2^52 + 128, exact, in place of the conversion), ``no_cvt_x`` /
+``no_cvt_w`` / ``no_cvt`` (x's, w's or both conversions replaced by bit
+moves: timing only, the function is not computed) and, with
+``--parent``, ``parent`` (that checkout's
+``float_int8_gemm.cu``, called through its own signature), at phase
+16's call (M = 16384, K = N = 768, emit) and at its fold and float
+epilogues; each that computes the function checked against
+``float_int8_matmul_ref`` (within the float64 ties,
+``chip_smoke.compare_ties``) and timed beside its bound, ``torch.matmul``
+f32 (TF32 off) and the float64 product of the same sums.
+
+The attention's second kernel (``flex`` in ``--kernels``;
+``csrc/int8_attention.cu``, ``attn_flex_*``): ``kernel`` (the source as
+it is), ``k4`` (the float dots as m16n8k4 DMMAs, where the kernel takes
+m16n8k16), ``ndg1`` / ``ndg4`` (1 / 4 head-dim tiles a float p.v pass
+on the integer route, where the kernel takes ``NDG``), ``kch2`` /
+``kch8`` (2 / 8 key tiles a float q.k pass, where it takes ``KCH``),
+``lvl_blocks1`` (the 9-16-bit probs instances built for one block an
+SM, where the kernel takes two), ``f64_blocks2`` (the integer route's
+disabled-probs instances built for two, where it takes one) and, with
+``--parent``, ``parent`` (that checkout's kernel through the same entry
+point), on phase 16's forms (``FLEX_PROBE_FORMS``) at B = 128, T = 128,
+12 heads of 64 with ``chip_smoke.flex_attn_case``'s scalars; each
+checked against ``int8_attention_ref`` (the integer route bit-identical,
+the float64 one within the ties) and timed beside its bound, with
+ptxas's registers and spills of every instance.
+
 ``sass`` in ``--kernels`` (with ``--parent``): every source of the
 package built as it is and as the parent has it, and each kernel's
 machine code compared with the parent's (identical, differing, or only
-in this tree), seconds of builds and nothing run.
+in this tree), seconds of builds and nothing run; then the MMA and
+float64 opcodes of K9's and the attention's second kernel's instances
+(DMMA, IMMA, DFMA: the routes' tensor cores).
 Imports torch and the port only.
 """
 
@@ -524,6 +559,71 @@ MB_CALLS = ((128, 128), (64, 128), (32, 128), (64, 256), (32, 512), (64, 7),
 PARENT_MB_SEQS = (128,)   # the seqs the parent's K8 takes
 
 
+# K9's variants: (old, new) edits of float_int8_gemm.cu
+K9_EPI = ("  epilogue<ACT, OUT>(acc, vecs, out, m0 + wm, n0 + wn, M, N, lo, "
+          "hi, gelu_c);")
+K9_EDITS = {
+    "kernel": [],
+    "k16": [("constexpr int KS = 1;", "constexpr int KS = 4;")],
+    "k8": [("constexpr int KS = 1;", "constexpr int KS = 2;")],
+    "stages3": [("constexpr int BM = 128, BN = 128, BK = 32, STAGES = 4;",
+                 "constexpr int BM = 128, BN = 128, BK = 32, STAGES = 3;")],
+    "main_loop": [(K9_EPI, """  double sum = 0.0;
+#pragma unroll
+  for (int mi = 0; mi < MT; ++mi)
+#pragma unroll
+    for (int nj = 0; nj < NT; ++nj)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) sum += acc[mi][nj][i];
+  if (sum == 1.25e300) static_cast<float*>(out)[0] = 0.0f;""")],
+}
+K9_W = "        for (int s = 0; s < 4; ++s) b[nj][s] = tqdm::i8_to_f64(word, s);"
+K9_X = """        const double a[8] = {lo4.x, hi4.x, lo4.y, hi4.y,
+                             lo4.z, hi4.z, lo4.w, hi4.w};"""
+K9_X_BITS = """        const double a[8] = {
+            __hiloint2double(__float_as_int(lo4.x), 0),
+            __hiloint2double(__float_as_int(hi4.x), 0),
+            __hiloint2double(__float_as_int(lo4.y), 0),
+            __hiloint2double(__float_as_int(hi4.y), 0),
+            __hiloint2double(__float_as_int(lo4.z), 0),
+            __hiloint2double(__float_as_int(hi4.z), 0),
+            __hiloint2double(__float_as_int(lo4.w), 0),
+            __hiloint2double(__float_as_int(hi4.w), 0)};"""
+# w's bytes as float64 by 2^52 + (v + 128) less 2^52 + 128: a byte
+# permute and a float64 add, exact, in place of the conversion
+K9_W_MAGIC = """        for (int s = 0; s < 4; ++s)
+          b[nj][s] = __hiloint2double(
+                         0x43300000,
+                         __byte_perm(word ^ 0x80808080u, 0, 0x4440 + s)) -
+                     4503599627370624.0;"""
+K9_W_BITS = """        for (int s = 0; s < 4; ++s)
+          b[nj][s] = __hiloint2double(static_cast<int>(word >> (8 * s)), 0);"""
+K9_EDITS.update({
+    "w_magic": [(K9_W, K9_W_MAGIC)],
+    "no_cvt_x": [(K9_X, K9_X_BITS)],
+    "no_cvt_w": [(K9_W, K9_W_BITS)],
+    "no_cvt": [(K9_X, K9_X_BITS), (K9_W, K9_W_BITS)],
+})
+K9_COMPUTES = {"kernel", "k16", "k8", "stages3", "w_magic", "parent"}
+# the attention's second kernel's variants: edits of int8_attention.cu
+FLEX_EDITS = {
+    "kernel": [],
+    "k4": [("constexpr int KS_F = 4;", "constexpr int KS_F = 1;")],
+    "ndg1": [("constexpr int NDG = 2;", "constexpr int NDG = 1;")],
+    "ndg4": [("constexpr int NDG = 2;", "constexpr int NDG = 4;")],
+    "kch2": [("constexpr int KCH = 4;", "constexpr int KCH = 2;")],
+    "lvl_blocks1": [("return PV == PV_F64 ? 1 : 2;",
+                     "return PV == PV_PAY ? 2 : 1;")],
+    "f64_blocks2": [("return PV == PV_F64 ? 1 : 2;", "return 2;")],
+    "kch8": [("constexpr int KCH = 4;", "constexpr int KCH = 8;")],
+}
+# phase 16's forms: (attn_bits, dots)
+FLEX_PROBE_FORMS = (((0, 8, 8), "i8"), ((8, 0, 8), "i8"), ((8, 8, 0), "i8"),
+                    ((16, 16, 8), "i8"), ((8, 8, 16), "i8"),
+                    ((16, 16, 16), "f32"), ((6, 6, 6), "f32"))
+# SASS opcodes that say which units the float and integer dots run on
+MMA_OPS = ("DMMA", "IMMA", "HMMA", "DFMA")
+
 LOGS = {}   # (source, variant) -> its nvcc log
 
 
@@ -600,7 +700,7 @@ def sass(lib: Path) -> dict:
         if m:
             name = re.sub(r"_GLOBAL__N__\w+?_cu_[0-9a-f]+", "", m.group(1))
             funcs[name] = []
-        elif name is not None and re.match(r"\s*/\*[0-9a-f]{4}\*/", ln):
+        elif name is not None and re.match(r"\s*/\*[0-9a-f]{4,}\*/", ln):
             funcs[name].append(ln.split("*/", 1)[1].split(";")[0].strip())
     return funcs
 
@@ -1109,6 +1209,120 @@ def probe_w4(out: Path, parent) -> None:
             flush=True)
 
 
+def probe_k9(out: Path, parent) -> None:
+    """K9's variants and the parent's K9 at phase 16's call."""
+    libs = build_variants("float_int8_gemm.cu", K9_EDITS, out / "k9", parent)
+    print("  ptxas kernel: " + " | ".join(
+        CS.ptxas_lines(LOGS["float_int8_gemm.cu", "kernel"])), flush=True)
+    fns = {name: entry(lib, "float_int8_matmul") for name, lib in libs.items()}
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(20)
+    m, k, n = 16384, 768, 768
+    x = torch.randn(m, k, generator=gen, device=dev)
+    w8 = torch.randint(-128, 128, (n, k), generator=gen, device=dev,
+                       dtype=torch.int8)
+    vecs = torch.stack([
+        torch.rand(n, generator=gen, device=dev) * 2e-3 + 1e-4,
+        torch.zeros(n, device=dev),
+        torch.randn(n, generator=gen, device=dev) * 0.1,
+        0.02 * (1 + torch.rand(n, generator=gen, device=dev)),
+        torch.full((n,), 3.0, device=dev)]).contiguous()
+    bnd, by = CS.bound_ms(0.0, m * k * 4 + n * k + m * n)
+    bnd = max(bnd, 2.0 * m * n * k / CS.PEAK_F64_OPS * 1e3)
+    w_f = (w8.float() * vecs[0][:, None]).t().contiguous()
+    x64, w64 = x.double(), w8.double().t().contiguous()
+    t_f32 = CS.device_ms(lambda: torch.matmul(x, w_f))
+    t_f64 = CS.device_ms(lambda: torch.matmul(x64, w64))
+    st = lambda: torch.cuda.current_stream().cuda_stream  # noqa: E731
+    for mode in ("emit", "fold", "float"):
+        want = EK.float_int8_matmul_ref(x, w8, vecs, out_mode=mode)
+        got = torch.empty_like(want)
+        line = (f"  K9 {m}x{k}->{n} {mode} (bound {bnd:.4f} ms, operations "
+                f"at the float64 tensor-core peak):")
+        for name, fn in fns.items():
+            def call(fn=fn, name=name):
+                KB.check(fn(x.data_ptr(), w8.data_ptr(), vecs.data_ptr(),
+                            got.data_ptr(), m, n, k, 0, MODE[mode], -128.0,
+                            127.0, GELU_NEW_C, st()), name)
+            call()
+            torch.cuda.synchronize()
+            if name in K9_COMPUTES:
+                CS.compare_ties(got, want, CS._out_step(vecs, mode),
+                                f"K9 {name} {mode}", quiet=True)
+            t = CS.device_ms(call)
+            line += (f" {name} {t:.4f} ms ({2.0 * m * n * k / t / 1e9:.1f} "
+                     "TFLOP/s);")
+        print(f"{line} torch.matmul f32 {t_f32:.4f} ms, float64 {t_f64:.4f} "
+              "ms", flush=True)
+
+
+def probe_flex(out: Path, parent) -> None:
+    """The attention's second kernel's variants and the parent's on phase
+    16's forms at BERT-base's call."""
+    libs = build_variants("int8_attention.cu", FLEX_EDITS, out / "flex",
+                          parent)
+    for name in FLEX_EDITS:
+        print(f"  ptxas {name}: " + " | ".join(
+            ln for ln in CS.ptxas_lines(LOGS["int8_attention.cu", name])
+            if "flex" in ln), flush=True)
+    fns = {name: entry(lib, "int8_attention_flex")
+           for name, lib in libs.items()}
+    dev = torch.device("cuda")
+    b, seq, d, nh = 128, 128, 64, 12
+    qkv8, mask, scal = (torch.from_numpy(a).to(dev) for a in
+                        CS.attn_inputs(b, seq, d, nh, 90, full_pad=False))
+    h = nh * d
+    for bits, dots in FLEX_PROBE_FORMS:
+        qkv, s = CS.flex_attn_case(qkv8, scal, bits, dots)
+        kw = dict(n_heads=nh, seq=seq, skip_max=True, attn_bits=bits,
+                  dots=dots)
+        want = EK.int8_attention_ref(qkv, mask, s, **kw)
+        got = torch.empty_like(want)
+        route = EK.attn_flex_route(bits, dots)
+        step = (None if 1 <= bits[2] <= 8 else
+                float(s[0, 10]) if bits[2] > 8 else "ulp")
+        ops = 2.0 * b * nh * seq * seq * d
+        f64 = ops * ((dots == "f32") + (route == "f64"))
+        t_ops = ((2 * ops - f64) / CS.PEAK_INT8_OPS
+                 + f64 / CS.PEAK_F64_OPS) * 1e3
+        t_b = (qkv.numel() * qkv.element_size() + mask.numel() * 4
+               + want.numel() * want.element_size()) / CS.PEAK_BYTES * 1e3
+        line = (f"  flex {bits} {dots} route {route} B={b} T={seq} {nh}x{d} "
+                f"(bound {max(t_ops, t_b):.4f} ms, "
+                f"{'operations' if t_ops >= t_b else 'bytes'}):")
+        for name, fn in fns.items():
+            def call(fn=fn, name=name):
+                KB.check(fn(qkv.data_ptr(), int(dots == "f32"),
+                            mask.data_ptr(), s.data_ptr(), got.data_ptr(), b,
+                            seq, h, nh, *bits, EK._rsqrt_d(d), EK.LOG2E, 1,
+                            torch.cuda.current_stream().cuda_stream), name)
+            call()
+            torch.cuda.synchronize()
+            tag = f"flex {name} {bits} {dots}"
+            if route == "f64" or name == "parent":
+                CS.compare_ties(got, want, step, tag, quiet=True)
+            elif step is None:
+                CS.compare(got, want, tag, quiet=True)
+            else:
+                CS.compare_values(got, want, 1.0 if step == "ulp" else step,
+                                  tag, quiet=True)
+            line += f" {name} {CS.device_ms(call):.4f} ms;"
+        print(line, flush=True)
+
+
+def opcode_counts(lib: Path, pattern: str) -> dict:
+    """Per kernel of ``lib`` whose name matches ``pattern``: the count of
+    each ``MMA_OPS`` opcode in its machine code."""
+    out = {}
+    for name, code in sass(lib).items():
+        if re.search(pattern, name):
+            ops = [ln.split()[1] if ln.startswith("@") else ln.split()[0]
+                   for ln in code if ln]
+            out[name] = {c: sum(op.split(".")[0] == c for op in ops)
+                         for c in MMA_OPS}
+    return out
+
+
 def probe_sass(out: Path, parent) -> None:
     """Every source's machine code against the parent checkout's, kernel
     by kernel (``sass`` in ``--kernels``): the kernels a change must leave
@@ -1122,6 +1336,14 @@ def probe_sass(out: Path, parent) -> None:
     for s in srcs:
         print(f"  {s}.cu:", end="")
         same_sass(out / f"sass_{s}")
+    # (sass() takes the namespace tag out with a hex run that may take a
+    # name's first letters: match on the rest)
+    for src, pattern in (("float_int8_gemm", "int8_kernel"),
+                         ("int8_attention", "flex_(i8|f32)_kernel")):
+        for name, counts in opcode_counts(
+                out / f"sass_{src}" / "kernel.so", pattern).items():
+            print(f"  {src}.cu {name}: " + ", ".join(
+                f"{c} {n}" for c, n in counts.items()), flush=True)
 
 
 def main(argv=None) -> int:
@@ -1133,8 +1355,8 @@ def main(argv=None) -> int:
     ap.add_argument("--build-only", action="store_true",
                     help="mb: build the variants and print ptxas's lines")
     ap.add_argument("--kernels", default="k1,norm",
-                    help="which of k1, norm, edge, attn, ln, mb, w4, sass "
-                         "to probe")
+                    help="which of k1, norm, edge, attn, ln, mb, w4, sass, "
+                         "k9, flex to probe")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("k1_probe: needs a card")
@@ -1154,6 +1376,10 @@ def main(argv=None) -> int:
         probe_w4(Path(args.out), args.parent)
     if "sass" in kernels:
         probe_sass(Path(args.out), args.parent)
+    if "k9" in kernels:
+        probe_k9(Path(args.out), args.parent)
+    if "flex" in kernels:
+        probe_flex(Path(args.out), args.parent)
     if "k1" not in kernels:
         return 0
     fns = {name: entry(lib, "int8_matmul") for name, lib in build_variants(

@@ -52,6 +52,8 @@ _SIGNATURES = {
     "int8_attention_flex": ("tq_int8_attention_flex",
                             (_P, _I, _P, _P, _P) + (_I,) * 7
                             + (_F, _F, _I, _P)),
+    "int8_attention_flex_blocks": ("tq_int8_attention_flex_blocks",
+                                   (_I, _I, _I)),
     "float_int8_matmul": ("tq_float_int8_matmul",
                           (_P,) * 4 + (_I,) * 5 + (_F, _F, _F, _P)),
     "int8_matmul_norm": ("tq_int8_matmul_norm",
@@ -83,6 +85,7 @@ _LIBRARY = {"int8_matmul_w4": "int8_matmul",
             "fused_int8_linear_w4": "fused_int8_linear",
             "int8_attention_blocks": "int8_attention",
             "int8_attention_flex": "int8_attention",
+            "int8_attention_flex_blocks": "int8_attention",
             "float_int8_matmul": "float_int8_gemm",
             "fused_quantize": "fused_int8_linear",
             "fused_rcp_check": "fused_int8_linear",

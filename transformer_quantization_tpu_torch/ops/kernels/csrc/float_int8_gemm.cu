@@ -25,138 +25,203 @@
 //
 // What bounds it on the card: operations. BERT-base's attn_out (M =
 // 16384, K = N = 768) is 19.3 GFLOP: 0.29 ms at the 67 TFLOP/s float64
-// (tensor-core) peak of an H100 SXM, against 55 MB of traffic (16 us).
-// This first design runs the float64 FMA units without tensor cores (half
-// that peak): tiles of 64 x 64 outputs, a block of 256 threads each
-// holding 4 x 4 float64 sums, x and w staged through shared memory as
-// float64 (converted once a tile, the weight's bytes exactly), 32 columns
-// of K a stage, the next stage's global loads in flight under this one's
-// products. A split-bf16 or DMMA (float64 mma.sync) design is a later
-// redesign.
-// Limits: K % 4 == 0, K <= 8192 (the wrapper's); x 16-byte aligned, w
-// 4-byte aligned rows; M, N ragged against the tiles.
+// tensor-core peak of an H100 SXM, against 55 MB of traffic (16 us).
+//
+// Design: the products on the float64 tensor cores, DMMA (mma.sync
+// m16n8k4 .f64, dmma_common.cuh; KS picks k4 / k8 / k16, and k4 measured
+// 2-3% faster than the other two, k1_probe.py --kernels k9):
+// - a block of 256 threads (8 warps as 2 x 4) takes 128 x 128 outputs,
+//   each warp 64 x 32 of them: 4 x 4 m16n8 tiles of float64 sums, 64
+//   doubles (128 registers) a thread, one block an SM (launch bounds 256,
+//   1: up to 255 registers a thread);
+// - x stays float32 and w int8 in shared memory (a quarter and an eighth
+//   of their float64 bytes), a 4-stage cp.async ring of 32 columns of K a
+//   stage (16 KB of x, 4 KB of w), the loads of stage k + 3 in flight
+//   under the products of stage k;
+// - lane (g, t) of a warp takes columns 8t .. 8t+7 of a stage (the k sum's
+//   order is free: each term is exact), in two halves of four: one 16-byte
+//   load of x a row and one 8-byte load of w a column serve both halves,
+//   and each value converts to float64 as its fragment is built; x rows
+//   are stored with their 16-byte chunks swapped in odd rows (c ^ 1), so
+//   that the eight rows of a fragment load meet no bank twice;
+// - the epilogue takes each lane's two neighbouring columns at once (a
+//   float2 or a 2-byte store).
+// Limits: K % 16 == 0, K <= 8192, N % 8 == 0 (the wrapper's; the engine's
+// plan refuses other widths); x 16-byte aligned, w 16-byte aligned rows;
+// M ragged against the tiles.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "dmma_common.cuh"
 #include "mm_common.cuh"
 
 namespace {
 
-constexpr int BM = 64, BN = 64, BK = 32;
+constexpr int BM = 128, BN = 128, BK = 32, STAGES = 4;
 constexpr int THREADS = 256;
-constexpr int LDS = BM + 1;   // a shared row of 64 doubles and a pad
+constexpr int MT = 4, NT = 4;        // a warp's m16 x n8 tiles (64 x 32)
+constexpr int KS = 1;                // DMMA depth / 4: m16n8k4
+constexpr int XS = BM * BK * 4;      // a stage's x bytes
+constexpr int WS = BN * BK;          // a stage's w bytes
+constexpr int SMEM = STAGES * (XS + WS);
+
+// byte offset of 16-byte chunk c (of 8) in row r of a stage's x tile
+__device__ __forceinline__ int xoff(int r, int c) {
+  return r * (BK * 4) + ((c ^ (r & 1)) << 4);
+}
 
 // the epilogue constants of one output column
 struct ColF {
   float ws, b, os, inv, osh;
 };
 
+__device__ __forceinline__ ColF col_of(const float* vecs, int N, int n) {
+  ColF k;
+  k.ws = vecs[n];
+  k.b = vecs[2 * N + n];
+  k.os = vecs[3 * N + n];
+  k.inv = 1.0f / k.os;
+  k.osh = vecs[4 * N + n];
+  return k;
+}
+
+// one output: y = act(wscale * acc + bias), then the site (OUT 0: the
+// level, stored as int8; 1: its value; 2: y)
 template <int ACT, int OUT>
-__device__ __forceinline__ void store(void* out, int m, int n, int N,
-                                      float acc, const ColF& k, float lo,
-                                      float hi, float gelu_c) {
+__device__ __forceinline__ float out_of(float acc, const ColF& k, float lo,
+                                        float hi, float gelu_c) {
   const float y = tqmm::act_fn<ACT>(k.ws * acc + k.b, gelu_c);
-  const size_t i = static_cast<size_t>(m) * N + n;
   if constexpr (OUT == 2) {
-    static_cast<float*>(out)[i] = y;
+    return y;
   } else {
     const float lvl =
         fminf(fmaxf(tqmm::rint_div_fma(y, k.os, k.inv) - k.osh, lo), hi);
-    if constexpr (OUT == 0)
-      static_cast<int8_t*>(out)[i] = tqmm::to_i8(lvl);
-    else
-      static_cast<float*>(out)[i] = k.os * (lvl + k.osh);
+    return OUT == 0 ? lvl : k.os * (lvl + k.osh);
   }
 }
 
 template <int ACT, int OUT>
-__global__ void __launch_bounds__(THREADS)
+__device__ __forceinline__ void epilogue(const double (&acc)[MT][NT][4],
+                                         const float* vecs, void* out,
+                                         int mw, int nw, int M, int N,
+                                         float lo, float hi, float gelu_c) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int nj = 0; nj < NT; ++nj) {
+    const int n = nw + nj * 8 + 2 * t;   // and n + 1 (N % 8 == 0)
+    if (n >= N) continue;
+    const ColF k0 = col_of(vecs, N, n), k1 = col_of(vecs, N, n + 1);
+#pragma unroll
+    for (int mi = 0; mi < MT; ++mi) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int m = mw + mi * 16 + g + 8 * r;
+        if (m >= M) continue;
+        const float y0 = out_of<ACT, OUT>(
+            __double2float_rn(acc[mi][nj][2 * r]), k0, lo, hi, gelu_c);
+        const float y1 = out_of<ACT, OUT>(
+            __double2float_rn(acc[mi][nj][2 * r + 1]), k1, lo, hi, gelu_c);
+        const size_t i = static_cast<size_t>(m) * N + n;
+        if constexpr (OUT == 0) {
+          char2 v;
+          v.x = static_cast<signed char>(tqmm::to_i8(y0));
+          v.y = static_cast<signed char>(tqmm::to_i8(y1));
+          *reinterpret_cast<char2*>(static_cast<int8_t*>(out) + i) = v;
+        } else {
+          *reinterpret_cast<float2*>(static_cast<float*>(out) + i) =
+              make_float2(y0, y1);
+        }
+      }
+    }
+  }
+}
+
+template <int ACT, int OUT>
+__global__ void __launch_bounds__(THREADS, 1)
     float_int8_kernel(const float* __restrict__ x,
                       const int8_t* __restrict__ w,
                       const float* __restrict__ vecs, void* __restrict__ out,
                       int M, int N, int K, float lo, float hi,
                       float gelu_c) {
-  __shared__ double xs[BK][LDS];   // xs[k][m]: the x tile, transposed
-  __shared__ double ws[BK][LDS];   // ws[k][n]: the weight tile, transposed
-  const int t = threadIdx.x;
+  extern __shared__ __align__(16) uint8_t smem[];
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
   const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-  const int ty = t >> 4, tx = t & 15;   // rows ty + 16 i, columns tx + 16 j
-  // a stage's global loads: two float4 of x and two 4-byte words of w a
-  // thread (rows r, r + 32; columns c4 .. c4 + 3 of the stage)
-  const int r = t >> 3, c4 = (t & 7) * 4;
-  float4 xv[2];
-  int wv[2];
-  auto load = [&](int k0) {
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int row = r + 32 * h, k = k0 + c4;
-      const bool kin = k < K;
-      xv[h] = m0 + row < M && kin
-                  ? *reinterpret_cast<const float4*>(
-                        x + static_cast<size_t>(m0 + row) * K + k)
-                  : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-      wv[h] = n0 + row < N && kin
-                  ? *reinterpret_cast<const int*>(
-                        w + static_cast<size_t>(n0 + row) * K + k)
-                  : 0;
-    }
-  };
-  double acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.0;
-  load(0);
-  for (int k0 = 0; k0 < K; k0 += BK) {
-    __syncthreads();   // the last stage's products are done with the tiles
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int row = r + 32 * h;
-      xs[c4 + 0][row] = static_cast<double>(xv[h].x);
-      xs[c4 + 1][row] = static_cast<double>(xv[h].y);
-      xs[c4 + 2][row] = static_cast<double>(xv[h].z);
-      xs[c4 + 3][row] = static_cast<double>(xv[h].w);
-#pragma unroll
-      for (int b = 0; b < 4; ++b)
-        ws[c4 + b][row] = static_cast<double>(
-            static_cast<int8_t>(wv[h] >> (8 * b)));
-    }
-    __syncthreads();
-    if (k0 + BK < K) load(k0 + BK);   // in flight under the products
-#pragma unroll 8
-    for (int k = 0; k < BK; ++k) {
-      double a[4], b[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = xs[k][ty + 16 * i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) b[j] = ws[k][tx + 16 * j];
-      // each product is exact: a fused multiply-add rounds as the sum of
-      // the separate product would
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = __fma_rn(a[i], b[j], acc[i][j]);
-    }
-  }
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const int n = n0 + tx + 16 * j;
-    if (n >= N) continue;
-    ColF k;
-    k.ws = vecs[n];
-    k.b = vecs[2 * N + n];
-    k.os = vecs[3 * N + n];
-    k.inv = 1.0f / k.os;
-    k.osh = vecs[4 * N + n];
+  const int wm = (warp >> 2) * 64, wn = (warp & 3) * 32;
+  const int KT = (K + BK - 1) / BK;
+
+  // stage s <- columns kt * BK .. of x (4 chunks a thread) and w (one)
+  auto load = [&](int s, int kt) {
+    uint8_t* xs = smem + s * (XS + WS);
+    uint8_t* ws = xs + XS;
+    const int k0 = kt * BK;
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
-      const int m = m0 + ty + 16 * i;
-      if (m < M)
-        store<ACT, OUT>(out, m, n, N, __double2float_rn(acc[i][j]), k, lo,
-                        hi, gelu_c);
+      const int id = tid + THREADS * i, r = id >> 3, c = id & 7;
+      const bool ok = m0 + r < M && k0 + 4 * c < K;
+      tqdm::cp16(xs + xoff(r, c),
+                 ok ? x + static_cast<size_t>(m0 + r) * K + k0 + 4 * c : x,
+                 ok);
+    }
+    const int r = tid >> 1, c = tid & 1;
+    const bool ok = n0 + r < N && k0 + 16 * c < K;
+    tqdm::cp16(ws + r * BK + 16 * c,
+               ok ? w + static_cast<size_t>(n0 + r) * K + k0 + 16 * c : w,
+               ok);
+  };
+
+  double acc[MT][NT][4];
+#pragma unroll
+  for (int mi = 0; mi < MT; ++mi)
+#pragma unroll
+    for (int nj = 0; nj < NT; ++nj)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[mi][nj][i] = 0.0;
+
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < KT) load(s, s);
+    tqdm::cp_commit();
+  }
+  for (int kt = 0; kt < KT; ++kt) {
+    tqdm::cp_wait<STAGES - 2>();
+    __syncthreads();   // stage kt landed; every warp is done with kt - 1's
+    if (kt + STAGES - 1 < KT) load((kt + STAGES - 1) % STAGES, kt + STAGES - 1);
+    tqdm::cp_commit();
+    const uint8_t* xs = smem + (kt % STAGES) * (XS + WS);
+    const uint8_t* ws = xs + XS;
+    uint2 wv[NT];
+#pragma unroll
+    for (int nj = 0; nj < NT; ++nj)
+      wv[nj] = *reinterpret_cast<const uint2*>(ws + (wn + nj * 8 + g) * BK +
+                                               8 * t);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      // columns 8t + 4h + s, s < 4, as fragment k positions t + 4s
+      double b[NT][4];
+#pragma unroll
+      for (int nj = 0; nj < NT; ++nj) {
+        const uint32_t word = h ? wv[nj].y : wv[nj].x;
+#pragma unroll
+        for (int s = 0; s < 4; ++s) b[nj][s] = tqdm::i8_to_f64(word, s);
+      }
+#pragma unroll
+      for (int mi = 0; mi < MT; ++mi) {
+        const int r = wm + mi * 16 + g;
+        const float4 lo4 =
+            *reinterpret_cast<const float4*>(xs + xoff(r, 2 * t + h));
+        const float4 hi4 =
+            *reinterpret_cast<const float4*>(xs + xoff(r + 8, 2 * t + h));
+        const double a[8] = {lo4.x, hi4.x, lo4.y, hi4.y,
+                             lo4.z, hi4.z, lo4.w, hi4.w};
+#pragma unroll
+        for (int nj = 0; nj < NT; ++nj) tqdm::dmma16<KS>(acc[mi][nj], a, b[nj]);
+      }
     }
   }
+  tqdm::cp_wait<0>();
+  epilogue<ACT, OUT>(acc, vecs, out, m0 + wm, n0 + wn, M, N, lo, hi, gelu_c);
 }
 
 template <int ACT>
@@ -164,31 +229,40 @@ cudaError_t launch_act(int out_mode, const float* x, const int8_t* w,
                        const float* vecs, void* out, int M, int N, int K,
                        float lo, float hi, float gelu_c, cudaStream_t st) {
   const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
+  void (*kernel)(const float*, const int8_t*, const float*, void*, int, int,
+                 int, float, float, float);
   switch (out_mode) {
-    case 0: float_int8_kernel<ACT, 0><<<grid, THREADS, 0, st>>>(x, w, vecs, out, M, N, K, lo, hi, gelu_c); break;
-    case 1: float_int8_kernel<ACT, 1><<<grid, THREADS, 0, st>>>(x, w, vecs, out, M, N, K, lo, hi, gelu_c); break;
-    default: float_int8_kernel<ACT, 2><<<grid, THREADS, 0, st>>>(x, w, vecs, out, M, N, K, lo, hi, gelu_c); break;
+    case 0: kernel = float_int8_kernel<ACT, 0>; break;
+    case 1: kernel = float_int8_kernel<ACT, 1>; break;
+    default: kernel = float_int8_kernel<ACT, 2>; break;
   }
+  const cudaError_t attr = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
+  if (attr != cudaSuccess) return attr;
+  kernel<<<grid, THREADS, SMEM, st>>>(x, w, vecs, out, M, N, K, lo, hi,
+                                      gelu_c);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// x: (M, K) f32, 16-byte aligned; w: (N, K) int8; vecs: (5, N) f32 rows
-// [wscale, -, bias, out_s, out_sh]; out: (M, N), int8 (out_mode 0, emit)
-// or f32 (1 fold, 2 float). act: 0 none, 1 gelu_new, 2 relu. [lo, hi]:
-// the output site's level bounds. K % 4 == 0, 0 < K <= 8192. Launches on
-// `stream`; returns the launch's cudaError_t (cudaErrorInvalidValue for
-// arguments the kernel does not take).
+// x: (M, K) f32, 16-byte aligned; w: (N, K) int8, 16-byte aligned; vecs:
+// (5, N) f32 rows [wscale, -, bias, out_s, out_sh]; out: (M, N), int8
+// (out_mode 0, emit) or f32 (1 fold, 2 float), 8-byte aligned. act: 0
+// none, 1 gelu_new, 2 relu. [lo, hi]: the output site's level bounds.
+// K % 16 == 0, 0 < K <= 8192, N % 8 == 0. Launches on `stream`; returns
+// the launch's cudaError_t (cudaErrorInvalidValue for arguments the
+// kernel does not take).
 extern "C" int tq_float_int8_matmul(const void* x, const void* w,
                                     const void* vecs, void* out, int M,
                                     int N, int K, int act, int out_mode,
                                     float lo, float hi, float gelu_c,
                                     void* stream) {
-  if (M <= 0 || N <= 0 || K <= 0 || K % 4 || K > 8192 || act < 0 ||
-      act > 2 || out_mode < 0 || out_mode > 2 ||
+  if (M <= 0 || N <= 0 || K <= 0 || K % 16 || K > 8192 || N % 8 ||
+      act < 0 || act > 2 || out_mode < 0 || out_mode > 2 ||
       (reinterpret_cast<uintptr_t>(x) & 15) ||
-      (reinterpret_cast<uintptr_t>(w) & 3))
+      (reinterpret_cast<uintptr_t>(w) & 15) ||
+      (reinterpret_cast<uintptr_t>(out) & 7))
     return static_cast<int>(cudaErrorInvalidValue);
   const float* xp = static_cast<const float*>(x);
   const int8_t* wp = static_cast<const int8_t*>(w);

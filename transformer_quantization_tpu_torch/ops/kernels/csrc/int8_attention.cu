@@ -818,346 +818,841 @@ extern "C" int tq_int8_attention_blocks(int T, int D) {
 }
 
 // ---------------------------------------------------------------------------
-// The attention's other forms (attn_flex_kernel)
+// The attention's other forms (the second kernel, attn_flex_*)
 //
 // Replaces the same TPU function for every form but the all-8-bit payload
 // one above: _attn_row with a scores site of 2-16 bits or disabled (bits
 // 0: s2 = q_s k_s rsqrt(d) log2e * scores + mask log2e), a probs site of
-// 9-16 bits (shifted float levels) or disabled (the raw softmax), a
-// context site of 9-16 bits or disabled (a float32 value edge out,
-// _emit_ctx), sub-8-bit sites, and the value-space form of float32 q / k /
-// v values with identity site scalars (int8_attention_ref(dots='f32'),
-// the engine's 16-bit / sub-8 / per-column q / k / v sites).
+// 1-16 bits or disabled (the raw softmax), a context site of 1-16 bits or
+// disabled (a float32 value edge out, _emit_ctx), and the value-space form
+// of float32 q / k / v values with identity site scalars
+// (int8_attention_ref(dots='f32'), the engine's 16-bit / sub-8 /
+// per-column q / k / v sites).
 //
 //   scores = q . k   (payloads: + q_sh*ksum + k_sh*qsum + d*q_sh*k_sh)
 //   s2     = the scores site as above, or its disabled form
 //   e      = exp2(s2 [- rowmax]), sum in double rounded once
 //   probs  = the probs site's payload, shifted levels or e / sum
-//   ctx    = probs . v (a payload probs site on payloads: the integer sum
+//   ctx    = probs . v (a 1-8-bit probs site on payloads: the integer sum
 //            + p_sh*vsum + v_sh*psum + T*p_sh*v_sh; else probs . (v +
-//            v_sh))
+//            v_sh), float64 sums rounded once)
 //   out    = the context site: a payload, or float values (_emit_ctx)
 //
-// What bounds it on the card: operations, the float dots. At BERT-base
-// (B = 128, T = 128, 12 heads of 64) q.k and p.v are 6.4 GFLOP: 0.10 ms at
-// the 67 TFLOP/s float64 (tensor-core) peak, against 50-150 MB of traffic
-// (15-45 us: int8 or float32 q / k / v, an int8 or float32 context).
+// What bounds it on the card: at BERT-base (B = 128, T = 128, 12 heads of
+// 64) q.k and p.v are 6.4 G multiply-adds each way: as float64 products
+// 0.10 ms at the 67 TFLOP/s float64 tensor-core peak, as int8 ones 3 us,
+// against 50-150 MB of traffic (15-45 us: int8 or float32 q / k / v, an
+// int8 or float32 context). So the integer-dot forms are bound by bytes
+// and the float ones by the float64 tensor cores.
 //
-// Design (a simple first form): a block of 256 threads a (batch row,
-// head) and 64 of its query rows (T = 32: all 32); q^T, k^T, the scores
-// and probs and then v are staged in shared memory as float64 (166 KB at
-// T = 128, D = 64: one block an SM), both products on the float64 FMA
-// units with register tiles of 4 x 8 (scores) and 4 x 4 (context) sums a
-// thread, the softmax a warp a row. Every element of q, k, v and the
-// probs is exact in float64 and so is every product: the integer forms'
-// sums (|q.k| < 2^21, |p.v| < 2^31) are exact, and the float forms' are
-// the exact sums' roundings but where the float64 sum's own rounding meets
-// a float32 tie. Then each step in int8_attention_ref's float32 order
-// (-fmad=false, exp2f, the IEEE divisions), bit-identical to it but on
-// such ties; a payload level off the integers truncates as its cast does.
-// A tensor-core (DMMA or split-bf16 wgmma) redesign is later work.
+// Two routes, picked by the form alone (attn_flex_route in
+// engine_kernels.py; both compute int8_attention_ref's function):
+// - integer (payload q / k / v, a probs site of 1-16 bits):
+//   attn_flex_i8_kernel on K2's skeleton and device functions above (two
+//   persistent blocks an SM, TMA stages, v^T, the key constants, q.k on
+//   mma.sync s8 m16n8k32 with the row sums by a ones operand), then the
+//   scores site, the softmax and the probs site in registers, in the plain
+//   version's float32 order (-fmad=false, exp2f, the denominator in double
+//   rounded once, a payload level off the integers truncated). p.v:
+//   - 1-8-bit probs (PV_PAY): K2's payload product s8 x s8 and its
+//     corrections, in float32 as the plain version takes them (|p.v| <=
+//     T * 128 * 128 = 2^21, exact);
+//   - 9-16-bit probs (PV_LVL): the shifted level L (an integer in [lo_b,
+//     lo_b + 2^bits - 1], lo_b = p_sh - 2^(bits-1)) as U = L - lo_b in
+//     [0, 65535], split into two byte planes U = lo + 256 hi, each on
+//     mma.sync u8 x s8 against v8: |sum lo * v8| and |sum hi * v8| <= T *
+//     255 * 128 < 2^22 in int32; sum U by a ones operand (<= T * 65535 <
+//     2^23); then in int64 ctx = (lo.v8 + 256 hi.v8) + lo_b * vsum + v_sh *
+//     (sum U + T * lo_b), the exact value of sum L (v8 + v_sh) (|ctx| <
+//     2^42 under the block's condition below), rounded once to float32:
+//     the plain version's float64 sum of these integer products is exact
+//     too (each product < 2^34, every partial sum < 2^53), so this form is
+//     bit-identical, with no tie. The condition, taken once a block as K2's
+//     small_int: p_sh and v_sh integers of magnitude at most 2^16 (then L,
+//     v8 + v_sh and the level bounds are exact in float32). A block whose
+//     shifts miss it (never the engine's: zero_point_of rounds) takes p.v
+//     on the float64 tensor cores as the float route does (L and v8 + v_sh
+//     as float32 values), the plain function too;
+//   - a disabled probs site (PV_F64, {'p': 'fp32'}): q.k stays on the int8
+//     tensor cores, p.v on the float64 ones.
+// - float64 (float32 q / k / v values): attn_flex_f32_kernel, a block of
+//   eight warps a group of 128 query rows, one block an SM (up to 255
+//   registers a thread: at two, ptxas spilled and the call took 1.2x as
+//   long), persistent over the groups: the next group's q, k and v (as
+//   float32, 16-byte chunks swapped in odd rows of q and k, rows of D + 4
+//   for v) and mask rows load by cp.async into the other of two stages
+//   (98.5 KB each at (128, 64)) under this group's products (staged one
+//   group a block, the loads' latency set the time: 0.22 ms, not 0.15);
+//   each warp's q.k over 32 keys at a time on DMMA (16 float64 sums a
+//   key n8 tile, rounded to float32 scores as the plain version rounds
+//   them; the scores and then the probs stay float32 registers, 64 a
+//   thread at T = 128), the softmax, then p.v on DMMA over every head dim
+//   at once (64 float64 sums a thread), each probs fragment converted to
+//   float64 once and each value of v (+ v_sh) as its fragment is built.
+// Float64 sums (DMMA) are the exact sums' roundings but where the float64
+// sum's own rounding meets a float32 tie; so are the plain version's.
+// Every instance is built at each (T, D) of ATTN_SHAPES.
 // ---------------------------------------------------------------------------
+
+#include "dmma_common.cuh"   // DMMA, u8 x s8 mma.sync, cp.async groups
 
 namespace {
 
-constexpr int FT = 256;   // threads of a flex block
-
-template <int T, int D>
-struct FCfg {
-  static constexpr int QR = T < 64 ? T : 64;   // query rows a block
-  static constexpr int SPLIT = T / QR;         // blocks a (row, head) item
-  static constexpr int LQ = QR + 1;            // q^T row stride (doubles)
-  static constexpr int LK = T + 1;             // k^T row stride
-  static constexpr int LV = D + 1;             // v row stride
-  static constexpr int LP = T + 1;             // probs row stride
-  static constexpr int KV = D * LK > T * LV ? D * LK : T * LV;
-  static constexpr int RI = QR / 16;           // rows a thread
-  static constexpr int CJ = T / 16;            // keys a thread (scores)
-  static constexpr int CD = D / 16;            // head dims a thread (p.v)
-  // doubles: q^T, k^T then v, the probs; floats: qsum, ksum, the keys'
-  // mask terms, psum, vsum
-  static constexpr int SMEM =
-      8 * (D * LQ + KV + QR * LP) + 4 * (QR + T + T + QR + D);
-};
+enum { PV_PAY = 0, PV_LVL = 1, PV_F64 = 2 };
+constexpr float LVL_SHIFT_MAX = 65536.0f;   // see PV_LVL's condition
+constexpr int KS_F = 4;   // the float dots' DMMA depth / 4: m16n8k16
+constexpr int NDG = 2;    // head-dim n8 tiles a float p.v pass (integer
+                          // route); the float route takes them all
+constexpr int KCH = 4;    // key n8 tiles a float q.k pass
+// blocks an SM each instance is built for (its launch bounds): two where
+// p.v runs on the int8 tensor cores (128 registers a thread), one where
+// it runs on the float64 ones (up to 255: at two, ptxas spilled 0.5-0.8 KB
+// a thread and the call took 1.8x as long)
+template <int PV>
+constexpr int i8_blocks() {
+  return PV == PV_F64 ? 1 : 2;
+}
+constexpr int F32_BLOCKS = 1;
 
 __device__ __forceinline__ float clipf(float x, float lo, float hi) {
   return fminf(fmaxf(x, lo), hi);
 }
 
-template <int T, int D, bool QF>
-__global__ void __launch_bounds__(FT, 1)
-    attn_flex_kernel(const void* __restrict__ qkv,
-                     const float* __restrict__ mask,
-                     const float* __restrict__ scal, void* __restrict__ out,
-                     int hidden, int n_heads, int sc_bits, int p_bits,
-                     int c_bits, float rsqrt_d, float log2e, int skip_max) {
-  using C = FCfg<T, D>;
-  extern __shared__ double fsm[];
-  double* qT = fsm;                    // [D][LQ]
-  double* kv = qT + D * C::LQ;         // k^T [D][LK], then v [T][LV]
-  double* P = kv + C::KV;              // [QR][LP]
-  float* qsum = reinterpret_cast<float*>(P + C::QR * C::LP);
-  float* ksum = qsum + C::QR;
-  float* mk = ksum + T;                // a key's mask term
-  float* psum = mk + T;
-  float* vsum = psum + C::QR;
-  const int t = threadIdx.x, warp = t >> 5, lane = t & 31;
-  const int ty = t >> 4, tx = t & 15;
-  const int item = blockIdx.x / C::SPLIT;
-  const int i0 = (blockIdx.x % C::SPLIT) * C::QR;   // first query row
-  const int b = item / n_heads, h = item - b * n_heads;
-  const int ld = 3 * hidden;
-  const size_t row0 = static_cast<size_t>(b) * T;
-  const int8_t* q8 = static_cast<const int8_t*>(qkv);
-  const float* qf = static_cast<const float*>(qkv);
-  auto at = [&](size_t row, int col) -> float {
-    const size_t i = row * ld + col;
-    return QF ? qf[i] : static_cast<float>(q8[i]);
-  };
-  const float q_s = scal[0], q_sh = scal[1], k_s = scal[2], k_sh = scal[3];
-  const float v_s = scal[4], v_sh = scal[5], sc_s = scal[6], sc_sh = scal[7];
-  const float p_s = scal[8], p_sh = scal[9], c_s = scal[10], c_sh = scal[11];
-  // a payload probs site on payloads: the integer p.v and its corrections
-  const bool int_pv = !QF && p_bits >= 1 && p_bits <= 8;
+__device__ __forceinline__ float half_of(int bits) {
+  return bits ? static_cast<float>(1 << (bits - 1)) : 0.0f;
+}
 
-  // q^T and k^T (and the payloads' row sums), the keys' mask terms
-  for (int e = t; e < C::QR * D; e += FT) {
-    const int r = e / D, d = e - r * D;
-    qT[d * C::LQ + r] = at(row0 + i0 + r, h * D + d);
-  }
-  for (int e = t; e < T * D; e += FT) {
-    const int j = e / D, d = e - j * D;
-    kv[d * C::LK + j] = at(row0 + j, hidden + h * D + d);
-  }
-  const float a = (sc_s * rsqrt_d) * log2e;
-  for (int j = t; j < T; j += FT) {
-    const float ml = mask[row0 + j] * log2e;
-    mk[j] = sc_bits ? ml + a * sc_sh : ml;
-  }
-  __syncthreads();
-  if (!QF) {
-    for (int r = t; r < C::QR; r += FT) {
-      float s = 0.0f;
-      for (int d = 0; d < D; ++d) s += static_cast<float>(qT[d * C::LQ + r]);
-      qsum[r] = s;
-    }
-    for (int j = t; j < T; j += FT) {
-      float s = 0.0f;
-      for (int d = 0; d < D; ++d) s += static_cast<float>(kv[d * C::LK + j]);
-      ksum[j] = s;
-    }
-    __syncthreads();
-  }
+// The flex sites' constants, each computed as int8_attention_ref computes
+// it; s holds K2's (the payload scores and context)
+struct FSite {
+  Site s;
+  float coef;           // the scores site disabled: q_s k_s rsqrt(d) log2e
+  float sc_lo, sc_hi;   // the scores site's level bounds
+  float p_lo, p_hi;     // the probs site's clip bounds (see probs_of)
+  float c_s, c_lo, c_hi;
+  int sc_bits, p_bits, c_bits;
+};
 
-  // scores -> s2 into P
-  {
-    double acc[C::RI][C::CJ];
-#pragma unroll
-    for (int i = 0; i < C::RI; ++i)
-#pragma unroll
-      for (int j = 0; j < C::CJ; ++j) acc[i][j] = 0.0;
-#pragma unroll 4
-    for (int d = 0; d < D; ++d) {
-      double x[C::RI], y[C::CJ];
-#pragma unroll
-      for (int i = 0; i < C::RI; ++i) x[i] = qT[d * C::LQ + ty + 16 * i];
-#pragma unroll
-      for (int j = 0; j < C::CJ; ++j) y[j] = kv[d * C::LK + tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < C::RI; ++i)
-#pragma unroll
-        for (int j = 0; j < C::CJ; ++j)
-          acc[i][j] = __fma_rn(x[i], y[j], acc[i][j]);
-    }
-    const float qk_over_sc = (q_s * k_s) * (1.0f / sc_s);
-    const float coef = ((q_s * k_s) * rsqrt_d) * log2e;   // scores off
-    const float dqk = (static_cast<float>(D) * q_sh) * k_sh;
-    const float half_sc = sc_bits ? static_cast<float>(1 << (sc_bits - 1))
-                                  : 0.0f;
-#pragma unroll
-    for (int i = 0; i < C::RI; ++i) {
-      const int r = ty + 16 * i;
-#pragma unroll
-      for (int j = 0; j < C::CJ; ++j) {
-        const int k = tx + 16 * j;
-        float scr = __double2float_rn(acc[i][j]);
-        if (!QF) scr = ((scr + q_sh * ksum[k]) + k_sh * qsum[r]) + dqk;
-        float s2;
-        if (sc_bits == 0) {
-          s2 = coef * scr + mk[k];
-        } else {
-          const float lvl =
-              clipf(rintf(scr * qk_over_sc) - sc_sh, -half_sc, half_sc - 1.0f);
-          s2 = a * lvl + mk[k];
-        }
-        P[r * C::LP + k] = s2;
-      }
-    }
+// pay: a 1-8-bit probs site on payloads (bounds of the payload level);
+// else the bounds of the shifted level (9-16 bits: p_sh - half, (p_sh +
+// half) - 1; 1-8 bits on values: p_sh + -half, p_sh + (half - 1))
+template <int T, int D>
+__device__ __forceinline__ FSite fsite_of(const float* scal, float rsqrt_d,
+                                          float log2e, int sc_bits,
+                                          int p_bits, int c_bits, bool pay) {
+  FSite f;
+  f.s = site_of<T, D>(scal, rsqrt_d, log2e);
+  if (!sc_bits) f.s.ash = 0.0f;   // the keys' mask term: mask * log2e
+  f.coef = ((scal[0] * scal[2]) * rsqrt_d) * log2e;
+  const float hs = half_of(sc_bits), hp = half_of(p_bits),
+              hc = half_of(c_bits);
+  f.sc_lo = -hs;
+  f.sc_hi = hs - 1.0f;
+  if (pay) {
+    f.p_lo = -hp;
+    f.p_hi = hp - 1.0f;
+  } else if (p_bits > 8) {
+    f.p_lo = f.s.p_sh - hp;
+    f.p_hi = (f.s.p_sh + hp) - 1.0f;
+  } else {
+    f.p_lo = f.s.p_sh + -hp;
+    f.p_hi = f.s.p_sh + (hp - 1.0f);
   }
-  __syncthreads();
+  f.c_s = scal[10];
+  if (c_bits > 8) {
+    f.c_lo = f.s.c_sh - hc;
+    f.c_hi = (f.s.c_sh + hc) - 1.0f;
+  } else {
+    f.c_lo = -hc;
+    f.c_hi = hc - 1.0f;
+  }
+  f.sc_bits = sc_bits;
+  f.p_bits = p_bits;
+  f.c_bits = c_bits;
+  return f;
+}
 
-  // the softmax and the probs site, a warp a row; then v into the k^T
-  // buffer (no longer read)
-  {
-    const float inv_ps = 1.0f / p_s;
-    const float half_p = p_bits ? static_cast<float>(1 << (p_bits - 1)) : 0.0f;
-    for (int r = warp; r < C::QR; r += FT / 32) {
-      double* pr = P + r * C::LP;
-      float s2[T / 32];
-      float m = __int_as_float(0xff800000);   // -inf
-#pragma unroll
-      for (int u = 0; u < T / 32; ++u) {
-        s2[u] = static_cast<float>(pr[lane + 32 * u]);
-        m = fmaxf(m, s2[u]);
-      }
-#pragma unroll
-      for (int o = 16; o >= 1; o >>= 1)
-        m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
-      double den = 0.0;
-#pragma unroll
-      for (int u = 0; u < T / 32; ++u) {
-        s2[u] = skip_max ? exp2f(s2[u]) : exp2f(s2[u] - m);
-        den += static_cast<double>(s2[u]);
-      }
-#pragma unroll
-      for (int o = 16; o >= 1; o >>= 1)
-        den += __shfl_xor_sync(0xffffffffu, den, o);
-      const float dn = static_cast<float>(den);
-      const float w = inv_ps / dn;
-      const float inv_den = 1.0f / dn;
-      float ps = 0.0f;
-#pragma unroll
-      for (int u = 0; u < T / 32; ++u) {
-        const float e = s2[u];
-        float p;
-        if (p_bits == 0) {
-          p = e * inv_den;
-        } else if (p_bits > 8) {
-          p = clipf(rintf(e * w), p_sh - half_p, p_sh + half_p - 1.0f);
-        } else if (int_pv) {
-          // the int8 payload, a level off the integers truncated as the
-          // plain version's cast does
-          p = truncf(clipf(rintf(e * w) - p_sh, -half_p, half_p - 1.0f));
-          ps += p;
-        } else {
-          p = clipf(rintf(e * w), p_sh + -half_p, p_sh + (half_p - 1.0f));
-        }
-        pr[lane + 32 * u] = p;
-      }
-      if (int_pv) {
-#pragma unroll
-        for (int o = 16; o >= 1; o >>= 1)
-          ps += __shfl_xor_sync(0xffffffffu, ps, o);
-        if (lane == 0) psum[r] = ps;
-      }
-    }
-  }
-  __syncthreads();   // the scores phase is done with k^T
-  for (int e = t; e < T * D; e += FT) {
-    const int j = e / D, d = e - j * D;
-    const float v = at(row0 + j, 2 * hidden + h * D + d);
-    kv[j * C::LV + d] = int_pv ? v : v + v_sh;
-  }
-  __syncthreads();
-  if (int_pv) {
-    for (int d = t; d < D; d += FT) {
-      float s = 0.0f;
-      for (int j = 0; j < T; ++j) s += static_cast<float>(kv[j * C::LV + d]);
-      vsum[d] = s;
-    }
-    __syncthreads();
-  }
+// s2 of one score (scr: the float32 scores) and its key's mask term
+__device__ __forceinline__ float s2_of(float scr, float mk, const FSite& f) {
+  if (f.sc_bits == 0) return f.coef * scr + mk;
+  return f.s.a * clipf(rintf(scr * f.s.qk_over_sc) - f.s.sc_sh, f.sc_lo,
+                       f.sc_hi) +
+         mk;
+}
 
-  // the context and its site
-  double acc[C::RI][C::CD];
+// The softmax of this warp's rows on the m16n8 layout (sv[ni][r]: row g
+// for r < 2, g + 8 else; keys 8 ni + 2t + (r & 1)): e = exp2(s2 [- m])
+// in place, and the two rows' denominators, summed in double and rounded
+// once (the row max from -inf by fmaxf, four running maxima a row half,
+// as K2's)
+template <int NT, bool SKIP>
+__device__ __forceinline__ void flex_softmax(float (&sv)[NT][4], float& dlo,
+                                             float& dhi) {
+  float m_lo = 0.0f, m_hi = 0.0f;
+  if (!SKIP) {
+    m_lo = __int_as_float(0xff800000);  // -inf
+    m_hi = m_lo;
+    float mx[2][4];
 #pragma unroll
-  for (int i = 0; i < C::RI; ++i)
+    for (int j = 0; j < 4; ++j) mx[0][j] = mx[1][j] = m_lo;
 #pragma unroll
-    for (int j = 0; j < C::CD; ++j) acc[i][j] = 0.0;
-#pragma unroll 4
-  for (int k = 0; k < T; ++k) {
-    double x[C::RI], y[C::CD];
+    for (int ni = 0; ni < NT; ++ni) {
+      mx[0][ni & 3] = fmaxf(mx[0][ni & 3], fmaxf(sv[ni][0], sv[ni][1]));
+      mx[1][ni & 3] = fmaxf(mx[1][ni & 3], fmaxf(sv[ni][2], sv[ni][3]));
+    }
+    m_lo = fmaxf(fmaxf(mx[0][0], mx[0][1]), fmaxf(mx[0][2], mx[0][3]));
+    m_hi = fmaxf(fmaxf(mx[1][0], mx[1][1]), fmaxf(mx[1][2], mx[1][3]));
 #pragma unroll
-    for (int i = 0; i < C::RI; ++i) x[i] = P[(ty + 16 * i) * C::LP + k];
-#pragma unroll
-    for (int j = 0; j < C::CD; ++j) y[j] = kv[k * C::LV + tx + 16 * j];
-#pragma unroll
-    for (int i = 0; i < C::RI; ++i)
-#pragma unroll
-      for (int j = 0; j < C::CD; ++j)
-        acc[i][j] = __fma_rn(x[i], y[j], acc[i][j]);
+    for (int o = 1; o <= 2; o <<= 1) {
+      m_lo = fmaxf(m_lo, __shfl_xor_sync(FULL, m_lo, o));
+      m_hi = fmaxf(m_hi, __shfl_xor_sync(FULL, m_hi, o));
+    }
   }
-  const float pv_over_c = (p_s * v_s) * (1.0f / c_s);
-  const float tpv = (static_cast<float>(T) * p_sh) * v_sh;
-  const float half_c = c_bits ? static_cast<float>(1 << (c_bits - 1)) : 0.0f;
+  double d[2][2] = {{0.0, 0.0}, {0.0, 0.0}};
 #pragma unroll
-  for (int i = 0; i < C::RI; ++i) {
-    const int r = ty + 16 * i;
-    const size_t orow = (row0 + i0 + r) * static_cast<size_t>(hidden);
+  for (int ni = 0; ni < NT; ++ni) {
 #pragma unroll
-    for (int j = 0; j < C::CD; ++j) {
-      const int d = tx + 16 * j;
-      float ctx = __double2float_rn(acc[i][j]);
-      if (int_pv) ctx = ((ctx + p_sh * vsum[d]) + v_sh * psum[r]) + tpv;
-      const float x = ctx * pv_over_c;
-      const size_t o = orow + h * D + d;
-      if (c_bits == 0) {
-        static_cast<float*>(out)[o] = x;
-      } else if (c_bits > 8) {
-        static_cast<float*>(out)[o] =
-            c_s * clipf(rintf(x), c_sh - half_c, c_sh + half_c - 1.0f);
-      } else {
-        static_cast<int8_t*>(out)[o] = static_cast<int8_t>(__float2int_rz(
-            clipf(rintf(x) - c_sh, -half_c, half_c - 1.0f)));
+    for (int r = 0; r < 4; ++r) {
+      const float e =
+          exp2f(SKIP ? sv[ni][r] : sv[ni][r] - (r < 2 ? m_lo : m_hi));
+      sv[ni][r] = e;
+      d[r >> 1][ni & 1] += static_cast<double>(e);
+    }
+  }
+  double d_lo = d[0][0] + d[0][1], d_hi = d[1][0] + d[1][1];
+#pragma unroll
+  for (int o = 1; o <= 2; o <<= 1) {
+    d_lo += __shfl_xor_sync(FULL, d_lo, o);
+    d_hi += __shfl_xor_sync(FULL, d_hi, o);
+  }
+  dlo = static_cast<float>(d_lo);
+  dhi = static_cast<float>(d_hi);
+}
+
+// The probs site's float value of e (not a payload): the shifted level
+// (1-16 bits) or, disabled, e / sum
+__device__ __forceinline__ float probs_of(float e, float w, float inv_den,
+                                          const FSite& f) {
+  return f.p_bits == 0 ? e * inv_den : clipf(rintf(e * w), f.p_lo, f.p_hi);
+}
+
+// Two neighbouring context outputs (dims d, d + 1 of one row) through the
+// context site, at element o of the (M, hidden) output
+__device__ __forceinline__ void store_ctx2(void* out, size_t o, float c0,
+                                           float c1, const FSite& f) {
+  const float x0 = c0 * f.s.pv_over_c, x1 = c1 * f.s.pv_over_c;
+  if (f.c_bits == 0) {
+    *reinterpret_cast<float2*>(static_cast<float*>(out) + o) =
+        make_float2(x0, x1);
+  } else if (f.c_bits > 8) {
+    *reinterpret_cast<float2*>(static_cast<float*>(out) + o) =
+        make_float2(f.c_s * clipf(rintf(x0), f.c_lo, f.c_hi),
+                    f.c_s * clipf(rintf(x1), f.c_lo, f.c_hi));
+  } else {
+    // a level off the integers truncates, as the plain version's cast
+    char2 v;
+    v.x = static_cast<signed char>(
+        __float2int_rz(clipf(rintf(x0) - f.s.c_sh, f.c_lo, f.c_hi)));
+    v.y = static_cast<signed char>(
+        __float2int_rz(clipf(rintf(x1) - f.s.c_sh, f.c_lo, f.c_hi)));
+    *reinterpret_cast<char2*>(static_cast<int8_t*>(out) + o) = v;
+  }
+}
+
+// p.v on the float64 tensor cores: this warp's 16 rows of float probs
+// (sv, the m16n8 layout of softmax) against v, G head-dim n8 tiles a
+// pass (each probs fragment converted once a pass); load_b(nd, q16, b)
+// gives b[s] = v + v_sh at key 16 q16 + {2t, 2t+1, 2t+8, 2t+9}[s] and
+// head dim 8 nd + g, the keys the probs fragment's k positions t + 4s
+// hold. emit(nd, ctx) takes the float32 context of tile nd (the m16n8
+// layout).
+template <int T, int D, int G, typename LoadB, typename Emit>
+__device__ __forceinline__ void pv_f64(const float (&sv)[T / 8][4],
+                                       LoadB load_b, Emit emit) {
+#pragma unroll 1
+  for (int nd0 = 0; nd0 < D / 8; nd0 += G) {
+    double c[G][4];
+#pragma unroll
+    for (int j = 0; j < G; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) c[j][i] = 0.0;
+#pragma unroll
+    for (int q16 = 0; q16 < T / 16; ++q16) {
+      double a[8];
+#pragma unroll
+      for (int s = 0; s < 4; ++s)
+#pragma unroll
+        for (int r = 0; r < 2; ++r)
+          a[2 * s + r] = sv[2 * q16 + (s >> 1)][(s & 1) + 2 * r];
+#pragma unroll
+      for (int j = 0; j < G; ++j) {
+        double b[4];
+        load_b(nd0 + j, q16, b);
+        tqdm::dmma16<KS_F>(c[j], a, b);
       }
+    }
+#pragma unroll
+    for (int j = 0; j < G; ++j) {
+      float ctx[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) ctx[i] = __double2float_rn(c[j][i]);
+      emit(nd0 + j, ctx);
     }
   }
 }
 
-template <int T, int D, bool QF>
-cudaError_t launch_flex(const void* qkv, const float* mask,
+// PV_LVL's condition on a block: exact integer p.v (see the note)
+__device__ __forceinline__ bool lvl_exact(float p_sh, float v_sh) {
+  return fabsf(p_sh) <= LVL_SHIFT_MAX && rintf(p_sh) == p_sh &&
+         fabsf(v_sh) <= LVL_SHIFT_MAX && rintf(v_sh) == v_sh;
+}
+
+template <int T, int D>
+struct FCfg {
+  using C = Cfg<T, D>;
+  // K2's layout without the output staging: two stages | x 2: v^T, key
+  // constants, p_sh * vsum (PV_LVL: vsum) | barriers
+  static constexpr int SMEM =
+      1024 + 2 * C::STAGE + 2 * (C::VT + ROWS * 8 + C::PVS * 4) + 16;
+};
+
+template <int T, int D, int PV>
+__global__ void __launch_bounds__(THREADS, i8_blocks<PV>())
+    attn_flex_i8_kernel(const __grid_constant__ CUtensorMap map_q,
+                        const __grid_constant__ CUtensorMap map_k,
+                        const __grid_constant__ CUtensorMap map_v,
+                        const __grid_constant__ CUtensorMap map_m,
+                        const float* __restrict__ scal,
+                        void* __restrict__ out, int n_items, int n_heads,
+                        int hidden, float rsqrt_d, float log2e,
+                        int skip_max, int sc_bits, int p_bits, int c_bits) {
+  using C = Cfg<T, D>;
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  uint8_t* ring = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  int8_t* vt = reinterpret_cast<int8_t*>(ring + 2 * C::STAGE);
+  float* colv = reinterpret_cast<float*>(vt + 2 * C::VT);
+  float* pvs = colv + 2 * ROWS * 2;
+  uint64_t* full = reinterpret_cast<uint64_t*>(pvs + 2 * C::PVS);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int n_groups = (n_items + C::G - 1) / C::G;
+
+  auto load = [&](int grp, int n) {
+    const int first = grp * C::G;
+    const int nv = min(C::G, n_items - first);
+    uint8_t* st = ring + (n & 1) * C::STAGE;
+    uint64_t* bar = &full[n & 1];
+    tqwg::mbar_arrive_expect_tx(bar, nv * (3 * T * D + 4 * T));
+    for (int i = 0; i < nv; ++i) {
+      const int b = (first + i) / n_heads;
+      const int h = first + i - b * n_heads;
+      tqwg::tma_load_2d(st + i * T * D, &map_q, bar, h * D, b * T);
+      tqwg::tma_load_2d(st + C::TILE + i * T * D, &map_k, bar, h * D, b * T);
+      tqwg::tma_load_2d(st + 2 * C::TILE + i * T * D, &map_v, bar, h * D,
+                        b * T);
+      tqwg::tma_load_2d(st + 3 * C::TILE + i * T * 4, &map_m, bar, 0, b);
+    }
+  };
+  if (threadIdx.x == 0) {
+    tqwg::mbar_init(&full[0], 1);
+    tqwg::mbar_init(&full[1], 1);
+    tqwg::fence_barrier_init();
+    tqwg::tma_prefetch_map(&map_q);
+    tqwg::tma_prefetch_map(&map_k);
+    tqwg::tma_prefetch_map(&map_v);
+    tqwg::tma_prefetch_map(&map_m);
+    for (int n = 0; n < 2 && blockIdx.x + n * gridDim.x < n_groups; ++n)
+      load(blockIdx.x + n * gridDim.x, n);
+  }
+  __syncthreads();
+
+  const FSite f = fsite_of<T, D>(scal, rsqrt_d, log2e, sc_bits, p_bits,
+                                 c_bits, PV == PV_PAY);
+  // prep's p_sh * vsum: vsum itself where PV_LVL takes it apart
+  Site sp = f.s;
+  if (PV == PV_LVL) sp.p_sh = 1.0f;
+  const bool exact = PV == PV_LVL && lvl_exact(f.s.p_sh, f.s.v_sh);
+  const int g = lane >> 2, t = lane & 3;
+  const int slot = warp / (T / 16);
+  const int q0 = slot * T + (warp % (T / 16)) * 16;
+  int n = 0;
+  for (int grp = blockIdx.x; grp < n_groups; grp += gridDim.x, ++n) {
+    const int par = n & 1;
+    const int first = grp * C::G;
+    const int nv = min(C::G, n_items - first);
+    const int8_t* st = reinterpret_cast<const int8_t*>(ring + par * C::STAGE);
+    int8_t* vtp = vt + par * C::VT;
+    float* colp = colv + par * ROWS * 2;
+    float* pvp = pvs + par * C::PVS;
+    tqwg::mbar_wait(&full[par], (n >> 1) & 1);
+    prep<T, D, false>(st, vtp, colp, pvp, sp, log2e, nv);
+    __syncthreads();
+    if (threadIdx.x == 0 && n >= 1 && grp + gridDim.x < n_groups)
+      load(grp + gridDim.x, n + 1);
+    if (slot >= nv) continue;
+    const int item = first + slot;
+    const int b = item / n_heads, hd = item - b * n_heads;
+    // this warp's output rows g and g + 8, at head hd's columns
+    const size_t orow =
+        static_cast<size_t>(b * T + (q0 - slot * T) + g) * hidden + hd * D;
+    const size_t o8 = static_cast<size_t>(8) * hidden;
+
+    int acc[C::NT][4], qs[4];
+    scores<T, D>(st, st + C::TILE, q0, slot * T, g, t, acc, qs);
+    const float* ci = colp + slot * T * 2;
+    const float qk_lo = f.s.k_sh * i2f(qs[0]);
+    const float qk_hi = f.s.k_sh * i2f(qs[2]);
+    float sv[C::NT][4];
+#pragma unroll
+    for (int ni = 0; ni < C::NT; ++ni) {
+      const float4 cv =
+          *reinterpret_cast<const float4*>(ci + 4 * (ni * 4 + t));
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const float kq = (r & 1) ? cv.y : cv.x;
+        const float m2 = (r & 1) ? cv.w : cv.z;
+        const float scr =
+            ((i2f(acc[ni][r]) + kq) + (r < 2 ? qk_lo : qk_hi)) + f.s.dqk;
+        sv[ni][r] = s2_of(scr, m2, f);
+      }
+    }
+    float dlo, dhi;
+    if (skip_max)
+      flex_softmax<C::NT, true>(sv, dlo, dhi);
+    else
+      flex_softmax<C::NT, false>(sv, dlo, dhi);
+    const float w_lo = f.s.inv_ps / dlo, w_hi = f.s.inv_ps / dhi;
+    const int8_t* vti = vtp + slot * D * C::LDV;
+    const float* pvi = pvp + slot * D;
+
+    if constexpr (PV == PV_PAY) {
+      // K2's payload p.v: the probs' int8 payload in the A fragments
+      unsigned pa[C::KC][4];
+#pragma unroll
+      for (int c = 0; c < C::KC; ++c) {
+        uint32_t u[4][4];
+#pragma unroll
+        for (int nn = 0; nn < 4; ++nn)
+#pragma unroll
+          for (int r = 0; r < 4; ++r)
+            u[nn][r] = static_cast<uint32_t>(__float2int_rz(
+                clipf(rintf(sv[4 * c + nn][r] * (r < 2 ? w_lo : w_hi)) -
+                          f.s.p_sh,
+                      f.p_lo, f.p_hi)));
+        pa[c][0] = pack4(u[0][0], u[0][1], u[1][0], u[1][1]);
+        pa[c][1] = pack4(u[0][2], u[0][3], u[1][2], u[1][3]);
+        pa[c][2] = pack4(u[2][0], u[2][1], u[3][0], u[3][1]);
+        pa[c][3] = pack4(u[2][2], u[2][3], u[3][2], u[3][3]);
+      }
+      const unsigned ones[2] = {ONES, ONES};
+      int ps[4] = {0, 0, 0, 0};
+#pragma unroll
+      for (int c = 0; c < C::KC; ++c) tqmm::mma_k32(ps, pa[c], ones);
+      const float vp_lo = f.s.v_sh * i2f(ps[0]);
+      const float vp_hi = f.s.v_sh * i2f(ps[2]);
+#pragma unroll
+      for (int ni = 0; ni < C::ND; ++ni) {
+        int a2[4] = {0, 0, 0, 0};
+        const int8_t* row = vti + (ni * 8 + g) * C::LDV;
+#pragma unroll
+        for (int c = 0; c < C::KC; ++c) {
+          const unsigned vb[2] = {
+              *reinterpret_cast<const uint32_t*>(row + vt_pos<T>(c, 0, t)),
+              *reinterpret_cast<const uint32_t*>(row + vt_pos<T>(c, 1, t))};
+          tqmm::mma_k32(a2, pa[c], vb);
+        }
+        const float2 pv =
+            *reinterpret_cast<const float2*>(pvi + ni * 8 + 2 * t);
+        float ctx[4];
+#pragma unroll
+        for (int r = 0; r < 4; ++r)
+          ctx[r] = ((i2f(a2[r]) + ((r & 1) ? pv.y : pv.x)) +
+                    (r < 2 ? vp_lo : vp_hi)) +
+                   f.s.tpv;
+        store_ctx2(out, orow + ni * 8 + 2 * t, ctx[0], ctx[1], f);
+        store_ctx2(out, orow + o8 + ni * 8 + 2 * t, ctx[2], ctx[3], f);
+      }
+    } else {
+      // the float probs (PV_LVL: the shifted levels; PV_F64: e / sum)
+      const float id_lo = 1.0f / dlo, id_hi = 1.0f / dhi;
+#pragma unroll
+      for (int ni = 0; ni < C::NT; ++ni)
+#pragma unroll
+        for (int r = 0; r < 4; ++r)
+          sv[ni][r] = probs_of(sv[ni][r], r < 2 ? w_lo : w_hi,
+                               r < 2 ? id_lo : id_hi, f);
+      if (PV == PV_LVL && exact) {
+        // U = L - lo_b in two byte planes, on mma.sync u8 x s8
+        const int lo_b = static_cast<int>(f.p_lo);
+        unsigned plo[C::KC][4], phi[C::KC][4];
+#pragma unroll
+        for (int c = 0; c < C::KC; ++c) {
+          uint32_t u[4][4];
+#pragma unroll
+          for (int nn = 0; nn < 4; ++nn)
+#pragma unroll
+            for (int r = 0; r < 4; ++r)
+              u[nn][r] = static_cast<uint32_t>(
+                  __float2int_rn(sv[4 * c + nn][r] - f.p_lo));
+          plo[c][0] = pack4(u[0][0], u[0][1], u[1][0], u[1][1]);
+          plo[c][1] = pack4(u[0][2], u[0][3], u[1][2], u[1][3]);
+          plo[c][2] = pack4(u[2][0], u[2][1], u[3][0], u[3][1]);
+          plo[c][3] = pack4(u[2][2], u[2][3], u[3][2], u[3][3]);
+          phi[c][0] = pack4(u[0][0] >> 8, u[0][1] >> 8, u[1][0] >> 8,
+                            u[1][1] >> 8);
+          phi[c][1] = pack4(u[0][2] >> 8, u[0][3] >> 8, u[1][2] >> 8,
+                            u[1][3] >> 8);
+          phi[c][2] = pack4(u[2][0] >> 8, u[2][1] >> 8, u[3][0] >> 8,
+                            u[3][1] >> 8);
+          phi[c][3] = pack4(u[2][2] >> 8, u[2][3] >> 8, u[3][2] >> 8,
+                            u[3][3] >> 8);
+        }
+        const unsigned ones[2] = {ONES, ONES};
+        int s_lo[4] = {0, 0, 0, 0}, s_hi[4] = {0, 0, 0, 0};
+#pragma unroll
+        for (int c = 0; c < C::KC; ++c) {
+          tqdm::mma_k32_u8(s_lo, plo[c], ones);
+          tqdm::mma_k32_u8(s_hi, phi[c], ones);
+        }
+        const int v_sh = static_cast<int>(f.s.v_sh);
+        // sum L of rows g, g + 8
+        const long long sl_lo = s_lo[0] + 256LL * s_hi[0] +
+                                static_cast<long long>(T) * lo_b;
+        const long long sl_hi = s_lo[2] + 256LL * s_hi[2] +
+                                static_cast<long long>(T) * lo_b;
+#pragma unroll
+        for (int ni = 0; ni < C::ND; ++ni) {
+          int a_lo[4] = {0, 0, 0, 0}, a_hi[4] = {0, 0, 0, 0};
+          const int8_t* row = vti + (ni * 8 + g) * C::LDV;
+#pragma unroll
+          for (int c = 0; c < C::KC; ++c) {
+            const unsigned vb[2] = {
+                *reinterpret_cast<const uint32_t*>(row + vt_pos<T>(c, 0, t)),
+                *reinterpret_cast<const uint32_t*>(row + vt_pos<T>(c, 1, t))};
+            tqdm::mma_k32_u8(a_lo, plo[c], vb);
+            tqdm::mma_k32_u8(a_hi, phi[c], vb);
+          }
+          // vsum of dims 8 ni + 2t, +1 (prep's, an exact float)
+          const float2 vs =
+              *reinterpret_cast<const float2*>(pvi + ni * 8 + 2 * t);
+          const long long vsum[2] = {__float2ll_rn(vs.x),
+                                     __float2ll_rn(vs.y)};
+          float ctx[4];
+#pragma unroll
+          for (int r = 0; r < 4; ++r)
+            ctx[r] = __ll2float_rn(a_lo[r] + 256LL * a_hi[r] +
+                                   lo_b * vsum[r & 1] +
+                                   v_sh * (r < 2 ? sl_lo : sl_hi));
+          store_ctx2(out, orow + ni * 8 + 2 * t, ctx[0], ctx[1], f);
+          store_ctx2(out, orow + o8 + ni * 8 + 2 * t, ctx[2], ctx[3], f);
+        }
+        continue;
+      }
+      // p.v on the float64 tensor cores: b = v8 + v_sh as float32, as the
+      // plain version adds them, then float64
+      const float v_sh = f.s.v_sh;
+      pv_f64<T, D, NDG>(
+          sv,
+          [&](int nd, int q16, double (&bb)[4]) {
+            const uint32_t word = *reinterpret_cast<const uint32_t*>(
+                vti + (nd * 8 + g) * C::LDV + vt_pos<T>(q16 >> 1, q16 & 1, t));
+#pragma unroll
+            for (int s = 0; s < 4; ++s)
+              bb[s] = static_cast<double>(
+                  tqmm::i8_to_float(static_cast<int8_t>(word >> (8 * s))) +
+                  v_sh);
+          },
+          [&](int nd, const float (&ctx)[4]) {
+            store_ctx2(out, orow + nd * 8 + 2 * t, ctx[0], ctx[1], f);
+            store_ctx2(out, orow + o8 + nd * 8 + 2 * t, ctx[2], ctx[3], f);
+          });
+    }
+  }
+}
+
+// The float route's stage: one group (G items) of q, k and v as float32,
+// q and k in rows of D floats (16-byte chunks swapped in odd rows: qoff),
+// v in rows of D + 4 (its column reads meet no bank twice), and the items'
+// mask rows
+template <int T, int D>
+struct QCfg {
+  static constexpr int G = ROWS / T;
+  static constexpr int LV = D + 4;             // v rows (floats)
+  static constexpr int QB = ROWS * D * 4;      // the q or k tile's bytes
+  static constexpr int VB = ROWS * LV * 4;     // the v tile's bytes
+  static constexpr int STAGE = 2 * QB + VB + ROWS * 4;
+  static constexpr int SMEM = 2 * STAGE;
+};
+
+// byte offset of 16-byte chunk c of row r in a q or k tile: chunks c and
+// c ^ 4 trade places in odd rows, so that the eight rows of a fragment
+// load meet no bank twice
+template <int D>
+__device__ __forceinline__ int qoff(int r, int c) {
+  return r * D * 4 + ((c ^ ((r & 1) << 2)) << 4);
+}
+
+template <int T, int D>
+__global__ void __launch_bounds__(THREADS, F32_BLOCKS)
+    attn_flex_f32_kernel(const float* __restrict__ qkv,
+                         const float* __restrict__ mask,
+                         const float* __restrict__ scal,
+                         void* __restrict__ out, int n_items, int n_heads,
+                         int hidden, float rsqrt_d, float log2e,
+                         int skip_max, int sc_bits, int p_bits, int c_bits) {
+  using Q = QCfg<T, D>;
+  constexpr int NT = T / 8;
+  constexpr int CH = D / 4;                  // 16-byte chunks a row
+  extern __shared__ __align__(16) uint8_t fsm[];
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int n_groups = (n_items + Q::G - 1) / Q::G;
+  const int ld = 3 * hidden;
+  const FSite f = fsite_of<T, D>(scal, rsqrt_d, log2e, sc_bits, p_bits,
+                                 c_bits, false);
+
+  // every thread's cp.async share of group grp into stage st: q, k and v
+  // rows of the group's items (row i*T + j: key j of item i), then their
+  // mask rows; one commit group
+  auto load = [&](int grp, int st) {
+    uint8_t* qs = fsm + st * Q::STAGE;
+    uint8_t* ks = qs + Q::QB;
+    float* vs = reinterpret_cast<float*>(ks + Q::QB);
+    float* ms = vs + ROWS * Q::LV;
+    const int first = grp * Q::G;
+    const int nv = min(Q::G, n_items - first);
+    for (int e = tid; e < nv * T * CH; e += THREADS) {
+      const int r = e / CH, c = e - r * CH;
+      const int item = first + r / T, j = r % T;
+      const int b = item / n_heads, h = item - b * n_heads;
+      const float* src = qkv + static_cast<size_t>(b * T + j) * ld + h * D +
+                         4 * c;
+      tqdm::cp16(qs + qoff<D>(r, c), src, true);
+      tqdm::cp16(ks + qoff<D>(r, c), src + hidden, true);
+      tqdm::cp16(vs + r * Q::LV + 4 * c, src + 2 * hidden, true);
+    }
+    for (int e = tid; e < nv * T / 4; e += THREADS) {
+      const int item = first + 4 * e / T;
+      tqdm::cp16(ms + 4 * e,
+                 mask + static_cast<size_t>(item / n_heads) * T + 4 * e % T,
+                 true);
+    }
+    tqdm::cp_commit();
+  };
+
+  const int g = lane >> 2, t = lane & 3;
+  const int slot = warp / (T / 16);
+  const int q0 = slot * T + (warp % (T / 16)) * 16, k0 = slot * T;
+  if (blockIdx.x < n_groups) load(blockIdx.x, 0);
+  int n = 0;
+  for (int grp = blockIdx.x; grp < n_groups; grp += gridDim.x, ++n) {
+    // the next group's loads go out under this one's products; its stage
+    // was read by the group before, which every warp is done with
+    if (grp + gridDim.x < n_groups)
+      load(grp + gridDim.x, (n + 1) & 1);
+    else
+      tqdm::cp_commit();
+    tqdm::cp_wait<1>();
+    __syncthreads();
+    const uint8_t* qs = fsm + (n & 1) * Q::STAGE;
+    const uint8_t* ks = qs + Q::QB;
+    const float* vs = reinterpret_cast<const float*>(ks + Q::QB);
+    const float* ms = vs + ROWS * Q::LV;
+    const int item = grp * Q::G + slot;
+    if (item < n_items) {
+      const int b = item / n_heads, hd = item - b * n_heads;
+      // q.k: KCH key n8 tiles a pass, the head dims 16 at a time (dims 16
+      // kb + 4t + s as the fragments' k positions t + 4s)
+      float sv[NT][4];
+#pragma unroll
+      for (int kc = 0; kc < NT; kc += KCH) {
+        double acc[KCH][4];
+#pragma unroll
+        for (int j = 0; j < KCH; ++j)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) acc[j][i] = 0.0;
+#pragma unroll
+        for (int kb = 0; kb < D / 16; ++kb) {
+          const float4 lo4 = *reinterpret_cast<const float4*>(
+              qs + qoff<D>(q0 + g, 4 * kb + t));
+          const float4 hi4 = *reinterpret_cast<const float4*>(
+              qs + qoff<D>(q0 + g + 8, 4 * kb + t));
+          const double a[8] = {lo4.x, hi4.x, lo4.y, hi4.y,
+                               lo4.z, hi4.z, lo4.w, hi4.w};
+#pragma unroll
+          for (int j = 0; j < KCH; ++j) {
+            const float4 kv = *reinterpret_cast<const float4*>(
+                ks + qoff<D>(k0 + (kc + j) * 8 + g, 4 * kb + t));
+            const double bb[4] = {kv.x, kv.y, kv.z, kv.w};
+            tqdm::dmma16<KS_F>(acc[j], a, bb);
+          }
+        }
+#pragma unroll
+        for (int j = 0; j < KCH; ++j)
+#pragma unroll
+          for (int r = 0; r < 4; ++r) {
+            const float ml =
+                ms[k0 + (kc + j) * 8 + 2 * t + (r & 1)] * log2e;
+            sv[kc + j][r] = s2_of(__double2float_rn(acc[j][r]),
+                                  sc_bits ? ml + f.s.ash : ml, f);
+          }
+      }
+      float dlo, dhi;
+      if (skip_max)
+        flex_softmax<NT, true>(sv, dlo, dhi);
+      else
+        flex_softmax<NT, false>(sv, dlo, dhi);
+      const float w_lo = f.s.inv_ps / dlo, w_hi = f.s.inv_ps / dhi;
+      const float id_lo = 1.0f / dlo, id_hi = 1.0f / dhi;
+#pragma unroll
+      for (int ni = 0; ni < NT; ++ni)
+#pragma unroll
+        for (int r = 0; r < 4; ++r)
+          sv[ni][r] = probs_of(sv[ni][r], r < 2 ? w_lo : w_hi,
+                               r < 2 ? id_lo : id_hi, f);
+      const size_t orow =
+          static_cast<size_t>(b * T + (q0 - slot * T) + g) * hidden + hd * D;
+      const size_t o8 = static_cast<size_t>(8) * hidden;
+      const float* vb = vs + k0 * Q::LV;
+      const float v_sh = f.s.v_sh;
+      // b = v + v_sh, a float32 add as the plain version's, then float64
+      pv_f64<T, D, D / 8>(
+          sv,
+          [&](int nd, int q16, double (&bb)[4]) {
+            const float* col = vb + 16 * q16 * Q::LV + nd * 8 + g;
+            bb[0] = col[(2 * t) * Q::LV] + v_sh;
+            bb[1] = col[(2 * t + 1) * Q::LV] + v_sh;
+            bb[2] = col[(2 * t + 8) * Q::LV] + v_sh;
+            bb[3] = col[(2 * t + 9) * Q::LV] + v_sh;
+          },
+          [&](int nd, const float (&ctx)[4]) {
+            store_ctx2(out, orow + nd * 8 + 2 * t, ctx[0], ctx[1], f);
+            store_ctx2(out, orow + o8 + nd * 8 + 2 * t, ctx[2], ctx[3], f);
+          });
+    }
+    __syncthreads();   // every warp is done with this stage
+  }
+  tqdm::cp_wait<0>();
+}
+
+// resident blocks an SM of an instance at `smem` bytes (its allowance
+// set), or -1
+template <typename K>
+int flex_blocks(K kernel, int smem) {
+  int n = 0;
+  if (cudaFuncSetAttribute(kernel,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           smem) != cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, THREADS,
+                                                    smem) != cudaSuccess)
+    return -1;
+  return n;
+}
+
+// The integer route: K2's tensor maps over the fused q|k|v payload
+// (column blocks 0, 1, 2 at a row stride of 3 hidden bytes) and the mask;
+// one persistent block a group, at most the card's resident blocks.
+template <int T, int D, int PV>
+cudaError_t launch_flex_i8(const void* qkv, const void* mask,
+                           const float* scal, void* out, int B, int hidden,
+                           int n_heads, int sc_bits, int p_bits, int c_bits,
+                           float rsqrt_d, float log2e, int skip_max,
+                           cudaStream_t stream) {
+  constexpr int smem = FCfg<T, D>::SMEM;
+  static const int slots = [] {
+    int dev = 0, sms = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+            cudaSuccess)
+      return 0;
+    const int per_sm = flex_blocks(attn_flex_i8_kernel<T, D, PV>, smem);
+    return per_sm > 0 ? sms * per_sm : 0;
+  }();
+  if (slots == 0) return cudaErrorInvalidConfiguration;
+  const CUtensorMapSwizzle swz =
+      D == 64 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_32B;
+  const uint64_t rows = static_cast<uint64_t>(B) * T;
+  const uint64_t ld = 3ull * hidden;
+  const int8_t* base = static_cast<const int8_t*>(qkv);
+  CUtensorMap mq, mk, mv, mm;
+  if (!make_map(&mq, base, false, hidden, rows, ld, D, T, swz) ||
+      !make_map(&mk, base + hidden, false, hidden, rows, ld, D, T, swz) ||
+      !make_map(&mv, base + 2 * hidden, false, hidden, rows, ld, D, T,
+                swz) ||
+      !make_map(&mm, mask, true, T, B, 4ull * T, T, 1,
+                CU_TENSOR_MAP_SWIZZLE_NONE))
+    return cudaErrorInvalidValue;
+  const int n_items = B * n_heads;
+  const int groups = (n_items + Cfg<T, D>::G - 1) / Cfg<T, D>::G;
+  const int grid = groups < slots ? groups : slots;
+  attn_flex_i8_kernel<T, D, PV><<<grid, THREADS, smem, stream>>>(
+      mq, mk, mv, mm, scal, out, n_items, n_heads, hidden, rsqrt_d, log2e,
+      skip_max, sc_bits, p_bits, c_bits);
+  return cudaGetLastError();
+}
+
+// The float route: persistent blocks, one an SM (at most the groups)
+template <int T, int D>
+cudaError_t launch_flex_f32(const void* qkv, const void* mask,
+                            const float* scal, void* out, int B, int hidden,
+                            int n_heads, int sc_bits, int p_bits,
+                            int c_bits, float rsqrt_d, float log2e,
+                            int skip_max, cudaStream_t stream) {
+  using Q = QCfg<T, D>;
+  static const int slots = [] {
+    int dev = 0, sms = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+            cudaSuccess)
+      return 0;
+    const int per_sm = flex_blocks(attn_flex_f32_kernel<T, D>, Q::SMEM);
+    return per_sm > 0 ? sms * per_sm : 0;
+  }();
+  if (slots == 0) return cudaErrorInvalidConfiguration;
+  const int n_items = B * n_heads;
+  const int groups = (n_items + Q::G - 1) / Q::G;
+  attn_flex_f32_kernel<T, D><<<groups < slots ? groups : slots, THREADS,
+                               Q::SMEM, stream>>>(
+      static_cast<const float*>(qkv), static_cast<const float*>(mask), scal,
+      out, n_items, n_heads, hidden, rsqrt_d, log2e, skip_max, sc_bits,
+      p_bits, c_bits);
+  return cudaGetLastError();
+}
+
+template <int T, int D>
+cudaError_t launch_flex(int f32, const void* qkv, const void* mask,
                         const float* scal, void* out, int B, int hidden,
                         int n_heads, int sc_bits, int p_bits, int c_bits,
                         float rsqrt_d, float log2e, int skip_max,
                         cudaStream_t st) {
-  using C = FCfg<T, D>;
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      attn_flex_kernel<T, D, QF>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
-  if (attr != cudaSuccess) return attr;
-  const int blocks = B * n_heads * C::SPLIT;
-  attn_flex_kernel<T, D, QF><<<blocks, FT, C::SMEM, st>>>(
-      qkv, mask, scal, out, hidden, n_heads, sc_bits, p_bits, c_bits,
-      rsqrt_d, log2e, skip_max);
-  return cudaGetLastError();
-}
-
-template <bool QF>
-cudaError_t launch_flex_td(int T, int D, const void* qkv, const float* mask,
-                           const float* scal, void* out, int B, int hidden,
-                           int n_heads, int sc_bits, int p_bits, int c_bits,
-                           float rsqrt_d, float log2e, int skip_max,
-                           cudaStream_t st) {
-  switch (D * 1000 + T) {
-    case 32032: return launch_flex<32, 32, QF>(qkv, mask, scal, out, B, hidden, n_heads, sc_bits, p_bits, c_bits, rsqrt_d, log2e, skip_max, st);
-    case 32064: return launch_flex<64, 32, QF>(qkv, mask, scal, out, B, hidden, n_heads, sc_bits, p_bits, c_bits, rsqrt_d, log2e, skip_max, st);
-    case 32128: return launch_flex<128, 32, QF>(qkv, mask, scal, out, B, hidden, n_heads, sc_bits, p_bits, c_bits, rsqrt_d, log2e, skip_max, st);
-    case 64032: return launch_flex<32, 64, QF>(qkv, mask, scal, out, B, hidden, n_heads, sc_bits, p_bits, c_bits, rsqrt_d, log2e, skip_max, st);
-    case 64064: return launch_flex<64, 64, QF>(qkv, mask, scal, out, B, hidden, n_heads, sc_bits, p_bits, c_bits, rsqrt_d, log2e, skip_max, st);
-    case 64128: return launch_flex<128, 64, QF>(qkv, mask, scal, out, B, hidden, n_heads, sc_bits, p_bits, c_bits, rsqrt_d, log2e, skip_max, st);
-    default: return cudaErrorInvalidValue;
-  }
+  if (f32)
+    return launch_flex_f32<T, D>(qkv, mask, scal, out, B, hidden, n_heads,
+                                 sc_bits, p_bits, c_bits, rsqrt_d, log2e,
+                                 skip_max, st);
+  if (p_bits == 0)
+    return launch_flex_i8<T, D, PV_F64>(qkv, mask, scal, out, B, hidden,
+                                        n_heads, sc_bits, p_bits, c_bits,
+                                        rsqrt_d, log2e, skip_max, st);
+  if (p_bits <= 8)
+    return launch_flex_i8<T, D, PV_PAY>(qkv, mask, scal, out, B, hidden,
+                                        n_heads, sc_bits, p_bits, c_bits,
+                                        rsqrt_d, log2e, skip_max, st);
+  return launch_flex_i8<T, D, PV_LVL>(qkv, mask, scal, out, B, hidden,
+                                      n_heads, sc_bits, p_bits, c_bits,
+                                      rsqrt_d, log2e, skip_max, st);
 }
 
 }  // namespace
 
 // qkv: the (B*T, 3 hidden) fused q|k|v edge, int8 payloads (f32 0) or
-// float32 values (f32 1), heads head-minor inside each third; mask: (B, T)
-// f32 additive bias; scal: 12 f32 site scalars; out: (B*T, hidden), int8
-// for a context site of 1-8 bits, else f32. sc_bits / p_bits / c_bits:
-// 1-16, or 0 for a disabled site. T in {32, 64, 128}, head_dim = hidden /
-// n_heads in {32, 64}. Returns the launch's cudaError_t
-// (cudaErrorInvalidValue for arguments the kernel does not take).
+// float32 values (f32 1), heads head-minor inside each third, 16-byte
+// aligned; mask: (B, T) f32 additive bias, 16-byte aligned; scal: 12 f32
+// site scalars; out: (B*T, hidden), int8 for a context site of 1-8 bits,
+// else f32, 16-byte aligned. sc_bits / p_bits / c_bits: 1-16, or 0 for a
+// disabled site. T in {32, 64, 128}, head_dim = hidden / n_heads in {32,
+// 64}. The route: float32 values take the float64 one; payloads the
+// integer one, with p.v on the float64 tensor cores where the probs site
+// is disabled. Returns the launch's cudaError_t (cudaErrorInvalidValue for
+// arguments the kernel does not take, or a tensor map that cannot be
+// encoded).
 extern "C" int tq_int8_attention_flex(const void* qkv, int f32,
                                       const void* mask, const void* scal,
                                       void* out, int B, int T, int hidden,
@@ -1165,17 +1660,38 @@ extern "C" int tq_int8_attention_flex(const void* qkv, int f32,
                                       int c_bits, float rsqrt_d, float log2e,
                                       int skip_max, void* stream) {
   if (B <= 0 || n_heads <= 0 || hidden % n_heads || sc_bits < 0 ||
-      sc_bits > 16 || p_bits < 0 || p_bits > 16 || c_bits < 0 || c_bits > 16)
+      sc_bits > 16 || p_bits < 0 || p_bits > 16 || c_bits < 0 ||
+      c_bits > 16 ||
+      ((reinterpret_cast<uintptr_t>(qkv) | reinterpret_cast<uintptr_t>(mask) |
+        reinterpret_cast<uintptr_t>(out)) & 15))
     return static_cast<int>(cudaErrorInvalidValue);
   const int D = hidden / n_heads;
-  const float* m = static_cast<const float*>(mask);
   const float* s = static_cast<const float*>(scal);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return static_cast<int>(
-      f32 ? launch_flex_td<true>(T, D, qkv, m, s, out, B, hidden, n_heads,
-                                 sc_bits, p_bits, c_bits, rsqrt_d, log2e,
-                                 skip_max, st)
-          : launch_flex_td<false>(T, D, qkv, m, s, out, B, hidden, n_heads,
-                                  sc_bits, p_bits, c_bits, rsqrt_d, log2e,
-                                  skip_max, st));
+  switch (D * 1000 + T) {
+    case 32032: return static_cast<int>(launch_flex<32, 32>(f32, qkv, mask, s, out, B, hidden, n_heads, sc_bits, p_bits, c_bits, rsqrt_d, log2e, skip_max, st));
+    case 32064: return static_cast<int>(launch_flex<64, 32>(f32, qkv, mask, s, out, B, hidden, n_heads, sc_bits, p_bits, c_bits, rsqrt_d, log2e, skip_max, st));
+    case 32128: return static_cast<int>(launch_flex<128, 32>(f32, qkv, mask, s, out, B, hidden, n_heads, sc_bits, p_bits, c_bits, rsqrt_d, log2e, skip_max, st));
+    case 64032: return static_cast<int>(launch_flex<32, 64>(f32, qkv, mask, s, out, B, hidden, n_heads, sc_bits, p_bits, c_bits, rsqrt_d, log2e, skip_max, st));
+    case 64064: return static_cast<int>(launch_flex<64, 64>(f32, qkv, mask, s, out, B, hidden, n_heads, sc_bits, p_bits, c_bits, rsqrt_d, log2e, skip_max, st));
+    case 64128: return static_cast<int>(launch_flex<128, 64>(f32, qkv, mask, s, out, B, hidden, n_heads, sc_bits, p_bits, c_bits, rsqrt_d, log2e, skip_max, st));
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// Resident blocks an SM of each flex instance at (T, head_dim): route 0
+// integer (PV_LVL, the widest), 1 float; -1 for shapes it does not take or
+// a failed query
+extern "C" int tq_int8_attention_flex_blocks(int T, int D, int route) {
+  switch ((D * 1000 + T) * 2 + (route != 0)) {
+#define TQ_FB(t, d)                                                          \
+  case (d * 1000 + t) * 2:                                                   \
+    return flex_blocks(attn_flex_i8_kernel<t, d, PV_LVL>, FCfg<t, d>::SMEM); \
+  case (d * 1000 + t) * 2 + 1:                                               \
+    return flex_blocks(attn_flex_f32_kernel<t, d>, QCfg<t, d>::SMEM);
+    TQ_FB(32, 32) TQ_FB(64, 32) TQ_FB(128, 32)
+    TQ_FB(32, 64) TQ_FB(64, 64) TQ_FB(128, 64)
+#undef TQ_FB
+    default: return -1;
+  }
 }

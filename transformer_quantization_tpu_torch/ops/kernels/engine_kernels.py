@@ -972,12 +972,14 @@ def float_int8_matmul(x, w8, vecs, *, activation=None, out_mode="emit",
                       out_bits=8):
     """The matmul of a float edge on no grid; see
     :func:`float_int8_matmul_ref`. On the card
-    (``csrc/float_int8_gemm.cu``): a tiled GEMM on the float64 FMA units,
-    x's float32 values and the int8 weight converted exactly to float64 in
-    shared memory, each output's sum rounded once to float32, then the
-    epilogue of :func:`int8_matmul` (wscale, bias, activation, the output
-    site emitted, folded on a 2-16-bit grid or the raw float). Needs
-    16-byte aligned, contiguous operands, K % 4 == 0 and K <= 8192."""
+    (``csrc/float_int8_gemm.cu``): the products on the float64 tensor
+    cores (DMMA), x staged as float32 and the weight as int8 in a cp.async
+    ring and converted exactly to float64 as each fragment is built, each
+    output's sum rounded once to float32, then the epilogue of
+    :func:`int8_matmul` (wscale, bias, activation, the output site
+    emitted, folded on a 2-16-bit grid or the raw float). Needs 16-byte
+    aligned, contiguous operands, K % 16 == 0, K <= 8192 and N % 8 == 0
+    (the engine's plan refuses other widths: ``_require_k1_width``)."""
     if not x.is_cuda:
         return float_int8_matmul_ref(x, w8, vecs, activation=activation,
                                      out_mode=out_mode, out_bits=out_bits)
@@ -989,10 +991,12 @@ def float_int8_matmul(x, w8, vecs, *, activation=None, out_mode="emit",
     _check(w8, "w8", torch.int8, (n, k))
     _check(vecs, "vecs", torch.float32, (5, n))
     _same_device(x, w8, vecs)
-    if not (m and n and k) or k % 4 or k > FI_MAX_K or x.data_ptr() % 16:
+    if (not (m and n and k) or k % 16 or k > FI_MAX_K or n % 8
+            or x.data_ptr() % 16):
         raise NotImplementedError(
-            f"float_int8_matmul kernel needs M, N, K > 0, K % 4 == 0, K <= "
-            f"{FI_MAX_K} and a 16-byte aligned x (got M={m}, N={n}, K={k})")
+            f"float_int8_matmul kernel needs M, N, K > 0, K % 16 == 0, K <= "
+            f"{FI_MAX_K}, N % 8 == 0 and a 16-byte aligned x (got M={m}, "
+            f"N={n}, K={k})")
     out = torch.empty((m, n), device=x.device,
                       dtype=torch.int8 if out_mode == "emit"
                       else torch.float32)
@@ -1076,18 +1080,56 @@ def int8_attention(qkv8, mask_bias, scalars, *, n_heads, seq,
                              attn_bits=attn_bits, what="int8_attention")
 
 
+def attn_flex_route(attn_bits, dots) -> str:
+    """The route of the attention's second kernel for a form, a function
+    of the form alone: ``'int'`` for int8 payloads (``dots='i8'``) and a
+    probs site of 1-16 bits (q.k and p.v on the int8 tensor cores), else
+    ``'f64'`` (float32 q / k / v values, or a disabled probs site: the
+    float dots on the float64 tensor cores)."""
+    _, p_bits, _ = _check_attn_bits(attn_bits)
+    if dots not in ("i8", "f32"):
+        raise ValueError(f"unknown dots {dots!r}")
+    return "int" if dots == "i8" and p_bits >= 1 else "f64"
+
+
+# the magnitude up to which the integer route takes integer p_sh / v_sh
+# exactly (see attn_pv_exact)
+LVL_SHIFT_MAX = 2.0 ** 16
+
+
+def attn_pv_exact(p_sh: float, v_sh: float) -> bool:
+    """Whether the integer route's p.v of a 9-16-bit probs site is an exact
+    integer, the kernel's condition on each block (``lvl_exact`` in
+    ``csrc/int8_attention.cu``): ``p_sh`` and ``v_sh`` (float32) integers
+    of magnitude at most ``LVL_SHIFT_MAX``. Then every probs level ``L``
+    is an integer in ``[p_sh - 2^(b-1), p_sh + 2^(b-1) - 1]``, ``v8 +
+    v_sh`` is an integer exact in float32, and ``sum L (v8 + v_sh)`` is
+    the integer that the kernel takes apart into byte planes (each int32
+    partial below 2^22 at T <= 128) and recombines in int64, which the
+    plain version's float64 sum also reaches exactly (every product <
+    2^34, every partial sum < 2^53). Otherwise the block takes p.v on the
+    float64 tensor cores."""
+    p, v = np.float32(p_sh), np.float32(v_sh)
+    return bool(abs(p) <= LVL_SHIFT_MAX and np.rint(p) == p
+                and abs(v) <= LVL_SHIFT_MAX and np.rint(v) == v)
+
+
 def int8_attention_flex(qkv, mask_bias, scalars, *, n_heads, seq,
                         skip_max=False, attn_bits=(8, 8), dots="i8"):
     """The attention's other forms; see :func:`int8_attention_ref`: scores
     and probs sites of 1-16 bits or disabled, a context payload (1-8 bits)
     or float32 context values (9-16 bits, or disabled), on int8 payloads
     (``dots='i8'``) or float32 q / k / v values (``'f32'``). On the card
-    (``csrc/int8_attention.cu``, ``attn_flex_kernel``): a block a (batch
-    row, head) and half of its query rows, q^T, k^T, the scores and v in
-    shared memory as float64, both products on the float64 FMA units (the
-    integer forms' sums are exact there too), the softmax chain and the
-    sites in the plain version's float32 order; bit-identical to it but
-    where a float64 sum meets a float32 tie."""
+    (``csrc/int8_attention.cu``) the form picks the route
+    (:func:`attn_flex_route`): ``'int'`` runs q.k and p.v on the int8
+    tensor cores on K2's skeleton (a 9-16-bit probs level in two byte
+    planes, combined exactly in int64 where :func:`attn_pv_exact` holds,
+    else p.v on the float64 ones), bit-identical to the plain version;
+    ``'f64'`` runs every float dot on the float64 tensor cores (DMMA; q.k
+    of payloads stays on the int8 ones), equal to it but where a float64
+    sum meets a float32 tie. The softmax chain and the sites take the
+    plain version's float32 order on both. Needs a 16-byte aligned
+    ``mask_bias`` (the integer route loads its rows by TMA)."""
     if not qkv.is_cuda:
         return int8_attention_ref(qkv, mask_bias, scalars, n_heads=n_heads,
                                   seq=seq, skip_max=skip_max,
@@ -1108,6 +1150,9 @@ def int8_attention_flex(qkv, mask_bias, scalars, *, n_heads, seq,
     _check(mask_bias, "mask_bias", torch.float32, (b, seq))
     _check(scalars, "scalars", torch.float32, (1, 12))
     _same_device(qkv, mask_bias, scalars)
+    if qkv.data_ptr() % 16 or mask_bias.data_ptr() % 16:
+        raise ValueError("int8_attention_flex: qkv and mask_bias must start "
+                         "on a 16-byte boundary")
     out = torch.empty((mt, hidden), device=qkv.device,
                       dtype=torch.int8 if 1 <= c_bits <= 8
                       else torch.float32)
