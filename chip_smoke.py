@@ -139,7 +139,14 @@ Phases (any failure exits non-zero; nothing is caught):
    on a fresh ``BucketGraphs``: 15 bursts of requests of new shapes,
    each captured on first use on the scheduler thread while the
    resolver copies the batch before, every batch and request checked
-   as above.
+   as above. Then two more BERT-base checkpoints: the W8A8 one served
+   with ``bf16=True`` (the engine at ``engine_dtype`` bfloat16) and one
+   written without quant state, which the server sends to the generic
+   fallback (the float model, its attention in bfloat16: no kernel of the
+   port's runs there): the route each is served by, the launches over
+   the nine captures, and at every bucket the graph replay equal to the
+   eager forward bit for bit and within the logit tolerance of the plain
+   versions' (untimed).
 12. W4A8 (split-half packed int4 weights): BERT-base from ``--seed``'s
    params calibrated with current-minmax 4-bit symmetric weights and
    8-bit activations, packed int4 (``build_bert_int_params(use_int4=
@@ -253,10 +260,32 @@ Phases (any failure exits non-zero; nothing is caught):
    integer route bit-identical, the float64 one within the ties), and K9
    at ragged M and N, K = 16 and ``EK.FI_MAX_K``, with every epilogue
    (``check_float_int8_shapes``).
+17. the inference options at BERT-base width and depth, from ``--seed``'s
+   params (W8A8, ``{'h': 'fp32'}`` and ``w8a8-mixed`` calibrated on one
+   batch of 8): the kernels' new forms on the calls the options' forwards
+   make on layer 0 (B = 128, S = 128), each against its plain version:
+   K1's inter matmul with the A-S gelu and the degree-10 polynomial
+   (``gelu_impl`` 'exact' / 'poly') and tanh, and its bfloat16 fold and
+   float outputs (the non-payload route's attn_out and dense at
+   ``engine_dtype`` bfloat16); K4 with the three activations on the mixed
+   recipe's inter call and its bfloat16 fold / float outputs; K9 with the
+   three activations and bfloat16 outputs on a seeded float x against
+   layer 0's inter weight (off every path; within the float64 ties);
+   ``fused_add_ln``'s bfloat16 form (both add+LNs of the bf16 non-payload
+   route); the fused linear on a bfloat16 x (q, attn_out, inter of the
+   generic bf16 path) and with ``gelu_poly10``; kernel, plain and library
+   ms and the bound. Then three request batches through each option's
+   forward (``option_forwards``: W8A8 at ``gelu_impl`` 'exact' and 'poly',
+   W8A8, ``{'h': 'fp32'}`` and ``w8a8-mixed`` (with 'exact') at
+   ``engine_dtype`` bfloat16, W8A8 under ``mix:kernels,plain,kernels``,
+   and the generic W8A8 path at ``compute_dtype`` / ``attention_dtype``
+   bfloat16 with and without ``int8_attention``), launches read just
+   after and logits against the same path on the plain versions, and
+   seq/s beside W8A8's (five windows of >= 0.5 s).
 
-``python3 chip_smoke.py --only 13,14,15,16`` runs phases 1 and 2 and the
-named ones of 13-16 alone (the kernels JSON only comes with every phase;
-``--only 16``: the float edges alone).
+``python3 chip_smoke.py --only 13,14,15,16,17`` runs phases 1 and 2 and
+the named ones of 13-17 alone (the kernels JSON only comes with every
+phase; ``--only 16``: the float edges alone).
 
 The last lines are the kernels JSON (times per encoder layer: the sum
 over that layer's launches of each kernel; the flex kernels' top-level
@@ -283,11 +312,14 @@ phase 13's trained model on the W4A8 engine; ``adaround-w4a8``: phase
 16's configurations by name, whose new kernels close the list:
 ``int8_attention_flex``, ``float_edge_matmul (fold / float)`` and
 ``float_int8_matmul``, each with one form's numbers on top and every
-form's under ``variants``); the
+form's under ``variants``; phase 17's forms under ``variants`` of their
+kernels' rows, named ``<form> (phase 17)``, and its paths by the names
+of ``option_forwards``); the
 serving paths
 ``serve-bert`` / ``serve-mobilebert`` count the launches the wrappers
 made while their buckets were captured, ``serve-bert-eager`` those of
-the eager loop), the
+the eager loop, ``serve-bert-bf16`` / ``serve-bert-bare`` phase 11's
+option cases'), the
 nvidia-smi line, and ``{"ok": true, "device": {...}}``. Imports torch and
 the port only.
 """
@@ -1722,12 +1754,13 @@ def linear_case(tag, args, kw) -> dict:
     step = None if emit else Q.scale_of(kw["out_spec"], kw["out_qp"])
     plain = lambda: IM.fused_int8_linear(*args, **dict(kw, plain=True))
     want = plain()
+    out_b = 1 if emit else (2 if x.dtype == torch.bfloat16 else 4)
     nbytes = (x.numel() * x.element_size() + n * k // (2 if w4 else 1)
-              + 3 * n * 4 + 32 + m * n * (1 if emit else 4))
+              + 3 * n * 4 + 32 + m * n * out_b)
+    in_name = {torch.int8: "int8", torch.bfloat16: "bf16"}.get(x.dtype, "f32")
     return kernel_case(
         f"fused_int8_linear{'_w4' if w4 else ''}[{tag}] {m}x{k}->{n} "
-        f"{'int8' if x.dtype == torch.int8 else 'f32'} in, "
-        f"{kw.get('activation')}, {'emit' if emit else 'fold'}",
+        f"{in_name} in, {kw.get('activation')}, {'emit' if emit else 'fold'}",
         lambda: IM.fused_int8_linear(*args, **kw), lambda: want,
         2.0 * m * n * k, nbytes, lib_fn=lambda: torch._int_mm(x8, w_t),
         plain_fn=plain, step=step)
@@ -2117,13 +2150,14 @@ def serve_requests(vocab: int, seed: int) -> list:
             for _ in range(SERVE_REQUESTS)]
 
 
-def check_buckets(name, graphs, plain, vocab, seed, dev, kind, smi) -> None:
+def check_buckets(name, graphs, plain, vocab, seed, dev, kind, smi,
+                  timed: bool = True) -> None:
     """Every served bucket (``SERVE_SEQS`` x ``SERVE_SMALL`` +
     ``SERVE_BATCHES``) on a seeded padded batch: the graph replay equals
     the eager forward bit for bit, and the eager forward (the kernels)
     agrees with the plain versions' forward within the logit tolerance;
     the bench's buckets timed eagerly and as replays (5 windows of >=
-    0.25 s)."""
+    0.25 s; with ``timed``)."""
     eager = graphs.forward
     for s in SERVE_SEQS:
         for b in SERVE_SMALL + SERVE_BATCHES:
@@ -2140,7 +2174,7 @@ def check_buckets(name, graphs, plain, vocab, seed, dev, kind, smi) -> None:
                      "with the plain versions'")
             line = (f"  [{name}] B={b} S={s}: graph == eager bit for bit; "
                     f"|eager - plain| {(want - ref).abs().max().item():.3e}")
-            if b in SERVE_BATCHES:
+            if timed and b in SERVE_BATCHES:
                 tg = window_ms(lambda: graphs(x), window_s=0.25)
                 te = window_ms(lambda: eager(x), window_s=0.25)
                 line += (f"; ms per call, median (least-most) of 5 windows "
@@ -2361,6 +2395,39 @@ def serve_phase(tag, cfg, params, qstate, plain, per_fwd, seed, dev, kind,
     check_requests(f"{tag} eager", graphs.forward, elog, reqs, answers)
     check_lazy_capture(tag, graphs.forward, cfg.vocab_size, seed, dev)
     check_http(eng)
+
+
+def serve_option_case(tag, cfg, params, qstate, bf16, route, plain, per_fwd,
+                      seed, dev, kind, smi, by_path) -> None:
+    """Phase 11's option cases: BERT-base's checkpoint served with
+    ``bf16`` (the engine at ``engine_dtype`` bfloat16) or, without quant
+    state, through the generic fallback (bfloat16 attention): the served
+    route, the launches over the nine bucket captures (twice ``per_fwd``
+    a bucket), and at every bucket the graph replay equal to the eager
+    forward bit for bit and the eager forward within the logit tolerance
+    of ``plain``'s."""
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d:
+        CK.save_checkpoint(d, params=params, family="bert", cfg=cfg,
+                           **({} if qstate is None else {"qstate": qstate}))
+        eng = SVS.build_engine_from_checkpoint(d, device=dev, bf16=bf16,
+                                               serve_cfg=serve_config())
+    graphs = eng.forward
+    if graphs.route != route:
+        fail(f"{tag}: served by the {graphs.route} route, expected {route}")
+    EK.reset_launches()
+    eng.warmup()
+    n = len(eng.buckets())
+    caps = dict(EK.LAUNCHES)
+    print(f"  [{tag}] served by the {route} route: {n} buckets captured in "
+          f"{time.perf_counter() - t0:.1f} s with the checkpoint; launches "
+          f"over the captures {caps}", flush=True)
+    if caps != {k: 2 * n * v for k, v in per_fwd.items()}:
+        fail(f"{tag}: launches over {n} captures {caps}, expected twice "
+             f"{per_fwd} a bucket")
+    by_path[f"serve-{tag}"] = caps
+    check_buckets(tag, graphs, plain, cfg.vocab_size, seed, dev, kind, smi,
+                  timed=False)
 
 
 # phase 12: W4A8, split-half packed int4 weights (K1's and the fused
@@ -3731,6 +3798,298 @@ def float_edges_phase(params, batches, by_path, seed, dev, kind,
     return forms
 
 
+# phase 17: the engine's and the generic path's inference options. Each
+# forward: (name, recipe, engine kwargs or None for the generic path,
+# backend for 'kernels', launches a forward)
+def option_forwards(L: int) -> tuple:
+    chain = per_forward(int8_matmul=4 * L, int8_attention=L,
+                        fused_add_ln_payload=2 * L)
+    bf16 = torch.bfloat16
+    return (
+        ("gelu-exact", "w8a8", dict(gelu_impl="exact"), "kernels", chain),
+        ("gelu-poly", "w8a8", dict(gelu_impl="poly"), "kernels", chain),
+        ("w8a8-bf16", "w8a8", dict(engine_dtype=bf16), "kernels", chain),
+        ("h-fp32-bf16", "h-fp32", dict(engine_dtype=bf16), "kernels",
+         per_forward(int8_matmul=4 * L, int8_attention=L,
+                     fused_add_ln=2 * L)),
+        ("w8a8-mixed-bf16", "w8a8-mixed",
+         dict(engine_dtype=bf16, gelu_impl="exact"), "kernels",
+         per_forward(int8_matmul=3 * L, int8_attention=L,
+                     float_edge_matmul=L, float_edge_levels=L,
+                     flex_add_ln=2 * L)),
+        ("mix-kernels-plain-kernels", "w8a8", {}, "mix:kernels,plain,kernels",
+         per_forward(int8_matmul=4 * L, fused_add_ln_payload=2 * L)),
+        ("generic-bf16", "w8a8", None, dict(int8_attention=False),
+         per_forward(fused_int8_linear=6 * L + 1,
+                     fused_linear_quantize=5 * L + 1)),
+        ("generic-bf16-int8-attention", "w8a8", None,
+         dict(int8_attention=True),
+         per_forward(fused_int8_linear=6 * L + 1,
+                     fused_linear_quantize=5 * L + 1)))
+
+
+def option_runner(params, cfg, qcfg, qstate, static, plan, int_params, dev,
+                  engine_kw, backend):
+    """The engine with ``engine_kw`` (``engine_dtype``, ``gelu_impl``):
+    ``backend`` for 'kernels' (a mix, or the kernels), the plain versions
+    for 'plain'."""
+    def run(batch, which):
+        return B.bert_engine_apply(
+            params, batch, cfg, qcfg, qstate, static, plan, int_params,
+            backend=backend if which == "kernels" else "plain", device=dev,
+            **engine_kw)
+    return run
+
+
+def generic_bf16_runner(params, cfg, qcfg, qstate, int_params, dev,
+                        int8_attention: bool):
+    """The generic int path at ``compute_dtype`` / ``attention_dtype``
+    bfloat16 (the JAX server's fallback) on the fused linear ('kernels')
+    or its plain version ('plain')."""
+    def run(batch, which):
+        return B.bert_apply(params, batch, cfg, qcfg, qstate, QuantMode(),
+                            int_params=int_params,
+                            fused_linear=True if which == "kernels"
+                            else "plain",
+                            compute_dtype=torch.bfloat16,
+                            attention_dtype=torch.bfloat16,
+                            int8_attention=int8_attention, device=dev)[0]
+    return run
+
+
+def first_call(calls, pred, what):
+    for a, k in calls:
+        if pred(a, k):
+            return a, k
+    fail(f"phase 17 recorded no {what}")
+
+
+def option_mm_cases(calls) -> dict:
+    """K1's new forms on recorded calls: the inter matmul with each of the
+    A-S gelu, the degree-10 polynomial and tanh (emit), and the bfloat16
+    fold / float outputs of the non-payload route (attn_out, dense)."""
+    out = {}
+    (x8, w, vecs, scal), kw = first_call(
+        calls["gelu"], lambda a, k: k.get("activation") == "gelu",
+        "gelu inter matmul")
+    m, (n, k) = x8.shape[0], w.shape
+    w_t = w.t()
+    for act in ("gelu", "gelu_poly10", "tanh"):
+        where = "" if act != "tanh" else "off the path"
+        r = flex_form_case(
+            f"int8_matmul[{act} emit{' ' + where if where else ''}] "
+            f"{m}x{k}->{n}",
+            lambda act=act: EK.int8_matmul(x8, w, vecs, scal, activation=act),
+            lambda act=act: EK.int8_matmul_ref(x8, w, vecs, scal,
+                                               activation=act),
+            None, False, 2.0 * m * n * k, 0.0, m * k + n * k + 5 * n * 4 + m * n,
+            lib_fn=lambda: torch._int_mm(x8, w_t))
+        out[f"{act} emit"] = dict(r, where=where)
+    for mode in ("fold", "float"):
+        (x8, w, vecs, scal), kw = first_call(
+            calls["bf16"], lambda a, k: k.get("out_mode") == mode
+            and k.get("out_dtype") == torch.bfloat16, f"bf16 {mode} matmul")
+        m, (n, k) = x8.shape[0], w.shape
+        w_t = w.t()
+        r = flex_form_case(
+            f"int8_matmul[{mode} bf16 out] {m}x{k}->{n}",
+            lambda kw=kw, a=(x8, w, vecs, scal): EK.int8_matmul(*a, **kw),
+            lambda kw=kw, a=(x8, w, vecs, scal): EK.int8_matmul_ref(*a, **kw),
+            _out_step(vecs, mode), False, 2.0 * m * n * k, 0.0,
+            m * k + n * k + 5 * n * 4 + 2 * m * n,
+            lib_fn=lambda w_t=w_t, x8=x8: torch._int_mm(x8, w_t))
+        out[f"None {mode} bf16 out"] = dict(r, where="")
+    return out
+
+
+def option_edge_cases(calls) -> tuple:
+    """K4's new forms on the mixed recipe's inter call: the A-S gelu (on
+    the path: the bf16 forward runs gelu_impl 'exact'), the polynomial
+    and tanh (emit, off the path) and the bfloat16 fold / float outputs
+    (no activation, off the path). Returns (emit forms, fold / float)."""
+    (x, vecs, grid), kw = first_call(
+        calls, lambda a, k: k.get("activation") == "gelu", "K4 gelu inter")
+    m, k = x.shape
+    n = grid["w"].shape[0]
+    w_f = (grid["w"].float() * vecs[0][:, None]).t().contiguous()
+    ops = 2.0 * m * n * k * EK.edge_planes(grid)
+    emit, folds = {}, {}
+    for act in ("gelu", "gelu_poly10", "tanh"):
+        where = "" if act == "gelu" else "off the path"
+        kwa = dict(kw, activation=act)
+        r = flex_form_case(
+            f"float_edge_matmul[{act} emit{' ' + where if where else ''}, "
+            f"{grid['bits']}-bit x] {m}x{k}->{n}",
+            lambda kwa=kwa: EK.float_edge_matmul(x, vecs, grid, **kwa),
+            lambda kwa=kwa: EK.float_edge_matmul_ref(x, vecs, grid, **kwa),
+            None, False, ops, 0.0, m * k * 4 + n * k + m * n,
+            lib_fn=lambda: torch.matmul(x, w_f))
+        emit[f"{act} emit 8-bit out, {grid['bits']}-bit x, K={k}, N={n}"] = \
+            dict(r, where=where)
+    for mode in ("fold", "float"):
+        kwm = dict(kw, activation=None, out_mode=mode, out_bits=8,
+                   out_dtype=torch.bfloat16)
+        r = flex_form_case(
+            f"float_edge_matmul[None {mode} bf16 out off the path, "
+            f"{grid['bits']}-bit x] {m}x{k}->{n}",
+            lambda kwm=kwm: EK.float_edge_matmul(x, vecs, grid, **kwm),
+            lambda kwm=kwm: EK.float_edge_matmul_ref(x, vecs, grid, **kwm),
+            _out_step(vecs, mode), False, ops, 0.0,
+            m * k * 4 + n * k + 2 * m * n, lib_fn=lambda: torch.matmul(x, w_f))
+        folds[f"None {mode} bf16 out, {grid['bits']}-bit x, K={k}, N={n}"] = \
+            dict(r, where="off the path")
+    return emit, folds
+
+
+def option_k9_cases(lp, seed: int, dev) -> dict:
+    """K9's new forms off the path (no configuration reaches them): a
+    seeded float32 x at B = 128, S = 128 against layer 0's inter weight
+    with each new activation (emit), and its bfloat16 fold / float outputs
+    (no activation); within the float64 ties, as phase 16 holds K9."""
+    w8, vecs = lp["inter"]["w"], lp["inter"]["vecs"]
+    n, k = w8.shape
+    m = BATCH * SEQ
+    g = torch.Generator(device=dev).manual_seed(seed + 17)
+    x = torch.randn((m, k), generator=g, device=dev) * 0.5
+    w_f = (w8.float() * vecs[0][:, None]).t().contiguous()
+    out = {}
+    for act, mode, dt in (("gelu", "emit", torch.float32),
+                          ("gelu_poly10", "emit", torch.float32),
+                          ("tanh", "emit", torch.float32),
+                          (None, "fold", torch.bfloat16),
+                          (None, "float", torch.bfloat16)):
+        kw = dict(activation=act, out_mode=mode, out_dtype=dt)
+        ob = 1 if mode == "emit" else 2
+        r = flex_form_case(
+            f"float_int8_matmul[{act} {mode}{' bf16 out' if ob == 2 else ''}"
+            f" off the path] {m}x{k}->{n}",
+            lambda kw=kw: EK.float_int8_matmul(x, w8, vecs, **kw),
+            lambda kw=kw: EK.float_int8_matmul_ref(x, w8, vecs, **kw),
+            _out_step(vecs, mode), True, 0.0, 2.0 * m * n * k,
+            m * k * 4 + n * k + m * n * ob, lib_fn=lambda: torch.matmul(x, w_f))
+        out[f"{act} {mode} 8-bit{' bf16 out' if ob == 2 else ''}"] = dict(
+            r, where="off the path")
+    return out
+
+
+def option_ln_cases(calls) -> dict:
+    """``fused_add_ln``'s bfloat16 form on the non-payload bf16 forward's
+    two layer-0 calls: the payload and the bfloat16 value, each
+    bit-identical to the plain version's."""
+    out = {}
+    for tag, (a, kw) in zip(("ln1", "ln2"), calls[:2]):
+        m, h = a[0].shape
+        w8, wf = EK.fused_add_ln_ref(*a, **kw)
+        g8, gf = EK.fused_add_ln(*a, **kw)
+        if gf.dtype != torch.bfloat16:
+            fail(f"fused_add_ln[{tag}] bf16: its value out is {gf.dtype}")
+        res = compare(g8, w8, f"fused_add_ln[{tag} bf16] {m}x{h} payload out")
+        compare_values(gf, wf, a[3][0, 6],
+                       f"fused_add_ln[{tag} bf16] {m}x{h} bf16 value out")
+        r = flex_form_case(
+            f"fused_add_ln[{tag} bf16 y, r and value out] {m}x{h}",
+            lambda a=a, kw=kw: EK.fused_add_ln(*a, **kw)[0],
+            lambda a=a, kw=kw: EK.fused_add_ln_ref(*a, **kw)[0], None, False,
+            0.0, 0.0, m * h * (2 + 2 + 1 + 2) + 2 * h * 4 + 32)
+        out[f"{tag} bf16"] = dict(r, **res, where="")
+    return out
+
+
+def option_linear_cases(calls) -> dict:
+    """The fused linear's new forms on the generic bf16 forward's layer-0
+    calls: q and attn_out on a bfloat16 x (fold, bfloat16 out), inter on
+    a bfloat16 x (the A-S gelu, emit) and, off the path, inter with
+    ``gelu_poly10``."""
+    out = {}
+    names = ("q", "k", "v", "attn_out", "inter")
+    for tag, (a, kw) in zip(names, calls[:5]):
+        if tag in ("k", "v"):
+            continue
+        if a[0].dtype != torch.bfloat16:
+            fail(f"generic bf16 {tag}: x is {a[0].dtype}")
+        r = linear_case(f"{tag} bf16", a, kw)
+        r["bound_ms"], r["bound_by"] = bound_ms(r["ops"], r["bytes"])
+        out[f"{tag} bf16 x"] = dict(r, where="")
+        if tag == "inter":
+            r = linear_case("inter bf16, off the path", a,
+                            dict(kw, activation="gelu_poly10"))
+            r["bound_ms"], r["bound_by"] = bound_ms(r["ops"], r["bytes"])
+            out["inter bf16 x gelu_poly10"] = dict(r, where="off the path")
+    return out
+
+
+def options_phase(params, batches, by_path, seed, dev, kind, smi) -> dict:
+    """Phase 17 (see the module docstring); returns the new forms' numbers
+    by kernel, for the kernels JSON."""
+    cfg = B.BertConfig()
+    L = cfg.num_hidden_layers
+    b0 = batches[0]
+    t0 = time.perf_counter()
+    recipes = {}
+    for rname, qd, shared_h in (("w8a8", None, False),
+                                ("h-fp32", {"h": "fp32"}, False),
+                                ("w8a8-mixed",
+                                 *CAL.MINMAX_RECIPES["w8a8-mixed"])):
+        _, q, st = CAL.calibrated_bert(cfg, batch_size=8, seq=SEQ, seed=seed,
+                                       device=dev, params=params,
+                                       quant_dict=qd, shared_h=shared_h)
+        recipes[rname] = (q, st, *B.build_bert_engine(params, cfg, q, st,
+                                                      device=dev))
+    torch.cuda.synchronize()
+    print(f"  set-up (W8A8, {{'h': 'fp32'}} and w8a8-mixed calibrations, "
+          f"packing, plans): {time.perf_counter() - t0:.1f} s", flush=True)
+    q8, s8, st8, plan8, int8p = recipes["w8a8"]
+
+    def engine_run(rname, kw, backend="kernels"):
+        return option_runner(params, cfg, *recipes[rname], dev, kw, backend)
+
+    print("  the new kernel forms against their plain versions, on layer "
+          f"0's calls (B={BATCH}, S={SEQ}; {kind}, {smi})", flush=True)
+    t1 = time.perf_counter()
+    gelu_calls = record_calls(
+        lambda: engine_run("w8a8", dict(gelu_impl="exact"))(b0, "plain"),
+        (EK, "int8_matmul_ref"))[0]
+    bf_mm, bf_ln = record_calls(
+        lambda: engine_run("h-fp32", dict(engine_dtype=torch.bfloat16))(
+            b0, "plain"), (EK, "int8_matmul_ref"), (EK, "fused_add_ln_ref"))
+    edge_calls = record_calls(
+        lambda: engine_run("w8a8-mixed", dict(gelu_impl="exact"))(
+            b0, "plain"), (EK, "float_edge_matmul_ref"))[0]
+    lin_calls = record_calls(
+        lambda: generic_bf16_runner(params, cfg, q8, s8, int8p, dev, False)(
+            b0, "plain"), (LY, "fused_int8_linear"))[0]
+    forms = {"int8_matmul": option_mm_cases({"gelu": gelu_calls,
+                                             "bf16": bf_mm})}
+    forms["float_edge_matmul"], forms["float_edge_matmul (fold / float)"] = \
+        option_edge_cases(edge_calls)
+    forms["float_int8_matmul"] = option_k9_cases(plan8["layers"][0], seed,
+                                                 dev)
+    forms["fused_add_ln"] = option_ln_cases(bf_ln)
+    forms["fused_int8_linear"] = option_linear_cases(lin_calls)
+    del gelu_calls, bf_mm, bf_ln, edge_calls, lin_calls
+    print(f"  {sum(len(f) for f in forms.values())} new forms held, "
+          f"{time.perf_counter() - t1:.1f} s", flush=True)
+
+    seqs = {}
+    for name, rname, ekw, backend, want in option_forwards(L):
+        q, st, static, plan, ip = recipes[rname]
+        if ekw is None:
+            run = generic_bf16_runner(params, cfg, q, st, ip, dev,
+                                      backend["int8_attention"])
+        else:
+            run = option_runner(params, cfg, q, st, static, plan, ip, dev,
+                                ekw, backend)
+        by_path[name] = drive_path(name, run, cfg, batches, want)
+        seqs[name] = window_ms(lambda: run(b0, "kernels"), window_s=0.5)
+    seqs["w8a8"] = window_ms(lambda: engine_run("w8a8", {})(b0, "kernels"),
+                             window_s=0.5)
+    print(f"  seq/s at B={BATCH}, S={SEQ}, median (range) of 5 windows of "
+          f">= 0.5 s ({kind}, {smi}): " + "; ".join(
+              f"{n} {seq_per_s(t)} (forward {t[0]:.3f} ms)"
+              for n, t in seqs.items()), flush=True)
+    return forms
+
+
 # the phases after serving: (title, runner(params, batches, by_path,
 # seed, dev, kind, smi))
 LATE_PHASES = {
@@ -3744,6 +4103,9 @@ LATE_PHASES = {
          lambda params, batches, *a: families_phase(*a)),
     16: ("leave-one-out: the engine's float edges at BERT-base width",
          float_edges_phase),
+    17: ("the inference options: gelu_impl, engine_dtype bf16, a mixed "
+         "backend and the generic path at bf16 with int8 attention, at "
+         "BERT-base width", options_phase),
 }
 
 
@@ -3765,7 +4127,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--only", default="",
-                    help="comma-separated phases of 13-16 to run alone, "
+                    help="comma-separated phases of 13-17 to run alone, "
                          "after phases 1 and 2")
     args = ap.parse_args(argv)
     only = {int(p) for p in args.only.split(",") if p}
@@ -4068,6 +4430,21 @@ def main(argv=None) -> int:
                                   dev),
                 per_forward(int8_mb_layer_ln=ML), args.seed, dev, kind, smi,
                 by_path)
+    serve_option_case(
+        "bert-bf16", cfg, params, qstate, True, "engine",
+        option_runner(params, cfg, qcfg, qstate, static, plan, int_params,
+                      dev, dict(engine_dtype=torch.bfloat16), "kernels"),
+        per_forward(int8_matmul=4 * L, int8_attention=L,
+                    fused_add_ln_payload=2 * L), args.seed, dev, kind, smi,
+        by_path)
+    # no quant state: the float model, its attention in bfloat16 (no
+    # kernel: nothing of the port's is launched)
+    serve_option_case(
+        "bert-bare", cfg, params, None, False, "generic",
+        lambda batch, _which: B.bert_apply(
+            params, batch, cfg, attention_dtype=torch.bfloat16,
+            device=dev)[0], per_forward(), args.seed, dev, kind, smi,
+        by_path)
     print(f"  phase 11: {time.perf_counter() - t0:.1f} s", flush=True)
 
     print("[12] W4A8: BERT-base on split-half packed int4 weights through "
@@ -4212,6 +4589,11 @@ def main(argv=None) -> int:
                                                   "library_f64_ms")
                                 if r.get(x)}}
                          for f, r in fm.items()}})
+    # phase 17's forms: variants of their kernels' rows
+    for entry in kernels:
+        for form, r in late[17].get(entry["name"], {}).items():
+            entry.setdefault("variants", {})[f"{form} (phase 17)"] = {
+                **{k: r[k] for k in keys}, "where": r.get("where", "")}
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

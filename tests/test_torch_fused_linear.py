@@ -196,8 +196,8 @@ def test_fused_linear_acceptance_rules():
     """None where the JAX function returns None whatever the device (m not
     a multiple of 8, m < 8, a dtype other than float32 / int8, a K
     mismatch, emit without an 8-bit output site), and where the kernel's
-    tile rule refuses (K % 16, N % 8; packed int4 K % 32); bfloat16 x
-    raises "not yet ported"."""
+    tile rule refuses (K % 16, N % 8; packed int4 K % 32); a bfloat16 x
+    is taken, as the JAX function takes it."""
     c = _case_inputs("f32-asym", True, False, "asym-fold")
     args = (c["tpacked"], c["in_t"], c["tiqp"])
     jargs = (c["jpacked"], c["in_j"], c["jiqp"])
@@ -234,8 +234,15 @@ def test_fused_linear_acceptance_rules():
     k48 = dict(w4, w_packed=torch.zeros((24, 24), dtype=torch.uint8),
                in_features=48)
     assert TIM.fused_int8_linear(torch.zeros(16, 48), k48, *args[1:]) is None
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        TIM.fused_int8_linear(x.bfloat16(), *args)
+    # a bfloat16 x: quantized in float32, its fold output bfloat16, equal
+    # to the JAX kernel's (interpret mode) on the same bfloat16 x
+    got = TIM.fused_int8_linear(x.bfloat16(), *args, bias=c["tb"],
+                                out_spec=c["out_t"], out_qp=c["toqp"])
+    want = j_fused(jx.astype(jnp.bfloat16), *jargs, bias=c["jb"],
+                   out_spec=c["out_j"], out_qp=c["joqp"], interpret=True)
+    assert got.dtype == torch.bfloat16 and want.dtype == jnp.bfloat16
+    np.testing.assert_array_equal(got.float().numpy(),
+                                  np.asarray(want, np.float32))
 
 
 # ---------------------------------------------------------------------------

@@ -14,7 +14,8 @@ server.py``) on the CPU, from checkpoints the JAX package wrote.
 - a tiny RoBERTa and ALBERT the port calibrated and wrote, served through
   the family's engine and answering exactly what its ``engine_apply``
   gives on the same batch;
-- what the port does not serve raises, naming its ROADMAP item.
+- ``--bf16`` and a checkpoint without quant state against the JAX server;
+  serving from an export raises, naming its ROADMAP item.
 """
 
 import functools
@@ -318,9 +319,31 @@ def test_http_full_queue_answers_503(bert_ckpt):
     assert code == 503 and "queue full" in out["error"]
 
 
+def _served(eng, reqs):
+    with eng:
+        return [np.asarray(eng.submit_ids(r).result(300)) for r in reqs]
+
+
 def test_unported_serving_paths_raise(bert_ckpt, tmp_path):
-    with pytest.raises(NotImplementedError, match="item 4.5"):
-        TS.build_engine_from_checkpoint(bert_ckpt, device="cpu", bf16=True)
+    """``--bf16`` (the engine at ``engine_dtype`` bfloat16) and a
+    checkpoint without quant state (the generic fallback: the float model,
+    its attention in bfloat16) serve in both packages, the port's answers
+    within the tolerance of the JAX server's on the same checkpoint and
+    requests (the engine's rtol 1e-3 / atol 2e-3; the fallback, float
+    logits of scale ~7e-3 that both packages' bfloat16 attention give
+    within 3e-9 here, rtol 1e-3 / atol 1e-5); serving from an export
+    still raises."""
+    # requests of 10 ids: one (1, 16) bucket, one JAX compile a server
+    reqs = [np.arange(4, 14, dtype=np.int32) + 7 * i for i in range(3)]
+    want = _served(JS.build_engine_from_checkpoint(
+        bert_ckpt, bf16=True, serve_cfg=JServeConfig(**SERVE)), reqs)
+    teng = TS.build_engine_from_checkpoint(bert_ckpt, device="cpu",
+                                           bf16=True,
+                                           serve_cfg=ServeConfig(**SERVE))
+    assert teng.forward.route == "engine"
+    for w, g in zip(want, _served(teng, reqs)):
+        assert g.shape == w.shape == (2,)
+        np.testing.assert_allclose(g, w, rtol=RTOL, atol=ATOL)
     with pytest.raises(NotImplementedError, match="export"):
         TS.build_engine_from_export(str(tmp_path))
     with pytest.raises(NotImplementedError, match="export"):
@@ -330,8 +353,14 @@ def test_unported_serving_paths_raise(bert_ckpt, tmp_path):
     bare = str(tmp_path / "bare")
     JCK.save_checkpoint(bare, params=ck["params"], family="bert",
                         cfg=ck["cfg"])
-    with pytest.raises(NotImplementedError, match="item 4.6"):
-        TS.build_engine_from_checkpoint(bare, device="cpu")
+    want = _served(JS.build_engine_from_checkpoint(
+        bare, serve_cfg=JServeConfig(**SERVE)), reqs)
+    teng = TS.build_engine_from_checkpoint(bare, device="cpu",
+                                           serve_cfg=ServeConfig(**SERVE))
+    assert teng.forward.route == "generic"
+    for w, g in zip(want, _served(teng, reqs)):
+        assert g.shape == w.shape == (2,)
+        np.testing.assert_allclose(g, w, rtol=1e-3, atol=1e-5)
 
 
 def test_server_on_cuda_without_a_card_raises(bert_ckpt):

@@ -235,20 +235,28 @@ def albert_apply(params: Dict, batch: Mapping, cfg: AlbertConfig,
                  mse_session: Optional[Dict] = None,
                  int_params: Optional[Dict] = None, fused_linear=False,
                  capture_sites=None, capture_pre_act: bool = False,
+                 compute_dtype=None, attention_dtype=None,
+                 int8_attention: bool = False,
                  device="cuda") -> Tuple[Dict, Dict]:
     """Inference / calibration forward; returns ``(outputs, new_qstate)``,
     as :func:`~.bert.bert_apply`: the shared layer runs
     ``num_hidden_layers`` times in a plain loop, each application reading
     (and in the estimate phase updating) the ``shared.`` sites. ``params``
-    must live on ``device``."""
+    must live on ``device``. The
+    inference options ``compute_dtype`` / ``attention_dtype`` /
+    ``int8_attention`` as :func:`~.bert.bert_apply`'s."""
     dev = B._check_device(params, device)
     with torch.no_grad():
         ctx = B.family_ctx(qcfg, qstate, mode, train=train,
                            int_params=int_params, fused_linear=fused_linear,
                            mse_session=mse_session,
                            capture_sites=capture_sites,
-                           capture_pre_act=capture_pre_act, family="ALBERT")
+                           capture_pre_act=capture_pre_act,
+                           compute_dtype=compute_dtype,
+                           attention_dtype=attention_dtype,
+                           int8_attention=int8_attention, family="ALBERT")
         h, mask_bias, _ = _embedded(ctx, params, cfg, batch, dev)
+        mask_bias = B.compute_mask(mask_bias, compute_dtype)
         h_site = "emb_proj.out"
         for _ in range(cfg.num_hidden_layers):
             h = B._layer(ctx, params["shared"], cfg, h, mask_bias, "shared.",
@@ -286,17 +294,21 @@ def build_albert_engine(params: Dict, cfg: AlbertConfig,
 def albert_engine_apply(params: Dict, batch: Mapping, cfg: AlbertConfig,
                         qcfg: QuantModelConfig, qstate: Mapping, static, plan,
                         int_params: Dict, *, backend: str = "kernels",
+                        engine_dtype=torch.float32, gelu_impl: str = "tanh",
                         device="cuda") -> Dict:
     """Inference through the full-handoff int8 engine: embeddings,
     ``emb_proj`` and the head through the generic site machinery, the
     shared layer's applications on int8 payloads; ``backend='plain'``
-    runs the layers' plain versions."""
+    runs the layers' plain versions. ``engine_dtype`` / ``gelu_impl`` as
+    :func:`~.bert.bert_engine_apply`'s."""
     dev = B._check_device(params, device)
     with torch.no_grad():
         ctx = B.make_ctx(qcfg, qstate, QuantMode(), int_params=int_params)
         h, _, input_ids = _embedded(ctx, params, cfg, batch, dev)
         h = ENG.encoder_engine(h, B.engine_bias(batch, input_ids, dev),
-                               static, plan, backend=backend)
+                               static, plan, backend=backend,
+                               out_dtype=engine_dtype,
+                               gelu_impl=gelu_impl).to(torch.float32)
         return B._classification_head(ctx, params, cfg, h,
                                       "shared.ffn.ln.out", batch, False,
                                       None, clamp=False)

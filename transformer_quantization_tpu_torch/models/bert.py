@@ -47,6 +47,7 @@ from transformer_quantization_tpu_torch.ops.layers import (
 )
 from transformer_quantization_tpu_torch.quant.manager import QuantCtx
 from transformer_quantization_tpu_torch.quant.qconfig import (
+    Phase,
     QuantConfigBuilder,
     QuantDefaults,
     QuantModelConfig,
@@ -519,7 +520,14 @@ def int8_sites_for_mode(int8_qat_sites, train: bool, cfg):
 
 def make_ctx(qcfg, qstate, mode, *, mse_session=None,
              int_params=None, capture_sites=None,
-             capture_pre_act: bool = False) -> QuantCtx:
+             capture_pre_act: bool = False, compute_dtype=None,
+             attention_dtype=None, int8_attention: bool = False
+             ) -> QuantCtx:
+    """The per-forward quantization context (shared across families), with
+    the inference options of :func:`bert_apply`: ``compute_dtype``
+    (activation storage), ``attention_dtype`` (the attention's float
+    einsums) and ``int8_attention`` (its scores and context on int8
+    levels)."""
     ctx = QuantCtx(qcfg if qcfg is not None else QuantModelConfig(()),
                    qstate or {}, mode or QuantMode(),
                    mse_session=mse_session)
@@ -527,26 +535,43 @@ def make_ctx(qcfg, qstate, mode, *, mse_session=None,
     if capture_sites:
         ctx.capture_sites = frozenset(capture_sites)
         ctx.capture_pre_act = capture_pre_act
+    ctx.compute_dtype = compute_dtype
+    ctx.attention_dtype = attention_dtype
+    ctx.int8_attention = int8_attention
     return ctx
 
 
 def family_ctx(qcfg, qstate, mode, *, train: bool, int_params=None,
                fused_linear=False, mse_session=None, capture_sites=None,
-               capture_pre_act: bool = False, family: str) -> QuantCtx:
+               capture_pre_act: bool = False, compute_dtype=None,
+               attention_dtype=None, int8_attention: bool = False,
+               family: str) -> QuantCtx:
     """The forward's context for a family beyond BERT: the training
     forward raises, and ``fused_linear`` (the JAX ``use_pallas``) runs the
     int8 matmuls through the fused linear, without BERT's int8 hand-off
-    and requant-only sites (the JAX families set neither)."""
+    and requant-only sites (the JAX families set neither); the inference
+    options as :func:`make_ctx`'s."""
     if train:
         raise NotImplementedError(
             f"the {family} training forward is not yet ported (ROADMAP §1 "
             "item 5)")
     ctx = make_ctx(qcfg, qstate, mode, mse_session=mse_session,
                    int_params=int_params, capture_sites=capture_sites,
-                   capture_pre_act=capture_pre_act)
+                   capture_pre_act=capture_pre_act,
+                   compute_dtype=compute_dtype,
+                   attention_dtype=attention_dtype,
+                   int8_attention=int8_attention)
     if int_params and fused_linear:
         ctx.fused_linear = fused_linear
     return ctx
+
+
+def compute_mask(mask_bias, compute_dtype):
+    """The additive mask bias in ``compute_dtype`` when the forward sets
+    one (JAX ``bert_apply``'s cast)."""
+    if compute_dtype is None or mask_bias is None:
+        return mask_bias
+    return mask_bias.to(compute_dtype)
 
 
 def _embeddings(ctx, params, cfg: BertConfig, input_ids, token_type_ids,
@@ -564,9 +589,68 @@ def _embeddings(ctx, params, cfg: BertConfig, input_ids, token_type_ids,
     return dropout(h, cfg.hidden_dropout_prob, gen, not train)
 
 
+def _act_site_params(ctx, site: str):
+    """(spec, qp) of a fixed, enabled, per-tensor act site of at most 8
+    bits, else (None, None) (the JAX ``_act_site_params``)."""
+    c = ctx.cfg[site] if site in ctx.cfg else None
+    if (c is not None and c.enabled and ctx.mode.act_quant
+            and ctx.mode.act_phase == Phase.fix and site in ctx.qstate
+            and c.axis is None and c.spec.n_bits <= 8):
+        qp = ctx.qstate[site]["qp"]
+        if qp.delta.ndim == 0:
+            return c.spec, qp
+    return None, None
+
+
+def _int8_attention_sites(ctx, a: str, b: str):
+    """The two sites' (spec, qp) pairs when ``ctx.int8_attention`` runs
+    their product on int8 levels (packed int params, both sites as
+    :func:`_act_site_params` takes them), else None."""
+    if not (ctx.int_params and ctx.int8_attention):
+        return None
+    (sa, qa), (sb, qb) = _act_site_params(ctx, a), _act_site_params(ctx, b)
+    if sa is None or sb is None:
+        return None
+    return sa, qa, sb, qb
+
+
+def attention_scores(ctx, q: Tensor, k: Tensor, prefix: str,
+                     dtype=None) -> Tensor:
+    """(B, T, n, d) q and k -> (B, n, Tq, Tk) raw scores: on int8 levels
+    (:func:`~..ops.int_linear.int8_attention_scores`) under
+    ``ctx.int8_attention``, else a float matmul in ``ctx.attention_dtype``
+    (when set) cast to ``dtype`` (when given)."""
+    sites = _int8_attention_sites(ctx, prefix + "attn.q.out",
+                                  prefix + "attn.k.out")
+    if sites is not None:
+        return IL.int8_attention_scores(q, k, *sites)
+    if ctx.attention_dtype is not None:
+        q, k = q.to(ctx.attention_dtype), k.to(ctx.attention_dtype)
+    s = float_matmul(q.permute(0, 2, 1, 3), k.permute(0, 2, 3, 1),
+                     wide_matmul_precision(ctx, prefix + "attn.q.out",
+                                           prefix + "attn.k.out"))
+    return s if dtype is None else s.to(dtype)
+
+
+def attention_context(ctx, probs: Tensor, v: Tensor, prefix: str,
+                      dtype=None) -> Tensor:
+    """(B, n, Tq, Tk) probs and (B, T, n, d) v -> (B, Tq, n, d) context, as
+    :func:`attention_scores` picks its product."""
+    sites = _int8_attention_sites(ctx, prefix + "attn.probs",
+                                  prefix + "attn.v.out")
+    if sites is not None:
+        return IL.int8_attention_context(probs, v, *sites)
+    if ctx.attention_dtype is not None:
+        probs, v = probs.to(ctx.attention_dtype), v.to(ctx.attention_dtype)
+    c = float_matmul(probs, v.permute(0, 2, 1, 3), wide_matmul_precision(
+        ctx, prefix + "attn.probs", prefix + "attn.v.out"))
+    return (c if dtype is None else c.to(dtype)).permute(0, 2, 1, 3)
+
+
 def _self_attention(ctx, layer, cfg: BertConfig, h, mask_bias, prefix,
                     train, gen, h_site=None, linear=quant_linear):
-    """Quantized self-attention (float einsums between fake-quant sites);
+    """Quantized self-attention (float or, under ``ctx.int8_attention``,
+    integer products between fake-quant sites; the softmax in float32);
     ``linear`` computes q, k and v (:func:`~..ops.layers.quant_linear`'s
     signature)."""
     B, T, H = h.shape
@@ -578,11 +662,10 @@ def _self_attention(ctx, layer, cfg: BertConfig, h, mask_bias, prefix,
                input_site=h_site)
     v = linear(ctx, prefix + "attn.v", h, a["v"]["kernel"], a["v"]["bias"],
                input_site=h_site)
-    q = q.reshape(B, T, nh, hd).permute(0, 2, 1, 3)
-    k = k.reshape(B, T, nh, hd).permute(0, 2, 1, 3)
-    v = v.reshape(B, T, nh, hd).permute(0, 2, 1, 3)
-    scores = float_matmul(q, k.transpose(-1, -2), wide_matmul_precision(
-        ctx, prefix + "attn.q.out", prefix + "attn.k.out")).to(h.dtype)
+    q = q.reshape(B, T, nh, hd)
+    k = k.reshape(B, T, nh, hd)
+    v = v.reshape(B, T, nh, hd)
+    scores = attention_scores(ctx, q, k, prefix, h.dtype)
     # raw scores are quantized; 1/sqrt(d) comes after
     scores = ctx.act(prefix + "attn.scores", scores)
     scores = scores / torch.sqrt(torch.full((), float(hd), dtype=scores.dtype,
@@ -592,9 +675,8 @@ def _self_attention(ctx, layer, cfg: BertConfig, h, mask_bias, prefix,
     probs = torch.softmax(scores.to(torch.float32), dim=-1).to(scores.dtype)
     probs = ctx.act(prefix + "attn.probs", probs)
     probs = dropout(probs, cfg.attention_probs_dropout_prob, gen, not train)
-    context = float_matmul(probs, v, wide_matmul_precision(
-        ctx, prefix + "attn.probs", prefix + "attn.v.out")).to(h.dtype)
-    context = context.permute(0, 2, 1, 3).reshape(B, T, H)
+    context = attention_context(ctx, probs, v, prefix, h.dtype).reshape(
+        B, T, H)
     return ctx.act(prefix + "attn.context", context)
 
 
@@ -647,6 +729,9 @@ def bert_apply(params: Dict, batch: Mapping, cfg: BertConfig,
                int8_qat_sites=None,
                capture_sites=None,
                capture_pre_act: bool = False,
+               compute_dtype=None,
+               attention_dtype=None,
+               int8_attention: bool = False,
                device="cuda") -> Tuple[Dict, Dict]:
     """Forward pass; returns ``(outputs, new_qstate)``.
 
@@ -674,6 +759,16 @@ def bert_apply(params: Dict, batch: Mapping, cfg: BertConfig,
     (input, output) pair in ``outputs["captures"]``, the output before
     the fused activation with ``capture_pre_act``; the fused linear and
     the int8 QAT matmul stand aside while capturing.
+
+    Inference options (the JAX ``bert_apply``'s): ``compute_dtype`` (e.g.
+    ``torch.bfloat16``) stores activations in that dtype (embedding rows,
+    the float matmuls' operands, the mask bias; LayerNorm statistics and
+    the fake-quant grid arithmetic stay float32; the fused linear takes a
+    bfloat16 x and returns bfloat16), and skips the int8 QAT matmul;
+    ``attention_dtype`` runs the attention's float matmuls in that dtype
+    (the softmax stays float32); ``int8_attention`` with ``int_params``
+    takes the scores and context products on the int8 levels of 8-bit
+    per-tensor q / k / probs / v sites.
     """
     dev = _check_device(params, device)
     if train and int_params:
@@ -682,7 +777,10 @@ def bert_apply(params: Dict, batch: Mapping, cfg: BertConfig,
     with contextlib.nullcontext() if train else torch.no_grad():
         ctx = make_ctx(qcfg, qstate, mode, mse_session=mse_session,
                        int_params=int_params, capture_sites=capture_sites,
-                       capture_pre_act=capture_pre_act)
+                       capture_pre_act=capture_pre_act,
+                       compute_dtype=compute_dtype,
+                       attention_dtype=attention_dtype,
+                       int8_attention=int8_attention)
         ctx.int8_qat_sites = frozenset(
             int8_sites_for_mode(int8_qat_sites, train, cfg) or ())
         if int_params and fused_linear:
@@ -702,6 +800,7 @@ def bert_apply(params: Dict, batch: Mapping, cfg: BertConfig,
             ctx.requant_only_sites = frozenset(req)
         input_ids, token_type_ids, position_ids, mask_bias = prepare_inputs(
             batch, dev)
+        mask_bias = compute_mask(mask_bias, compute_dtype)
         gen = dropout_generator if train else None
         h = _embeddings(ctx, params, cfg, input_ids, token_type_ids,
                         position_ids, train, gen)
@@ -781,11 +880,15 @@ def engine_bias(batch: Mapping, input_ids: Tensor, dev) -> Tensor:
 def bert_engine_apply(params: Dict, batch: Mapping, cfg: BertConfig,
                       qcfg: QuantModelConfig, qstate: Mapping, static, plan,
                       int_params: Dict, *, backend: str = "kernels",
+                      engine_dtype=torch.float32, gelu_impl: str = "tanh",
                       device="cuda") -> Dict:
     """Inference through the full-handoff int8 engine: embeddings and the
     pooler/classifier head run through the generic site machinery, the
     encoder on int8 payloads (``ops/engine.py``). ``backend='plain'`` runs
-    the encoder layers' plain versions instead of the kernels."""
+    the encoder layers' plain versions instead of the kernels (a
+    ``'mix:<mm>,<attn>,<ln>'`` spec mixes them). ``engine_dtype`` / ``gelu_impl`` are the JAX options (``ops/engine.py``
+    :func:`~..ops.engine.encoder_engine`'s ``out_dtype`` / ``gelu_impl``);
+    the encoder's output is cast back to float32 for the head."""
     dev = _check_device(params, device)
     with torch.no_grad():
         ctx = make_ctx(qcfg, qstate, QuantMode(), int_params=int_params)
@@ -794,7 +897,8 @@ def bert_engine_apply(params: Dict, batch: Mapping, cfg: BertConfig,
         h = _embeddings(ctx, params, cfg, input_ids, token_type_ids,
                         position_ids, False, None)
         h = ENG.encoder_engine(h, engine_bias(batch, input_ids, dev), static,
-                               plan, backend=backend)
+                               plan, backend=backend, out_dtype=engine_dtype,
+                               gelu_impl=gelu_impl).to(torch.float32)
         h_site = f"L{cfg.num_hidden_layers - 1}.ffn.ln.out"
         return _classification_head(ctx, params, cfg, h, h_site, batch,
                                     False, None)

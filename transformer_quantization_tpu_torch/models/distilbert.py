@@ -155,9 +155,12 @@ def distilbert_apply(params: Dict, batch: Mapping, cfg: DistilBertConfig,
                      mse_session: Optional[Dict] = None,
                      int_params: Optional[Dict] = None, fused_linear=False,
                      capture_sites=None, capture_pre_act: bool = False,
+                     compute_dtype=None, attention_dtype=None,
+                     int8_attention: bool = False,
                      device="cuda") -> Tuple[Dict, Dict]:
     """Inference / calibration forward; returns ``(outputs, new_qstate)``,
-    as :func:`~.bert.bert_apply`. ``params`` must live on ``device``."""
+    as :func:`~.bert.bert_apply` (its inference options too). ``params``
+    must live on ``device``."""
     dev = B._check_device(params, device)
     with torch.no_grad():
         ctx = B.family_ctx(qcfg, qstate, mode, train=train,
@@ -165,9 +168,13 @@ def distilbert_apply(params: Dict, batch: Mapping, cfg: DistilBertConfig,
                            mse_session=mse_session,
                            capture_sites=capture_sites,
                            capture_pre_act=capture_pre_act,
+                           compute_dtype=compute_dtype,
+                           attention_dtype=attention_dtype,
+                           int8_attention=int8_attention,
                            family="DistilBERT")
         input_ids, token_type_ids, position_ids, mask_bias = _inputs(batch,
                                                                      dev)
+        mask_bias = B.compute_mask(mask_bias, compute_dtype)
         h = B._embeddings(ctx, params, cfg, input_ids, token_type_ids,
                           position_ids, False, None)
         h, h_site = B.run_encoder(ctx, params, cfg, h, mask_bias, False,
@@ -200,10 +207,13 @@ def distilbert_engine_apply(params: Dict, batch: Mapping,
                             cfg: DistilBertConfig, qcfg: QuantModelConfig,
                             qstate: Mapping, static, plan, int_params: Dict,
                             *, backend: str = "kernels",
+                            engine_dtype=torch.float32,
+                            gelu_impl: str = "tanh",
                             device="cuda") -> Dict:
     """Inference through the full-handoff int8 engine (embeddings and head
     through the generic site machinery); ``backend='plain'`` runs the
-    layers' plain versions."""
+    layers' plain versions. ``engine_dtype`` / ``gelu_impl`` as
+    :func:`~.bert.bert_engine_apply`'s."""
     dev = B._check_device(params, device)
     with torch.no_grad():
         ctx = B.make_ctx(qcfg, qstate, QuantMode(), int_params=int_params)
@@ -211,6 +221,8 @@ def distilbert_engine_apply(params: Dict, batch: Mapping,
         h = B._embeddings(ctx, params, cfg, input_ids, token_type_ids,
                           position_ids, False, None)
         h = ENG.encoder_engine(h, B.engine_bias(batch, input_ids, dev),
-                               static, plan, backend=backend)
+                               static, plan, backend=backend,
+                               out_dtype=engine_dtype,
+                               gelu_impl=gelu_impl).to(torch.float32)
         h_site = f"L{cfg.num_hidden_layers - 1}.ffn.ln.out"
         return _head(ctx, params, cfg, h, h_site, batch)

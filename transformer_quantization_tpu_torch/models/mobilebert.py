@@ -36,11 +36,9 @@ from transformer_quantization_tpu_torch.models import bert as B
 from transformer_quantization_tpu_torch.ops import engine as ENG
 from transformer_quantization_tpu_torch.ops.kernels import engine_kernels as EK
 from transformer_quantization_tpu_torch.ops.layers import (
-    float_matmul,
     quant_embedding,
     quant_linear,
     quant_nonorm,
-    wide_matmul_precision,
 )
 from transformer_quantization_tpu_torch.quant import quantizers as Q
 from transformer_quantization_tpu_torch.quant.qconfig import (
@@ -391,21 +389,18 @@ def _attention(ctx, layer, cfg: MobileBertConfig, q_in, k_in, v_in,
                      a["k"]["bias"], input_site=qk_site)
     v = quant_linear(ctx, prefix + "attn.v", v_in, a["v"]["kernel"],
                      a["v"]["bias"], input_site=v_site)
-    q = q.reshape(b, t, nh, hd).permute(0, 2, 1, 3)
-    k = k.reshape(b, t, nh, hd).permute(0, 2, 1, 3)
-    v = v.reshape(b, t, nh, hd).permute(0, 2, 1, 3)
-    scores = float_matmul(q, k.transpose(-1, -2), wide_matmul_precision(
-        ctx, prefix + "attn.q.out", prefix + "attn.k.out"))
+    q = q.reshape(b, t, nh, hd)
+    k = k.reshape(b, t, nh, hd)
+    v = v.reshape(b, t, nh, hd)
+    scores = B.attention_scores(ctx, q, k, prefix)
     scores = ctx.act(prefix + "attn.scores", scores)
-    scores = scores / torch.sqrt(torch.full((), float(hd),
+    scores = scores / torch.sqrt(torch.full((), float(hd), dtype=q_in.dtype,
                                             device=scores.device))
     if mask_bias is not None:
         scores = scores + mask_bias
-    probs = torch.softmax(scores.to(torch.float32), dim=-1)
+    probs = torch.softmax(scores.to(torch.float32), dim=-1).to(scores.dtype)
     probs = ctx.act(prefix + "attn.probs", probs)
-    context = float_matmul(probs, v, wide_matmul_precision(
-        ctx, prefix + "attn.probs", prefix + "attn.v.out"))
-    context = context.permute(0, 2, 1, 3).reshape(b, t, th)
+    context = B.attention_context(ctx, probs, v, prefix).reshape(b, t, th)
     context = ctx.act(prefix + "attn.context", context)
 
     so = layer["attn_out"]
@@ -512,21 +507,28 @@ def mobilebert_apply(params: Dict, batch: Mapping, cfg: MobileBertConfig,
                      mode: Optional[QuantMode] = None, *, train: bool = False,
                      mse_session: Optional[Dict] = None,
                      int_params: Optional[Dict] = None,
+                     compute_dtype=None, attention_dtype=None,
+                     int8_attention: bool = False,
                      device="cuda") -> Tuple[Dict, Dict]:
     """Inference / calibration forward; returns ``(outputs, new_qstate)``.
     ``qcfg=None`` is the float model; ``int_params`` runs every packable
     matmul on the exact int8 path; ``mse_session`` holds the MSE /
     cross-entropy act sites' estimators across calibration batches.
-    ``params`` must live on ``device``."""
+    ``params`` must live on ``device``. ``compute_dtype`` /
+    ``int8_attention`` as the JAX ``mobilebert_apply``'s (and
+    ``attention_dtype`` as :func:`~.bert.bert_apply`'s)."""
     if train:
         raise NotImplementedError("the MobileBERT training forward (dropout)"
                                   " is not yet ported")
     dev = B._check_device(params, device)
     with torch.no_grad():
         ctx = B.make_ctx(qcfg, qstate, mode, mse_session=mse_session,
-                         int_params=int_params)
+                         int_params=int_params, compute_dtype=compute_dtype,
+                         attention_dtype=attention_dtype,
+                         int8_attention=int8_attention)
         input_ids, token_type_ids, position_ids, mask_bias = B.prepare_inputs(
             batch, dev)
+        mask_bias = B.compute_mask(mask_bias, compute_dtype)
         h = _embeddings(ctx, params, cfg, input_ids, token_type_ids,
                         position_ids)
         h_site = "emb.norm.out"
@@ -777,28 +779,33 @@ def _build_plan(params, cfg, qcfg, qstate, int_params):
 def mobilebert_encoder_engine(h: Tensor, mask_bias: Tensor,
                               static: MobileBertEngineStatic, plan: Dict, *,
                               backend: str = "kernels",
+                              out_dtype=torch.float32,
                               fuse_layer: Optional[bool] = None) -> Tensor:
     """Run the MobileBERT encoder stack on int8 payloads.
 
     ``h``: (B, T, H) float, the entry-site value; ``mask_bias``: (B, T)
     float32 additive bias. Returns the last layer's bottleneck-out NoNorm
-    value, (B, T, H) float32. ``backend='kernels'`` runs the kernel
+    value, (B, T, H) in ``out_dtype`` (the JAX ``engine_dtype``, which
+    here only casts the exit value). ``backend='kernels'`` runs the kernel
     wrappers (the CUDA kernels on the card, their plain versions on the
-    CPU), ``'plain'`` the plain versions on any device. ``fuse_layer``
-    ``True``: each layer as ONE
+    CPU), ``'plain'`` the plain versions on any device, and
+    ``'mix:<mm>,<attn>,<ln>'`` (:func:`~..ops.engine.parse_backend`) the
+    matmuls on one and the attention on the other (NoNorm rides the
+    matmuls: ``<ln>`` takes nothing). ``fuse_layer`` ``True``: each layer
+    as ONE
     :func:`~..ops.kernels.engine_kernels.int8_mb_layer_ln` (which raises
     at shapes the layer kernel is not built for); ``False``:
     :func:`~..ops.kernels.engine_kernels.mb_layer_chain`, the per-op
     route, bit-identical to it; ``None`` (default): with the kernels the
     route the plan chose for this seq (``static.layer_route(T)``), the
-    chain on the plain versions.
+    chain on the plain versions or under a mix.
     """
-    if backend not in ("kernels", "plain"):
-        raise ValueError(f"unknown engine backend {backend!r}")
-    kern = backend == "kernels"
+    mm_be, attn_be, ln_be = ENG.parse_backend(backend)
+    kern = mm_be == "kernels"
     b, t, hdim = h.shape
     if fuse_layer is None:
-        fuse_layer = kern and static.layer_route(t) == "k8"
+        fuse_layer = (mm_be == attn_be == ln_be == "kernels"
+                      and static.layer_route(t) == "k8")
     es = plan["entry_scal"]
     h8 = EK.quantize_payload(h.reshape(b * t, hdim), es[0, 0], es[0, 1])
     mask_bias = mask_bias.to(torch.float32).contiguous()
@@ -814,9 +821,11 @@ def mobilebert_encoder_engine(h: Tensor, mask_bias: Tensor,
             h8 = layer_fn(h8, mask_bias, lp["attn_scal"], flat, **kw)
         else:
             h8 = EK.mb_layer_chain(h8, mask_bias, lp["attn_scal"], flat,
-                                   plain=not kern, **kw)
+                                   plain=not kern,
+                                   attn_plain=attn_be == "plain", **kw)
     ls = plan["layers"][-1]["out_bn_norm"]["scal"]
-    return EK.dequantize_payload(h8, ls[0, 6], ls[0, 7]).reshape(b, t, hdim)
+    return EK.dequantize_payload(h8, ls[0, 6], ls[0, 7]).to(
+        out_dtype).reshape(b, t, hdim)
 
 
 def entry_value(params: Dict, batch: Mapping, cfg: MobileBertConfig,
@@ -842,16 +851,23 @@ def mobilebert_engine_apply(params: Dict, batch: Mapping,
                             cfg: MobileBertConfig, qcfg: QuantModelConfig,
                             qstate: Mapping, static, plan, int_params: Dict,
                             *, backend: str = "kernels",
+                            engine_dtype=torch.float32,
+                            gelu_impl: str = "tanh",
                             fuse_layer: Optional[bool] = None,
                             device="cuda") -> Dict:
     """Inference through the full-handoff int8 engine: the embeddings and
     the head run through the generic site machinery, the encoder on int8
-    payloads (:func:`mobilebert_encoder_engine`)."""
+    payloads (:func:`mobilebert_encoder_engine`). ``engine_dtype`` casts
+    the encoder's exit (then back to float32, as JAX's); ``gelu_impl`` is
+    taken and, as in the JAX package, unused (MobileBERT's act is
+    relu)."""
     h, bias = entry_value(params, batch, cfg, qcfg, qstate, int_params,
                           device=device)
     with torch.no_grad():
         ctx = B.make_ctx(qcfg, qstate, QuantMode(), int_params=int_params)
         h = mobilebert_encoder_engine(h, bias, static, plan, backend=backend,
-                                      fuse_layer=fuse_layer)
+                                      out_dtype=engine_dtype,
+                                      fuse_layer=fuse_layer).to(
+                                          torch.float32)
         last = f"L{cfg.num_hidden_layers - 1}.out.bn.norm.out"
         return _classification_head(ctx, params, cfg, h, last, batch)

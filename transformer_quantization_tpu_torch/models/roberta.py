@@ -158,19 +158,27 @@ def roberta_apply(params: Dict, batch: Mapping, cfg: RobertaConfig,
                   mse_session: Optional[Dict] = None,
                   int_params: Optional[Dict] = None, fused_linear=False,
                   capture_sites=None, capture_pre_act: bool = False,
+                  compute_dtype=None, attention_dtype=None,
+                  int8_attention: bool = False,
                   device="cuda") -> Tuple[Dict, Dict]:
     """Inference / calibration forward; returns ``(outputs, new_qstate)``,
     as :func:`~.bert.bert_apply` (``qcfg=None`` the float model,
     ``int_params`` the generic int8 path, ``fused_linear`` its fused
-    linear). ``params`` must live on ``device``."""
+    linear). ``params`` must live on ``device``. The
+    inference options ``compute_dtype`` / ``attention_dtype`` /
+    ``int8_attention`` as :func:`~.bert.bert_apply`'s."""
     dev = B._check_device(params, device)
     with torch.no_grad():
         ctx = B.family_ctx(qcfg, qstate, mode, train=train,
                          int_params=int_params, fused_linear=fused_linear,
                          mse_session=mse_session, capture_sites=capture_sites,
-                         capture_pre_act=capture_pre_act, family="RoBERTa")
+                         capture_pre_act=capture_pre_act,
+                         compute_dtype=compute_dtype,
+                         attention_dtype=attention_dtype,
+                         int8_attention=int8_attention, family="RoBERTa")
         input_ids, token_type_ids, position_ids, mask_bias = _inputs(
             batch, cfg, dev)
+        mask_bias = B.compute_mask(mask_bias, compute_dtype)
         h = B._embeddings(ctx, params, cfg, input_ids, token_type_ids,
                           position_ids, False, None)
         h, h_site = B.run_encoder(ctx, params, cfg, h, mask_bias, False,
@@ -221,10 +229,12 @@ def build_roberta_engine(params: Dict, cfg: RobertaConfig,
 def roberta_engine_apply(params: Dict, batch: Mapping, cfg: RobertaConfig,
                          qcfg: QuantModelConfig, qstate: Mapping, static,
                          plan, int_params: Dict, *, backend: str = "kernels",
+                         engine_dtype=torch.float32, gelu_impl: str = "tanh",
                          device="cuda") -> Dict:
     """Inference through the full-handoff int8 engine: embeddings and the
     head through the generic site machinery, the encoder on int8
-    payloads; ``backend='plain'`` runs the layers' plain versions."""
+    payloads; ``backend='plain'`` runs the layers' plain versions.
+    ``engine_dtype`` / ``gelu_impl`` as :func:`~.bert.bert_engine_apply`'s."""
     dev = B._check_device(params, device)
     with torch.no_grad():
         ctx = B.make_ctx(qcfg, qstate, QuantMode(), int_params=int_params)
@@ -232,6 +242,7 @@ def roberta_engine_apply(params: Dict, batch: Mapping, cfg: RobertaConfig,
         h = B._embeddings(ctx, params, cfg, input_ids, token_type_ids,
                           position_ids, False, None)
         h = ENG.encoder_engine(h, B.engine_bias(batch, input_ids, dev), static,
-                               plan, backend=backend)
+                               plan, backend=backend, out_dtype=engine_dtype,
+                               gelu_impl=gelu_impl).to(torch.float32)
         h_site = f"L{cfg.num_hidden_layers - 1}.ffn.ln.out"
         return _roberta_head(ctx, params, cfg, h, h_site, batch)

@@ -160,10 +160,12 @@ def squeezebert_apply(params: Dict, batch: Mapping, cfg: SqueezeBertConfig,
                       mse_session: Optional[Dict] = None,
                       int_params: Optional[Dict] = None, fused_linear=False,
                       capture_sites=None, capture_pre_act: bool = False,
+                      compute_dtype=None, attention_dtype=None,
+                      int8_attention: bool = False,
                       device="cuda") -> Tuple[Dict, Dict]:
     """Inference / calibration forward; returns ``(outputs, new_qstate)``,
-    as :func:`~.bert.bert_apply`, with the encoder's matmuls grouped.
-    ``params`` must live on ``device``."""
+    as :func:`~.bert.bert_apply` (its inference options too), with the
+    encoder's matmuls grouped. ``params`` must live on ``device``."""
     dev = B._check_device(params, device)
     with torch.no_grad():
         ctx = B.family_ctx(qcfg, qstate, mode, train=train,
@@ -171,9 +173,13 @@ def squeezebert_apply(params: Dict, batch: Mapping, cfg: SqueezeBertConfig,
                            mse_session=mse_session,
                            capture_sites=capture_sites,
                            capture_pre_act=capture_pre_act,
+                           compute_dtype=compute_dtype,
+                           attention_dtype=attention_dtype,
+                           int8_attention=int8_attention,
                            family="SqueezeBERT")
         input_ids, token_type_ids, position_ids, mask_bias = B.prepare_inputs(
             batch, dev)
+        mask_bias = B.compute_mask(mask_bias, compute_dtype)
         h = B._embeddings(ctx, params, cfg, input_ids, token_type_ids,
                           position_ids, False, None)
         h, h_site = B.run_encoder(
@@ -265,6 +271,8 @@ def squeezebert_engine_apply(params: Dict, batch: Mapping,
                              cfg: SqueezeBertConfig, qcfg: QuantModelConfig,
                              qstate: Mapping, static, plan, int_params: Dict,
                              *, backend: str = "kernels",
+                             engine_dtype=torch.float32,
+                             gelu_impl: str = "tanh",
                              device="cuda") -> Dict:
     """BERT's engine forward: embeddings and head through the generic site
     machinery, the encoder on int8 payloads (the plan holds the densified
@@ -272,4 +280,5 @@ def squeezebert_engine_apply(params: Dict, batch: Mapping,
     where :func:`squeezebert_apply`'s does not."""
     return B.bert_engine_apply(params, batch, cfg, qcfg, qstate, static,
                                plan, int_params, backend=backend,
-                               device=device)
+                               engine_dtype=engine_dtype,
+                               gelu_impl=gelu_impl, device=device)

@@ -36,6 +36,12 @@ float edge adds the consuming matmul's ``grid``). Split-half packed int4
 weights (W4A8, ``use_int4``) ride every route's payload matmuls
 (``EngineStatic.w4``); an int4 weight under a float edge raises
 :class:`EngineIncompatible` with "not yet ported".
+
+:func:`encoder_engine` takes the JAX engine's inference options: the
+backend spec of :func:`parse_backend` (a mix of kernels and plain
+versions per op kind), ``gelu_impl`` (:func:`engine_act`) and
+``out_dtype`` (the ``engine_dtype``: bfloat16 storage of the entry and
+exit values and of the non-payload route's residual stream).
 """
 
 from __future__ import annotations
@@ -537,49 +543,98 @@ def build_encoder_plan(qcfg, qstate: Mapping, int_params: Mapping,
     return static, {"layers": layers, "entry_scal": entry_scal}
 
 
+BACKENDS = ("kernels", "plain")
+
+
+def parse_backend(backend: str) -> Tuple[str, str, str]:
+    """Backend spec -> the (matmul, attention, add+LN) op backends, as the
+    JAX ``parse_backend``: ``'kernels'`` or ``'plain'`` for all three op
+    kinds, or ``'mix:<mm>,<attn>,<ln>'`` mixing them (e.g.
+    ``'mix:kernels,plain,kernels'``: the plain attention between the
+    kernels' matmuls and add+LNs)."""
+    if backend.startswith("mix:"):
+        parts = tuple(backend[4:].split(","))
+    else:
+        parts = (backend,) * 3
+    if len(parts) != 3 or any(p not in BACKENDS for p in parts):
+        raise ValueError(f"unknown engine backend {backend!r} (one of "
+                         f"{BACKENDS} or 'mix:<mm>,<attn>,<ln>')")
+    return parts
+
+
+# the engine's hidden_act 'gelu' by gelu_impl (the JAX encoder_engine's
+# substitution): the tanh form, the degree-10 polynomial, the A-S erf
+GELU_IMPLS = {"tanh": "gelu_new", "poly": "gelu_poly10", "exact": "gelu"}
+
+
+def engine_act(hidden_act: str, gelu_impl: str) -> str:
+    """The epilogue activation the engine runs for ``hidden_act``:
+    ``'gelu'`` as :data:`GELU_IMPLS` maps ``gelu_impl``, others as they
+    are."""
+    if gelu_impl not in GELU_IMPLS:
+        raise ValueError(f"unknown gelu_impl {gelu_impl!r} (one of "
+                         f"{sorted(GELU_IMPLS)})")
+    return GELU_IMPLS[gelu_impl] if hidden_act == "gelu" else hidden_act
+
+
 def encoder_engine(h: Tensor, mask_bias: Tensor, static: EngineStatic,
-                   plan: Dict, *, backend: str = "kernels") -> Tensor:
+                   plan: Dict, *, backend: str = "kernels",
+                   out_dtype=torch.float32,
+                   gelu_impl: str = "tanh") -> Tensor:
     """Run the encoder stack on payloads and value edges.
 
     ``h``: (B, T, H) float, the (fake-quantized) entry-site value.
     ``mask_bias``: (B, T) float32 additive attention bias. Returns the last
-    layer's ln-site value, (B, T, H) float32. ``backend='kernels'`` runs
-    each layer through the kernel wrappers (the CUDA kernels on the card,
-    their plain versions on the CPU); ``'plain'`` runs the plain versions
-    on any device, the yardstick the kernels are held against. An all-int8
-    layer is one ``int8_layer_ln`` (its attention sites any of 2-16 bits
-    or disabled); a flex layer one ``int8_attn_ln`` and one flex
-    ``int8_ffn_ln`` with the layer's edge modes (``static.io``); a float
-    entry edge starts the stream as the entry value itself, and a float
-    last ``z`` edge is returned as it is. With a disabled fold site
-    anywhere the stack takes the non-payload residual route
-    (:func:`_non_payload_stack`). ``hidden_act='gelu'`` runs as the tanh
-    form ``gelu_new``, the JAX engine's default ``gelu_impl='tanh'``.
+    layer's ln-site value, (B, T, H) in ``out_dtype``. ``backend``
+    (:func:`parse_backend`): ``'kernels'`` runs each op through the kernel
+    wrappers (the CUDA kernels on the card, their plain versions on the
+    CPU), ``'plain'`` the plain versions on any device, the yardstick the
+    kernels are held against, and ``'mix:<mm>,<attn>,<ln>'`` picks one of
+    the two per op kind. An all-int8 layer is one ``int8_layer_ln`` (its
+    attention sites any of 2-16 bits or disabled) under a uniform backend
+    and, under a mix, the same chain of matmul, attention and add+LN ops
+    (the JAX engine's unfused route: the fused forms are bit-identical to
+    it); a flex layer one ``int8_attn_ln`` and one flex ``int8_ffn_ln``
+    with the layer's edge modes (``static.io``), under a uniform backend
+    only (JAX's refusal); a float entry edge starts the stream as the
+    entry value itself, and a float last ``z`` edge is returned as it is.
+    With a disabled fold site anywhere the stack takes the non-payload
+    residual route (:func:`_non_payload_stack`). ``hidden_act='gelu'``
+    runs as ``gelu_impl`` says (:func:`engine_act`).
+
+    ``out_dtype`` is the JAX ``engine_dtype``: the entry value is cast to
+    it before its payload is taken (a float entry edge keeps the float32
+    value), the non-payload route's residual stream and float matmul
+    outputs ride it (bfloat16: the kernels' bfloat16 forms), flex value
+    edges stay float32, and the exit value is cast to it.
     """
-    if backend not in ("kernels", "plain"):
-        raise ValueError(f"unknown engine backend {backend!r}")
+    mm_be, attn_be, ln_be = parse_backend(backend)
     b, t, hdim = h.shape
-    hidden_act = ("gelu_new" if static.hidden_act == "gelu"
-                  else static.hidden_act)
-    kern = backend == "kernels"
+    hidden_act = engine_act(static.hidden_act, gelu_impl)
+    uniform = mm_be == attn_be == ln_be
+    kern = mm_be == "kernels"
     layer_fn = EK.int8_layer_ln if kern else EK.int8_layer_ln_ref
     attn_fn = EK.int8_attn_ln if kern else EK.int8_attn_ln_ref
     ffn_fn = EK.int8_ffn_ln if kern else EK.int8_ffn_ln_ref
     es = plan["entry_scal"]
-    hf = h.reshape(b * t, hdim).to(torch.float32)
+    hf = h.reshape(b * t, hdim).to(out_dtype)
     # a float entry edge (a 16-bit or sub-8 entry site): the stream starts
-    # as the fake-quantized value itself
-    h8 = (hf if static.layer_io(0)[0] == "f"
+    # as the fake-quantized value itself, taken before the out_dtype cast
+    # (a bfloat16 hop would leave its grid)
+    h8 = (h.reshape(b * t, hdim).to(torch.float32)
+          if static.layer_io(0)[0] == "f"
           else EK.quantize_payload(hf, es[0, 0], es[0, 1]))
     mask_bias = mask_bias.to(torch.float32).contiguous()
-    if not all(ao and d for ao, d in static.fold):
-        # the residual stream rides payloads only when every fold site is
-        # enabled (JAX payload_res, all or nothing over the stack)
-        if static.any_flex:
-            raise ValueError("mixed / PEG recipe layers need the payload "
-                             "residual route: every fold site enabled")
+    # the residual stream rides payloads only when every fold site is
+    # enabled (JAX payload_res, all or nothing over the stack)
+    payload_res = all(ao and d for ao, d in static.fold)
+    if static.any_flex and not (payload_res and uniform):
+        raise ValueError("mixed/PEG recipe layers need a uniform engine "
+                         f"backend ('kernels' or 'plain'), got {backend!r}")
+    if not payload_res:
         hf = _non_payload_stack(h8, hf, mask_bias, static, plan, t,
-                                hidden_act, kern)
+                                hidden_act, (mm_be, attn_be, ln_be),
+                                out_dtype)
         return hf.reshape(b, t, hdim)
     for i, lp in enumerate(plan["layers"]):
         res1, res2 = static.res_quant[i]
@@ -615,6 +670,10 @@ def encoder_engine(h: Tensor, mask_bias: Tensor, static: EngineStatic,
                 x_grid=lp["inter"].get("grid"),
                 i_grid=lp["dense"].get("grid"), w4i=w4i, w4d=w4d)
             continue
+        if not uniform:
+            h8 = _mixed_layer(h8, lp, mask_bias, static, i, t, hidden_act,
+                              (mm_be, attn_be, ln_be))
+            continue
         h8 = layer_fn(
             h8, lp["qkv"]["w"], lp["qkv"]["vecs"], lp["qkv"]["scal"],
             mask_bias, lp["attn_scal"], lp["attn_out"]["w"],
@@ -631,7 +690,7 @@ def encoder_engine(h: Tensor, mask_bias: Tensor, static: EngineStatic,
     if static.layer_io(static.n_layers - 1)[3] == "f":
         # the last layer's z is a float value edge: the stream already
         # holds the fake-quantized ln-site values
-        return h8.reshape(b, t, hdim)
+        return h8.to(out_dtype).reshape(b, t, hdim)
     ln2 = plan["layers"][-1]["ln2"]
     if "lnv" in ln2:
         # a per-column plan carries the (per-tensor) ffn.ln.out params
@@ -639,25 +698,68 @@ def encoder_engine(h: Tensor, mask_bias: Tensor, static: EngineStatic,
         s_l, sh_l = ln2["lnv"][2, 0], ln2["lnv"][3, 0]
     else:
         s_l, sh_l = ln2["scal"][0, 6], ln2["scal"][0, 7]
-    hf = EK.dequantize_payload(h8, s_l, sh_l)
+    hf = EK.dequantize_payload(h8, s_l, sh_l).to(out_dtype)
     return hf.reshape(b, t, hdim)
+
+
+def _op_fns(backends: Tuple[str, str, str]):
+    """(matmul, attention, float add+LN, payload add+LN) of the engine's
+    op backends: each op kind's wrapper (``'kernels'``) or plain version
+    (``'plain'``)."""
+    mm_be, attn_be, ln_be = backends
+    kl = ln_be == "kernels"
+    return (EK.int8_matmul if mm_be == "kernels" else EK.int8_matmul_ref,
+            EK.int8_attention if attn_be == "kernels"
+            else EK.int8_attention_ref,
+            EK.fused_add_ln if kl else EK.fused_add_ln_ref,
+            EK.fused_add_ln_payload if kl else EK.fused_add_ln_payload_ref)
+
+
+def _mixed_layer(h8: Tensor, lp: Dict, mask_bias: Tensor,
+                 static: EngineStatic, i: int, t: int, hidden_act: str,
+                 backends: Tuple[str, str, str]) -> Tensor:
+    """An all-int8 layer under a mixed backend: the JAX engine's unfused
+    route, q|k|v matmul (emit) -> attention -> attn_out matmul (emit on
+    its fold site; a float context edge on the float-edge or float x int8
+    matmul) -> payload add+LN -> inter matmul (act, emit) -> dense matmul
+    (emit) -> payload add+LN, each op on its kind's backend."""
+    mm, attn, _, add_ln = _op_fns(backends)
+    res1, res2 = static.res_quant[i]
+    w4q, w4o, w4i, w4d = static.w4[i]
+    attn_bits = static.layer_attn_bits(i)
+
+    def mp(p):
+        return p["w"], p["vecs"], p["scal"]
+
+    qkv8 = mm(h8, *mp(lp["qkv"]), activation=None, out_mode="emit", w4=w4q)
+    c8 = attn(qkv8, mask_bias, lp["attn_scal"], n_heads=static.n_heads,
+              seq=t, skip_max=static.attn_skip_max, attn_bits=attn_bits)
+    y8 = mm(c8, *mp(lp["attn_out"]), activation=None, out_mode="emit",
+            w4=w4o, in_mode=EK._ctx_mode(attn_bits),
+            in_grid=lp["attn_out"].get("grid"))
+    h8 = add_ln(y8, h8, lp["ln1"]["gb"], lp["ln1"]["scal"],
+                eps=static.ln_eps, res_quant=res1)
+    i8 = mm(h8, *mp(lp["inter"]), activation=hidden_act, out_mode="emit",
+            w4=w4i)
+    y8 = mm(i8, *mp(lp["dense"]), activation=None, out_mode="emit", w4=w4d)
+    return add_ln(y8, h8, lp["ln2"]["gb"], lp["ln2"]["scal"],
+                  eps=static.ln_eps, res_quant=res2)
 
 
 def _non_payload_stack(h8: Tensor, hf: Tensor, mask_bias: Tensor,
                        static: EngineStatic, plan: Dict, t: int,
-                       hidden_act: str, kern: bool) -> Tensor:
+                       hidden_act: str, backends: Tuple[str, str, str],
+                       out_dtype=torch.float32) -> Tensor:
     """The JAX engine's non-payload residual route: the residual stream
-    ``hf`` is float32 (the entry value, then each add+LN's float output),
-    and each layer runs q|k|v matmul (emit) -> attention -> attn_out
-    matmul (``'fold'`` on its site, or ``'float'`` when the site is
-    disabled; a float context edge, ``'c': 16`` / ``'fp32'``, on the
-    float-edge or the float x int8 matmul) ->
+    ``hf`` is float in ``out_dtype`` (the entry value, then each add+LN's
+    float output), and each layer runs q|k|v matmul (emit) -> attention ->
+    attn_out matmul (``'fold'`` on its site, or ``'float'`` when the site
+    is disabled, in ``out_dtype``; a float context edge, ``'c': 16`` /
+    ``'fp32'``, on the float-edge or the float x int8 matmul) ->
     :func:`~.kernels.engine_kernels.fused_add_ln` -> inter matmul (act,
-    emit) -> dense matmul (fold or float) -> fused_add_ln. Returns the
-    last layer's float output, (M, H)."""
-    mm = EK.int8_matmul if kern else EK.int8_matmul_ref
-    attn = EK.int8_attention if kern else EK.int8_attention_ref
-    add_ln = EK.fused_add_ln if kern else EK.fused_add_ln_ref
+    emit) -> dense matmul (fold or float) -> fused_add_ln, each op on its
+    kind's backend. Returns the last layer's float output, (M, H)."""
+    mm, attn, add_ln, _ = _op_fns(backends)
 
     def mp(p):
         return p["w"], p["vecs"], p["scal"]
@@ -674,13 +776,16 @@ def _non_payload_stack(h8: Tensor, hf: Tensor, mask_bias: Tensor,
         y = mm(c8, *mp(lp["attn_out"]), activation=None,
                out_mode="fold" if ao_fold else "float", w4=w4o,
                in_mode=EK._ctx_mode(attn_bits),
-               in_grid=lp["attn_out"].get("grid"))
+               in_grid=lp["attn_out"].get("grid"), out_dtype=out_dtype)
         h8, hf = add_ln(y, hf, lp["ln1"]["gb"], lp["ln1"]["scal"],
-                        eps=static.ln_eps, res_quant=res1)
+                        eps=static.ln_eps, res_quant=res1,
+                        out_dtype=out_dtype)
         i8 = mm(h8, *mp(lp["inter"]), activation=hidden_act, out_mode="emit",
                 w4=w4i)
         y = mm(i8, *mp(lp["dense"]), activation=None,
-               out_mode="fold" if d_fold else "float", w4=w4d)
+               out_mode="fold" if d_fold else "float", w4=w4d,
+               out_dtype=out_dtype)
         h8, hf = add_ln(y, hf, lp["ln2"]["gb"], lp["ln2"]["scal"],
-                        eps=static.ln_eps, res_quant=res2)
+                        eps=static.ln_eps, res_quant=res2,
+                        out_dtype=out_dtype)
     return hf

@@ -132,6 +132,54 @@ def int8_linear(x_int8: Tensor, x_scale: Tensor, x_shift: Tensor,
     return y
 
 
+def _q8(spec: Q.QuantizerSpec, qp: Q.QuantParams, x: Tensor):
+    x8, s, shift = quantize_activation_int8(spec, qp, x)
+    return x8, s.reshape(()), shift.reshape(())
+
+
+# Integer attention (the JAX ops/int_linear.py forms): with a = s_a (a8 +
+# sa) and b = s_b (b8 + sb) per-tensor, sum_d a b = s_a s_b (a8.b8 + sa
+# rowsum(b8) + sb rowsum(a8) + d sa sb); a8.b8 is exact_int_matmul's (a
+# float32 product of int8 levels, exact with TF32 off while d * 2^14 <=
+# 2^24: d <= 1024; float64 past that).
+
+
+def int8_attention_scores(q: Tensor, k: Tensor, q_spec, q_qp, k_spec, k_qp
+                          ) -> Tensor:
+    """(B, T, n, d) x (B, T, n, d) -> (B, n, Tq, Tk) raw attention scores
+    from q's and k's int8 levels on their act sites' grids (q and k are
+    quantized here: their producers' fake-quant may be skipped)."""
+    d = q.shape[-1]
+    q8, s_q, sh_q = _q8(q_spec, q_qp, q)
+    k8, s_k, sh_k = _q8(k_spec, k_qp, k)
+    acc = exact_int_matmul(q8.permute(0, 2, 1, 3),
+                           k8.permute(0, 2, 1, 3)).to(torch.float32)
+    ksum = torch.sum(k8.to(torch.float32), dim=-1)  # (B, Tk, n)
+    qsum = torch.sum(q8.to(torch.float32), dim=-1)  # (B, Tq, n)
+    acc = (acc + sh_q * ksum.permute(0, 2, 1)[:, :, None, :]
+           + sh_k * qsum.permute(0, 2, 1)[:, :, :, None]
+           + d * sh_q * sh_k)
+    return (s_q * s_k) * acc
+
+
+def int8_attention_context(probs: Tensor, v: Tensor, p_spec, p_qp,
+                           v_spec, v_qp) -> Tensor:
+    """(B, n, Tq, Tk) x (B, Tk, n, d) -> (B, Tq, n, d) attention context
+    from the probs' and v's int8 levels."""
+    tk = probs.shape[-1]
+    p8, s_p, sh_p = _q8(p_spec, p_qp, probs)
+    v8, s_v, sh_v = _q8(v_spec, v_qp, v)
+    # (B, n, Tq, Tk) x (B, n, d, Tk) -> (B, n, Tq, d)
+    acc = exact_int_matmul(p8, v8.permute(0, 2, 3, 1)).to(torch.float32)
+    acc = acc.permute(0, 2, 1, 3)                    # (B, Tq, n, d)
+    vsum = torch.sum(v8.to(torch.float32), dim=1)    # (B, n, d)
+    psum = torch.sum(p8.to(torch.float32), dim=-1)   # (B, n, Tq)
+    acc = (acc + sh_p * vsum[:, None, :, :]
+           + sh_v * psum.permute(0, 2, 1)[:, :, :, None]
+           + tk * sh_p * sh_v)
+    return (s_p * s_v) * acc
+
+
 def int8_grouped_linear(x_int8: Tensor, x_scale: Tensor, x_shift: Tensor,
                         packed: Dict, bias: Optional[Tensor], groups: int,
                         activation=None) -> Tensor:

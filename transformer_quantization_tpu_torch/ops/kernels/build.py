@@ -71,6 +71,8 @@ _SIGNATURES = {
     "flex_add_ln": ("tq_flex_add_ln",
                     (_P, _P, _I, _P, _P, _P, _P, _P, _I, _I, _F, _I, _F, _F,
                      _F, _F, _P)),
+    "fused_add_ln_bf16": ("tq_fused_add_ln_bf16",
+                          (_P,) * 6 + (_I, _I, _F, _I, _F, _F, _F, _F, _P)),
     "fused_int8_linear": ("tq_fused_int8_linear",
                           (_P, _I) + (_P,) * 7 + (_I,) * 8 + (_F, _P)),
     "fused_int8_linear_w4": ("tq_fused_int8_linear_w4",
@@ -90,6 +92,7 @@ _LIBRARY = {"int8_matmul_w4": "int8_matmul",
             "fused_quantize": "fused_int8_linear",
             "fused_rcp_check": "fused_int8_linear",
             "ln_div_check": "add_ln_payload",
+            "fused_add_ln_bf16": "flex_add_ln",
             "float_edge_levels": "float_edge_matmul",
             "float_edge_gemm": "float_edge_matmul"}
 

@@ -53,6 +53,27 @@ int by_sites(const tqln::Args& a, int H, cudaStream_t st) {
 
 }  // namespace
 
+// fused_add_ln at engine_dtype bf16: y and r (M, H) bf16 (the float32
+// residual stream's bfloat16 form), scalar sites (scal as below), out8:
+// (M, H) int8 and outf: (M, H) bf16, both written. H % 128 == 0, H <=
+// 1024. Returns the launch's cudaError_t.
+extern "C" int tq_fused_add_ln_bf16(const void* y, const void* r,
+                                    const void* gb, const void* scal,
+                                    void* out8, void* outf, int M, int H,
+                                    float eps, int res_quant, float res_lo,
+                                    float res_hi, float ln_lo, float ln_hi,
+                                    void* stream) {
+  if (out8 == nullptr || outf == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const tqln::Args a{y, r, static_cast<const float*>(gb),
+                     static_cast<const float*>(scal), nullptr,
+                     static_cast<int8_t*>(out8), static_cast<float*>(outf),
+                     M, eps, res_quant, res_lo, res_hi, ln_lo, ln_hi};
+  return tqln::launch<__nv_bfloat16, __nv_bfloat16, false,
+                      tqln::OUT_I8 | tqln::OUT_BF16>(
+      a, H, static_cast<cudaStream_t>(stream));
+}
+
 // y: (M, H) f32; r: (M, H) int8 payload (r_f32 = 0, with scal[2:4]) or f32
 // value (r_f32 = 1); gb: (2, H) [gamma; beta]; scal: 8 f32 [y_s, y_sh, r_s,
 // r_sh, res_s, res_sh, ln_s, ln_sh]; lnv: (4, H) per-column site rows or

@@ -23,7 +23,9 @@
 // float layer input, the dense matmul on a 16-bit inter edge, attn_out on
 // a 16-bit context, the inter matmul folding a 16-bit inter site) or y
 // itself (float: attn_out on a 16-bit context with a disabled fold
-// site). The JAX
+// site); fold and float also in bfloat16 (no activation: the engine's
+// engine_dtype bf16). act: none, gelu_new, gelu (A-S erf), gelu_poly10
+// or tanh (mm_common.cuh act_fn). The JAX
 // reference takes x @ w^T as a float32 dot product, whose result depends
 // on its summation order; here every rounding happens after an exact
 // integer sum, so the kernel and its plain version (float_edge_matmul_ref)
@@ -122,11 +124,14 @@ struct EdgeArgs {
 // 8 bits, 2: 16); GR: one group (0), or several folded in the main loop
 // after each stage (1: groups of a multiple of 128 columns) or every two
 // k32 steps (2: of an odd multiple of 64). OUT: 0 emit (int8, the 8-bit
-// site), 1 fold (f32 on the [lo, hi] grid), 2 float (f32 y).
+// site), 1 fold (f32 on the [lo, hi] grid), 2 float (f32 y); 3 and 4 are
+// 1 and 2 with a bfloat16 output.
 template <int PL, int GR, int ACT, int OUT = 0>
 struct EdgeEpi {
   using Col = ColEdge;
-  using Out = typename std::conditional<OUT == 0, int8_t, float>::type;
+  using Out = typename std::conditional<
+      OUT == 0, int8_t,
+      typename std::conditional<(OUT >= 3), __nv_bfloat16, float>::type>::type;
   using Args = EdgeArgs;
   static constexpr int kTM = 64;
   static constexpr int kPlanes = PL;
@@ -163,7 +168,13 @@ struct EdgeEpi {
   // (emit), that site's value on the [lo, hi] grid (fold) or y (float)
   __device__ __forceinline__ Out site(float x, const Col& k) const {
     const float y = tqmm::act_fn<ACT>(k.ws * x + k.b, gelu_c);
-    if constexpr (OUT == 2) {
+    if constexpr (OUT == 4) {
+      return __float2bfloat16_rn(y);
+    } else if constexpr (OUT == 3) {
+      const float lvl =
+          fminf(fmaxf(tqmm::rint_div_fma(y, k.os, k.inv) - k.osh, lo), hi);
+      return __float2bfloat16_rn(k.os * (lvl + k.osh));
+    } else if constexpr (OUT == 2) {
       return y;
     } else if constexpr (OUT == 1) {
       const float lvl =
@@ -390,15 +401,30 @@ cudaError_t launch_levels(const void* x, const void* cols, const void* ginv,
   return cudaGetLastError();
 }
 
+// act 0 and 1 (gelu_new) at every output; 3-5 (gelu, gelu_poly10, tanh)
+// emit or fold (OUT 0, 1); bfloat16 outputs (OUT 3, 4) act 0 only
 template <int PL, int GR, int OUT>
 cudaError_t launch_policy(int act, const CUtensorMap& mx,
                           const CUtensorMap& mw, const EdgeArgs& a, void* out,
                           int M, int N, int K, int sms, cudaStream_t st) {
   using tqwg::gemm_launch;
+  if constexpr (OUT >= 3) {
+    return gemm_launch<EdgeEpi<PL, GR, 0, OUT>>(mx, mw, a, out, M, N, K, sms,
+                                                st);
+  } else {
+    if constexpr (OUT <= 1) {
+      switch (act) {
+        case 3: return gemm_launch<EdgeEpi<PL, GR, 3, OUT>>(mx, mw, a, out, M, N, K, sms, st);
+        case 4: return gemm_launch<EdgeEpi<PL, GR, 4, OUT>>(mx, mw, a, out, M, N, K, sms, st);
+        case 5: return gemm_launch<EdgeEpi<PL, GR, 5, OUT>>(mx, mw, a, out, M, N, K, sms, st);
+        default: break;
+      }
+    }
   return act ? gemm_launch<EdgeEpi<PL, GR, 1, OUT>>(mx, mw, a, out, M, N, K,
                                                      sms, st)
              : gemm_launch<EdgeEpi<PL, GR, 0, OUT>>(mx, mw, a, out, M, N, K,
                                                      sms, st);
+  }
 }
 
 // fold and float outputs: one group only (the grouped epilogues emit)
@@ -410,6 +436,8 @@ cudaError_t launch_planes(int act, int out_mode, const CUtensorMap& mx,
     switch (out_mode) {
       case 0: return launch_policy<PL, 0, 0>(act, mx, mw, a, out, M, N, K, sms, st);
       case 1: return launch_policy<PL, 0, 1>(act, mx, mw, a, out, M, N, K, sms, st);
+      case 3: return launch_policy<PL, 0, 3>(act, mx, mw, a, out, M, N, K, sms, st);
+      case 4: return launch_policy<PL, 0, 4>(act, mx, mw, a, out, M, N, K, sms, st);
       default: return launch_policy<PL, 0, 2>(act, mx, mw, a, out, M, N, K, sms, st);
     }
   }
@@ -425,8 +453,10 @@ cudaError_t launch_gemm(const void* lv, const void* w, const void* vecs,
                         int planes, int act, int out_mode, float lo,
                         float hi, float gelu_c, cudaStream_t st) {
   const int G = edge_ok(M, K, gsize, planes) ? K / gsize : 0;
-  if (G == 0 || G > (planes == 1 ? 32 : 16) || act < 0 || act > 1 ||
-      out_mode < 0 || out_mode > 2 || (out_mode != 0 && G != 1) ||
+  if (G == 0 || G > (planes == 1 ? 32 : 16) || act < 0 || act > 5 ||
+      act == 2 ||
+      out_mode < 0 || out_mode > 4 || (out_mode != 0 && G != 1) ||
+      (out_mode == 2 && act > 1) || (out_mode > 2 && act != 0) ||
       !aligned16(out))
     return cudaErrorInvalidValue;
   const int rows = planes * plane_rows(M, planes);
@@ -470,9 +500,11 @@ extern "C" int tq_float_edge_levels(const void* x, const void* cols,
 // group scale, zero point; gcs: (G, N) int32 per-group column sums of w;
 // out: (M, N), int8 for out_mode 0 (emit: the 8-bit output site's levels,
 // vecs rows 3 / 4) or f32 for 1 (fold: the site's values on the [lo, hi]
-// level grid) and 2 (float: y); fold and float need G == 1. G <= 32
-// (planes 1) or 16 (planes 2); N % 8 == 0; act: 0 none, 1 gelu_new; w and
-// out 16-byte aligned. Launches the GEMM on `stream`.
+// level grid) and 2 (float: y), bf16 for 3 (fold) and 4 (float); fold and
+// float need G == 1. G <= 32 (planes 1) or 16 (planes 2); N % 8 == 0;
+// act: 0 none, 1 gelu_new, 3 gelu, 4 gelu_poly10, 5 tanh (3-5 emit or
+// fold; out_mode 3 and 4 act 0); w and out 16-byte aligned. Launches the
+// GEMM on `stream`.
 extern "C" int tq_float_edge_gemm(const void* lv, const void* w,
                                   const void* vecs, const void* gs,
                                   const void* gzp, const void* gcs, void* out,

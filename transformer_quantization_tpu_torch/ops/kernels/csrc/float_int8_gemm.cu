@@ -11,7 +11,10 @@
 //   acc[m, n] = sum_k x[m, k] * w[n, k]            (float64, rounded once)
 //   y         = act(wscale[n] * acc + bias[n])
 //   out       = the output site of y: its int8 payload (emit), its value
-//               on a 2-16-bit grid (fold) or y itself (float)
+//               on a 2-16-bit grid (fold) or y itself (float); fold and
+//               float also in bfloat16 (no activation: engine_dtype bf16)
+//   act       = none | gelu_new | relu | gelu (A-S erf) | gelu_poly10 |
+//               tanh (mm_common.cuh act_fn)
 //
 // Numerics: a float32 times an int8 is exact in float64 (24 + 8 bits), so
 // each output is the float32 rounding of the exact sum but where the
@@ -87,7 +90,8 @@ __device__ __forceinline__ ColF col_of(const float* vecs, int N, int n) {
 }
 
 // one output: y = act(wscale * acc + bias), then the site (OUT 0: the
-// level, stored as int8; 1: its value; 2: y)
+// level, stored as int8; 1: its value; 2: y; the epilogue stores OUT 3
+// and 4 as 1 and 2 in bfloat16)
 template <int ACT, int OUT>
 __device__ __forceinline__ float out_of(float acc, const ColF& k, float lo,
                                         float hi, float gelu_c) {
@@ -118,12 +122,17 @@ __device__ __forceinline__ void epilogue(const double (&acc)[MT][NT][4],
       for (int r = 0; r < 2; ++r) {
         const int m = mw + mi * 16 + g + 8 * r;
         if (m >= M) continue;
-        const float y0 = out_of<ACT, OUT>(
+        constexpr int O = OUT >= 3 ? OUT - 2 : OUT;
+        const float y0 = out_of<ACT, O>(
             __double2float_rn(acc[mi][nj][2 * r]), k0, lo, hi, gelu_c);
-        const float y1 = out_of<ACT, OUT>(
+        const float y1 = out_of<ACT, O>(
             __double2float_rn(acc[mi][nj][2 * r + 1]), k1, lo, hi, gelu_c);
         const size_t i = static_cast<size_t>(m) * N + n;
-        if constexpr (OUT == 0) {
+        if constexpr (OUT >= 3) {
+          *reinterpret_cast<__nv_bfloat162*>(
+              static_cast<__nv_bfloat16*>(out) + i) =
+              __floats2bfloat162_rn(y0, y1);
+        } else if constexpr (OUT == 0) {
           char2 v;
           v.x = static_cast<signed char>(tqmm::to_i8(y0));
           v.y = static_cast<signed char>(tqmm::to_i8(y1));
@@ -234,7 +243,10 @@ cudaError_t launch_act(int out_mode, const float* x, const int8_t* w,
   switch (out_mode) {
     case 0: kernel = float_int8_kernel<ACT, 0>; break;
     case 1: kernel = float_int8_kernel<ACT, 1>; break;
-    default: kernel = float_int8_kernel<ACT, 2>; break;
+    case 2: kernel = float_int8_kernel<ACT, 2>; break;
+    // bfloat16 outputs: no activation (the caller checks)
+    case 3: kernel = float_int8_kernel<0, 3>; break;
+    default: kernel = float_int8_kernel<0, 4>; break;
   }
   const cudaError_t attr = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
@@ -248,8 +260,9 @@ cudaError_t launch_act(int out_mode, const float* x, const int8_t* w,
 
 // x: (M, K) f32, 16-byte aligned; w: (N, K) int8, 16-byte aligned; vecs:
 // (5, N) f32 rows [wscale, -, bias, out_s, out_sh]; out: (M, N), int8
-// (out_mode 0, emit) or f32 (1 fold, 2 float), 8-byte aligned. act: 0
-// none, 1 gelu_new, 2 relu. [lo, hi]: the output site's level bounds.
+// (out_mode 0, emit), f32 (1 fold, 2 float) or bf16 (3 fold, 4 float;
+// act 0 only), 8-byte aligned. act: 0 none, 1 gelu_new, 2 relu, 3 gelu,
+// 4 gelu_poly10, 5 tanh. [lo, hi]: the output site's level bounds.
 // K % 16 == 0, 0 < K <= 8192, N % 8 == 0. Launches on `stream`; returns
 // the launch's cudaError_t (cudaErrorInvalidValue for arguments the
 // kernel does not take).
@@ -259,7 +272,8 @@ extern "C" int tq_float_int8_matmul(const void* x, const void* w,
                                     float lo, float hi, float gelu_c,
                                     void* stream) {
   if (M <= 0 || N <= 0 || K <= 0 || K % 16 || K > 8192 || N % 8 ||
-      act < 0 || act > 2 || out_mode < 0 || out_mode > 2 ||
+      act < 0 || act > 5 || out_mode < 0 || out_mode > 4 ||
+      (out_mode > 2 && act != 0) ||
       (reinterpret_cast<uintptr_t>(x) & 15) ||
       (reinterpret_cast<uintptr_t>(w) & 15) ||
       (reinterpret_cast<uintptr_t>(out) & 7))
@@ -272,7 +286,10 @@ extern "C" int tq_float_int8_matmul(const void* x, const void* w,
   switch (act) {
     case 0: e = launch_act<0>(out_mode, xp, wp, vp, out, M, N, K, lo, hi, gelu_c, st); break;
     case 1: e = launch_act<1>(out_mode, xp, wp, vp, out, M, N, K, lo, hi, gelu_c, st); break;
-    default: e = launch_act<2>(out_mode, xp, wp, vp, out, M, N, K, lo, hi, gelu_c, st); break;
+    case 2: e = launch_act<2>(out_mode, xp, wp, vp, out, M, N, K, lo, hi, gelu_c, st); break;
+    case 3: e = launch_act<3>(out_mode, xp, wp, vp, out, M, N, K, lo, hi, gelu_c, st); break;
+    case 4: e = launch_act<4>(out_mode, xp, wp, vp, out, M, N, K, lo, hi, gelu_c, st); break;
+    default: e = launch_act<5>(out_mode, xp, wp, vp, out, M, N, K, lo, hi, gelu_c, st); break;
   }
   return static_cast<int>(e);
 }

@@ -10,11 +10,14 @@
 //         (w4: x8[:, :K/2] @ lo^T + x8[:, K/2:] @ hi^T, the nibbles of the
 //         (N, K/2) split-half packed int4 weight, tq_int8_matmul_w4)
 //   y   = (in_s * wscale[n]) * (acc + in_shift * colsum[n]) + bias[n]
-//   y   = act(y)                              (none | gelu_new | relu)
+//   y   = act(y)        (none | gelu_new | relu | gelu (A-S erf) |
+//                        gelu_poly10 | tanh: mm_common.cuh act_fn)
 //   out = emit:  clip(rint(y / out_s[n]) - out_sh[n], -128, 127)  int8
 //         fold:  out_s[n] * (clip(...) + out_sh[n])               float
 //                (on the fold site's out_bits grid: [lo, hi] up to 16 bits)
 //         float: y                                                float
+//         (fold and float out in bfloat16 too, rounded to nearest even:
+//         the engine's engine_dtype bf16; no activation)
 //
 // What bounds it on the card: the int8 tensor-core rate. At BERT-base
 // shapes (M = 16384, K/N = 768..3072) every call does 19-77 GOP over
@@ -76,11 +79,14 @@ using tqmm::ColSite;
 // K1's epilogue policy (wgmma_gemm.cuh): the column constants are the
 // (5, N) rows' fold and site (ColSite); an element takes mm_common.cuh's
 // site_out (fold, act_fn, the site level through rint_div_fma, to_i8),
-// the steps the MobileBERT layer kernel's emitted payloads take too.
+// the steps the MobileBERT layer kernel's emitted payloads take too. OUT
+// 3 and 4 are fold and float (1, 2) with a bfloat16 output.
 template <int ACT, int OUT>
 struct SiteEpi {
   using Col = ColSite;
-  using Out = typename std::conditional<OUT == 0, int8_t, float>::type;
+  using Out = typename std::conditional<
+      OUT == 0, int8_t,
+      typename std::conditional<(OUT >= 3), __nv_bfloat16, float>::type>::type;
   struct Args {
     const float* vecs;   // (5, N) rows
     const float* scal;   // (1, 2): in_s, in_sh
@@ -100,7 +106,11 @@ struct SiteEpi {
     return tqmm::col_site(vecs, N, n, in_s, in_sh);
   }
   __device__ __forceinline__ Out apply(int acc, const Col& kc) const {
-    return tqmm::site_out<ACT, OUT>(acc, kc, lo, hi, gelu_c);
+    if constexpr (OUT >= 3)
+      return __float2bfloat16_rn(
+          tqmm::site_out<ACT, OUT - 2>(acc, kc, lo, hi, gelu_c));
+    else
+      return tqmm::site_out<ACT, OUT>(acc, kc, lo, hi, gelu_c);
   }
 };
 
@@ -115,6 +125,10 @@ cudaError_t launch_act(int out_mode, const CUtensorMap& mx,
                        float lo, float hi, float gelu_c, int sms,
                        cudaStream_t st) {
   using tqwg::gemm_launch;
+  if constexpr (ACT == 0) {   // bfloat16 outputs: no activation
+    if (out_mode == 3) return gemm_launch<Pick<SiteEpi<0, 3>, W4>>(mx, mw, {vecs, scal, lo, hi, gelu_c}, out, M, N, K, sms, st);
+    if (out_mode == 4) return gemm_launch<Pick<SiteEpi<0, 4>, W4>>(mx, mw, {vecs, scal, lo, hi, gelu_c}, out, M, N, K, sms, st);
+  }
   switch (out_mode) {
     case 0: return gemm_launch<Pick<SiteEpi<ACT, 0>, W4>>(mx, mw, {vecs, scal, lo, hi, gelu_c}, out, M, N, K, sms, st);
     case 1: return gemm_launch<Pick<SiteEpi<ACT, 1>, W4>>(mx, mw, {vecs, scal, lo, hi, gelu_c}, out, M, N, K, sms, st);
@@ -126,7 +140,8 @@ template <bool W4>
 int matmul(const void* x, const void* w, const void* vecs, const void* scal,
            void* out, int M, int N, int K, int act, int out_mode, float lo,
            float hi, float gelu_c, void* stream) {
-  if (act < 0 || act > 2 || out_mode < 0 || out_mode > 2)
+  if (act < 0 || act > 5 || out_mode < 0 || out_mode > 4 ||
+      (out_mode > 2 && act != 0))
     return static_cast<int>(cudaErrorInvalidValue);
   CUtensorMap mx, mw;
   int sms = 0;
@@ -139,15 +154,20 @@ int matmul(const void* x, const void* w, const void* vecs, const void* scal,
   switch (act) {
     case 0: e = launch_act<0, W4>(out_mode, mx, mw, vp, sp, out, M, N, K, lo, hi, gelu_c, sms, st); break;
     case 1: e = launch_act<1, W4>(out_mode, mx, mw, vp, sp, out, M, N, K, lo, hi, gelu_c, sms, st); break;
-    default: e = launch_act<2, W4>(out_mode, mx, mw, vp, sp, out, M, N, K, lo, hi, gelu_c, sms, st); break;
+    case 2: e = launch_act<2, W4>(out_mode, mx, mw, vp, sp, out, M, N, K, lo, hi, gelu_c, sms, st); break;
+    case 3: e = launch_act<3, W4>(out_mode, mx, mw, vp, sp, out, M, N, K, lo, hi, gelu_c, sms, st); break;
+    case 4: e = launch_act<4, W4>(out_mode, mx, mw, vp, sp, out, M, N, K, lo, hi, gelu_c, sms, st); break;
+    default: e = launch_act<5, W4>(out_mode, mx, mw, vp, sp, out, M, N, K, lo, hi, gelu_c, sms, st); break;
   }
   return static_cast<int>(e);
 }
 
 }  // namespace
 
-// act: 0 none, 1 gelu_new, 2 relu. out_mode: 0 emit (int8), 1 fold (f32),
-// 2 float (f32). [lo, hi]: the output site's level bounds (emit: 8-bit).
+// act: 0 none, 1 gelu_new, 2 relu, 3 gelu (A-S erf), 4 gelu_poly10, 5 tanh.
+// out_mode: 0 emit (int8), 1 fold (f32), 2 float (f32), 3 fold (bf16), 4
+// float (bf16; 3 and 4 with act 0 only). [lo, hi]: the output site's
+// level bounds (emit: 8-bit).
 // x (M, K) and w (N, K) int8, 16-byte aligned, K % 16 == 0, N % 8 == 0.
 // Returns the launch's cudaError_t (cudaErrorInvalidValue for arguments
 // the kernel does not take, or a tensor map that cannot be encoded).

@@ -13,7 +13,8 @@
 // x and w are int8, K-major, read through host-made tensor maps
 // (make_i8_map). An epilogue policy Epi gives:
 //   Col                   the per-column constants of one output column;
-//   Out                   the output element type (int8_t or float);
+//   Out                   the output element type (int8_t, float or
+//                         __nv_bfloat16);
 //   Args                  the kernel argument it is made from (by value);
 //   Epi(const Args&, N)   the per-call scalars, once per consumer thread;
 //   static Col pad()      the constants of a column past N (never stored);
@@ -118,6 +119,8 @@
 // caller out and r8); M, N and K ragged against the tiles.
 
 #pragma once
+
+#include <cuda_bf16.h>
 
 #include <type_traits>
 
@@ -268,6 +271,12 @@ __device__ __forceinline__ void epi_block(const A (&acc)[HA][64],
           stage + lr * 128 + (((lc >> 4) ^ (lr & 7)) << 4) + (lc & 15)) =
           static_cast<uint16_t>(static_cast<uint8_t>(o[2 * i]) |
                                 (static_cast<uint8_t>(o[2 * i + 1]) << 8));
+    } else if constexpr (sizeof(Out) == 2) {   // 16-bit, 8-value chunk
+      const int pc = lc - 64 * p;
+      *reinterpret_cast<uint32_t*>(
+          stage + lr * 128 + (((pc >> 3) ^ (lr & 7)) << 4) + 2 * (pc & 7)) =
+          static_cast<uint32_t>(__bfloat16_as_ushort(o[2 * i])) |
+          (static_cast<uint32_t>(__bfloat16_as_ushort(o[2 * i + 1])) << 16);
     } else {                            // floats, 4-float chunk of the pass
       const int pc = lc - 32 * p;
       *reinterpret_cast<float2*>(reinterpret_cast<float*>(stage) +
@@ -551,7 +560,9 @@ __device__ __forceinline__ void consume(
 
     // epilogue: the warp's 16 H rows (local row lr = 16 half + 8 h + g is
     // tile row 64 half + 16 w + 8 h + g) through its staging buffer
-    constexpr int PASSES = BYTES ? 1 : 4;   // floats: 32 columns a pass
+    constexpr bool HALVES = sizeof(typename Epi::Out) == 2;
+    // floats: 32 columns a pass; 16-bit values 64
+    constexpr int PASSES = BYTES ? 1 : (HALVES ? 2 : 4);
     constexpr int JP = 16 / PASSES;         // 8-column blocks a pass
     if constexpr (RES) {
       cp_async_wait_all();
@@ -588,6 +599,12 @@ __device__ __forceinline__ void consume(
             if (col + 16 <= N)
               *reinterpret_cast<uint2*>(dst + 8) = make_uint2(v.z, v.w);
           }
+        } else if (HALVES) {
+          const int col = n0 + 64 * p + 8 * chunk;
+          if (col < N)
+            *reinterpret_cast<uint4*>(static_cast<uint16_t*>(out) +
+                                      static_cast<size_t>(row) * N + col) =
+                v;
         } else {
           const int col = n0 + 32 * p + 4 * chunk;
           if (col < N)

@@ -6,11 +6,13 @@ Activations travel between matmuls as int8 payloads: value
 
 The wrappers here launch kernels written by hand for Hopper (``csrc/``):
 
-- :func:`int8_matmul` -- payload matmul with the dequant fold, bias,
-  optional ``gelu_new`` or ``relu``, and a per-column output site
-  (``emit`` int8 payload, ``fold`` fake-quantized float on an
-  ``out_bits`` grid, or raw ``float``), against an int8 weight or
-  (``w4``) a split-half packed int4 one, unpacked inside the kernel;
+- :func:`int8_matmul` -- payload matmul with the dequant fold, bias, an
+  optional activation (every key of the JAX ``_ACTS``: ``gelu_new``,
+  ``relu``, ``gelu`` (A-S erf), ``gelu_poly10``, ``tanh``), and a
+  per-column output site (``emit`` int8 payload, ``fold`` fake-quantized
+  float on an ``out_bits`` grid, or raw ``float``; fold and float also in
+  bfloat16, ``out_dtype``, with no activation), against an int8 weight
+  or (``w4``) a split-half packed int4 one, unpacked inside the kernel;
 - :func:`int8_matmul_norm` -- the same matmul with MobileBERT's whole
   elementwise tail in its epilogue: fold site, optional + residual
   payload, res site, NoNorm, norm-site payload (also the ``nonorm`` forms
@@ -32,14 +34,16 @@ The wrappers here launch kernels written by hand for Hopper (``csrc/``):
 - :func:`fused_add_ln` -- float32 y + float32 residual, res site,
   LayerNorm, and both the ln payload and its float value: the add+LN of
   the engine's non-payload residual route (a disabled fold site), an
-  instance of the :func:`flex_add_ln` kernel;
+  instance of the :func:`flex_add_ln` kernel; at ``out_dtype`` bfloat16
+  (``engine_dtype`` bf16) its bfloat16 y / residual / value form;
 - :func:`float_edge_matmul` -- the matmul of a float value edge (a 16-bit
   or per-column site of the mixed / PEG recipes, a 16-bit or sub-8 layer
   input, inter or context edge) against an int8 weight, contracted
   exactly on int8 tensor cores from the edge's grid levels, with optional
-  ``gelu_new`` and an emitted int8 payload, a fold on a 2-16-bit grid or
-  the raw float out: a level pass (:func:`float_edge_levels`) then a GEMM
-  on its levels (:func:`float_edge_gemm`);
+  ``gelu_new`` (or, emitted or folded, ``gelu`` / ``gelu_poly10`` /
+  ``tanh``) and an emitted int8 payload, a fold on a 2-16-bit grid or the
+  raw float out (also bfloat16): a level pass (:func:`float_edge_levels`)
+  then a GEMM on its levels (:func:`float_edge_gemm`);
 - :func:`float_int8_matmul` -- the matmul of a float edge on no grid (the
   disabled context site's raw value) against an int8 weight, products
   summed in float64 and rounded once;
@@ -186,21 +190,24 @@ def _require_w8(w4: bool, what: str) -> None:
                                   "ported (ROADMAP.md section 2a)")
 
 
-def _out_site(y, vecs, activation, out_mode, out_bits):
+def _out_site(y, vecs, activation, out_mode, out_bits,
+              out_dtype=torch.float32):
     """Activation and the per-column output site of a matmul (rows 3/4
-    of ``vecs``), on an ``out_bits`` grid."""
+    of ``vecs``), on an ``out_bits`` grid; a float or fold output in
+    ``out_dtype`` (the JAX ``out_dtype``: float32, or bfloat16 at the
+    engine's ``engine_dtype`` bf16, rounded to nearest even)."""
     if out_mode == "emit" and out_bits != 8:
         raise ValueError("an emitted payload is 8-bit (out_bits=8)")
     act = ACTS[activation]
     if act is not None:
         y = act(y)
     if out_mode == "float":
-        return y
+        return y.to(out_dtype)
     lo, hi = _clip_bounds(out_bits)
     r = torch.clamp(torch.round(y / vecs[3]) - vecs[4], lo, hi)
     if out_mode == "emit":
         return r.to(torch.int8)
-    return vecs[3] * (r + vecs[4])
+    return (vecs[3] * (r + vecs[4])).to(out_dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -210,7 +217,7 @@ def _out_site(y, vecs, activation, out_mode, out_bits):
 
 def int8_matmul_ref(x8, w8, vecs, scalars, *, activation=None,
                     out_mode="emit", w4=False, in_mode="i8", out_bits=8,
-                    in_grid=None):
+                    in_grid=None, out_dtype=torch.float32):
     """``act(s_x s_w (x8 @ w8^T + shift colsum) + b)`` then the per-column
     output site. ``vecs`` rows: [wscale, colsum, bias, out_s, out_shift];
     ``scalars``: (1, 2) [in_s, in_shift]. ``w4``: ``w8`` is the (N, K/2)
@@ -219,16 +226,19 @@ def int8_matmul_ref(x8, w8, vecs, scalars, *, activation=None,
     carrying its own scale (``scalars`` unused): on the grid ``in_grid``
     (:func:`edge_grid`) the product is :func:`float_edge_matmul_ref`'s,
     on no grid (``in_grid`` None: the disabled context site's raw value)
-    :func:`float_int8_matmul_ref`'s."""
+    :func:`float_int8_matmul_ref`'s. A float or fold output is in
+    ``out_dtype``."""
     if in_mode == "f":
         _require_w8(w4, "int8_matmul(in_mode='f')")
         if in_grid is None:
             return float_int8_matmul_ref(x8, w8, vecs, activation=activation,
-                                         out_mode=out_mode, out_bits=out_bits)
+                                         out_mode=out_mode, out_bits=out_bits,
+                                         out_dtype=out_dtype)
         _check_grid_weight(in_grid, w8)
         return float_edge_matmul_ref(x8, vecs, in_grid,
                                      activation=activation,
-                                     out_mode=out_mode, out_bits=out_bits)
+                                     out_mode=out_mode, out_bits=out_bits,
+                                     out_dtype=out_dtype)
     if in_mode != "i8":
         raise ValueError(f"unknown in_mode {in_mode!r}")
     if w4:
@@ -236,7 +246,7 @@ def int8_matmul_ref(x8, w8, vecs, scalars, *, activation=None,
     acc = exact_int_matmul(x8, w8).to(torch.float32)
     in_s, in_shift = scalars[0, 0], scalars[0, 1]
     y = (in_s * vecs[0]) * (acc + in_shift * vecs[1]) + vecs[2]
-    return _out_site(y, vecs, activation, out_mode, out_bits)
+    return _out_site(y, vecs, activation, out_mode, out_bits, out_dtype)
 
 
 def _f64_matmul(a: Tensor, b: Tensor) -> Tensor:
@@ -250,13 +260,13 @@ def _f64_matmul(a: Tensor, b: Tensor) -> Tensor:
 
 
 def float_int8_matmul_ref(x, w8, vecs, *, activation=None, out_mode="emit",
-                          out_bits=8):
+                          out_bits=8, out_dtype=torch.float32):
     """The matmul of a float edge on no grid (JAX ``_f_dot`` with
     ``_mm_body(in_mode='f')``): ``act(wscale * (x @ w8^T) + b)`` then the
     output site, ``x @ w8^T`` summed in float64 (:func:`_f64_matmul`)
     where JAX sums in float32."""
     y = vecs[0] * _f64_matmul(x.to(torch.float32), w8.t()) + vecs[2]
-    return _out_site(y, vecs, activation, out_mode, out_bits)
+    return _out_site(y, vecs, activation, out_mode, out_bits, out_dtype)
 
 
 def edge_grid(w8: Tensor, s: Tensor, zp: Tensor, bits: int,
@@ -318,7 +328,8 @@ def edge_levels(x: Tensor, grid: Dict) -> Tensor:
 
 
 def float_edge_matmul_ref(x, vecs, grid, *, activation=None,
-                          out_mode="emit", out_bits=8):
+                          out_mode="emit", out_bits=8,
+                          out_dtype=torch.float32):
     """The float-edge matmul ``act(wscale * (x @ w^T) + b)`` then the
     output site, with the product taken exactly: per group g,
     ``acc_g = q_g @ w_g^T - zp_g * colsum_g`` in integers (float64 holds
@@ -338,7 +349,7 @@ def float_edge_matmul_ref(x, vecs, grid, *, activation=None,
         t = grid["s"][i] * acc.to(torch.float32)
         y = t if y is None else y + t
     y = vecs[0] * y + vecs[2]
-    return _out_site(y, vecs, activation, out_mode, out_bits)
+    return _out_site(y, vecs, activation, out_mode, out_bits, out_dtype)
 
 
 def edge_planes(grid: Dict) -> int:
@@ -370,7 +381,8 @@ def float_edge_levels_ref(x: Tensor, grid: Dict) -> Tensor:
 
 
 def float_edge_gemm_ref(lv: Tensor, m: int, vecs, grid, *, activation=None,
-                        out_mode="emit", out_bits=8):
+                        out_mode="emit", out_bits=8,
+                        out_dtype=torch.float32):
     """The GEMM of :func:`float_edge_matmul` on the level pass's bytes
     ``lv`` (:func:`float_edge_levels_ref`) of ``m`` rows: per group g the
     exact integer sums of the stored bytes, ``acc'`` (``acc_lo`` /
@@ -398,7 +410,7 @@ def float_edge_gemm_ref(lv: Tensor, m: int, vecs, grid, *, activation=None,
         t = grid["s"][i] * acc.to(torch.float32)
         y = t if y is None else y + t
     y = vecs[0] * y + vecs[2]
-    return _out_site(y, vecs, activation, out_mode, out_bits)
+    return _out_site(y, vecs, activation, out_mode, out_bits, out_dtype)
 
 
 def _emit_ctx(ctx, pv_over_c, c_s, c_sh, c_bits: int):
@@ -549,15 +561,17 @@ def _ln_ref_body(x, gb, s, *, eps, res_quant, norm="layernorm"):
                         res_quant=res_quant, norm=norm)
 
 
-def fused_add_ln_ref(y, r, gb, scalars, *, eps, res_quant=True):
+def fused_add_ln_ref(y, r, gb, scalars, *, eps, res_quant=True,
+                     out_dtype=torch.float32):
     """Float add -> res site -> LayerNorm -> ln site: ``(int8 payload,
-    ln_s * (level + ln_sh))``. ``y``, ``r``: (M, H) float32; ``scalars``
-    (1, 8) as :func:`fused_add_ln_payload_ref`'s, of which [0:4] are
-    unused."""
+    ln_s * (level + ln_sh))``, the float value in ``out_dtype``. ``y``,
+    ``r``: (M, H) float32 or (engine_dtype bf16) bfloat16, added in
+    float32; ``scalars`` (1, 8) as :func:`fused_add_ln_payload_ref`'s, of
+    which [0:4] are unused."""
     s = scalars[0]
     x = y.to(torch.float32) + r.to(torch.float32)
     q = _ln_ref_body(x, gb, s, eps=eps, res_quant=res_quant)
-    return q.to(torch.int8), s[6] * (q + s[7])
+    return q.to(torch.int8), (s[6] * (q + s[7])).to(out_dtype)
 
 
 def fused_add_ln_payload_ref(y8, r8, gb, scalars, *, eps, res_quant=True):
@@ -746,12 +760,19 @@ def _stream() -> int:
     return torch.cuda.current_stream().cuda_stream
 
 
-_MM_ACTS = {None: 0, "gelu_new": 1, "relu": 2}
+# the epilogues' activation codes (csrc/mm_common.cuh act_fn): every key
+# of the JAX _ACTS; 'gelu' is the A-S erf form
+_MM_ACTS = {None: 0, "gelu_new": 1, "relu": 2, "gelu": 3, "gelu_poly10": 4,
+            "tanh": 5}
 _MM_OUT = {"emit": 0, "fold": 1, "float": 2}
+# a bfloat16 fold / float output's code (engine_dtype bf16)
+_MM_OUT_BF16 = {"fold": 3, "float": 4}
 
 
-def _mm_modes(activation, out_mode: str, out_bits: int, what: str):
-    """The kernels' (act, out_mode, lo, hi) codes for an epilogue."""
+def _mm_modes(activation, out_mode: str, out_bits: int, what: str,
+              out_dtype=torch.float32):
+    """The kernels' (act, out_mode, lo, hi) codes for an epilogue; a
+    bfloat16 fold or float output (``out_dtype``) takes no activation."""
     if activation not in _MM_ACTS:
         raise NotImplementedError(f"{what} kernel: activation "
                                   f"{activation!r} is not yet ported")
@@ -763,7 +784,22 @@ def _mm_modes(activation, out_mode: str, out_bits: int, what: str):
         raise NotImplementedError(f"{what} kernel: {out_bits}-bit output "
                                   "sites are not yet ported")
     lo, hi = _clip_bounds(out_bits)
-    return _MM_ACTS[activation], _MM_OUT[out_mode], lo, hi
+    mode = _MM_OUT[out_mode]
+    if out_mode != "emit" and out_dtype != torch.float32:
+        if out_dtype != torch.bfloat16 or activation is not None:
+            raise NotImplementedError(
+                f"{what} kernel: a {out_dtype} {out_mode} output with "
+                f"activation {activation!r} is not yet ported (bfloat16, "
+                "no activation)")
+        mode = _MM_OUT_BF16[out_mode]
+    return _MM_ACTS[activation], mode, lo, hi
+
+
+def _out_tensor(m: int, n: int, out_mode: str, out_dtype, device) -> Tensor:
+    """A matmul's (M, N) output: the int8 payload, or the float / fold
+    value in ``out_dtype``."""
+    return torch.empty((m, n), device=device,
+                       dtype=torch.int8 if out_mode == "emit" else out_dtype)
 
 
 def _check_matmul(x8, w8, vecs, scalars, what: str, w4: bool = False):
@@ -790,7 +826,8 @@ def _check_matmul(x8, w8, vecs, scalars, what: str, w4: bool = False):
 
 
 def int8_matmul(x8, w8, vecs, scalars, *, activation=None, out_mode="emit",
-                w4=False, in_mode="i8", out_bits=8, in_grid=None):
+                w4=False, in_mode="i8", out_bits=8, in_grid=None,
+                out_dtype=torch.float32):
     """Payload matmul; see :func:`int8_matmul_ref`. On the card: a
     persistent warp-specialized Hopper kernel (``csrc/int8_matmul.cu``, an
     instance of the GEMM in ``csrc/wgmma_gemm.cuh``): TMA loads of 128 x 128-byte tiles into an mbarrier ring,
@@ -803,27 +840,30 @@ def int8_matmul(x8, w8, vecs, scalars, *, activation=None, out_mode="emit",
     it is stored and unpacks each stage's nibbles in shared memory (no
     int8 copy of the weight is made); K % 32 == 0. A float input edge
     (``in_mode='f'``) launches :func:`float_edge_matmul` on its grid
-    ``in_grid``, or :func:`float_int8_matmul` where it has none."""
+    ``in_grid``, or :func:`float_int8_matmul` where it has none. A
+    bfloat16 ``out_dtype`` (no activation) writes a fold or float output
+    in bfloat16 from the epilogue."""
     if not x8.is_cuda:
         return int8_matmul_ref(x8, w8, vecs, scalars, activation=activation,
                                out_mode=out_mode, w4=w4, in_mode=in_mode,
-                               out_bits=out_bits, in_grid=in_grid)
+                               out_bits=out_bits, in_grid=in_grid,
+                               out_dtype=out_dtype)
     if in_mode == "f":
         _require_w8(w4, "int8_matmul(in_mode='f')")
         if in_grid is None:
             return float_int8_matmul(x8, w8, vecs, activation=activation,
-                                     out_mode=out_mode, out_bits=out_bits)
+                                     out_mode=out_mode, out_bits=out_bits,
+                                     out_dtype=out_dtype)
         _check_grid_weight(in_grid, w8)
         return float_edge_matmul(x8, vecs, in_grid, activation=activation,
-                                 out_mode=out_mode, out_bits=out_bits)
+                                 out_mode=out_mode, out_bits=out_bits,
+                                 out_dtype=out_dtype)
     if in_mode != "i8":
         raise ValueError(f"unknown in_mode {in_mode!r}")
     act, mode, lo, hi = _mm_modes(activation, out_mode, out_bits,
-                                  "int8_matmul")
+                                  "int8_matmul", out_dtype)
     m, n, k = _check_matmul(x8, w8, vecs, scalars, "int8_matmul", w4=w4)
-    out = torch.empty((m, n), device=x8.device,
-                      dtype=torch.int8 if out_mode == "emit"
-                      else torch.float32)
+    out = _out_tensor(m, n, out_mode, out_dtype, x8.device)
     name = "int8_matmul_w4" if w4 else "int8_matmul"
     fn = KB.load(name)
     err = fn(x8.data_ptr(), w8.data_ptr(), vecs.data_ptr(),
@@ -871,15 +911,22 @@ def _edge_levels_rows(m: int, planes: int) -> int:
     return m if planes == 1 else 2 * (-(-m // 64) * 64)
 
 
-def _edge_modes(activation, out_mode, out_bits, groups: int):
-    """The float-edge GEMM's (act, out_mode, lo, hi) codes: gelu_new or no
-    activation; an emitted payload at any grouping, a fold or the raw
-    float out of a one-group (per-tensor) edge."""
-    if activation not in (None, "gelu_new"):
+def _edge_modes(activation, out_mode, out_bits, groups: int,
+                out_dtype=torch.float32):
+    """The float-edge GEMM's (act, out_mode, lo, hi) codes: no activation
+    or gelu_new at every output, gelu / gelu_poly10 / tanh emitted or
+    folded; an emitted payload at any grouping, a fold or the raw float
+    out (float32, or bfloat16 with no activation) of a one-group
+    (per-tensor) edge."""
+    if activation not in (None, "gelu_new", "gelu", "gelu_poly10", "tanh"):
         raise NotImplementedError(f"float_edge_matmul kernel: activation "
                                   f"{activation!r} is not yet ported")
+    if activation not in (None, "gelu_new") and out_mode == "float":
+        raise NotImplementedError(f"float_edge_matmul kernel: activation "
+                                  f"{activation!r} with a float output is "
+                                  "not yet ported")
     act, mode, lo, hi = _mm_modes(activation, out_mode, out_bits,
-                                  "float_edge_matmul")
+                                  "float_edge_matmul", out_dtype)
     if out_mode != "emit" and groups > 1:
         raise NotImplementedError(f"float_edge_matmul kernel: out_mode "
                                   f"{out_mode!r} of a {groups}-group edge is "
@@ -888,7 +935,7 @@ def _edge_modes(activation, out_mode, out_bits, groups: int):
 
 
 def float_edge_matmul(x, vecs, grid, *, activation=None, out_mode="emit",
-                      out_bits=8):
+                      out_bits=8, out_dtype=torch.float32):
     """Float-edge matmul; see :func:`float_edge_matmul_ref`. On the card
     two launches (``csrc/float_edge_matmul.cu``): the level pass
     (:func:`float_edge_levels`) writes the edge's levels once, in group
@@ -900,13 +947,14 @@ def float_edge_matmul(x, vecs, grid, *, activation=None, out_mode="emit",
     the raw float (float32 out); other outputs raise."""
     if not x.is_cuda:
         return float_edge_matmul_ref(x, vecs, grid, activation=activation,
-                                     out_mode=out_mode, out_bits=out_bits)
-    _edge_modes(activation, out_mode, out_bits,
-                grid["s"].numel())   # raise before launching
+                                     out_mode=out_mode, out_bits=out_bits,
+                                     out_dtype=out_dtype)
+    _edge_modes(activation, out_mode, out_bits, grid["s"].numel(),
+                out_dtype)   # raise before launching
     _check(vecs, "vecs", torch.float32, (5, grid["w"].shape[0]))
     return float_edge_gemm(float_edge_levels(x, grid), x.shape[0], vecs,
                            grid, activation=activation, out_mode=out_mode,
-                           out_bits=out_bits)
+                           out_bits=out_bits, out_dtype=out_dtype)
 
 
 def float_edge_levels(x, grid):
@@ -933,7 +981,7 @@ def float_edge_levels(x, grid):
 
 
 def float_edge_gemm(lv, m: int, vecs, grid, *, activation=None,
-                    out_mode="emit", out_bits=8):
+                    out_mode="emit", out_bits=8, out_dtype=torch.float32):
     """:func:`float_edge_gemm_ref`; on the card the GEMM alone, the second
     of :func:`float_edge_matmul`'s two launches, on the levels ``lv`` of
     ``m`` rows that :func:`float_edge_levels` wrote. Counted under
@@ -941,18 +989,17 @@ def float_edge_gemm(lv, m: int, vecs, grid, *, activation=None,
     ``float_edge_matmul_fold`` (a fold or the raw float out)."""
     if not lv.is_cuda:
         return float_edge_gemm_ref(lv, m, vecs, grid, activation=activation,
-                                   out_mode=out_mode, out_bits=out_bits)
+                                   out_mode=out_mode, out_bits=out_bits,
+                                   out_dtype=out_dtype)
     act, mode, lo, hi = _edge_modes(activation, out_mode, out_bits,
-                                    grid["s"].numel())
+                                    grid["s"].numel(), out_dtype)
     k = lv.shape[1]
     n = grid["w"].shape[0]
     planes, size = _edge_grid_shape(grid, k, n, "float_edge_gemm")
     _check(lv, "lv", torch.int8, (_edge_levels_rows(m, planes), k))
     _check(vecs, "vecs", torch.float32, (5, n))
     _same_device(lv, vecs, grid["w"])
-    out = torch.empty((m, n), device=lv.device,
-                      dtype=torch.int8 if out_mode == "emit"
-                      else torch.float32)
+    out = _out_tensor(m, n, out_mode, out_dtype, lv.device)
     err = KB.load("float_edge_gemm")(
         lv.data_ptr(), grid["w"].data_ptr(), vecs.data_ptr(),
         grid["s"].data_ptr(), grid["zp"].data_ptr(), grid["gcs"].data_ptr(),
@@ -969,7 +1016,7 @@ FI_MAX_K = 8192  # the float x int8 GEMM's widest K
 
 
 def float_int8_matmul(x, w8, vecs, *, activation=None, out_mode="emit",
-                      out_bits=8):
+                      out_bits=8, out_dtype=torch.float32):
     """The matmul of a float edge on no grid; see
     :func:`float_int8_matmul_ref`. On the card
     (``csrc/float_int8_gemm.cu``): the products on the float64 tensor
@@ -982,9 +1029,10 @@ def float_int8_matmul(x, w8, vecs, *, activation=None, out_mode="emit",
     (the engine's plan refuses other widths: ``_require_k1_width``)."""
     if not x.is_cuda:
         return float_int8_matmul_ref(x, w8, vecs, activation=activation,
-                                     out_mode=out_mode, out_bits=out_bits)
+                                     out_mode=out_mode, out_bits=out_bits,
+                                     out_dtype=out_dtype)
     act, mode, lo, hi = _mm_modes(activation, out_mode, out_bits,
-                                  "float_int8_matmul")
+                                  "float_int8_matmul", out_dtype)
     m, k = x.shape
     n = w8.shape[0]
     _check(x, "x", torch.float32)
@@ -997,9 +1045,7 @@ def float_int8_matmul(x, w8, vecs, *, activation=None, out_mode="emit",
             f"float_int8_matmul kernel needs M, N, K > 0, K % 16 == 0, K <= "
             f"{FI_MAX_K}, N % 8 == 0 and a 16-byte aligned x (got M={m}, "
             f"N={n}, K={k})")
-    out = torch.empty((m, n), device=x.device,
-                      dtype=torch.int8 if out_mode == "emit"
-                      else torch.float32)
+    out = _out_tensor(m, n, out_mode, out_dtype, x.device)
     err = KB.load("float_int8_matmul")(
         x.data_ptr(), w8.data_ptr(), vecs.data_ptr(), out.data_ptr(), m, n,
         k, act, mode, lo, hi, GELU_NEW_C, _stream())
@@ -1407,15 +1453,24 @@ def _aligned(*ts: Tensor) -> None:
                              "a 16-byte boundary")
 
 
-def fused_add_ln(y, r, gb, scalars, *, eps, res_quant=True):
+def fused_add_ln(y, r, gb, scalars, *, eps, res_quant=True,
+                 out_dtype=torch.float32):
     """Float-in add + LayerNorm emitting the payload and the float value;
     see :func:`fused_add_ln_ref`. On the card: ``csrc/flex_add_ln.cu``'s
     instance with a float32 residual, scalar 8-bit sites and both
-    outputs."""
+    outputs; at ``out_dtype`` bfloat16 (the engine's engine_dtype bf16)
+    its instance with bfloat16 ``y`` and ``r`` and the float value out in
+    bfloat16."""
     if not y.is_cuda:
         return fused_add_ln_ref(y, r, gb, scalars, eps=eps,
-                                res_quant=res_quant)
+                                res_quant=res_quant, out_dtype=out_dtype)
     m, h = y.shape
+    if out_dtype == torch.bfloat16:
+        return _fused_add_ln_bf16(y, r, gb, scalars, eps=eps,
+                                  res_quant=res_quant)
+    if out_dtype != torch.float32:
+        raise NotImplementedError(f"fused_add_ln kernel: a {out_dtype} "
+                                  "output is not yet ported")
     _check(y, "y", torch.float32)
     _check(r, "r", torch.float32, (m, h))
     _check(gb, "gb", torch.float32, (2, h))
@@ -1429,6 +1484,29 @@ def fused_add_ln(y, r, gb, scalars, *, eps, res_quant=True):
     err = fn(y.data_ptr(), r.data_ptr(), 1, gb.data_ptr(), scalars.data_ptr(),
              None, out8.data_ptr(), outf.data_ptr(), m, h, float(eps),
              int(res_quant), -128.0, 127.0, -128.0, 127.0, _stream())
+    KB.check(err, "fused_add_ln")
+    LAUNCHES["fused_add_ln"] += 1
+    return out8, outf
+
+
+def _fused_add_ln_bf16(y, r, gb, scalars, *, eps, res_quant):
+    """:func:`fused_add_ln` at bfloat16 on the card: y and r (M, H)
+    bfloat16, both outputs (int8, bfloat16) from one launch of
+    ``tq_fused_add_ln_bf16`` (``csrc/flex_add_ln.cu``)."""
+    m, h = y.shape
+    _check(y, "y", torch.bfloat16)
+    _check(r, "r", torch.bfloat16, (m, h))
+    _check(gb, "gb", torch.float32, (2, h))
+    _check(scalars, "scalars", torch.float32, (1, 8))
+    _same_device(y, r, gb, scalars)
+    _h_fits(h, "fused_add_ln")
+    _aligned(y, r)
+    out8 = torch.empty((m, h), device=y.device, dtype=torch.int8)
+    outf = torch.empty((m, h), device=y.device, dtype=torch.bfloat16)
+    err = KB.load("fused_add_ln_bf16")(
+        y.data_ptr(), r.data_ptr(), gb.data_ptr(), scalars.data_ptr(),
+        out8.data_ptr(), outf.data_ptr(), m, h, float(eps), int(res_quant),
+        -128.0, 127.0, -128.0, 127.0, _stream())
     KB.check(err, "fused_add_ln")
     LAUNCHES["fused_add_ln"] += 1
     return out8, outf
@@ -1649,21 +1727,23 @@ def mb_layer_flat(lp: Dict, attn_case: str) -> Tuple[Tensor, ...]:
 
 def mb_layer_chain(h8, mask_bias, attn_scal, flat, *, n_heads, seq, hidden,
                    attn_case, activation, res, w4, n_ffn, skip_max=False,
-                   attn_bits=(8, 8), plain=False):
+                   attn_bits=(8, 8), plain=False, attn_plain=None):
     """A whole MobileBERT layer as the JAX engine's per-op route
     (``fuse_layer=False``): bottleneck-in (and shared key/query) NoNorm
     matmuls -> [q | k] and v matmuls -> attention over ``cols=(0, 1, 0)``
     -> attn_out + NoNorm -> each FFN (inter + act, dense + NoNorm) ->
     bottleneck-out + NoNorm. ``flat``, ``res`` and ``w4`` as
     :func:`int8_mb_layer_ln`. The kernel wrappers, or with ``plain`` each
-    step's plain version; on the card per layer (shared_kq, 3 stacked
-    FFNs): 6 :func:`int8_matmul`, 8 :func:`int8_matmul_norm` and one
-    :func:`int8_attention_qkv` launch."""
+    step's plain version (``attn_plain``, when given, for the attention:
+    the engine's mixed backends); on the card per layer (shared_kq, 3
+    stacked FFNs): 6 :func:`int8_matmul`, 8 :func:`int8_matmul_norm` and
+    one :func:`int8_attention_qkv` launch."""
+    attn_plain = plain if attn_plain is None else attn_plain
     mm = int8_matmul_ref if plain else int8_matmul
     mm_norm = int8_matmul_norm_ref if plain else int8_matmul_norm
     mm_add_norm = int8_matmul_add_ln_ref if plain else int8_matmul_add_ln
     ffn = int8_ffn_ln_ref if plain else int8_ffn_ln
-    attn = int8_attention_qkv_ref if plain else int8_attention_qkv
+    attn = int8_attention_qkv_ref if attn_plain else int8_attention_qkv
     it = iter(flat)
     w4s = iter(w4)
     res_ao, res_ffn, res_out, res_obn = res

@@ -31,7 +31,10 @@ float32 x is quantized once into an int8 scratch payload
 (:func:`quantize_input`'s pass), which the Hopper GEMM then reads; an
 int4 weight takes the GEMM's packed-int4 instance, which unpacks each
 stage's nibbles in shared memory (K % 32 == 0 there, else None). A
-bfloat16 x raises "not yet ported".
+bfloat16 x (the generic path's ``compute_dtype``) is quantized in float32
+as the TPU kernel does (its own quantize pass on the card) and its float
+or fold output is bfloat16, rounded to nearest even; with a packed int4
+weight the card takes a bfloat16 x only to emit the payload.
 """
 
 from __future__ import annotations
@@ -56,7 +59,8 @@ from transformer_quantization_tpu_torch.quant import quantizers as Q
 Tensor = torch.Tensor
 
 # the kernel's activation codes ('gelu' is the Abramowitz-Stegun form)
-_ACT_CODES = {None: 0, "gelu": 1, "gelu_new": 2, "tanh": 3, "relu": 4}
+_ACT_CODES = {None: 0, "gelu": 1, "gelu_new": 2, "tanh": 3, "relu": 4,
+              "gelu_poly10": 5}
 # out_mode codes: no output site (float), fold (float), emit (int8)
 _OUT_FLOAT, _OUT_FOLD, _OUT_EMIT = 0, 1, 2
 
@@ -95,15 +99,18 @@ def fused_int8_linear_ref(x2d: Tensor, w: Tensor, w_scale: Tensor,
                           scalars: Tensor, *, activation, asym_in: bool,
                           out_bits: int, out_sym: bool, out_int8: bool,
                           w4: bool = False) -> Tensor:
-    """The TPU ``_kernel``'s arithmetic on (M, K) ``x2d`` (float32, or an
-    int8 payload) against the (N, K) int8 ``w`` (``w4``: the (N, K/2)
-    split-half packed int4 weight, unpacked first). ``scalars`` (1, 8):
-    [s_x, zp_x, s_o, zp_o, signed_o, 0, 0, 0]; ``out_bits`` 0: no output
-    site."""
+    """The TPU ``_kernel``'s arithmetic on (M, K) ``x2d`` (float32,
+    bfloat16, or an int8 payload) against the (N, K) int8 ``w`` (``w4``:
+    the (N, K/2) split-half packed int4 weight, unpacked first).
+    ``scalars`` (1, 8): [s_x, zp_x, s_o, zp_o, signed_o, 0, 0, 0];
+    ``out_bits`` 0: no output site. A float or fold output is in the
+    dtype of a float x (float32 for a payload x), as the TPU kernel
+    stores it."""
     s = scalars[0]
     s_x, zp_x = s[0], s[1]
     x8 = (x2d if x2d.dtype == torch.int8
-          else quantize_input_ref(x2d, scalars, asym_in))
+          else quantize_input_ref(x2d.to(torch.float32), scalars, asym_in))
+    out_dtype = torch.float32 if x2d.dtype == torch.int8 else x2d.dtype
     if w4:
         w = unpack_int4(w, x2d.shape[1])
     acc = exact_int_matmul(x8, w).to(torch.float32)
@@ -116,29 +123,37 @@ def fused_int8_linear_ref(x2d: Tensor, w: Tensor, w_scale: Tensor,
     if act is not None:
         y = act(y)
     if not out_bits:
-        return y
+        return y.to(out_dtype)
     s_o, zp_o = s[2], s[3]
     imin, imax = _out_bounds(out_bits, out_sym, s[4])
     y_int = torch.clamp(torch.round(y * (1.0 / s_o)) + zp_o, imin, imax)
     if out_int8:
         return (y_int - (0.0 if out_sym else 128.0)).to(torch.int8)
-    return s_o * (y_int - zp_o)
+    return (s_o * (y_int - zp_o)).to(out_dtype)
 
 
 def _launch(x2d, w, w_scale, colsum, bias, scalars, *, activation, asym_in,
             out_bits, out_sym, out_int8, w4=False) -> Tensor:
-    """``csrc/fused_int8_linear.cu`` on CUDA tensors: for a float32 x the
-    quantize pass into a scratch payload, then the GEMM (``w4``: its
-    packed-int4 instance on the (N, K/2) weight), in one call."""
+    """``csrc/fused_int8_linear.cu`` on CUDA tensors: for a float32 or
+    bfloat16 x the quantize pass into a scratch payload, then the GEMM
+    (``w4``: its packed-int4 instance on the (N, K/2) weight), in one
+    call."""
     m, k = x2d.shape
     n = w.shape[0]
     x_f32 = x2d.dtype != torch.int8
-    if x_f32:
-        EK._check(x2d, "x", torch.float32)
-        if x2d.data_ptr() % 16:
-            raise ValueError("x must start on a 16-byte boundary")
-    else:
-        EK._check(x2d, "x", torch.int8)
+    # the entry point's x kind: 0 a payload, 1 float32, 2 bfloat16
+    x_kind = {torch.int8: 0, torch.float32: 1, torch.bfloat16: 2}.get(
+        x2d.dtype)
+    if x_kind is None:
+        raise ValueError(f"x must be float32, bfloat16 or int8, got "
+                         f"{x2d.dtype}")
+    EK._check(x2d, "x", x2d.dtype)
+    if x2d.data_ptr() % 16:
+        raise ValueError("x must start on a 16-byte boundary")
+    if x_kind == 2 and w4 and not out_int8:
+        raise NotImplementedError(
+            "fused_int8_linear kernel: a bfloat16 float / fold output on a "
+            "packed int4 weight is not yet ported (it emits the payload)")
     if w4:
         EK._check(w, "w (packed int4)", torch.uint8, (n, k // 2))
     else:
@@ -165,10 +180,11 @@ def _launch(x2d, w, w_scale, colsum, bias, scalars, *, activation, asym_in,
     xq = torch.empty((m, k), device=x2d.device, dtype=torch.int8) if x_f32 \
         else None
     out = torch.empty((m, n), device=x2d.device,
-                      dtype=torch.int8 if out_int8 else torch.float32)
+                      dtype=torch.int8 if out_int8
+                      else (torch.float32 if x_kind == 0 else x2d.dtype))
     name = "fused_int8_linear_w4" if w4 else "fused_int8_linear"
     fn = KB.load(name)
-    err = fn(x2d.data_ptr(), int(x_f32),
+    err = fn(x2d.data_ptr(), x_kind,
              xq.data_ptr() if x_f32 else None, w.data_ptr(),
              w_scale.data_ptr(), colsum.data_ptr(),
              bias.data_ptr() if bias is not None else None,
@@ -223,10 +239,7 @@ def fused_int8_linear(x: Tensor, packed, in_spec: Q.QuantizerSpec,
         return None
     k = x.shape[-1]
     n = w.shape[0]
-    if x.dtype == torch.bfloat16:
-        raise NotImplementedError("fused_int8_linear: bfloat16 x (the "
-                                  "compute_dtype path) is not yet ported")
-    if (x.dtype not in (torch.float32, torch.int8)
+    if (x.dtype not in (torch.float32, torch.bfloat16, torch.int8)
             or w.shape[1] * (2 if w4 else 1) != k):
         return None
     fold = (out_spec is not None and out_qp is not None

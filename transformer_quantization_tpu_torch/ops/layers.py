@@ -164,7 +164,7 @@ def _int8_qat_matmul(ctx, name: str, x: Tensor, w: Tensor,
     )
 
     if (name not in ctx.int8_qat_sites or input_site is None
-            or ctx.capture_sites):
+            or ctx.capture_sites or ctx.compute_dtype is not None):
         return None
     m = ctx.mode
     if not (m.weight_quant and m.act_quant):
@@ -216,6 +216,16 @@ def _int8_qat_matmul(ctx, name: str, x: Tensor, w: Tensor,
                            False)
 
 
+def _compute_operands(ctx, x: Tensor, w_q: Tensor):
+    """The float matmul's operands: both in ``ctx.compute_dtype`` when the
+    forward sets one (the JAX ``compute_dtype``), else the weight in x's
+    dtype."""
+    cdt = ctx.compute_dtype
+    if cdt is not None:
+        return x.to(cdt), w_q.to(cdt)
+    return x, w_q.to(x.dtype)
+
+
 def quant_linear(ctx, name: str, x: Tensor, w: Tensor, b: Optional[Tensor],
                  activation=None, input_site: Optional[str] = None) -> Tensor:
     """Quantized affine layer: quantize weight -> x @ W^T + b -> activation
@@ -258,7 +268,8 @@ def quant_linear(ctx, name: str, x: Tensor, w: Tensor, b: Optional[Tensor],
                 y = act(y)
             return ctx.act(f"{name}.out", y)
 
-    w_q = _weight_from_int_or_fake(ctx, name, w).to(x.dtype)
+    x, w_q = _compute_operands(ctx, x, _weight_from_int_or_fake(ctx, name,
+                                                                w))
     y = float_matmul(x, w_q.transpose(0, 1),
                      wide_matmul_precision(ctx, input_site, f"{name}.w"))
     if b is not None:
@@ -302,7 +313,8 @@ def quant_grouped_linear(ctx, name: str, x: Tensor, w: Tensor,
                                    act).to(x.dtype)
         _maybe_capture(ctx, name, x, y)
         return ctx.act(f"{name}.out", y)
-    w_q = _weight_from_int_or_fake(ctx, name, w).to(x.dtype)
+    x, w_q = _compute_operands(ctx, x, _weight_from_int_or_fake(ctx, name,
+                                                                w))
     out_f, in_g = w_q.shape
     lead = x.shape[:-1]
     xg = x.reshape(-1, groups, in_g).transpose(0, 1)
@@ -381,12 +393,15 @@ def quant_nonorm(ctx, name: str, x: Tensor, weight: Tensor,
 def quant_embedding(ctx, name: str, ids: Tensor, table: Tensor) -> Tensor:
     """Embedding lookup from a quantized table (rows are grid points, so
     the output is not activation-quantized). Packed int8 tables dequantize
-    after the gather."""
+    after the gather. Under ``ctx.compute_dtype`` the rows are cast to
+    it."""
+    cdt = ctx.compute_dtype
     if ctx.int_params and name in ctx.int_params and ctx.mode.weight_quant:
-        return IL.int8_embedding_lookup(ids, ctx.int_params[name])
+        rows = IL.int8_embedding_lookup(ids, ctx.int_params[name])
+        return rows.to(cdt) if cdt is not None else rows
     rows = ctx.weight(f"{name}.w", table)[ids]
     _maybe_capture(ctx, name, ids, rows)
-    return rows
+    return rows.to(cdt) if cdt is not None else rows
 
 
 def dropout(x: Tensor, rate: float, generator: Optional[torch.Generator],

@@ -147,6 +147,12 @@ class QuantCtx:
         self.capture_sites = frozenset()
         self.capture_pre_act = False
         self.captures: Dict[str, tuple] = {}
+        # inference options (bert_apply): activation storage in
+        # compute_dtype, the attention's float einsums in attention_dtype,
+        # and its scores / context on int8 levels
+        self.compute_dtype = None
+        self.attention_dtype = None
+        self.int8_attention = False
 
     def weight(self, name: str, w: Tensor) -> Tensor:
         if name not in self.cfg:

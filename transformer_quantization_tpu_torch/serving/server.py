@@ -16,9 +16,11 @@ Start from a checkpoint directory (the JAX package's format,
 Requests are tokenized (native C++ WordPiece when a vocab.txt is given,
 else the synthetic word-hash tokenizer), enqueued, dynamically batched
 onto (batch, seq) buckets, each one CUDA graph on the card, and answered
-with the classification logits. The full-handoff int8 engine serves;
-the JAX server's generic-path fallback (bf16 attention), ``--bf16`` and
-``--export-dir`` are not yet ported and raise.
+with the classification logits. The full-handoff int8 engine serves
+(``--bf16``: its bfloat16 ``engine_dtype``); a checkpoint without quant
+state or one the engine refuses serves the generic forward (bfloat16
+attention, and bfloat16 activations with ``--bf16``), as the JAX server
+does. ``--export-dir`` is not yet ported and raises.
 """
 
 from __future__ import annotations
@@ -43,16 +45,20 @@ def build_engine_from_checkpoint(ckpt_dir: str, *, device="cuda",
                                  bf16: bool = False, tokenizer=None,
                                  serve_cfg: Optional[ServeConfig] = None
                                  ) -> ServingEngine:
-    """Quantized int8 engine from a framework checkpoint directory: the
-    family's full-handoff engine under the W8A8 current-minmax sites the
-    checkpoint was calibrated with; on the card each bucket is one CUDA
-    graph (:class:`~.graphs.BucketGraphs`), on the CPU the eager forward
-    serves. The forward takes the batch dict or the fused-transfer
-    (3, B, S) array."""
-    if bf16:
-        raise NotImplementedError(
-            "bf16 serving (engine_dtype bf16) is not yet ported (ROADMAP §1 "
-            "item 4.5)")
+    """Quantized int8 engine from a framework checkpoint directory, as the
+    JAX server builds it: the family's full-handoff engine under the W8A8
+    current-minmax sites the checkpoint was calibrated with (``bf16``:
+    ``engine_dtype`` bfloat16); a checkpoint without quant state, or one
+    the engine's plan refuses (:class:`~..ops.engine.EngineIncompatible`),
+    serves the family's generic forward (``fam.apply`` on the packed int
+    weights through the fused linear, ``compute_dtype`` bfloat16 with
+    ``bf16``, the attention's float products in bfloat16). On the card
+    each bucket is one CUDA graph (:class:`~.graphs.BucketGraphs`), on
+    the CPU the eager forward serves. The forward takes the batch dict or
+    the fused-transfer (3, B, S) array; :attr:`ServingEngine.forward`'s
+    ``route`` says which route serves (``'engine'`` or ``'generic'``)."""
+    import torch
+
     from transformer_quantization_tpu_torch.models.registry import get_family
     from transformer_quantization_tpu_torch.ops.engine import (
         EngineIncompatible,
@@ -70,33 +76,47 @@ def build_engine_from_checkpoint(ckpt_dir: str, *, device="cuda",
     fam = get_family(ck["family"])
     cfg, params = ck["cfg"], ck["params"]
     qstate = ck.get("qstate")
-    generic = ("the JAX server then serves the generic int path with bf16 "
-               "attention, which is not yet ported (ROADMAP §1 item 4.6)")
-    if qstate is None:
-        raise NotImplementedError(f"{ckpt_dir} holds no quant state; "
-                                  + generic)
-    # the W8A8 recipe the checkpoint was calibrated with
-    qcfg = fam.declare_sites(w8a8_defaults(), cfg)
-    try:
-        static, plan, int_params = fam.build_engine(params, cfg, qcfg,
-                                                    qstate, device=dev)
-    except EngineIncompatible as e:
-        raise NotImplementedError(
-            f"the checkpoint does not ride the int8 engine ({e}); "
-            + generic) from e
+    cdt = torch.bfloat16 if bf16 else None
+    qcfg = int_params = engine = None
+    if qstate is not None:
+        # the W8A8 recipe the checkpoint was calibrated with
+        qcfg = fam.declare_sites(w8a8_defaults(), cfg)
+        int_params = fam.build_int_params(params, qcfg, qstate, False)
+        if fam.build_engine is not None:
+            try:
+                engine = fam.build_engine(params, cfg, qcfg, qstate,
+                                          device=dev)
+            except EngineIncompatible:
+                engine = None
 
-    def forward(batch):
-        if not isinstance(batch, dict):
-            batch = unpack_batch(batch)
-        return fam.engine_apply(params, batch, cfg, qcfg, qstate, static,
-                                plan, int_params, device=dev)["logits"]
+    if engine is not None:
+        static, plan, e_int = engine
 
+        def forward(batch):
+            if not isinstance(batch, dict):
+                batch = unpack_batch(batch)
+            return fam.engine_apply(params, batch, cfg, qcfg, qstate, static,
+                                    plan, e_int,
+                                    engine_dtype=cdt or torch.float32,
+                                    device=dev)["logits"]
+    else:
+        def forward(batch):
+            if not isinstance(batch, dict):
+                batch = unpack_batch(batch)
+            out, _ = fam.apply(params, batch, cfg, qcfg, qstate,
+                               int_params=int_params, fused_linear=True,
+                               compute_dtype=cdt,
+                               attention_dtype=torch.bfloat16, device=dev)
+            return out["logits"]
+
+    route = "engine" if engine is not None else "generic"
     if dev.type == "cuda":
         from transformer_quantization_tpu_torch.serving.graphs import (
             BucketGraphs,
         )
 
         forward = BucketGraphs(forward, dev)
+    forward.route = route
     if tokenizer is None:
         tokenizer = SyntheticTokenizer(cfg.vocab_size)
     return ServingEngine(forward, serve_cfg or ServeConfig(),
