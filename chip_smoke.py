@@ -283,8 +283,20 @@ Phases (any failure exits non-zero; nothing is caught):
    after and logits against the same path on the plain versions, and
    seq/s beside W8A8's (five windows of >= 0.5 s).
 
-``python3 chip_smoke.py --only 13,14,15,16,17`` runs phases 1 and 2 and
-the named ones of 13-17 alone (the kernels JSON only comes with every
+18. the command line (``cli.py``) in process, at BERT-base width and
+   depth (random weights from ``--seed``, ``--synthetic-data --task rte
+   --max-seq-length 128``, on the card): ``validate-quantized --recipe
+   w8a8 --engine auto``, its evaluation's launches read just after (K1 48,
+   K2 12, K3 24 an engine forward) and its phase timings printed; the same
+   command on the plain versions (``--engine plain``) from the checkpoint
+   it saved, under ``--profile-dir`` (the trace file must exist): equal
+   eval results; ``train-quantized --recipe qat-w4a8 --max-steps 8``
+   without and with ``--remat`` (losses equal step by step within rtol
+   1e-5; peak memory and ms a step) and with ``--amp``, each evaluated on
+   the W4A8 engine (K1 w4 48, K2 12, K3 24 an engine forward).
+
+``python3 chip_smoke.py --only 13,14,15,16,17,18`` runs phases 1 and 2
+and the named ones of 13-18 alone (the kernels JSON only comes with every
 phase; ``--only 16``: the float edges alone).
 
 The last lines are the kernels JSON (times per encoder layer: the sum
@@ -314,7 +326,8 @@ phase 13's trained model on the W4A8 engine; ``adaround-w4a8``: phase
 ``float_int8_matmul``, each with one form's numbers on top and every
 form's under ``variants``; phase 17's forms under ``variants`` of their
 kernels' rows, named ``<form> (phase 17)``, and its paths by the names
-of ``option_forwards``); the
+of ``option_forwards``; ``cmdline-w8a8`` / ``cmdline-qat-w4a8``: phase 18's
+evaluations); the
 serving paths
 ``serve-bert`` / ``serve-mobilebert`` count the launches the wrappers
 made while their buckets were captured, ``serve-bert-eager`` those of
@@ -331,6 +344,7 @@ import dataclasses
 import functools
 import gc
 import json
+import os
 import re
 import subprocess
 import sys
@@ -341,6 +355,7 @@ import time
 import numpy as np
 import torch
 
+from transformer_quantization_tpu_torch import cli as CLI
 from transformer_quantization_tpu_torch.models import bert as B
 from transformer_quantization_tpu_torch.models import mobilebert as MB
 from transformer_quantization_tpu_torch.models import registry as REG
@@ -361,10 +376,12 @@ from transformer_quantization_tpu_torch.serving import server as SVS
 from transformer_quantization_tpu_torch.training import adaround_driver as AD
 from transformer_quantization_tpu_torch.training import calibration as CAL
 from transformer_quantization_tpu_torch.training import int8_qat as TI
+from transformer_quantization_tpu_torch.training import qat as TQAT
 from transformer_quantization_tpu_torch.training import trainer as TT
 from transformer_quantization_tpu_torch.utils import checkpoint as CK
 from transformer_quantization_tpu_torch.utils import data as DATA
 from transformer_quantization_tpu_torch.utils import glue as GL
+from transformer_quantization_tpu_torch.utils import profiling as PROF
 
 # H100 SXM dense peaks (NVIDIA data sheet) used for the bounds
 PEAK_INT8_OPS = 1979e12
@@ -4090,6 +4107,181 @@ def options_phase(params, batches, by_path, seed, dev, kind, smi) -> dict:
     return forms
 
 
+# phase 18: the port's command line (cli.py), in process, at BERT-base
+# width and depth from --seed's random weights on synthetic RTE examples
+CLI_STEPS = 8
+# two runs of one QAT step differ in the last bits on the card (the
+# embedding gather's backward accumulates with atomics), so --remat's
+# losses are held to the same bound as the CPU tests' steps
+CLI_LOSS_RTOL = 1e-5
+
+
+def cli_call(argv) -> dict:
+    """``cli.main(argv)`` in this process, recording each train step's
+    loss and device-synchronized ms, each evaluation's kernel launches
+    (set to 0 just before it) with its engine forwards and metrics, the
+    evaluated logits and the logged phase timings."""
+    import logging
+
+    out = {"losses": [], "step_ms": [], "evals": [], "logits": [],
+           "report": ""}
+    real = (TQAT.make_qat_train_step, TT.evaluate, ENG.encoder_engine,
+            TT.compute_metrics)
+    forwards = [0]
+
+    def make(*a, **k):
+        step = real[0](*a, **k)
+
+        def run(*args):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            r = step(*args)
+            torch.cuda.synchronize()
+            out["step_ms"].append(1e3 * (time.perf_counter() - t0))
+            out["losses"].append(float(r[-1]))
+            return r
+        return run
+
+    def evaluate(*a, **k):
+        EK.reset_launches()
+        forwards[0] = 0
+        m = real[1](*a, **k)
+        torch.cuda.synchronize()
+        out["evals"].append((dict(EK.LAUNCHES), forwards[0], m))
+        return m
+
+    def encoder(*a, **k):
+        forwards[0] += 1
+        return real[2](*a, **k)
+
+    def metrics(task, logits, labels):
+        out["logits"].append(np.asarray(logits))
+        return real[3](task, logits, labels)
+
+    class Timings(logging.Handler):
+        def emit(self, record):
+            if record.getMessage().startswith("Phase timings"):
+                out["report"] = record.getMessage()
+
+    handler = Timings()
+    logging.getLogger("tq_torch").addHandler(handler)
+    TQAT.make_qat_train_step, TT.evaluate = make, evaluate
+    ENG.encoder_engine, TT.compute_metrics = encoder, metrics
+    try:
+        out["final"] = CLI.main(argv)
+    finally:
+        (TQAT.make_qat_train_step, TT.evaluate, ENG.encoder_engine,
+         TT.compute_metrics) = real
+        logging.getLogger("tq_torch").removeHandler(handler)
+    return out
+
+
+def cli_eval_launches(tag, run, want) -> dict:
+    """The launches of ``run``'s one evaluation, checked per engine
+    forward against ``want``; returns them."""
+    if len(run["evals"]) != 1:
+        fail(f"{tag}: {len(run['evals'])} evaluations, expected 1")
+    launches, n, _ = run["evals"][0]
+    if n == 0:
+        fail(f"{tag}: the evaluation ran no engine forward")
+    per_fwd = {k: v / n for k, v in launches.items()}
+    print(f"  [{tag}] launches over {n} engine forwards: "
+          f"{ {k: v for k, v in launches.items() if v} }; per forward: "
+          f"{ {k: v for k, v in per_fwd.items() if v} }", flush=True)
+    if per_fwd != want:
+        fail(f"{tag}: launches per forward {per_fwd}, expected {want}")
+    return launches
+
+
+def read_eval_results(out_dir: str) -> str:
+    with open(f"{out_dir}/eval_results_rte.txt") as f:
+        return f.read()
+
+
+def cli_phase(params, batches, by_path, seed, dev, kind, smi) -> None:
+    """Phase 18: ``cli.main`` in process at BERT-base width and depth
+    (random weights from ``--seed``, ``--synthetic-data --task rte
+    --max-seq-length 128``, the card): ``validate-quantized --recipe w8a8
+    --engine auto`` (the engine's kernels: K1 48, K2 12, K3 24 launches an
+    engine forward) against the same command on the plain versions from
+    its checkpoint (equal eval results) under ``--profile-dir``; then
+    ``train-quantized --recipe qat-w4a8 --max-steps 8`` without and with
+    ``--remat`` (equal losses step by step; peak memory and ms a step),
+    each evaluated on the W4A8 engine (K1 w4, K2, K3), and with
+    ``--amp``."""
+    L = B.BertConfig().num_hidden_layers
+    base = ["--synthetic-data", "--task", "rte", "--max-seq-length",
+            str(SEQ), "--seed", str(seed), "--model-name",
+            "bert_base_uncased"]
+    w8a8_want = per_forward(int8_matmul=4 * L, int8_attention=L,
+                            fused_add_ln_payload=2 * L)
+    w4_want = per_forward(int8_matmul_w4=4 * L, int8_attention=L,
+                          fused_add_ln_payload=2 * L)
+    with tempfile.TemporaryDirectory() as tmp:
+        k = cli_call(["validate-quantized", "--recipe", "w8a8", "--engine",
+                      "auto", "--output-dir", f"{tmp}/w8a8"] + base)
+        by_path["cmdline-w8a8"] = cli_eval_launches(
+            "cli w8a8 --engine auto", k, w8a8_want)
+        print(f"  [cli w8a8 --engine auto] final score {k['final']:.4f}; "
+              "phase timings:\n    " + k["report"].replace("\n", "\n    "),
+              flush=True)
+        p = cli_call(["validate-quantized", "--recipe", "w8a8", "--engine",
+                      "plain", "--quant-model-path",
+                      f"{tmp}/w8a8/checkpoint_rte", "--output-dir",
+                      f"{tmp}/plain", "--profile-dir", f"{tmp}/trace"]
+                     + base)
+        if any(p["evals"][0][0].values()):
+            fail(f"cli --engine plain launched kernels: {p['evals'][0][0]}")
+        got, want = (read_eval_results(f"{tmp}/{d}")
+                     for d in ("w8a8", "plain"))
+        err = float(np.abs(k["logits"][0] - p["logits"][0]).max())
+        print(f"  [cli w8a8] eval results --engine auto {got.strip()!r}, "
+              f"--engine plain {want.strip()!r}; logits max |kernels - "
+              f"plain| {err:.3e}", flush=True)
+        if got != want:
+            fail("cli w8a8: --engine auto's eval results differ from "
+                 "--engine plain's")
+        trace = f"{tmp}/trace/{PROF.TRACE_FILE}"
+        if not os.path.exists(trace):
+            fail(f"cli --profile-dir wrote no {PROF.TRACE_FILE}")
+        print(f"  [cli --profile-dir] {PROF.TRACE_FILE}: "
+              f"{os.path.getsize(trace)} bytes", flush=True)
+
+        qat = ["train-quantized", "--recipe", "qat-w4a8", "--max-steps",
+               str(CLI_STEPS), "--engine", "auto", "--log-every", "1"] + base
+        runs = {}
+        for name, extra in (("qat-w4a8", []), ("qat-w4a8 --remat",
+                                                ["--remat"]),
+                            ("qat-w4a8 --amp", ["--amp"])):
+            torch.cuda.reset_peak_memory_stats()
+            r = cli_call(qat + extra + ["--output-dir", f"{tmp}/{len(runs)}"])
+            r["peak"] = torch.cuda.max_memory_allocated()
+            runs[name] = r
+            if len(r["losses"]) != CLI_STEPS or not np.all(
+                    np.isfinite(r["losses"])):
+                fail(f"cli {name}: losses {r['losses']}")
+            launches = cli_eval_launches(f"cli {name} eval", r, w4_want)
+            if name == "qat-w4a8":
+                by_path["cmdline-qat-w4a8"] = launches
+            print(f"  [cli {name}] {CLI_STEPS} steps at B=8, S={SEQ} ({kind}, "
+                  f"{smi}): {np.median(r['step_ms'][1:]):.2f} ms a step "
+                  f"(median of steps 2-{CLI_STEPS}), peak memory "
+                  f"{r['peak'] / 2**20:.1f} MiB; losses "
+                  + ", ".join(f"{x:.6f}" for x in r["losses"])
+                  + f"; final score {r['final']:.4f}", flush=True)
+        a, b = (np.asarray(runs[n]["losses"])
+                for n in ("qat-w4a8", "qat-w4a8 --remat"))
+        diff = np.abs(a - b) / np.abs(b)
+        print(f"  [cli --remat] losses against the plain run: largest "
+              f"relative difference {diff.max():.3e} (step "
+              f"{int(diff.argmax()) + 1}; {int((diff == 0).sum())} of "
+              f"{CLI_STEPS} steps equal bit for bit); peak memory "
+              f"{runs['qat-w4a8 --remat']['peak'] / 2**20:.1f} against "
+              f"{runs['qat-w4a8']['peak'] / 2**20:.1f} MiB", flush=True)
+        if not np.all(diff <= CLI_LOSS_RTOL):
+            fail(f"cli --remat: losses {b.tolist()} against {a.tolist()}")
+
+
 # the phases after serving: (title, runner(params, batches, by_path,
 # seed, dev, kind, smi))
 LATE_PHASES = {
@@ -4106,12 +4298,15 @@ LATE_PHASES = {
     17: ("the inference options: gelu_impl, engine_dtype bf16, a mixed "
          "backend and the generic path at bf16 with int8 attention, at "
          "BERT-base width", options_phase),
+    18: ("the command line: cli.main's validate-quantized and "
+         "train-quantized (--remat, --amp) at BERT-base width on the card",
+         cli_phase),
 }
 
 
 def late_phases(phases, params, batches, by_path, seed, dev, kind,
                 smi) -> dict:
-    """Phases 13-16 of ``phases`` in order, each timed; returns what each
+    """Phases 13-18 of ``phases`` in order, each timed; returns what each
     returned."""
     out = {}
     for n in phases:
@@ -4127,7 +4322,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--only", default="",
-                    help="comma-separated phases of 13-17 to run alone, "
+                    help="comma-separated phases of 13-18 to run alone, "
                          "after phases 1 and 2")
     args = ap.parse_args(argv)
     only = {int(p) for p in args.only.split(",") if p}

@@ -194,7 +194,18 @@ def test_engine_at_full_depth_stays_within_jax_route_gap():
     kw = dict(CONFIGS["wide"][0], num_hidden_layers=12)
     seq, n = 32, 16
     jcfg, tcfg = JB.BertConfig(**kw), TB.BertConfig(**kw)
-    jp, jq, js = G._calibrated_bert(jcfg, batch_size=2, seq=seq)
+    # the port's random BERT and one-batch calibration, the same numbers
+    # carried into JAX (the calibrations' own parity is
+    # test_calibration_matches_jax's)
+    tp, tq, ts = TC.calibrated_bert(tcfg, batch_size=2, seq=seq, seed=0,
+                                    device="cpu")
+    jp = jax.tree.map(lambda t: jnp.asarray(t.numpy()), tp)
+    jq = JB.declare_bert_sites(G._w8a8_defaults(), jcfg)
+    js = {name: {"qp": JQ.QuantParams(
+        delta=jnp.asarray(st["qp"].delta.numpy()),
+        zero_float=jnp.asarray(st["qp"].zero_float.numpy()),
+        signed=jnp.asarray(st["qp"].signed.numpy()))}
+        for name, st in ts.items()}
     jint = jax.jit(lambda p, s: JB.build_bert_int_params(p, jq, s))(jp, js)
     jst, jplan, _ = JB.build_bert_engine(jp, jcfg, jq, js, int_params=jint)
     rng = np.random.RandomState(1)
@@ -213,10 +224,6 @@ def test_engine_at_full_depth_stays_within_jax_route_gap():
     j_gen = np.asarray(jax.jit(lambda p, b, s, ip: JB.bert_apply(
         p, b, jcfg, jq, s, JMode(), int_params=ip)[0]["logits"])(
         jp, jb, js, jint))
-    tp = C.params_from_jax(_np(jp), device="cpu")
-    ts = C.qstate_from_jax(_np(js), device="cpu")
-    _, tq, _ = TC.calibrated_bert(tcfg, batch_size=2, seq=seq, seed=0,
-                                  device="cpu", params=tp)
     tst, tplan, tint = TB.build_bert_engine(tp, tcfg, tq, ts, device="cpu")
     got = TB.bert_engine_apply(tp, batch, tcfg, tq, ts, tst, tplan, tint,
                                device="cpu")["logits"].numpy()
@@ -308,9 +315,9 @@ def test_engine_rejects_unported_configs():
     jst, jplan, _ = JB.build_bert_engine(jp, jcfg, jq, js, int_params=jint)
     assert st.io == jst.io and st.io[0][1:4] == ("f", 16, "f")
     batch = TC.calibration_batch(cfg.vocab_size, 4, seq, seed=4)
-    want = JB.bert_engine_apply(jp, {k: jnp.asarray(v) for k, v in
-                                     batch.items()}, jcfg, jq, js, jst,
-                                jplan, jint, backend="xla")["logits"]
+    want = jax.jit(lambda p, b, s, plan, ip: JB.bert_engine_apply(
+        p, b, jcfg, jq, s, jst, plan, ip, backend="xla")["logits"])(
+        jp, {k: jnp.asarray(v) for k, v in batch.items()}, js, jplan, jint)
     got = TB.bert_engine_apply(params, batch, cfg, wide, wide_state, st,
                                plan, ip, device="cpu")["logits"]
     _logits_close(want, got)

@@ -207,18 +207,21 @@ def _calibrate(name):
                                              int_params=jint_pw)
     own_static, own_plan, _ = JB.build_bert_engine(jp, jcfg, jq, js,
                                                    int_params=jint)
+    # JAX's forwards jitted (the eager engine compiles op by op, ten times
+    # the jitted program's time), one program each for both qstates
+    engine = jax.jit(lambda static, s, plan, ip: JB.bert_engine_apply(
+        jp, jbatch, jcfg, jq, s, static, plan, ip, backend="xla")["logits"],
+        static_argnums=0)
+    sim = jax.jit(lambda mode, s: JB.bert_apply(
+        jp, jbatch, jcfg, jq, s, mode)[0]["logits"], static_argnums=0)
     want = {
-        "eng": JB.bert_engine_apply(jp, jbatch, jcfg, jq, js_pw, jstatic,
-                                    jplan, jint_pw, backend="xla")["logits"],
-        "sim": JB.bert_apply(jp, jbatch, jcfg, jq, js_pw, jmode)[0]["logits"],
-        "eng_own": JB.bert_engine_apply(jp, jbatch, jcfg, jq, js, own_static,
-                                        own_plan, jint,
-                                        backend="xla")["logits"],
-        "sim_own": JB.bert_apply(jp, jbatch, jcfg, jq, js, jmode)[0]["logits"],
+        "eng": engine(jstatic, js_pw, jplan, jint_pw),
+        "sim": sim(jmode, js_pw),
+        "eng_own": engine(own_static, js, own_plan, jint),
+        "sim_own": sim(jmode, js),
     }
     try:
-        want["dyn"] = JB.bert_apply(jp, jbatch, jcfg, jq, js_dyn,
-                                    jmode_dyn)[0]["logits"]
+        want["dyn"] = sim(jmode_dyn, js_dyn)
     except RuntimeError as e:  # an MSE act site has no session at eval
         want["dyn"] = e
     return dict(name=name, args=args, jcfg=jcfg, tcfg=tcfg, jp=jp, tp=tp,

@@ -509,9 +509,9 @@ def test_non_payload_route_matches_jax_engine(bert, name):
     jq, tq = _qcfgs(bert, qd)
     jst, jplan, _ = JB.build_bert_engine(bert["jp"], bert["jcfg"], jq,
                                          bert["js"], int_params=bert["jint"])
-    want = JB.bert_engine_apply(bert["jp"], bert["jbatch"], bert["jcfg"], jq,
-                                bert["js"], jst, jplan, bert["jint"],
-                                backend="xla")
+    want = jax.jit(lambda p, b, s, plan, ip: JB.bert_engine_apply(
+        p, b, bert["jcfg"], jq, s, jst, plan, ip, backend="xla"))(
+        bert["jp"], bert["jbatch"], bert["js"], jplan, bert["jint"])
     tst, tplan, tint = TB.build_bert_engine(bert["tp"], bert["tcfg"], tq,
                                             bert["ts"], device="cpu")
     assert tst.fold == jst.fold == fold

@@ -435,9 +435,9 @@ def test_w4a8_non_payload_route_matches_jax_engine(w4a8):
                                   KW["num_hidden_layers"])
     jst, jplan, _ = JB.build_bert_engine(w4a8["jp"], w4a8["jcfg"], jq,
                                          w4a8["js"], int_params=w4a8["jint"])
-    want = JB.bert_engine_apply(w4a8["jp"], w4a8["jbatch"], w4a8["jcfg"], jq,
-                                w4a8["js"], jst, jplan, w4a8["jint"],
-                                backend="xla")["logits"]
+    want = jax.jit(lambda p, b, s, plan, ip: JB.bert_engine_apply(
+        p, b, w4a8["jcfg"], jq, s, jst, plan, ip, backend="xla")["logits"])(
+        w4a8["jp"], w4a8["jbatch"], w4a8["js"], jplan, w4a8["jint"])
     tst, tplan, tint = TB.build_bert_engine(w4a8["tp"], w4a8["tcfg"], tq,
                                             w4a8["ts"], use_int4=True,
                                             device="cpu")

@@ -447,10 +447,16 @@ def test_int8_mb_layer_ln_against_pallas_interpret_stacked(setup, layer0,
 # ---------------------------------------------------------------------------
 
 
-def _jax_engine_logits(jcfg, jq, js, jp, jplan, jint, jst, jbatch):
-    return np.asarray(JM.mobilebert_engine_apply(
-        jp, jbatch, jcfg, jq, js, jst, jplan, jint,
-        backend="xla")["logits"])
+def _jax_engine_logits(jcfg, jq, js, jp, jplan, jint, jst, jbatch,
+                       jit=True):
+    """The JAX engine's logits on its XLA backend: jitted (eagerly it
+    compiles op by op), or eager for a deep stack (whose unrolled program
+    takes longer to trace and compile than the shared op compiles)."""
+    def fn(p, b, s, plan, ip):
+        return JM.mobilebert_engine_apply(p, b, jcfg, jq, s, jst, plan, ip,
+                                          backend="xla")["logits"]
+    return np.asarray((jax.jit(fn) if jit else fn)(jp, jbatch, js, jplan,
+                                                   jint))
 
 
 @pytest.mark.parametrize("attn_case", sorted(ATTN_CASES))
@@ -543,7 +549,8 @@ def test_engine_at_full_depth_stays_within_jax_route_gap():
                                                int_params=jint)
     batch = _request_batch(kw["vocab_size"], 4, seq)
     jb = _jbatch(batch)
-    j_eng = _jax_engine_logits(jcfg, jq, js, jp, jplan, jint, jst, jb)
+    j_eng = _jax_engine_logits(jcfg, jq, js, jp, jplan, jint, jst, jb,
+                               jit=False)
     j_gen = np.asarray(JM.mobilebert_apply(jp, jb, jcfg, jq, js, JMode(),
                                            int_params=jint)[0]["logits"])
     tcfg = TM.MobileBertConfig(**kw)

@@ -534,8 +534,9 @@ def test_engine_rejects_still_unported_recipes():
         jst, jplan, _ = JB.build_bert_engine(jp, jcfg, jq, js,
                                              int_params=jint)
         assert (static.io, static.attn_bits) == (jst.io, jst.attn_bits), qd
-        want = JB.bert_engine_apply(jp, jb, jcfg, jq, js, jst, jplan, jint,
-                                    backend="xla")["logits"]
+        want = jax.jit(lambda p, b, s, plan, ip: JB.bert_engine_apply(
+            p, b, jcfg, jq, s, jst, plan, ip, backend="xla")["logits"])(
+            jp, jb, js, jplan, jint)
         got = TB.bert_engine_apply(params, batch, cfg, qcfg, qstate, static,
                                    plan, ip, device="cpu")["logits"]
         np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=RTOL,

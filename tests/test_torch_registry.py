@@ -136,21 +136,20 @@ def test_unported_branches_raise(tmp_path):
     with pytest.raises(KeyError):
         TR.get_family("gpt2")
     # a local Hugging Face directory loads (models/hf_loader.py; each
-    # family is tests/test_torch_hf_loader.py's)
-    transformers = pytest.importorskip("transformers")
-    hf = transformers.BertConfig(vocab_size=64, hidden_size=32,
-                                 num_hidden_layers=1, num_attention_heads=2,
-                                 intermediate_size=64,
-                                 max_position_embeddings=32)
-    model = transformers.BertForSequenceClassification(hf)
-    model.save_pretrained(str(tmp_path))
+    # family, written by transformers' save_pretrained, is
+    # tests/test_torch_hf_loader.py's): the files of one, written without
+    # importing transformers (tests/test_torch_cli.py's writer)
+    from safetensors.numpy import load_file
+    from test_torch_cli import HF, write_hf_bert
+
+    write_hf_bert(tmp_path)
     fam, cfg, params = TR.build_model("bert_base_uncased",
                                       model_path=str(tmp_path), device="cpu")
-    assert fam.name == "bert" and cfg.hidden_size == 32
-    sd = model.state_dict()
+    assert fam.name == "bert" and cfg.hidden_size == HF["hidden_size"]
+    sd = load_file(str(tmp_path / "model.safetensors"))
     np.testing.assert_array_equal(
         params["layers"][0]["ffn"]["inter"]["kernel"].numpy(),
-        sd["bert.encoder.layer.0.intermediate.dense.weight"].numpy())
+        sd["bert.encoder.layer.0.intermediate.dense.weight"])
 
 
 def test_build_model_random_init():
@@ -357,11 +356,23 @@ def test_load_tokenizer_branches(wordpiece, vocab_dir, tmp_path, caplog):
 
 
 def test_load_tokenizer_refuses_a_hf_tokenizer(vocab_dir, tmp_path):
-    """A directory with a loadable HF tokenizer (no vocab.txt) names the
-    adapter that is not ported rather than hashing real text."""
+    """A directory with a loadable HF tokenizer (no vocab.txt) loads through
+    the HF tokenizer adapter (``local_files_only``), whose ids, type ids
+    and masks equal JAX's ``HFTokenizerAdapter``'s on the same tokenizer."""
     transformers = pytest.importorskip("transformers")
+    from transformer_quantization_tpu.utils import data as JD
+
     tok = transformers.BertTokenizerFast(str(vocab_dir / "vocab.txt"))
     tok.save_pretrained(str(tmp_path))
     (tmp_path / "vocab.txt").unlink()
-    with pytest.raises(NotImplementedError, match="item 8"):
-        TD.load_tokenizer(str(tmp_path))
+    got = TD.load_tokenizer(str(tmp_path))
+    want = JD.load_tokenizer(str(tmp_path))
+    assert isinstance(got, TD.HFTokenizerAdapter)
+    assert isinstance(want, JD.HFTokenizerAdapter)
+    assert got.vocab_size == want.vocab_size == len(VOCAB)
+    texts = TEXTS + [("The Quick Brown Fox JUMPED over the lazy dogs!",
+                      "unaffable quantization, hello world?")]
+    for max_len in (4, 8, 32):
+        for a, b in texts + [(a, None) for a, _ in texts]:
+            assert got.encode_pair(a, b, max_len) == want.encode_pair(
+                a, b, max_len)

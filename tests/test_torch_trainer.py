@@ -219,11 +219,20 @@ def test_dropout_steps_repeat_from_the_generator_seed():
                                          ("scan_layers", True),
                                          ("pp_mesh", object())])
 def test_unported_qat_options_raise(field, value):
+    """Only the pipeline (``pp_mesh``, ROADMAP §1 item 9) is still refused;
+    the other options build the step and reach the forward as the JAX
+    step passes them (``compute_dtype`` as a torch dtype)."""
     cfg, params, qcfg, qstate, *_ = _setup()
     qat = TQAT.QATConfig(learn_ranges=True, **{field: value})
     tx = TQAT.make_optimizer(qat, params)
-    with pytest.raises(NotImplementedError, match=f"{field}.*not yet ported"):
-        TQAT.make_qat_train_step(None, qcfg, qat, tx)
+    if field == "pp_mesh":
+        with pytest.raises(NotImplementedError,
+                           match="pp_mesh.*not yet ported.*item 9"):
+            TQAT.make_qat_train_step(None, qcfg, qat, tx)
+        return
+    assert callable(TQAT.make_qat_train_step(None, qcfg, qat, tx))
+    want = torch.bfloat16 if field == "compute_dtype" else value
+    assert TQAT.forward_options(qat) == {field: want}
 
 
 def test_qat_optimizer_with_a_range_learning_rate_matches_jax():
@@ -322,8 +331,40 @@ def test_glue_and_batching_match_jax(tmp_path):
     assert got == want and len(got["validation"]) == 3
     assert (TG.load_task_data(TG.TASKS["rte"], synthetic=True)
             == JG.load_task_data(JG.TASKS["rte"], synthetic=True))
-    with pytest.raises(NotImplementedError, match="datasets"):
-        TG.load_task_data(TG.TASKS["rte"])
+    # the Hugging Face datasets branch, its load_dataset stubbed in both
+    # packages (nothing is fetched), then without a cache: synthetic
+    datasets = pytest.importorskip("datasets")
+    calls = []
+
+    def load_dataset(path, name):
+        calls.append((path, name))
+        split = {"sentence1": [r["sentence1"] for r in rows],
+                 "sentence2": [r["sentence2"] for r in rows],
+                 "label": [r["label"] for r in rows]}
+        return {"train": datasets.Dataset.from_dict(split),
+                "validation": datasets.Dataset.from_dict(split)}
+
+    real = datasets.load_dataset
+    datasets.load_dataset = load_dataset
+    try:
+        got = TG.load_task_data(TG.TASKS["rte"])
+        want = JG.load_task_data(JG.TASKS["rte"])
+    finally:
+        datasets.load_dataset = real
+    assert calls == [("glue", "rte")] * 2
+    assert got == want and got["train"] == rows
+
+    def no_cache(*a, **k):
+        raise FileNotFoundError("no local datasets cache")
+
+    datasets.load_dataset = no_cache
+    try:
+        got = TG.load_task_data(TG.TASKS["rte"], seed=3)
+        want = JG.load_task_data(JG.TASKS["rte"], seed=3)
+    finally:
+        datasets.load_dataset = real
+    assert got == want == TG.load_task_data(TG.TASKS["rte"], synthetic=True,
+                                            seed=3)
 
 
 def test_evaluate_matches_the_forward():

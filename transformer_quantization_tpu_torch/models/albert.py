@@ -21,8 +21,13 @@ per-layer keys collapsed onto the shared sites
 (:func:`apply_albert_quant_dict`), the shared PEG wiring, AdaRound specs,
 and the full-handoff engine (:func:`build_albert_engine`: one plan layer
 an application, every one on the shared layer's one set of int8 weights).
-The training forward and the JAX package's scan over the shared layer
-(``scan_layers``, ROADMAP §1 item 4.6) are not ported.
+The training forward is not ported (ROADMAP §1 item 5). ``scan_layers``
+runs the loop: the JAX package's scan over the shared layer
+(``_scan_shared_encoder``) carries the hidden state and the ``shared.``
+sites' quant state from each application to the next, as the loop does,
+and its gate (``_can_scan_shared``) falls back to the loop wherever the
+two could differ (a shared site not yet initialized, or the generic
+gates of ``bert.generic_scan_gates``).
 """
 
 from __future__ import annotations
@@ -237,6 +242,7 @@ def albert_apply(params: Dict, batch: Mapping, cfg: AlbertConfig,
                  capture_sites=None, capture_pre_act: bool = False,
                  compute_dtype=None, attention_dtype=None,
                  int8_attention: bool = False,
+                 remat: bool = False, scan_layers: bool = False,
                  device="cuda") -> Tuple[Dict, Dict]:
     """Inference / calibration forward; returns ``(outputs, new_qstate)``,
     as :func:`~.bert.bert_apply`: the shared layer runs
@@ -244,7 +250,12 @@ def albert_apply(params: Dict, batch: Mapping, cfg: AlbertConfig,
     (and in the estimate phase updating) the ``shared.`` sites. ``params``
     must live on ``device``. The
     inference options ``compute_dtype`` / ``attention_dtype`` /
-    ``int8_attention`` as :func:`~.bert.bert_apply`'s."""
+    ``int8_attention`` as :func:`~.bert.bert_apply`'s.
+    ``remat`` / ``scan_layers`` are taken with the JAX signature; this
+    forward runs without gradients (its training forward is not yet
+    ported, ROADMAP §1 item 5), where both leave the values as they
+    are.
+    """
     dev = B._check_device(params, device)
     with torch.no_grad():
         ctx = B.family_ctx(qcfg, qstate, mode, train=train,
@@ -308,7 +319,7 @@ def albert_engine_apply(params: Dict, batch: Mapping, cfg: AlbertConfig,
         h = ENG.encoder_engine(h, B.engine_bias(batch, input_ids, dev),
                                static, plan, backend=backend,
                                out_dtype=engine_dtype,
-                               gelu_impl=gelu_impl).to(torch.float32)
+                               gelu_impl=gelu_impl).to(B.exit_dtype(h))
         return B._classification_head(ctx, params, cfg, h,
                                       "shared.ffn.ln.out", batch, False,
                                       None, clamp=False)

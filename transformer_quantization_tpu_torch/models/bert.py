@@ -20,7 +20,8 @@ the fake-quant sites' STE / LSQ backward, dropout from a
 ``torch.Generator``, the int8 QAT matmul at ``int8_qat_sites``), and
 AdaRound: the layer specs (:func:`bert_adaround_specs`), layer I/O
 capture (``bert_apply(capture_sites=...)``) and the packing of alphas.
-Int8 attention, compute dtypes, scan, remat and the pipeline wait. The
+The training options ``compute_dtype`` (``--amp``), ``remat`` and
+``scan_layers`` (:func:`bert_apply`); the pipeline waits. The
 BERT-shaped families (RoBERTa, DistilBERT, ALBERT, SqueezeBERT) build on
 its embeddings, encoder, packing and engine entry (:func:`family_ctx`,
 :func:`engine_bias`, :func:`encoder_weight_site_tensors`).
@@ -707,13 +708,64 @@ def _layer(ctx, layer, cfg: BertConfig, h, mask_bias, prefix, train, gen,
                            f["ln"]["bias"], cfg.layer_norm_eps)
 
 
+def maybe_remat_layer(ctx, remat: bool, layer_fn, params_i, h, gen):
+    """``layer_fn(sub_ctx, params_i, h, gen)``, under ``remat`` inside
+    ``torch.utils.checkpoint.checkpoint(use_reentrant=False)``: the
+    layer's activations are recomputed in the backward instead of stored
+    (the JAX ``maybe_remat_layer``'s ``jax.checkpoint``).
+
+    The quant state threads through the recomputed region: each run of
+    the region starts a shallow context copy from the quant state at the
+    layer's entry, the forward's copy hands its updates on to ``ctx``, and
+    the backward's recompute discards its own, so no estimate-phase update
+    is applied twice. The dropout generator is set to its entry state for
+    each run; the recompute leaves it where it found it. Off while
+    capturing (as in JAX), where no gradient is recorded, and with an
+    ``mse_session`` (its estimators would see the recompute's batch)."""
+    if (not remat or ctx.capture_sites or ctx.mse_session is not None
+            or not torch.is_grad_enabled()):
+        return layer_fn(ctx, params_i, h, gen)
+    import copy
+
+    from torch.utils.checkpoint import checkpoint
+
+    entry_qstate = dict(ctx.qstate)
+    entry_rng = gen.get_state() if gen is not None else None
+    forward_qstate = []
+
+    def region(h_in):
+        recompute = bool(forward_qstate)
+        sub = copy.copy(ctx)
+        sub.qstate = dict(entry_qstate)
+        if gen is not None:
+            resume = gen.get_state()
+            gen.set_state(entry_rng)
+        try:
+            y = layer_fn(sub, params_i, h_in, gen)
+        finally:
+            if recompute and gen is not None:
+                gen.set_state(resume)
+        if not recompute:
+            forward_qstate.append(sub.export())
+        return y
+
+    y = checkpoint(region, h, use_reentrant=False)
+    ctx.qstate = dict(forward_qstate[0])
+    return y
+
+
 def run_encoder(ctx, params, cfg, h, mask_bias, train, gen, *,
-                first_site: str, linear=quant_linear):
-    """The encoder-layer stack as a plain loop; returns (h, last site)."""
+                first_site: str, linear=quant_linear, remat: bool = False):
+    """The encoder-layer stack as a plain loop, each layer under
+    :func:`maybe_remat_layer`; returns (h, last site)."""
     h_site = first_site
     for i in range(cfg.num_hidden_layers):
-        h = _layer(ctx, params["layers"][i], cfg, h, mask_bias, f"L{i}.",
-                   train, gen, h_site=h_site, linear=linear)
+        h = maybe_remat_layer(
+            ctx, remat,
+            lambda sub, p_i, hc, g, prefix=f"L{i}.", hs=h_site: _layer(
+                sub, p_i, cfg, hc, mask_bias, prefix, train, g, h_site=hs,
+                linear=linear),
+            params["layers"][i], h, gen)
         h_site = f"L{i}.ffn.ln.out"
     return h, h_site
 
@@ -732,6 +784,8 @@ def bert_apply(params: Dict, batch: Mapping, cfg: BertConfig,
                compute_dtype=None,
                attention_dtype=None,
                int8_attention: bool = False,
+               remat: bool = False,
+               scan_layers: bool = False,
                device="cuda") -> Tuple[Dict, Dict]:
     """Forward pass; returns ``(outputs, new_qstate)``.
 
@@ -768,8 +822,21 @@ def bert_apply(params: Dict, batch: Mapping, cfg: BertConfig,
     ``attention_dtype`` runs the attention's float matmuls in that dtype
     (the softmax stays float32); ``int8_attention`` with ``int_params``
     takes the scores and context products on the int8 levels of 8-bit
-    per-tensor q / k / probs / v sites.
+    per-tensor q / k / probs / v sites. In training ``compute_dtype`` is
+    the JAX ``QATConfig.compute_dtype`` (``--amp``): bf16 activations and
+    matmuls over float32 master weights, range math, LayerNorm
+    statistics, softmax and loss in float32.
+
+    Training options (the JAX ``bert_apply``'s): ``remat`` recomputes each
+    encoder layer in the backward (:func:`maybe_remat_layer`; equal
+    values and gradients). ``scan_layers`` is taken and the layers run in
+    the loop: JAX's scan traces one layer body for every layer to cut its
+    compile time, computes the loop's values (its gates fall back to the
+    loop wherever a layer needs its own identity), and eager PyTorch has
+    no trace for a scan to shorten; stacking the weights would only copy
+    them.
     """
+    del scan_layers  # the loop computes JAX's scan; see above
     dev = _check_device(params, device)
     if train and int_params:
         raise ValueError("int_params is an inference path; train with the "
@@ -805,7 +872,7 @@ def bert_apply(params: Dict, batch: Mapping, cfg: BertConfig,
         h = _embeddings(ctx, params, cfg, input_ids, token_type_ids,
                         position_ids, train, gen)
         h, h_site = run_encoder(ctx, params, cfg, h, mask_bias, train, gen,
-                                first_site="emb.ln.out")
+                                first_site="emb.ln.out", remat=remat)
         outputs = _classification_head(ctx, params, cfg, h, h_site, batch,
                                        train, gen)
         if capture_sites:
@@ -870,6 +937,14 @@ def build_bert_engine(params: Dict, cfg: BertConfig, qcfg: QuantModelConfig,
     return static, plan, int_params
 
 
+def exit_dtype(h: Tensor) -> torch.dtype:
+    """The dtype the engine's output takes for the head, from the value
+    that entered the engine: float32, or float64 for a float64 model
+    (``--double``), whose JAX head promotes the engine's float32 output to
+    its float64 weights."""
+    return torch.promote_types(h.dtype, torch.float32)
+
+
 def engine_bias(batch: Mapping, input_ids: Tensor, dev) -> Tensor:
     """The engine's (B, T) additive attention bias: -10000 on padding."""
     if batch.get("attention_mask") is None:
@@ -898,7 +973,7 @@ def bert_engine_apply(params: Dict, batch: Mapping, cfg: BertConfig,
                         position_ids, False, None)
         h = ENG.encoder_engine(h, engine_bias(batch, input_ids, dev), static,
                                plan, backend=backend, out_dtype=engine_dtype,
-                               gelu_impl=gelu_impl).to(torch.float32)
+                               gelu_impl=gelu_impl).to(exit_dtype(h))
         h_site = f"L{cfg.num_hidden_layers - 1}.ffn.ln.out"
         return _classification_head(ctx, params, cfg, h, h_site, batch,
                                     False, None)

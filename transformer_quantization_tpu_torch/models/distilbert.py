@@ -157,10 +157,16 @@ def distilbert_apply(params: Dict, batch: Mapping, cfg: DistilBertConfig,
                      capture_sites=None, capture_pre_act: bool = False,
                      compute_dtype=None, attention_dtype=None,
                      int8_attention: bool = False,
+                     remat: bool = False, scan_layers: bool = False,
                      device="cuda") -> Tuple[Dict, Dict]:
     """Inference / calibration forward; returns ``(outputs, new_qstate)``,
     as :func:`~.bert.bert_apply` (its inference options too). ``params``
-    must live on ``device``."""
+    must live on ``device``.
+    ``remat`` / ``scan_layers`` are taken with the JAX signature; this
+    forward runs without gradients (its training forward is not yet
+    ported, ROADMAP §1 item 5), where both leave the values as they
+    are.
+    """
     dev = B._check_device(params, device)
     with torch.no_grad():
         ctx = B.family_ctx(qcfg, qstate, mode, train=train,
@@ -223,6 +229,6 @@ def distilbert_engine_apply(params: Dict, batch: Mapping,
         h = ENG.encoder_engine(h, B.engine_bias(batch, input_ids, dev),
                                static, plan, backend=backend,
                                out_dtype=engine_dtype,
-                               gelu_impl=gelu_impl).to(torch.float32)
+                               gelu_impl=gelu_impl).to(B.exit_dtype(h))
         h_site = f"L{cfg.num_hidden_layers - 1}.ffn.ln.out"
         return _head(ctx, params, cfg, h, h_site, batch)

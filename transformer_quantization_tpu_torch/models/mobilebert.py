@@ -509,6 +509,7 @@ def mobilebert_apply(params: Dict, batch: Mapping, cfg: MobileBertConfig,
                      int_params: Optional[Dict] = None,
                      compute_dtype=None, attention_dtype=None,
                      int8_attention: bool = False,
+                     remat: bool = False, scan_layers: bool = False,
                      device="cuda") -> Tuple[Dict, Dict]:
     """Inference / calibration forward; returns ``(outputs, new_qstate)``.
     ``qcfg=None`` is the float model; ``int_params`` runs every packable
@@ -516,10 +517,15 @@ def mobilebert_apply(params: Dict, batch: Mapping, cfg: MobileBertConfig,
     cross-entropy act sites' estimators across calibration batches.
     ``params`` must live on ``device``. ``compute_dtype`` /
     ``int8_attention`` as the JAX ``mobilebert_apply``'s (and
-    ``attention_dtype`` as :func:`~.bert.bert_apply`'s)."""
+    ``attention_dtype`` as :func:`~.bert.bert_apply`'s).
+    ``remat`` / ``scan_layers`` are taken with the JAX signature; this
+    forward runs without gradients (its training forward is not yet
+    ported, ROADMAP §1 item 5), where both leave the values as they
+    are.
+    """
     if train:
         raise NotImplementedError("the MobileBERT training forward (dropout)"
-                                  " is not yet ported")
+                                  " is not yet ported (ROADMAP §1 item 5)")
     dev = B._check_device(params, device)
     with torch.no_grad():
         ctx = B.make_ctx(qcfg, qstate, mode, mse_session=mse_session,
@@ -868,6 +874,6 @@ def mobilebert_engine_apply(params: Dict, batch: Mapping,
         h = mobilebert_encoder_engine(h, bias, static, plan, backend=backend,
                                       out_dtype=engine_dtype,
                                       fuse_layer=fuse_layer).to(
-                                          torch.float32)
+                                          B.exit_dtype(h))
         last = f"L{cfg.num_hidden_layers - 1}.out.bn.norm.out"
         return _classification_head(ctx, params, cfg, h, last, batch)

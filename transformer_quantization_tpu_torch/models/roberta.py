@@ -160,13 +160,19 @@ def roberta_apply(params: Dict, batch: Mapping, cfg: RobertaConfig,
                   capture_sites=None, capture_pre_act: bool = False,
                   compute_dtype=None, attention_dtype=None,
                   int8_attention: bool = False,
+                  remat: bool = False, scan_layers: bool = False,
                   device="cuda") -> Tuple[Dict, Dict]:
     """Inference / calibration forward; returns ``(outputs, new_qstate)``,
     as :func:`~.bert.bert_apply` (``qcfg=None`` the float model,
     ``int_params`` the generic int8 path, ``fused_linear`` its fused
     linear). ``params`` must live on ``device``. The
     inference options ``compute_dtype`` / ``attention_dtype`` /
-    ``int8_attention`` as :func:`~.bert.bert_apply`'s."""
+    ``int8_attention`` as :func:`~.bert.bert_apply`'s.
+    ``remat`` / ``scan_layers`` are taken with the JAX signature; this
+    forward runs without gradients (its training forward is not yet
+    ported, ROADMAP §1 item 5), where both leave the values as they
+    are.
+    """
     dev = B._check_device(params, device)
     with torch.no_grad():
         ctx = B.family_ctx(qcfg, qstate, mode, train=train,
@@ -243,6 +249,6 @@ def roberta_engine_apply(params: Dict, batch: Mapping, cfg: RobertaConfig,
                           position_ids, False, None)
         h = ENG.encoder_engine(h, B.engine_bias(batch, input_ids, dev), static,
                                plan, backend=backend, out_dtype=engine_dtype,
-                               gelu_impl=gelu_impl).to(torch.float32)
+                               gelu_impl=gelu_impl).to(B.exit_dtype(h))
         h_site = f"L{cfg.num_hidden_layers - 1}.ffn.ln.out"
         return _roberta_head(ctx, params, cfg, h, h_site, batch)

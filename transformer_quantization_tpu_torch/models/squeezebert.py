@@ -162,10 +162,16 @@ def squeezebert_apply(params: Dict, batch: Mapping, cfg: SqueezeBertConfig,
                       capture_sites=None, capture_pre_act: bool = False,
                       compute_dtype=None, attention_dtype=None,
                       int8_attention: bool = False,
+                      remat: bool = False, scan_layers: bool = False,
                       device="cuda") -> Tuple[Dict, Dict]:
     """Inference / calibration forward; returns ``(outputs, new_qstate)``,
     as :func:`~.bert.bert_apply` (its inference options too), with the
-    encoder's matmuls grouped. ``params`` must live on ``device``."""
+    encoder's matmuls grouped. ``params`` must live on ``device``.
+    ``remat`` / ``scan_layers`` are taken with the JAX signature; this
+    forward runs without gradients (its training forward is not yet
+    ported, ROADMAP §1 item 5), where both leave the values as they
+    are.
+    """
     dev = B._check_device(params, device)
     with torch.no_grad():
         ctx = B.family_ctx(qcfg, qstate, mode, train=train,

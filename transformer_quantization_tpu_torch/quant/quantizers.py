@@ -96,11 +96,27 @@ def zero_point_of(spec: QuantizerSpec, qp: QuantParams) -> Tensor:
     return torch.clamp(torch.round(qp.zero_float), int_min, int_max)
 
 
+def x_min_max_of(spec: QuantizerSpec,
+                 qp: QuantParams) -> Tuple[Tensor, Tensor]:
+    """Representable range ``(scale * (int_min - zp), scale * (int_max -
+    zp))``."""
+    scale = scale_of(spec, qp)
+    zp = zero_point_of(spec, qp)
+    int_min, int_max = int_min_max(spec, qp.signed)
+    return scale * (int_min - zp), scale * (int_max - zp)
+
+
 def set_quant_range(spec: QuantizerSpec, x_min, x_max) -> QuantParams:
     """Quantization parameters from a (min, max) range, with the
-    ``x_min <= 0`` / ``x_max >= eps`` clamps of the JAX version."""
-    x_min = torch.as_tensor(x_min, dtype=torch.float32)
-    x_max = torch.as_tensor(x_max, dtype=torch.float32, device=x_min.device)
+    ``x_min <= 0`` / ``x_max >= eps`` clamps of the JAX version. The
+    range math runs in float64 when either bound is a float64 tensor
+    (``--double``: a float64 model's weight ranges, as JAX's under
+    ``jax_enable_x64``), else in float32; ``signed`` stays float32."""
+    dt = (torch.float64 if any(isinstance(v, Tensor)
+                               and v.dtype == torch.float64
+                               for v in (x_min, x_max)) else torch.float32)
+    x_min = torch.as_tensor(x_min, dtype=dt)
+    x_max = torch.as_tensor(x_max, dtype=dt, device=x_min.device)
     x_min = torch.clamp(x_min, max=0.0)
     x_max = torch.clamp(x_max, min=spec.eps)
     if spec.symmetric:

@@ -97,9 +97,13 @@ class QATConfig:
     """QAT options (the JAX ``QATConfig``). ``int8_sites``: the layers
     whose fake-quant matmul runs on int8 payloads
     (:func:`int8_forward_sites`); None / empty keeps the float fake-quant
-    matmuls. ``compute_dtype``, ``remat``, ``scan_layers`` and
-    ``pp_mesh`` are not yet ported (ROADMAP §1 items 4.2, 4.6 and 9) and
-    raise in :func:`make_qat_train_step`."""
+    matmuls. ``compute_dtype`` (e.g. ``"bfloat16"``, the CLI's ``--amp``)
+    runs the step's activations and matmuls in that dtype over float32
+    master weights; range math, statistics, loss and optimizer stay
+    float32. ``remat`` recomputes each encoder layer in the backward;
+    ``scan_layers`` is passed to the forward, which runs its loop
+    (``models/bert.py`` ``bert_apply``). ``pp_mesh`` is not yet ported
+    (ROADMAP §1 item 9) and raises in :func:`make_qat_train_step`."""
 
     learn_ranges: bool = False
     fix_weight_ranges: bool = False
@@ -116,12 +120,24 @@ class QATConfig:
 
 def check_ported(qat: QATConfig) -> None:
     """Raise for the QATConfig options the port lacks."""
-    for field, item in (("compute_dtype", "4.2"), ("remat", "4.6"),
-                        ("scan_layers", "4.6"), ("pp_mesh", "9")):
-        if getattr(qat, field):
-            raise NotImplementedError(
-                f"QATConfig.{field} is not yet ported (ROADMAP §1 item "
-                f"{item})")
+    if qat.pp_mesh is not None:
+        raise NotImplementedError(
+            "QATConfig.pp_mesh is not yet ported (ROADMAP §1 item 9)")
+
+
+def forward_options(qat: QATConfig) -> Dict:
+    """The forward's keyword options for ``qat`` (the JAX
+    ``make_qat_train_step``'s ``extra``)."""
+    extra: Dict = {}
+    if qat.compute_dtype is not None:
+        extra["compute_dtype"] = getattr(torch, qat.compute_dtype)
+    if qat.remat:
+        extra["remat"] = True
+    if qat.scan_layers:
+        extra["scan_layers"] = True
+    if qat.int8_sites:
+        extra["int8_qat_sites"] = qat.int8_sites
+    return extra
 
 
 def int8_forward_sites(qcfg: QuantModelConfig, qstate: Dict) -> frozenset:
@@ -224,7 +240,7 @@ def qat_value_and_grad(apply_fn: Callable, qcfg: QuantModelConfig,
     order) and then the packed ranges (:func:`ravel_ranges`), zeros where
     a leaf takes no part."""
     check_ported(qat)
-    extra = {"int8_qat_sites": qat.int8_sites} if qat.int8_sites else {}
+    extra = forward_options(qat)
     flat, unravel = ravel_ranges(learnable)
     p_leaves = [t.detach().requires_grad_(True)
                 for _, t in tree_leaves(params)]
@@ -248,10 +264,10 @@ def make_qat_train_step(apply_fn: Callable, qcfg: QuantModelConfig,
     generator) -> (params, learnable, rest, opt_state, generator, loss)``.
 
     ``apply_fn(params, batch, qcfg=, qstate=, mode=, train=True,
-    dropout_generator=, [int8_qat_sites=]) -> (outputs with 'loss',
-    qstate)``. ``learnable`` is empty unless ``learn_ranges``; the
-    optimizer sees the weights' leaves then the packed ranges. The loss is
-    returned as a 0-d tensor."""
+    dropout_generator=, [int8_qat_sites=, compute_dtype=, remat=,
+    scan_layers=]) -> (outputs with 'loss', qstate)``. ``learnable`` is
+    empty unless ``learn_ranges``; the optimizer sees the weights' leaves
+    then the packed ranges. The loss is returned as a 0-d tensor."""
     check_ported(qat)
 
     def step(params, learnable, rest, opt_state, batch, generator):

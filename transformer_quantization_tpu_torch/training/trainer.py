@@ -68,6 +68,9 @@ class TrainConfig:
     eval_at_epoch_end: bool = False
     save_every: Optional[int] = None
     eval_batch_size: int = 32
+    # a tqdm bar over each epoch's batches when tqdm is installed and
+    # stderr is a terminal; log lines otherwise
+    progress_bar: bool = False
     max_steps: Optional[int] = None
     warmup_steps: Optional[int] = None
     lr_scheduler_type: str = "linear"   # linear | cosine | constant
@@ -234,7 +237,8 @@ def train(apply_fn: Callable, params, task: GlueTask,
           qstate: Optional[Dict] = None,
           qat_cfg: Optional[QAT.QATConfig] = None,
           eval_arrays: Optional[Dict[str, np.ndarray]] = None,
-          log_fn: Callable = print, save_fn: Optional[Callable] = None,
+          log_fn: Callable = print, tb_writer=None,
+          save_fn: Optional[Callable] = None,
           train_state_path: Optional[str] = None, resume: bool = False,
           step_callback: Optional[Callable] = None) -> Tuple:
     """The train loop: the float baseline (``qcfg=None``) or QAT
@@ -245,9 +249,11 @@ def train(apply_fn: Callable, params, task: GlueTask,
     the current (frozen) ranges; ``save_every`` calls ``save_fn(params,
     qstate, step)`` and writes the train state to ``train_state_path``;
     ``resume`` continues from that state, replaying the shuffle;
-    ``load_best_model_at_end`` restores the best evaluated step.
-    ``step_callback(step, loss)``, when given, sees every micro-batch's
-    loss (a 0-d tensor)."""
+    ``load_best_model_at_end`` restores the best evaluated step;
+    ``tb_writer`` (``utils/telemetry.py`` ``TBWriter``) receives
+    ``train/loss`` at the log cadence and ``eval/<metric>`` at the eval
+    cadence. ``step_callback(step, loss)``, when given, sees every
+    micro-batch's loss (a 0-d tensor)."""
     n = len(train_arrays["input_ids"])
     steps_per_epoch = max(n // tcfg.batch_size, 1)
     total = steps_per_epoch * tcfg.num_epochs
@@ -308,15 +314,32 @@ def train(apply_fn: Callable, params, task: GlueTask,
                          batch_size=tcfg.eval_batch_size)
         log_fn(f"[step {step_i}] eval: {m}")
         track_best(m, step_i)
+        if tb_writer is not None:
+            for k, v in m.items():
+                tb_writer.scalar(f"eval/{k}", float(v), step_i)
+
+    def maybe_tqdm(it, epoch):
+        if not tcfg.progress_bar:
+            return it
+        try:
+            import sys
+
+            from tqdm import tqdm
+        except ImportError:
+            return it
+        if not sys.stderr.isatty():
+            return it
+        return tqdm(it, total=steps_per_epoch, leave=False,
+                    desc=f"epoch {epoch}")
 
     accum = max(tcfg.grad_accum_steps, 1)
     max_micro = tcfg.max_steps * accum if tcfg.max_steps else None
     data_rng = np.random.RandomState(tcfg.seed)
     step_i = 0
     for epoch in range(tcfg.num_epochs):
-        for batch in batch_iterator(train_arrays, tcfg.batch_size,
-                                    shuffle=True, rng=data_rng,
-                                    drop_last=True):
+        for batch in maybe_tqdm(batch_iterator(
+                train_arrays, tcfg.batch_size, shuffle=True, rng=data_rng,
+                drop_last=True), epoch):
             if step_i < start_step:
                 # a resumed run replays the shuffle without stepping
                 step_i += 1
@@ -334,6 +357,8 @@ def train(apply_fn: Callable, params, task: GlueTask,
             if step_i % tcfg.log_every == 0 or step_i == 1:
                 log_fn(f"epoch {epoch} step {step_i}/{total} "
                        f"loss {float(loss):.4f}")
+                if tb_writer is not None:
+                    tb_writer.scalar("train/loss", float(loss), step_i)
             if (tcfg.eval_every and eval_arrays is not None
                     and step_i % (tcfg.eval_every * accum) == 0):
                 run_mid_eval(step_i)

@@ -6,8 +6,9 @@ tokenizer that stands in offline, and :func:`load_tokenizer` (the native
 WordPiece over a local ``vocab.txt``, else a local HF tokenizer, else the
 stand-in), and the GLUE encoding and batching (:func:`encode_examples`,
 :func:`trim_to_real_length`, :func:`batch_iterator`, whose
-``np.random.RandomState`` shuffle gives the JAX package's batch order).
-The HF tokenizer adapter is not yet ported (ROADMAP §1 item 8).
+``np.random.RandomState`` shuffle gives the JAX package's batch order),
+and :class:`HFTokenizerAdapter` over a local Hugging Face tokenizer
+(loaded with ``local_files_only=True``: nothing is fetched).
 """
 
 from __future__ import annotations
@@ -67,17 +68,30 @@ def load_tokenizer(model_path: Optional[str], vocab_size: int = 30522):
         try:
             from transformers import AutoTokenizer
 
-            AutoTokenizer.from_pretrained(model_path, local_files_only=True)
+            return HFTokenizerAdapter(AutoTokenizer.from_pretrained(
+                model_path, local_files_only=True))
         except Exception as e:  # any loader failure takes the stand-in
             logging.getLogger("tq_torch").warning(
                 "no tokenizer loadable from %s (%s: %s) — falling back to "
                 "the SYNTHETIC tokenizer; real-text evaluation scores will "
                 "be meaningless", model_path, type(e).__name__, e)
-        else:
-            raise NotImplementedError(
-                f"{model_path} holds a HF tokenizer; the HF tokenizer "
-                "adapter is not yet ported (ROADMAP §1 item 8)")
     return SyntheticTokenizer(vocab_size)
+
+
+class HFTokenizerAdapter:
+    """A Hugging Face tokenizer behind :class:`SyntheticTokenizer`'s
+    ``encode_pair``: truncated and padded to ``max_len``, token type ids
+    zero where the tokenizer returns none."""
+
+    def __init__(self, tok):
+        self.tok = tok
+        self.vocab_size = tok.vocab_size
+
+    def encode_pair(self, a: str, b: Optional[str], max_len: int):
+        enc = self.tok(a, b, truncation=True, max_length=max_len,
+                       padding="max_length")
+        types = enc.get("token_type_ids", [0] * max_len)
+        return enc["input_ids"], types, enc["attention_mask"]
 
 
 def encode_examples(tokenizer, task: GlueTask, examples: List[Dict],

@@ -7,8 +7,8 @@ correlation, Pearson, Spearman, and ``combined_score``, the mean of a
 task's metrics); deterministic synthetic examples in which each label
 draws from its own slice of a shared vocabulary, so a model can learn
 them; and examples read from local files, ``<data_dir>/<task>/<split>.
-{jsonl,json,tsv}``. The Hugging Face ``datasets`` branch of
-:func:`load_task_data` raises: nothing is downloaded.
+{jsonl,json,tsv}``, or from a local Hugging Face ``datasets`` cache
+(:func:`load_task_data`; offline, nothing is downloaded).
 """
 
 from __future__ import annotations
@@ -260,18 +260,33 @@ def load_task_data(task: GlueTask, data_dir: Optional[str] = None,
                    synthetic: bool = False, synthetic_sizes=(256, 128),
                    seed: int = 0) -> Dict[str, List[Dict]]:
     """``{split: [examples]}`` with splits ``train`` / ``validation`` (and
-    ``validation_mismatched`` for MNLI): synthetic examples when asked,
-    else the files under ``data_dir``. Without either it raises, where the
-    JAX version tries a Hugging Face ``datasets`` cache."""
+    ``validation_mismatched`` for MNLI).
+
+    Priority, as in JAX: synthetic when asked -> the files under
+    ``data_dir`` -> a local Hugging Face ``datasets`` cache
+    (``datasets.load_dataset("glue", name)`` with ``HF_DATASETS_OFFLINE``
+    defaulted to 1, so nothing is fetched) -> synthetic examples when that
+    fails for any reason (``datasets`` missing, no cache)."""
     if data_dir is not None and not synthetic:
         loaded = _load_from_files(task, data_dir)
         if loaded is not None:
             return loaded
     if not synthetic:
-        raise NotImplementedError(
-            f"no {task.name} files under {data_dir!r}; the Hugging Face "
-            "datasets loader is not yet ported (pass synthetic=True or a "
-            "data_dir)")
+        try:
+            import datasets  # works offline only from a local cache
+
+            os.environ.setdefault("HF_DATASETS_OFFLINE", "1")
+            ds = datasets.load_dataset("glue", task.name)
+            out = {"train": list(ds["train"])}
+            if task.name == "mnli":
+                out["validation"] = list(ds["validation_matched"])
+                out["validation_mismatched"] = list(
+                    ds["validation_mismatched"])
+            else:
+                out["validation"] = list(ds["validation"])
+            return out
+        except Exception:  # no datasets / no cache: synthetic, as JAX
+            pass
     n_train, n_val = synthetic_sizes
     out = {"train": synthetic_examples(task, "train", n_train, seed),
            "validation": synthetic_examples(task, "validation", n_val, seed)}
