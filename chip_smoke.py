@@ -294,9 +294,32 @@ Phases (any failure exits non-zero; nothing is caught):
    without and with ``--remat`` (losses equal step by step within rtol
    1e-5; peak memory and ms a step) and with ``--amp``, each evaluated on
    the W4A8 engine (K1 w4 48, K2 12, K3 24 an engine forward).
+19. MobileBERT at W4A8 from training to the engine: MobileBERT-uncased
+   (24 layers, H = 512, bottleneck 128, 4 heads of 32, 4 FFNs, both
+   dropouts 0) from ``--seed`` through the JAX CLI's ``qat-w4a8`` recipe
+   (its calibration: MSE golden-section 4-bit weights, one padded batch of
+   16; the int8 QAT forward's 361 products a forward, five of them held
+   against the exact plain product bit for bit), ``MB_QAT_STEPS``
+   optimizer steps at B = 8, S = 128 on the int8 QAT forward and
+   ``MB_QAT_FLOAT_STEPS`` on the float fake-quant forward (ms a step from
+   step ``MB_QAT_TIMED_FROM``, peak MiB); then the learned ranges packed
+   split-half int4 and planned (every matmul's ``w4`` flag, the layer
+   kernel's route at S = 32, 64 and 128): on layer 0 (B = 128) K6's packed
+   int4 form on the five NoNorm matmuls (K = 512 and 128, with and without
+   the residual, res_quant both ways) against its plain version and K6
+   int8 on the unpacked weight, and K8's at every built seq against its
+   plain version, the w4 chain, K8 with mixed flags and K8 int8 on the
+   unpacked weights, all bit for bit, with w4, int8, plain, library
+   (``torch._int_mm`` on the unpacked weight) and chain ms and the bound;
+   three request batches through ``mobilebert_engine_apply`` on the K8
+   route (24 w4 layer launches a forward), on the chain (144 K1 w4, 192
+   K6 w4, 24 K7) and at S = 64 and 32, launches read just after and logits
+   against the plain engine; the engine, the generic int path and the
+   fake-quant forward by the route-ratio rule (``route_gaps``); forward ms
+   and seq/s on both routes and at S = 64 and 32.
 
-``python3 chip_smoke.py --only 13,14,15,16,17,18`` runs phases 1 and 2
-and the named ones of 13-18 alone (the kernels JSON only comes with every
+``python3 chip_smoke.py --only 13,14,15,16,17,18,19`` runs phases 1 and 2
+and the named ones of 13-19 alone (the kernels JSON only comes with every
 phase; ``--only 16``: the float edges alone).
 
 The last lines are the kernels JSON (times per encoder layer: the sum
@@ -327,7 +350,10 @@ phase 13's trained model on the W4A8 engine; ``adaround-w4a8``: phase
 form's under ``variants``; phase 17's forms under ``variants`` of their
 kernels' rows, named ``<form> (phase 17)``, and its paths by the names
 of ``option_forwards``; ``cmdline-w8a8`` / ``cmdline-qat-w4a8``: phase 18's
-evaluations); the
+evaluations; ``mobilebert-w4a8``, ``-chain``, ``-s64``, ``-s32``: phase
+19's, whose packed int4 forms of K6 and K8 sit under ``variants`` of the
+``int8_matmul_norm`` and ``int8_mb_layer_ln`` rows, each with its own
+launches, ``int8_ms`` and numbers); the
 serving paths
 ``serve-bert`` / ``serve-mobilebert`` count the launches the wrappers
 made while their buckets were captured, ``serve-bert-eager`` those of
@@ -1331,47 +1357,72 @@ def mb_seqs() -> tuple:
                          if (d, n) == (32, 4)), reverse=True))
 
 
-def check_mobilebert_kernels(params, cfg, qcfg, qstate, int_params, static,
-                             plan, batch, dev, seed: int = 0) -> dict:
-    """Phase 7: K1 + relu, K6, K7 and K8 against their plain versions on
-    layer 0 of MobileBERT-uncased (B=128, S=128; K8 also at its other
-    built seqs, B=128), and K8 against the chain of the other kernels;
-    per-layer times."""
+def mb_layer0_payloads(params, cfg, qcfg, qstate, int_params, static, plan,
+                       batch, dev):
+    """Layer 0's entry payload h8 (B=128, S=128), its mask bias and the
+    payloads between its matmuls on the plain versions (the plan's ``w4``
+    flags): li8, sh8, qk8, v8, c8, x8 (after attn_out), i8 (FFN 0's
+    inter) and y8 (after the output FFN)."""
     h, mask = MB.entry_value(params, batch, cfg, qcfg, qstate, int_params,
                              device=dev)
     es = plan["entry_scal"]
     h8 = EK.quantize_payload(h.reshape(BATCH * SEQ, -1), es[0, 0], es[0, 1])
     mask = mask.contiguous()
     lp = plan["layers"][0]
-    m, hdim = h8.shape
+    w4 = iter(static.w4[0])
+    res_ao, res_ffn, res_out, _ = static.res_quant[0]
+    nk = dict(eps=0.0, norm="nonorm")
+    akw = dict(n_heads=static.n_heads, seq=SEQ, hidden=static.hidden,
+               cols=(0, 1, 0), skip_max=static.attn_skip_max)
+    out = {"li8": EK.int8_matmul_norm_ref(h8, *_mm(lp["bn_in"]),
+                                          *_nrm(lp["bn_in_norm"]),
+                                          w4=next(w4), **nk)}
+    out["sh8"] = EK.int8_matmul_norm_ref(h8, *_mm(lp["bn_attn"]),
+                                         *_nrm(lp["bn_attn_norm"]),
+                                         w4=next(w4), **nk)
+    out["qk8"] = EK.int8_matmul_ref(out["sh8"], *_mm(lp["qk"]), w4=next(w4))
+    out["v8"] = EK.int8_matmul_ref(h8, *_mm(lp["v"]), w4=next(w4))
+    out["c8"] = EK.int8_attention_qkv_ref(out["qk8"], out["qk8"], out["v8"],
+                                          mask, lp["attn_scal"], **akw)
+    out["x8"] = EK.int8_matmul_add_ln_ref(
+        out["c8"], *_mm(lp["attn_out"]), out["li8"],
+        *_nrm(lp["attn_out_norm"]), res_quant=res_ao, w4=next(w4), **nk)
+    xj = out["x8"]
+    for j, f in enumerate(lp["ffns"]):
+        w4i, w4d = next(w4), next(w4)
+        if j == 0:
+            out["i8"] = EK.int8_matmul_ref(xj, *_mm(f["inter"]),
+                                           activation="relu", w4=w4i)
+        xj = EK.int8_ffn_ln_ref(xj, *_mm(f["inter"]), *_mm(f["dense"]), xj,
+                                *_nrm(f["norm"]), activation="relu",
+                                res_quant=res_ffn[j], w4i=w4i, w4d=w4d, **nk)
+    out["y8"] = EK.int8_ffn_ln_ref(xj, *_mm(lp["inter"]), *_mm(lp["out"]), xj,
+                                   *_nrm(lp["out_norm"]), activation="relu",
+                                   res_quant=res_out, w4i=next(w4),
+                                   w4d=next(w4), **nk)
+    return h8, mask, out
+
+
+def check_mobilebert_kernels(params, cfg, qcfg, qstate, int_params, static,
+                             plan, batch, dev, seed: int = 0) -> dict:
+    """Phase 7: K1 + relu, K6, K7 and K8 against their plain versions on
+    layer 0 of MobileBERT-uncased (B=128, S=128; K8 also at its other
+    built seqs, B=128), and K8 against the chain of the other kernels;
+    per-layer times."""
+    h8, mask, pl = mb_layer0_payloads(params, cfg, qcfg, qstate, int_params,
+                                      static, plan, batch, dev)
+    li8, sh8, qk8, v8, c8, x8, i8, y8 = (
+        pl[k] for k in ("li8", "sh8", "qk8", "v8", "c8", "x8", "i8", "y8"))
+    lp = plan["layers"][0]
+    es = plan["entry_scal"]
+    m = h8.shape[0]
     th, nh = static.hidden, static.n_heads
     d = th // nh
     res_ao, res_ffn, res_out, res_obn = static.res_quant[0]
     nk = dict(eps=0.0, norm="nonorm")
     akw = dict(n_heads=nh, seq=SEQ, hidden=th, cols=(0, 1, 0),
                skip_max=static.attn_skip_max)
-    # layer 0's payloads, on the plain versions
-    li8 = EK.int8_matmul_norm_ref(h8, *_mm(lp["bn_in"]),
-                                  *_nrm(lp["bn_in_norm"]), **nk)
-    sh8 = EK.int8_matmul_norm_ref(h8, *_mm(lp["bn_attn"]),
-                                  *_nrm(lp["bn_attn_norm"]), **nk)
-    qk8 = EK.int8_matmul_ref(sh8, *_mm(lp["qk"]))
-    v8 = EK.int8_matmul_ref(h8, *_mm(lp["v"]))
-    c8 = EK.int8_attention_qkv_ref(qk8, qk8, v8, mask, lp["attn_scal"],
-                                   **akw)
-    x8 = EK.int8_matmul_add_ln_ref(c8, *_mm(lp["attn_out"]), li8,
-                                   *_nrm(lp["attn_out_norm"]),
-                                   res_quant=res_ao, **nk)
     f0 = lp["ffns"][0]
-    i8 = EK.int8_matmul_ref(x8, *_mm(f0["inter"]), activation="relu")
-    xj = x8
-    for j, f in enumerate(lp["ffns"]):
-        xj = EK.int8_ffn_ln_ref(xj, *_mm(f["inter"]), *_mm(f["dense"]), xj,
-                                *_nrm(f["norm"]), activation="relu",
-                                res_quant=res_ffn[j], **nk)
-    y8 = EK.int8_ffn_ln_ref(xj, *_mm(lp["inter"]), *_mm(lp["out"]), xj,
-                            *_nrm(lp["out_norm"]), activation="relu",
-                            res_quant=res_out, **nk)
     report = {}
 
     # K1: [q|k], v and the four relu inter matmuls of a layer
@@ -2807,24 +2858,29 @@ def rte_batch(cfg, seed: int, n: int = BATCH) -> dict:
                                    "token_type_ids")}
 
 
-def check_qat_products(apply_fn, params, qcfg, qstate, qat, batch) -> None:
-    """The int8 QAT forward's products on one training batch's calls:
-    layer 0's four matmuls (q, attn_out, inter, dense) and the classifier
-    (M = 8, N = 2: ``torch._int_mm`` on zero-padded operands), each
-    ``int8_product`` (``torch._int_mm``) against the exact plain product,
-    bit for bit."""
+def check_qat_products(apply_fn, params, qcfg, qstate, qat, batch, *,
+                       per_layer=6, extra=2,
+                       picks=(("L0.attn.q", 0), ("L0.attn_out", 3),
+                              ("L0.ffn.inter", 4), ("L0.ffn.dense", 5))
+                       ) -> None:
+    """The int8 QAT forward's products on one training batch's calls
+    (``per_layer`` a layer and ``extra`` more): the ``picks`` (name, call
+    index; BERT's: layer 0's four matmuls q, attn_out, inter, dense) and
+    the classifier (M = 8, N = 2: ``torch._int_mm`` on zero-padded
+    operands), each ``int8_product`` (``torch._int_mm``) against the exact
+    plain product, bit for bit."""
     calls, = record_calls(
         lambda: apply_fn(params, batch, qcfg=qcfg, qstate=qstate,
                          mode=QuantMode(),
                          int8_qat_sites=qat.int8_sites),
         (TI, "int8_qat_linear"))
-    n_layers = (len(calls) - 2) // 6
+    n_layers = (len(calls) - extra) // per_layer
     print(f"  int8 QAT forward: {len(calls)} int8 matmuls a forward")
-    if len(calls) != 6 * n_layers + 2 or n_layers != len(params["layers"]):
+    if (len(calls) != per_layer * n_layers + extra
+            or n_layers != len(params["layers"])):
         fail(f"int8 QAT forward: {len(calls)} int8 matmuls, expected "
-             f"{6 * len(params['layers']) + 2}")
-    for tag, i in (("L0.attn.q", 0), ("L0.attn_out", 3), ("L0.ffn.inter", 4),
-                   ("L0.ffn.dense", 5), ("classifier", len(calls) - 1)):
+             f"{per_layer * len(params['layers']) + extra}")
+    for tag, i in picks + (("classifier", len(calls) - 1),):
         a = calls[i][0]
         p_x, p_w, _, _ = TI.int8_payloads(a[0], a[1], a[3], a[4], a[5],
                                           a[6], a[7])
@@ -2840,10 +2896,10 @@ def check_qat_products(apply_fn, params, qcfg, qstate, qat, batch) -> None:
 
 
 def qat_train(apply_fn, params, task, arrays, tcfg, qcfg, qstate, qat,
-              steps):
+              steps, timed_from=QAT_TIMED_FROM):
     """``TT.train`` for ``steps`` optimizer steps: the trained ``(params,
     qstate)``, each step's loss and the median ms a step over steps
-    ``QAT_TIMED_FROM``.. (host clock between steps, each step's loss read
+    ``timed_from``.. (host clock between steps, each step's loss read
     back)."""
     marks, losses = [], []
 
@@ -2855,7 +2911,7 @@ def qat_train(apply_fn, params, task, arrays, tcfg, qcfg, qstate, qat,
                    dataclasses.replace(tcfg, max_steps=steps, log_every=10),
                    qcfg=qcfg, qstate=qstate, qat_cfg=qat,
                    log_fn=lambda s: print(f"    {s}"), step_callback=cb)
-    ms = float(np.median(np.diff(marks[QAT_TIMED_FROM - 1:]))) * 1e3
+    ms = float(np.median(np.diff(marks[timed_from - 1:]))) * 1e3
     return out, losses, ms
 
 
@@ -2947,19 +3003,7 @@ def qat_phase(params, batches, by_path, seed, dev, kind, smi) -> None:
     _, _, ms_f = qat_train(apply_fn, params, task, arrays, tcfg, qcfg,
                            qstate, dataclasses.replace(qat, int8_sites=None),
                            QAT_FLOAT_STEPS)
-    moved = total = 0
-    rel = 0.0
-    for site, st in qstate.items():
-        if "qp" not in st or not qcfg[site].enabled:
-            continue
-        for f in ("delta", "zero_float"):
-            old, new = getattr(st["qp"], f), getattr(q2[site]["qp"], f)
-            total += old.numel()
-            moved += int((old != new).sum())
-            nz = old != 0
-            if nz.any():
-                rel = max(rel, float(((new - old).abs()[nz]
-                                      / old.abs()[nz]).max()))
+    moved, total, rel = ranges_moved(qcfg, qstate, q2)
     if not all(np.isfinite(losses)):
         fail(f"qat-w4a8: non-finite losses {losses}")
     print(f"  [qat-w4a8] {QAT_STEPS} steps at B={tcfg.batch_size}, S={SEQ} "
@@ -4282,6 +4326,310 @@ def cli_phase(params, batches, by_path, seed, dev, kind, smi) -> None:
             fail(f"cli --remat: losses {b.tolist()} against {a.tolist()}")
 
 
+# phase 19: MobileBERT at W4A8 from training to the engine: the JAX CLI's
+# qat-w4a8 recipe at MobileBERT-uncased's widths and depth for
+# MB_QAT_STEPS optimizer steps on the int8 QAT forward and
+# MB_QAT_FLOAT_STEPS on the float fake-quant forward (ms a step the median
+# from step MB_QAT_TIMED_FROM), then the trained model packed split-half
+# int4 and served by its W4A8 engine (K6's and K8's packed int4 forms)
+MB_QAT_STEPS, MB_QAT_FLOAT_STEPS, MB_QAT_TIMED_FROM = 16, 12, 6
+# int8 QAT matmuls a MobileBERT forward: a layer's bn_in, bn_attn, q, k,
+# v, attn_out, two per stacked FFN, the output FFN's two and out_bn; the
+# classifier
+MB_QAT_PER_LAYER = 15
+
+
+def ranges_moved(qcfg, qstate, new) -> tuple:
+    """(entries moved, entries, largest relative change) of the enabled
+    sites' learned ``delta`` / ``zero_float`` between two quant states."""
+    moved = total = 0
+    rel = 0.0
+    for site, st in qstate.items():
+        if "qp" not in st or not qcfg[site].enabled:
+            continue
+        for f in ("delta", "zero_float"):
+            old, nw = getattr(st["qp"], f), getattr(new[site]["qp"], f)
+            total += old.numel()
+            moved += int((old != nw).sum())
+            nz = old != 0
+            if nz.any():
+                rel = max(rel, float(((nw - old).abs()[nz]
+                                      / old.abs()[nz]).max()))
+    return moved, total, rel
+
+
+def w4_norm_case(tag, x, mp, r, np_, res_quant) -> dict:
+    """K6's packed int4 form on ``x`` with the int4 matmul plan ``mp``
+    (``r``: the residual payload or None): bit-identical to its plain
+    version with res_quant both ways and to K6 int8 on the unpacked
+    weight; kernel, K6 int8 (``int8_ms``), plain and ``torch._int_mm`` (on
+    the unpacked weight, the int32 product only) ms; the bound with the
+    weight at K/2 bytes a row."""
+    m = x.shape[0]
+    n, k2 = mp["w"].shape
+    k = 2 * k2
+    w8 = IL.unpack_int4(mp["w"], k)
+    nk = dict(eps=0.0, norm="nonorm")
+
+    def call(w, w4, rq, plain=False):
+        if r is None:
+            fn = EK.int8_matmul_norm_ref if plain else EK.int8_matmul_norm
+            return fn(x, w, mp["vecs"], mp["scal"], *_nrm(np_),
+                      res_quant=rq, w4=w4, **nk)
+        fn = EK.int8_matmul_add_ln_ref if plain else EK.int8_matmul_add_ln
+        return fn(x, w, mp["vecs"], mp["scal"], r, *_nrm(np_), res_quant=rq,
+                  w4=w4, **nk)
+
+    name = (f"int8_matmul_norm_w4[{tag}] {m}x{k}->{n} "
+            f"{'no residual' if r is None else 'residual'}")
+    for rq in (not res_quant, res_quant):
+        compare(call(mp["w"], True, rq), call(mp["w"], True, rq, plain=True),
+                f"{name} res_quant={rq}")
+    int8 = lambda: call(w8, False, res_quant)
+    compare(call(mp["w"], True, res_quant), int8(),
+            f"{name} vs K6 int8 on the unpacked weight")
+    w_t = w8.t()
+    res = kernel_case(
+        name, lambda: call(mp["w"], True, res_quant),
+        lambda: call(mp["w"], True, res_quant, plain=True),
+        2.0 * m * n * k,
+        m * k + n * k2 + 7 * n * 4 + 10 * 4 + m * n * (1 if r is None else 2),
+        lib_fn=lambda: torch._int_mm(x, w_t))
+    res["int8_ms"] = device_ms(int8)
+    print(f"  {name}: w4 {res['ms']:.4f} ms, K6 int8 {res['int8_ms']:.4f} "
+          f"ms, torch._int_mm {res['library_ms']:.4f} ms")
+    return res
+
+
+def mb_w4_layer_case(flat, h8, mask, ascal, kw) -> dict:
+    """K8's packed int4 form on one layer's inputs (``kw['w4']``: the
+    plan's flags): bit-identical to its plain version, to the chain of
+    K1 w4, K6 w4 and K7, to K8 with mixed flags (every other matmul on its
+    unpacked int8 weight) and to K8 int8 on every weight unpacked; kernel,
+    K8 int8 (``int8_ms``), plain and chain ms; the bound with the packed
+    weights' bytes."""
+    seq, m, b = kw["seq"], h8.shape[0], mask.shape[0]
+    where = [i for i, a in enumerate(flat)
+             if a.dtype in (torch.int8, torch.uint8)]   # each matmul's weight
+    # out.dense's weight is the second to last (I / 2 bytes a row packed)
+    inter = flat[where[-2]].shape[1] * (2 if kw["w4"][-2] else 1)
+    ks = EK._mb_matmul_ks(kw["attn_case"] == "shared_kq", kw["n_ffn"],
+                          h8.shape[1], kw["hidden"], inter)
+
+    def unpacked(keep):
+        out, flags = list(flat), []
+        for j, (i, k, f) in enumerate(zip(where, ks, kw["w4"])):
+            if f and not keep(j):
+                out[i] = IL.unpack_int4(flat[i], k).contiguous()
+            flags.append(bool(f and keep(j)))
+        return tuple(out), dict(kw, w4=tuple(flags))
+
+    flat_m, kw_m = unpacked(lambda j: j % 2 == 0)
+    flat_8, kw_8 = unpacked(lambda j: False)
+    args = (h8, mask, ascal)
+    layer = lambda: EK.int8_mb_layer_ln(*args, flat, **kw)
+    plain = lambda: EK.int8_mb_layer_ln_ref(*args, flat, **kw)
+    chain = lambda: EK.mb_layer_chain(*args, flat, **kw)
+    int8 = lambda: EK.int8_mb_layer_ln(*args, flat_8, **kw_8)
+    want = plain()
+    compare(chain(), want, f"mb_layer_chain w4 (K1 w4 + K6 w4 + K7) S={seq} "
+            "vs plain")
+    compare(layer(), chain(), f"int8_mb_layer_ln w4 S={seq} vs the w4 chain")
+    compare(EK.int8_mb_layer_ln(*args, flat_m, **kw_m), want,
+            f"int8_mb_layer_ln w4 S={seq}, mixed flags {kw_m['w4']}, vs "
+            "plain")
+    compare(int8(), want, f"int8_mb_layer_ln int8 S={seq} on the unpacked "
+            "weights vs the w4 plain")
+    nh, d = kw["n_heads"], kw["hidden"] // kw["n_heads"]
+    ops = (sum(2.0 * m * flat[i].shape[0] * k for i, k in zip(where, ks))
+           + 4.0 * b * nh * seq * seq * d)
+    nbytes = (2 * m * h8.shape[1] + mask.numel() * 4 + ascal.numel() * 4
+              + sum(a.numel() * a.element_size() for a in flat))
+    k8 = kernel_case(f"int8_mb_layer_ln w4 B={b} T={seq} (one layer)", layer,
+                     plain, ops, nbytes)
+    t_int8, t_chain = device_ms(int8), device_ms(chain)
+    print(f"  int8_mb_layer_ln S={seq}: w4 {k8['ms']:.4f} ms, int8 on the "
+          f"unpacked weights {t_int8:.4f} ms ({k8['ms'] / t_int8:.2f}x), the "
+          f"w4 chain (15 launches) {t_chain:.4f} ms per layer")
+    return dict(per_layer([(k8, 1)]), int8_ms=t_int8, chain_ms=t_chain)
+
+
+def check_mb_w4_kernels(params, cfg, qcfg, qstate, int4, static, plan,
+                        batch, dev, seed: int) -> dict:
+    """Phase 19's kernels on layer 0 of the trained W4A8 MobileBERT-uncased
+    (B=128; S=128, and K8 at each other built seq): K6's packed int4 form
+    on the layer's five NoNorm matmuls (K = 512 and 128, with and without
+    a residual, res_quant both ways) and K8's on the whole layer; per
+    layer times."""
+    h8, mask, pl = mb_layer0_payloads(params, cfg, qcfg, qstate, int4, static,
+                                      plan, batch, dev)
+    lp = plan["layers"][0]
+    res_ao, res_ffn, _, res_obn = static.res_quant[0]
+    f0 = lp["ffns"][0]
+    k6 = [(w4_norm_case("bn_in", h8, lp["bn_in"], None, lp["bn_in_norm"],
+                        False), 1),
+          (w4_norm_case("bn_attn", h8, lp["bn_attn"], None,
+                        lp["bn_attn_norm"], False), 1),
+          (w4_norm_case("attn_out", pl["c8"], lp["attn_out"], pl["li8"],
+                        lp["attn_out_norm"], res_ao), 1),
+          (w4_norm_case("ffn dense", pl["i8"], f0["dense"], pl["x8"],
+                        f0["norm"], res_ffn[0]), 4),
+          (w4_norm_case("out_bn", pl["y8"], lp["out_bn"], h8,
+                        lp["out_bn_norm"], res_obn), 1)]
+    report = {"int8_matmul_norm_w4": per_layer(k6)}
+    report["int8_matmul_norm_w4"]["int8_ms"] = sum(
+        n * c["int8_ms"] for c, n in k6)
+    report["int8_matmul_norm_w4"]["variants"] = {
+        tag: dict(per_layer([(c, 1)]), int8_ms=c["int8_ms"])
+        for tag, (c, _) in zip(("bn_in", "bn_attn", "attn_out", "ffn dense",
+                                "out_bn"), k6)}
+    flat = EK.mb_layer_flat(lp, static.attn_case)
+    es = plan["entry_scal"]
+    report["int8_mb_layer_ln_w4"] = {}
+    for seq in mb_seqs():
+        if seq == SEQ:
+            hs, ms = h8, mask
+        else:
+            hb, mb = MB.entry_value(params,
+                                    request_batches(cfg, 1, seed, seq)[0],
+                                    cfg, qcfg, qstate, int4, device=dev)
+            hs = EK.quantize_payload(hb.reshape(BATCH * seq, -1), es[0, 0],
+                                     es[0, 1])
+            ms = mb.contiguous()
+        report["int8_mb_layer_ln_w4"][seq] = mb_w4_layer_case(
+            flat, hs, ms, lp["attn_scal"], mb_layer_kwargs(cfg, static,
+                                                           seq=seq))
+    return report
+
+
+def mb_w4a8_phase(params, batches, by_path, seed, dev, kind, smi) -> dict:
+    """Phase 19 (the module docstring): MobileBERT-uncased through the JAX
+    CLI's ``qat-w4a8`` recipe, then its W4A8 engine on K6's and K8's
+    packed int4 forms; returns the kernels' reports."""
+    del params, batches   # MobileBERT's own, from ``seed``
+    tcfg, qat0 = TT.QAT_RECIPES["qat-w4a8"]
+    cfg = dataclasses.replace(MB.MobileBertConfig(), hidden_dropout_prob=0.0,
+                              attention_probs_dropout_prob=0.0)
+    L = cfg.num_hidden_layers
+    task = GL.TASKS["rte"]
+    arrays = DATA.encode_examples(
+        DATA.SyntheticTokenizer(cfg.vocab_size), task,
+        GL.synthetic_examples(task, "train", QAT_EXAMPLES, seed=seed), SEQ)
+    rec = CAL.CLI_RECIPES["qat-w4a8"]
+    mparams = MB.init_mobilebert_params(cfg, seed=seed, device=dev)
+    qcfg = MB.declare_mobilebert_sites(rec.defaults, cfg,
+                                       quant_setup=rec.quant_setup)
+    apply_fn = functools.partial(MB.mobilebert_apply, cfg=cfg, device=dev)
+    (qstate, qat), t_cal = timed_s(lambda: TT.prepare_qat(
+        apply_fn, mparams, qcfg, arrays,
+        MB.mobilebert_weight_site_tensors(mparams), qat0, rec, device=dev))
+    print(f"  calibration (MSE golden-section 4-bit weights, one batch of "
+          f"{rec.est_batch_size} x {SEQ} padded): {t_cal:.3f} s", flush=True)
+    b8 = {k: v[:tcfg.batch_size] for k, v in arrays.items()}
+    check_qat_products(apply_fn, mparams, qcfg, qstate, qat, b8,
+                       per_layer=MB_QAT_PER_LAYER, extra=1,
+                       picks=(("L0.bn.in.dense", 0), ("L0.attn.q", 2),
+                              ("L0.attn_out.dense", 5),
+                              ("L0.out.bn.dense", MB_QAT_PER_LAYER - 1)))
+    peaks = {}
+    torch.cuda.reset_peak_memory_stats()
+    (p2, q2), losses, ms_i8 = qat_train(apply_fn, mparams, task, arrays,
+                                        tcfg, qcfg, qstate, qat, MB_QAT_STEPS,
+                                        timed_from=MB_QAT_TIMED_FROM)
+    peaks["int8"] = torch.cuda.max_memory_allocated() / 2 ** 20
+    torch.cuda.reset_peak_memory_stats()
+    _, losses_f, ms_f = qat_train(
+        apply_fn, mparams, task, arrays, tcfg, qcfg, qstate,
+        dataclasses.replace(qat, int8_sites=None), MB_QAT_FLOAT_STEPS,
+        timed_from=MB_QAT_TIMED_FROM)
+    peaks["float"] = torch.cuda.max_memory_allocated() / 2 ** 20
+    moved, total, rel = ranges_moved(qcfg, qstate, q2)
+    if not all(np.isfinite(losses + losses_f)):
+        fail(f"mobilebert qat-w4a8: non-finite losses {losses} {losses_f}")
+    print(f"  [mobilebert qat-w4a8] {MB_QAT_STEPS} steps at "
+          f"B={tcfg.batch_size}, S={SEQ} ({kind}, {smi}): int8 forward "
+          f"{ms_i8:.2f} ms a step (median of steps {MB_QAT_TIMED_FROM}-"
+          f"{MB_QAT_STEPS}), peak {peaks['int8']:.1f} MiB; float fake-quant "
+          f"forward {ms_f:.2f} ms a step (steps {MB_QAT_TIMED_FROM}-"
+          f"{MB_QAT_FLOAT_STEPS}), peak {peaks['float']:.1f} MiB; loss "
+          f"{losses[0]:.4f} -> {losses[-1]:.4f}; range entries moved {moved} "
+          f"of {total}, largest relative change {rel:.4e}", flush=True)
+    if moved == 0:
+        fail("mobilebert qat-w4a8: no learned range moved")
+
+    int4 = MB.build_mobilebert_int_params(p2, qcfg, q2, use_int4=True)
+    static, plan, _ = MB.build_mobilebert_engine(p2, cfg, qcfg, q2,
+                                                 int_params=int4, device=dev)
+    if not all(all(f) for f in static.w4):
+        fail(f"mobilebert w4a8: the plan's matmuls are not all int4: "
+             f"{static.w4}")
+    routes = {t: static.layer_route(t) for t in (32, 64, SEQ)}
+    wbytes = sum(a.numel() for lp in plan["layers"]
+                 for a in EK.mb_layer_flat(lp, static.attn_case)
+                 if a.dtype == torch.uint8)
+    print(f"  [mobilebert w4a8] packed int4 encoder weights {wbytes} bytes; "
+          f"the plan's layer routes by seq: {routes}", flush=True)
+    if routes != {t: "k8" for t in routes}:
+        fail(f"mobilebert w4a8: layer routes {routes}")
+    mbatches = request_batches(cfg, 3, seed)
+    report = check_mb_w4_kernels(p2, cfg, qcfg, q2, int4, static, plan,
+                                 mbatches[0], dev, seed)
+
+    n_ffn = static.n_ffn + 1
+    run = mobilebert_runner(p2, cfg, qcfg, q2, static, plan, int4, dev)
+    by_path["mobilebert-w4a8"] = drive_path(
+        "mobilebert-w4a8", run, cfg, mbatches,
+        per_forward(int8_mb_layer_ln_w4=L))
+    by_path["mobilebert-w4a8-chain"] = drive_path(
+        "mobilebert-w4a8-chain", mobilebert_runner(
+            p2, cfg, qcfg, q2, static, plan, int4, dev, fuse_layer=False),
+        cfg, mbatches, per_forward(int8_matmul_w4=(2 + n_ffn) * L,
+                                   int8_matmul_norm_w4=(4 + n_ffn) * L,
+                                   int8_attention_qkv=L))
+    t_seq = {}
+    for seq in (64, 32):
+        sb = request_batches(cfg, 3, seed, seq=seq)
+        by_path[f"mobilebert-w4a8-s{seq}"] = drive_path(
+            f"mobilebert-w4a8-s{seq}", run, cfg, sb,
+            per_forward(int8_mb_layer_ln_w4=L))
+        t_seq[seq] = window_ms(lambda: run(sb[0], "kernels"))
+
+    # the trained model's three routes, classifier.out off (phase 13's
+    # reason): the engine, the generic int path on the same packed int4
+    # weights and the fake-quant forward
+    rb = rte_batch(cfg, seed)
+    spec, qp = qcfg["classifier.out"].spec, q2["classifier.out"]["qp"]
+    open_q = qcfg.replace_site("classifier.out", enabled=False)
+    with torch.no_grad():
+        clipped = grid_end_frac(
+            apply_fn(p2, rb, qcfg=qcfg, qstate=q2)[0]["logits"], spec, qp)
+        flt = apply_fn(p2, rb, qcfg=open_q, qstate=q2)[0]["logits"]
+        gen = apply_fn(p2, rb, qcfg=open_q, qstate=q2,
+                       int_params=int4)[0]["logits"]
+    print(f"  [mobilebert w4a8] on {BATCH} synthetic RTE examples "
+          f"{clipped:.4f} of the fake-quant logits sit at an end of the "
+          "learned classifier.out grid; compared below with that site off")
+    route_gaps(f"[mobilebert w4a8] W4A8 engine, generic int path, "
+               f"fake-quant forward on {BATCH} synthetic RTE examples, "
+               "classifier.out off",
+               mobilebert_runner(p2, cfg, open_q, q2, static, plan, int4,
+                                 dev)(rb, "kernels")["logits"],
+               gen, flt, "generic", float(Q.scale_of(spec, qp)), 0.0)
+    b0 = mbatches[0]
+    t_fwd = window_ms(lambda: run(b0, "kernels"))
+    t_chain = window_ms(lambda: MB.mobilebert_engine_apply(
+        p2, b0, cfg, qcfg, q2, static, plan, int4, fuse_layer=False,
+        device=dev))
+    print(f"  [mobilebert w4a8] ms per forward, median (least-most) of 5 "
+          f"windows of >= 1 s ({kind}, {smi}): K8 route {t_fwd[0]:.3f} "
+          f"({t_fwd[1]:.3f}-{t_fwd[2]:.3f}), seq/s {seq_per_s(t_fwd)}; chain "
+          f"route {t_chain[0]:.3f} ({t_chain[1]:.3f}-{t_chain[2]:.3f}), seq/s "
+          f"{seq_per_s(t_chain)}; " + "; ".join(
+              f"S={seq} (K8) {t[0]:.3f} ({t[1]:.3f}-{t[2]:.3f}), seq/s "
+              f"{seq_per_s(t)}" for seq, t in t_seq.items()))
+    return report
+
+
 # the phases after serving: (title, runner(params, batches, by_path,
 # seed, dev, kind, smi))
 LATE_PHASES = {
@@ -4301,6 +4649,9 @@ LATE_PHASES = {
     18: ("the command line: cli.main's validate-quantized and "
          "train-quantized (--remat, --amp) at BERT-base width on the card",
          cli_phase),
+    19: ("MobileBERT at W4A8: the JAX CLI's qat-w4a8 recipe at "
+         "MobileBERT-uncased's widths, then its W4A8 engine on K6's and K8's "
+         "packed int4 forms", mb_w4a8_phase),
 }
 
 
@@ -4322,7 +4673,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--only", default="",
-                    help="comma-separated phases of 13-18 to run alone, "
+                    help="comma-separated phases of 13-19 to run alone, "
                          "after phases 1 and 2")
     args = ap.parse_args(argv)
     only = {int(p) for p in args.only.split(",") if p}
@@ -4789,6 +5140,27 @@ def main(argv=None) -> int:
         for form, r in late[17].get(entry["name"], {}).items():
             entry.setdefault("variants", {})[f"{form} (phase 17)"] = {
                 **{k: r[k] for k in keys}, "where": r.get("where", "")}
+    # phase 19's packed int4 forms of K6 and K8: variants of their rows,
+    # each with its own launches (the W4A8 MobileBERT paths)
+    mb4 = late[19]
+    k6w4 = mb4["int8_matmul_norm_w4"]
+    w4_forms = {
+        "int8_matmul_norm": [("w4 per layer (phase 19)", k6w4, None)] + [
+            (f"w4 {tag} (phase 19)", r, None)
+            for tag, r in k6w4["variants"].items()],
+        "int8_mb_layer_ln": [
+            (f"w4 S={seq} (phase 19)", r,
+             "mobilebert-w4a8" + ("" if seq == SEQ else f"-s{seq}"))
+            for seq, r in mb4["int8_mb_layer_ln_w4"].items()]}
+    for entry in kernels:
+        for form, r, path in w4_forms.get(entry["name"], ()):
+            counter = entry["name"] + "_w4"   # the form's LAUNCHES key
+            counts = {p: c[counter] for p, c in by_path.items()
+                      if c[counter] and (path is None or p == path)}
+            entry.setdefault("variants", {})[form] = {
+                **{k: r[k] for k in keys}, "int8_ms": r["int8_ms"],
+                "launches": sum(counts.values()),
+                "launches_by_path": counts}
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -24,6 +24,7 @@ and count no launch.
 
 from __future__ import annotations
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -52,7 +53,9 @@ def _jax_and_port(qkv, mask, scal, *, n_heads, seq, skip_max):
     j = [jnp.asarray(a) for a in (qkv, mask, scal)]
     kw = dict(n_heads=n_heads, seq=seq, skip_max=skip_max)
     jk = JEK.int8_attention(*j, interpret=True, dots="i8", **kw)
-    jr = JEK.int8_attention_ref(*j, **kw)
+    # the reference jitted: one program, where eagerly each of its ops
+    # compiles on first use (equal outputs)
+    jr = jax.jit(lambda *a: JEK.int8_attention_ref(*a, **kw))(*j)
     got = EK.int8_attention(*(torch.from_numpy(a) for a in (qkv, mask,
                                                              scal)), **kw)
     return np.asarray(jk), np.asarray(jr), got.numpy()

@@ -198,16 +198,19 @@ def test_int8_matmul_w4_matches_jax_kernel(act, mode):
 
 
 def test_w4_raises_where_the_port_has_no_w4_form():
-    """K4 (a float value edge into the matmul) and MobileBERT's K6 / K8
-    keep their int8-only contract (ROADMAP section 2a)."""
+    """K4 (a float value edge into the matmul) keeps its int8-only contract
+    (ROADMAP section 2a); MobileBERT's K8 takes packed int4 weights but a
+    packed K of 384 (tests/test_torch_mobilebert_w4.py), which it
+    refuses."""
     x8, wp, vecs, scal = (_t(a) for a in _matmul_inputs())
     with pytest.raises(NotImplementedError, match="not yet ported"):
         EK.int8_matmul_ref(x8.float(), wp, vecs, scal, w4=True, in_mode="f",
                            in_grid={})
-    assert EK.mb_layer_refusal(seq=128, head_dim=32, n_heads=4, h=512,
-                               inter=512, attn_case="bottleneck",
-                               activation="relu", n_ffn=3,
-                               attn_bits=(8, 8, 8), w4=(True,)) is not None
+    kw = dict(seq=128, head_dim=32, n_heads=4, inter=512,
+              attn_case="bottleneck", activation="relu", n_ffn=3,
+              attn_bits=(8, 8, 8), w4=(True,) * 13)
+    assert EK.mb_layer_refusal(h=512, **kw) is None
+    assert "w4" in EK.mb_layer_refusal(h=384, **kw)
 
 
 HI = np.uint32(0xF0F0F0F0)

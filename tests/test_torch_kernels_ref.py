@@ -293,7 +293,7 @@ def test_unported_modes_raise(layer0):
     tlp = layer0["tlp"]["qkv"]
     x8 = layer0["t"]["x8"]
     # w4 computes on the packed int4 weight (tests/test_torch_int4.py);
-    # K4's and K8's w4 forms are not ported
+    # K4's w4 form is not ported
     wp = tlp["w"][:, ::2].contiguous().view(torch.uint8)  # any nibbles
     np.testing.assert_array_equal(
         EK.int8_matmul_ref(x8, wp, tlp["vecs"], tlp["scal"],

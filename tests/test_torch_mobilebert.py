@@ -396,6 +396,14 @@ def test_layer_wrappers_equal_plain_layer_on_cpu(setup, layer0):
     assert set(EK.LAUNCHES.values()) == {0}
 
 
+def _interpreted_layer(h8, bias, ascal, flat, **kw):
+    """The JAX megakernel in interpret mode, jitted: one program for the
+    kernel body's ops, where eagerly each grid step dispatches them one by
+    one."""
+    return jax.jit(lambda *a: JEK.int8_mb_layer_ln(
+        *a[:3], a[3:], interpret=True, **kw))(h8, bias, ascal, *flat)
+
+
 @pytest.mark.parametrize("setup", ["tiny"], indirect=True)
 def test_int8_mb_layer_ln_against_pallas_interpret(setup, layer0):
     """The port's plain whole layer against the JAX MobileBERT megakernel
@@ -404,9 +412,9 @@ def test_int8_mb_layer_ln_against_pallas_interpret(setup, layer0):
     st, seq = layer0["static"], setup["seq"]
     j, t = layer0["j"], layer0["t"]
     kw = _layer_kw(st, seq)
-    want = JEK.int8_mb_layer_ln(
+    want = _interpreted_layer(
         j["h8"], j["bias"], layer0["lp"]["attn_scal"],
-        JEK.mb_layer_flat(layer0["lp"], st.attn_case), interpret=True,
+        JEK.mb_layer_flat(layer0["lp"], st.attn_case),
         attn_bits=st.layer_attn_bits(0), **kw)
     got = EK.int8_mb_layer_ln_ref(
         t["h8"], t["bias"], layer0["tlp"]["attn_scal"],
@@ -431,9 +439,9 @@ def test_int8_mb_layer_ln_against_pallas_interpret_stacked(setup, layer0,
     bias = np.where(np.arange(seq)[None, :] < lens[:, None], 0.0,
                     -10000.0).astype(np.float32)
     kw = _layer_kw(st, seq)
-    want = JEK.int8_mb_layer_ln(
+    want = _interpreted_layer(
         jnp.asarray(h8), jnp.asarray(bias), layer0["lp"]["attn_scal"],
-        JEK.mb_layer_flat(layer0["lp"], st.attn_case), interpret=True,
+        JEK.mb_layer_flat(layer0["lp"], st.attn_case),
         attn_bits=st.layer_attn_bits(0), **kw)
     got = EK.int8_mb_layer_ln_ref(
         torch.from_numpy(h8), torch.from_numpy(bias),
@@ -611,12 +619,13 @@ def test_attention_overrides_not_yet_ported(qd):
 
 
 def test_engine_incompatible_configs():
-    """The JAX engine's EngineIncompatible reasons, and int4 weights."""
+    """The JAX engine's EngineIncompatible reasons; int4 weights plan (the
+    W4A8 engine: tests/test_torch_mobilebert_w4.py)."""
     cfg = TM.MobileBertConfig(**TINY)
     params, qcfg, qstate = TC.calibrated_mobilebert(cfg, seq=16,
                                                     device="cpu")
     # 4-bit weights pack as split-half int4 (NoNorm sites stay
-    # elementwise, the tables int8); the engine has no w4 K6 / K8 yet
+    # elementwise, the tables int8), every matmul's w4 flag set
     d4 = dataclasses.replace(TC.w8a8_defaults(), n_bits=4, n_bits_act=8)
     _, q4, s4 = TC.calibrated_mobilebert(cfg, seq=16, device="cpu",
                                          params=params, defaults=d4)
@@ -625,9 +634,9 @@ def test_engine_incompatible_configs():
     assert "w_int" in TM.build_mobilebert_int_params(params, q4, s4)[
         "L0.bn.in.dense"]
     assert not any(k.endswith("norm") for k in packed)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        TM.build_mobilebert_engine(params, cfg, q4, s4, use_int4=True,
-                                   device="cpu")
+    st4 = TM.build_mobilebert_engine(params, cfg, q4, s4, use_int4=True,
+                                     device="cpu")[0]
+    assert all(all(f) for f in st4.w4)
     # global 16-bit activations: the same reason as JAX
     d16 = dataclasses.replace(TC.w8a8_defaults(), n_bits_act=16)
     _, q16, s16 = TC.calibrated_mobilebert(cfg, seq=16, device="cpu",
@@ -645,7 +654,9 @@ def test_engine_incompatible_configs():
     p_nb, q_nb, s_nb = TC.calibrated_mobilebert(nb, seq=16, device="cpu")
     with pytest.raises(TENG.EngineIncompatible, match="use_bottleneck"):
         TM.build_mobilebert_engine(p_nb, nb, q_nb, s_nb, device="cpu")
-    with pytest.raises(NotImplementedError, match="not yet ported"):
+    # training: dropout needs its generator (the training forward:
+    # tests/test_torch_mobilebert_train.py)
+    with pytest.raises(ValueError, match="Generator"):
         TM.mobilebert_apply(params, _request_batch(128, 2, 16), cfg, qcfg,
                             qstate, train=True, device="cpu")
 

@@ -18,7 +18,6 @@ server.py``) on the CPU, from checkpoints the JAX package wrote.
   serving from an export raises, naming its ROADMAP item.
 """
 
-import functools
 import json
 import socket
 import threading
@@ -65,7 +64,9 @@ def _defaults():
 
 
 def _jax_checkpoint(path, family, cfg) -> str:
-    """JAX init, one-batch W8A8 calibration, JAX ``save_checkpoint``."""
+    """JAX init, one-batch W8A8 calibration (each forward one jitted
+    program: both servers read the ranges it writes), JAX
+    ``save_checkpoint``."""
     init, declare, apply, tensors = {
         "bert": (JB.init_bert_params, JB.declare_bert_sites, JB.bert_apply,
                  JB.bert_weight_site_tensors),
@@ -78,9 +79,15 @@ def _jax_checkpoint(path, family, cfg) -> str:
     batch = {"input_ids": jnp.asarray(rng.randint(0, cfg.vocab_size,
                                                   (2, 16)), jnp.int32),
              "attention_mask": jnp.ones((2, 16), jnp.float32)}
-    qstate, _ = prepare_quantized_model(
-        functools.partial(apply, cfg=cfg), params, qcfg, [batch],
-        weight_tensors=tensors(params))
+    program = jax.jit(lambda p, b, qs, mode: apply(
+        p, b, cfg, qcfg=qcfg, qstate=qs, mode=mode), static_argnames="mode")
+
+    def jitted(p, b, qcfg=None, qstate=None, mode=None, mse_session=None):
+        assert not mse_session   # current-minmax ranges: none
+        return program(p, b, qstate, mode)
+
+    qstate, _ = prepare_quantized_model(jitted, params, qcfg, [batch],
+                                        weight_tensors=tensors(params))
     ckpt = str(path / family)
     JCK.save_checkpoint(ckpt, params=params, family=family, cfg=cfg,
                         qstate=qstate)

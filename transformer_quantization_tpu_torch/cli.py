@@ -64,7 +64,7 @@ logger = logging.getLogger("tq_torch")
 
 # families whose training forward is ported (``apply(train=True)``); the
 # others raise there (ROADMAP §1 item 5)
-TRAINING_FAMILIES = frozenset({"bert"})
+TRAINING_FAMILIES = frozenset({"bert", "mobilebert"})
 
 
 def build_parser() -> argparse.ArgumentParser:

@@ -10,21 +10,23 @@ over the 128-d true hidden size, stacked FFNs, the output FFN and the
 bottleneck-out back to 512-d. Parameters keep the JAX nesting and its
 ``(out, in)`` kernel layout, so ``convert.py`` carries JAX weights across.
 
-Ported: the fake-quant forward :func:`mobilebert_apply` (inference and
-calibration; also the FP baseline with ``qcfg=None`` and the generic int8
-path with ``int_params``), the site inventory with the MobileBERT
-``quant_dict`` (static enables and the attention-probs overrides), int8
-packing (int8, and split-half int4 with ``use_int4`` as in the JAX
-package), and the full-handoff engine (:func:`build_mobilebert_engine`,
-:func:`mobilebert_encoder_engine`, :func:`mobilebert_engine_apply`).
+Ported: the fake-quant forward :func:`mobilebert_apply` (inference,
+calibration and training with dropout, the int8 QAT matmuls, ``remat``
+and ``scan_layers``; also the FP baseline with ``qcfg=None`` and the
+generic int8 path with ``int_params``), the site inventory with the
+MobileBERT ``quant_dict`` (static enables and the attention-probs
+overrides), int8 packing (int8, and split-half int4 with ``use_int4`` as
+in the JAX package), and the full-handoff engine
+(:func:`build_mobilebert_engine`, :func:`mobilebert_encoder_engine`,
+:func:`mobilebert_engine_apply`) on int8 or packed int4 weights (W4A8).
 :func:`apply_peg_wiring` passes the config through, as in the JAX
-package. Training (dropout), AdaRound specs, the pipeline, scan, remat
-and capture wait; the engine raises "not yet ported" for int4 weights
-(MobileBERT W4A8) and for 16-bit or disabled attention sites.
+package. AdaRound specs, the pipeline and capture wait; the engine
+raises "not yet ported" for 16-bit or disabled attention sites.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Dict, Mapping, Optional, Tuple
 
@@ -36,6 +38,7 @@ from transformer_quantization_tpu_torch.models import bert as B
 from transformer_quantization_tpu_torch.ops import engine as ENG
 from transformer_quantization_tpu_torch.ops.kernels import engine_kernels as EK
 from transformer_quantization_tpu_torch.ops.layers import (
+    dropout,
     quant_embedding,
     quant_linear,
     quant_nonorm,
@@ -355,7 +358,7 @@ def build_mobilebert_int_params(params: Dict, qcfg: QuantModelConfig,
 
 
 def _embeddings(ctx, params, cfg: MobileBertConfig, input_ids, token_type_ids,
-                position_ids):
+               position_ids, train=False, gen=None):
     e = params["embeddings"]
     x = quant_embedding(ctx, "emb.word", input_ids, e["word"])  # (B, T, E)
     if cfg.trigram_input:
@@ -372,14 +375,17 @@ def _embeddings(ctx, params, cfg: MobileBertConfig, input_ids, token_type_ids,
                           e["token_type"])
     x = ctx.act("emb.sum_pos", x + pos)
     x = ctx.act("emb.sum_tt", x + tok)
-    return quant_nonorm(ctx, "emb.norm", x, e["norm"]["weight"],
-                        e["norm"]["bias"])
+    x = quant_nonorm(ctx, "emb.norm", x, e["norm"]["weight"],
+                     e["norm"]["bias"])
+    return dropout(x, cfg.hidden_dropout_prob, gen, not train)
 
 
 def _attention(ctx, layer, cfg: MobileBertConfig, q_in, k_in, v_in,
-               layer_input, mask_bias, prefix, qk_site=None, v_site=None):
+               layer_input, mask_bias, prefix, train, gen, qk_site=None,
+               v_site=None):
     """Self-attention (float matmuls between fake-quant sites) and the
-    self-output: dense -> + layer input -> res site -> NoNorm."""
+    self-output: dense -> + layer input -> res site -> NoNorm; dropout on
+    the probs (and, without the bottleneck, on the dense output)."""
     b, t, _ = q_in.shape
     nh, hd, th = cfg.num_attention_heads, cfg.head_dim, cfg.true_hidden_size
     a = layer["attn"]
@@ -400,6 +406,7 @@ def _attention(ctx, layer, cfg: MobileBertConfig, q_in, k_in, v_in,
         scores = scores + mask_bias
     probs = torch.softmax(scores.to(torch.float32), dim=-1).to(scores.dtype)
     probs = ctx.act(prefix + "attn.probs", probs)
+    probs = dropout(probs, cfg.attention_probs_dropout_prob, gen, not train)
     context = B.attention_context(ctx, probs, v, prefix).reshape(b, t, th)
     context = ctx.act(prefix + "attn.context", context)
 
@@ -407,14 +414,18 @@ def _attention(ctx, layer, cfg: MobileBertConfig, q_in, k_in, v_in,
     y = quant_linear(ctx, prefix + "attn_out.dense", context,
                      so["dense"]["kernel"], so["dense"]["bias"],
                      input_site=prefix + "attn.context")
+    if not cfg.use_bottleneck:
+        y = dropout(y, cfg.hidden_dropout_prob, gen, not train)
     y = ctx.act(prefix + "attn_out.res", y + layer_input)
     return quant_nonorm(ctx, prefix + "attn_out.norm", y,
                         so["norm"]["weight"], so["norm"]["bias"])
 
 
 def _layer(ctx, layer, cfg: MobileBertConfig, h, mask_bias, prefix,
-           h_site=None):
-    """One inverted-bottleneck layer."""
+           train=False, gen=None, h_site=None):
+    """One inverted-bottleneck layer (dropout where the JAX layer has it:
+    the probs, the bottleneck-out, and without the bottleneck the
+    self-output and output)."""
     if cfg.use_bottleneck:
         bn = layer["bottleneck"]
         bi = bn["input"]
@@ -443,7 +454,7 @@ def _layer(ctx, layer, cfg: MobileBertConfig, h, mask_bias, prefix,
         qk_site = v_site = h_site
 
     x = _attention(ctx, layer, cfg, q_in, k_in, v_in, layer_input, mask_bias,
-                   prefix, qk_site=qk_site, v_site=v_site)
+                   prefix, train, gen, qk_site=qk_site, v_site=v_site)
 
     x_site = prefix + "attn_out.norm.out"
     for j, f in enumerate(layer["ffn"]):
@@ -464,6 +475,8 @@ def _layer(ctx, layer, cfg: MobileBertConfig, h, mask_bias, prefix,
                          activation=cfg.hidden_act, input_site=x_site)
     y = quant_linear(ctx, prefix + "out.dense", inter, o["dense"]["kernel"],
                      o["dense"]["bias"], input_site=prefix + "ffn.inter.out")
+    if not cfg.use_bottleneck:
+        y = dropout(y, cfg.hidden_dropout_prob, gen, not train)
     y = ctx.act(prefix + "out.res", y + x)
     y = quant_nonorm(ctx, prefix + "out.norm", y, o["norm"]["weight"],
                      o["norm"]["bias"])
@@ -472,15 +485,16 @@ def _layer(ctx, layer, cfg: MobileBertConfig, h, mask_bias, prefix,
     y = quant_linear(ctx, prefix + "out.bn.dense", y, o["bn_dense"]["kernel"],
                      o["bn_dense"]["bias"],
                      input_site=prefix + "out.norm.out")
+    y = dropout(y, cfg.hidden_dropout_prob, gen, not train)
     y = ctx.act(prefix + "out.bn.res", y + h)
     return quant_nonorm(ctx, prefix + "out.bn.norm", y,
                         o["bn_norm"]["weight"], o["bn_norm"]["bias"])
 
 
 def _classification_head(ctx, params, cfg: MobileBertConfig, h, h_site,
-                         batch):
+                         batch, train=False, gen=None):
     """First token -> pooler (a pass-through unless
-    ``classifier_activation``) -> classifier, + loss."""
+    ``classifier_activation``) -> dropout -> classifier, + loss."""
     pooled = h[:, 0]
     clf_site = h_site
     if cfg.classifier_activation:
@@ -489,7 +503,8 @@ def _classification_head(ctx, params, cfg: MobileBertConfig, h, h_site,
                               params["pooler"]["bias"], activation="tanh",
                               input_site=h_site)
         clf_site = "pooler.dense.out"
-    logits = quant_linear(ctx, "classifier", pooled,
+    pooled_do = dropout(pooled, cfg.hidden_dropout_prob, gen, not train)
+    logits = quant_linear(ctx, "classifier", pooled_do,
                           params["classifier"]["kernel"],
                           params["classifier"]["bias"], input_site=clf_site)
     outputs = {"logits": logits, "pooled": pooled, "sequence_output": h}
@@ -505,45 +520,64 @@ def mobilebert_apply(params: Dict, batch: Mapping, cfg: MobileBertConfig,
                      qcfg: Optional[QuantModelConfig] = None,
                      qstate: Optional[Dict] = None,
                      mode: Optional[QuantMode] = None, *, train: bool = False,
+                     dropout_generator: Optional[torch.Generator] = None,
                      mse_session: Optional[Dict] = None,
                      int_params: Optional[Dict] = None,
+                     int8_qat_sites=None,
                      compute_dtype=None, attention_dtype=None,
                      int8_attention: bool = False,
                      remat: bool = False, scan_layers: bool = False,
                      device="cuda") -> Tuple[Dict, Dict]:
-    """Inference / calibration forward; returns ``(outputs, new_qstate)``.
-    ``qcfg=None`` is the float model; ``int_params`` runs every packable
-    matmul on the exact int8 path; ``mse_session`` holds the MSE /
-    cross-entropy act sites' estimators across calibration batches.
-    ``params`` must live on ``device``. ``compute_dtype`` /
-    ``int8_attention`` as the JAX ``mobilebert_apply``'s (and
-    ``attention_dtype`` as :func:`~.bert.bert_apply`'s).
-    ``remat`` / ``scan_layers`` are taken with the JAX signature; this
-    forward runs without gradients (its training forward is not yet
-    ported, ROADMAP §1 item 5), where both leave the values as they
-    are.
+    """Forward pass; returns ``(outputs, new_qstate)``. ``qcfg=None`` is
+    the float model; ``int_params`` runs every packable matmul on the
+    exact int8 path (an inference path: it refuses ``train``);
+    ``mse_session`` holds the MSE / cross-entropy act sites' estimators
+    across calibration batches. ``params`` must live on ``device``.
+    ``compute_dtype`` / ``int8_attention`` as the JAX
+    ``mobilebert_apply``'s (and ``attention_dtype`` as
+    :func:`~.bert.bert_apply`'s).
+
+    ``train=True`` is the training forward, as :func:`~.bert.bert_apply`'s:
+    dropout (at the JAX layer's places) draws from ``dropout_generator``
+    (required when a dropout rate is above 0), gradients flow through the
+    embeddings, NoNorms, bottlenecks and stacked FFNs, and
+    ``int8_qat_sites`` runs those layers' fake-quant matmuls on int8
+    payloads (off with hidden dropout, :func:`~.bert.int8_sites_for_mode`).
+    ``remat`` recomputes each layer in the backward
+    (:func:`~.bert.maybe_remat_layer`); ``scan_layers`` is taken and the
+    layers run in the loop, as in :func:`~.bert.bert_apply`. Inference and
+    calibration run under ``torch.no_grad``.
     """
-    if train:
-        raise NotImplementedError("the MobileBERT training forward (dropout)"
-                                  " is not yet ported (ROADMAP §1 item 5)")
+    del scan_layers  # the loop computes JAX's scan (bert_apply's note)
     dev = B._check_device(params, device)
-    with torch.no_grad():
+    if train and int_params:
+        raise ValueError("int_params is an inference path; train with the "
+                         "fake-quant forward")
+    with contextlib.nullcontext() if train else torch.no_grad():
         ctx = B.make_ctx(qcfg, qstate, mode, mse_session=mse_session,
                          int_params=int_params, compute_dtype=compute_dtype,
                          attention_dtype=attention_dtype,
                          int8_attention=int8_attention)
+        ctx.int8_qat_sites = frozenset(
+            B.int8_sites_for_mode(int8_qat_sites, train, cfg) or ())
         input_ids, token_type_ids, position_ids, mask_bias = B.prepare_inputs(
             batch, dev)
         mask_bias = B.compute_mask(mask_bias, compute_dtype)
+        gen = dropout_generator if train else None
         h = _embeddings(ctx, params, cfg, input_ids, token_type_ids,
-                        position_ids)
+                        position_ids, train, gen)
         h_site = "emb.norm.out"
         for i in range(cfg.num_hidden_layers):
-            h = _layer(ctx, params["layers"][i], cfg, h, mask_bias, f"L{i}.",
-                       h_site=h_site)
+            h = B.maybe_remat_layer(
+                ctx, remat,
+                lambda sub, p_i, hc, g, prefix=f"L{i}.", hs=h_site: _layer(
+                    sub, p_i, cfg, hc, mask_bias, prefix, train, g,
+                    h_site=hs),
+                params["layers"][i], h, gen)
             h_site = (f"L{i}.out.bn.norm.out" if cfg.use_bottleneck
                       else f"L{i}.out.norm.out")
-        outputs = _classification_head(ctx, params, cfg, h, h_site, batch)
+        outputs = _classification_head(ctx, params, cfg, h, h_site, batch,
+                                       train, gen)
     return outputs, ctx.export()
 
 
@@ -634,8 +668,10 @@ def build_mobilebert_engine(params: Dict, cfg: MobileBertConfig,
     residual-feeding matmul carries add + res site + NoNorm. Raises
     :class:`~..ops.engine.EngineIncompatible` for configs off this path
     (no bottleneck, sites that are not 8-bit per-tensor payloads) and
-    NotImplementedError for int4 weights and 16-bit or disabled attention
-    sites, which the JAX engine serves and the port does not yet."""
+    NotImplementedError for 16-bit or disabled attention sites, which the
+    JAX engine serves and the port does not yet. ``use_int4`` packs 4-bit
+    weight sites split-half (W4A8): each matmul's flag is in
+    ``static.w4``, and K6 / K8 (or K1) unpack the weight in the kernel."""
     B._check_device(params, device)
     ENG._require(cfg.use_bottleneck,
                  "mobilebert engine requires use_bottleneck")
@@ -654,15 +690,13 @@ def _build_plan(params, cfg, qcfg, qstate, int_params):
 
     def mm(names, biases, in_scal, outs):
         plan, w4 = ENG._mm_plan(int_params, names, biases, in_scal, outs)
-        if w4:
-            raise NotImplementedError(
-                f"{names[0]}: an int4 weight; MobileBERT W4A8 (the w4 forms "
-                "of K6 and K8) is not yet ported")
+        w4s.append(w4)
         return plan
 
     layers, res_flags, w4_flags = [], [], []
     for i, lp in enumerate(params["layers"]):
         p = f"L{i}."
+        w4s = []  # the layer's matmuls' int4 flags, in plan order
         h_scal = site("emb.norm.out" if i == 0
                       else f"L{i - 1}.out.bn.norm.out")
         bn = lp["bottleneck"]
@@ -755,8 +789,7 @@ def _build_plan(params, cfg, qcfg, qstate, int_params):
             "out_bn": out_bn, "out_bn_norm": out_bn_norm,
         })
         res_flags.append((res_ao, tuple(res_ffn), res_out, res_obn))
-        n_mm = 7 + (attn_case == "shared_kq") + 2 * cfg.num_stacked_ffn
-        w4_flags.append((False,) * n_mm)
+        w4_flags.append(tuple(w4s))
 
     entry_scal = torch.stack(site("emb.norm.out")).reshape(1, 2)
     # the softmax max-subtraction is dead work when the grid-bounded
@@ -768,7 +801,7 @@ def _build_plan(params, cfg, qcfg, qstate, int_params):
     k8_seqs = tuple(seq for seq, _, _ in EK.MB_LAYER_SHAPES if all(
         EK.mb_layer_refusal(
             seq=seq, head_dim=cfg.head_dim, n_heads=cfg.num_attention_heads,
-            h=cfg.hidden_size, inter=lp_["out"]["w"].shape[1],
+            h=cfg.hidden_size, inter=cfg.intermediate_size,
             attn_case=attn_case, activation=cfg.hidden_act,
             n_ffn=cfg.num_stacked_ffn, attn_bits=ab, w4=w4) is None
         for lp_, ab, w4 in zip(layers, attn_bits, w4_flags)))

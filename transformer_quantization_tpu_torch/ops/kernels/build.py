@@ -59,9 +59,15 @@ _SIGNATURES = {
     "int8_matmul_norm": ("tq_int8_matmul_norm",
                          (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                           _P)),
+    "int8_matmul_norm_w4": ("tq_int8_matmul_norm_w4",
+                            (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                             _P)),
     "int8_mb_layer": ("tq_int8_mb_layer",
                       (_P, _P, _P, _P, _I, _P) + (_I,) * 13
                       + (_F, _F, _F, _P)),
+    "int8_mb_layer_w4": ("tq_int8_mb_layer_w4",
+                         (_P, _P, _P, _P, _I, _P) + (_I,) * 14
+                         + (_F, _F, _F, _P)),
     "add_ln_payload": ("tq_add_ln_payload",
                        (_P, _P, _P, _P, _P, _I, _I, _F, _I, _P)),
     "float_edge_levels": ("tq_float_edge_levels",
@@ -84,6 +90,8 @@ _SIGNATURES = {
 }
 # entry points that live in another source's library
 _LIBRARY = {"int8_matmul_w4": "int8_matmul",
+            "int8_matmul_norm_w4": "int8_matmul_norm",
+            "int8_mb_layer_w4": "int8_mb_layer",
             "fused_int8_linear_w4": "fused_int8_linear",
             "int8_attention_blocks": "int8_attention",
             "int8_attention_flex": "int8_attention",

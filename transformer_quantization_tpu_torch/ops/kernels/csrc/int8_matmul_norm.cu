@@ -47,6 +47,14 @@
 //   place of one byte per element);
 // - residual and res_quant are template parameters: four instances, each
 //   168 registers at launch and no spills (nvcc 12.9 -Xptxas -v).
+// - A split-half packed int4 weight (w4: (N, K/2) bytes, column j in a
+//   byte's low nibble and column K/2 + j in its high one) takes the
+//   skeleton's packed kernel (gemm_kernel_w4: the producer warpgroup's
+//   idle warps unpack each stage's packed box in shared memory), whose
+//   loads are laid out for 128-row tiles: NormEpiW4, four more instances.
+//   The sum is x[:, :K/2] @ lo^T + x[:, K/2:] @ hi^T, exact in int32, so
+//   the tail sees the int8 matmul's sums on the unpacked weight. At K =
+//   128 one packed box holds both halves of the row. K % 32 == 0.
 // Limits: K % 16 == 0, N % 8 == 0, 16-byte aligned x, w, r8 and out.
 // Times: k1_probe.py and chip_smoke.py (PERF.md): on an NVIDIA H100
 // 80GB HBM3 at 700 W, 0.093 ms for a MobileBERT-uncased layer's eight
@@ -110,6 +118,15 @@ struct NormEpi {
   }
 };
 
+// K6 on a packed int4 weight (kW4): 128-row tiles, one 8-column block an
+// epilogue step
+template <bool RES, bool RQ>
+struct NormEpiW4 : NormEpi<RES, RQ> {
+  static constexpr bool kW4 = true;
+  static constexpr int kTM = 128;
+  using NormEpi<RES, RQ>::NormEpi;
+};
+
 bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
 }
@@ -154,5 +171,39 @@ extern "C" int tq_int8_matmul_norm(const void* x, const void* w,
                                                 st)
             : gemm_launch<NormEpi<false, false>>(mx, mw, a, out, M, N, K, sms,
                                                  st);
+  return static_cast<int>(e);
+}
+
+// tq_int8_matmul_norm with w the (N, K/2) split-half packed int4 weight
+// (uint8, 16-byte aligned); K % 32 == 0.
+extern "C" int tq_int8_matmul_norm_w4(const void* x, const void* w,
+                                      const void* vecs, const void* scal,
+                                      const void* r8, const void* gb,
+                                      const void* ls, void* out, int M,
+                                      int N, int K, int res_quant,
+                                      void* stream) {
+  if (!aligned16(out) || (r8 != nullptr && !aligned16(r8)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap mx, mw;
+  int sms = 0;
+  cudaError_t e = tqwg::gemm_setup_w4(x, w, M, N, K, &mx, &mw, &sms);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const NormArgs a{static_cast<const float*>(vecs),
+                   static_cast<const float*>(scal),
+                   static_cast<const int8_t*>(r8),
+                   static_cast<const float*>(gb),
+                   static_cast<const float*>(ls)};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  using tqwg::gemm_launch;
+  if (r8 != nullptr)
+    e = res_quant ? gemm_launch<NormEpiW4<true, true>>(mx, mw, a, out, M, N,
+                                                       K, sms, st)
+                  : gemm_launch<NormEpiW4<true, false>>(mx, mw, a, out, M,
+                                                        N, K, sms, st);
+  else
+    e = res_quant ? gemm_launch<NormEpiW4<false, true>>(mx, mw, a, out, M,
+                                                        N, K, sms, st)
+                  : gemm_launch<NormEpiW4<false, false>>(mx, mw, a, out, M,
+                                                         N, K, sms, st);
   return static_cast<int>(e);
 }

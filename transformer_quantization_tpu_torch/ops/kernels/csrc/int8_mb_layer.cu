@@ -12,6 +12,10 @@
 //                                                  output FFN
 //   out = nonorm(out_bn(x8) + h8)            bottleneck out
 //
+// Any matmul's weight may instead be a split-half packed int4 one (w4:
+// (N, K/2) bytes, byte j holding column j in its low nibble and column
+// K/2 + j in its high one, the JAX int8_mb_layer_ln's per-matmul w4).
+//
 // What bounds it on the card: operations, and then the epilogues'
 // instructions. At MobileBERT-uncased widths (H = 512, bottleneck 128,
 // intermediate 512, 4 heads of 32, 3 stacked FFNs) a layer at B = 128,
@@ -61,6 +65,22 @@
 //   sequence's 32 keys and the other's A bytes are zero.
 // - The output leaves through a TMA store of h8's panels (rows past the
 //   end clipped); a ragged last tile reads zeros past the end by TMA.
+// - Packed int4 weights (w4) reach the consumers as the int8 tiles they
+//   read for an int8 weight, so the consumer code is the same: the
+//   producer waits until every stage of the unit's K chunks is free, then
+//   loads the packed boxes by TMA onto a "landed" mbarrier, and the
+//   producer warpgroup's three idle warps unpack them in shared memory
+//   and complete the stages' "full" mbarriers themselves. A packed box of
+//   128 bytes a row (K >= 256) holds two K chunks, chunk b in its low
+//   nibbles and chunk K/256 + b in its high ones: it lands over the
+//   second's stage and unpacks row by row in place, low nibbles to the
+//   first's. At K = 128 a 64-byte packed row holds both halves of the one
+//   chunk: the box lands over the stage's second half and unpacks in two
+//   rounds of 64 rows through registers. Each nibble is sign-extended to
+//   an int8 (two SIMD byte operations a word), so the products are the
+//   int8 matmul's on the unpacked weight: exact int32 sums, whatever the
+//   order of the chunks. The ring keeps its four stages and no shared
+//   memory is added (four mbarriers in the barrier block's spare bytes).
 // What the probe measured (k1_probe.py --kernels mb; PERF.md): the
 // epilogues' arithmetic takes most of the time and the products and the
 // attention do not hide under it; a turn protocol that staggered the
@@ -69,8 +89,9 @@
 // Limits: (seq, head_dim, heads) in {32, 64, 128} x 32 x 4 (the
 // bottleneck 128 wide); H and I multiples of 128 up to MAXW = 512 (a
 // unit's K chunks sit in the ring at once, and shared memory is laid out
-// for that width); up to MAX_FFN stacked FFNs; 16-byte aligned h8, out
-// and weights.
+// for that width); a w4 matmul's K 128 or a multiple of 256 (whole packed
+// boxes of two chunks); up to MAX_FFN stacked FFNs; 16-byte aligned h8,
+// out and weights.
 //
 // Numerics: every element takes the plain version's steps in its order
 // (-fmad=false; mm_common.cuh's helpers, which K1 and K6 take too, and
@@ -123,6 +144,7 @@ struct Params {
   int M, S, cols, H, I, n_mm, n_ffn, shared_kq, act, skip_max;
   int res_ao, res_ffn_mask, res_obn;
   float rsqrt_d, log2e, gelu_c;
+  int w4_mask;                // bit m: matmul m's weight is packed int4
 };
 // kernel parameters beyond 4 KB need CUDA 12.1 or later
 static_assert(sizeof(Params) <= 32764, "a kernel's parameter space");
@@ -135,7 +157,8 @@ constexpr int MAXW = STAGES * 128;          // H, I: a unit's K in the ring
 // the weight ring at 0, then: h8; li8 / x8; the union (sh8 / c8, q, k,
 // v^T | the FFN inter payload); the two warpgroups' column tables; the
 // keys' attention constants (a float pair a key and head); v's sums (4
-// key blocks x TH ints); q's sums (an int a row and head); 9 mbarriers
+// key blocks x TH ints); q's sums (an int a row and head); 13 mbarriers
+// (full, empty, h8's, and the w4 boxes' landed)
 constexpr int SM_H8 = STAGES * STAGE;
 constexpr int SM_X8 = SM_H8 + MAXW * TR;
 constexpr int SM_U = SM_X8 + PANEL;
@@ -733,14 +756,41 @@ __device__ __forceinline__ void consume(const Params& p, uint8_t* base,
 }
 
 // the producer: every tile's weight tiles, matmul by matmul, unit by unit
+// (a w4 unit's packed boxes onto the landed mbarriers, once all of its
+// stages are free)
 __device__ __forceinline__ void produce(const Params& p, uint8_t* ring, uint64_t* full,
-                        uint64_t* empty, int tiles) {
+                        uint64_t* empty, uint64_t* landed, int tiles) {
   for (int m = 0; m < p.n_mm; ++m) tma_prefetch_map(&p.wmap[m]);
   int s = 0;
   uint32_t ph = 0;
   for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x)
     for (int m = 0; m < p.n_mm; ++m) {
       const int nt = p.mm[m].n / 128, kch = p.mm[m].k / 128;
+      if ((p.w4_mask >> m) & 1) {
+        for (int n = 0; n < nt; ++n) {
+          const int s0 = s;
+          for (int k = 0; k < kch; ++k) {
+            mbar_wait(&empty[s], ph ^ 1);
+            if (++s == STAGES) {
+              s = 0;
+              ph ^= 1;
+            }
+          }
+          if (kch == 1) {   // one 64-byte box over the stage's second half
+            mbar_arrive_expect_tx(&landed[s0], STAGE / 2);
+            tma_load_2d(ring + s0 * STAGE + STAGE / 2, &p.wmap[m],
+                        &landed[s0], 0, n * 128);
+          } else {          // box b over the stage of chunk kch / 2 + b
+            for (int b = 0; b < kch / 2; ++b) {
+              const int hs = (s0 + kch / 2 + b) % STAGES;
+              mbar_arrive_expect_tx(&landed[hs], STAGE);
+              tma_load_2d(ring + hs * STAGE, &p.wmap[m], &landed[hs],
+                          b * 128, n * 128);
+            }
+          }
+        }
+        continue;
+      }
       for (int n = 0; n < nt; ++n)
         for (int k = 0; k < kch; ++k) {
           mbar_wait(&empty[s], ph ^ 1);
@@ -755,6 +805,107 @@ __device__ __forceinline__ void produce(const Params& p, uint8_t* ring, uint64_t
     }
 }
 
+// the int8 levels of 16 packed int4 weights' low (HI false) or high
+// nibbles, each sign-extended: (n ^ 8) - 8 in every byte
+template <bool HI>
+__device__ __forceinline__ uint32_t nibbles4(uint32_t x) {
+  const uint32_t n = (HI ? x >> 4 : x) & 0x0F0F0F0Fu;
+  return __vsub4(n ^ 0x08080808u, 0x08080808u);
+}
+template <bool HI>
+__device__ __forceinline__ uint4 nibbles(const uint4& v) {
+  return make_uint4(nibbles4<HI>(v.x), nibbles4<HI>(v.y), nibbles4<HI>(v.z),
+                    nibbles4<HI>(v.w));
+}
+
+// (w4, K >= 256) a packed box (128 rows x 128 bytes, unswizzled, as TMA
+// wrote it over stage hi) into the 128-byte swizzled int8 tiles of its
+// two chunks: the low nibbles into stage lo, the high ones in place.
+// Each of the three warps takes 4 rows at a time, a lane a 16-byte chunk,
+// and reads its rows whole before it writes them.
+__device__ __forceinline__ void unpack_box(uint8_t* hi, uint8_t* lo, int w,
+                                           int lane) {
+  const int c = lane & 7;
+#pragma unroll 1
+  for (int r = 4 * w + (lane >> 3); r < 128; r += 12) {
+    const uint4 v = *reinterpret_cast<const uint4*>(hi + r * 128 + c * 16);
+    __syncwarp();
+    const int off = r * 128 + ((c ^ (r & 7)) << 4);
+    *reinterpret_cast<uint4*>(lo + off) = nibbles<false>(v);
+    *reinterpret_cast<uint4*>(hi + off) = nibbles<true>(v);
+  }
+}
+
+// (w4, K = 128) the packed box (128 rows x 64 bytes, unswizzled, over the
+// stage's second half) into the stage's 128-byte swizzled int8 tile, row
+// r's low nibbles to its chunks 0-3, its high ones to chunks 4-7: in two
+// rounds of 64 rows, each read into registers (the 96 threads' 256
+// 16-byte chunks) before any thread writes, since the second round's
+// rows land over the packed rows
+__device__ __forceinline__ void unpack_k128(uint8_t* st, int t) {
+  const uint8_t* src = st + STAGE / 2;
+#pragma unroll 1
+  for (int h = 0; h < 2; ++h) {
+    uint4 v[3];
+#pragma unroll
+    for (int i = 0; i < 3; ++i) {
+      const int j = t + 96 * i;   // row 64 h + j / 4, chunk j % 4
+      if (j < 256)
+        v[i] = *reinterpret_cast<const uint4*>(src + 64 * 64 * h + 16 * j);
+    }
+    named_sync(4, 96);
+#pragma unroll
+    for (int i = 0; i < 3; ++i) {
+      const int j = t + 96 * i;
+      if (j >= 256) break;
+      const int r = 64 * h + (j >> 2), c = j & 3;
+      *reinterpret_cast<uint4*>(st + r * 128 + ((c ^ (r & 7)) << 4)) =
+          nibbles<false>(v[i]);
+      *reinterpret_cast<uint4*>(st + r * 128 + (((c + 4) ^ (r & 7)) << 4)) =
+          nibbles<true>(v[i]);
+    }
+  }
+}
+
+// the unpacking warps (the producer warpgroup's warps 1-3, 96 threads):
+// the w4 units in the producer's order, each unit's packed boxes once
+// they land, then its stages' full mbarriers
+__device__ __forceinline__ void unpack(const Params& p, uint8_t* ring,
+                                       uint64_t* full, uint64_t* landed,
+                                       int tiles) {
+  const int t = threadIdx.x - 288, w = t >> 5, lane = t & 31;
+  int s = 0;
+  uint32_t lph = 0;   // each stage's landed phase, a bit a stage
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x)
+    for (int m = 0; m < p.n_mm; ++m) {
+      const int nt = p.mm[m].n / 128, kch = p.mm[m].k / 128;
+      if (!((p.w4_mask >> m) & 1)) {
+        s = (s + nt * kch) % STAGES;
+        continue;
+      }
+      for (int n = 0; n < nt; ++n) {
+        if (kch == 1) {
+          mbar_wait(&landed[s], (lph >> s) & 1);
+          lph ^= 1u << s;
+          unpack_k128(ring + s * STAGE, t);
+        } else {
+          for (int b = 0; b < kch / 2; ++b) {
+            const int hs = (s + kch / 2 + b) % STAGES;
+            mbar_wait(&landed[hs], (lph >> hs) & 1);
+            lph ^= 1u << hs;
+            unpack_box(ring + hs * STAGE, ring + ((s + b) % STAGES) * STAGE,
+                       w, lane);
+          }
+        }
+        fence_proxy_async();   // the writes, visible to wgmma
+        named_sync(4, 96);
+        if (t == 0)
+          for (int k = 0; k < kch; ++k) mbar_arrive(&full[(s + k) % STAGES]);
+        s = (s + kch) % STAGES;
+      }
+    }
+}
+
 
 __global__ void __launch_bounds__(THREADS, 1)
     mb_layer_kernel(const __grid_constant__ Params p) {
@@ -765,12 +916,14 @@ __global__ void __launch_bounds__(THREADS, 1)
   uint64_t* full = reinterpret_cast<uint64_t*>(base + SM_BARS);
   uint64_t* empty = full + STAGES;
   uint64_t* hbar = empty + STAGES;
+  uint64_t* landed = hbar + 1;             // w4: a stage's packed box
   const int rows = p.cols ? TR / 2 : TR;   // of a tile
   const int tiles = (p.M + rows - 1) / rows;
   if (threadIdx.x == 0) {
     for (int s = 0; s < STAGES; ++s) {
       mbar_init(&full[s], 1);
       mbar_init(&empty[s], 256);
+      mbar_init(&landed[s], 1);
     }
     mbar_init(hbar, 1);
     fence_barrier_init();
@@ -785,7 +938,9 @@ __global__ void __launch_bounds__(THREADS, 1)
   const int wg = threadIdx.x >> 7;
   if (wg == 2) {
     regs_dealloc<PREGS>();
-    if (threadIdx.x == 256) produce(p, base, full, empty, tiles);
+    if (threadIdx.x == 256) produce(p, base, full, empty, landed, tiles);
+    else if (threadIdx.x >= 288 && p.w4_mask)
+      unpack(p, base, full, landed, tiles);
   } else {
     regs_alloc<CREGS>();
     const int tid = threadIdx.x & 127;
@@ -827,27 +982,12 @@ cudaError_t launch(const Params& p, int smem, int sms, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-}  // namespace
-
-// The layer plan `flat` in the canonical order of mb_layer_flat
-// (engine_kernels.py): (w, vecs, scal) per matmul, (gb, scal) per NoNorm:
-// bn_in, bn_in_norm, [bn_attn, bn_attn_norm when shared_kq], qk, v,
-// attn_out, attn_out_norm, (inter, dense, norm) per stacked FFN, inter,
-// out, out_norm, out_bn, out_bn_norm. h8 / out: (B*T, H) int8; mask: (B,
-// T) f32; ascal: 12 f32 attention site scalars. res_ffn_mask bit j: FFN
-// j's res site (bit n_ffn: out.res). act: 0 none, 1 gelu_new, 2 relu.
-// Built for T in {32, 64, 128} and 4 heads of 32; H, I multiples of 128;
-// h8, out and the weights 16-byte aligned. Returns a cudaError_t
-// (cudaErrorInvalidValue for a plan or shape it does not take, or a
-// tensor map that cannot be encoded).
-extern "C" int tq_int8_mb_layer(const void* h8, const void* mask,
-                                const void* ascal, const void* const* flat,
-                                int n_flat, void* out, int B, int T, int H,
-                                int TH_, int I, int D, int n_ffn,
-                                int shared_kq, int act, int skip_max,
-                                int res_ao, int res_ffn_mask, int res_obn,
-                                float rsqrt_d, float log2e, float gelu_c,
-                                void* stream) {
+int mb_layer(const void* h8, const void* mask, const void* ascal,
+             const void* const* flat, int n_flat, void* out, int B, int T,
+             int H, int TH_, int I, int D, int n_ffn, int shared_kq, int act,
+             int skip_max, int res_ao, int res_ffn_mask, int res_obn,
+             int w4_plan, float rsqrt_d, float log2e, float gelu_c,
+             void* stream) {
   if ((T != 32 && T != 64 && T != 128) || D != HD || TH_ != TH || B <= 0 ||
       H <= 0 || I <= 0 || H % 128 || I % 128 || H > MAXW || I > MAXW ||
       n_ffn < 0 ||
@@ -864,34 +1004,46 @@ extern "C" int tq_int8_mb_layer(const void* h8, const void* mask,
   int i = 0, m = 0;
   bool ok = true;
   const auto f32 = [&](int j) { return static_cast<const float*>(flat[j]); };
-  // matmul at flat[i] (N x K) as the kernel's m-th, its NoNorm after it
-  const auto mm = [&](int at, int n, int k, int norm_at) {
+  // matmul at flat[i] (N x K) as the kernel's m-th, its NoNorm after it;
+  // j: its place in the plan's order (w4_plan's bit), where the packed
+  // int4 weight (N, K/2) is read in boxes of 128 rows x min(K/2, 128)
+  // bytes, unswizzled
+  const auto mm = [&](int at, int n, int k, int norm_at, int j) {
+    const bool w4 = (w4_plan >> j) & 1;
     ok = ok && aligned16(flat[at]) &&
-         make_i8_map(&p.wmap[m], flat[at], n, k, 128);
+         (w4 ? (k == 128 || k % 256 == 0) &&
+                   make_u8_map(&p.wmap[m], flat[at], n, k / 2,
+                               k / 2 < 128 ? k / 2 : 128, 128,
+                               CU_TENSOR_MAP_SWIZZLE_NONE)
+             : make_i8_map(&p.wmap[m], flat[at], n, k, 128));
     p.mm[m] = Mm{f32(at + 1), f32(at + 2),
                  norm_at < 0 ? nullptr : f32(norm_at),
                  norm_at < 0 ? nullptr : f32(norm_at + 1), n, k};
+    p.w4_mask |= static_cast<int>(w4) << m;
     ++m;
   };
-  mm(i, TH, H, i + 3);                 // bn_in
+  // the plan's order: bn_in, [bn_attn], qk, v, attn_out, (inter, dense)
+  // per FFN, out_bn; the kernel's takes v before qk
+  const int jq = 1 + shared_kq;
+  mm(i, TH, H, i + 3, 0);              // bn_in
   i += 5;
   if (shared_kq) {
-    mm(i, TH, H, i + 3);               // bn_attn
+    mm(i, TH, H, i + 3, 1);            // bn_attn
     i += 5;
   }
   const int qk_at = i;
   i += 3;
-  mm(i, TH, shared_kq ? H : TH, -1);   // v (its weight rows are v^T's)
+  mm(i, TH, shared_kq ? H : TH, -1, jq + 1);   // v (rows: v^T's)
   i += 3;
-  mm(qk_at, 2 * TH, TH, -1);           // [q | k]
-  mm(i, TH, TH, i + 3);                // attn_out
+  mm(qk_at, 2 * TH, TH, -1, jq);       // [q | k]
+  mm(i, TH, TH, i + 3, jq + 2);        // attn_out
   i += 5;
   for (int j = 0; j <= n_ffn; ++j) {
-    mm(i, I, TH, -1);                  // inter
-    mm(i + 3, TH, I, i + 6);           // dense
+    mm(i, I, TH, -1, jq + 3 + 2 * j);          // inter
+    mm(i + 3, TH, I, i + 6, jq + 4 + 2 * j);   // dense
     i += 8;
   }
-  mm(i, H, TH, i + 3);                 // out_bn
+  mm(i, H, TH, i + 3, jq + 5 + 2 * n_ffn);   // out_bn
   p.n_mm = m;
   // tiles of 64 rows, the warpgroups splitting the columns, where 128-row
   // tiles would leave SMs idle and 64-row ones do not overflow the card
@@ -922,4 +1074,50 @@ extern "C" int tq_int8_mb_layer(const void* h8, const void* mask,
   static_assert(SMEM <= 232448, "a block's shared memory on the H100");
   return static_cast<int>(
       launch(p, smem, sms, static_cast<cudaStream_t>(stream)));
+}
+
+}  // namespace
+
+// The layer plan `flat` in the canonical order of mb_layer_flat
+// (engine_kernels.py): (w, vecs, scal) per matmul, (gb, scal) per NoNorm:
+// bn_in, bn_in_norm, [bn_attn, bn_attn_norm when shared_kq], qk, v,
+// attn_out, attn_out_norm, (inter, dense, norm) per stacked FFN, inter,
+// out, out_norm, out_bn, out_bn_norm. h8 / out: (B*T, H) int8; mask: (B,
+// T) f32; ascal: 12 f32 attention site scalars. res_ffn_mask bit j: FFN
+// j's res site (bit n_ffn: out.res). act: 0 none, 1 gelu_new, 2 relu.
+// Built for T in {32, 64, 128} and 4 heads of 32; H, I multiples of 128;
+// h8, out and the weights 16-byte aligned. Returns a cudaError_t
+// (cudaErrorInvalidValue for a plan or shape it does not take, or a
+// tensor map that cannot be encoded).
+extern "C" int tq_int8_mb_layer(const void* h8, const void* mask,
+                                const void* ascal, const void* const* flat,
+                                int n_flat, void* out, int B, int T, int H,
+                                int TH_, int I, int D, int n_ffn,
+                                int shared_kq, int act, int skip_max,
+                                int res_ao, int res_ffn_mask, int res_obn,
+                                float rsqrt_d, float log2e, float gelu_c,
+                                void* stream) {
+  return mb_layer(h8, mask, ascal, flat, n_flat, out, B, T, H, TH_, I, D,
+                  n_ffn, shared_kq, act, skip_max, res_ao, res_ffn_mask,
+                  res_obn, 0, rsqrt_d, log2e, gelu_c, stream);
+}
+
+// tq_int8_mb_layer with packed int4 weights (the wrapper's entry point;
+// tq_int8_mb_layer keeps the earlier signature for the probes' builds of
+// other checkouts): bit j of w4_plan says that the plan's j-th matmul
+// (mb_layer_flat's order: bn_in, [bn_attn], qk, v, attn_out, inter and
+// dense per FFN, out_bn) has its (N, K/2) split-half packed int4 weight at
+// its place in `flat` (K 128 or a multiple of 256); 0: every weight int8
+extern "C" int tq_int8_mb_layer_w4(const void* h8, const void* mask,
+                                   const void* ascal,
+                                   const void* const* flat, int n_flat,
+                                   void* out, int B, int T, int H, int TH_,
+                                   int I, int D, int n_ffn, int shared_kq,
+                                   int act, int skip_max, int res_ao,
+                                   int res_ffn_mask, int res_obn,
+                                   int w4_plan, float rsqrt_d, float log2e,
+                                   float gelu_c, void* stream) {
+  return mb_layer(h8, mask, ascal, flat, n_flat, out, B, T, H, TH_, I, D,
+                  n_ffn, shared_kq, act, skip_max, res_ao, res_ffn_mask,
+                  res_obn, w4_plan, rsqrt_d, log2e, gelu_c, stream);
 }

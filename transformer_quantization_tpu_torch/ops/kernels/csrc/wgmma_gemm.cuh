@@ -54,8 +54,9 @@
 //                         a stage);
 //   kRegs = 240           registers a consumer thread (the producer then
 //                         keeps 24, not 40);
-//   kW4 = true            (W4Epi<E>: kTM = 128, one plane, no residual or
-//                         groups) w is the (N, K/2) split-half packed int4
+//   kW4 = true            (W4Epi<E>, or K6's NormEpiW4 with its residual:
+//                         kTM = 128, one plane, no groups) w is the
+//                         (N, K/2) split-half packed int4
 //                         weight, byte j of a row holding column j in its
 //                         low nibble and column K/2 + j in its high one
 //                         (the JAX package's layout), read through a map
@@ -379,7 +380,7 @@ __device__ __forceinline__ void consume(
                 "two planes: 64-row tiles, no residual");
   constexpr bool GROUPS = epi_groups<Epi>::value > 0;
   constexpr bool W4 = epi_w4<Epi>::value;
-  static_assert(!W4 || (TMe == 128 && PL == 1 && !GROUPS && !RES),
+  static_assert(!W4 || (TMe == 128 && PL == 1 && !GROUPS),
                 "packed int4: 128-row tiles, one plane");
   constexpr int H = TMe / 64;               // m64 halves of a tile
   constexpr int HA = H * PL;                // accumulators of a stage

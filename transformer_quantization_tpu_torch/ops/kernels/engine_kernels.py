@@ -16,7 +16,8 @@ The wrappers here launch kernels written by hand for Hopper (``csrc/``):
 - :func:`int8_matmul_norm` -- the same matmul with MobileBERT's whole
   elementwise tail in its epilogue: fold site, optional + residual
   payload, res site, NoNorm, norm-site payload (also the ``nonorm`` forms
-  of :func:`int8_matmul_add_ln` and :func:`int8_ffn_ln`);
+  of :func:`int8_matmul_add_ln` and :func:`int8_ffn_ln`), against an
+  int8 or (``w4``) a packed int4 weight;
 - :func:`int8_attention_qkv` -- scores, scores site, exp2 softmax, probs
   payload, probs @ v and the context payload, per (batch row, head), over
   q, k and v picked from up to three arrays by ``cols``;
@@ -28,7 +29,7 @@ The wrappers here launch kernels written by hand for Hopper (``csrc/``):
 - :func:`int8_mb_layer_ln` -- a whole MobileBERT layer in one launch over
   tiles of whole sequences, every intermediate payload in shared memory,
   its elements through the same device functions as the three kernels
-  above;
+  above, any of its matmuls on a packed int4 weight (``w4``);
 - :func:`fused_add_ln_payload` -- payload + payload residual add, res
   site, one-pass LayerNorm, ln payload;
 - :func:`fused_add_ln` -- float32 y + float32 residual, res site,
@@ -117,6 +118,8 @@ LAUNCHES: Dict[str, int] = {"int8_matmul": 0, "int8_matmul_w4": 0,
                             "float_edge_matmul": 0, "flex_add_ln": 0,
                             "int8_matmul_norm": 0, "int8_attention_qkv": 0,
                             "int8_mb_layer_ln": 0, "fused_add_ln": 0,
+                            "int8_matmul_norm_w4": 0,
+                            "int8_mb_layer_ln_w4": 0,
                             "fused_int8_linear": 0,
                             "fused_int8_linear_w4": 0,
                             "fused_linear_quantize": 0,
@@ -183,8 +186,7 @@ def _attn3(attn_bits) -> Tuple[int, int, int]:
 
 def _require_w8(w4: bool, what: str) -> None:
     """Int4 weights where the port has no w4 form yet: the float-edge
-    matmul (K4) and MobileBERT's NoNorm matmul (K6) and layer (K8),
-    ROADMAP.md section 2a."""
+    matmul (K4), ROADMAP.md section 2a."""
     if w4:
         raise NotImplementedError(f"{what}: int4 weights (w4) are not yet "
                                   "ported (ROADMAP.md section 2a)")
@@ -1232,27 +1234,32 @@ def int8_attention_qkv(q_arr, k_arr, v_arr, mask_bias, scalars, *, n_heads,
 
 
 def _matmul_nonorm(x8, w8, vecs, scalars, r8, gb, ln_scalars, *,
-                   res_quant) -> Tensor:
+                   res_quant, w4=False) -> Tensor:
     """Launch ``csrc/int8_matmul_norm.cu`` (K6, an instance of the GEMM in
     ``csrc/wgmma_gemm.cuh``): the matmul with the fold site, the optional
     residual ``r8`` (staged by the kernel through shared memory under its
-    main loop), the res site and NoNorm in its epilogue. Needs K % 16 ==
-    0, N % 8 == 0 and 16-byte aligned, contiguous operands; raises on
-    anything else (there is no fall-back to the plain version)."""
-    m, n, _ = _check_matmul(x8, w8, vecs, scalars, "int8_matmul_norm")
+    main loop), the res site and NoNorm in its epilogue. ``w4``: ``w8`` is
+    the (N, K/2) packed int4 weight, unpacked inside the kernel (its
+    packed instances, on the skeleton's ``gemm_kernel_w4``: 128-row
+    tiles). Needs K % 16 == 0 (K % 32 for ``w4``), N % 8 == 0 and 16-byte
+    aligned, contiguous operands; raises on anything else (there is no
+    fall-back to the plain version)."""
+    m, n, _ = _check_matmul(x8, w8, vecs, scalars, "int8_matmul_norm",
+                            w4=w4)
     if r8 is not None:
         _check(r8, "r8", torch.int8, (m, n))
     _check(gb, "gb", torch.float32, (2, n))
     _check(ln_scalars, "ln_scalars", torch.float32, (1, 8))
     _same_device(x8, gb, ln_scalars, *([r8] if r8 is not None else []))
     out = torch.empty((m, n), device=x8.device, dtype=torch.int8)
-    fn = KB.load("int8_matmul_norm")
+    name = "int8_matmul_norm_w4" if w4 else "int8_matmul_norm"
+    fn = KB.load(name)
     err = fn(x8.data_ptr(), w8.data_ptr(), vecs.data_ptr(),
              scalars.data_ptr(), r8.data_ptr() if r8 is not None else None,
              gb.data_ptr(), ln_scalars.data_ptr(), out.data_ptr(), m, n,
              x8.shape[1], int(res_quant), _stream())
-    KB.check(err, "int8_matmul_norm")
-    LAUNCHES["int8_matmul_norm"] += 1
+    KB.check(err, name)
+    LAUNCHES[name] += 1
     return out
 
 
@@ -1261,18 +1268,18 @@ def int8_matmul_norm(x8, w8, vecs, scalars, gb, ln_scalars, *, eps,
     """Matmul -> fold site -> NoNorm -> norm payload, no residual; see
     :func:`int8_matmul_norm_ref`. On the card: one launch of the
     persistent TMA / ``wgmma`` GEMM of ``csrc/wgmma_gemm.cuh`` with the
-    whole tail in its epilogue (``csrc/int8_matmul_norm.cu``, K6), under
-    :func:`_matmul_nonorm`'s limits."""
+    whole tail in its epilogue (``csrc/int8_matmul_norm.cu``, K6; its
+    packed int4 instances for ``w4``), under :func:`_matmul_nonorm`'s
+    limits."""
     if not x8.is_cuda:
         return int8_matmul_norm_ref(x8, w8, vecs, scalars, gb, ln_scalars,
                                     eps=eps, res_quant=res_quant, w4=w4,
                                     norm=norm)
-    _require_w8(w4, "int8_matmul_norm")
     if norm != "nonorm":
         raise NotImplementedError(f"int8_matmul_norm kernel: norm={norm!r} "
                                   "is not yet ported")
     return _matmul_nonorm(x8, w8, vecs, scalars, None, gb, ln_scalars,
-                          res_quant=res_quant)
+                          res_quant=res_quant, w4=w4)
 
 
 def _mb_layer_smem(head_dim: int, hidden: int) -> int:
@@ -1303,9 +1310,10 @@ def mb_layer_refusal(*, seq, head_dim, n_heads, h, inter, attn_case,
     MobileBERT layer of these shapes and plan, or None where it does. The
     engine's plan reads it to choose each seq's route
     (:func:`~..models.mobilebert.MobileBertEngineStatic.layer_route`);
-    :func:`int8_mb_layer_ln` raises it on the card."""
-    if any(w4):
-        return "int4 weights (w4) are not yet ported"
+    :func:`int8_mb_layer_ln` raises it on the card. ``w4``: a flag per
+    matmul in :func:`mb_layer_flat`'s order; a packed int4 weight's K must
+    be 128 or a multiple of 256 (the kernel unpacks whole 128-byte packed
+    boxes, two K chunks each, or at K = 128 one 64-byte box)."""
     if _attn3(attn_bits) != (8, 8, 8):
         return "only 8-bit scores/probs/context sites are ported"
     if attn_case not in ("shared_kq", "bottleneck"):
@@ -1320,6 +1328,12 @@ def mb_layer_refusal(*, seq, head_dim, n_heads, h, inter, attn_case,
     if h % 128 or inter % 128 or max(h, inter) > MB_MAX_WIDTH:
         return (f"width {h}, intermediate {inter} (needs widths of a "
                 f"multiple of 128 up to {MB_MAX_WIDTH})")
+    ks = _mb_matmul_ks(attn_case == "shared_kq", n_ffn, h,
+                       head_dim * n_heads, inter)
+    bad = sorted({k for k, f in zip(ks, w4) if f and k != 128 and k % 256})
+    if bad:
+        return (f"int4 weights (w4) of K = {bad} (the kernel's packed "
+                "boxes need K = 128 or a multiple of 256)")
     smem = _mb_layer_smem(head_dim, n_heads * head_dim)
     if smem > SMEM_MAX:
         return (f"a 128-row tile's live set ({smem} bytes) exceeds shared "
@@ -1345,8 +1359,11 @@ def int8_mb_layer_ln(h8, mask_bias, attn_scal, flat, *, n_heads, seq,
               skip_max=skip_max, attn_bits=attn_bits)
     if not h8.is_cuda:
         return int8_mb_layer_ln_ref(h8, mask_bias, attn_scal, flat, **kw)
-    # out.dense's (hidden, I) weight, tenth from the end (mb_layer_flat)
+    # out.dense's (hidden, I) weight, tenth from the end (mb_layer_flat);
+    # packed, I / 2 bytes a row
     inter = flat[-10].shape[1] if len(flat) >= 10 else 0
+    if len(w4) > 1 and w4[-2]:
+        inter *= 2
     why = mb_layer_refusal(seq=seq, head_dim=hidden // n_heads,
                            n_heads=n_heads, h=h8.shape[1], inter=inter,
                            attn_case=attn_case, activation=activation,
@@ -1356,7 +1373,8 @@ def int8_mb_layer_ln(h8, mask_bias, attn_scal, flat, *, n_heads, seq,
     d = hidden // n_heads
     mt, h = h8.shape
     shared_kq = attn_case == "shared_kq"
-    shapes = _mb_flat_shapes(shared_kq, n_ffn, h, hidden, inter)
+    shapes = _mb_flat_shapes(shared_kq, n_ffn, h, hidden, inter,
+                             tuple(w4))
     if len(flat) != len(shapes):
         raise ValueError(f"int8_mb_layer_ln: flat has {len(flat)} arrays, "
                          f"the plan needs {len(shapes)}")
@@ -1365,7 +1383,8 @@ def int8_mb_layer_ln(h8, mask_bias, attn_scal, flat, *, n_heads, seq,
     for i in [i for i, (a, (shape, dtype)) in enumerate(zip(flat, shapes))
               if not a.is_cuda or a.dtype != dtype or a.shape != shape
               or not a.is_contiguous()
-              or (dtype == torch.int8 and a.data_ptr() % 16)][:1]:
+              or (dtype in (torch.int8, torch.uint8)
+                  and a.data_ptr() % 16)][:1]:
         _check(flat[i], f"flat[{i}]", shapes[i][1], shapes[i][0])
     if mt % seq:
         raise NotImplementedError(f"int8_mb_layer_ln kernel: rows {mt} "
@@ -1379,26 +1398,42 @@ def int8_mb_layer_ln(h8, mask_bias, attn_scal, flat, *, n_heads, seq,
                    for j, r in enumerate(tuple(res_ffn) + (res_out,)))
     ptrs = (ctypes.c_void_p * len(flat))(*(a.data_ptr() for a in flat))
     out = torch.empty_like(h8)
-    fn = KB.load("int8_mb_layer")
+    # bit j: the plan's j-th matmul (mb_layer_flat's order) is packed int4
+    w4_plan = sum(int(bool(f)) << j for j, f in enumerate(w4))
+    fn = KB.load("int8_mb_layer_w4")
     err = fn(h8.data_ptr(), mask_bias.data_ptr(), attn_scal.data_ptr(),
              ctypes.addressof(ptrs), len(flat), out.data_ptr(), mt // seq,
              seq, h, hidden, inter, d, n_ffn, int(shared_kq),
              _MM_ACTS[activation], int(skip_max), int(bool(res_ao)),
-             ffn_mask, int(bool(res_obn)), _rsqrt_d(d), LOG2E, GELU_NEW_C,
-             _stream())
-    KB.check(err, "int8_mb_layer_ln")
-    LAUNCHES["int8_mb_layer_ln"] += 1
+             ffn_mask, int(bool(res_obn)), w4_plan, _rsqrt_d(d), LOG2E,
+             GELU_NEW_C, _stream())
+    name = "int8_mb_layer_ln_w4" if w4_plan else "int8_mb_layer_ln"
+    KB.check(err, name)
+    LAUNCHES[name] += 1
     return out
+
+
+def _mb_matmul_ks(shared_kq: bool, n_ffn: int, h: int, hidden: int,
+                  inter: int) -> Tuple[int, ...]:
+    """Each matmul's K in :func:`mb_layer_flat`'s order: bn_in, [bn_attn],
+    q|k, v, attn_out, (inter, dense) per FFN, out_bn."""
+    return ((h,) + ((h,) if shared_kq else ())
+            + (hidden, h if shared_kq else hidden, hidden)
+            + (hidden, inter) * (n_ffn + 1) + (hidden,))
 
 
 @functools.lru_cache(maxsize=None)
 def _mb_flat_shapes(shared_kq: bool, n_ffn: int, h: int, hidden: int,
-                    inter: int):
+                    inter: int, w4: Tuple[bool, ...] = ()):
     """(shape, dtype) of each array of a layer plan in
-    :func:`mb_layer_flat`'s order, at widths (h, hidden, inter)."""
+    :func:`mb_layer_flat`'s order, at widths (h, hidden, inter); ``w4``
+    (a flag per matmul): the (N, K/2) uint8 packed int4 weight."""
     f32 = torch.float32
+    w4s = iter(w4)
 
     def mm(n, k):
+        if next(w4s, False):
+            return [((n, k // 2), torch.uint8), ((5, n), f32), ((1, 2), f32)]
         return [((n, k), torch.int8), ((5, n), f32), ((1, 2), f32)]
 
     def nrm(n):
@@ -1588,13 +1623,12 @@ def int8_matmul_add_ln(x8, w8, vecs, scalars, r8, gb, ln_scalars, *, eps,
                                           res_quant=res_quant, w4=w4,
                                           norm=norm, in_mode=in_mode,
                                           in_grid=in_grid)
-        _require_w8(w4, "int8_matmul_add_ln")
         if in_mode != "i8":
             raise NotImplementedError("int8_matmul_add_ln kernel: a float "
                                       "context edge (in_mode='f') with "
                                       "NoNorm is not yet ported")
         return _matmul_nonorm(x8, w8, vecs, scalars, r8, gb, ln_scalars,
-                              res_quant=res_quant)
+                              res_quant=res_quant, w4=w4)
     if norm != "layernorm":
         raise ValueError(f"unknown norm {norm!r}")
     y8 = int8_matmul(x8, w8, vecs, scalars, activation=None,

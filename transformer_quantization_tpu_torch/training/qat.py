@@ -188,7 +188,10 @@ def qat_mode(qat: QATConfig, weight_quant: bool = True,
 
 def tree_leaves(tree) -> List[Tuple[Tuple[str, ...], Tensor]]:
     """``(path, leaf)`` pairs in ``jax.tree.leaves``' order: dict keys
-    sorted, lists in order."""
+    sorted, lists in order, None an empty subtree (a MobileBERT
+    checkpoint's absent pooler)."""
+    if tree is None:
+        return []
     if isinstance(tree, dict):
         return [((str(k),) + p, v) for k in sorted(tree)
                 for p, v in tree_leaves(tree[k])]
@@ -204,6 +207,8 @@ def tree_unflatten(template, leaves: List[Tensor]):
     it = iter(leaves)
 
     def build(t):
+        if t is None:
+            return None
         if isinstance(t, dict):
             built = {k: build(t[k]) for k in sorted(t)}
             return {k: built[k] for k in t}
