@@ -230,7 +230,14 @@ Phases (any failure exits non-zero; nothing is caught):
    launches a forward) and through its generic int path on the fused
    linear, each against the same path on the plain versions; the engine,
    the generic int path and the fake-quant forward by the route-ratio
-   rule; engine seq/s (five windows); the phase's seconds.
+   rule; engine seq/s (five windows); the phase's seconds. Then the
+   registry's two large presets at their published widths and depth
+   (``LARGE_MODELS``: BERT-large-uncased and ALBERT-large-v2, H = 1024,
+   16 heads of 64, I = 4096, 24 layers; ALBERT's one shared layer applied
+   24 times): the same init, calibration and plan, K1 / K2 / K3 on layer
+   0 bit-identical with K1's device ms, three request batches through the
+   engine (96 / 24 / 48 launches a forward, logits against the plain
+   engine) and engine seq/s; no generic path.
 
 16. leave-one-out: the engine's float edges at BERT-base width and depth
    (``FLOAT_EDGE_CONFIGS``: quant_dict ``{'s': 'fp32'}``, ``{'p':
@@ -318,9 +325,33 @@ Phases (any failure exits non-zero; nothing is caught):
    fake-quant forward by the route-ratio rule (``route_gaps``); forward ms
    and seq/s on both routes and at S = 64 and 32.
 
-``python3 chip_smoke.py --only 13,14,15,16,17,18,19`` runs phases 1 and 2
-and the named ones of 13-19 alone (the kernels JSON only comes with every
-phase; ``--only 16``: the float edges alone).
+20. the families train: RoBERTa-base, DistilBERT-base-uncased,
+   ALBERT-base-v2 and SqueezeBERT-uncased (``FAMILY_MODELS``) at their
+   published widths and depth, both dropouts 0, from ``--seed`` through
+   the registry, each through the JAX CLI's ``qat-w4a8`` recipe on
+   synthetic RTE examples (RoBERTa's token types 0): its calibration (MSE
+   golden-section 4-bit weights, one padded batch of 16); the int8 QAT
+   forward's products a forward (``FAM_QAT_CALLS``: SqueezeBERT's grouped
+   layers stay on fake-quant, as in JAX), some held against the exact
+   plain product bit for bit; ``FAM_QAT_STEPS`` optimizer steps at B = 8,
+   S = 128 on the int8 QAT forward and ``FAM_QAT_FLOAT_STEPS`` on the
+   float fake-quant forward (ms a step from step ``FAM_QAT_TIMED_FROM``,
+   peak MiB); then the learned ranges packed split-half int4 and planned
+   (every matmul's ``w4`` flag; ALBERT's layers on one packed storage,
+   SqueezeBERT's block-diagonal weights densified and packed): K1 w4 on
+   layer 0's four matmuls, K2 and K3 against their plain versions bit for
+   bit (K1 w4's device ms), three request batches through the family's
+   ``engine_apply`` (4L / L / 2L launches a forward, logits against the
+   plain engine), the engine, the int8 QAT forward and the fake-quant
+   forward by the route-ratio rule (the logits site off), engine seq/s.
+   Then ``cli.main train-quantized --recipe qat-w4a8 --max-steps 2`` on
+   ``CLI_FAMILY`` (ALBERT-base-v2; 64 training and 128 validation
+   examples) on the card, its evaluation's launches read just after (K1
+   w4 / K2 / K3 an engine forward).
+
+``python3 chip_smoke.py --only 13,14,15,16,17,18,19,20`` runs phases 1 and
+2 and the named ones of 13-20 alone (the kernels JSON only comes with
+every phase; ``--only 16``: the float edges alone).
 
 The last lines are the kernels JSON (times per encoder layer: the sum
 over that layer's launches of each kernel; the flex kernels' top-level
@@ -343,7 +374,10 @@ ms on the unpacked weights (``int8_ms``) and the M = 256 sum under
 three runs of every path, ``launches_by_path`` splits them (``qat-w4a8``:
 phase 13's trained model on the W4A8 engine; ``adaround-w4a8``: phase
 14's AdaRound model on the all-int8 engine; ``<family>`` and
-``<family>-generic``: phase 15's engines and generic int paths; phase
+``<family>-generic``: phase 15's engines and generic int paths, and
+``bert_large_uncased`` / ``albert_large_v2`` its large presets' engines;
+``<family>-w4a8``: phase 20's trained W4A8 engines and
+``cmdline-albert-qat-w4a8`` its command line's evaluation; phase
 16's configurations by name, whose new kernels close the list:
 ``int8_attention_flex``, ``float_edge_matmul (fold / float)`` and
 ``float_int8_matmul``, each with one form's numbers on top and every
@@ -2720,10 +2754,12 @@ def check_w4_shapes(dev) -> None:
 
 
 def encoder_weight_bytes(plan) -> int:
-    """Bytes of an engine plan's encoder weights as stored on the card."""
-    return sum(lp[k]["w"].numel() * lp[k]["w"].element_size()
-               for lp in plan["layers"]
-               for k in ("qkv", "attn_out", "inter", "dense"))
+    """Bytes of an engine plan's encoder weights as stored on the card,
+    a tensor that several layers share (ALBERT's) counted once."""
+    return sum({lp[k]["w"].data_ptr(): lp[k]["w"].numel()
+                * lp[k]["w"].element_size()
+                for lp in plan["layers"]
+                for k in ("qkv", "attn_out", "inter", "dense")}.values())
 
 
 def w4a8_phase(params, cfg, plan8, batches, by_path, seed, dev, kind,
@@ -2846,14 +2882,24 @@ def site_gaps(tag, engine, mid, flt, mid_name, spec, qp) -> dict:
                       grid_end_frac(flt, spec, qp))
 
 
-def rte_batch(cfg, seed: int, n: int = BATCH) -> dict:
-    """``n`` synthetic RTE validation examples through the hash tokenizer
-    (``SEQ`` tokens), drawn as the QAT and AdaRound recipes' calibration
-    examples are: the model inputs only."""
+def rte_arrays(cfg, split: str, n: int, seed: int) -> dict:
+    """``n`` synthetic RTE examples of ``split`` through the hash tokenizer
+    (``SEQ`` tokens), the token types 0 where the model has one type (a
+    RoBERTa tokenizer gives no other)."""
     task = GL.TASKS["rte"]
     arrays = DATA.encode_examples(
         DATA.SyntheticTokenizer(cfg.vocab_size), task,
-        GL.synthetic_examples(task, "validation", n, seed=seed), SEQ)
+        GL.synthetic_examples(task, split, n, seed=seed), SEQ)
+    if cfg.type_vocab_size == 1:
+        arrays["token_type_ids"] = np.zeros_like(arrays["token_type_ids"])
+    return arrays
+
+
+def rte_batch(cfg, seed: int, n: int = BATCH) -> dict:
+    """``n`` synthetic RTE validation examples (:func:`rte_arrays`), drawn
+    as the QAT and AdaRound recipes' calibration examples are: the model
+    inputs only."""
+    arrays = rte_arrays(cfg, "validation", n, seed)
     return {k: arrays[k] for k in ("input_ids", "attention_mask",
                                    "token_type_ids")}
 
@@ -2861,26 +2907,27 @@ def rte_batch(cfg, seed: int, n: int = BATCH) -> dict:
 def check_qat_products(apply_fn, params, qcfg, qstate, qat, batch, *,
                        per_layer=6, extra=2,
                        picks=(("L0.attn.q", 0), ("L0.attn_out", 3),
-                              ("L0.ffn.inter", 4), ("L0.ffn.dense", 5))
-                       ) -> None:
+                              ("L0.ffn.inter", 4), ("L0.ffn.dense", 5)),
+                       n_layers=None, last="classifier") -> None:
     """The int8 QAT forward's products on one training batch's calls
-    (``per_layer`` a layer and ``extra`` more): the ``picks`` (name, call
-    index; BERT's: layer 0's four matmuls q, attn_out, inter, dense) and
-    the classifier (M = 8, N = 2: ``torch._int_mm`` on zero-padded
-    operands), each ``int8_product`` (``torch._int_mm``) against the exact
-    plain product, bit for bit."""
+    (``per_layer`` a layer of ``n_layers``, default the params' layers,
+    and ``extra`` more): the ``picks`` (name, call index; BERT's: layer
+    0's four matmuls q, attn_out, inter, dense) and the last call, named
+    ``last`` (BERT's classifier, M = 8, N = 2: ``torch._int_mm`` on
+    zero-padded operands), each ``int8_product`` (``torch._int_mm``)
+    against the exact plain product, bit for bit."""
     calls, = record_calls(
         lambda: apply_fn(params, batch, qcfg=qcfg, qstate=qstate,
                          mode=QuantMode(),
                          int8_qat_sites=qat.int8_sites),
         (TI, "int8_qat_linear"))
-    n_layers = (len(calls) - extra) // per_layer
+    if n_layers is None:
+        n_layers = len(params["layers"])
     print(f"  int8 QAT forward: {len(calls)} int8 matmuls a forward")
-    if (len(calls) != per_layer * n_layers + extra
-            or n_layers != len(params["layers"])):
+    if len(calls) != per_layer * n_layers + extra:
         fail(f"int8 QAT forward: {len(calls)} int8 matmuls, expected "
-             f"{per_layer * len(params['layers']) + extra}")
-    for tag, i in picks + (("classifier", len(calls) - 1),):
+             f"{per_layer * n_layers + extra}")
+    for tag, i in picks + ((last, len(calls) - 1),):
         a = calls[i][0]
         p_x, p_w, _, _ = TI.int8_payloads(a[0], a[1], a[3], a[4], a[5],
                                           a[6], a[7])
@@ -3357,6 +3404,9 @@ def adaround_phase(params, batches, by_path, seed, dev, kind, smi) -> None:
 # float32 x: none emits a payload for the next)
 FAMILY_MODELS = ("roberta_base", "distilbert_base_uncased", "albert_base_v2",
                  "squeezebert_uncased")
+# the registry's two large presets (H = 1024, 16 heads, I = 4096, 24
+# layers): their W8A8 engines alone, each path named by its model
+LARGE_MODELS = ("bert_large_uncased", "albert_large_v2")
 # float32 x: none emits a payload for the next), and its logits site
 FAMILY_GENERIC = {
     "roberta": (lambda L: 6 * L + 1, "clf.out_proj.out"),  # + clf.dense
@@ -3378,9 +3428,24 @@ def family_batches(cfg, seed: int) -> list:
     return out
 
 
-def family_phase(model: str, seed: int, by_path, dev, kind, smi) -> dict:
-    """One family of phase 15 (see the module docstring); returns K1's
-    device ms on layer 0's four matmuls."""
+def check_shared_storage(tag, plan) -> None:
+    """ALBERT's plan: every layer's matmul weights one storage a matmul
+    (the shared layer's, int8 or packed int4)."""
+    ptrs = {mm: {lp[mm]["w"].untyped_storage().data_ptr()
+                 for lp in plan["layers"]}
+            for mm in ("qkv", "attn_out", "inter", "dense")}
+    if any(len(v) != 1 for v in ptrs.values()):
+        fail(f"{tag}: the plan's layers hold {ptrs} weight storages")
+    print(f"  [{tag}] the {len(plan['layers'])} plan layers share one weight "
+          "storage a matmul (q|k|v, attn_out, inter, dense)")
+
+
+def family_phase(model: str, seed: int, by_path, dev, kind, smi,
+                 generic: bool = True) -> dict:
+    """One model of phase 15 (see the module docstring); without
+    ``generic``, the engine alone (no generic int path and no route
+    gaps), its path named by the model. Returns K1's device ms on layer
+    0's four matmuls."""
     t0 = time.perf_counter()
     fam, cfg, params = REG.build_model(model, seed=seed, device=dev)
     qcfg = fam.declare_sites(CAL.w8a8_defaults(), cfg)
@@ -3404,13 +3469,7 @@ def family_phase(model: str, seed: int, by_path, dev, kind, smi) -> dict:
     if not all(static.int8_layer):
         fail(f"{model}: not every layer on the all-int8 route")
     if fam.name == "albert":
-        ptrs = {mm: {lp[mm]["w"].untyped_storage().data_ptr()
-                     for lp in plan["layers"]}
-                for mm in ("qkv", "attn_out", "inter", "dense")}
-        if any(len(v) != 1 for v in ptrs.values()):
-            fail(f"albert: the plan's layers hold {ptrs} weight storages")
-        print(f"  [albert] the {L} plan layers share one weight storage a "
-              "matmul (q|k|v, attn_out, inter, dense)")
+        check_shared_storage(model, plan)
     batches = family_batches(cfg, seed)
     b0 = batches[0]
 
@@ -3418,49 +3477,53 @@ def family_phase(model: str, seed: int, by_path, dev, kind, smi) -> dict:
         return fam.engine_apply(params, batch, cfg, qcfg, qstate, static,
                                 plan, ip, backend=backend, device=dev)
 
-    def generic(batch, backend):
+    def generic_int(batch, backend):
         return apply_fn(params, batch, qcfg=qcfg, qstate=qstate,
                         mode=QuantMode(), int_params=ip,
                         fused_linear=(True if backend == "kernels"
                                       else "plain"), device=dev)[0]
 
-    k1 = check_layer0_kernels(fam.name, *engine_entry(engine, b0),
+    tag = fam.name if generic else model
+    k1 = check_layer0_kernels(tag, *engine_entry(engine, b0),
                               cfg.num_attention_heads, static, plan,
                               w4=False, timed=True)
-    print(f"  [{fam.name}] K1 device ms, layer 0 (B={BATCH}, S={SEQ}): "
+    print(f"  [{tag}] K1 device ms, layer 0 (B={BATCH}, S={SEQ}): "
           + ", ".join(f"{k} {v:.4f}" for k, v in k1.items())
           + f"; per layer {sum(k1.values()):.4f}")
-    by_path[fam.name] = drive_path(
-        fam.name, engine, cfg, batches,
+    by_path[tag] = drive_path(
+        tag, engine, cfg, batches,
         per_forward(int8_matmul=4 * L, int8_attention=L,
                     fused_add_ln_payload=2 * L))
-    linears, logits_site = FAMILY_GENERIC[fam.name]
-    n_lin = linears(L)
-    by_path[f"{fam.name}-generic"] = drive_path(
-        f"{fam.name}-generic", generic, cfg, batches,
-        per_forward(fused_int8_linear=n_lin, fused_linear_quantize=n_lin))
-    with torch.no_grad():
-        flt = apply_fn(params, b0, qcfg=qcfg, qstate=qstate,
-                       mode=QuantMode(), device=dev)[0]["logits"]
-    site_gaps(f"[{fam.name}] engine, generic int path, fake-quant forward",
-              engine(b0, "kernels")["logits"],
-              generic(b0, "kernels")["logits"], flt, "generic",
-              qcfg[logits_site].spec, qstate[logits_site]["qp"])
+    if generic:
+        linears, logits_site = FAMILY_GENERIC[fam.name]
+        n_lin = linears(L)
+        by_path[f"{fam.name}-generic"] = drive_path(
+            f"{fam.name}-generic", generic_int, cfg, batches,
+            per_forward(fused_int8_linear=n_lin, fused_linear_quantize=n_lin))
+        with torch.no_grad():
+            flt = apply_fn(params, b0, qcfg=qcfg, qstate=qstate,
+                           mode=QuantMode(), device=dev)[0]["logits"]
+        site_gaps(f"[{fam.name}] engine, generic int path, fake-quant "
+                  "forward", engine(b0, "kernels")["logits"],
+                  generic_int(b0, "kernels")["logits"], flt, "generic",
+                  qcfg[logits_site].spec, qstate[logits_site]["qp"])
     t_eng = window_ms(lambda: engine(b0, "kernels"))
-    print(f"  [{fam.name}] seq/s at B={BATCH}, S={SEQ}, median (range) of 5 "
+    print(f"  [{tag}] seq/s at B={BATCH}, S={SEQ}, median (range) of 5 "
           f"windows ({kind}, {smi}): engine {seq_per_s(t_eng)} (forward "
           f"{t_eng[0]:.3f} ms)", flush=True)
     return k1
 
 
 def families_phase(by_path, seed: int, dev, kind, smi) -> None:
-    """Phase 15: each of ``FAMILY_MODELS`` in turn (its weights freed
-    before the next); K1's ms a layer of SqueezeBERT's block-diagonal
-    weights beside RoBERTa-base's dense ones (BERT-base's shapes)."""
+    """Phase 15: each of ``FAMILY_MODELS``, then of ``LARGE_MODELS``, in
+    turn (its weights freed before the next); K1's ms a layer of
+    SqueezeBERT's block-diagonal weights beside RoBERTa-base's dense ones
+    (BERT-base's shapes), and of the large presets."""
     k1 = {}
-    for model in FAMILY_MODELS:
-        k1[model] = sum(family_phase(model, seed, by_path, dev, kind,
-                                     smi).values())
+    for model in FAMILY_MODELS + LARGE_MODELS:
+        k1[model] = sum(family_phase(
+            model, seed, by_path, dev, kind, smi,
+            generic=model not in LARGE_MODELS).values())
         gc.collect()
         torch.cuda.empty_cache()
     print(f"  K1 device ms a layer ({kind}, {smi}): "
@@ -4630,6 +4693,174 @@ def mb_w4a8_phase(params, batches, by_path, seed, dev, kind, smi) -> dict:
     return report
 
 
+# phase 20: the four families through the qat-w4a8 recipe at their
+# published widths and depth, FAM_QAT_STEPS optimizer steps on the int8
+# QAT forward and FAM_QAT_FLOAT_STEPS on the float fake-quant forward (ms a
+# step the median from step FAM_QAT_TIMED_FROM), then each trained model
+# on its W4A8 engine; then the command line on ALBERT-base-v2
+FAM_QAT_STEPS, FAM_QAT_FLOAT_STEPS, FAM_QAT_TIMED_FROM = 8, 4, 3
+# each family's int8 QAT products a forward (per layer, beyond the layers,
+# the picks held against the exact product, the last call's name): BERT's
+# encoder matmuls; SqueezeBERT's grouped ones stay on fake-quant (only the
+# attention output has one group), RoBERTa's out_proj has no input site
+# (the unquantized tanh), ALBERT's emb_proj comes first
+FAM_QAT_CALLS = {
+    "roberta": dict(per_layer=6, extra=1, last="clf.dense"),
+    "distilbert": dict(per_layer=6, extra=2, last="clf.out"),
+    "albert": dict(per_layer=6, extra=3, picks=(
+        ("emb_proj", 0), ("shared.attn.q", 1), ("shared.attn_out", 4),
+        ("shared.ffn.inter", 5), ("shared.ffn.dense", 6))),
+    "squeezebert": dict(per_layer=1, extra=2,
+                        picks=(("L0.attn_out.dense", 0),)),
+}
+# the command line's family at its published widths (the tiny presets'
+# head_dim 16 has no K2 instance) and its steps
+CLI_FAMILY, CLI_FAMILY_STEPS = "albert_base_v2", 2
+
+
+def family_train_phase(model: str, seed: int, by_path, dev, kind,
+                       smi) -> dict:
+    """One family of phase 20 (the module docstring); returns K1 w4's
+    device ms on layer 0's four matmuls."""
+    t0 = time.perf_counter()
+    tcfg, qat0 = TT.QAT_RECIPES["qat-w4a8"]
+    fam, cfg, params = REG.build_model(model, seed=seed, device=dev,
+                                       hidden_dropout_prob=0.0,
+                                       attention_probs_dropout_prob=0.0)
+    L = cfg.num_hidden_layers
+    task = GL.TASKS["rte"]
+    arrays = rte_arrays(cfg, "train", QAT_EXAMPLES, seed)
+    rec = CAL.CLI_RECIPES["qat-w4a8"]
+    qcfg = fam.declare_sites(rec.defaults, cfg, quant_setup=rec.quant_setup)
+    apply_fn = functools.partial(fam.apply, cfg=cfg, device=dev)
+    (qstate, qat), t_cal = timed_s(lambda: TT.prepare_qat(
+        apply_fn, params, qcfg, arrays, fam.weight_site_tensors(params),
+        qat0, rec, device=dev))
+    print(f"  [{fam.name}] {model}: {L} layers, H={cfg.hidden_size}, "
+          f"I={cfg.intermediate_size}, both dropouts 0; calibration (MSE "
+          f"golden-section 4-bit weights, one batch of {rec.est_batch_size} x "
+          f"{SEQ} padded) {t_cal:.3f} s", flush=True)
+    b8 = {k: v[:tcfg.batch_size] for k, v in arrays.items()}
+    check_qat_products(apply_fn, params, qcfg, qstate, qat, b8, n_layers=L,
+                       **FAM_QAT_CALLS[fam.name])
+    peaks = {}
+    torch.cuda.reset_peak_memory_stats()
+    (p2, q2), losses, ms_i8 = qat_train(apply_fn, params, task, arrays, tcfg,
+                                        qcfg, qstate, qat, FAM_QAT_STEPS,
+                                        timed_from=FAM_QAT_TIMED_FROM)
+    peaks["int8"] = torch.cuda.max_memory_allocated() / 2 ** 20
+    torch.cuda.reset_peak_memory_stats()
+    _, losses_f, ms_f = qat_train(
+        apply_fn, params, task, arrays, tcfg, qcfg, qstate,
+        dataclasses.replace(qat, int8_sites=None), FAM_QAT_FLOAT_STEPS,
+        timed_from=FAM_QAT_TIMED_FROM)
+    peaks["float"] = torch.cuda.max_memory_allocated() / 2 ** 20
+    moved, total, rel = ranges_moved(qcfg, qstate, q2)
+    if not all(np.isfinite(losses + losses_f)):
+        fail(f"{model} qat-w4a8: non-finite losses {losses} {losses_f}")
+    print(f"  [{fam.name} qat-w4a8] {FAM_QAT_STEPS} steps at "
+          f"B={tcfg.batch_size}, S={SEQ} ({kind}, {smi}): int8 forward "
+          f"{ms_i8:.2f} ms a step (median of steps {FAM_QAT_TIMED_FROM}-"
+          f"{FAM_QAT_STEPS}), peak {peaks['int8']:.1f} MiB; float fake-quant "
+          f"forward {ms_f:.2f} ms a step (steps {FAM_QAT_TIMED_FROM}-"
+          f"{FAM_QAT_FLOAT_STEPS}), peak {peaks['float']:.1f} MiB; loss "
+          f"{losses[0]:.4f} -> {losses[-1]:.4f}; range entries moved {moved} "
+          f"of {total}, largest relative change {rel:.4e}", flush=True)
+    if moved == 0:
+        fail(f"{model} qat-w4a8: no learned range moved")
+
+    static, plan, ip = fam.build_engine(p2, cfg, qcfg, q2, use_int4=True,
+                                        device=dev)
+    if not (all(static.int8_layer) and all(all(f) for f in static.w4)):
+        fail(f"{model} w4a8: the plan's matmuls are not all int4 on the "
+             f"all-int8 route: {static.w4}")
+    wbytes = encoder_weight_bytes(plan)
+    print(f"  [{fam.name} w4a8] packed int4 encoder weights {wbytes} bytes "
+          "on the card", flush=True)
+    if fam.name == "albert":
+        check_shared_storage(f"{model} w4a8", plan)
+    batches = family_batches(cfg, seed)
+    b0 = batches[0]
+
+    def engine(batch, backend, q=qcfg):
+        return fam.engine_apply(p2, batch, cfg, q, q2, static, plan, ip,
+                                backend=backend, device=dev)
+
+    tag = f"{fam.name}-w4a8"
+    k1 = check_layer0_kernels(tag, *engine_entry(engine, b0),
+                              cfg.num_attention_heads, static, plan, w4=True,
+                              timed=True)
+    print(f"  [{tag}] K1 w4 device ms, layer 0 (B={BATCH}, S={SEQ}): "
+          + ", ".join(f"{k} {v:.4f}" for k, v in k1.items())
+          + f"; per layer {sum(k1.values()):.4f}")
+    by_path[tag] = drive_path(
+        tag, engine, cfg, batches,
+        per_forward(int8_matmul_w4=4 * L, int8_attention=L,
+                    fused_add_ln_payload=2 * L))
+    # the trained model's three routes, its logits site off (phase 13's
+    # reason)
+    logits_site = FAMILY_GENERIC[fam.name][1]
+    rb = rte_batch(cfg, seed)
+    spec, qp = qcfg[logits_site].spec, q2[logits_site]["qp"]
+    open_q = qcfg.replace_site(logits_site, enabled=False)
+    with torch.no_grad():
+        clipped = grid_end_frac(
+            apply_fn(p2, rb, qcfg=qcfg, qstate=q2)[0]["logits"], spec, qp)
+        flt = apply_fn(p2, rb, qcfg=open_q, qstate=q2)[0]["logits"]
+        i8 = apply_fn(p2, rb, qcfg=open_q, qstate=q2,
+                      int8_qat_sites=qat.int8_sites)[0]["logits"]
+    print(f"  [{tag}] on {BATCH} synthetic RTE examples {clipped:.4f} of the "
+          f"fake-quant logits sit at an end of the learned {logits_site} "
+          "grid; compared below with that site off")
+    route_gaps(f"[{tag}] W4A8 engine, int8 QAT forward, fake-quant forward "
+               f"on {BATCH} synthetic RTE examples, {logits_site} off",
+               engine(rb, "kernels", open_q)["logits"], i8, flt, "int8",
+               float(Q.scale_of(spec, qp)), 0.0)
+    t_eng = window_ms(lambda: engine(b0, "kernels"))
+    print(f"  [{tag}] seq/s at B={BATCH}, S={SEQ}, median (range) of 5 "
+          f"windows ({kind}, {smi}): trained W4A8 engine {seq_per_s(t_eng)} "
+          f"(forward {t_eng[0]:.3f} ms); {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    return k1
+
+
+def families_train_phase(params, batches, by_path, seed, dev, kind,
+                         smi) -> None:
+    """Phase 20 (the module docstring): each of ``FAMILY_MODELS`` through
+    ``qat-w4a8`` to its W4A8 engine (its weights freed before the next),
+    then ``cli.main train-quantized --recipe qat-w4a8`` on ``CLI_FAMILY``
+    on the card."""
+    del params, batches   # each family's own, from ``seed``
+    k1 = {}
+    for model in FAMILY_MODELS:
+        k1[model] = sum(family_train_phase(model, seed, by_path, dev, kind,
+                                           smi).values())
+        gc.collect()
+        torch.cuda.empty_cache()
+    print(f"  K1 w4 device ms a layer ({kind}, {smi}): "
+          + ", ".join(f"{m} {t:.4f}" for m, t in k1.items()))
+    fam = REG.get_family(CLI_FAMILY)
+    L = fam.config_cls(**fam.config_presets[CLI_FAMILY]).num_hidden_layers
+    with tempfile.TemporaryDirectory() as tmp:
+        r = cli_call(["train-quantized", "--recipe", "qat-w4a8",
+                      "--max-steps", str(CLI_FAMILY_STEPS), "--engine",
+                      "auto", "--log-every", "1", "--synthetic-data",
+                      "--task", "rte", "--max-seq-length", str(SEQ),
+                      "--num-train-samples", "64", "--num-val-samples",
+                      str(BATCH), "--seed", str(seed), "--model-name",
+                      CLI_FAMILY, "--output-dir", tmp])
+    if (len(r["losses"]) != CLI_FAMILY_STEPS
+            or not np.all(np.isfinite(r["losses"]))):
+        fail(f"cli {CLI_FAMILY}: losses {r['losses']}")
+    by_path[f"cmdline-{fam.name}-qat-w4a8"] = cli_eval_launches(
+        f"cli {CLI_FAMILY} qat-w4a8 eval", r,
+        per_forward(int8_matmul_w4=4 * L, int8_attention=L,
+                    fused_add_ln_payload=2 * L))
+    print(f"  [cli {CLI_FAMILY} qat-w4a8] {CLI_FAMILY_STEPS} steps at B=8, "
+          f"S={SEQ}: losses " + ", ".join(f"{x:.6f}" for x in r["losses"])
+          + f"; final score {r['final']:.4f}", flush=True)
+
+
 # the phases after serving: (title, runner(params, batches, by_path,
 # seed, dev, kind, smi))
 LATE_PHASES = {
@@ -4652,6 +4883,10 @@ LATE_PHASES = {
     19: ("MobileBERT at W4A8: the JAX CLI's qat-w4a8 recipe at "
          "MobileBERT-uncased's widths, then its W4A8 engine on K6's and K8's "
          "packed int4 forms", mb_w4a8_phase),
+    20: ("the families train: RoBERTa-base, DistilBERT-base, ALBERT-base-v2 "
+         "and SqueezeBERT through the qat-w4a8 recipe at their published "
+         "widths, then their W4A8 engines (K1 w4, K2, K3)",
+         families_train_phase),
 }
 
 

@@ -267,8 +267,8 @@ def test_engine_auto_runs_the_engine(runs):
 
 
 def test_cli_refuses_what_is_not_ported(tmp_path):
-    """A card that is absent, the pipeline (item 9), the export (item 6)
-    and a family's training forward (item 5) raise before any work."""
+    """A card that is absent, the pipeline (item 9) and the export (item
+    6) raise before any work."""
     import torch
 
     base = ["validate-quantized", "--tiny-model"] + COMMON
@@ -280,6 +280,3 @@ def test_cli_refuses_what_is_not_ported(tmp_path):
     with pytest.raises(NotImplementedError, match="item 6"):
         TCLI.main(base + ["--device", "cpu", "--export-dir",
                           str(tmp_path)])
-    with pytest.raises(NotImplementedError, match="item 5"):
-        TCLI.main(["train-baseline", "--tiny-model", "--device", "cpu",
-                   "--model-name", "albert_base_v2"] + COMMON)

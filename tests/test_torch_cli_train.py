@@ -11,7 +11,10 @@ local Hugging Face checkpoint of ``tests/test_torch_cli.py``
   other): JAX for three steps; the port for two with ``--save-every 1
   --save-total-limit 1``, then ``--resume --max-steps 3`` from its train
   state, which takes the third step alone;
-- ``train-baseline --max-steps 2`` at dropout 0.
+- ``train-baseline --max-steps 2`` at dropout 0;
+- ``train-quantized --recipe qat-w4a8 --max-steps 2`` on the tiny ALBERT
+  and RoBERTa (``--tiny-model``, the port alone): the int8 QAT forward on
+  the family's sites and the evaluation on the W4A8 engine.
 
 Each CLI runs each configuration once, in a module fixture; JAX's train
 step is jitted without XLA's backend optimizations, as
@@ -138,3 +141,59 @@ def test_baseline_steps_match_jax(runs):
     assert len(jl) == len(tl) == 2
     np.testing.assert_allclose(tl, jl, rtol=LOSS_RTOL)
     assert tf == jf
+
+
+@pytest.mark.parametrize("model,module,sites", [
+    ("albert_base_v2", "albert", {"emb_proj", "shared.attn.q",
+                                  "shared.ffn.dense", "classifier"}),
+    ("roberta_base", "roberta", {"L0.attn.q", "L1.ffn.dense",
+                                 "clf.dense"})])
+def test_cli_trains_family_qat_w4a8(tmp_path, model, module, sites):
+    """``train-quantized --recipe qat-w4a8 --max-steps 2`` on a tiny
+    family beyond BERT (the port alone; ``tests/test_torch_family_train.py``
+    holds the families' QAT step against JAX's): two finite losses on the
+    int8 QAT forward, whose sites are the family's (ALBERT's shared
+    layer's), and the evaluation on the W4A8 engine, every matmul of its
+    plan packed int4. RoBERTa's one-row token-type table takes the
+    synthetic pair encoder's examples (their types set to 0)."""
+    import importlib
+
+    fam_mod = importlib.import_module(
+        f"transformer_quantization_tpu_torch.models.{module}")
+    build_name = f"build_{module}_engine"
+    losses, seen, plans = [], [], []
+    real_step, real_build = (TQAT.make_qat_train_step,
+                             getattr(fam_mod, build_name))
+
+    def make(apply_fn, qcfg, qat, tx):
+        seen.append(qat.int8_sites)
+        step = real_step(apply_fn, qcfg, qat, tx)
+
+        def run(*a):
+            out = step(*a)
+            losses.append(float(out[-1]))
+            return out
+        return run
+
+    def build(*a, **k):
+        out = real_build(*a, **k)
+        plans.append(out[0])
+        return out
+
+    TQAT.make_qat_train_step = make
+    setattr(fam_mod, build_name, build)
+    try:
+        final = TCLI.main(["train-quantized", "--recipe", "qat-w4a8",
+                           "--max-steps", "2", "--hidden-dropout", "0",
+                           "--attn-dropout", "0", "--model-name", model,
+                           "--tiny-model", "--engine", "auto", "--device",
+                           "cpu", "--output-dir", str(tmp_path)]
+                          + COMMON + QUANT)
+    finally:
+        TQAT.make_qat_train_step = real_step
+        setattr(fam_mod, build_name, real_build)
+    assert len(losses) == 2 and np.all(np.isfinite(losses)), losses
+    assert len(seen) == 1 and sites <= seen[0]
+    assert plans and all(all(f) for p in plans for f in p.w4)
+    assert os.path.exists(tmp_path / "final_score.txt")
+    assert np.isfinite(float(final))

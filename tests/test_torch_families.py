@@ -64,6 +64,7 @@ from transformer_quantization_tpu_torch.quant.qconfig import (
     QuantModelConfig as TQMC,
 )
 from transformer_quantization_tpu_torch.training import calibration as TC
+from transformer_quantization_tpu_torch.training import qat as TQAT
 
 torch.set_num_threads(2)
 
@@ -305,10 +306,35 @@ def test_engine_plan_matches_jax(setup):
 
 
 def test_training_forward_and_card_refusals(setup):
+    """The training forward (the preset's dropouts from a generator, the
+    fake-quant sites' STE) returns a loss whose gradient reaches every
+    layer; it refuses the engine-only ``int_params`` as BERT's does; the
+    entry points without ``device`` refuse the CPU."""
     s = setup
-    with pytest.raises(NotImplementedError, match="item 5"):
-        s["tfam"].apply(s["tp"], s["batch"], s["tcfg"], train=True,
-                        device="cpu")
+    leaves = [t.detach().clone().requires_grad_(True)
+              for _, t in TQAT.tree_leaves(s["tp"])]
+    live = TQAT.tree_unflatten(s["tp"], leaves)
+    batch = dict(s["batch"], labels=np.arange(N) % 2)
+    out, _ = s["tfam"].apply(live, batch, s["tcfg"], s["tq"], s["ts"],
+                             QuantMode(), train=True,
+                             dropout_generator=torch.Generator().manual_seed(
+                                 0), device="cpu")
+    assert out["loss"].requires_grad and torch.isfinite(out["loss"])
+    grads = torch.autograd.grad(out["loss"], leaves, allow_unused=True)
+    grads = {path: g for (path, _), g in zip(TQAT.tree_leaves(s["tp"]),
+                                               grads)}
+    assert all(g is not None and torch.isfinite(g).all()
+               for g in grads.values())
+    first = ("shared",) if "shared" in s["tp"] else ("layers", "0")
+    for part in (("embeddings", "word"), first + ("ffn", "inter"),
+                 first + ("attn", "v")):
+        assert any(g.abs().max() > 0 for path, g in grads.items()
+                   if path[:len(part)] == part), part
+    with pytest.raises(ValueError, match="inference path"):
+        s["tfam"].apply(s["tp"], batch, s["tcfg"], s["tq"], s["ts"],
+                        QuantMode(), train=True,
+                        int_params=s["tfam"].build_int_params(
+                            s["tp"], s["tq"], s["ts"], False), device="cpu")
     if torch.cuda.is_available():
         return
     with pytest.raises(RuntimeError, match="cuda"):

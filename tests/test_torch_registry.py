@@ -109,6 +109,44 @@ def test_ported_family_matches_jax(name):
             assert TR.get_family(model_name).name == name
 
 
+@pytest.mark.parametrize("model", ["bert_large_uncased", "albert_large_v2"])
+def test_large_preset_matches_jax_and_fits_the_kernels(model, monkeypatch):
+    """The two large presets that ``chip_smoke.py`` phase 15 drives at
+    their published widths and depth: the model name's family and the
+    preset's config equal to the JAX registry's (H = 1024, 16 heads of
+    64, I = 4096, 24 layers), and the shapes their engines give the
+    kernels inside the wrappers' limits: K1 at K = 1024 and 4096 (the
+    int8 and the packed int4 weight), K2 at (seq 128, head_dim 64), K3 at
+    H = 1024 (the shape rules; the dtype and device checks need the
+    card)."""
+    from transformer_quantization_tpu_torch.ops.kernels import (
+        engine_kernels as EK,
+    )
+
+    monkeypatch.setattr(EK, "_check", lambda *a, **k: None)
+    monkeypatch.setattr(EK, "_same_device", lambda *a: None)
+
+    assert TR.MODEL_NAME_TO_FAMILY[model] == JR.MODEL_NAME_TO_FAMILY[model]
+    tfam, jfam = TR.get_family(model), JR.get_family(model)
+    tcfg = tfam.config_cls(**tfam.config_presets[model])
+    jcfg = jfam.config_cls(**jfam.config_presets[model])
+    assert dataclasses.asdict(tcfg) == dataclasses.asdict(jcfg)
+    h, i = tcfg.hidden_size, tcfg.intermediate_size
+    assert (h, tcfg.num_attention_heads, i, tcfg.num_hidden_layers) == (
+        1024, 16, 4096, 24)
+    scal = torch.zeros((1, 2))
+    for n, k in ((3 * h, h), (h, h), (i, h), (h, i)):
+        x8 = torch.zeros((8, k), dtype=torch.int8)
+        vecs = torch.zeros((5, n))
+        assert EK._check_matmul(x8, torch.zeros((n, k), dtype=torch.int8),
+                                vecs, scal, "K1") == (8, n, k)
+        assert EK._check_matmul(x8, torch.zeros((n, k // 2),
+                                                dtype=torch.uint8),
+                                vecs, scal, "K1 w4", w4=True) == (8, n, k)
+    assert (128, h // tcfg.num_attention_heads) in EK.ATTN_SHAPES
+    EK._h_fits(h, "K3")
+
+
 @pytest.mark.parametrize("name", ["roberta", "distilbert", "albert",
                                   "squeezebert", "distilroberta_base",
                                   "albert_base_v2"])

@@ -27,9 +27,8 @@ Where the port differs from the JAX CLI:
   JAX's picks Pallas on a TPU and XLA elsewhere. When the engine plan
   raises ``EngineIncompatible``, or the mode is dynamic or not full-quant,
   evaluation takes the generic int path and logs why: JAX's own rule.
-- ``--pp-stages`` above 1 raises (the pipeline, ROADMAP §1 item 9),
-  ``--export-dir`` raises (serving export, item 6), and training a family
-  whose training forward is not ported raises (item 5), each before any
+- ``--pp-stages`` above 1 raises (the pipeline, ROADMAP §1 item 9) and
+  ``--export-dir`` raises (serving export, item 6), each before any
   work.
 - ``--from-hub`` raises: the port fetches nothing
   (``models/hf_loader.py`` ``resolve_model_dir``).
@@ -61,10 +60,6 @@ import numpy as np
 import torch
 
 logger = logging.getLogger("tq_torch")
-
-# families whose training forward is ported (``apply(train=True)``); the
-# others raise there (ROADMAP §1 item 5)
-TRAINING_FAMILIES = frozenset({"bert", "mobilebert"})
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -440,10 +435,6 @@ def run_task(args, task, do_train: bool, quantized: bool) -> float:
     timer = PhaseTimer()
     fam, cfg, params = _load_model(args, num_labels=task.num_labels)
     cfg = dataclasses.replace(cfg, num_labels=task.num_labels)
-    if do_train and fam.name not in TRAINING_FAMILIES:
-        raise NotImplementedError(
-            f"the {fam.name} training forward is not yet ported (ROADMAP §1 "
-            "item 5)")
     if not args.model_path:
         params[fam.head_key] = fam.init_head(cfg, args.seed + 1, dev)
     if getattr(args, "double", False):
@@ -460,6 +451,11 @@ def run_task(args, task, do_train: bool, quantized: bool) -> float:
     if args.num_train_samples:
         train_arr = {k: v[:args.num_train_samples]
                      for k, v in train_arr.items()}
+    if cfg.type_vocab_size == 1:
+        # a one-row token-type table (RoBERTa): its tokenizer gives type 0
+        # only, where a pair encoder's type 1 would index past the table
+        for arr in (train_arr, val_arr):
+            arr["token_type_ids"] = np.zeros_like(arr["token_type_ids"])
 
     apply_fn = functools.partial(fam.apply, cfg=cfg, device=dev)
     if getattr(args, "scan_layers", False):
@@ -612,11 +608,6 @@ def run_task(args, task, do_train: bool, quantized: bool) -> float:
                         "--int8-qat-forward needs full-precision "
                         "activations (bf16 rounds them off-grid); "
                         "IGNORED with --amp")
-                elif "int8_qat_sites" not in inspect.signature(
-                        fam.apply).parameters:
-                    logger.info("--int8-qat-forward: family %s does not "
-                                "take int8_qat_sites; using the float "
-                                "fake-quant forward", fam.name)
                 else:
                     sites = QAT.int8_forward_sites(qcfg, qstate)
                     n_real = sum(1 for s in sites if not s.startswith("L."))

@@ -14,24 +14,25 @@ layer, the released v2 configs):
   reading of sharing);
 - ``gelu_new``; pooler dense + tanh; BERT's classifier.
 
-Ported: the inference / calibration forward :func:`albert_apply` (FP32
-baseline, estimate / fix phases, the generic int8 path with
-``fused_linear``, capture), packing, the ``quant_dict`` language with its
-per-layer keys collapsed onto the shared sites
+Ported: the forward :func:`albert_apply` (FP32 baseline, estimate / fix
+phases, the generic int8 path with ``fused_linear``, capture, and the
+training forward with BERT's options), packing, the ``quant_dict``
+language with its per-layer keys collapsed onto the shared sites
 (:func:`apply_albert_quant_dict`), the shared PEG wiring, AdaRound specs,
 and the full-handoff engine (:func:`build_albert_engine`: one plan layer
 an application, every one on the shared layer's one set of int8 weights).
-The training forward is not ported (ROADMAP §1 item 5). ``scan_layers``
-runs the loop: the JAX package's scan over the shared layer
-(``_scan_shared_encoder``) carries the hidden state and the ``shared.``
-sites' quant state from each application to the next, as the loop does,
-and its gate (``_can_scan_shared``) falls back to the loop wherever the
-two could differ (a shared site not yet initialized, or the generic
-gates of ``bert.generic_scan_gates``).
+``scan_layers`` runs the loop: the JAX package's scan over the shared
+layer (``_scan_shared_encoder``, under ``remat`` one checkpoint over its
+body) carries the hidden state and the ``shared.`` sites' quant state
+from each application to the next, as the loop does, and its gate
+(``_can_scan_shared``) falls back to the loop wherever the two could
+differ (a shared site not yet initialized, or the generic gates of
+``bert.generic_scan_gates``).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Dict, List, Mapping, Optional, Tuple
 
@@ -221,13 +222,14 @@ def build_albert_int_params(params: Dict, qcfg: QuantModelConfig,
                                  qstate, use_int4=use_int4)
 
 
-def _embedded(ctx, params, cfg: AlbertConfig, batch: Mapping, dev):
+def _embedded(ctx, params, cfg: AlbertConfig, batch: Mapping, dev,
+              train=False, gen=None):
     """The factorized embeddings and ``emb_proj``: ``(h, mask_bias,
     input_ids)``, ``h`` the ``emb_proj.out`` value."""
     input_ids, token_type_ids, position_ids, mask_bias = B.prepare_inputs(
         batch, dev)
     h = B._embeddings(ctx, params, cfg, input_ids, token_type_ids,
-                      position_ids, False, None)
+                      position_ids, train, gen)
     h = quant_linear(ctx, "emb_proj", h, params["emb_proj"]["kernel"],
                      params["emb_proj"]["bias"], input_site="emb.ln.out")
     return h, mask_bias, input_ids
@@ -237,44 +239,56 @@ def albert_apply(params: Dict, batch: Mapping, cfg: AlbertConfig,
                  qcfg: Optional[QuantModelConfig] = None,
                  qstate: Optional[Dict] = None,
                  mode: Optional[QuantMode] = None, *, train: bool = False,
+                 dropout_generator: Optional[torch.Generator] = None,
                  mse_session: Optional[Dict] = None,
                  int_params: Optional[Dict] = None, fused_linear=False,
+                 int8_qat_sites=None,
                  capture_sites=None, capture_pre_act: bool = False,
                  compute_dtype=None, attention_dtype=None,
                  int8_attention: bool = False,
                  remat: bool = False, scan_layers: bool = False,
                  device="cuda") -> Tuple[Dict, Dict]:
-    """Inference / calibration forward; returns ``(outputs, new_qstate)``,
-    as :func:`~.bert.bert_apply`: the shared layer runs
+    """Forward pass; returns ``(outputs, new_qstate)``, as
+    :func:`~.bert.bert_apply`: the shared layer runs
     ``num_hidden_layers`` times in a plain loop, each application reading
     (and in the estimate phase updating) the ``shared.`` sites. ``params``
-    must live on ``device``. The
-    inference options ``compute_dtype`` / ``attention_dtype`` /
-    ``int8_attention`` as :func:`~.bert.bert_apply`'s.
-    ``remat`` / ``scan_layers`` are taken with the JAX signature; this
-    forward runs without gradients (its training forward is not yet
-    ported, ROADMAP §1 item 5), where both leave the values as they
-    are.
+    must live on ``device``. The inference options ``compute_dtype`` /
+    ``attention_dtype`` / ``int8_attention`` as :func:`~.bert.bert_apply`'s.
+
+    ``train=True`` is the training forward, as :func:`~.bert.bert_apply`'s
+    (dropout from ``dropout_generator``, ``int8_qat_sites``,
+    ``compute_dtype``): every application's gradient falls on the one
+    shared weight set and, under learned ranges, on the one set of
+    ``shared.`` ranges. ``remat`` recomputes each application in the
+    backward (:func:`~.bert.maybe_remat_layer`); ``scan_layers`` runs the
+    loop (the module docstring).
     """
+    del scan_layers  # the loop computes JAX's scan (the module docstring)
     dev = B._check_device(params, device)
-    with torch.no_grad():
-        ctx = B.family_ctx(qcfg, qstate, mode, train=train,
+    with contextlib.nullcontext() if train else torch.no_grad():
+        ctx = B.family_ctx(qcfg, qstate, mode, cfg, train=train,
                            int_params=int_params, fused_linear=fused_linear,
+                           int8_qat_sites=int8_qat_sites,
                            mse_session=mse_session,
                            capture_sites=capture_sites,
                            capture_pre_act=capture_pre_act,
                            compute_dtype=compute_dtype,
                            attention_dtype=attention_dtype,
-                           int8_attention=int8_attention, family="ALBERT")
-        h, mask_bias, _ = _embedded(ctx, params, cfg, batch, dev)
+                           int8_attention=int8_attention)
+        gen = dropout_generator if train else None
+        h, mask_bias, _ = _embedded(ctx, params, cfg, batch, dev, train, gen)
         mask_bias = B.compute_mask(mask_bias, compute_dtype)
         h_site = "emb_proj.out"
         for _ in range(cfg.num_hidden_layers):
-            h = B._layer(ctx, params["shared"], cfg, h, mask_bias, "shared.",
-                         False, None, h_site=h_site)
+            h = B.maybe_remat_layer(
+                ctx, remat,
+                lambda sub, p_sh, hc, g, hs=h_site: B._layer(
+                    sub, p_sh, cfg, hc, mask_bias, "shared.", train, g,
+                    h_site=hs),
+                params["shared"], h, gen)
             h_site = "shared.ffn.ln.out"
         outputs = B._classification_head(ctx, params, cfg, h, h_site, batch,
-                                         False, None, clamp=False)
+                                         train, gen, clamp=False)
         if capture_sites:
             outputs["captures"] = ctx.captures
     return outputs, ctx.export()

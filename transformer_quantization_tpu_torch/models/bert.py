@@ -23,7 +23,8 @@ capture (``bert_apply(capture_sites=...)``) and the packing of alphas.
 The training options ``compute_dtype`` (``--amp``), ``remat`` and
 ``scan_layers`` (:func:`bert_apply`); the pipeline waits. The
 BERT-shaped families (RoBERTa, DistilBERT, ALBERT, SqueezeBERT) build on
-its embeddings, encoder, packing and engine entry (:func:`family_ctx`,
+its embeddings, encoder, training forward, packing and engine entry
+(:func:`family_ctx`,
 :func:`engine_bias`, :func:`encoder_weight_site_tensors`).
 """
 
@@ -542,26 +543,29 @@ def make_ctx(qcfg, qstate, mode, *, mse_session=None,
     return ctx
 
 
-def family_ctx(qcfg, qstate, mode, *, train: bool, int_params=None,
-               fused_linear=False, mse_session=None, capture_sites=None,
-               capture_pre_act: bool = False, compute_dtype=None,
-               attention_dtype=None, int8_attention: bool = False,
-               family: str) -> QuantCtx:
-    """The forward's context for a family beyond BERT: the training
-    forward raises, and ``fused_linear`` (the JAX ``use_pallas``) runs the
-    int8 matmuls through the fused linear, without BERT's int8 hand-off
-    and requant-only sites (the JAX families set neither); the inference
+def family_ctx(qcfg, qstate, mode, cfg, *, train: bool, int_params=None,
+               fused_linear=False, int8_qat_sites=None, mse_session=None,
+               capture_sites=None, capture_pre_act: bool = False,
+               compute_dtype=None, attention_dtype=None,
+               int8_attention: bool = False) -> QuantCtx:
+    """The forward's context for a family beyond BERT: ``int8_qat_sites``
+    as :func:`bert_apply` takes them (:func:`int8_sites_for_mode`), the
+    training forward refusing ``int_params`` as it does, and
+    ``fused_linear`` (the JAX ``use_pallas``) running the int8 matmuls
+    through the fused linear, without BERT's int8 hand-off and
+    requant-only sites (the JAX families set neither); the inference
     options as :func:`make_ctx`'s."""
-    if train:
-        raise NotImplementedError(
-            f"the {family} training forward is not yet ported (ROADMAP §1 "
-            "item 5)")
+    if train and int_params:
+        raise ValueError("int_params is an inference path; train with the "
+                         "fake-quant forward")
     ctx = make_ctx(qcfg, qstate, mode, mse_session=mse_session,
                    int_params=int_params, capture_sites=capture_sites,
                    capture_pre_act=capture_pre_act,
                    compute_dtype=compute_dtype,
                    attention_dtype=attention_dtype,
                    int8_attention=int8_attention)
+    ctx.int8_qat_sites = frozenset(
+        int8_sites_for_mode(int8_qat_sites, train, cfg) or ())
     if int_params and fused_linear:
         ctx.fused_linear = fused_linear
     return ctx

@@ -6,16 +6,16 @@ token types (a zero table behind a disabled site, so BERT's embedding
 code runs as it is), 6 post-LN encoder layers of BERT's shape, no pooler,
 and the head ``pre_classifier`` (dense + relu) -> classifier.
 
-Ported: the inference / calibration forward :func:`distilbert_apply`
-(FP32 baseline, estimate / fix phases, the generic int8 path with
-``fused_linear``, capture), packing, the ``quant_dict`` language, PEG
-wiring, AdaRound specs and the full-handoff engine
-(:func:`build_distilbert_engine`, :func:`distilbert_engine_apply`). The
-training forward raises.
+Ported: the forward :func:`distilbert_apply` (FP32 baseline, estimate /
+fix phases, the generic int8 path with ``fused_linear``, capture, and
+the training forward with BERT's options), packing, the ``quant_dict``
+language, PEG wiring, AdaRound specs and the full-handoff engine
+(:func:`build_distilbert_engine`, :func:`distilbert_engine_apply`).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Dict, List, Mapping, Optional, Tuple
 
@@ -24,7 +24,7 @@ import torch
 from transformer_quantization_tpu_torch import resolve_device
 from transformer_quantization_tpu_torch.models import bert as B
 from transformer_quantization_tpu_torch.ops import engine as ENG
-from transformer_quantization_tpu_torch.ops.layers import quant_linear
+from transformer_quantization_tpu_torch.ops.layers import dropout, quant_linear
 from transformer_quantization_tpu_torch.quant.qconfig import (
     QuantConfigBuilder,
     QuantDefaults,
@@ -132,11 +132,14 @@ def _inputs(batch: Mapping, dev):
     return input_ids, torch.zeros_like(input_ids), position_ids, mask_bias
 
 
-def _head(ctx, params, cfg: DistilBertConfig, h, h_site, batch):
-    """pre_classifier (dense + relu) on the first token -> classifier."""
+def _head(ctx, params, cfg: DistilBertConfig, h, h_site, batch,
+          train=False, gen=None):
+    """pre_classifier (dense + relu) on the first token -> dropout ->
+    classifier."""
     c = params["classifier"]
     x = quant_linear(ctx, "clf.pre", h[:, 0], c["pre"]["kernel"],
                      c["pre"]["bias"], activation="relu", input_site=h_site)
+    x = dropout(x, cfg.hidden_dropout_prob, gen, not train)
     logits = quant_linear(ctx, "clf.out", x, c["out"]["kernel"],
                           c["out"]["bias"], input_site="clf.pre.out")
     outputs = {"logits": logits, "sequence_output": h}
@@ -152,40 +155,43 @@ def distilbert_apply(params: Dict, batch: Mapping, cfg: DistilBertConfig,
                      qcfg: Optional[QuantModelConfig] = None,
                      qstate: Optional[Dict] = None,
                      mode: Optional[QuantMode] = None, *, train: bool = False,
+                     dropout_generator: Optional[torch.Generator] = None,
                      mse_session: Optional[Dict] = None,
                      int_params: Optional[Dict] = None, fused_linear=False,
+                     int8_qat_sites=None,
                      capture_sites=None, capture_pre_act: bool = False,
                      compute_dtype=None, attention_dtype=None,
                      int8_attention: bool = False,
                      remat: bool = False, scan_layers: bool = False,
                      device="cuda") -> Tuple[Dict, Dict]:
-    """Inference / calibration forward; returns ``(outputs, new_qstate)``,
-    as :func:`~.bert.bert_apply` (its inference options too). ``params``
-    must live on ``device``.
-    ``remat`` / ``scan_layers`` are taken with the JAX signature; this
-    forward runs without gradients (its training forward is not yet
-    ported, ROADMAP §1 item 5), where both leave the values as they
-    are.
+    """Forward pass; returns ``(outputs, new_qstate)``, as
+    :func:`~.bert.bert_apply` (its inference options and its training
+    forward too: dropout from ``dropout_generator``, the head's after
+    pre_classifier included, ``int8_qat_sites``, ``remat``,
+    ``compute_dtype``; ``scan_layers`` runs the loop). ``params`` must
+    live on ``device``.
     """
+    del scan_layers  # the loop computes JAX's scan (bert_apply's note)
     dev = B._check_device(params, device)
-    with torch.no_grad():
-        ctx = B.family_ctx(qcfg, qstate, mode, train=train,
+    with contextlib.nullcontext() if train else torch.no_grad():
+        ctx = B.family_ctx(qcfg, qstate, mode, cfg, train=train,
                            int_params=int_params, fused_linear=fused_linear,
+                           int8_qat_sites=int8_qat_sites,
                            mse_session=mse_session,
                            capture_sites=capture_sites,
                            capture_pre_act=capture_pre_act,
                            compute_dtype=compute_dtype,
                            attention_dtype=attention_dtype,
-                           int8_attention=int8_attention,
-                           family="DistilBERT")
+                           int8_attention=int8_attention)
         input_ids, token_type_ids, position_ids, mask_bias = _inputs(batch,
                                                                      dev)
         mask_bias = B.compute_mask(mask_bias, compute_dtype)
+        gen = dropout_generator if train else None
         h = B._embeddings(ctx, params, cfg, input_ids, token_type_ids,
-                          position_ids, False, None)
-        h, h_site = B.run_encoder(ctx, params, cfg, h, mask_bias, False,
-                                  None, first_site="emb.ln.out")
-        outputs = _head(ctx, params, cfg, h, h_site, batch)
+                          position_ids, train, gen)
+        h, h_site = B.run_encoder(ctx, params, cfg, h, mask_bias, train, gen,
+                                  first_site="emb.ln.out", remat=remat)
+        outputs = _head(ctx, params, cfg, h, h_site, batch, train, gen)
         if capture_sites:
             outputs["captures"] = ctx.captures
     return outputs, ctx.export()

@@ -12,15 +12,16 @@ embeddings and encoder with their site inventory, and these deltas:
 - no [0, 5] logits clamp for regression.
 
 ``distilroberta_base`` is the same family at 6 layers. Ported: the
-inference / calibration forward :func:`roberta_apply` (FP32 baseline,
-estimate / fix phases, the generic int8 path with ``fused_linear``,
-capture), packing, the ``quant_dict`` language, PEG wiring, AdaRound
-specs and the full-handoff engine (:func:`build_roberta_engine`,
-:func:`roberta_engine_apply`). The training forward raises.
+forward :func:`roberta_apply` (FP32 baseline, estimate / fix phases, the
+generic int8 path with ``fused_linear``, capture, and the training
+forward with BERT's options), packing, the ``quant_dict`` language, PEG
+wiring, AdaRound specs and the full-handoff engine
+(:func:`build_roberta_engine`, :func:`roberta_engine_apply`).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Dict, List, Mapping, Optional, Tuple
 
@@ -29,7 +30,7 @@ import torch
 from transformer_quantization_tpu_torch import resolve_device
 from transformer_quantization_tpu_torch.models import bert as B
 from transformer_quantization_tpu_torch.ops import engine as ENG
-from transformer_quantization_tpu_torch.ops.layers import quant_linear
+from transformer_quantization_tpu_torch.ops.layers import dropout, quant_linear
 from transformer_quantization_tpu_torch.quant.qconfig import (
     QuantConfigBuilder,
     QuantDefaults,
@@ -155,54 +156,64 @@ def roberta_apply(params: Dict, batch: Mapping, cfg: RobertaConfig,
                   qcfg: Optional[QuantModelConfig] = None,
                   qstate: Optional[Dict] = None,
                   mode: Optional[QuantMode] = None, *, train: bool = False,
+                  dropout_generator: Optional[torch.Generator] = None,
                   mse_session: Optional[Dict] = None,
                   int_params: Optional[Dict] = None, fused_linear=False,
+                  int8_qat_sites=None,
                   capture_sites=None, capture_pre_act: bool = False,
                   compute_dtype=None, attention_dtype=None,
                   int8_attention: bool = False,
                   remat: bool = False, scan_layers: bool = False,
                   device="cuda") -> Tuple[Dict, Dict]:
-    """Inference / calibration forward; returns ``(outputs, new_qstate)``,
-    as :func:`~.bert.bert_apply` (``qcfg=None`` the float model,
+    """Forward pass; returns ``(outputs, new_qstate)``, as
+    :func:`~.bert.bert_apply` (``qcfg=None`` the float model,
     ``int_params`` the generic int8 path, ``fused_linear`` its fused
-    linear). ``params`` must live on ``device``. The
-    inference options ``compute_dtype`` / ``attention_dtype`` /
-    ``int8_attention`` as :func:`~.bert.bert_apply`'s.
-    ``remat`` / ``scan_layers`` are taken with the JAX signature; this
-    forward runs without gradients (its training forward is not yet
-    ported, ROADMAP §1 item 5), where both leave the values as they
-    are.
+    linear; the inference options ``compute_dtype`` / ``attention_dtype``
+    / ``int8_attention``). ``params`` must live on ``device``.
+
+    ``train=True`` is the training forward, as
+    :func:`~.bert.bert_apply`'s: dropout from ``dropout_generator`` (the
+    head's two around dense -> tanh too), the autograd graph,
+    ``int8_qat_sites``, ``remat`` and ``compute_dtype`` (``--amp``);
+    ``scan_layers`` runs the loop, which computes JAX's scan.
     """
+    del scan_layers  # the loop computes JAX's scan (bert_apply's note)
     dev = B._check_device(params, device)
-    with torch.no_grad():
-        ctx = B.family_ctx(qcfg, qstate, mode, train=train,
-                         int_params=int_params, fused_linear=fused_linear,
-                         mse_session=mse_session, capture_sites=capture_sites,
-                         capture_pre_act=capture_pre_act,
-                         compute_dtype=compute_dtype,
-                         attention_dtype=attention_dtype,
-                         int8_attention=int8_attention, family="RoBERTa")
+    with contextlib.nullcontext() if train else torch.no_grad():
+        ctx = B.family_ctx(qcfg, qstate, mode, cfg, train=train,
+                           int_params=int_params, fused_linear=fused_linear,
+                           int8_qat_sites=int8_qat_sites,
+                           mse_session=mse_session,
+                           capture_sites=capture_sites,
+                           capture_pre_act=capture_pre_act,
+                           compute_dtype=compute_dtype,
+                           attention_dtype=attention_dtype,
+                           int8_attention=int8_attention)
         input_ids, token_type_ids, position_ids, mask_bias = _inputs(
             batch, cfg, dev)
         mask_bias = B.compute_mask(mask_bias, compute_dtype)
+        gen = dropout_generator if train else None
         h = B._embeddings(ctx, params, cfg, input_ids, token_type_ids,
-                          position_ids, False, None)
-        h, h_site = B.run_encoder(ctx, params, cfg, h, mask_bias, False,
-                                  None, first_site="emb.ln.out")
-        outputs = _roberta_head(ctx, params, cfg, h, h_site, batch)
+                          position_ids, train, gen)
+        h, h_site = B.run_encoder(ctx, params, cfg, h, mask_bias, train, gen,
+                                  first_site="emb.ln.out", remat=remat)
+        outputs = _roberta_head(ctx, params, cfg, h, h_site, batch, train,
+                                gen)
         if capture_sites:
             outputs["captures"] = ctx.captures
     return outputs, ctx.export()
 
 
-def _roberta_head(ctx, params, cfg: RobertaConfig, h, h_site, batch):
-    """``RobertaClassificationHead``: ``<s>`` -> dense -> tanh ->
-    out_proj. The dense output site quantizes before the tanh, whose
-    output is not re-quantized; no logits clamp."""
+def _roberta_head(ctx, params, cfg: RobertaConfig, h, h_site, batch,
+                  train=False, gen=None):
+    """``RobertaClassificationHead``: ``<s>`` -> dropout -> dense -> tanh
+    -> dropout -> out_proj. The dense output site quantizes before the
+    tanh, whose output is not re-quantized; no logits clamp."""
     c = params["classifier"]
-    x = quant_linear(ctx, "clf.dense", h[:, 0], c["dense"]["kernel"],
+    x = dropout(h[:, 0], cfg.hidden_dropout_prob, gen, not train)
+    x = quant_linear(ctx, "clf.dense", x, c["dense"]["kernel"],
                      c["dense"]["bias"], input_site=h_site)
-    x = torch.tanh(x)
+    x = dropout(torch.tanh(x), cfg.hidden_dropout_prob, gen, not train)
     logits = quant_linear(ctx, "clf.out_proj", x, c["out_proj"]["kernel"],
                           c["out_proj"]["bias"])
     outputs = {"logits": logits, "sequence_output": h}

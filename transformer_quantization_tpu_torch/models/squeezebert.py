@@ -10,18 +10,19 @@ in/groups)``); group counts follow the HF config (q / k / v and the FFN
 grouped, 4 by default; the post-attention conv 1), and the pooler and
 classifier are plain denses. The site names are BERT's.
 
-Ported: the inference / calibration forward :func:`squeezebert_apply`
-(FP32 baseline, estimate / fix phases, the generic int8 path: the
-grouped products exact in integers, one-group layers on the fused
-linear with ``fused_linear``; capture), packing, AdaRound specs (grouped
-layers carry their group count), and the full-handoff engine: the grouped
-kernels densified to block-diagonal weights, whose off-block zeros
-quantize to exactly 0 (:func:`_densify_for_engine`), on BERT's engine
-plan. The training forward raises.
+Ported: the forward :func:`squeezebert_apply` (FP32 baseline, estimate /
+fix phases, the generic int8 path: the grouped products exact in
+integers, one-group layers on the fused linear with ``fused_linear``;
+capture; the training forward with BERT's options), packing, AdaRound
+specs (grouped layers carry their group count), and the full-handoff
+engine: the grouped kernels densified to block-diagonal weights, whose
+off-block zeros quantize to exactly 0 (:func:`_densify_for_engine`), on
+BERT's engine plan.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 from typing import Dict, List, Mapping, Optional, Tuple
@@ -157,43 +158,51 @@ def squeezebert_apply(params: Dict, batch: Mapping, cfg: SqueezeBertConfig,
                       qstate: Optional[Dict] = None,
                       mode: Optional[QuantMode] = None, *,
                       train: bool = False,
+                      dropout_generator: Optional[torch.Generator] = None,
                       mse_session: Optional[Dict] = None,
                       int_params: Optional[Dict] = None, fused_linear=False,
+                      int8_qat_sites=None,
                       capture_sites=None, capture_pre_act: bool = False,
                       compute_dtype=None, attention_dtype=None,
                       int8_attention: bool = False,
                       remat: bool = False, scan_layers: bool = False,
                       device="cuda") -> Tuple[Dict, Dict]:
-    """Inference / calibration forward; returns ``(outputs, new_qstate)``,
-    as :func:`~.bert.bert_apply` (its inference options too), with the
-    encoder's matmuls grouped. ``params`` must live on ``device``.
-    ``remat`` / ``scan_layers`` are taken with the JAX signature; this
-    forward runs without gradients (its training forward is not yet
-    ported, ROADMAP §1 item 5), where both leave the values as they
-    are.
+    """Forward pass; returns ``(outputs, new_qstate)``, as
+    :func:`~.bert.bert_apply` (its inference options and its training
+    forward too: dropout from ``dropout_generator`` at the JAX
+    ``_sq_layer``'s three places a layer, ``int8_qat_sites``, ``remat``,
+    ``compute_dtype``; ``scan_layers`` runs the loop), with the encoder's
+    matmuls grouped. The grouped layers train through
+    :func:`~..ops.layers.quant_grouped_linear`'s fake-quant STE; as in JAX,
+    the int8 QAT matmul takes only the one-group layers (the attention
+    output, the pooler and the classifier). ``params`` must live on
+    ``device``.
     """
+    del scan_layers  # the loop computes JAX's scan (bert_apply's note)
     dev = B._check_device(params, device)
-    with torch.no_grad():
-        ctx = B.family_ctx(qcfg, qstate, mode, train=train,
+    with contextlib.nullcontext() if train else torch.no_grad():
+        ctx = B.family_ctx(qcfg, qstate, mode, cfg, train=train,
                            int_params=int_params, fused_linear=fused_linear,
+                           int8_qat_sites=int8_qat_sites,
                            mse_session=mse_session,
                            capture_sites=capture_sites,
                            capture_pre_act=capture_pre_act,
                            compute_dtype=compute_dtype,
                            attention_dtype=attention_dtype,
-                           int8_attention=int8_attention,
-                           family="SqueezeBERT")
+                           int8_attention=int8_attention)
         input_ids, token_type_ids, position_ids, mask_bias = B.prepare_inputs(
             batch, dev)
         mask_bias = B.compute_mask(mask_bias, compute_dtype)
+        gen = dropout_generator if train else None
         h = B._embeddings(ctx, params, cfg, input_ids, token_type_ids,
-                          position_ids, False, None)
+                          position_ids, train, gen)
         h, h_site = B.run_encoder(
-            ctx, params, cfg, h, mask_bias, False, None,
+            ctx, params, cfg, h, mask_bias, train, gen,
             first_site="emb.ln.out",
-            linear=functools.partial(_grouped_linear, _group_counts(cfg)))
+            linear=functools.partial(_grouped_linear, _group_counts(cfg)),
+            remat=remat)
         outputs = B._classification_head(ctx, params, cfg, h, h_site, batch,
-                                         False, None, clamp=False)
+                                         train, gen, clamp=False)
         if capture_sites:
             outputs["captures"] = ctx.captures
     return outputs, ctx.export()
